@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mpqe_tpu_torch``) on one GPU.
 
-Drives the serving path at the flagship width (d = 128, 3 R-GCN layers,
-TGT readout, 16 bases, 266 relations, 4 modes, 1,000,000 entities;
-random weights from a seed) and checks every hand-written kernel on it:
+Drives the serving and the training path at the flagship width (d = 128,
+3 R-GCN layers, TGT readout, 16 bases, 266 relations, 4 modes, 1,000,000
+entities; random weights from a seed) and checks every hand-written
+kernel on them.  The two kernel libraries build in parallel (one nvcc
+each), then:
 
 1. ``kernel.fused_multi``: builds K3 (``csrc/fused_multi.cu``) with nvcc
    and, for all 7 structures at B = 256 and at a ragged B = 1000, holds
@@ -15,6 +17,27 @@ random weights from a seed) and checks every hand-written kernel on it:
    queries over all 7 structures; the K3 launch count must equal the
    number of eligible dispatches, and one dispatch per structure is
    recomputed through the plain K3 version and ``torch.matmul``.
+3. ``kernel.fused_tgt`` / ``kernel.fused_tgt_backward``: K1 and K2
+   (``csrc/fused_tgt.cu``) for all 7 structures at B = 512 and a ragged
+   B = 1000: K1 vs its plain version (<= 1e-4) and vs the f32
+   ``encode_dense`` (<= 3e-2); each K2 output (dA, every dW_l and db_l)
+   vs its plain version (<= 1e-4); K2's parameter gradients (through the
+   differentiable weight assembly) vs autograd of the f32 encoder within
+   the reference's depth tolerances.  Times both kernels at B = 512 and
+   B = 131,072 (L2 flushed before each launch: the optimizer update
+   between two steps streams GBs), CUDA events around the wrapper and the
+   kernels' own device time (torch.profiler), beside the bound and, as a
+   yardstick only, the same per-layer products through ``torch.matmul``.
+4. ``train``: ``run_train`` on the card with ``--kernel fused_fwd
+   --fused_backward pallas`` (batch 512, 4 negatives, Adam lr 0.01, every
+   structure from the first step) and one validation round through K3;
+   K1 and K2 launch once per step, K3 during validation, every loss is
+   finite, and one step repeated from the same state through the plain
+   versions gives the same loss and gradients.  Step time p50/p95, real
+   queries/s (and padded rows/s) and a ``torch.profiler`` account of 10
+   steps.
+5. ``train.cli``: ``python -m mpqe_tpu_torch.train`` as a subprocess on
+   a small KG; its final line and run dir.
 
 Prints the card's name and power limit first, then one line per check,
 a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -26,6 +49,7 @@ Usage: python3 chip_smoke.py
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,6 +61,17 @@ import torch
 TOL_PLAIN = 1e-4  # kernel vs its plain version: same function, sum order
 TOL_F32 = 3e-2  # kernel vs the float32 encoder: bf16 operands
 TOL_SCORE = 1e-4  # served top-k scores vs the plain recomputation
+# K2's parameter gradients vs autograd of the f32 encoder, by depth: the
+# reference's own tolerances (tests/test_pallas_fused_fwd.py:261), held
+# per leaf to mean|diff| / mean|ref|, the form the reference's chip check
+# uses (tools/tpu_smoke.py:185-190).  Its max-element form holds at the
+# reference's test width (d = 16, B = 20) but not here: ReLU masks near
+# zero flip between the f32 and the bf16 forward, and at d = 128 and
+# B = 512 or 1000 a flip moves single elements of layer-0 leaves by up to
+# 0.14 of the leaf's max (the reference measured ~0.15 between any two
+# precisions, mpqe_tpu/ops/pallas_fused_fwd.py:549-557).  The max-element
+# figure is printed beside the gate.
+TOL_GRAD_BY_DEPTH = {1: 3e-2, 2: 8e-2, 3: 2.5e-1}
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (H100 SXM data sheet)
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
@@ -50,6 +85,11 @@ BATCH = 256  # queries per dispatch: the server's cap at 1M entities
 RAGGED = 1000
 K = 10
 ITERS, PLAIN_ITERS = 50, 10  # timed launches per structure
+TRAIN_BATCH = 512  # train.py's default batch
+TRAIN_BIG = 131_072  # the repo's flagship train batch (bench.py:42)
+BIG_ITERS = 5
+TRAIN_STEPS = 100
+PROFILE_STEPS = 10
 
 
 def log(msg: str) -> None:
@@ -79,6 +119,34 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+TGT_KERNELS = ("tgt_forward_kernel", "tgt_backward_kernel",
+               "dw_partial_kernel", "reduce_partials_kernel")
+
+
+def device_ms(fn, iters: int, flush: torch.Tensor) -> float:
+    """Mean device ms per ``fn()`` call of the kernels of
+    ``csrc/fused_tgt.cu`` alone (torch.profiler), each call after an L2
+    flush as in :func:`time_ms`: the kernels' own time, without the
+    wrapper's host work or its other device work (K2's weight
+    transposes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(k in e.key for k in TGT_KERNELS))
+    if us == 0:
+        raise AssertionError("the profiler saw no fused_tgt kernel")
+    return us / iters / 1e3
 
 
 def k3_work(cfg, structure: str, node_entity, node_mode, edge_rel_q):
@@ -283,31 +351,6 @@ def recheck_dispatch(server, model, cfg, ops, structure, req, answers):
         raise AssertionError(line)
 
 
-def profile_requests(server, reqs, top: int = 8) -> None:
-    """Device time by kernel over ``reqs`` (torch.profiler) and the
-    device's busy share of their wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for req in reqs:
-            server.answer(req, k=K)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = sorted(((e.device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  reverse=True)
-    busy = sum(r[0] for r in rows)
-    log(f"serve.profile: {len(reqs)} requests, wall {wall_us / 1e3:.3f} ms, "
-        f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%)")
-    for us, count, key in rows[:top]:
-        log(f"serve.profile:   {us / 1e3:9.3f} ms {count:4d}x "
-            f"{100 * us / wall_us:5.1f}% of wall {100 * us / busy:5.1f}% "
-            f"of busy {key[:90]}")
-
-
 def phase_serve(model, cfg, ops, kg, device):
     """Serve the sampled stream; returns K3 launches in the stream."""
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
@@ -361,8 +404,529 @@ def phase_serve(model, cfg, ops, kg, device):
             f"latency_ms_p50={np.percentile(ms, 50):.3f} "
             f"latency_ms_p95={np.percentile(ms, 95):.3f} "
             f"queries_per_s={len(ms) * BATCH / ms.sum() * 1e3:.1f}")
-    profile_requests(server, [req for req, _ in served[:7]])
+    reqs = [req for req, _ in served[:7]]
+    profile_device(f"serve.profile ({len(reqs)} requests)",
+                   lambda: [server.answer(r, k=K) for r in reqs])
     return launches
+
+
+def shared_inputs(gen: torch.Generator, cfg, structure: str, B: int):
+    """One formula's batch on the generator's device: per-query entities
+    and modes, shared relations and edge norms."""
+    from mpqe_tpu_torch.queries import STRUCTURES
+
+    spec = STRUCTURES[structure]
+    dev = gen.device
+
+    def ints(high, shape):
+        return torch.randint(0, high, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    return (ints(cfg.n_entities, (B, spec.n_nodes)),
+            ints(cfg.n_modes, (B, spec.n_nodes)),
+            ints(cfg.n_rels, (spec.n_edges,)),
+            0.5 + torch.rand((spec.n_edges,), generator=gen, device=dev))
+
+
+def chain_operands(model, cfg, structure: str, args):
+    """K1/K2's operands for a batch: (x0, ws, bs, n_anchor_cols, d_pad)."""
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+
+    with torch.no_grad():
+        v_slots, d_pad, cols, Ws, bs = ff._assemble(model, cfg, structure,
+                                                    *args, None)
+        x0 = ff._layer0_operand(cols, args[1], v_slots, cfg, d_pad)
+        ws = [W.to(torch.bfloat16).contiguous() for W in Ws]
+        bs = [b.contiguous() for b in bs]
+    return x0, ws, bs, len(cols), d_pad
+
+
+def chain_work(cfg, structure: str, B: int, backward: bool) -> tuple:
+    """(bytes, bf16 FLOP, f32 FLOP) one K1 (or K2) launch needs for a
+    batch of B rows: the function's work, not that of the dense operands
+    the wrapper builds.  Per layer, each distinct (source slot, output
+    slot) pair of ``_layer_matrices`` whose source is an anchor or an
+    activation is one nonzero d x d block of W_l, a product of 2 B d^2
+    bf16 FLOP; a pair whose source is a layer-0 variable selects one of
+    n_modes premultiplied rows by mode id and adds it (B d f32 FLOP); the
+    zero blocks of W_l count nothing.  Bytes, each input read once and
+    each output written once: the anchor rows in bf16 (B d per anchor
+    slot) and one int32 mode id per variable slot and row (as K3's count;
+    not the bf16 one-hot block the wrapper builds), the nonzero blocks
+    and variable rows of W_l in bf16, the bias in f32, and the output
+    (K1) or g read and dA, dW, db written (K2), f32.  K2's products: the
+    recompute of layers 0..L-2, then dW and dX over the same blocks; its
+    f32 FLOP are the db sums and the variable rows' dW."""
+    from mpqe_tpu_torch.ops.fused_fwd import _plan
+
+    spec, _, plan, a_slots, v_slots = _plan(cfg, structure)
+    d, m = cfg.embed_dim, cfg.n_modes
+    blocks, var_rows, outs = [], 0, 0
+    for li, (_, out_slots, edges) in enumerate(plan):
+        var0 = set(v_slots) if li == 0 else set()
+        pairs = {(s, s) for s in out_slots} | {
+            (spec.edge_src[j], spec.edge_dst[j]) for j in edges}
+        blocks.append(sum(src not in var0 for src, _ in pairs))
+        var_rows += sum(src in var0 for src, _ in pairs)
+        outs += len(out_slots)
+    nnz = sum(blocks)
+    params = nnz * d * d + var_rows * m * d  # nonzero entries of the W_l
+    nbytes = (B * len(a_slots) * d * 2 + B * len(v_slots) * 4
+              + params * 2 + outs * d * 4 + B * d * 4)
+    f32 = B * d * (outs + var_rows)
+    if not backward:
+        return nbytes, 2 * B * d * d * nnz, f32
+    nbytes += B * len(a_slots) * d * 4 + (params + outs * d) * 4
+    return nbytes, 2 * B * d * d * (2 * nnz + sum(blocks[:-1])), f32
+
+
+def library_chain(x0, ws, backward: bool, gen):
+    """The yardstick: the same per-layer products through
+    ``torch.matmul`` on bf16 operands (never called by the port)."""
+    xs, x = [], x0
+    with torch.no_grad():
+        for w in ws:
+            xs.append(x)
+            x = torch.relu(torch.matmul(x, w))
+    if not backward:
+        return lambda: [torch.matmul(a, w) for a, w in zip(xs, ws)]
+    gs = [torch.randn((x0.shape[0], w.shape[1]), generator=gen,
+                      device=gen.device).to(torch.bfloat16) for w in ws]
+
+    def fn():
+        for a, w, g in zip(xs, ws, gs):
+            torch.matmul(a, w)
+            torch.matmul(a.t(), g)
+            torch.matmul(g, w.t())
+
+    return fn
+
+
+def tree_rel_err(got: dict, want: dict) -> float:
+    """max over leaves of max|got - want| / max|want| (leaves where want
+    is zero everywhere are skipped)."""
+    worst = 0.0
+    for name, w in want.items():
+        if w is not None and bool(w.abs().max() > 0):
+            worst = max(worst, rel_err(got[name], w))
+    return worst
+
+
+def tree_mean_err(got: dict, want: dict) -> float:
+    """max over leaves of mean|got - want| / mean|want|."""
+    worst = 0.0
+    for name, w in want.items():
+        if w is not None and bool(w.abs().max() > 0):
+            worst = max(worst, float((got[name] - w).abs().mean()
+                                     / w.abs().mean()))
+    return worst
+
+
+def phase_fused_tgt(model, cfg, device, gen, flush):
+    """K1 and K2 against their plain versions, the f32 encoder and its
+    autograd; times at the train batches.  Returns both kernels' JSON
+    fields (launches excluded)."""
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+
+    d = cfg.embed_dim
+    names = list(dict(model.named_parameters()))
+    out = {}
+    for kind in ("fwd", "bwd"):
+        out[kind] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                         bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                         library_ms=0.0)
+    dev_ms = {"fwd": 0.0, "bwd": 0.0}
+    big = {"fwd": [], "bwd": []}
+    for structure in STRUCTURE_NAMES:
+        depth = mpqe_mod.num_steps(cfg, structure)
+        for B in (TRAIN_BATCH, RAGGED):
+            args = shared_inputs(gen, cfg, structure, B)
+            x0, ws, bs, n_a, dp = chain_operands(model, cfg, structure, args)
+            g = torch.randn((B, d), generator=gen, device=device)
+            with torch.no_grad():
+                got = ff._chain_forward(x0, ws, bs, d)
+                plain = ff._chain_forward_plain(x0, ws, bs, d)
+                f32 = mpqe_mod.encode_dense(model, cfg, structure, *args)
+                kb = ff._chain_backward(x0, ws, bs, g, n_a, d, dp)
+                pb = ff._chain_backward_plain(x0, ws, bs, g, n_a, d, dp)
+            dpar, den, _ = ff.fused_tgt_backward(model, cfg, structure, *args,
+                                                 None, g)
+            en = args[3].clone().requires_grad_()
+            q = mpqe_mod.encode_dense(model, cfg, structure, *args[:3], en)
+            ref = torch.autograd.grad(
+                q, list(model.parameters()) + [en], g, allow_unused=True)
+            torch.cuda.synchronize()
+            for t in (got, *kb[1], *kb[2], kb[0]):
+                if not bool(torch.isfinite(t).all()):
+                    raise AssertionError(f"{structure} B={B}: non-finite")
+            e_fwd, e_f32 = rel_err(got, plain), rel_err(got, f32)
+            kleaves = [kb[0], *kb[1], *kb[2]]
+            pleaves = [pb[0], *pb[1], *pb[2]]
+            e_bwd = max(rel_err(a, b) for a, b in zip(kleaves, pleaves))
+            got_g = {n: dpar[n] for n in names}
+            want_g = dict(zip(names, ref[:-1]))
+            e_grad = tree_mean_err(got_g, want_g)
+            e_grad_max = tree_rel_err(got_g, want_g)
+            # edge_norm's cotangent is a sum over the batch with heavy
+            # cancellation, so its relative error is ill-conditioned:
+            # printed, not gated (it is data, not a parameter)
+            e_den = rel_err(den, ref[-1])
+            out["fwd"]["max_abs_err"] = max(out["fwd"]["max_abs_err"], float(
+                (got - plain).abs().max()))
+            out["bwd"]["max_abs_err"] = max(out["bwd"]["max_abs_err"], max(
+                float((a - b).abs().max()) for a, b in zip(kleaves, pleaves)))
+            tol_grad = TOL_GRAD_BY_DEPTH[depth]
+            line = (f"kernel.fused_tgt {structure:14s} B={B:5d} "
+                    f"fwd_err_vs_plain={e_fwd:.3e} fwd_err_vs_f32={e_f32:.3e} "
+                    f"bwd_err_vs_plain={e_bwd:.3e} "
+                    f"grad_mean_err_vs_f32_autograd={e_grad:.3e} "
+                    f"(tol {tol_grad:g}, depth {depth}; max-element "
+                    f"{e_grad_max:.3e}; edge_norm {e_den:.3e})")
+            if (e_fwd > TOL_PLAIN or e_f32 > TOL_F32 or e_bwd > TOL_PLAIN
+                    or e_grad > tol_grad):
+                log(line + " FAIL")
+                raise AssertionError(line)
+            log(line)
+            if B != TRAIN_BATCH:
+                continue
+            for kind, bwd in (("fwd", False), ("bwd", True)):
+                if bwd:
+                    def kfn():
+                        ff._chain_backward(x0, ws, bs, g, n_a, d, dp)
+
+                    def pfn():
+                        ff._chain_backward_plain(x0, ws, bs, g, n_a, d, dp)
+                else:
+                    def kfn():
+                        ff._chain_forward(x0, ws, bs, d)
+
+                    def pfn():
+                        ff._chain_forward_plain(x0, ws, bs, d)
+                with torch.no_grad():
+                    ms = time_ms(kfn, ITERS, flush)
+                    k_ms = device_ms(kfn, ITERS, flush)
+                    plain_ms = time_ms(pfn, PLAIN_ITERS, flush)
+                    lib_ms = time_ms(library_chain(x0, ws, bwd, gen), ITERS,
+                                     flush)
+                work = chain_work(cfg, structure, B, bwd)
+                t_bytes, t_ops = bound_times(work)
+                acc = out[kind]
+                acc["ms"] += ms
+                dev_ms[kind] += k_ms
+                acc["plain_ms"] += plain_ms
+                acc["library_ms"] += lib_ms
+                acc["bound_ms"] += max(t_bytes, t_ops)
+                acc["bytes_ms"] += t_bytes
+                acc["ops_ms"] += t_ops
+                log(f"kernel.fused_tgt{'_backward' if bwd else ''} "
+                    f"{structure:14s} B={B} kernel_ms={ms:.4f} "
+                    f"device_ms={k_ms:.4f} "
+                    f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                    f"bound_ms={max(t_bytes, t_ops):.6f} "
+                    f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+                    f"{work[0]} B, {work[1]} bf16 FLOP, {work[2]} f32 FLOP)")
+        # the flagship train batch: kernel, bound and yardstick only
+        args = shared_inputs(gen, cfg, structure, TRAIN_BIG)
+        x0, ws, bs, n_a, dp = chain_operands(model, cfg, structure, args)
+        g = torch.randn((TRAIN_BIG, d), generator=gen, device=device)
+        for kind, bwd in (("fwd", False), ("bwd", True)):
+            kfn = ((lambda: ff._chain_backward(x0, ws, bs, g, n_a, d, dp))
+                   if bwd else (lambda: ff._chain_forward(x0, ws, bs, d)))
+            with torch.no_grad():
+                ms = time_ms(kfn, BIG_ITERS, flush)
+                k_ms = device_ms(kfn, BIG_ITERS, flush)
+                lib_ms = time_ms(library_chain(x0, ws, bwd, gen), BIG_ITERS,
+                                 flush)
+            work = chain_work(cfg, structure, TRAIN_BIG, bwd)
+            t_bytes, t_ops = bound_times(work)
+            big[kind].append(ms)
+            log(f"kernel.fused_tgt{'_backward' if bwd else ''} "
+                f"{structure:14s} B={TRAIN_BIG} kernel_ms={ms:.4f} "
+                f"device_ms={k_ms:.4f} "
+                f"library_ms={lib_ms:.4f} "
+                f"bound_ms={max(t_bytes, t_ops):.6f} "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+                f"{work[0]} B, {work[1]} bf16 FLOP, {work[2]} f32 FLOP)")
+        del x0, ws, bs, g, args
+    fields = {}
+    for kind in ("fwd", "bwd"):
+        acc = out[kind]
+        by = "bytes" if acc.pop("bytes_ms") >= acc.pop("ops_ms") else \
+            "operations"
+        fields[kind] = {**acc, "bound_by": by}
+        log(f"kernel.fused_tgt{'_backward' if kind == 'bwd' else ''} sum of "
+            f"7 at B={TRAIN_BATCH}: kernel_ms={acc['ms']:.4f} "
+            f"device_ms={dev_ms[kind]:.4f} "
+            f"plain_ms={acc['plain_ms']:.4f} "
+            f"library_ms={acc['library_ms']:.4f} "
+            f"bound_ms={acc['bound_ms']:.6f} ({by}); at B={TRAIN_BIG}: "
+            f"kernel_ms={sum(big[kind]):.4f}")
+    return fields
+
+
+def profile_device(label: str, fn, top: int = 8, also=()) -> None:
+    """Device time by kernel over ``fn()`` (torch.profiler) and the
+    device's busy share of its wall time: the ``top`` kernels, then any
+    other whose name contains one of ``also``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device work only: a user annotation's range (``Optimizer.step``)
+    # spans kernels that are counted on their own
+    rows = sorted(((e.device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%)")
+    shown = rows[:top] + [r for r in rows[top:]
+                          if any(a in r[2] for a in also)]
+    for us, count, key in shown:
+        log(f"{label}:   {us / 1e3:9.3f} ms {count:5d}x "
+            f"{100 * us / wall_us:5.1f}% of wall {100 * us / busy:5.1f}% "
+            f"of busy {key[:90]}")
+
+
+class PlainChain(torch.autograd.Function):
+    """``FusedChain`` of ``mpqe_tpu_torch/ops/fused_fwd.py`` with the plain
+    versions of K1 and K2 in place of the kernels: same operands, same
+    rounding, gradients routed the same way (the train-step recheck)."""
+
+    @staticmethod
+    def forward(ctx, node_mode, layout, *tensors):
+        from mpqe_tpu_torch.ops import fused_fwd as ff
+
+        cfg, v_slots, d_pad, n_a = layout
+        L = (len(tensors) - n_a) // 2
+        cols, Ws, bs = tensors[:n_a], tensors[n_a:n_a + L], tensors[n_a + L:]
+        x0 = ff._layer0_operand(cols, node_mode, v_slots, cfg, d_pad)
+        ws = [W.to(torch.bfloat16) for W in Ws]
+        ctx.save_for_backward(x0, *ws, *bs)
+        ctx.meta = (n_a, L, cfg.embed_dim, d_pad)
+        return ff._chain_forward_plain(x0, ws, bs, cfg.embed_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        from mpqe_tpu_torch.ops import fused_fwd as ff
+
+        n_a, L, d, d_pad = ctx.meta
+        x0, *rest = ctx.saved_tensors
+        da, dws, dbs = ff._chain_backward_plain(
+            x0, rest[:L], rest[L:], g.to(torch.float32), n_a, d, d_pad)
+        return (None, None, *(da[:, k] for k in range(n_a)), *dws, *dbs)
+
+
+def recheck_train_step(state, cfg, stores, device) -> None:
+    """One step per structure from the trained state, through the kernels
+    and through their plain versions (:class:`PlainChain`) on the card:
+    same loss and gradients (<= TOL_PLAIN relative, per leaf)."""
+    from mpqe_tpu_torch.data.store import pack_dense_batch_np
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    model = state.model
+    params = dict(model.named_parameters())
+    for structure, f_stores in stores.items():
+        fstore = max(f_stores, key=lambda f: f.n_queries)
+        batch = pack_dense_batch_np(
+            fstore, np.arange(fstore.n_queries), TRAIN_BATCH, 4, 11)
+        t = loop_mod.batch_tensors(batch, device)
+        loss_k = mpqe_mod.dense_batch_loss_kernel_fused_fwd(
+            model, cfg, structure, *t, backward="pallas")
+        g_k = torch.autograd.grad(loss_k, list(params.values()),
+                                  allow_unused=True)
+        v_slots, d_pad, cols, Ws, bs = ff._assemble(model, cfg, structure,
+                                                    *t[:4], None)
+        q = PlainChain.apply(t[1], (cfg, tuple(v_slots), d_pad, len(cols)),
+                             *cols, *Ws, *bs)
+        loss_p = mpqe_mod.margin_loss_from_queries(model, cfg, q, *t[4:])
+        g_p = torch.autograd.grad(loss_p, list(params.values()),
+                                  allow_unused=True)
+        lk, lp = float(loss_k.detach()), float(loss_p.detach())
+        e_loss = abs(lk - lp) / max(abs(lp), 1e-12)
+        e_grad = tree_rel_err(dict(zip(params, g_k)), dict(zip(params, g_p)))
+        line = (f"train.recheck {structure:14s} loss={lk:.6f} "
+                f"loss_err={e_loss:.3e} grad_err={e_grad:.3e}")
+        log(line)
+        if e_loss > TOL_PLAIN or e_grad > TOL_PLAIN or not np.isfinite(lk):
+            raise AssertionError(line)
+
+
+def phase_train(kg, device):
+    """``run_train`` on the card through K1/K2 with one validation round
+    (K3).  Returns (K1 launches, K2 launches)."""
+    from mpqe_tpu_torch.data.sampler import QuerySampler
+    from mpqe_tpu_torch.data.store import build_stores
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES, group_queries_by_formula
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    t0 = time.perf_counter()
+    sampler = QuerySampler(kg, seed=7)
+    train_q, val_q = [], []
+    for s in STRUCTURE_NAMES:
+        train_q += sampler.sample_queries(s, 256, n_neg=32)
+        val_q += sampler.sample_queries(s, 64, n_neg=64)
+    train_q = group_queries_by_formula(train_q)
+    val_q = group_queries_by_formula(val_q)
+    log(f"setup: sampled train/val queries {time.perf_counter() - t0:.2f} s")
+
+    cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
+    # burn-in off: no structure is named "none", so every structure
+    # trains from the first step
+    tc = loop_mod.TrainConfig(lr=0.01, batch_size=TRAIN_BATCH, n_neg=4,
+                              max_steps=TRAIN_STEPS, val_every=TRAIN_STEPS,
+                              burn_in_structure="none", seed=0)
+    gen = torch.Generator(device=device).manual_seed(1)
+    state = loop_mod.init_train_state(gen, cfg, tc, device=device)
+
+    real = []  # per step, the batch's real rows (the sum of query_mask)
+
+    def loss_fn(*a):
+        real.append(a[-1].sum())
+        return mpqe_mod.dense_batch_loss_kernel_fused_fwd(*a,
+                                                          backward="pallas")
+
+    t0 = time.perf_counter()
+    loop_mod.warmup_train_step(
+        lambda opt: loop_mod.make_train_step(cfg, opt, loss_fn), cfg, tc,
+        STRUCTURE_NAMES, device)
+    torch.cuda.synchronize()
+    log(f"setup: warmup (one throwaway step per structure) "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    records = []
+
+    ff.fused_tgt_forward.launches = 0
+    ff.fused_tgt_backward.launches = 0
+    ff.fused_tgt_forward_multi.launches = 0
+    real.clear()
+    t0 = time.perf_counter()
+    loop_mod.run_train(state, cfg, tc, train_q, val_queries=val_q,
+                       log_fn=records.append, batch_loss_fn=loss_fn, kg=kg)
+    wall = time.perf_counter() - t0
+    k1 = ff.fused_tgt_forward.launches
+    k2 = ff.fused_tgt_backward.launches
+    k3 = ff.fused_tgt_forward_multi.launches
+    losses = [r["loss"] for r in records if "loss" in r]
+    vals = [r["val"] for r in records if "val" in r]
+    log(f"train: {state.step} steps in {wall:.2f} s; launches K1={k1} "
+        f"K2={k2} K3={k3}; loss first={losses[0]:.6f} "
+        f"last={losses[-1]:.6f}; val macro_auc="
+        f"{vals[-1]['auc_macro'] if vals else float('nan'):.4f}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"losses: {len(losses)} steps, finite: "
+                             f"{all(np.isfinite(losses))}")
+    if not (k1 == k2 == TRAIN_STEPS) or k3 == 0 or not vals:
+        raise AssertionError(f"launches K1={k1} K2={k2} K3={k3}, "
+                             f"{len(vals)} validation rounds")
+    # each step's seconds end with the host reading its loss
+    ms = np.asarray([r["seconds"] * 1e3 for r in records if "loss" in r])
+    n_real = int(torch.stack(real).sum())
+    stores = build_stores(train_q, kg=kg)
+    per_formula = [f.n_queries for fs in stores.values() for f in fs]
+    name = torch.cuda.get_device_name(device)
+    # a batch holds the queries of one formula; on this KG nearly every
+    # sampled formula is unique, so the batches are mostly padding
+    log(f"train: {len(ms)} steps of batch {TRAIN_BATCH} on {name}: "
+        f"step_ms_p50={np.percentile(ms, 50):.3f} "
+        f"step_ms_p95={np.percentile(ms, 95):.3f} "
+        f"train_queries_per_s={n_real / ms.sum() * 1e3:.1f} "
+        f"({n_real} real rows of {len(ms) * TRAIN_BATCH}; "
+        f"{np.mean(per_formula):.2f} queries per formula over "
+        f"{len(per_formula)} formulas) "
+        f"padded_rows_per_s={len(ms) * TRAIN_BATCH / ms.sum() * 1e3:.1f}")
+
+    recheck_train_step(state, cfg, stores, device)
+    ptc = dataclasses.replace(tc, max_steps=PROFILE_STEPS, val_every=1 << 30)
+    profile_device(f"train.profile ({PROFILE_STEPS} steps)",
+                   lambda: loop_mod.run_train(state, cfg, ptc, train_q,
+                                              batch_loss_fn=loss_fn, kg=kg),
+                   also=("tgt_forward_kernel", "tgt_backward_kernel",
+                         "dw_partial_kernel", "reduce_partials_kernel"))
+    return k1, k2
+
+
+def phase_train_cli() -> None:
+    """``python -m mpqe_tpu_torch.train`` on the card as a subprocess:
+    its final line and its run dir."""
+    import os
+    import re
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        cmd = [sys.executable, "-m", "mpqe_tpu_torch.train",
+               "--data", "synthetic", "--kernel", "fused_fwd",
+               "--fused_backward", "pallas", "--steps", "20",
+               "--val_every", "10", "--num_bases", "16", "--n_neg", "4",
+               "--syn_entities", "20000", "--syn_modes", "4",
+               "--syn_rels", "20", "--syn_triples", "60000",
+               "--syn_train_queries", "700", "--syn_val_queries", "140",
+               "--run_dir", run_dir]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        last = (proc.stdout.strip().splitlines() or [""])[-1]
+        log(f"train.cli: rc={proc.returncode} "
+            f"{time.perf_counter() - t0:.2f} s: {last}")
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI failed:\n{proc.stderr[-4000:]}")
+        if not re.fullmatch(r"final step=20 macro_auc=\S+ macro_apr=\S+",
+                            last):
+            raise AssertionError(f"unexpected final line {last!r}")
+        ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+        for f in ("config.json", "model_config.json", "metrics.jsonl"):
+            if not os.path.isfile(os.path.join(run_dir, f)):
+                raise AssertionError(f"run dir lacks {f}")
+        if "step_20" not in ckpts:
+            raise AssertionError(f"run dir checkpoints: {ckpts}")
+        log(f"train.cli: run dir holds config.json, model_config.json, "
+            f"metrics.jsonl, ckpt/{','.join(ckpts)}")
+
+
+def build_kernels() -> None:
+    """Build both kernel libraries at once (one nvcc each, in parallel)
+    and print what ptxas reports of registers and spills."""
+    import threading
+
+    from mpqe_tpu_torch.ops import cuda_build
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+
+    errors = []
+
+    def build(fn):
+        try:
+            fn()
+        except BaseException as e:  # re-raised below, in this thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=(fn,))
+               for fn in (ff._kernel, ff._tgt_kernel)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    log(f"build: fused_multi + fused_tgt {time.perf_counter() - t0:.2f} s")
+    for name in ("fused_multi", "fused_tgt"):
+        for ln in cuda_build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"build: {name}: {ln.strip()}")
 
 
 def main() -> int:
@@ -380,16 +944,11 @@ def main() -> int:
 
     from mpqe_tpu_torch.data.sampler import make_random_kg
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
-    from mpqe_tpu_torch.ops import cuda_build
     from mpqe_tpu_torch.ops import fused_fwd as ff
 
     device = torch.device("cuda")
-    t0 = time.perf_counter()
-    ff._kernel()
-    log(f"build: fused_multi {time.perf_counter() - t0:.2f} s")
-    for ln in cuda_build.BUILD_LOGS.get("fused_multi", "").splitlines():
-        if "registers" in ln or "spill" in ln:
-            log(f"build: {ln.strip()}")
+    t_start = time.perf_counter()
+    build_kernels()
 
     cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -402,6 +961,7 @@ def main() -> int:
                         device=device)
 
     fields = phase_kernel(model, cfg, ops, device, gen, flush)
+    tgt_fields = phase_fused_tgt(model, cfg, device, gen, flush)
 
     t0 = time.perf_counter()
     kg = make_random_kg(**KG)
@@ -411,9 +971,12 @@ def main() -> int:
             cfg.n_entities, cfg.n_modes, cfg.n_rels):
         raise AssertionError("KG does not match the flagship model")
     launches = phase_serve(model, cfg, ops, kg, device)
+    del model, ops
+    k1, k2 = phase_train(kg, device)
+    phase_train_cli()
+    log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    log('kernels: ["fused_tgt_forward_multi"]')
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_tgt_forward_multi",
         "route": "cuda",
         "source": "mpqe_tpu_torch/csrc/fused_multi.cu",
@@ -421,7 +984,20 @@ def main() -> int:
         "launches": launches,
         **fields,
         "library_ms": None,
-    }]}), flush=True)
+    }]
+    for name, line, n, kind in (
+            ("fused_tgt_forward", 704, k1, "fwd"),
+            ("fused_tgt_backward", 569, k2, "bwd")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mpqe_tpu_torch/csrc/fused_tgt.cu",
+            "replaces": f"mpqe_tpu/ops/pallas_fused_fwd.py:{line}",
+            "launches": n,
+            **tgt_fields[kind],
+        })
+    log(f"kernels: {[k['name'] for k in kernels]}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

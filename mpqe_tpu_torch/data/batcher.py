@@ -1,12 +1,12 @@
-"""Query batching helpers shared by serving (counterpart of
-``mpqe_tpu/data/batcher.py``).
-
-Only the two helpers the serving path needs live here; the dense and
-sparse batch classes come with the training slice.
+"""Query batching (counterpart of ``mpqe_tpu/data/batcher.py``): the
+bucket and edge-normalizer helpers serving shares, and the dense batch
+that training packs (``data/store.py``).  The sparse batch comes with the
+sparse slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -32,3 +32,33 @@ def template_edge_norm(spec: QueryStructure, rels: Sequence[int]) -> np.ndarray:
         [1.0 / counts[(spec.edge_dst[j], int(rels[j]))] for j in range(spec.n_edges)],
         dtype=np.float32,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseQueryBatch:
+    """B same-formula queries as dense template-slot arrays (numpy; the
+    train step moves them to the device).
+
+      structure: structure name; n_queries: true (unpadded) query count.
+      node_entity: ``[B, n_nodes] int32`` entity id per anchor slot (0 on
+        variable/target slots).
+      node_mode: ``[B, n_nodes] int32`` entity-mode id per slot.
+      edge_rel: ``[n_edges] int32`` formula relations (template order).
+      edge_norm: ``[n_edges] float32`` 1/c_{dst,rel} within the template.
+      target: ``[B] int32`` true answers; negatives ``[B, K] int32``;
+      neg_mask ``[B, K] float32`` (1 on real negatives); query_mask
+        ``[B] float32`` (1 on real queries).
+      used_hard: the negatives came from the hard (strict-subset) pools.
+    """
+
+    structure: str
+    n_queries: int
+    node_entity: np.ndarray
+    node_mode: np.ndarray
+    edge_rel: np.ndarray
+    edge_norm: np.ndarray
+    target: np.ndarray
+    negatives: np.ndarray
+    neg_mask: np.ndarray
+    query_mask: np.ndarray
+    used_hard: bool = False

@@ -29,3 +29,41 @@ def init_embeddings(gen: torch.Generator, n_entities: int, n_modes: int,
         emb.ent.copy_(normal_(gen, (n_entities, d), scale, device))
         emb.var.copy_(normal_(gen, (n_modes, d), scale, device))
     return emb
+
+
+def embed_nodes_dense(emb: Embeddings, node_entity: torch.Tensor,
+                      node_mode: torch.Tensor,
+                      is_var_slot: torch.Tensor) -> torch.Tensor:
+    """Initial node features ``[B, n, d]`` of a dense template batch:
+    anchor slots get their entity row, variable/target slots the per-mode
+    variable row (``is_var_slot [n]``, 1 on variable slots)."""
+    x_ent = emb.ent[node_entity.long()]
+    x_var = emb.var[node_mode.long()]
+    m = is_var_slot.to(x_ent.dtype)[None, :, None]
+    return x_var * m + x_ent * (1.0 - m)
+
+
+def embed_nodes_template(emb: Embeddings, node_entity: torch.Tensor,
+                         node_mode: torch.Tensor, anchor_slots, n_nodes: int,
+                         anchor_rows=None) -> torch.Tensor:
+    """Slot-static :func:`embed_nodes_dense` → ``[B, n, d]``: only anchor
+    slots read the entity table (ids clamped, as the reference's gather
+    does), the others the per-mode table (an out-of-range mode selects a
+    zero row, as the reference's one-hot does).  ``anchor_rows``
+    ``[B, n_anchors, d]`` (one column per anchor slot, in slot order)
+    replaces the entity gather."""
+    from mpqe_tpu_torch.ops.fused_fwd import _rows_by_mode
+
+    anchors = set(anchor_slots)
+    a_col = {s: k for k, s in enumerate(sorted(anchors))}
+    cols = []
+    for s in range(n_nodes):
+        if s in anchors:
+            if anchor_rows is not None:
+                cols.append(anchor_rows[:, a_col[s], :])
+            else:
+                ids = node_entity[:, s].long().clamp(0, emb.ent.shape[0] - 1)
+                cols.append(emb.ent[ids])
+        else:
+            cols.append(_rows_by_mode(emb.var, node_mode[:, s]))
+    return torch.stack(cols, dim=1)

@@ -5,9 +5,10 @@ cosine scoring (counterpart of ``mpqe_tpu/models/mpqe.py``).
 pytree leaves (``emb.ent``, ``emb.var``, ``layers.{i}.w_self|bias|basis|
 coeff|w_rel``, ``readout.*``), so a JAX checkpoint maps onto it one to
 one (``convert.py``).  The forward functions are plain functions with the
-reference's signatures.  This slice ports the per-query-relation encoder
-that serving runs; the shared-relation dense path, the losses and the
-sparse path come with later slices.
+reference's signatures: the per-query-relation encoder that serving and
+evaluation run, the shared-relation dense encoder and its fused-kernel
+form (K1 forward, K2 or a recomputation backward) that training runs, and
+the margin losses.  The sparse path comes with a later slice.
 """
 
 from __future__ import annotations
@@ -123,6 +124,158 @@ def _entity_rows(ent: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``ent[ids]`` with ids clamped into range, as the reference's
     gather does."""
     return ent[ids.long().clamp(0, ent.shape[0] - 1)]
+
+
+def _encode_dense_tgt_pruned(model, cfg, spec, node_entity, node_mode,
+                             edge_rel, edge_norm, steps, anchor_rows=None):
+    """TGT forward over the live slots only (``_live_slot_plan``).
+    Layer-0 variable slots stay factored: their transforms run on the
+    ``[n_modes, d]`` table and are then selected per query (exactly the
+    reference's one-hot matmul)."""
+    plan = _live_slot_plan(spec, steps)
+    in_slots0 = plan[0][0]
+    anchors = set(spec.anchor_slots)
+    a_col = {s: k for k, s in enumerate(s for s in in_slots0 if s in anchors)}
+    xs = {}
+    for s in in_slots0:
+        if s in anchors:
+            xs[s] = (anchor_rows[:, a_col[s], :] if anchor_rows is not None
+                     else _entity_rows(model.emb.ent, node_entity[:, s]))
+    var = model.emb.var
+    for li, (in_slots, out_slots, edges) in enumerate(plan):
+        lp = model.layers[li]
+        w_e = rgcn_ops._edge_weights(lp, edge_rel) if edges else None
+        last = li == steps - 1
+
+        def term(s, w):
+            if s in xs:
+                return xs[s] @ w
+            return fused_fwd_ops._rows_by_mode(var @ w, node_mode[:, s])
+
+        nxt = {}
+        for s in out_slots:
+            acc = term(s, lp.w_self)
+            for j in edges:
+                if spec.edge_dst[j] != s:
+                    continue
+                msg = term(spec.edge_src[j], w_e[j])
+                acc = acc + msg * edge_norm[j].to(msg.dtype)
+            acc = acc + lp.bias
+            nxt[s] = acc if last else torch.relu(acc)
+        xs = nxt
+    return xs[spec.target_slot]
+
+
+def encode_dense(
+    model: MPQE,
+    cfg: MPQEConfig,
+    structure: str,
+    node_entity: torch.Tensor,  # [B, n] int
+    node_mode: torch.Tensor,  # [B, n] int
+    edge_rel: torch.Tensor,  # [n_edges] int
+    edge_norm: torch.Tensor,  # [n_edges] float32
+    anchor_rows: Optional[torch.Tensor] = None,  # [B, A, d] pre-gathered
+) -> torch.Tensor:
+    """Embed + message-pass + read out one formula's batch → ``[B, d]``
+    f32 (the training encoder of ``--kernel dense``).  TGT runs the
+    dead-slot-pruned plan; the other readouts run every layer over every
+    slot.  ``anchor_rows`` (columns per :func:`anchor_gather_slots`)
+    replaces the entity gather."""
+    spec = STRUCTURES[structure]
+    steps = num_steps(cfg, structure)
+    if cfg.readout == "tgt":
+        return _encode_dense_tgt_pruned(model, cfg, spec, node_entity,
+                                        node_mode, edge_rel, edge_norm, steps,
+                                        anchor_rows=anchor_rows)
+    x = emb_mod.embed_nodes_template(model.emb, node_entity, node_mode,
+                                     spec.anchor_slots, spec.n_nodes,
+                                     anchor_rows=anchor_rows)
+    for li in range(steps):
+        x = rgcn_ops.rgcn_dense_template(x, model.layers[li], spec.edge_src,
+                                         spec.edge_dst, edge_rel, edge_norm)
+        if li < steps - 1:
+            x = torch.relu(x)
+    return readout_mod.readout_dense(cfg.readout, model.readout, x,
+                                     spec.target_slot)
+
+
+class _FusedRecompute(torch.autograd.Function):
+    """Forward through K1, gradient by recomputing :func:`encode_dense`
+    (``backward="xla"``).  ``apply(run, edge_norm, anchor_rows,
+    *params)``; ``run(edge_norm, anchor_rows, fused)`` encodes through K1
+    (``fused=True``) or :func:`encode_dense`."""
+
+    @staticmethod
+    def forward(ctx, run, edge_norm, anchor_rows, *params):
+        ctx.run = run
+        ctx.save_for_backward(edge_norm, anchor_rows, *params)
+        return run(edge_norm, anchor_rows, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        edge_norm, anchor_rows, *params = ctx.saved_tensors
+        en = edge_norm.detach().requires_grad_(ctx.needs_input_grad[1])
+        ar = None if anchor_rows is None else anchor_rows.detach(
+        ).requires_grad_(ctx.needs_input_grad[2])
+        inputs = [t for t in (en, ar) if t is not None and t.requires_grad]
+        inputs += [p for p, need in zip(params, ctx.needs_input_grad[3:])
+                   if need]
+        with torch.enable_grad():
+            q = ctx.run(en, ar, False)
+        grads = iter(torch.autograd.grad(q, inputs, g, allow_unused=True))
+        out = [None, next(grads) if en.requires_grad else None,
+               next(grads) if ar is not None and ar.requires_grad else None]
+        out += [next(grads) if need else None
+                for need in ctx.needs_input_grad[3:]]
+        return tuple(out)
+
+
+def encode_dense_fused(
+    model: MPQE,
+    cfg: MPQEConfig,
+    structure: str,
+    node_entity: torch.Tensor,  # [B, n] int
+    node_mode: torch.Tensor,  # [B, n] int
+    edge_rel: torch.Tensor,  # [n_edges] int
+    edge_norm: torch.Tensor,  # [n_edges] float32
+    anchor_rows=None,  # None | [B, A, d] | sequence of [B, d]
+    backward: str = "xla",
+) -> torch.Tensor:
+    """:func:`encode_dense` with the forward run by K1
+    (:func:`ops.fused_fwd.fused_tgt_forward`, the hand-written CUDA kernel
+    on the card).  ``backward`` selects the gradient path:
+
+    * ``"xla"`` (the reference's default; its name is kept for the CLI)
+      recomputes through :func:`encode_dense` with autograd, so gradients
+      are those of the f32 encoder;
+    * ``"pallas"`` (the CLI's name, kept) runs K2, the hand-written CUDA
+      backward kernel, and autograd carries its ``dW``/``db``/``dA`` on
+      through the differentiable ``_layer_matrices`` and the anchor
+      gather into ``emb.ent``.
+
+    The reference's ``block``, ``interpret``, ``onehot_operand``,
+    ``split_gemm``, ``vmem_limit_mb`` and ``bwd_block`` tile the TPU and
+    have no counterpart; ``out_bf16`` is not ported (ROADMAP Queue 1
+    item 2).  Requires ``readout='tgt'``."""
+    if backward == "pallas":
+        return fused_fwd_ops._fused_apply(model, cfg, structure, node_entity,
+                                          node_mode, edge_rel, edge_norm,
+                                          anchor_rows)
+    if backward != "xla":
+        raise ValueError(f"unknown backward mode {backward!r}")
+    if isinstance(anchor_rows, (tuple, list)):
+        anchor_rows = torch.stack(list(anchor_rows), dim=1)
+
+    def run(en, ar, fused):
+        if fused:
+            return fused_fwd_ops.fused_tgt_forward(
+                model, cfg, structure, node_entity, node_mode, edge_rel, en,
+                ar)
+        return encode_dense(model, cfg, structure, node_entity, node_mode,
+                            edge_rel, en, anchor_rows=ar)
+
+    params = [p for p in model.parameters()]
+    return _FusedRecompute.apply(run, edge_norm, anchor_rows, *params)
 
 
 def encode_dense_multi(
@@ -254,3 +407,56 @@ def score_all_entities(model: MPQE, cfg: MPQEConfig,
     if cfg.scale_scores:
         q, e = _l2_normalize(q), _l2_normalize(e)
     return q @ e.t()
+
+
+def margin_loss_from_rows(cfg: MPQEConfig, q: torch.Tensor,
+                          pos_rows: torch.Tensor, neg_rows: torch.Tensor,
+                          neg_mask: torch.Tensor,
+                          query_mask: torch.Tensor) -> torch.Tensor:
+    """mean(relu(margin - s(q, pos) + s(q, neg))) over the real (query,
+    negative) pairs, from gathered candidate rows (``q [B, d]``,
+    ``pos_rows [B, d]``, ``neg_rows [B, K, d]``, masks ``[B, K]`` and
+    ``[B]``)."""
+    pos = score(cfg, q, pos_rows)
+    neg = score(cfg, q[:, None, :], neg_rows)
+    viol = torch.relu(cfg.margin - pos[:, None] + neg)
+    w = neg_mask * query_mask[:, None]
+    return torch.sum(viol * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def margin_loss_from_queries(model: MPQE, cfg: MPQEConfig, q: torch.Tensor,
+                             target: torch.Tensor, negatives: torch.Tensor,
+                             neg_mask: torch.Tensor,
+                             query_mask: torch.Tensor) -> torch.Tensor:
+    """:func:`margin_loss_from_rows` with the candidate rows gathered from
+    ``emb.ent``; the gather's gradient is a dense ``[n_entities, d]``
+    tensor, as in the reference."""
+    ent = model.emb.ent
+    return margin_loss_from_rows(cfg, q, _entity_rows(ent, target),
+                                 _entity_rows(ent, negatives), neg_mask,
+                                 query_mask)
+
+
+def dense_batch_loss(model: MPQE, cfg: MPQEConfig, structure: str,
+                     node_entity, node_mode, edge_rel, edge_norm, target,
+                     negatives, neg_mask, query_mask) -> torch.Tensor:
+    """Batch margin loss through :func:`encode_dense` (``--kernel
+    dense``)."""
+    q = encode_dense(model, cfg, structure, node_entity, node_mode, edge_rel,
+                     edge_norm)
+    return margin_loss_from_queries(model, cfg, q, target, negatives,
+                                    neg_mask, query_mask)
+
+
+def dense_batch_loss_kernel_fused_fwd(model: MPQE, cfg: MPQEConfig,
+                                      structure: str, node_entity, node_mode,
+                                      edge_rel, edge_norm, target, negatives,
+                                      neg_mask, query_mask,
+                                      backward: str = "xla") -> torch.Tensor:
+    """:func:`dense_batch_loss` with the forward through K1 and the
+    gradient by ``backward`` (see :func:`encode_dense_fused`; ``--kernel
+    fused_fwd --fused_backward``).  Requires ``readout='tgt'``."""
+    q = encode_dense_fused(model, cfg, structure, node_entity, node_mode,
+                           edge_rel, edge_norm, None, backward)
+    return margin_loss_from_queries(model, cfg, q, target, negatives,
+                                    neg_mask, query_mask)

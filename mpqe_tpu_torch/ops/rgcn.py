@@ -89,3 +89,20 @@ def _edge_weights(layer: RGCNLayer, edge_rel: torch.Tensor) -> torch.Tensor:
         return layer.w_rel[edge_rel.long()]
     coeff = layer.coeff[edge_rel.long()]  # [E, B]
     return torch.einsum("eb,bio->eio", coeff, layer.basis)
+
+
+def rgcn_dense_template(x: torch.Tensor, layer: RGCNLayer, edge_src,
+                        edge_dst, edge_rel: torch.Tensor,
+                        edge_norm: torch.Tensor) -> torch.Tensor:
+    """One R-GCN layer over B copies of a static query-DAG template:
+    ``x [B, n_nodes, d_in]`` → ``[B, n_nodes, d_out]``.  ``edge_src`` /
+    ``edge_dst`` are Python ints (the template), ``edge_rel`` /
+    ``edge_norm`` the formula's ``[n_edges]`` relations and 1/c."""
+    w_e = _edge_weights(layer, edge_rel)  # [n_edges, d_in, d_out]
+    out = torch.einsum("bnd,do->bno", x, layer.w_self)
+    cols = list(out.unbind(dim=1))
+    for j in range(len(edge_src)):
+        msg = x[:, edge_src[j], :] @ w_e[j]
+        cols[edge_dst[j]] = cols[edge_dst[j]] + msg * edge_norm[j].to(
+            msg.dtype)
+    return torch.stack(cols, dim=1) + layer.bias

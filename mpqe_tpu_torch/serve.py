@@ -57,7 +57,7 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device is available; serving runs on the card by "
+            "no CUDA device is available; the port runs on the card by "
             "default (pass device='cpu' to run on the CPU)")
     return dev
 

@@ -1,0 +1,370 @@
+"""Training loop: curriculum, train steps, convergence checks (counterpart
+of ``mpqe_tpu/train/loop.py``).
+
+Each step samples a random formula within a random query structure and
+runs a margin-ranking batch; the curriculum trains 1-chain queries only
+until the loss converges (burn-in), then mixes all structures; periodic
+validation checkpoints on best and stops early on a plateau.
+
+The optimizer follows optax's formulas step by step (:class:`OptaxAdam`,
+:func:`make_optimizer`): torch's own Adam places ``eps`` and the bias
+corrections differently and ``clip_grad_norm_`` adds 1e-6 to the norm.
+Batches are packed by the numpy packer (``data/store.py``); the C++
+packer, the background pipeline (``prefetch``) and K-steps-per-call
+(``steps_per_call``) are not ported yet (ROADMAP Queue 1 item 2).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from mpqe_tpu_torch.data.batcher import DenseQueryBatch
+from mpqe_tpu_torch.models import mpqe as mpqe_mod
+from mpqe_tpu_torch.queries import INTERSECTION_STRUCTURES, Formula, Query
+from mpqe_tpu_torch.train import evaluation
+
+NOT_PORTED = "ROADMAP Queue 1 item 2"
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    lr: float = 0.01
+    # const | cosine (decay to lr/100 over max_steps) | warmup_cosine
+    # (linear 0 -> lr over warmup_steps, then cosine to lr/100)
+    lr_schedule: str = "const"
+    warmup_steps: int = 0
+    grad_clip_norm: float = 0.0  # 0 = no clipping
+    weight_decay: float = 0.0  # >0 switches adam -> adamw
+    batch_size: int = 512
+    n_neg: int = 1
+    max_steps: int = 100_000
+    burn_in_structure: str = "1-chain"
+    conv_window: int = 100  # loss window for convergence checks
+    conv_tol: float = 1e-4
+    val_every: int = 1000
+    patience: int = 5  # eval rounds without val improvement -> stop
+    hard_neg_prob: float = 0.5  # P(use hard negatives) on intersection batches
+    hard_margin: float = 0.0  # margin of hard-negative batches (0 = cfg's)
+    seed: int = 0
+    optimizer: str = "adam"
+
+
+def cosine_decay(init: float, decay_steps: int, alpha: float, count: int
+                 ) -> float:
+    """``optax.cosine_decay_schedule(init, decay_steps, alpha)(count)``."""
+    c = min(count, decay_steps)
+    return init * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / decay_steps))
+                   + alpha)
+
+
+def lr_schedule(tc: TrainConfig) -> Callable[[int], float]:
+    """The learning rate as a function of the update count before it is
+    incremented (optax's ``scale_by_schedule`` convention)."""
+    if tc.lr_schedule == "cosine":
+        decay = max(tc.max_steps, 1)
+        return lambda c: cosine_decay(tc.lr, decay, 0.01, c)
+    if tc.lr_schedule == "warmup_cosine":
+        w = max(tc.warmup_steps, 1)
+        decay = max(tc.max_steps, w + 1) - w
+
+        def f(c):
+            if c < w:  # linear_schedule(0, lr, w)
+                return (0.0 - tc.lr) * (1 - min(max(c, 0), w) / w) + tc.lr
+            return cosine_decay(tc.lr, decay, 0.01, c - w)
+
+        return f
+    if tc.lr_schedule == "const":
+        return lambda c: tc.lr
+    raise ValueError(tc.lr_schedule)
+
+
+class OptaxAdam(torch.optim.Optimizer):
+    """``optax.{adam, adamw, sgd}`` (b1 0.9, b2 0.999, eps 1e-8), optionally
+    behind ``optax.clip_by_global_norm``, as a torch optimizer:
+
+    * clip: ``norm = sqrt(sum of g^2 over every leaf)``; when
+      ``norm >= max_norm`` every ``g`` becomes ``(g / norm) * max_norm``;
+    * adam: ``mu = (1-b1) g + b1 mu``, ``nu = (1-b2) g^2 + b2 nu``,
+      ``u = (mu / (1-b1^t)) / (sqrt(nu / (1-b2^t)) + eps)`` with ``t`` the
+      incremented count; adamw adds ``weight_decay * p`` to ``u`` (every
+      parameter, the entity table included);
+    * sgd: ``u = g``;
+    * ``p += u * -lr(count)``, the schedule read at the count before the
+      increment.
+
+    A parameter without a gradient counts as a zero gradient, as in JAX.
+    The update count lives in the param group, so ``state_dict()``
+    carries it."""
+
+    def __init__(self, params, tc: TrainConfig):
+        if tc.optimizer not in ("adam", "sgd"):
+            raise ValueError(tc.optimizer)
+        if tc.optimizer == "sgd" and tc.weight_decay > 0:
+            raise ValueError("weight_decay requires optimizer='adam'")
+        super().__init__(params, dict(count=0))
+        self.kind = tc.optimizer
+        self.weight_decay = tc.weight_decay
+        self.max_norm = tc.grad_clip_norm
+        self.lr = lr_schedule(tc)
+        self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        group = self.param_groups[0]
+        params = [p for g in self.param_groups for p in g["params"]]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        if self.max_norm > 0:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            if not bool(norm < self.max_norm):
+                grads = [(g / norm) * self.max_norm for g in grads]
+        count = group["count"]
+        step_size = -self.lr(count)
+        t = count + 1
+        # 1 - b^t in float32, as optax computes it (the cancellation makes
+        # its rounding visible: XLA's f32 pow and torch's differ by an ulp
+        # of b2^t for some t, 2e-5 of 1 - b2^t at t = 3)
+        f32 = torch.float32
+        bc1 = float(1 - torch.tensor(self.b1, dtype=f32) ** t)
+        bc2 = float(1 - torch.tensor(self.b2, dtype=f32) ** t)
+        for p, g in zip(params, grads):
+            if self.kind == "sgd":
+                p.add_(g * step_size)
+                continue
+            st = self.state[p]
+            if not st:
+                st["mu"] = torch.zeros_like(p)
+                st["nu"] = torch.zeros_like(p)
+            mu, nu = st["mu"], st["nu"]
+            mu.mul_(self.b1).add_(g * (1 - self.b1))
+            nu.mul_(self.b2).add_((g * g) * (1 - self.b2))
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            if self.weight_decay > 0:
+                u = u + self.weight_decay * p
+            p.add_(u * step_size)
+        for g in self.param_groups:
+            g["count"] = t
+        return None
+
+
+def make_optimizer(tc: TrainConfig, params) -> OptaxAdam:
+    return OptaxAdam(params, tc)
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: Any  # mpqe.MPQE
+    optimizer: OptaxAdam
+    step: int = 0
+
+
+def make_train_step(cfg, optimizer: OptaxAdam,
+                    batch_loss_fn: Optional[Callable] = None) -> Callable:
+    """``step(model, structure, *batch tensors) -> loss``: value and
+    gradient of ``batch_loss_fn(model, cfg, structure, *tensors)``
+    (default :func:`models.mpqe.dense_batch_loss`), then the optimizer
+    update, in place."""
+    if batch_loss_fn is None:
+        batch_loss_fn = mpqe_mod.dense_batch_loss
+
+    def step_fn(model, structure, node_entity, node_mode, edge_rel,
+                edge_norm, target, negatives, neg_mask, query_mask):
+        optimizer.zero_grad(set_to_none=True)
+        loss = batch_loss_fn(model, cfg, structure, node_entity, node_mode,
+                             edge_rel, edge_norm, target, negatives,
+                             neg_mask, query_mask)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step_fn
+
+
+BATCH_FIELDS = ("node_entity", "node_mode", "edge_rel", "edge_norm",
+                "target", "negatives", "neg_mask", "query_mask")
+
+
+def batch_tensors(batch: DenseQueryBatch, device) -> List[torch.Tensor]:
+    return [torch.from_numpy(np.ascontiguousarray(getattr(batch, f)))
+            .to(device, non_blocking=True) for f in BATCH_FIELDS]
+
+
+def run_step(train_step: Callable, state: TrainState,
+             batch: DenseQueryBatch) -> float:
+    loss = train_step(state.model, batch.structure,
+                      *batch_tensors(batch, state.model.emb.ent.device))
+    state.step += 1
+    return float(loss)
+
+
+def check_conv(losses: collections.deque, tol: float) -> bool:
+    """Converged when the relative improvement between the two halves of
+    the loss window falls below tol (reference check_conv semantics)."""
+    if len(losses) < losses.maxlen:
+        return False
+    arr = np.asarray(losses)
+    half = len(arr) // 2
+    old, new = arr[:half].mean(), arr[half:].mean()
+    if old <= 0:
+        return True
+    return (old - new) / abs(old) < tol
+
+
+def warmup_train_step(train_step_factory: Callable, cfg, tc: TrainConfig,
+                      structures, device) -> None:
+    """Run one throwaway step per structure at the run's batch shape on a
+    throwaway model and optimizer, ahead of the loop (first kernel
+    builds, library handles, allocator pools)."""
+    from mpqe_tpu_torch.queries import STRUCTURES as _S
+
+    if not isinstance(cfg, mpqe_mod.MPQEConfig):
+        return
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = mpqe_mod.init_mpqe(gen, cfg, device=device)
+    step = train_step_factory(make_optimizer(tc, model.parameters()))
+    B, K = tc.batch_size, tc.n_neg
+    for structure in structures:
+        spec = _S[structure]
+
+        def z(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        step(model, structure, z(B, spec.n_nodes), z(B, spec.n_nodes),
+             z(spec.n_edges),
+             torch.ones(spec.n_edges, device=device), z(B), z(B, K),
+             torch.ones((B, K), device=device), torch.ones(B, device=device))
+
+
+def run_train(
+    state: TrainState,
+    cfg,
+    tc: TrainConfig,
+    train_queries: Dict[str, Dict[Formula, List[Query]]],
+    val_queries: Optional[Dict[str, Dict[Formula, List[Query]]]] = None,
+    log_fn: Optional[Callable[[Dict[str, Any]], None]] = None,
+    checkpoint_fn: Optional[Callable[[TrainState, float], None]] = None,
+    train_step: Optional[Callable] = None,
+    batch_loss_fn: Optional[Callable] = None,
+    kg=None,
+    warmup: bool = False,
+    prefetch: int = 0,
+    steps_per_call: int = 1,
+    train_stores=None,
+    should_stop: Optional[Callable[[], bool]] = None,
+) -> TrainState:
+    """Curriculum training until convergence / max_steps / patience, in
+    place on ``state``.  ``should_stop`` is polled each step (True stops
+    cleanly: graceful preemption).  Each step's record for ``log_fn``
+    carries its seconds, the loss included (the step ends on the host
+    reading the loss)."""
+    if prefetch > 0:
+        raise NotImplementedError(
+            f"prefetch > 0 (the background batch pipeline, data/pipeline.py "
+            f"and the C++ packer): {NOT_PORTED}")
+    if steps_per_call > 1:
+        raise NotImplementedError(
+            f"steps_per_call > 1 (make_multistep_train_step): {NOT_PORTED}")
+    from mpqe_tpu_torch.data.store import build_stores, pack_dense_batch_np
+
+    rng = np.random.default_rng(tc.seed)
+    device = state.model.emb.ent.device
+    hard_step = None
+    if train_step is None:
+        train_step = make_train_step(cfg, state.optimizer, batch_loss_fn)
+        if tc.hard_margin > 0.0:
+            hcfg = dataclasses.replace(cfg, margin=tc.hard_margin)
+            hard_step = make_train_step(hcfg, state.optimizer, batch_loss_fn)
+    elif tc.hard_margin > 0.0:
+        raise ValueError("hard_margin needs the default train step")
+
+    stores = (train_stores if train_stores is not None
+              else build_stores(train_queries, kg=kg))
+    structures = [s for s in stores if stores[s]]
+    if warmup:
+        warmup_train_step(
+            lambda opt: make_train_step(cfg, opt, batch_loss_fn), cfg, tc,
+            structures, device)
+    eval_set = evaluation.make_eval_set(val_queries) if val_queries else None
+
+    burn_in = tc.burn_in_structure in structures and len(structures) > 1
+    losses: collections.deque = collections.deque(maxlen=tc.conv_window)
+    best_val = -np.inf
+    bad_evals = 0
+    phase = "burn_in" if burn_in else "full"
+    # validation fires on crossing a val_every boundary
+    last_val_bucket = state.step // tc.val_every
+    target_step = state.step + tc.max_steps
+    while state.step < target_step:
+        if should_stop is not None and should_stop():
+            if log_fn:
+                log_fn({"step": state.step, "event": "preempt_stop"})
+            break
+        structure = (tc.burn_in_structure if phase == "burn_in"
+                     else structures[rng.integers(len(structures))])
+        f_stores = stores[structure]
+        fstore = f_stores[rng.integers(len(f_stores))]
+        pick = rng.integers(0, fstore.n_queries,
+                            size=min(tc.batch_size, fstore.n_queries)
+                            ).astype(np.int64)
+        use_hard = (structure in INTERSECTION_STRUCTURES
+                    and rng.random() < tc.hard_neg_prob)
+        seed = int(rng.integers(2**62))
+        batch = pack_dense_batch_np(fstore, pick, tc.batch_size, tc.n_neg,
+                                    seed, use_hard)
+        t0 = time.perf_counter()
+        use_hard_margin = hard_step is not None and batch.used_hard
+        loss = run_step(hard_step if use_hard_margin else train_step, state,
+                        batch)
+        dt = time.perf_counter() - t0
+        losses.append(loss)
+        if log_fn:
+            log_fn({"step": state.step, "loss": loss, "structure": structure,
+                    "phase": phase, "seconds": dt})
+
+        if phase == "burn_in" and check_conv(losses, tc.conv_tol):
+            phase = "full"
+            losses.clear()
+            if log_fn:
+                log_fn({"step": state.step, "event": "burn_in_done"})
+
+        if eval_set is not None and \
+                state.step // tc.val_every > last_val_bucket:
+            last_val_bucket = state.step // tc.val_every
+            res = evaluation.evaluate_batched(state.model, cfg, eval_set)
+            metric = res.macro_auc
+            if log_fn:
+                log_fn({"step": state.step, "val": res.flat()})
+            if not np.isfinite(metric):
+                if log_fn:
+                    log_fn({"step": state.step,
+                            "event": "val_unscoreable_skipped"})
+            elif metric > best_val:
+                best_val = metric
+                bad_evals = 0
+                if checkpoint_fn:
+                    checkpoint_fn(state, metric)
+            else:
+                bad_evals += 1
+                if bad_evals >= tc.patience and phase == "full":
+                    if log_fn:
+                        log_fn({"step": state.step, "event": "early_stop"})
+                    break
+        elif phase == "full" and not val_queries and \
+                check_conv(losses, tc.conv_tol):
+            break
+    return state
+
+
+def init_train_state(gen: torch.Generator, cfg, tc: TrainConfig,
+                     device=None) -> TrainState:
+    """A fresh model from ``gen`` on ``device`` and its optimizer."""
+    model = mpqe_mod.init_mpqe(gen, cfg, device=device)
+    return TrainState(model=model,
+                      optimizer=make_optimizer(tc, model.parameters()))

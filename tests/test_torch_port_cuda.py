@@ -1,13 +1,15 @@
-"""K3's CUDA kernel and the served path on the card, against their plain
-versions.  Needs an NVIDIA GPU: every test here skips itself without one.
+"""The CUDA kernels K1, K2, K3 and the served path on the card, against
+their plain versions.  Needs an NVIDIA GPU: every test here skips itself
+without one.
 
 This file imports no JAX (the machine with the card has none), so it
 runs there without the repository's conftest::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
-Tolerance: K3 vs its plain version max|diff| / max|ref| <= 1e-4; both
-sum in the same order, so the measured difference is 0.
+Tolerance: each kernel output vs its plain version max|diff| / max|ref|
+<= 1e-4 (for K2 per output leaf); both sum in the same order, so the
+expected difference is 0.
 """
 
 import numpy as np
@@ -138,3 +140,70 @@ def test_cuda_server_matches_plain_recomputation():
             np.testing.assert_allclose(answers[i].scores,
                                        vals[row].cpu().numpy(), rtol=0,
                                        atol=1e-6)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / (want.abs().max() + 1e-12))
+
+
+def _shared_inputs(structure, B, dev, seed=0):
+    """One formula's batch: per-query entities and modes, shared
+    relations and norms, and an output cotangent."""
+    spec = STRUCTURES[structure]
+    rng = np.random.default_rng(seed)
+    arrays = (rng.integers(0, N_ENT, (B, spec.n_nodes)).astype(np.int32),
+              rng.integers(0, N_MODES, (B, spec.n_nodes)).astype(np.int32),
+              rng.integers(0, N_RELS, (spec.n_edges,)).astype(np.int32),
+              rng.uniform(0.5, 1.5, (spec.n_edges,)).astype(np.float32))
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,nb", [(128, 16), (16, 4)],
+                         ids=["flagship", "narrow"])
+def test_cuda_k1_k2_match_plain_versions(d, nb):
+    dev = _cuda()
+    cfg, model = _model(d, nb, dev)
+    for structure in STRUCTURE_NAMES:
+        for B in (1, 20, 1000, 5000):
+            args = _shared_inputs(structure, B, dev, seed=B)
+            g = torch.randn((B, d), device=dev,
+                            generator=torch.Generator(dev).manual_seed(B))
+            f0, b0 = tff.fused_tgt_forward.launches, \
+                tff.fused_tgt_backward.launches
+            with torch.no_grad():
+                got = tff.fused_tgt_forward(model, cfg, structure, *args)
+                want = tff.fused_tgt_forward_reference(model, cfg, structure,
+                                                       *args)
+            dp, den, _ = tff.fused_tgt_backward(model, cfg, structure,
+                                                *args, None, g)
+            dp_r, den_r, _ = tff.fused_tgt_backward_reference(
+                model, cfg, structure, *args, None, g)
+            torch.cuda.synchronize()
+            assert tff.fused_tgt_forward.launches == f0 + 1
+            assert tff.fused_tgt_backward.launches == b0 + 1
+            assert got.shape == (B, d) and got.device.type == "cuda"
+            assert _rel(got, want) <= 1e-4, (structure, B, _rel(got, want))
+            for name, t in dp_r.items():
+                if t.abs().max() > 0:
+                    e = _rel(dp[name], t)
+                    assert e <= 1e-4, (structure, B, name, e)
+            assert _rel(den, den_r) <= 1e-4, (structure, B)
+
+
+@pytest.mark.cuda
+def test_cuda_k1_wrapper_checks_its_operands():
+    dev = _cuda()
+    x0 = torch.zeros((8, 256), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((256, 128), dtype=torch.bfloat16, device=dev)
+    b = torch.zeros((128,), dtype=torch.float32, device=dev)
+    bad = [
+        (x0.float(), [w], [b]),  # wrong dtype
+        (x0, [w[:128]], [b]),  # k does not chain
+        (x0, [w], [b[:64]]),  # bias shape
+        (x0, [w.t().contiguous().t()], [b]),  # not contiguous
+        (x0, [w.cpu()], [b]),  # mixed devices
+    ]
+    for x, ws, bs in bad:
+        with pytest.raises(ValueError):
+            tff._chain_forward(x, ws, bs, 16)
