@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mpqe_tpu_torch``) on one GPU.
 
-Drives the serving and the training path at the flagship width (d = 128,
-3 R-GCN layers, TGT readout, 16 bases, 266 relations, 4 modes, 1,000,000
-entities; random weights from a seed) and checks every hand-written
-kernel on them.  The two kernel libraries build in parallel (one nvcc
-each), then:
+Drives the serving path, the dense training path and the sparse
+training path (``--kernel fused`` and ``--kernel blocked``) at the
+flagship width (d = 128, 3 R-GCN layers, TGT readout, 16 bases or full
+per-relation weights, 266 relations, 4 modes, 1,000,000 entities;
+random weights from a seed) and checks every hand-written kernel on
+them.  The four kernel libraries build in parallel (one nvcc each),
+then:
 
 1. ``kernel.fused_multi``: builds K3 (``csrc/fused_multi.cu``) with nvcc
    and, for all 7 structures at B = 256 and at a ragged B = 1000, holds
@@ -28,7 +30,22 @@ each), then:
    between two steps streams GBs), CUDA events around the wrapper and the
    kernels' own device time (torch.profiler), beside the bound and, as a
    yardstick only, the same per-layer products through ``torch.matmul``.
-4. ``train``: ``run_train`` on the card with ``--kernel fused_fwd
+4. ``kernel.rgcn_fused``: K5a (16-basis layer) and K5b (full-weight
+   layer) of ``csrc/rgcn_fused.cu`` on the ``template_chunked`` layouts
+   of the 7 structures at B = 512 and 131,072 and on
+   ``chunk_by_relation`` of a general graph (65,536 nodes, 1,048,576
+   random typed edges, padded chunks): each vs its plain version
+   (<= 1e-4) and the f32 batched oracle (<= 1e-5); times (CUDA events
+   and profiler, L2 flushed) beside the bound, the plain version and the
+   ``torch.bmm`` yardstick on the per-chunk weights.
+5. ``kernel.rgcn_blocked``: K6a (forward and transpose layout) and K6b
+   of ``csrc/rgcn_blocked.cu`` on ``template_blocked`` for the 7
+   structures at both batches and ``bucket_edges_blocked`` of the same
+   general graph: each vs its plain version (<= 1e-4), K6a vs the f32
+   twin (<= 3e-2, train batch only), times as for K5 beside a cuBLAS
+   yardstick (the bf16 products ``xs @ [V_0 .. V_Bb]``, and for K6b also
+   ``xs^T rhs``).
+6. ``train``: ``run_train`` on the card with ``--kernel fused_fwd
    --fused_backward pallas`` (batch 512, 4 negatives, Adam lr 0.01, every
    structure from the first step) and one validation round through K3;
    K1 and K2 launch once per step, K3 during validation, every loss is
@@ -36,8 +53,16 @@ each), then:
    versions gives the same loss and gradients.  Step time p50/p95, real
    queries/s (and padded rows/s) and a ``torch.profiler`` account of 10
    steps.
-5. ``train.cli``: ``python -m mpqe_tpu_torch.train`` as a subprocess on
-   a small KG; its final line and run dir.
+7. ``train.fused``, ``train.fused_full``, ``train.blocked``:
+   ``run_train`` through the sparse path (``--kernel fused`` with a
+   16-basis and a full-weight model, ``--kernel blocked``), 50 steps
+   each: launch counts equal to 2 K5 (or 2 K6a and 1 K6b) per layer of
+   every step, finite losses, one step per structure recomputed through
+   the plain versions (same loss and gradients, <= 1e-4: the segment
+   sums use index_add_), step p50/p95 and a profile of 10 steps.
+8. ``train.cli``: ``python -m mpqe_tpu_torch.train`` as a subprocess on
+   a small KG with ``--kernel fused_fwd`` and with ``--kernel blocked``;
+   the final line and run dir of each.
 
 Prints the card's name and power limit first, then one line per check,
 a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -60,6 +85,7 @@ import torch
 
 TOL_PLAIN = 1e-4  # kernel vs its plain version: same function, sum order
 TOL_F32 = 3e-2  # kernel vs the float32 encoder: bf16 operands
+TOL_ORACLE = 1e-5  # K5 vs the f32 batched oracle: f32 both, sum order
 TOL_SCORE = 1e-4  # served top-k scores vs the plain recomputation
 # K2's parameter gradients vs autograd of the f32 encoder, by depth: the
 # reference's own tolerances (tests/test_pallas_fused_fwd.py:261), held
@@ -76,6 +102,7 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core peak (H100 SXM data sheet)
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 L2_FLUSH_BYTES = 512 << 20  # > the 50 MB L2
+PROFILE_TRIES = 3
 
 FLAGSHIP = dict(n_entities=1_000_000, n_modes=4, n_rels=266, embed_dim=128,
                 n_layers=3, num_bases=16)
@@ -90,6 +117,10 @@ TRAIN_BIG = 131_072  # the repo's flagship train batch (bench.py:42)
 BIG_ITERS = 5
 TRAIN_STEPS = 100
 PROFILE_STEPS = 10
+SPARSE_STEPS = 50  # train steps of each sparse-path run
+PLAIN_ITERS_K6 = 3  # timed plain K6 calls at the train batch
+# the reference's kernel-bench graph (pallas_rgcn_blocked.py:57-58)
+GENERAL_NODES, GENERAL_EDGES = 65_536, 1 << 20
 
 
 def log(msg: str) -> None:
@@ -125,28 +156,34 @@ TGT_KERNELS = ("tgt_forward_kernel", "tgt_backward_kernel",
                "dw_partial_kernel", "reduce_partials_kernel")
 
 
-def device_ms(fn, iters: int, flush: torch.Tensor) -> float:
-    """Mean device ms per ``fn()`` call of the kernels of
-    ``csrc/fused_tgt.cu`` alone (torch.profiler), each call after an L2
-    flush as in :func:`time_ms`: the kernels' own time, without the
-    wrapper's host work or its other device work (K2's weight
-    transposes)."""
+def device_ms(fn, iters: int, flush: torch.Tensor,
+              names=TGT_KERNELS) -> float:
+    """Mean device ms per ``fn()`` call of the kernels named in ``names``
+    alone (torch.profiler; by default those of ``csrc/fused_tgt.cu``),
+    each call after an L2 flush as in :func:`time_ms`: the kernels' own
+    time, without the wrapper's host work or its other device work (K2's
+    weight transposes, K6's bf16 casts).  A profile that records no
+    device event of those kernels (CUPTI drops one now and then) is taken
+    again, up to PROFILE_TRIES times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(k in e.key for k in TGT_KERNELS))
-    if us == 0:
-        raise AssertionError("the profiler saw no fused_tgt kernel")
-    return us / iters / 1e3
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(k in e.key for k in names))
+        if us > 0:
+            return us / iters / 1e3
+        log(f"device_ms: profile {attempt + 1} recorded none of {names}")
+    raise AssertionError(f"the profiler saw none of {names} in "
+                         f"{PROFILE_TRIES} profiles")
 
 
 def k3_work(cfg, structure: str, node_entity, node_mode, edge_rel_q):
@@ -763,15 +800,10 @@ def recheck_train_step(state, cfg, stores, device) -> None:
             raise AssertionError(line)
 
 
-def phase_train(kg, device):
-    """``run_train`` on the card through K1/K2 with one validation round
-    (K3).  Returns (K1 launches, K2 launches)."""
+def sample_train_queries(kg):
+    """(train, val) queries of every structure, grouped by formula."""
     from mpqe_tpu_torch.data.sampler import QuerySampler
-    from mpqe_tpu_torch.data.store import build_stores
-    from mpqe_tpu_torch.models import mpqe as mpqe_mod
-    from mpqe_tpu_torch.ops import fused_fwd as ff
     from mpqe_tpu_torch.queries import STRUCTURE_NAMES, group_queries_by_formula
-    from mpqe_tpu_torch.train import loop as loop_mod
 
     t0 = time.perf_counter()
     sampler = QuerySampler(kg, seed=7)
@@ -779,9 +811,18 @@ def phase_train(kg, device):
     for s in STRUCTURE_NAMES:
         train_q += sampler.sample_queries(s, 256, n_neg=32)
         val_q += sampler.sample_queries(s, 64, n_neg=64)
-    train_q = group_queries_by_formula(train_q)
-    val_q = group_queries_by_formula(val_q)
     log(f"setup: sampled train/val queries {time.perf_counter() - t0:.2f} s")
+    return group_queries_by_formula(train_q), group_queries_by_formula(val_q)
+
+
+def phase_train(kg, train_q, val_q, device):
+    """``run_train`` on the card through K1/K2 with one validation round
+    (K3).  Returns (K1 launches, K2 launches)."""
+    from mpqe_tpu_torch.data.store import build_stores
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+    from mpqe_tpu_torch.train import loop as loop_mod
 
     cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
     # burn-in off: no structure is named "none", so every structure
@@ -859,9 +900,9 @@ def phase_train(kg, device):
     return k1, k2
 
 
-def phase_train_cli() -> None:
-    """``python -m mpqe_tpu_torch.train`` on the card as a subprocess:
-    its final line and its run dir."""
+def phase_train_cli(kernel_args) -> None:
+    """``python -m mpqe_tpu_torch.train`` with ``kernel_args`` on the card
+    as a subprocess: its final line and its run dir."""
     import os
     import re
     import tempfile
@@ -869,8 +910,7 @@ def phase_train_cli() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         run_dir = os.path.join(tmp, "run")
         cmd = [sys.executable, "-m", "mpqe_tpu_torch.train",
-               "--data", "synthetic", "--kernel", "fused_fwd",
-               "--fused_backward", "pallas", "--steps", "20",
+               "--data", "synthetic", *kernel_args, "--steps", "20",
                "--val_every", "10", "--num_bases", "16", "--n_neg", "4",
                "--syn_entities", "20000", "--syn_modes", "4",
                "--syn_rels", "20", "--syn_triples", "60000",
@@ -880,7 +920,7 @@ def phase_train_cli() -> None:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=600)
         last = (proc.stdout.strip().splitlines() or [""])[-1]
-        log(f"train.cli: rc={proc.returncode} "
+        log(f"train.cli {' '.join(kernel_args)}: rc={proc.returncode} "
             f"{time.perf_counter() - t0:.2f} s: {last}")
         if proc.returncode != 0:
             raise AssertionError(f"train CLI failed:\n{proc.stderr[-4000:]}")
@@ -897,13 +937,507 @@ def phase_train_cli() -> None:
             f"metrics.jsonl, ckpt/{','.join(ckpts)}")
 
 
+# ----------------------------------------------------------------------
+# The sparse path: K5a / K5b (relation chunks) and K6a / K6b (blocked)
+# ----------------------------------------------------------------------
+K5_KERNELS = ("msg_kernel",)
+K6A_KERNELS = ("blocked_forward_kernel",)
+K6B_KERNELS = ("grad_s_kernel", "grad_dcoeff_kernel", "grad_dbasis_kernel",
+               "reduce_partials_kernel")
+
+
+def general_store(cfg):
+    """The reference's own kernel-bench graph
+    (mpqe_tpu/ops/pallas_rgcn_blocked.py:57-58): GENERAL_NODES nodes and
+    GENERAL_EDGES random typed edges, relation-sorted."""
+    from mpqe_tpu_torch.ops.edge_store import build_edge_store
+
+    rng = np.random.default_rng(5)
+    n, e = GENERAL_NODES, GENERAL_EDGES
+    return build_edge_store(rng.integers(0, n, e), rng.integers(0, n, e),
+                            rng.integers(0, cfg.n_rels, e), n, cfg.n_rels)
+
+
+def template_rel_norm(gen, cfg, structure):
+    from mpqe_tpu_torch.queries import STRUCTURES
+
+    ne = STRUCTURES[structure].n_edges
+    er = torch.randint(0, cfg.n_rels, (ne,), generator=gen,
+                       device=gen.device, dtype=torch.int32)
+    return er, 0.5 + torch.rand((ne,), generator=gen, device=gen.device)
+
+
+def k5_work(n_edges_pad: int, n_real: int, K: int, N: int, n_chunks: int,
+            weight_bytes: int, coeff_bytes: int) -> tuple:
+    """(bytes, bf16 FLOP, f32 FLOP) of one K5 launch: the gathered rows
+    (xs), their src ids and norms, the chunk coefficients (K5a) or
+    relation ids (K5b), the weights (the basis once, or each distinct
+    relation's W once) and the f32 output, each once; 2 K N f32 FLOP per
+    real edge (padding edges need none)."""
+    nbytes = (n_edges_pad * (K * 4 + 4 + 4 + N * 4) + coeff_bytes
+              + weight_bytes)
+    return nbytes, 0, 2 * n_real * K * N
+
+
+def k6_work(n_edges_pad: int, n_chunks: int, n_real: int, n_rows: int,
+            K: int, N: int, bb: int, n_rels: int, grad: bool) -> tuple:
+    """(bytes, bf16 FLOP, f32 FLOP) of one K6a (or K6b) launch: bf16 x
+    (and g), bf16 basis, f32 coeff, the per-edge src/dst/rel/norm and the
+    per-chunk block ids, the f32 output (or dbasis and dcoeff), each once;
+    2 E Bb K N bf16 FLOP over the real edges for K6a (the products
+    ``xs @ V_b``), twice that for K6b (those and ``xs^T rhs``), plus the
+    f32 work outside those products: for K6a the coefficient scaling and
+    sum over bases, the norm and the destination sum; for K6b ``gn``, the
+    ``s_eb`` dot products and the ``rhs`` scaling."""
+    edges = n_edges_pad * 16 + n_chunks * 8
+    params = bb * K * N * 2 + n_rels * bb * 4
+    if not grad:
+        return (n_rows * K * 2 + params + edges + n_rows * N * 4,
+                2 * n_real * bb * K * N, n_real * (2 * bb * N + 2 * N))
+    return (n_rows * (K + N) * 2 + params + edges + bb * K * N * 4
+            + n_rels * bb * 4, 4 * n_real * bb * K * N,
+            n_real * (bb * 3 * N + N))
+
+
+def add_case(acc: dict, ms, plain_ms, lib_ms, work, dev_ms=0.0):
+    t_bytes, t_ops = bound_times(work)
+    acc["ms"] += ms
+    acc["plain_ms"] += plain_ms
+    acc["library_ms"] += lib_ms
+    acc["device_ms"] += dev_ms
+    acc["bound_ms"] += max(t_bytes, t_ops)
+    acc["bytes_ms"] += t_bytes
+    acc["ops_ms"] += t_ops
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def new_acc() -> dict:
+    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                bytes_ms=0.0, ops_ms=0.0, library_ms=0.0, device_ms=0.0)
+
+
+def finish_acc(acc: dict) -> dict:
+    """The JSON fields of an accumulator (sums over the 7 structures at
+    the train batch)."""
+    acc = dict(acc)
+    by = "bytes" if acc.pop("bytes_ms") >= acc.pop("ops_ms") else \
+        "operations"
+    acc.pop("device_ms")
+    return {**acc, "bound_by": by}
+
+
+def work_line(ms, dev_ms, plain_ms, lib_ms, bound, by, work) -> str:
+    return (f"kernel_ms={ms:.4f} device_ms={dev_ms:.4f} "
+            + (f"plain_ms={plain_ms:.4f} " if plain_ms is not None else "")
+            + f"library_ms={lib_ms:.4f} bound_ms={bound:.6f} ({by}: "
+            f"{work[0]} B, {work[1]} bf16 FLOP, {work[2]} f32 FLOP)")
+
+
+def k5_cases(cfg, gen, device):
+    """(label, B, chunked dict on the card, n_nodes) for the 7 structures
+    at the train batch and the flagship train batch, then the general
+    graph (chunk_by_relation, padded chunks)."""
+    from mpqe_tpu_torch.ops import rgcn_fused as rf
+    from mpqe_tpu_torch.ops import template_layout as tl
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES, STRUCTURES
+
+    for B in (TRAIN_BATCH, TRAIN_BIG):
+        for s in STRUCTURE_NAMES:
+            er, en = template_rel_norm(gen, cfg, s)
+            yield s, B, tl.template_chunked(s, er, en, B), \
+                B * STRUCTURES[s].n_nodes
+    ch = rf.chunk_by_relation(general_store(cfg))
+    yield "general", 0, {k: (torch.from_numpy(v).to(device)
+                             if isinstance(v, np.ndarray) else v)
+                         for k, v in ch.items()}, GENERAL_NODES
+
+
+def phase_rgcn_fused(layer_b, layer_f, cfg, device, gen, flush):
+    """K5a (basis layer) and K5b (full-weight layer) against their plain
+    versions (<= TOL_PLAIN) and the f32 batched oracle (<= TOL_ORACLE),
+    times beside the bound, the plain version and the torch.bmm
+    yardstick.  Returns both kernels' JSON fields (launches excluded)."""
+    from mpqe_tpu_torch.ops import rgcn_fused as rf
+
+    d, R = cfg.embed_dim, cfg.n_rels
+    basis = layer_b.basis.detach()
+    coeff = layer_b.coeff.detach()
+    w_rel = layer_f.w_rel.detach()
+    eye = torch.eye(R, device=device)
+    accs = {"K5a": new_acc(), "K5b": new_acc()}
+    big = {"K5a": [], "K5b": []}
+    for label, B, ch, n in k5_cases(cfg, gen, device):
+        src = ch["src"].to(torch.int32).contiguous()
+        norm = ch["norm"].float().contiguous()
+        crel = ch["chunk_rel"].to(torch.int32).contiguous()
+        chunk = ch["chunk"]
+        n_chunks = crel.shape[0]
+        x = torch.randn((n, d), generator=gen, device=device)
+        valid = crel < R
+        n_real = int((norm != 0).sum())
+        for kid in ("K5a", "K5b"):
+            if kid == "K5a":
+                c = rf._masked_chunk_coeff(coeff, crel, R).contiguous()
+                w, fn, ref = basis, rf.messages_basis, \
+                    rf.messages_basis_reference
+                oracle_w, oracle_c = basis, coeff
+                weight_bytes = basis.numel() * 4
+                coeff_bytes = n_chunks * basis.shape[0] * 4
+                w_c = rf.combine_basis(basis, c)
+            else:
+                c = crel.clamp(0, R - 1)
+                w, fn, ref = w_rel, rf.messages_wrel, \
+                    rf.messages_wrel_reference
+                oracle_w, oracle_c = w_rel, eye
+                weight_bytes = int(torch.unique(crel[valid]).numel()) * d * d * 4
+                coeff_bytes = n_chunks * 4
+                w_c = w_rel[c.long()]
+            with torch.no_grad():
+                got = fn(x, src, w, c, norm, chunk)
+                plain = ref(x, src, w, c, norm, chunk)
+                oracle = rf._edge_messages_xla(x, oracle_w, oracle_c, src,
+                                               norm, crel, R, chunk)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{kid} {label} B={B}: non-finite")
+            e_plain, e_orc = rel_err(got, plain), rel_err(got, oracle)
+            accs[kid]["max_abs_err"] = max(accs[kid]["max_abs_err"], float(
+                (got - plain).abs().max()))
+            line = (f"kernel.rgcn_fused {kid} {label:14s} B={B:6d} "
+                    f"E={src.shape[0]} err_vs_plain={e_plain:.3e} "
+                    f"err_vs_f32_oracle={e_orc:.3e}")
+            if e_plain > TOL_PLAIN or e_orc > TOL_ORACLE:
+                log(line + " FAIL")
+                raise AssertionError(line)
+            iters = ITERS if B == TRAIN_BATCH else BIG_ITERS
+            xs_c = x[src.long().clamp(0, n - 1)].view(-1, chunk, d)
+            with torch.no_grad():
+                ms = time_ms(lambda: fn(x, src, w, c, norm, chunk), iters,
+                             flush)
+                k_ms = device_ms(lambda: fn(x, src, w, c, norm, chunk),
+                                 iters, flush, K5_KERNELS)
+                plain_ms = time_ms(lambda: ref(x, src, w, c, norm, chunk),
+                                   PLAIN_ITERS if B == TRAIN_BATCH else 1,
+                                   flush)
+                lib_ms = time_ms(lambda: torch.bmm(xs_c, w_c), iters, flush)
+            work = k5_work(src.shape[0], n_real, d, d, n_chunks,
+                           weight_bytes, coeff_bytes)
+            if B == TRAIN_BATCH:
+                bound, by = add_case(accs[kid], ms, plain_ms, lib_ms, work,
+                                     k_ms)
+            else:
+                t_b, t_o = bound_times(work)
+                bound, by = max(t_b, t_o), ("bytes" if t_b >= t_o
+                                            else "operations")
+                big[kid].append((label, ms))
+            log(line + " " + work_line(ms, k_ms, plain_ms, lib_ms, bound, by,
+                                       work))
+            del got, plain, oracle, xs_c, w_c
+        del x
+    fields = {}
+    for kid, acc in accs.items():
+        log(f"kernel.rgcn_fused {kid} sum of 7 at B={TRAIN_BATCH}: "
+            f"kernel_ms={acc['ms']:.4f} device_ms={acc['device_ms']:.4f} "
+            f"plain_ms={acc['plain_ms']:.4f} "
+            f"library_ms={acc['library_ms']:.4f} "
+            f"bound_ms={acc['bound_ms']:.6f}; at B={TRAIN_BIG}: kernel_ms="
+            f"{sum(m for lb, m in big[kid] if lb != 'general'):.4f}")
+        fields[kid] = finish_acc(acc)
+    return fields
+
+
+def k6_cases(cfg, gen, device):
+    """(label, B, bucketed dict, n_nodes): template_blocked for the 7
+    structures at both batches, then bucket_edges_blocked of the general
+    graph at the defaults (off-diagonal buckets, padding chunks)."""
+    from mpqe_tpu_torch.ops import rgcn_blocked as rb
+    from mpqe_tpu_torch.ops import template_layout as tl
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES, STRUCTURES
+
+    for B in (TRAIN_BATCH, TRAIN_BIG):
+        for s in STRUCTURE_NAMES:
+            er, en = template_rel_norm(gen, cfg, s)
+            yield s, B, tl.template_blocked(s, er, en, B), \
+                B * STRUCTURES[s].n_nodes
+    yield "general", 0, rb.bucket_edges_blocked(general_store(cfg)), \
+        GENERAL_NODES
+
+
+def phase_rgcn_blocked(layer_b, cfg, device, gen, flush):
+    """K6a (forward and transpose layout) and K6b against their plain
+    versions (<= TOL_PLAIN), K6a against the f32 twin (<= TOL_F32, small
+    cases only: the twin materializes [E, Bb, d]), times beside the bound,
+    the plain version and a cuBLAS yardstick.  Returns both kernels'
+    JSON fields (launches excluded)."""
+    from mpqe_tpu_torch.ops import rgcn_blocked as rb
+
+    d, R = cfg.embed_dim, cfg.n_rels
+    basis = layer_b.basis.detach()
+    coeff = layer_b.coeff.detach()
+    bb = basis.shape[0]
+    v_cat = basis.permute(1, 0, 2).reshape(d, bb * d).to(torch.bfloat16)
+    accs = {"K6a": new_acc(), "K6b": new_acc()}
+    big = {"K6a": [], "K6b": []}
+    for label, B, bk, n in k6_cases(cfg, gen, device):
+        lay = rb.layout_on(bk, device)
+        t_lay = rb.layout_on(bk, device, "t_")
+        x = torch.randn((n, d), generator=gen, device=device)
+        g = torch.randn((n, d), generator=gen, device=device)
+        E = lay["src_local"].shape[0]
+        n_chunks = lay["chunk_dst_blk"].shape[0]
+        n_real = int((lay["rel"] < R).sum())
+        with torch.no_grad():
+            got = rb.messages_blocked(x, basis, coeff, lay, R)
+            got_t = rb.messages_blocked(g, basis.transpose(1, 2), coeff,
+                                        t_lay, R)
+            got_g = rb.grad_blocked(x, g, basis, coeff, lay, R)
+            plain = rb.messages_blocked_reference(x, basis, coeff, lay, R, n)
+            plain_t = rb.messages_blocked_reference(
+                g, basis.transpose(1, 2), coeff, t_lay, R, n)
+            plain_g = rb.grad_blocked_reference(x, g, basis, coeff, lay, R)
+        torch.cuda.synchronize()
+        for t in (got, got_t, *got_g):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"K6 {label} B={B}: non-finite")
+        e_a = max(rel_err(got, plain), rel_err(got_t, plain_t))
+        e_b = max(rel_err(a, b) for a, b in zip(got_g, plain_g))
+        accs["K6a"]["max_abs_err"] = max(
+            accs["K6a"]["max_abs_err"], float((got - plain).abs().max()),
+            float((got_t - plain_t).abs().max()))
+        accs["K6b"]["max_abs_err"] = max(accs["K6b"]["max_abs_err"], *(
+            float((a - b).abs().max()) for a, b in zip(got_g, plain_g)))
+        line = (f"kernel.rgcn_blocked {label:14s} B={B:6d} E={E} "
+                f"K6a_err_vs_plain={e_a:.3e} K6b_err_vs_plain={e_b:.3e}")
+        e_twin = None
+        if B == TRAIN_BATCH:
+            with torch.no_grad():
+                twin = rb._messages_xla_twin(
+                    x, basis, coeff, *(lay[k] for k in (
+                        "src_local", "dst_local", "rel", "norm",
+                        "chunk_src_blk", "chunk_dst_blk")), R,
+                    lay["node_block"], lay["chunk"])
+            e_twin = rel_err(got, twin)
+            line += f" K6a_err_vs_f32_twin={e_twin:.3e}"
+            del twin
+        if e_a > TOL_PLAIN or e_b > TOL_PLAIN or (
+                e_twin is not None and e_twin > TOL_F32):
+            log(line + " FAIL")
+            raise AssertionError(line)
+        log(line)
+        del plain, plain_t, plain_g
+        iters = ITERS if B == TRAIN_BATCH else BIG_ITERS
+        p_iters = PLAIN_ITERS_K6 if B == TRAIN_BATCH else 1
+        row, ok = rb._global_rows(lay, lay["src_local"], "chunk_src_blk", n)
+        xs16 = torch.where(ok[:, None], x[row], 0.0).to(torch.bfloat16)
+        rhs16 = torch.randn((E, bb * d), generator=gen, device=device).to(
+            torch.bfloat16)
+        cases = (
+            ("K6a", False, lambda: rb.messages_blocked(x, basis, coeff, lay,
+                                                       R),
+             lambda: rb.messages_blocked_reference(x, basis, coeff, lay, R,
+                                                   n),
+             lambda: torch.matmul(xs16, v_cat), K6A_KERNELS),
+            ("K6b", True, lambda: rb.grad_blocked(x, g, basis, coeff, lay, R),
+             lambda: rb.grad_blocked_reference(x, g, basis, coeff, lay, R),
+             lambda: (torch.matmul(xs16, v_cat),
+                      torch.matmul(xs16.t(), rhs16)), K6B_KERNELS))
+        for kid, grad, kfn, pfn, lfn, names in cases:
+            with torch.no_grad():
+                ms = time_ms(kfn, iters, flush)
+                k_ms = device_ms(kfn, iters, flush, names)
+                plain_ms = time_ms(pfn, p_iters, flush)
+                lib_ms = time_ms(lfn, iters, flush)
+            work = k6_work(E, n_chunks, n_real, n, d, d, bb, R, grad)
+            if B == TRAIN_BATCH:
+                bound, by = add_case(accs[kid], ms, plain_ms, lib_ms, work,
+                                     k_ms)
+            else:
+                t_b, t_o = bound_times(work)
+                bound, by = max(t_b, t_o), ("bytes" if t_b >= t_o
+                                            else "operations")
+                big[kid].append((label, ms))
+            log(f"kernel.rgcn_blocked {kid} {label:14s} B={B:6d} "
+                + work_line(ms, k_ms, plain_ms, lib_ms, bound, by, work))
+        del x, g, got, got_t, got_g, xs16, rhs16
+    fields = {}
+    for kid, acc in accs.items():
+        log(f"kernel.rgcn_blocked {kid} sum of 7 at B={TRAIN_BATCH}: "
+            f"kernel_ms={acc['ms']:.4f} device_ms={acc['device_ms']:.4f} "
+            f"plain_ms={acc['plain_ms']:.4f} "
+            f"library_ms={acc['library_ms']:.4f} "
+            f"bound_ms={acc['bound_ms']:.6f}; at B={TRAIN_BIG}: kernel_ms="
+            f"{sum(m for lb, m in big[kid] if lb != 'general'):.4f}")
+        fields[kid] = finish_acc(acc)
+    return fields
+
+
+class plain_sparse_kernels:
+    """Within the block, the K5 / K6 wrappers that the autograd Functions
+    of ``ops/rgcn_fused.py`` and ``ops/rgcn_blocked.py`` call are their
+    plain versions, on the card (the train-step recheck)."""
+
+    def __enter__(self):
+        from mpqe_tpu_torch.ops import rgcn_blocked as rb
+        from mpqe_tpu_torch.ops import rgcn_fused as rf
+
+        self.saved = (rf.messages_basis, rf.messages_wrel,
+                      rb.messages_blocked, rb.grad_blocked)
+        rf.messages_basis = rf.messages_basis_reference
+        rf.messages_wrel = rf.messages_wrel_reference
+        rb.messages_blocked = lambda x, basis, coeff, lay, n_rels: \
+            rb.messages_blocked_reference(x, basis, coeff, lay, n_rels,
+                                          x.shape[0])
+        rb.grad_blocked = rb.grad_blocked_reference
+        return self
+
+    def __exit__(self, *exc):
+        from mpqe_tpu_torch.ops import rgcn_blocked as rb
+        from mpqe_tpu_torch.ops import rgcn_fused as rf
+
+        (rf.messages_basis, rf.messages_wrel, rb.messages_blocked,
+         rb.grad_blocked) = self.saved
+        return False
+
+
+SPARSE_RUNS = {
+    # name: (kernel, num_bases, loss function name)
+    "train.fused": ("fused", 16, "dense_batch_loss_kernel_fused"),
+    "train.fused_full": ("fused", None, "dense_batch_loss_kernel_fused"),
+    "train.blocked": ("blocked", 16, "dense_batch_loss_kernel_blocked"),
+}
+
+
+def sparse_counters():
+    from mpqe_tpu_torch.ops import rgcn_blocked as rb
+    from mpqe_tpu_torch.ops import rgcn_fused as rf
+
+    return {"K5a": rf.messages_basis, "K5b": rf.messages_wrel,
+            "K6a": rb.messages_blocked, "K6b": rb.grad_blocked}
+
+
+def recheck_sparse_step(state, cfg, stores, device, loss_name, label):
+    """One step per structure from the trained state through the kernels
+    and through their plain versions on the card: same loss and gradients
+    (<= TOL_PLAIN relative, per leaf; the segment sums and the dx scatter
+    go through index_add_, whose atomics vary the last bits)."""
+    from mpqe_tpu_torch.data.store import pack_dense_batch_np
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    model = state.model
+    params = dict(model.named_parameters())
+    loss_fn = getattr(mpqe_mod, loss_name)
+    for structure, f_stores in stores.items():
+        fstore = max(f_stores, key=lambda f: f.n_queries)
+        batch = pack_dense_batch_np(
+            fstore, np.arange(min(fstore.n_queries, TRAIN_BATCH)),
+            TRAIN_BATCH, 4, 11)
+        t = loop_mod.batch_tensors(batch, device)
+        loss_k = loss_fn(model, cfg, structure, *t)
+        g_k = torch.autograd.grad(loss_k, list(params.values()),
+                                  allow_unused=True)
+        with plain_sparse_kernels():
+            loss_p = loss_fn(model, cfg, structure, *t)
+            g_p = torch.autograd.grad(loss_p, list(params.values()),
+                                      allow_unused=True)
+        lk, lp = float(loss_k.detach()), float(loss_p.detach())
+        e_loss = abs(lk - lp) / max(abs(lp), 1e-12)
+        e_grad = tree_rel_err(dict(zip(params, g_k)), dict(zip(params, g_p)))
+        line = (f"{label}.recheck {structure:14s} loss={lk:.6f} "
+                f"loss_err={e_loss:.3e} grad_err={e_grad:.3e}")
+        log(line)
+        if e_loss > TOL_PLAIN or e_grad > TOL_PLAIN or not np.isfinite(lk):
+            raise AssertionError(line)
+
+
+def phase_train_sparse(kg, train_q, device, label):
+    """``run_train`` on the card through the sparse path of ``label``
+    (:data:`SPARSE_RUNS`): launch counts equal to the expected counts,
+    finite losses, the plain-version recheck, step p50/p95 and a profile.
+    Returns the launches by kernel id."""
+    from mpqe_tpu_torch.data.store import build_stores
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    kernel, nb, loss_name = SPARSE_RUNS[label]
+    cfg = mpqe_mod.MPQEConfig(**dict(FLAGSHIP, num_bases=nb))
+    tc = loop_mod.TrainConfig(lr=0.01, batch_size=TRAIN_BATCH, n_neg=4,
+                              max_steps=SPARSE_STEPS, val_every=1 << 30,
+                              burn_in_structure="none", seed=0)
+    gen = torch.Generator(device=device).manual_seed(2)
+    state = loop_mod.init_train_state(gen, cfg, tc, device=device)
+    real = []
+    loss_impl = getattr(mpqe_mod, loss_name)
+
+    def loss_fn(*a):
+        real.append(a[-1].sum())
+        return loss_impl(*a)
+
+    t0 = time.perf_counter()
+    loop_mod.warmup_train_step(
+        lambda opt: loop_mod.make_train_step(cfg, opt, loss_fn), cfg, tc,
+        STRUCTURE_NAMES, device)
+    torch.cuda.synchronize()
+    log(f"{label}: setup: warmup (one throwaway step per structure) "
+        f"{time.perf_counter() - t0:.2f} s")
+    counters = sparse_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    real.clear()
+    records = []
+    t0 = time.perf_counter()
+    loop_mod.run_train(state, cfg, tc, train_q, log_fn=records.append,
+                       batch_loss_fn=loss_fn, kg=kg)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    steps = [r for r in records if "loss" in r]
+    losses = [r["loss"] for r in steps]
+    # per step, each of the structure's num_steps layers launches K5 twice
+    # (forward, dxs) or K6a twice (forward, dx) and K6b once
+    layers = sum(mpqe_mod.num_steps(cfg, r["structure"]) for r in steps)
+    if kernel == "fused":
+        want = {"K5a": 2 * layers if nb else 0,
+                "K5b": 0 if nb else 2 * layers, "K6a": 0, "K6b": 0}
+    else:
+        want = {"K5a": 0, "K5b": 0, "K6a": 2 * layers, "K6b": layers}
+    log(f"{label}: {state.step} steps in {wall:.2f} s; launches "
+        + " ".join(f"{k}={v}" for k, v in launches.items())
+        + f" (expected {' '.join(f'{k}={v}' for k, v in want.items())}); "
+        f"loss first={losses[0]:.6f} last={losses[-1]:.6f}")
+    if len(losses) != SPARSE_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: {len(losses)} steps, finite: "
+                             f"{all(np.isfinite(losses))}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} != {want}")
+    ms = np.asarray([r["seconds"] * 1e3 for r in steps])
+    n_real = int(torch.stack(real).sum())
+    log(f"{label}: {len(ms)} steps of batch {TRAIN_BATCH} on "
+        f"{torch.cuda.get_device_name(device)}: "
+        f"step_ms_p50={np.percentile(ms, 50):.3f} "
+        f"step_ms_p95={np.percentile(ms, 95):.3f} "
+        f"train_queries_per_s={n_real / ms.sum() * 1e3:.1f} "
+        f"({n_real} real rows of {len(ms) * TRAIN_BATCH}) "
+        f"padded_rows_per_s={len(ms) * TRAIN_BATCH / ms.sum() * 1e3:.1f}")
+    stores = build_stores(train_q, kg=kg)
+    recheck_sparse_step(state, cfg, stores, device, loss_name, label)
+    ptc = dataclasses.replace(tc, max_steps=PROFILE_STEPS)
+    profile_device(f"{label}.profile ({PROFILE_STEPS} steps)",
+                   lambda: loop_mod.run_train(state, cfg, ptc, train_q,
+                                              batch_loss_fn=loss_fn, kg=kg),
+                   also=K5_KERNELS + K6A_KERNELS + K6B_KERNELS)
+    return launches
+
+
 def build_kernels() -> None:
-    """Build both kernel libraries at once (one nvcc each, in parallel)
-    and print what ptxas reports of registers and spills."""
+    """Build the four kernel libraries at once (one nvcc each, in
+    parallel) and print what ptxas reports of registers and spills."""
     import threading
 
     from mpqe_tpu_torch.ops import cuda_build
     from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.ops import rgcn_blocked as rb
+    from mpqe_tpu_torch.ops import rgcn_fused as rf
 
     errors = []
 
@@ -915,15 +1449,16 @@ def build_kernels() -> None:
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=build, args=(fn,))
-               for fn in (ff._kernel, ff._tgt_kernel)]
+               for fn in (ff._kernel, ff._tgt_kernel, rf._kernel, rb._kernel)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    log(f"build: fused_multi + fused_tgt {time.perf_counter() - t0:.2f} s")
-    for name in ("fused_multi", "fused_tgt"):
+    names = ("fused_multi", "fused_tgt", "rgcn_fused", "rgcn_blocked")
+    log(f"build: {' + '.join(names)} {time.perf_counter() - t0:.2f} s")
+    for name in names:
         for ln in cuda_build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln:
                 log(f"build: {name}: {ln.strip()}")
@@ -962,6 +1497,14 @@ def main() -> int:
 
     fields = phase_kernel(model, cfg, ops, device, gen, flush)
     tgt_fields = phase_fused_tgt(model, cfg, device, gen, flush)
+    from mpqe_tpu_torch.ops import rgcn as rgcn_ops
+
+    full_layer = rgcn_ops.init_rgcn_layer(gen, cfg.embed_dim, cfg.embed_dim,
+                                          cfg.n_rels, None, device=device)
+    k5_fields = phase_rgcn_fused(model.layers[0], full_layer, cfg, device,
+                                 gen, flush)
+    k6_fields = phase_rgcn_blocked(model.layers[0], cfg, device, gen, flush)
+    del full_layer
 
     t0 = time.perf_counter()
     kg = make_random_kg(**KG)
@@ -972,8 +1515,14 @@ def main() -> int:
         raise AssertionError("KG does not match the flagship model")
     launches = phase_serve(model, cfg, ops, kg, device)
     del model, ops
-    k1, k2 = phase_train(kg, device)
-    phase_train_cli()
+    train_q, val_q = sample_train_queries(kg)
+    k1, k2 = phase_train(kg, train_q, val_q, device)
+    sparse = {}
+    for label in SPARSE_RUNS:
+        for kid, n in phase_train_sparse(kg, train_q, device, label).items():
+            sparse[kid] = sparse.get(kid, 0) + n
+    phase_train_cli(["--kernel", "fused_fwd", "--fused_backward", "pallas"])
+    phase_train_cli(["--kernel", "blocked"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -995,6 +1544,23 @@ def main() -> int:
             "replaces": f"mpqe_tpu/ops/pallas_fused_fwd.py:{line}",
             "launches": n,
             **tgt_fields[kind],
+        })
+    for kid, name, source, line, fl in (
+            ("K5a", "rgcn_messages_basis", "rgcn_fused.cu",
+             "pallas_rgcn.py:145", k5_fields),
+            ("K5b", "rgcn_messages_wrel", "rgcn_fused.cu",
+             "pallas_rgcn.py:193", k5_fields),
+            ("K6a", "rgcn_messages_blocked", "rgcn_blocked.cu",
+             "pallas_rgcn_blocked.py:253", k6_fields),
+            ("K6b", "rgcn_grad_blocked", "rgcn_blocked.cu",
+             "pallas_rgcn_blocked.py:384", k6_fields)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"mpqe_tpu_torch/csrc/{source}",
+            "replaces": f"mpqe_tpu/ops/{line}",
+            "launches": sparse[kid],
+            **fl[kid],
         })
     log(f"kernels: {[k['name'] for k in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -43,6 +43,18 @@ def embed_nodes_dense(emb: Embeddings, node_entity: torch.Tensor,
     return x_var * m + x_ent * (1.0 - m)
 
 
+def embed_nodes_sparse(emb: Embeddings, node_entity: torch.Tensor,
+                       node_mode: torch.Tensor,
+                       node_is_var: torch.Tensor) -> torch.Tensor:
+    """Initial features ``[N, d]`` of a flat (sparse) node list: the entity
+    row, or the per-mode variable row where ``node_is_var`` is 1 (ids
+    clamped, as the reference's gathers do)."""
+    x_ent = emb.ent[node_entity.long().clamp(0, emb.ent.shape[0] - 1)]
+    x_var = emb.var[node_mode.long().clamp(0, emb.var.shape[0] - 1)]
+    m = node_is_var.to(x_ent.dtype)[:, None]
+    return x_var * m + x_ent * (1.0 - m)
+
+
 def embed_nodes_template(emb: Embeddings, node_entity: torch.Tensor,
                          node_mode: torch.Tensor, anchor_slots, n_nodes: int,
                          anchor_rows=None) -> torch.Tensor:

@@ -8,7 +8,8 @@ one (``convert.py``).  The forward functions are plain functions with the
 reference's signatures: the per-query-relation encoder that serving and
 evaluation run, the shared-relation dense encoder and its fused-kernel
 form (K1 forward, K2 or a recomputation backward) that training runs, and
-the margin losses.  The sparse path comes with a later slice.
+the margin losses, and the sparse encoders (``encode_sparse``, and its
+K5 and K6 forms behind ``--kernel fused`` and ``--kernel blocked``).
 """
 
 from __future__ import annotations
@@ -385,6 +386,140 @@ def encode_dense_multi_auto(
             edge_norm_q, operands=operands)
     return encode_dense_multi(model, cfg, structure, node_entity, node_mode,
                               edge_rel_q, edge_norm_q)
+
+
+def _sparse_encode(model: MPQE, cfg: MPQEConfig, structure: str,
+                   node_entity, node_mode, node_is_var, node_query,
+                   target_node, n_queries: int, layer) -> torch.Tensor:
+    """Embed a flat node list, run ``layer(x, layer_params)`` for the
+    structure's depth (all layers for structure "") with ReLU between
+    layers, read out → ``[n_queries, d]``."""
+    x = emb_mod.embed_nodes_sparse(model.emb, node_entity, node_mode,
+                                   node_is_var)
+    steps = num_steps(cfg, structure) if structure else cfg.n_layers
+    for li in range(steps):
+        x = layer(x, model.layers[li])
+        if li < steps - 1:
+            x = torch.relu(x)
+    n_tpl = STRUCTURES[structure].n_nodes if structure else None
+    return readout_mod.readout_sparse(cfg.readout, model.readout, x,
+                                      node_query, target_node, n_queries,
+                                      n_template_nodes=n_tpl)
+
+
+def encode_sparse(model: MPQE, cfg: MPQEConfig, structure: str,
+                  node_entity, node_mode, node_is_var, edge_src, edge_dst,
+                  edge_rel, edge_norm, node_query, target_node,
+                  n_queries: int, segment_backend: str = "xla"
+                  ) -> torch.Tensor:
+    """Sparse forward over a flat node and edge list (reference
+    ``encode_sparse``): layers of ``rgcn_sparse``.  Only the ``"xla"``
+    segment backend is ported."""
+    if segment_backend != "xla":
+        raise NotImplementedError(
+            f"segment_backend={segment_backend!r}: the Pallas segment "
+            "kernels K4a/K4b are not ported yet; ROADMAP Queue 1 item 7")
+    return _sparse_encode(
+        model, cfg, structure, node_entity, node_mode, node_is_var,
+        node_query, target_node, n_queries,
+        lambda x, lp: rgcn_ops.rgcn_sparse(x, lp, edge_src, edge_dst,
+                                           edge_rel, edge_norm, cfg.n_rels))
+
+
+def encode_sparse_fused(model: MPQE, cfg: MPQEConfig, structure: str,
+                        node_entity, node_mode, node_is_var, chunked,
+                        node_query, target_node,
+                        n_queries: int) -> torch.Tensor:
+    """:func:`encode_sparse` with each layer through K5
+    (``ops/rgcn_fused.py:rgcn_sparse_fused``) over a relation-chunked
+    edge layout.  Every layer runs over every node (no TGT pruning)."""
+    from mpqe_tpu_torch.ops import rgcn_fused
+
+    return _sparse_encode(
+        model, cfg, structure, node_entity, node_mode, node_is_var,
+        node_query, target_node, n_queries,
+        lambda x, lp: rgcn_fused.rgcn_sparse_fused(
+            x, lp, chunked, cfg.n_rels).to(cfg.dtype))
+
+
+def encode_sparse_blocked(model: MPQE, cfg: MPQEConfig, structure: str,
+                          node_entity, node_mode, node_is_var, bucketed,
+                          node_query, target_node,
+                          n_queries: int) -> torch.Tensor:
+    """:func:`encode_sparse` with each layer through K6
+    (``ops/rgcn_blocked.py:rgcn_sparse_blocked``, bf16 products) over a
+    (dst block, src block) bucketed layout; basis layers only."""
+    from mpqe_tpu_torch.ops import rgcn_blocked
+
+    return _sparse_encode(
+        model, cfg, structure, node_entity, node_mode, node_is_var,
+        node_query, target_node, n_queries,
+        lambda x, lp: rgcn_blocked.rgcn_sparse_blocked(
+            x, lp, bucketed, cfg.n_rels).to(cfg.dtype))
+
+
+def _sparse_view_on_device(structure: str, node_entity: torch.Tensor,
+                           node_mode: torch.Tensor):
+    """A dense template batch as the sparse view's node arrays, made on
+    the batch's device: ``(node_entity [B n], node_mode [B n],
+    node_is_var [B n], node_query [B n], target_node [B], B)``."""
+    spec = STRUCTURES[structure]
+    B, n = node_entity.shape
+    dev = node_entity.device
+    is_var = torch.zeros((n,), dtype=torch.float32, device=dev)
+    is_var[list(spec.free_slots)] = 1.0
+    node_query = torch.div(torch.arange(B * n, dtype=torch.int32,
+                                        device=dev), n, rounding_mode="floor")
+    target_node = (torch.arange(B, dtype=torch.int32, device=dev) * n
+                   + spec.target_slot)
+    return (node_entity.reshape(-1), node_mode.reshape(-1),
+            is_var.repeat(B), node_query, target_node, B)
+
+
+def dense_batch_loss_kernel_fused(model: MPQE, cfg: MPQEConfig,
+                                  structure: str, node_entity, node_mode,
+                                  edge_rel, edge_norm, target, negatives,
+                                  neg_mask, query_mask,
+                                  chunk: int = 512) -> torch.Tensor:
+    """:func:`dense_batch_loss` routed through K5 (``--kernel fused``):
+    the batch's relation-chunked layout is made on the device
+    (``ops/template_layout.py:template_chunked``) and the encoder is
+    :func:`encode_sparse_fused`."""
+    from mpqe_tpu_torch.ops import template_layout
+
+    ne_f, nm_f, niv, nq, tn, B = _sparse_view_on_device(
+        structure, node_entity, node_mode)
+    chunked = template_layout.template_chunked(structure, edge_rel,
+                                               edge_norm, B, chunk)
+    q = encode_sparse_fused(model, cfg, structure, ne_f, nm_f, niv, chunked,
+                            nq, tn, B)
+    return margin_loss_from_queries(model, cfg, q, target, negatives,
+                                    neg_mask, query_mask)
+
+
+def dense_batch_loss_kernel_blocked(model: MPQE, cfg: MPQEConfig,
+                                    structure: str, node_entity, node_mode,
+                                    edge_rel, edge_norm, target, negatives,
+                                    neg_mask, query_mask,
+                                    queries_per_block: int = 512,
+                                    chunk: int = 512) -> torch.Tensor:
+    """:func:`dense_batch_loss` routed through K6 (``--kernel blocked``):
+    diagonal query-aligned node blocks
+    (``ops/template_layout.py:template_blocked``) and
+    :func:`encode_sparse_blocked`.  Requires basis decomposition."""
+    from mpqe_tpu_torch.ops import template_layout
+
+    if cfg.num_bases is None:
+        raise ValueError("--kernel blocked requires num_bases > 0")
+    ne_f, nm_f, niv, nq, tn, B = _sparse_view_on_device(
+        structure, node_entity, node_mode)
+    bucketed = template_layout.template_blocked(
+        structure, edge_rel, edge_norm, B,
+        queries_per_block=queries_per_block, chunk=chunk)
+    q = encode_sparse_blocked(model, cfg, structure, ne_f, nm_f, niv,
+                              bucketed, nq, tn, B)
+    return margin_loss_from_queries(model, cfg, q, target, negatives,
+                                    neg_mask, query_mask)
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:

@@ -76,3 +76,34 @@ def readout_dense(kind: str, ro: Readout, x: torch.Tensor,
         pooled = torch.sum(h, dim=1)
         return pooled @ ro.w_post + ro.b_post
     raise ValueError(kind)
+
+
+def readout_sparse(kind: str, ro: Readout, x: torch.Tensor,
+                   node_query: torch.Tensor, target_node: torch.Tensor,
+                   n_queries: int, n_template_nodes=None,
+                   segment_backend: str = "xla") -> torch.Tensor:
+    """Flat ``x [N, d]`` with a ``node_query [N]`` segment map ->
+    ``[n_queries, d]``.  ``concat`` needs a slot-regular batch
+    (``n_template_nodes`` nodes per query, in query order)."""
+    from mpqe_tpu_torch.ops import segment as segment_ops
+
+    if kind == "tgt":
+        return x[target_node.long().clamp(0, x.shape[0] - 1)]
+    if kind == "sum":
+        return segment_ops.segment_sum(x, node_query, n_queries,
+                                       backend=segment_backend)
+    if kind == "max":
+        return segment_ops.segment_max(x, node_query, n_queries,
+                                       backend=segment_backend)
+    if kind == "concat":
+        n = n_template_nodes
+        if n is None:
+            raise ValueError("concat readout needs n_template_nodes")
+        return readout_dense(kind, ro, x.reshape(n_queries, n, x.shape[-1]),
+                             0)
+    if kind == "mlp":
+        h = torch.relu(x @ ro.w_pre + ro.b_pre)
+        pooled = segment_ops.segment_sum(h, node_query, n_queries,
+                                         backend=segment_backend)
+        return pooled @ ro.w_post + ro.b_post
+    raise ValueError(kind)

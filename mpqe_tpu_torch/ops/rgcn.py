@@ -6,7 +6,10 @@
 
 A layer is an ``nn.Module`` whose parameter names are the reference's
 leaf names: ``w_self``, ``bias`` and either ``basis``/``coeff`` or
-``w_rel``.  The sparse R-GCN paths come with the sparse slice.
+``w_rel``.  Two layer forms: ``rgcn_dense_template`` (B copies of a
+static query template) and the general sparse ``rgcn_sparse`` /
+``rgcn_sparse_relblock`` (the f32 oracles of the sparse kernels in
+``ops/rgcn_fused.py`` and ``ops/rgcn_blocked.py``).
 """
 
 from __future__ import annotations
@@ -89,6 +92,55 @@ def _edge_weights(layer: RGCNLayer, edge_rel: torch.Tensor) -> torch.Tensor:
         return layer.w_rel[edge_rel.long()]
     coeff = layer.coeff[edge_rel.long()]  # [E, B]
     return torch.einsum("eb,bio->eio", coeff, layer.basis)
+
+
+def rgcn_sparse(x: torch.Tensor, layer: RGCNLayer, edge_src: torch.Tensor,
+                edge_dst: torch.Tensor, edge_rel: torch.Tensor,
+                edge_norm: torch.Tensor, n_rels: int,
+                segment_backend: str = "xla") -> torch.Tensor:
+    """One R-GCN layer over an arbitrary padded edge list (reference
+    ``rgcn_sparse``, the f32 oracle of the sparse kernels).  Basis-first:
+    ``H[n, b] = x[n] @ V_b``, ``msg_e = sum_b a[rel_e, b] H[src_e, b]``,
+    scaled by ``norm_e`` and summed into ``dst_e``.  ``src`` and ``rel``
+    are clamped; padding edges carry ``dst == N`` (dropped by the segment
+    sum) and ``norm == 0``.  A full-weight layer is treated as R one-hot
+    "bases"."""
+    from mpqe_tpu_torch.ops import segment as segment_ops
+
+    n_nodes = x.shape[0]
+    src_c = edge_src.long().clamp(0, n_nodes - 1)
+    rel_cl = edge_rel.long().clamp(0, n_rels - 1)
+    if layer.w_rel is not None:
+        basis = layer.w_rel
+        coeff_e = torch.nn.functional.one_hot(
+            rel_cl, basis.shape[0]).to(x.dtype)  # [E, R]
+    else:
+        basis = layer.basis
+        coeff_e = layer.coeff[rel_cl]  # [E, B]
+    h_b = torch.einsum("nd,bdo->nbo", x, basis)
+    msg = torch.einsum("eb,ebo->eo", coeff_e, h_b[src_c])
+    msg = msg * edge_norm[:, None].to(msg.dtype)
+    agg = segment_ops.segment_sum(msg, edge_dst, n_nodes,
+                                  backend=segment_backend)
+    return x @ layer.w_self + agg + layer.bias
+
+
+def rgcn_sparse_relblock(x: torch.Tensor, layer: RGCNLayer,
+                         edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                         edge_rel: torch.Tensor, edge_norm: torch.Tensor,
+                         n_rels: int) -> torch.Tensor:
+    """Relation-gathered variant: ``W_{rel_e}`` materialized per edge
+    (``[E, d, d]``; small E only), a second oracle for kernel tests."""
+    from mpqe_tpu_torch.ops import segment as segment_ops
+
+    n_nodes = x.shape[0]
+    w = relation_weights(layer)
+    w_e = w[edge_rel.long().clamp(0, n_rels - 1)]
+    xs = x[edge_src.long().clamp(0, n_nodes - 1)]
+    msg = torch.einsum("ed,edo->eo", xs, w_e)
+    msg = msg * edge_norm[:, None].to(msg.dtype)
+    agg = segment_ops.segment_sum(msg, edge_dst, n_nodes)
+    return x @ layer.w_self + agg + layer.bias
 
 
 def rgcn_dense_template(x: torch.Tensor, layer: RGCNLayer, edge_src,

@@ -1,0 +1,75 @@
+"""Segment reductions (sum / max / mean) over rows of an edge-shaped
+tensor (counterpart of ``mpqe_tpu/ops/segment.py``).
+
+Plain PyTorch only: the reference's ``backend="pallas"`` route (K4a/K4b,
+``mpqe_tpu/ops/pallas_segment.py``) is not ported yet and raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 7.
+
+As in the reference, rows whose segment id falls outside ``[0, n)`` are
+dropped (padding edges carry ``segment_id == n``); they are masked out
+before ``index_add_``, which would raise on them.  ``index_add_`` on a
+CUDA tensor sums with atomics, so the last bits of a sum may differ from
+run to run there.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _check_backend(backend: str) -> None:
+    if backend != "xla":
+        raise NotImplementedError(
+            f"segment backend {backend!r}: the Pallas segment kernels K4a/K4b "
+            "are not ported yet; ROADMAP Queue 1 item 7")
+
+
+def _in_range(segment_ids: torch.Tensor, n: int):
+    ids = segment_ids.long()
+    ok = (ids >= 0) & (ids < n)
+    return ids, ok
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, backend: str = "xla") -> torch.Tensor:
+    """Sum rows of ``data [E, ...]`` into ``[num_segments, ...]``; rows with
+    an id outside ``[0, num_segments)`` are dropped."""
+    _check_backend(backend)
+    ids, ok = _in_range(segment_ids, num_segments)
+    out = data.new_zeros((num_segments, *data.shape[1:]))
+    return out.index_add(0, ids[ok], data[ok])
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, backend: str = "xla",
+                empty_value: float = 0.0) -> torch.Tensor:
+    """Max-reduce rows into segments; a segment that is empty (or whose max
+    is at or below ``NEG_INF / 2``) gets ``empty_value``."""
+    _check_backend(backend)
+    ids, ok = _in_range(segment_ids, num_segments)
+    out = data.new_full((num_segments, *data.shape[1:]), float("-inf"))
+    idx = ids[ok].view(-1, *([1] * (data.dim() - 1))).expand_as(data[ok])
+    out = out.scatter_reduce(0, idx, data[ok], reduce="amax",
+                             include_self=True)
+    return torch.where(out <= NEG_INF / 2,
+                       torch.full_like(out, empty_value), out)
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int, backend: str = "xla") -> torch.Tensor:
+    s = segment_sum(data, segment_ids, num_segments, backend=backend)
+    ones = data.new_ones((data.shape[0], 1))
+    cnt = segment_sum(ones, segment_ids, num_segments, backend=backend)
+    return s / torch.clamp(cnt, min=1.0)
+
+
+def segment_softmax_weights(logits: torch.Tensor, segment_ids: torch.Tensor,
+                            num_segments: int) -> torch.Tensor:
+    """Per-segment softmax over a flat ``[E]`` logit vector."""
+    ids = segment_ids.long().clamp(0, num_segments - 1)
+    m = segment_max(logits[:, None], segment_ids, num_segments)[:, 0]
+    e = torch.exp(logits - m[ids])
+    z = segment_sum(e[:, None], segment_ids, num_segments)[:, 0]
+    return e / torch.clamp(z[ids], min=1e-30)

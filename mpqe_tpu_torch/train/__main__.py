@@ -15,6 +15,7 @@ ROADMAP item.
 
   python -m mpqe_tpu_torch.train --data synthetic --kernel fused_fwd \\
       --fused_backward pallas --num_bases 16 --steps 2000
+  python -m mpqe_tpu_torch.train --kernel blocked --num_bases 16
   python -m mpqe_tpu_torch.train --device cpu --embed_dim 16 --steps 20
 """
 
@@ -85,9 +86,11 @@ def parse_args(argv=None):
     p.add_argument("--steps_per_call", type=int, default=1)
     p.add_argument("--kernel", default="dense",
                    choices=["dense", "fused", "blocked", "fused_fwd"],
-                   help="dense = f32 template encoder (default); fused_fwd "
-                        "= forward through K1, the hand-written CUDA "
-                        "kernel (needs --readout tgt)")
+                   help="dense = f32 template encoder (default); fused = "
+                        "sparse layers through K5; blocked = sparse bf16 "
+                        "layers through K6 (needs --num_bases); fused_fwd "
+                        "= forward through K1 (needs --readout tgt); K1, "
+                        "K5 and K6 are hand-written CUDA kernels")
     p.add_argument("--shared_negatives", type=int, default=0, metavar="K")
     p.add_argument("--self_adv_tau", type=float, default=0.0, metavar="TAU")
     p.add_argument("--fused_backward", default="xla",
@@ -130,8 +133,6 @@ def _refuse_unported(args) -> None:
     unported = [
         (args.model != "rgcn", f"--model {args.model}",
          "the GQE family is ROADMAP Queue 1 item 4"),
-        (args.kernel in ("fused", "blocked"), f"--kernel {args.kernel}",
-         "the sparse path and kernels K5/K6 are ROADMAP Queue 1 item 7"),
         (args.shared_negatives != 0, "--shared_negatives",
          "shared negatives are ROADMAP Queue 1 item 2"),
         (args.self_adv_tau != 0.0, "--self_adv_tau",
@@ -204,6 +205,8 @@ def main(argv=None):
     args = parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
+    if args.kernel == "blocked" and not args.num_bases:
+        raise SystemExit("--kernel blocked requires --num_bases")
     if args.kernel == "fused_fwd" and args.readout != "tgt":
         raise SystemExit("--kernel fused_fwd requires --readout tgt")
     run_dir = args.run_dir or os.path.join(
@@ -217,7 +220,10 @@ def main(argv=None):
         embed_dim=args.embed_dim, n_layers=args.n_layers,
         num_bases=args.num_bases or None, readout=args.readout,
         margin=args.margin)
-    batch_loss_fn = None
+    batch_loss_fn = {
+        "fused": mpqe_mod.dense_batch_loss_kernel_fused,
+        "blocked": mpqe_mod.dense_batch_loss_kernel_blocked,
+    }.get(args.kernel)
     if args.kernel == "fused_fwd":
         def batch_loss_fn(*a):
             return mpqe_mod.dense_batch_loss_kernel_fused_fwd(

@@ -1,6 +1,6 @@
-"""The CUDA kernels K1, K2, K3 and the served path on the card, against
-their plain versions.  Needs an NVIDIA GPU: every test here skips itself
-without one.
+"""The CUDA kernels K1, K2, K3, K5a, K5b, K6a, K6b and the served path on
+the card, against their plain versions.  Needs an NVIDIA GPU: every test
+here skips itself without one.
 
 This file imports no JAX (the machine with the card has none), so it
 runs there without the repository's conftest::
@@ -207,3 +207,139 @@ def test_cuda_k1_wrapper_checks_its_operands():
     for x, ws, bs in bad:
         with pytest.raises(ValueError):
             tff._chain_forward(x, ws, bs, 16)
+
+
+# ------------------------------------------------------------ K5 and K6
+def _sparse_layouts(d, nb, dev, seed=0):
+    """(name, K5 chunked dict, K6 bucketed dict, n_nodes): a template
+    batch (3-chain_inter, B = 512) and a general random graph (padded
+    chunks, off-diagonal buckets)."""
+    from mpqe_tpu_torch.ops import edge_store as tes
+    from mpqe_tpu_torch.ops import rgcn_blocked as tprb
+    from mpqe_tpu_torch.ops import rgcn_fused as tpr
+    from mpqe_tpu_torch.ops import template_layout as ttl
+
+    rng = np.random.default_rng(seed)
+    s = "3-chain_inter"
+    spec = STRUCTURES[s]
+    er = torch.from_numpy(rng.integers(0, N_RELS, spec.n_edges).astype(
+        np.int32)).to(dev)
+    en = torch.from_numpy(rng.uniform(0.5, 1.5, spec.n_edges).astype(
+        np.float32)).to(dev)
+    B = 512
+    out = [("template", ttl.template_chunked(s, er, en, B),
+            ttl.template_blocked(s, er, en, B), B * spec.n_nodes)]
+    n, E = 4096, 65536
+    st = tes.build_edge_store(rng.integers(0, n, E), rng.integers(0, n, E),
+                              rng.integers(0, N_RELS, E), n, N_RELS)
+    out.append(("general", tpr.chunk_by_relation(st, 512),
+                tprb.bucket_edges_blocked(st, 1024, 512), n))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,nb", [(128, 16), (16, 4)],
+                         ids=["flagship", "narrow"])
+def test_cuda_k5_match_plain_versions(d, nb):
+    from mpqe_tpu_torch.ops import rgcn_fused as tpr
+
+    dev = _cuda()
+    gen = torch.Generator(dev).manual_seed(d)
+    basis = torch.randn((nb, d, d), device=dev, generator=gen) / d ** 0.5
+    coeff = torch.randn((N_RELS, nb), device=dev, generator=gen)
+    w_rel = torch.einsum("rb,bio->rio", coeff, basis).contiguous()
+    for name, ch, _, n in _sparse_layouts(d, nb, dev):
+        src = torch.as_tensor(ch["src"]).to(dev).to(torch.int32)
+        norm = torch.as_tensor(ch["norm"]).to(dev).float()
+        crel = torch.as_tensor(ch["chunk_rel"]).to(dev).to(torch.int32)
+        chunk = ch["chunk"]
+        x = torch.randn((n, d), device=dev, generator=gen)
+        rows = torch.randn((src.shape[0], d), device=dev, generator=gen)
+        ce = tpr._masked_chunk_coeff(coeff, crel, N_RELS).contiguous()
+        rc = crel.clamp(0, N_RELS - 1)
+        for fn, ref, w, c in (
+                (tpr.messages_basis, tpr.messages_basis_reference, basis, ce),
+                (tpr.messages_wrel, tpr.messages_wrel_reference, w_rel, rc)):
+            for xin, sin in ((x, src), (rows, None)):
+                before = fn.launches
+                got = fn(xin, sin, w, c, norm, chunk)
+                want = ref(xin, sin, w, c, norm, chunk)
+                torch.cuda.synchronize()
+                assert fn.launches == before + 1
+                assert _rel(got, want) <= 1e-4, (name, fn.__name__,
+                                                  _rel(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,nb", [(128, 16), (16, 4)],
+                         ids=["flagship", "narrow"])
+def test_cuda_k6_match_plain_versions(d, nb):
+    from mpqe_tpu_torch.ops import rgcn_blocked as tprb
+
+    dev = _cuda()
+    gen = torch.Generator(dev).manual_seed(d + 1)
+    basis = torch.randn((nb, d, d), device=dev, generator=gen) / d ** 0.5
+    coeff = torch.randn((N_RELS, nb), device=dev, generator=gen)
+    for name, _, bk, n in _sparse_layouts(d, nb, dev, seed=1):
+        lay, t_lay = tprb.layout_on(bk, dev), tprb.layout_on(bk, dev, "t_")
+        x = torch.randn((n, d), device=dev, generator=gen)
+        g = torch.randn((n, d), device=dev, generator=gen)
+        a0, b0 = tprb.messages_blocked.launches, tprb.grad_blocked.launches
+        got = tprb.messages_blocked(x, basis, coeff, lay, N_RELS)
+        got_t = tprb.messages_blocked(g, basis.transpose(1, 2), coeff, t_lay,
+                                      N_RELS)
+        got_g = tprb.grad_blocked(x, g, basis, coeff, lay, N_RELS)
+        want = tprb.messages_blocked_reference(x, basis, coeff, lay, N_RELS,
+                                               n)
+        want_t = tprb.messages_blocked_reference(
+            g, basis.transpose(1, 2), coeff, t_lay, N_RELS, n)
+        want_g = tprb.grad_blocked_reference(x, g, basis, coeff, lay, N_RELS)
+        torch.cuda.synchronize()
+        assert tprb.messages_blocked.launches == a0 + 2
+        assert tprb.grad_blocked.launches == b0 + 1
+        assert _rel(got, want) <= 1e-4, (name, _rel(got, want))
+        assert _rel(got_t, want_t) <= 1e-4, (name, _rel(got_t, want_t))
+        for a, b in zip(got_g, want_g):
+            assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_k5_k6_wrappers_check_their_inputs():
+    from mpqe_tpu_torch.ops import rgcn_blocked as tprb
+    from mpqe_tpu_torch.ops import rgcn_fused as tpr
+
+    dev = _cuda()
+    d, nb, chunk = 16, 2, 8
+    x = torch.zeros((32, d), device=dev)
+    src = torch.zeros((16,), dtype=torch.int32, device=dev)
+    basis = torch.zeros((nb, d, d), device=dev)
+    ce = torch.zeros((2, nb), device=dev)
+    norm = torch.zeros((16,), device=dev)
+    bad = [
+        (x.double(), src, basis, ce, norm),  # wrong dtype
+        (x, src.long(), basis, ce, norm),
+        (x, src, basis, ce[:1], norm),  # wrong shape
+        (x, src, basis.transpose(1, 2), ce, norm),  # not contiguous
+        (x, src.cpu(), basis, ce, norm),  # mixed devices
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            tpr.messages_basis(*args, chunk)
+    with pytest.raises(ValueError):  # 16 edges are not chunks of 5
+        tpr.messages_basis(x, src, basis, ce, norm, 5)
+    lay = tprb.layout_on({
+        "src_local": np.zeros(16, np.int32), "dst_local": np.zeros(16, np.int32),
+        "rel": np.zeros(16, np.int32), "norm": np.zeros(16, np.float32),
+        "chunk_src_blk": np.zeros(2, np.int32),
+        "chunk_dst_blk": np.zeros(2, np.int32), "node_block": 32,
+        "chunk": chunk}, dev)
+    coeff = torch.zeros((3, nb), device=dev)
+    for args in ((x[:, :8], basis, coeff), (x, basis, coeff[:2]),
+                 (x, basis.cpu(), coeff)):
+        with pytest.raises(ValueError):
+            tprb.messages_blocked(*args, lay, 3)
+    broken = dict(lay, rel=lay["rel"][:8])
+    with pytest.raises(ValueError):
+        tprb.messages_blocked(x, basis, coeff, broken, 3)
+    with pytest.raises(ValueError):
+        tprb.grad_blocked(x, x[:, :8], basis, coeff, lay, 3)

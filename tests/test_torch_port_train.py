@@ -11,6 +11,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -399,6 +400,15 @@ def _trajectory(kernel, optimizer, n_steps=3):
     jtc, ttc = jloop.TrainConfig(**tc_kw), tloop.TrainConfig(**tc_kw)
     if kernel == "dense":
         jfn, tfn = None, None
+    elif kernel == "fused":
+        jfn = functools.partial(jm.dense_batch_loss_kernel_fused, chunk=8,
+                                interpret=True)
+        tfn = functools.partial(tm.dense_batch_loss_kernel_fused, chunk=8)
+    elif kernel == "blocked":
+        jfn = functools.partial(jm.dense_batch_loss_kernel_blocked,
+                                queries_per_block=8, chunk=8, interpret=True)
+        tfn = functools.partial(tm.dense_batch_loss_kernel_blocked,
+                                queries_per_block=8, chunk=8)
     else:
         jfn = functools.partial(jm.dense_batch_loss_kernel_fused_fwd,
                                 block=8, interpret=True, backward="pallas",
@@ -454,6 +464,23 @@ def test_trajectory_sgd_fused_pallas_matches_jax():
     for n, p in model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), want[n], rtol=0,
                                    atol=1e-6, err_msg=n)
+
+
+@pytest.mark.parametrize("kernel", ["fused", "blocked"])
+def test_trajectory_sparse_kernels_match_jax(kernel):
+    # --kernel fused: f32 on both sides (plain K5 vs the interpret kernel,
+    # sum order only), the dense trajectory's Adam tolerances.
+    # --kernel blocked: plain K6 vs the interpret kernels (same bf16
+    # rounding points, f32 sum order only), SGD as for fused_fwd above
+    optimizer = "adam" if kernel == "fused" else "sgd"
+    jl, tl, params, model = _trajectory(kernel, optimizer)
+    for a, b in zip(jl, tl):
+        assert abs(a - b) <= 1e-5 * abs(a), (jl, tl)
+    want = _jax_named(params)
+    atol = 1e-4 if optimizer == "adam" else 1e-6
+    for n, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[n], rtol=0,
+                                   atol=atol, err_msg=n)
 
 
 # ------------------------------------------------------------ evaluation
@@ -590,9 +617,33 @@ def test_train_cli_on_cpu_and_resume(tmp_path, capsys):
     assert [ln["step"] for ln in lines if "final" in ln] == [12, 17]
 
 
+@pytest.mark.parametrize("kernel", [["fused"], ["blocked", "--num_bases",
+                                                  "4"]],
+                         ids=["fused", "blocked"])
+def test_train_cli_sparse_kernels_on_cpu(kernel, tmp_path, capsys):
+    from mpqe_tpu_torch.train.__main__ import main
+
+    run = str(tmp_path / "run")
+    main(CLI + ["--kernel", *kernel, "--steps", "6", "--val_every", "3",
+                "--run_dir", run])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert re.fullmatch(r"final step=6 macro_auc=\S+ macro_apr=\S+", last)
+    assert {"config.json", "model_config.json", "metrics.jsonl",
+            "ckpt"} <= set(os.listdir(run))
+    assert {"step_3", "step_6"} <= set(os.listdir(os.path.join(run, "ckpt")))
+
+
+def test_cli_blocked_needs_bases(tmp_path):
+    from mpqe_tpu_torch.train.__main__ import main
+
+    with pytest.raises(SystemExit, match="--kernel blocked requires "
+                                         "--num_bases"):
+        main(CLI + ["--num_bases", "0", "--kernel", "blocked",
+                    "--run_dir", str(tmp_path / "r")])
+
+
 @pytest.mark.parametrize("flag", [
-    ["--model", "gqe"], ["--kernel", "fused"], ["--kernel", "blocked"],
-    ["--shared_negatives", "4"], ["--self_adv_tau", "1.0"],
+    ["--model", "gqe"], ["--shared_negatives", "4"], ["--self_adv_tau", "1.0"],
     ["--parallel", "spmd"], ["--prefetch", "2"], ["--steps_per_call", "4"],
     ["--dtype", "bfloat16"], ["--data", "npz:kg.npz"], ["--trace", "5"]])
 def test_cli_unported_flags_raise(flag, tmp_path):
