@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mpqe_tpu_torch``) on one GPU.
 
-Drives the serving path, the dense training path and the sparse
+Drives the serving path, the per-formula evaluation through the sparse
+encoder, the full ranking, the dense training path and the sparse
 training path (``--kernel fused`` and ``--kernel blocked``) at the
 flagship width (d = 128, 3 R-GCN layers, TGT readout, 16 bases or full
 per-relation weights, 266 relations, 4 modes, 1,000,000 entities;
 random weights from a seed) and checks every hand-written kernel on
-them.  The four kernel libraries build in parallel (one nvcc each),
+them.  The six kernel libraries build in parallel (one nvcc each),
 then:
 
 1. ``kernel.fused_multi``: builds K3 (``csrc/fused_multi.cu``) with nvcc
@@ -45,7 +46,32 @@ then:
    twin (<= 3e-2, train batch only), times as for K5 beside a cuBLAS
    yardstick (the bf16 products ``xs @ [V_0 .. V_Bb]``, and for K6b also
    ``xs^T rhs``).
-6. ``train``: ``run_train`` on the card with ``--kernel fused_fwd
+6. ``kernel.segment``: K4a and K4b (``csrc/segment.cu``) on the
+   reference's chip-check shape (E = 1,000, S = 64), each structure's
+   destination sum at B = 1,024 (the bucket of ``evaluate``'s 1,000
+   queries per formula) and the cap (E = 2^20, S = 8,192): each vs its
+   plain version (K4a <= 1e-4, K4b equal), K4a vs an f64 oracle
+   (<= 1e-5), dropped out-of-range rows and empty segments (0, -1e30);
+   times beside the bound, the plain version and one ``index_add_`` /
+   ``scatter_reduce`` as the yardstick.
+7. ``kernel.sddmm``: K7 (``csrc/sddmm.cu``) on N = 512 / E = 2,048, the
+   final-layer node embeddings of the B = 1,024 batches over their own
+   edges (K7's drive: it has no caller in the package) and N = 8,191 /
+   E = 2^20: vs its plain version (<= 1e-4) and an f64 oracle (<= 1e-5),
+   out-of-range endpoints scoring 0; times beside the bound, the plain
+   version and ``torch.sparse.sampled_addmm`` as the yardstick.
+8. ``eval.sparse``: ``evaluate`` on sampled validation queries through
+   an adapter (``dense_to_sparse``, then ``encode_sparse`` with the
+   ``"pallas"`` segment backend) for the flagship model (K4a) and a
+   max-readout model (K4a, K4b): K4 launches equal to the expected
+   counts, per-structure AUC and APR / 100 within 1e-3 of ``evaluate``
+   through the f32 ``encode_dense``, one formula per structure bit-equal
+   through the plain K4; then 20 dense train steps with one validation
+   round through ``run_train(eval_encode_fn=...)``.
+9. ``eval.ranking``: ``full_ranking`` over the same queries against all
+   1M entities; one structure's ranks recomputed by ``torch.matmul`` and
+   a per-row count give the same metrics.
+10. ``train``: ``run_train`` on the card with ``--kernel fused_fwd
    --fused_backward pallas`` (batch 512, 4 negatives, Adam lr 0.01, every
    structure from the first step) and one validation round through K3;
    K1 and K2 launch once per step, K3 during validation, every loss is
@@ -53,16 +79,17 @@ then:
    versions gives the same loss and gradients.  Step time p50/p95, real
    queries/s (and padded rows/s) and a ``torch.profiler`` account of 10
    steps.
-7. ``train.fused``, ``train.fused_full``, ``train.blocked``:
+11. ``train.fused``, ``train.fused_full``, ``train.blocked``:
    ``run_train`` through the sparse path (``--kernel fused`` with a
    16-basis and a full-weight model, ``--kernel blocked``), 50 steps
    each: launch counts equal to 2 K5 (or 2 K6a and 1 K6b) per layer of
    every step, finite losses, one step per structure recomputed through
    the plain versions (same loss and gradients, <= 1e-4: the segment
    sums use index_add_), step p50/p95 and a profile of 10 steps.
-8. ``train.cli``: ``python -m mpqe_tpu_torch.train`` as a subprocess on
+12. ``train.cli``: ``python -m mpqe_tpu_torch.train`` as a subprocess on
    a small KG with ``--kernel fused_fwd`` and with ``--kernel blocked``;
-   the final line and run dir of each.
+   the final line and run dir of each; ``eval.cli``: ``python -m
+   mpqe_tpu_torch.evaluate --run_dir <the first run> --ranking``.
 
 Prints the card's name and power limit first, then one line per check,
 a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -900,9 +927,10 @@ def phase_train(kg, train_q, val_q, device):
     return k1, k2
 
 
-def phase_train_cli(kernel_args) -> None:
+def phase_train_cli(kernel_args, then=None) -> None:
     """``python -m mpqe_tpu_torch.train`` with ``kernel_args`` on the card
-    as a subprocess: its final line and its run dir."""
+    as a subprocess: its final line and its run dir, handed to ``then``
+    before it is deleted."""
     import os
     import re
     import tempfile
@@ -935,6 +963,8 @@ def phase_train_cli(kernel_args) -> None:
             raise AssertionError(f"run dir checkpoints: {ckpts}")
         log(f"train.cli: run dir holds config.json, model_config.json, "
             f"metrics.jsonl, ckpt/{','.join(ckpts)}")
+        if then is not None:
+            then(run_dir)
 
 
 # ----------------------------------------------------------------------
@@ -1271,31 +1301,584 @@ def phase_rgcn_blocked(layer_b, cfg, device, gen, flush):
     return fields
 
 
+# ----------------------------------------------------------------------
+# K4a / K4b (segment sum and max) and K7 (SDDMM)
+# ----------------------------------------------------------------------
+K4_KERNELS = ("segment_kernel",)
+K7_KERNELS = ("sddmm_kernel",)
+EVAL_BATCH = 1024  # evaluate's bucket for its 1,000 queries per formula
+CAP_ROWS, CAP_SEGMENTS = 1 << 20, 8192  # K4's cap: 512 MiB of f32 rows
+K7_CAP_NODES = 8191
+
+
+def k4_work(E: int, d: int, S: int) -> tuple:
+    """(bytes, bf16 FLOP, f32 FLOP) of one K4 launch: the f32 rows and the
+    int32 ids read once, the [S, d] f32 output written once; one add (or
+    compare) per input element."""
+    return E * d * 4 + E * 4 + S * d * 4, 0, E * d
+
+
+def k7_work(N: int, d: int, E: int, same: bool = False) -> tuple:
+    """(bytes, bf16 FLOP, f32 FLOP) of one K7 launch: x and y once (one
+    read when ``same``, y being x), the int32 src and dst and the f32
+    scores (12 E bytes); 2 E d f32 FLOP."""
+    return (1 if same else 2) * N * d * 4 + 12 * E, 0, 2 * E * d
+
+
+def sddmm_library(x, y, src, dst):
+    """K7's library yardstick: ``torch.sparse.sampled_addmm`` over the CSR
+    pattern of the unique in-range (src, dst) pairs, built here, outside
+    the timed call.  Returns (the call, the pattern's rows and columns)."""
+    n = x.shape[0]
+    ok = (src >= 0) & (src < n) & (dst >= 0) & (dst < n)
+    key = torch.unique(src[ok].long() * n + dst[ok].long())
+    rows, cols = key // n, key % n
+    crow = torch.zeros(n + 1, dtype=torch.int32, device=x.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    pattern = torch.sparse_csr_tensor(
+        crow, cols.to(torch.int32), torch.zeros(key.numel(), device=x.device),
+        (n, n), check_invariants=True)
+    yt = y.t()
+    return (lambda: torch.sparse.sampled_addmm(pattern, x, yt, beta=0.0),
+            rows, cols)
+
+
+def eval_batches(cfg, gen_np, capacity_pad: int = 0):
+    """(structure, SparseQueryBatch) of every structure at EVAL_BATCH
+    random queries, flattened by ``dense_to_sparse`` (``capacity_pad``
+    padding edges, whose dst lies out of range)."""
+    from mpqe_tpu_torch.data.batcher import (DenseQueryBatch,
+                                             dense_to_sparse,
+                                             template_edge_norm)
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES, STRUCTURES
+
+    B = EVAL_BATCH
+    for s in STRUCTURE_NAMES:
+        spec = STRUCTURES[s]
+        rels = gen_np.integers(0, cfg.n_rels, spec.n_edges).astype(np.int32)
+        b = DenseQueryBatch(
+            s, B, gen_np.integers(0, cfg.n_entities, (B, spec.n_nodes)
+                                  ).astype(np.int32),
+            gen_np.integers(0, cfg.n_modes, (B, spec.n_nodes)
+                            ).astype(np.int32),
+            rels, template_edge_norm(spec, rels), np.zeros(B, np.int32),
+            np.zeros((B, 1), np.int32), np.ones((B, 1), np.float32),
+            np.ones(B, np.float32))
+        yield s, dense_to_sparse(b, cfg.n_rels,
+                                 B * spec.n_edges + capacity_pad)
+
+
+def segment_cases(cfg, device):
+    """(label, data, ids, S) for K4: (i) the reference's chip check
+    (tools/tpu_smoke.py:39-53) with some ids out of range and segment 7
+    emptied, (ii) each structure's destination sum at EVAL_BATCH (the
+    flattened batch's edge dst, 64 padding edges out of range; the data
+    random rows), (iii) the cap, E = 2^20 random ids over 8,192 segments
+    with some out of range and segment 7 emptied."""
+    rng = np.random.default_rng(11)
+    d = cfg.embed_dim
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    def knocked(E, S):
+        ids = rng.integers(0, S, E).astype(np.int32)
+        ids[ids == 7] = S + 1
+        bad = rng.choice(E, max(E // 100, 4), replace=False)
+        ids[bad[::2]] = -1
+        ids[bad[1::2]] = S
+        return ids
+
+    yield "tpu_smoke", t(rng.normal(size=(1000, d)).astype(np.float32)), \
+        t(knocked(1000, 64)), 64
+    for s, sb in eval_batches(cfg, rng, capacity_pad=64):
+        E = sb.edges.capacity
+        yield s, t(rng.normal(size=(E, d)).astype(np.float32)), \
+            t(sb.edges.dst), sb.n_nodes
+    yield "cap", torch.randn((CAP_ROWS, d), device=device,
+                             generator=torch.Generator(device).manual_seed(3)), \
+        t(knocked(CAP_ROWS, CAP_SEGMENTS)), CAP_SEGMENTS
+
+
+def phase_segment(cfg, device, flush):
+    """K4a and K4b against their plain versions (K4a <= TOL_PLAIN, K4b
+    exactly equal), K4a against an f64 oracle (<= TOL_ORACLE), the
+    out-of-range and empty-segment semantics; times (CUDA events and
+    profiler, L2 flushed) beside the bound, the plain version and the
+    library yardstick (one ``index_add_``, one ``scatter_reduce`` amax).
+    Returns both kernels' JSON fields (launches excluded): sums over the 7
+    structures' destination sums at EVAL_BATCH."""
+    from mpqe_tpu_torch.ops import segment_kernels as sk
+
+    accs = {"K4a": new_acc(), "K4b": new_acc()}
+    for label, data, ids, S in segment_cases(cfg, device):
+        E, d = data.shape
+        with torch.no_grad():
+            got_s = sk.segment_sum_kernel(data, ids, S)
+            got_m = sk.segment_max_kernel(data, ids, S)
+            plain_s = sk.segment_sum_reference(data, ids, S)
+            plain_m = sk.segment_max_reference(data, ids, S)
+        ok = (ids >= 0) & (ids < S)
+        ids_ok, data_ok = ids[ok].long(), data[ok]
+        oracle = torch.zeros((S, d), dtype=torch.float64, device=device)
+        oracle.index_add_(0, ids_ok, data_ok.double())
+        torch.cuda.synchronize()
+        empty = torch.bincount(ids_ok, minlength=S) == 0
+        e_s, e_m = rel_err(got_s, plain_s), rel_err(got_m, plain_m)
+        e_orc = float((got_s.double() - oracle).abs().max()
+                      / oracle.abs().max())
+        same_m = torch.equal(got_m, plain_m)
+        sem = (bool((got_s[empty] == 0).all())
+               and bool((got_m[empty] == sk.NEG_INF).all())
+               and bool(torch.isfinite(got_s).all()))
+        accs["K4a"]["max_abs_err"] = max(accs["K4a"]["max_abs_err"], float(
+            (got_s - plain_s).abs().max()))
+        accs["K4b"]["max_abs_err"] = max(accs["K4b"]["max_abs_err"], float(
+            (got_m - plain_m).abs().max()))
+        line = (f"kernel.segment {label:14s} E={E} S={S} "
+                f"K4a_err_vs_plain={e_s:.3e} K4b_err_vs_plain={e_m:.3e} "
+                f"K4a_err_vs_f64_oracle={e_orc:.3e} "
+                f"dropped={int((~ok).sum())} empty={int(empty.sum())}")
+        if e_s > TOL_PLAIN or not same_m or e_orc > TOL_ORACLE or not sem:
+            log(line + " FAIL")
+            raise AssertionError(line)
+        log(line)
+        del plain_s, plain_m, oracle
+        big = E > 100_000
+        iters, p_iters = (BIG_ITERS, 1) if big else (ITERS, PLAIN_ITERS)
+        idx = ids_ok[:, None].expand(-1, d)
+        cases = (
+            ("K4a", lambda: sk.segment_sum_kernel(data, ids, S),
+             lambda: sk.segment_sum_reference(data, ids, S),
+             lambda: torch.zeros((S, d), device=device).index_add_(
+                 0, ids_ok, data_ok)),
+            ("K4b", lambda: sk.segment_max_kernel(data, ids, S),
+             lambda: sk.segment_max_reference(data, ids, S),
+             lambda: torch.full((S, d), sk.NEG_INF, device=device
+                                ).scatter_reduce_(0, idx, data_ok, "amax")))
+        for kid, kfn, pfn, lfn in cases:
+            with torch.no_grad():
+                ms = time_ms(kfn, iters, flush)
+                k_ms = device_ms(kfn, iters, flush, K4_KERNELS)
+                plain_ms = time_ms(pfn, p_iters, flush)
+                lib_ms = time_ms(lfn, iters, flush)
+            work = k4_work(E, d, S)
+            if label in ("tpu_smoke", "cap"):
+                t_b, t_o = bound_times(work)
+                bound, by = max(t_b, t_o), ("bytes" if t_b >= t_o
+                                            else "operations")
+            else:
+                bound, by = add_case(accs[kid], ms, plain_ms, lib_ms, work,
+                                     k_ms)
+            log(f"kernel.segment {kid} {label:14s} E={E} S={S} "
+                + work_line(ms, k_ms, plain_ms, lib_ms, bound, by, work))
+        del data, ids, got_s, got_m, data_ok, idx
+    fields = {}
+    for kid, acc in accs.items():
+        log(f"kernel.segment {kid} sum of 7 at B={EVAL_BATCH}: "
+            f"kernel_ms={acc['ms']:.4f} device_ms={acc['device_ms']:.4f} "
+            f"plain_ms={acc['plain_ms']:.4f} "
+            f"library_ms={acc['library_ms']:.4f} "
+            f"bound_ms={acc['bound_ms']:.6f}")
+        fields[kid] = finish_acc(acc)
+    return fields
+
+
+def final_layer_nodes(model, cfg, sb, device):
+    """The node embeddings after the last R-GCN layer of a sparse batch
+    (``encode_sparse``'s layers, K4a destination sums), ``[N, d]``."""
+    from mpqe_tpu_torch.models import embeddings as emb_mod
+    from mpqe_tpu_torch.ops import rgcn as rgcn_ops
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    e = sb.edges
+    with torch.no_grad():
+        x = emb_mod.embed_nodes_sparse(model.emb, t(sb.node_entity),
+                                       t(sb.node_mode), t(sb.node_is_var))
+        for li, lp in enumerate(model.layers):
+            x = rgcn_ops.rgcn_sparse(x, lp, t(e.src), t(e.dst), t(e.rel),
+                                     t(e.norm), cfg.n_rels,
+                                     segment_backend="pallas")
+            if li < len(model.layers) - 1:
+                x = torch.relu(x)
+    return x
+
+
+def phase_sddmm(model, cfg, device, flush):
+    """K7 against its plain version (<= TOL_PLAIN, expect 0) and an f64
+    oracle (<= TOL_ORACLE), out-of-range endpoints scoring 0, times beside
+    the bound, the plain version and the library yardstick
+    (``torch.sparse.sampled_addmm``, see :func:`sddmm_library`).
+    K7 has no caller in the package: its main-path drive is the scoring of
+    the 7 structures' final-layer node embeddings at EVAL_BATCH over their
+    own edges, counted from 0.  Returns (launches of that drive, the JSON
+    fields: sums over those 7)."""
+    from mpqe_tpu_torch.ops import sddmm as sd
+
+    d = cfg.embed_dim
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device).manual_seed(4)
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    def rand_case(n, E):
+        x = torch.randn((n, d), device=device, generator=gen)
+        y = torch.randn((n, d), device=device, generator=gen)
+        return x, y, t(rng.integers(0, n, E).astype(np.int32)), \
+            t(rng.integers(0, n, E).astype(np.int32))
+
+    batches = [(s, final_layer_nodes(model, cfg, sb, device), sb)
+               for s, sb in eval_batches(cfg, rng)]
+    sd.sddmm_kernel.launches = 0
+    with torch.no_grad():
+        for _, x, sb in batches:
+            sd.sddmm_kernel(x, x, t(sb.edges.src), t(sb.edges.dst))
+    torch.cuda.synchronize()
+    launches = sd.sddmm_kernel.launches
+    log(f"kernel.sddmm: the 7 batches' edges at B={EVAL_BATCH} scored by "
+        f"K7: launches {launches}")
+    if launches != len(batches):
+        raise AssertionError(f"K7 launches {launches} != {len(batches)}")
+    cases = [("tpu_smoke", *rand_case(512, 2048))]
+    cases += [(s, x, x, t(sb.edges.src), t(sb.edges.dst))
+              for s, x, sb in batches]
+    cases.append(("cap", *rand_case(K7_CAP_NODES, CAP_ROWS)))
+    acc = new_acc()
+    for label, x, y, src, dst in cases:
+        n, E = x.shape[0], src.shape[0]
+        src, dst = src.clone(), dst.clone()
+        src[:3] = torch.tensor([-1, n, 3 * n], device=device)
+        dst[3] = n + 5  # four edges out of range: they score 0
+        with torch.no_grad():
+            got = sd.sddmm_kernel(x, y, src, dst)
+            plain = sd.sddmm_reference(x, y, src, dst)
+            oracle = sd.sddmm_xla(x.double(), y.double(), src, dst)
+        torch.cuda.synchronize()
+        e_plain = rel_err(got, plain)
+        e_orc = float((got.double() - oracle).abs().max()
+                      / oracle.abs().max())
+        zero = bool((got[:4] == 0).all())
+        acc["max_abs_err"] = max(acc["max_abs_err"], float(
+            (got - plain).abs().max()))
+        line = (f"kernel.sddmm {label:14s} N={n} E={E} "
+                f"err_vs_plain={e_plain:.3e} err_vs_f64_oracle={e_orc:.3e} "
+                f"out_of_range_zero={zero}")
+        if e_plain > TOL_PLAIN or e_orc > TOL_ORACLE or not zero or \
+                not bool(torch.isfinite(got).all()):
+            log(line + " FAIL")
+            raise AssertionError(line)
+        log(line)
+        big = E > 100_000
+        iters, p_iters = (BIG_ITERS, 1) if big else (ITERS, PLAIN_ITERS)
+        lfn, rows, cols = sddmm_library(x, y, src, dst)
+        with torch.no_grad():
+            lib = lfn().values()
+            lib_orc = sd.sddmm_xla(x.double(), y.double(), rows, cols)
+            e_lib = float((lib.double() - lib_orc).abs().max()
+                          / lib_orc.abs().max())
+            ms = time_ms(lambda: sd.sddmm_kernel(x, y, src, dst), iters, flush)
+            k_ms = device_ms(lambda: sd.sddmm_kernel(x, y, src, dst), iters,
+                             flush, K7_KERNELS)
+            plain_ms = time_ms(lambda: sd.sddmm_reference(x, y, src, dst),
+                               p_iters, flush)
+            lib_ms = time_ms(lfn, iters, flush)
+        work = k7_work(n, d, E, same=y is x)
+        if label in ("tpu_smoke", "cap"):
+            t_b, t_o = bound_times(work)
+            bound, by = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+        else:
+            bound, by = add_case(acc, ms, plain_ms, lib_ms, work, k_ms)
+        log(f"kernel.sddmm {label:14s} N={n} E={E} kernel_ms={ms:.4f} "
+            f"device_ms={k_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} (sampled_addmm, {rows.numel()} pairs, "
+            f"err_vs_f64_oracle={e_lib:.3e}) "
+            f"bound_ms={bound:.6f} ({by}: {work[0]} B, {work[2]} f32 FLOP)")
+        del got, plain, oracle, lib, lib_orc, lfn
+    log(f"kernel.sddmm sum of 7 at B={EVAL_BATCH}: kernel_ms={acc['ms']:.4f} "
+        f"device_ms={acc['device_ms']:.4f} plain_ms={acc['plain_ms']:.4f} "
+        f"library_ms={acc['library_ms']:.4f} "
+        f"bound_ms={acc['bound_ms']:.6f}")
+    return launches, finish_acc(acc)
+
+
+class SparseEncode:
+    """``evaluate``'s ``encode_fn`` through the sparse path:
+    ``dense_to_sparse``, then ``encode_sparse(segment_backend="pallas")``
+    (K4a in every layer's destination sum and the sum / mlp readouts, K4b
+    in the max readout).  Counts the K4 launches its calls should make."""
+
+    def __init__(self):
+        self.want = {"K4a": 0, "K4b": 0}
+        self.calls = 0
+
+    def __call__(self, model, cfg, structure, ne, nm, er, en):
+        from mpqe_tpu_torch.data.batcher import (DenseQueryBatch,
+                                                 dense_to_sparse)
+        from mpqe_tpu_torch.models import mpqe as mpqe_mod
+
+        B, dev = ne.shape[0], ne.device
+        z = np.zeros(B, np.int32)
+        b = DenseQueryBatch(structure, B,
+                            *(a.cpu().numpy() for a in (ne, nm, er, en)),
+                            z, z[:, None], np.ones((B, 1), np.float32),
+                            np.ones(B, np.float32))
+        sb = dense_to_sparse(b, cfg.n_rels)
+        e = sb.edges
+        self.calls += 1
+        self.want["K4a"] += mpqe_mod.num_steps(cfg, structure) + (
+            cfg.readout in ("sum", "mlp"))
+        self.want["K4b"] += cfg.readout == "max"
+        return mpqe_mod.encode_sparse(
+            model, cfg, structure,
+            *(torch.from_numpy(a).to(dev) for a in (
+                sb.node_entity, sb.node_mode, sb.node_is_var, e.src, e.dst,
+                e.rel, e.norm, sb.node_query, sb.target_node)), B,
+            segment_backend="pallas")
+
+
+def k4_counters():
+    from mpqe_tpu_torch.ops import segment_kernels as sk
+
+    return {"K4a": sk.segment_sum_kernel, "K4b": sk.segment_max_kernel}
+
+
+def recheck_eval_formulas(model, cfg, val_q, device, label):
+    """One formula per structure (its largest) encoded through the sparse
+    path with the kernels and with their plain versions: bit-equal query
+    vectors."""
+    from mpqe_tpu_torch.data.batcher import bucket_size, make_dense_batch
+
+    enc = SparseEncode()
+    for structure, by_formula in val_q.items():
+        formula, qs = max(by_formula.items(), key=lambda kv: len(kv[1]))
+        b = make_dense_batch(formula, qs[:1000], bucket_size(len(qs[:1000])),
+                             n_neg=64, rng=np.random.default_rng(0))
+        args = [torch.from_numpy(getattr(b, f)).to(device) for f in (
+            "node_entity", "node_mode", "edge_rel", "edge_norm")]
+        with torch.no_grad():
+            q_k = enc(model, cfg, structure, *args)
+            with plain_sparse_kernels():
+                q_p = enc(model, cfg, structure, *args)
+        torch.cuda.synchronize()
+        same = torch.equal(q_k, q_p)
+        line = (f"{label}.recheck {structure:14s} B={b.batch_size} "
+                f"query_vectors_bit_equal={same} "
+                f"max_abs_diff={float((q_k - q_p).abs().max()):.3e}")
+        log(line)
+        if not same or not bool(torch.isfinite(q_k).all()):
+            raise AssertionError(line)
+
+
+def eval_sparse_run(model, cfg, val_q, device, label, profile=False):
+    """``evaluate`` on ``val_q`` through :class:`SparseEncode` (K4 launch
+    counts from 0 must equal the expected counts) and through the f32
+    ``encode_dense``: per-structure AUC and APR / 100 within 1e-3; with
+    ``profile``, a device profile of the sparse run on one structure.
+    Returns the K4 launches of the sparse run."""
+    from mpqe_tpu_torch.train import evaluation
+
+    enc = SparseEncode()
+    counters = k4_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = evaluation.evaluate(model, cfg, val_q, n_neg=64, encode_fn=enc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n_q = sum(min(len([q for q in qs if q.neg_samples]), 1000)
+              for by_f in val_q.values() for qs in by_f.values())
+    log(f"{label}: evaluate through the sparse path (readout "
+        f"{cfg.readout}): {enc.calls} encode calls, {n_q} queries in "
+        f"{wall:.3f} s ({n_q / wall:.1f} queries/s); launches "
+        + " ".join(f"{k}={v}" for k, v in launches.items())
+        + f" (expected {' '.join(f'{k}={v}' for k, v in enc.want.items())})")
+    if launches != enc.want or launches["K4a"] == 0:
+        raise AssertionError(f"{label}: launches {launches} != {enc.want}")
+    t0 = time.perf_counter()
+    dense = evaluation.evaluate(model, cfg, val_q, n_neg=64)
+    torch.cuda.synchronize()
+    log(f"{label}: evaluate through encode_dense (f32) "
+        f"{time.perf_counter() - t0:.3f} s")
+    worst = 0.0
+    for name, scale in (("auc_by_structure", 1.0), ("apr_by_structure", 100.0),
+                        ("hard_auc_by_structure", 1.0)):
+        a, b = getattr(res, name), getattr(dense, name)
+        if set(a) != set(b):
+            raise AssertionError(f"{label}: {name} keys differ")
+        for s in a:
+            worst = max(worst, abs(a[s] - b[s]) / scale)
+    line = (f"{label}: sparse vs dense evaluate: macro_auc "
+            f"{res.macro_auc:.6f} vs {dense.macro_auc:.6f}, macro_apr "
+            f"{res.macro_apr:.4f} vs {dense.macro_apr:.4f}; worst "
+            f"per-structure |diff| (AUC, APR / 100) {worst:.3e}")
+    log(line)
+    if worst > 1e-3:
+        raise AssertionError(line)
+    recheck_eval_formulas(model, cfg, val_q, device, label)
+    if profile:
+        part = {"3-chain_inter": val_q["3-chain_inter"]}
+        profile_device(f"{label}.profile (3-chain_inter formulas)",
+                       lambda: evaluation.evaluate(model, cfg, part, n_neg=64,
+                                                   encode_fn=SparseEncode()),
+                       also=K4_KERNELS)
+    return launches
+
+
+def phase_eval_sparse(model, cfg, kg, train_q, val_q, device):
+    """The per-formula evaluation through the sparse path on the flagship
+    model (TGT readout: K4a) and a flagship-width max-readout model (K4a
+    and K4b), then ``run_train`` for 20 dense steps with one validation
+    round through ``eval_encode_fn``.  Returns the K4 launches of these
+    runs."""
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    total = eval_sparse_run(model, cfg, val_q, device, "eval.sparse",
+                            profile=True)
+    mcfg = mpqe_mod.MPQEConfig(**dict(FLAGSHIP, readout="max"))
+    gen = torch.Generator(device=device).manual_seed(6)
+    mmodel = mpqe_mod.init_mpqe(gen, mcfg, device=device)
+    for k, v in eval_sparse_run(mmodel, mcfg, val_q, device,
+                                "eval.sparse_max").items():
+        total[k] += v
+    del mmodel
+
+    tc = loop_mod.TrainConfig(lr=0.01, batch_size=TRAIN_BATCH, n_neg=4,
+                              max_steps=20, val_every=20,
+                              burn_in_structure="none", seed=0)
+    gen = torch.Generator(device=device).manual_seed(7)
+    state = loop_mod.init_train_state(gen, cfg, tc, device=device)
+    enc = SparseEncode()
+    counters = k4_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    records = []
+    t0 = time.perf_counter()
+    loop_mod.run_train(state, cfg, tc, train_q, val_queries=val_q,
+                       log_fn=records.append, eval_encode_fn=enc, kg=kg)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    vals = [r for r in records if "val" in r]
+    log(f"eval.sparse.train: {state.step} dense steps and {len(vals)} "
+        f"validation round through eval_encode_fn in "
+        f"{time.perf_counter() - t0:.2f} s; launches "
+        + " ".join(f"{k}={v}" for k, v in launches.items())
+        + f" (expected K4a={enc.want['K4a']}); val macro_auc "
+        f"{vals[-1]['val']['auc_macro'] if vals else float('nan'):.4f}")
+    if len(vals) != 1 or launches != enc.want or launches["K4a"] == 0:
+        raise AssertionError(f"eval.sparse.train: {len(vals)} rounds, "
+                             f"launches {launches} != {enc.want}")
+    for k, v in launches.items():
+        total[k] += v
+    return total
+
+
+def phase_eval_ranking(model, cfg, kg, val_q, device):
+    """``full_ranking`` on the flagship model over ``val_q`` (every
+    entity of the target's mode, 1M entities); one structure's ranks
+    recomputed by ``torch.matmul`` and a per-row count must give the same
+    metrics."""
+    from mpqe_tpu_torch.data.batcher import bucket_size
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.ops.fused_fwd import prepare_fused_multi
+    from mpqe_tpu_torch.train import evaluation
+
+    t0 = time.perf_counter()
+    rk = evaluation.full_ranking(model, cfg, val_q, kg.entity_mode)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for s, m in rk.items():
+        log(f"eval.ranking {s:14s} " + " ".join(
+            f"{k}={v:.6f}" for k, v in m.items()))
+    es = evaluation.make_eval_set(val_q, 200, require_negatives=False)
+    n_q = sum(d["target"].shape[0] for d in es.by_structure.values())
+    log(f"eval.ranking: {n_q} queries against {cfg.n_entities} entities in "
+        f"{wall:.3f} s ({n_q / wall:.1f} queries/s)")
+    structure = "3-chain_inter"
+    data = es.by_structure[structure]
+    n = data["target"].shape[0]
+    B = bucket_size(n)
+    pad = [evaluation._pad_chunk(data[k], 0, n, B, device, fill)
+           for k, fill in (("node_entity", 0), ("node_mode", 0),
+                           ("edge_rel", 0), ("edge_norm", 1))]
+    emode = torch.from_numpy(kg.entity_mode.astype(np.int32)).to(device)
+    with torch.no_grad():
+        q = mpqe_mod.encode_dense_multi_auto(
+            model, cfg, structure, *pad,
+            operands=prepare_fused_multi(model, cfg))
+        e = mpqe_mod._l2_normalize(model.emb.ent)
+        scores = torch.matmul(mpqe_mod._l2_normalize(q), e.t())
+    ranks = []
+    for i, t in enumerate(data["target"].tolist()):
+        row = scores[i]
+        ranks.append(1 + int(((row > row[t]) & (emode == emode[t])).sum()))
+    want = evaluation._rank_metrics(np.asarray(ranks, np.float64),
+                                    (1, 3, 10))
+    line = (f"eval.ranking.recheck {structure}: {n} ranks recomputed by "
+            f"torch.matmul and a per-row count: equal={want == rk[structure]}")
+    log(line)
+    if want != rk[structure]:
+        raise AssertionError(f"{line}: {want} != {rk[structure]}")
+
+
+def phase_eval_cli(run_dir: str) -> None:
+    """``python -m mpqe_tpu_torch.evaluate --run_dir <run_dir> --ranking``
+    as a subprocess: its lines (one metrics line, one per structure)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpqe_tpu_torch.evaluate", "--run_dir",
+         run_dir, "--ranking"], capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    log(f"eval.cli: rc={proc.returncode} {time.perf_counter() - t0:.2f} s, "
+        f"{len(lines)} lines")
+    for ln in lines:
+        log(f"eval.cli: {ln}")
+    if proc.returncode != 0:
+        raise AssertionError(f"evaluate CLI failed:\n{proc.stderr[-4000:]}")
+    head = json.loads(lines[0])
+    ranks = [json.loads(ln) for ln in lines[1:]]
+    if not {"checkpoint", "step", "use", "auc_macro", "apr_macro"} <= set(
+            head) or head["step"] != 20 or not ranks or not all(
+            "mrr" in r for r in ranks):
+        raise AssertionError(f"unexpected evaluate CLI output {lines}")
+
+
 class plain_sparse_kernels:
-    """Within the block, the K5 / K6 wrappers that the autograd Functions
-    of ``ops/rgcn_fused.py`` and ``ops/rgcn_blocked.py`` call are their
-    plain versions, on the card (the train-step recheck)."""
+    """Within the block, the K4, K5 and K6 wrappers that ``ops/segment.py``
+    and the autograd Functions of ``ops/rgcn_fused.py`` and
+    ``ops/rgcn_blocked.py`` call are their plain versions, on the card
+    (the train-step and eval.sparse rechecks)."""
 
     def __enter__(self):
         from mpqe_tpu_torch.ops import rgcn_blocked as rb
         from mpqe_tpu_torch.ops import rgcn_fused as rf
+        from mpqe_tpu_torch.ops import segment_kernels as sk
 
         self.saved = (rf.messages_basis, rf.messages_wrel,
-                      rb.messages_blocked, rb.grad_blocked)
+                      rb.messages_blocked, rb.grad_blocked,
+                      sk.segment_sum_kernel, sk.segment_max_kernel)
         rf.messages_basis = rf.messages_basis_reference
         rf.messages_wrel = rf.messages_wrel_reference
         rb.messages_blocked = lambda x, basis, coeff, lay, n_rels: \
             rb.messages_blocked_reference(x, basis, coeff, lay, n_rels,
                                           x.shape[0])
         rb.grad_blocked = rb.grad_blocked_reference
+        sk.segment_sum_kernel = sk.segment_sum_reference
+        sk.segment_max_kernel = sk.segment_max_reference
         return self
 
     def __exit__(self, *exc):
         from mpqe_tpu_torch.ops import rgcn_blocked as rb
         from mpqe_tpu_torch.ops import rgcn_fused as rf
+        from mpqe_tpu_torch.ops import segment_kernels as sk
 
         (rf.messages_basis, rf.messages_wrel, rb.messages_blocked,
-         rb.grad_blocked) = self.saved
+         rb.grad_blocked, sk.segment_sum_kernel,
+         sk.segment_max_kernel) = self.saved
         return False
 
 
@@ -1430,7 +2013,7 @@ def phase_train_sparse(kg, train_q, device, label):
 
 
 def build_kernels() -> None:
-    """Build the four kernel libraries at once (one nvcc each, in
+    """Build the six kernel libraries at once (one nvcc each, in
     parallel) and print what ptxas reports of registers and spills."""
     import threading
 
@@ -1438,6 +2021,8 @@ def build_kernels() -> None:
     from mpqe_tpu_torch.ops import fused_fwd as ff
     from mpqe_tpu_torch.ops import rgcn_blocked as rb
     from mpqe_tpu_torch.ops import rgcn_fused as rf
+    from mpqe_tpu_torch.ops import sddmm as sd
+    from mpqe_tpu_torch.ops import segment_kernels as sk
 
     errors = []
 
@@ -1449,14 +2034,16 @@ def build_kernels() -> None:
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=build, args=(fn,))
-               for fn in (ff._kernel, ff._tgt_kernel, rf._kernel, rb._kernel)]
+               for fn in (ff._kernel, ff._tgt_kernel, rf._kernel, rb._kernel,
+                          sk._kernel, sd._kernel)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    names = ("fused_multi", "fused_tgt", "rgcn_fused", "rgcn_blocked")
+    names = ("fused_multi", "fused_tgt", "rgcn_fused", "rgcn_blocked",
+             "segment", "sddmm")
     log(f"build: {' + '.join(names)} {time.perf_counter() - t0:.2f} s")
     for name in names:
         for ln in cuda_build.BUILD_LOGS.get(name, "").splitlines():
@@ -1505,6 +2092,8 @@ def main() -> int:
                                  gen, flush)
     k6_fields = phase_rgcn_blocked(model.layers[0], cfg, device, gen, flush)
     del full_layer
+    k4_fields = phase_segment(cfg, device, flush)
+    k7_launches, k7_fields = phase_sddmm(model, cfg, device, flush)
 
     t0 = time.perf_counter()
     kg = make_random_kg(**KG)
@@ -1514,14 +2103,18 @@ def main() -> int:
             cfg.n_entities, cfg.n_modes, cfg.n_rels):
         raise AssertionError("KG does not match the flagship model")
     launches = phase_serve(model, cfg, ops, kg, device)
-    del model, ops
+    del ops
     train_q, val_q = sample_train_queries(kg)
+    k4_launches = phase_eval_sparse(model, cfg, kg, train_q, val_q, device)
+    phase_eval_ranking(model, cfg, kg, val_q, device)
+    del model
     k1, k2 = phase_train(kg, train_q, val_q, device)
     sparse = {}
     for label in SPARSE_RUNS:
         for kid, n in phase_train_sparse(kg, train_q, device, label).items():
             sparse[kid] = sparse.get(kid, 0) + n
-    phase_train_cli(["--kernel", "fused_fwd", "--fused_backward", "pallas"])
+    phase_train_cli(["--kernel", "fused_fwd", "--fused_backward", "pallas"],
+                    then=phase_eval_cli)
     phase_train_cli(["--kernel", "blocked"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -1561,6 +2154,21 @@ def main() -> int:
             "replaces": f"mpqe_tpu/ops/{line}",
             "launches": sparse[kid],
             **fl[kid],
+        })
+    for kid, name, source, line, n, fl in (
+            ("K4a", "segment_sum", "segment.cu", "pallas_segment.py:56",
+             k4_launches["K4a"], k4_fields["K4a"]),
+            ("K4b", "segment_max", "segment.cu", "pallas_segment.py:120",
+             k4_launches["K4b"], k4_fields["K4b"]),
+            ("K7", "sddmm", "sddmm.cu", "pallas_sddmm.py:48", k7_launches,
+             k7_fields)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"mpqe_tpu_torch/csrc/{source}",
+            "replaces": f"mpqe_tpu/ops/{line}",
+            "launches": n,
+            **fl,
         })
     log(f"kernels: {[k['name'] for k in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)

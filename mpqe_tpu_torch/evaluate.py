@@ -1,0 +1,133 @@
+"""Evaluation CLI of the port: ``python -m mpqe_tpu_torch.evaluate``
+(counterpart of the root ``evaluate.py``).
+
+Reads a run dir of ``python -m mpqe_tpu_torch.train`` (``config.json``,
+``model_config.json``, ``ckpt/step_*``), rebuilds the run's data from its
+config, restores the checkpoint (``--ckpt``, else the latest) and prints
+one JSON line ``{"checkpoint", "step", "use", **EvalResult.flat()}`` (AUC
+and APR per structure, through ``evaluate_batched``), then with
+``--ranking`` one ``{"ranking": structure, "mrr", "mean_rank",
+"hits@K"...}`` line per structure (``full_ranking``).  ``--use test``
+scores a fresh draw of the same size from the disjoint sampler seed
+``seed + 7919``, as the reference does for synthetic data.
+
+Runs on the card unless told otherwise (``--device cpu``); with no card
+and no ``--device cpu`` it raises.  Not ported yet, each raising
+``NotImplementedError`` naming its ROADMAP item: ``--split`` (needs
+``data/loader.py:split_one_new_edge``, item 2), ``--shards > 1`` (the
+sharded ranking, item 8) and GQE run dirs (item 4).
+
+  python -m mpqe_tpu_torch.evaluate --run_dir runs/xyz --ranking
+  python -m mpqe_tpu_torch.evaluate --run_dir runs/xyz --use test \\
+      --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import torch
+
+from mpqe_tpu_torch.models import mpqe as mpqe_mod
+from mpqe_tpu_torch.queries import group_queries_by_formula
+from mpqe_tpu_torch.serve import config_from_json, resolve_device
+from mpqe_tpu_torch.train import checkpoint as ckpt_mod
+from mpqe_tpu_torch.train import evaluation
+
+# the run config keys that decide the data (the root evaluate.py's list)
+DATA_KEYS = ("data", "structures", "custom_structures", "seed",
+             "syn_entities", "syn_modes", "syn_rels", "syn_triples",
+             "syn_train_queries", "syn_val_queries")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--run_dir", required=True)
+    p.add_argument("--ckpt", default=None,
+                   help="defaults to the latest in run_dir/ckpt")
+    p.add_argument("--split", action="store_true",
+                   help="seen-edges vs one-new-edge buckets (not ported)")
+    p.add_argument("--use", default="val", choices=["val", "test"])
+    p.add_argument("--n_neg", type=int, default=64)
+    p.add_argument("--ranking", action="store_true",
+                   help="also report full-candidate MRR / Hits@K per "
+                        "structure")
+    p.add_argument("--hits_at", default="1,3,10")
+    p.add_argument("--shards", type=int, default=0,
+                   help=">1: sharded ranking (not ported)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; the card unless told otherwise")
+    args, _ = p.parse_known_args(argv)
+    return args
+
+
+def _refuse_unported(args, mc: dict) -> None:
+    if args.split:
+        raise NotImplementedError(
+            "--split: not ported yet; it needs data/loader.py "
+            "(split_one_new_edge), ROADMAP Queue 1 item 2")
+    if args.shards > 1:
+        raise NotImplementedError(
+            "--shards > 1: not ported yet; the sharded ranking is ROADMAP "
+            "Queue 1 item 8")
+    config_from_json(mc)  # a GQE run dir raises, naming item 4
+
+
+def load_run_data(run_cfg: dict, use: str):
+    """(kg, the held-out queries) exactly as the run saw them; ``use ==
+    "test"`` draws fresh queries, as many per structure as the val draw,
+    from ``QuerySampler(kg, seed + 7919)``."""
+    from mpqe_tpu_torch.data.sampler import QuerySampler
+    from mpqe_tpu_torch.train import __main__ as train_cli
+
+    targs = train_cli.parse_args(
+        [f"--{k}" if v is True else f"--{k}={v}"
+         for k, v in run_cfg.items() if k in DATA_KEYS and v is not None])
+    kg, _, val_q = train_cli.load_data(targs)
+    if use == "test":
+        sampler = QuerySampler(kg, seed=targs.seed + 7919)
+        per_s = max(1, targs.syn_val_queries // max(len(val_q), 1))
+        fresh = []
+        for s in val_q:
+            fresh += sampler.sample_queries(s, per_s, n_neg=64)
+        val_q = group_queries_by_formula(fresh)
+    return kg, val_q
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    with open(os.path.join(args.run_dir, "config.json")) as f:
+        run_cfg = json.load(f)
+    with open(os.path.join(args.run_dir, "model_config.json")) as f:
+        mc = json.load(f)
+    _refuse_unported(args, mc)
+    cfg = config_from_json(mc)
+    device = resolve_device(args.device)
+    kg, val_q = load_run_data(run_cfg, args.use)
+
+    ckpt = args.ckpt or ckpt_mod.latest_checkpoint(
+        os.path.join(args.run_dir, "ckpt"))
+    if ckpt is None:
+        raise SystemExit("no checkpoint found")
+    payload = torch.load(os.path.join(ckpt, ckpt_mod.STATE_FILE),
+                         map_location=device, weights_only=True)
+    model = mpqe_mod.MPQE(cfg, device=device)
+    model.load_state_dict(payload["model"])
+
+    res = evaluation.evaluate_batched(model, cfg,
+                                      evaluation.make_eval_set(val_q),
+                                      n_neg=args.n_neg)
+    print(json.dumps({"checkpoint": ckpt, "step": int(payload["step"]),
+                      "use": args.use, **res.flat()}), flush=True)
+    if args.ranking:
+        hits = tuple(int(k) for k in args.hits_at.split(","))
+        rk = evaluation.full_ranking(model, cfg, val_q, kg.entity_mode,
+                                     hits_at=hits)
+        for structure, m in rk.items():
+            print(json.dumps({"ranking": structure, **m}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

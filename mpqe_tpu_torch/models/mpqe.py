@@ -390,10 +390,12 @@ def encode_dense_multi_auto(
 
 def _sparse_encode(model: MPQE, cfg: MPQEConfig, structure: str,
                    node_entity, node_mode, node_is_var, node_query,
-                   target_node, n_queries: int, layer) -> torch.Tensor:
+                   target_node, n_queries: int, layer,
+                   segment_backend: str = "xla") -> torch.Tensor:
     """Embed a flat node list, run ``layer(x, layer_params)`` for the
     structure's depth (all layers for structure "") with ReLU between
-    layers, read out → ``[n_queries, d]``."""
+    layers, read out (segment sums and maxima by ``segment_backend``) →
+    ``[n_queries, d]``."""
     x = emb_mod.embed_nodes_sparse(model.emb, node_entity, node_mode,
                                    node_is_var)
     steps = num_steps(cfg, structure) if structure else cfg.n_layers
@@ -404,7 +406,8 @@ def _sparse_encode(model: MPQE, cfg: MPQEConfig, structure: str,
     n_tpl = STRUCTURES[structure].n_nodes if structure else None
     return readout_mod.readout_sparse(cfg.readout, model.readout, x,
                                       node_query, target_node, n_queries,
-                                      n_template_nodes=n_tpl)
+                                      n_template_nodes=n_tpl,
+                                      segment_backend=segment_backend)
 
 
 def encode_sparse(model: MPQE, cfg: MPQEConfig, structure: str,
@@ -413,17 +416,17 @@ def encode_sparse(model: MPQE, cfg: MPQEConfig, structure: str,
                   n_queries: int, segment_backend: str = "xla"
                   ) -> torch.Tensor:
     """Sparse forward over a flat node and edge list (reference
-    ``encode_sparse``): layers of ``rgcn_sparse``.  Only the ``"xla"``
-    segment backend is ported."""
-    if segment_backend != "xla":
-        raise NotImplementedError(
-            f"segment_backend={segment_backend!r}: the Pallas segment "
-            "kernels K4a/K4b are not ported yet; ROADMAP Queue 1 item 7")
+    ``encode_sparse``): layers of ``rgcn_sparse``.  ``segment_backend=
+    "pallas"`` takes every layer's destination sum and the sum, mlp and max
+    readouts through K4a / K4b (``ops/segment_kernels.py``), which are
+    forward only: call it under ``torch.no_grad()``."""
     return _sparse_encode(
         model, cfg, structure, node_entity, node_mode, node_is_var,
         node_query, target_node, n_queries,
         lambda x, lp: rgcn_ops.rgcn_sparse(x, lp, edge_src, edge_dst,
-                                           edge_rel, edge_norm, cfg.n_rels))
+                                           edge_rel, edge_norm, cfg.n_rels,
+                                           segment_backend=segment_backend),
+        segment_backend=segment_backend)
 
 
 def encode_sparse_fused(model: MPQE, cfg: MPQEConfig, structure: str,

@@ -20,6 +20,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -73,3 +75,13 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     _LOADED[name] = lib
     return lib
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """``NotImplementedError`` for a call in grad mode on an input that
+    requires grad: the forward-only kernels (K4a, K4b, K7), like the
+    reference Pallas kernels they port, have no VJP."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} is forward only: the reference Pallas kernel has no "
+            "VJP (jax.grad through it fails); call it under torch.no_grad()")

@@ -1,29 +1,33 @@
 """Segment reductions (sum / max / mean) over rows of an edge-shaped
 tensor (counterpart of ``mpqe_tpu/ops/segment.py``).
 
-Plain PyTorch only: the reference's ``backend="pallas"`` route (K4a/K4b,
-``mpqe_tpu/ops/pallas_segment.py``) is not ported yet and raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 7.
+Two implementations share one API, as in the reference:
 
-As in the reference, rows whose segment id falls outside ``[0, n)`` are
-dropped (padding edges carry ``segment_id == n``); they are masked out
-before ``index_add_``, which would raise on them.  ``index_add_`` on a
-CUDA tensor sums with atomics, so the last bits of a sum may differ from
-run to run there.
+* ``backend="xla"``: plain PyTorch.  Rows whose segment id falls outside
+  ``[0, n)`` are dropped (padding edges carry ``segment_id == n``); they
+  are masked out before ``index_add_``, which would raise on them.
+  ``index_add_`` on a CUDA tensor sums with atomics, so the last bits of a
+  sum may differ from run to run there.
+* ``backend="pallas"``: the hand-written kernels K4a / K4b
+  (``ops/segment_kernels.py``), forward only and capped at 8,192
+  segments like the reference's Pallas kernels; each segment's rows are
+  added in one fixed order, so their sums are the same in every run.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mpqe_tpu_torch.ops import segment_kernels
+
 NEG_INF = -1e30
+BACKENDS = ("xla", "pallas")
 
 
 def _check_backend(backend: str) -> None:
-    if backend != "xla":
-        raise NotImplementedError(
-            f"segment backend {backend!r}: the Pallas segment kernels K4a/K4b "
-            "are not ported yet; ROADMAP Queue 1 item 7")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown segment backend {backend!r}; options: "
+                         f"{BACKENDS}")
 
 
 def _in_range(segment_ids: torch.Tensor, n: int):
@@ -37,6 +41,9 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     """Sum rows of ``data [E, ...]`` into ``[num_segments, ...]``; rows with
     an id outside ``[0, num_segments)`` are dropped."""
     _check_backend(backend)
+    if backend == "pallas":
+        return segment_kernels.segment_sum_kernel(data, segment_ids,
+                                                  num_segments)
     ids, ok = _in_range(segment_ids, num_segments)
     out = data.new_zeros((num_segments, *data.shape[1:]))
     return out.index_add(0, ids[ok], data[ok])
@@ -48,11 +55,15 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
     """Max-reduce rows into segments; a segment that is empty (or whose max
     is at or below ``NEG_INF / 2``) gets ``empty_value``."""
     _check_backend(backend)
-    ids, ok = _in_range(segment_ids, num_segments)
-    out = data.new_full((num_segments, *data.shape[1:]), float("-inf"))
-    idx = ids[ok].view(-1, *([1] * (data.dim() - 1))).expand_as(data[ok])
-    out = out.scatter_reduce(0, idx, data[ok], reduce="amax",
-                             include_self=True)
+    if backend == "pallas":
+        out = segment_kernels.segment_max_kernel(data, segment_ids,
+                                                 num_segments)
+    else:
+        ids, ok = _in_range(segment_ids, num_segments)
+        out = data.new_full((num_segments, *data.shape[1:]), float("-inf"))
+        idx = ids[ok].view(-1, *([1] * (data.dim() - 1))).expand_as(data[ok])
+        out = out.scatter_reduce(0, idx, data[ok], reduce="amax",
+                                 include_self=True)
     return torch.where(out <= NEG_INF / 2,
                        torch.full_like(out, empty_value), out)
 

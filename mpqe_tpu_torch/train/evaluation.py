@@ -7,22 +7,33 @@
 * APR: per query, the percentile rank of the true answer's score among
   its negative candidates, averaged.
 
-ROC-AUC is exact (Mann-Whitney U with tie correction).  The batched
-sweep encodes all formulas of a structure at once through the
-per-query-relation encoder, K3 (``encode_dense_multi_auto``) for
-eligible models.  The per-formula ``evaluate`` and ``full_ranking`` are
-not ported yet (ROADMAP Queue 1 item 3).
+ROC-AUC is exact (Mann-Whitney U with tie correction).  Three sweeps:
+
+* :func:`evaluate_batched` encodes all formulas of a structure at once
+  through the per-query-relation encoder, K3
+  (``encode_dense_multi_auto``) for eligible models;
+* :func:`evaluate` is the reference's per-formula protocol: one padded
+  dense batch per formula through a caller's ``encode_fn`` (by default
+  the f32 ``encode_dense``; the sparse encoder through an adapter, as
+  ``run_train(eval_encode_fn=...)`` passes it);
+* :func:`full_ranking` ranks the true answer among every entity of its
+  mode (MRR, Hits@K), one ``[B, n_entities]`` score matrix per chunk on
+  the device.
+
+Every sweep runs under ``torch.no_grad()`` on the model's device.  MPQE
+models only: a GQE config raises (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from mpqe_tpu_torch.data.batcher import bucket_size, template_edge_norm
+from mpqe_tpu_torch.data.batcher import (bucket_size, make_dense_batch,
+                                         template_edge_norm)
 from mpqe_tpu_torch.queries import (INTERSECTION_STRUCTURES, STRUCTURES,
                                     Formula, Query)
 
@@ -190,6 +201,15 @@ def _apr_percentiles(pos, neg, mask):
     return perc[cnt > 0]
 
 
+def _require_mpqe(name: str, cfg) -> None:
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+
+    if not isinstance(cfg, mpqe_mod.MPQEConfig):
+        raise NotImplementedError(
+            f"{name} for {type(cfg).__name__}: the GQE family is ROADMAP "
+            "Queue 1 item 4")
+
+
 def _score_batch(model, cfg, structure, ne, nm, er, en, tgt, neg, operands):
     """(pos scores [B], neg scores [B, K]) through the per-query-relation
     encoder (K3 for eligible models)."""
@@ -214,13 +234,9 @@ def evaluate_batched(
     """One encode+score sweep per structure (chunked at ``max_batch``) on
     the model's device; metrics reduced with numpy.  MPQE models only: a
     GQE config raises (ROADMAP Queue 1 item 4)."""
-    from mpqe_tpu_torch.models import mpqe as mpqe_mod
     from mpqe_tpu_torch.ops.fused_fwd import prepare_fused_multi
 
-    if not isinstance(cfg, mpqe_mod.MPQEConfig):
-        raise NotImplementedError(
-            f"evaluate_batched for {type(cfg).__name__}: the GQE family is "
-            "ROADMAP Queue 1 item 4")
+    _require_mpqe("evaluate_batched", cfg)
     device = model.emb.ent.device
     auc_s: Dict[str, float] = {}
     apr_s: Dict[str, float] = {}
@@ -291,3 +307,168 @@ def evaluate_batched(
             if f_hard:
                 hard_s[structure] = float(np.mean(f_hard))
     return EvalResult(auc_s, apr_s, hard_s)
+
+
+def _encode_and_score(model, cfg, formula: Formula, queries: Sequence[Query],
+                      n_neg: int, use_hard: bool, encode_fn: Callable
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(pos scores ``[n_q]``, neg scores ``[n_q, K]``, neg mask) of one
+    formula's queries: a padded dense batch (negatives from
+    ``default_rng(0)``, as the reference draws them), encoded by
+    ``encode_fn(model, cfg, structure, node_entity, node_mode, edge_rel,
+    edge_norm)`` on the model's device."""
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+
+    b = make_dense_batch(formula, queries, batch_size=bucket_size(len(queries)),
+                         n_neg=n_neg, use_hard_negatives=use_hard,
+                         rng=np.random.default_rng(0))
+    dev = model.emb.ent.device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    with torch.no_grad():
+        q = encode_fn(model, cfg, b.structure, t(b.node_entity),
+                      t(b.node_mode), t(b.edge_rel), t(b.edge_norm))
+        ent = model.emb.ent
+        pos = mpqe_mod.score(cfg, q, mpqe_mod._entity_rows(ent, t(b.target)))
+        neg = mpqe_mod.score(cfg, q[:, None, :],
+                             mpqe_mod._entity_rows(ent, t(b.negatives)))
+    n_q = b.n_queries
+    return (pos.cpu().numpy()[:n_q], neg.cpu().numpy()[:n_q],
+            b.neg_mask[:n_q])
+
+
+def evaluate(
+    model,
+    cfg,
+    queries_by_structure: Dict[str, Dict[Formula, List[Query]]],
+    n_neg: int = 64,
+    max_queries_per_formula: Optional[int] = 1000,
+    encode_fn: Optional[Callable] = None,
+) -> EvalResult:
+    """AUC + APR per structure (macro over formulas), hard-negative AUC
+    for intersections: the reference's per-formula protocol, one
+    ``encode_fn`` call per formula (and one more for its hard negatives).
+    ``encode_fn`` defaults to the f32 ``encode_dense``."""
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+
+    _require_mpqe("evaluate", cfg)
+    if encode_fn is None:
+        encode_fn = mpqe_mod.encode_dense
+    auc_s: Dict[str, float] = {}
+    apr_s: Dict[str, float] = {}
+    hard_s: Dict[str, float] = {}
+    for structure, by_formula in queries_by_structure.items():
+        f_aucs: List[float] = []
+        f_hard: List[float] = []
+        percentiles: List[float] = []
+        for formula, qs in by_formula.items():
+            if max_queries_per_formula:
+                qs = qs[:max_queries_per_formula]
+            qs = [q for q in qs if q.neg_samples]
+            if not qs:
+                continue
+            pos, neg, mask = _encode_and_score(model, cfg, formula, qs, n_neg,
+                                               False, encode_fn)
+            valid = mask > 0
+            a = roc_auc(pos[valid.any(axis=1)], neg[valid])
+            if np.isfinite(a):
+                f_aucs.append(a)
+            percentiles.extend(_apr_percentiles(pos, neg, mask).tolist())
+            if structure in INTERSECTION_STRUCTURES:
+                qs_h = [q for q in qs if q.hard_neg_samples]
+                if qs_h:
+                    pos_h, neg_h, mask_h = _encode_and_score(
+                        model, cfg, formula, qs_h, n_neg, True, encode_fn)
+                    vh = mask_h > 0
+                    ah = roc_auc(pos_h[vh.any(axis=1)], neg_h[vh])
+                    if np.isfinite(ah):
+                        f_hard.append(ah)
+        if f_aucs:
+            auc_s[structure] = float(np.mean(f_aucs))
+        if percentiles:
+            apr_s[structure] = float(np.mean(percentiles))
+        if f_hard:
+            hard_s[structure] = float(np.mean(f_hard))
+    return EvalResult(auc_s, apr_s, hard_s)
+
+
+def _rank_all_impl(model, cfg, structure, ne, nm, er, en, operands=None):
+    """``[B, n_entities]`` scores of a chunk (MPQE: the per-query-relation
+    encoder, K3 for eligible models, then every entity)."""
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+
+    q = mpqe_mod.encode_dense_multi_auto(model, cfg, structure, ne, nm, er,
+                                         en, operands=operands)
+    return mpqe_mod.score_all_entities(model, cfg, q)
+
+
+def _rank_counts_impl(model, cfg, structure, ne, nm, er, en, target, emode,
+                      operands=None) -> torch.Tensor:
+    """Rank on the device: ``1 + #(same-mode candidates scoring strictly
+    above the true answer)``, ``[B]``; only that vector leaves the
+    device."""
+    scores = _rank_all_impl(model, cfg, structure, ne, nm, er, en, operands)
+    t = target.long()
+    mode_ok = emode[None, :] == emode[t][:, None]
+    true_s = torch.gather(scores, 1, t[:, None])
+    return 1 + torch.sum((scores > true_s) & mode_ok, dim=1)
+
+
+def full_ranking(
+    model,
+    cfg,
+    queries_by_structure: Dict[str, Dict[Formula, List[Query]]],
+    entity_mode: np.ndarray,
+    hits_at: Tuple[int, ...] = (1, 3, 10),
+    max_queries_per_formula: Optional[int] = 200,
+    max_batch: int = 8192,
+) -> Dict[str, Dict[str, float]]:
+    """Full-candidate ranking metrics (MRR, mean rank, Hits@K) per
+    structure: every entity of the target's mode competes (unfiltered),
+    all formulas of a structure in one dispatch per ``max_batch`` chunk
+    (capped so one chunk's score matrix stays near 1 GiB)."""
+    from mpqe_tpu_torch.ops.fused_fwd import prepare_fused_multi
+
+    _require_mpqe("full_ranking", cfg)
+    device = model.emb.ent.device
+    es = make_eval_set(queries_by_structure, max_queries_per_formula,
+                       require_negatives=False)
+    emode = torch.from_numpy(
+        np.asarray(entity_mode).astype(np.int32)).to(device)
+    max_batch = _effective_max_batch(cfg, max_batch, cfg.n_entities)
+    operands = (prepare_fused_multi(model, cfg)
+                if cfg.readout == "tgt" and cfg.num_bases is not None
+                else None)
+    out: Dict[str, Dict[str, float]] = {}
+    for structure, data in es.by_structure.items():
+        n_q = data["target"].shape[0]
+        ranks = np.zeros(n_q, np.float64)
+        for lo in range(0, n_q, max_batch):
+            hi = min(lo + max_batch, n_q)
+            B = bucket_size(hi - lo)
+            with torch.no_grad():
+                r = _rank_counts_impl(
+                    model, cfg, structure,
+                    _pad_chunk(data["node_entity"], lo, hi, B, device),
+                    _pad_chunk(data["node_mode"], lo, hi, B, device),
+                    _pad_chunk(data["edge_rel"], lo, hi, B, device),
+                    _pad_chunk(data["edge_norm"], lo, hi, B, device, 1),
+                    _pad_chunk(data["target"], lo, hi, B, device), emode,
+                    operands)
+            ranks[lo:hi] = r.cpu().numpy()[:hi - lo]
+        if n_q:
+            out[structure] = _rank_metrics(ranks, hits_at)
+    return out
+
+
+def _rank_metrics(ranks: np.ndarray, hits_at: Tuple[int, ...]
+                  ) -> Dict[str, float]:
+    m: Dict[str, float] = {
+        "mrr": float(np.mean(1.0 / ranks)),
+        "mean_rank": float(ranks.mean()),
+    }
+    for k in hits_at:
+        m[f"hits@{k}"] = float(np.mean(ranks <= k))
+    return m

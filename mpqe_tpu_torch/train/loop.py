@@ -252,6 +252,7 @@ def run_train(
     checkpoint_fn: Optional[Callable[[TrainState, float], None]] = None,
     train_step: Optional[Callable] = None,
     batch_loss_fn: Optional[Callable] = None,
+    eval_encode_fn: Optional[Callable] = None,
     kg=None,
     warmup: bool = False,
     prefetch: int = 0,
@@ -263,7 +264,9 @@ def run_train(
     place on ``state``.  ``should_stop`` is polled each step (True stops
     cleanly: graceful preemption).  Each step's record for ``log_fn``
     carries its seconds, the loss included (the step ends on the host
-    reading the loss)."""
+    reading the loss).  Validation takes the batched sweep
+    (``evaluate_batched``), or with ``eval_encode_fn`` the per-formula
+    protocol through that encoder (``evaluate``), as in the reference."""
     if prefetch > 0:
         raise NotImplementedError(
             f"prefetch > 0 (the background batch pipeline, data/pipeline.py "
@@ -291,7 +294,14 @@ def run_train(
         warmup_train_step(
             lambda opt: make_train_step(cfg, opt, batch_loss_fn), cfg, tc,
             structures, device)
-    eval_set = evaluation.make_eval_set(val_queries) if val_queries else None
+    eval_set = (evaluation.make_eval_set(val_queries)
+                if val_queries and eval_encode_fn is None else None)
+
+    def run_validation():
+        if eval_set is not None:
+            return evaluation.evaluate_batched(state.model, cfg, eval_set)
+        return evaluation.evaluate(state.model, cfg, val_queries,
+                                   encode_fn=eval_encode_fn)
 
     burn_in = tc.burn_in_structure in structures and len(structures) > 1
     losses: collections.deque = collections.deque(maxlen=tc.conv_window)
@@ -334,10 +344,9 @@ def run_train(
             if log_fn:
                 log_fn({"step": state.step, "event": "burn_in_done"})
 
-        if eval_set is not None and \
-                state.step // tc.val_every > last_val_bucket:
+        if val_queries and state.step // tc.val_every > last_val_bucket:
             last_val_bucket = state.step // tc.val_every
-            res = evaluation.evaluate_batched(state.model, cfg, eval_set)
+            res = run_validation()
             metric = res.macro_auc
             if log_fn:
                 log_fn({"step": state.step, "val": res.flat()})

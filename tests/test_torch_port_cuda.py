@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K2, K3, K5a, K5b, K6a, K6b and the served path on
-the card, against their plain versions.  Needs an NVIDIA GPU: every test
+"""The CUDA kernels K1, K2, K3, K4a, K4b, K5a, K5b, K6a, K6b, K7, the
+served path and the sparse encoder on the card, against their plain
+versions.  Needs an NVIDIA GPU: every test
 here skips itself without one.
 
 This file imports no JAX (the machine with the card has none), so it
@@ -9,7 +10,7 @@ runs there without the repository's conftest::
 
 Tolerance: each kernel output vs its plain version max|diff| / max|ref|
 <= 1e-4 (for K2 per output leaf); both sum in the same order, so the
-expected difference is 0.
+expected difference is 0.  K4b's maxima are exact: equal, NaN included.
 """
 
 import numpy as np
@@ -343,3 +344,168 @@ def test_cuda_k5_k6_wrappers_check_their_inputs():
         tprb.messages_blocked(x, basis, coeff, broken, 3)
     with pytest.raises(ValueError):
         tprb.grad_blocked(x, x[:, :8], basis, coeff, lay, 3)
+
+
+# ------------------------------------------------------------ K4 and K7
+def _segment_cases(d, dev, seed=0):
+    """(name, data, ids, num_segments): the reference's chip-check shape,
+    a batch's destination sum (ids in ascending blocks, as dense_to_sparse
+    leaves them within a relation), out-of-range ids with empty segments,
+    and the cap."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    out = []
+    for name, E, S in (("tpu_smoke", 1000, 64), ("batch", 3072, 4096),
+                       ("cap", 40000, 8192)):
+        ids = rng.integers(0, S, E).astype(np.int32)
+        if name == "batch":
+            ids = np.sort(ids)
+        out.append((name, t(rng.normal(size=(E, d)).astype(np.float32)),
+                    t(ids), S))
+    ids = np.array([0, 1, 2, 3, 4, 99, 99, -1, 2, 0] * 7, np.int32)
+    out.append(("out_of_range", t(rng.normal(size=(70, d)).astype(
+        np.float32)), t(ids), 9))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 128])
+def test_cuda_k4_match_plain_versions(d):
+    from mpqe_tpu_torch.ops import segment_kernels as sk
+
+    dev = _cuda()
+    for name, data, ids, S in _segment_cases(d, dev, seed=d):
+        a0, b0 = sk.segment_sum_kernel.launches, sk.segment_max_kernel.launches
+        got_s = sk.segment_sum_kernel(data, ids, S)
+        got_m = sk.segment_max_kernel(data, ids, S)
+        want_s = sk.segment_sum_reference(data, ids, S)
+        want_m = sk.segment_max_reference(data, ids, S)
+        torch.cuda.synchronize()
+        assert sk.segment_sum_kernel.launches == a0 + 1
+        assert sk.segment_max_kernel.launches == b0 + 1
+        assert _rel(got_s, want_s) <= 1e-4, (name, _rel(got_s, want_s))
+        assert torch.equal(got_m, want_m), name
+        oracle = torch.zeros((S, d), dtype=torch.float64, device=dev)
+        ok = (ids >= 0) & (ids < S)
+        oracle.index_add_(0, ids[ok].long(), data[ok].double())
+        assert _rel(got_s.double(), oracle) <= 1e-5, name
+        empty = torch.bincount(ids[ok].long(), minlength=S) == 0
+        assert bool((got_m[empty] == sk.NEG_INF).all())
+        assert bool((got_s[empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_k4_nan_inf_bf16_and_cap():
+    from mpqe_tpu_torch.ops import segment_kernels as sk
+
+    dev = _cuda()
+    data = torch.randn((12, 8), device=dev)
+    data[3, 2] = float("nan")
+    data[5, 1] = float("-inf")
+    data[6, :] = float("-inf")  # a segment of -inf rows stays at -1e30
+    ids = torch.tensor([0, 0, 1, 1, 2, 2, 3, 1, 0, 2, 5, 5], device=dev)
+    got = sk.segment_max_kernel(data, ids, 6)
+    want = sk.segment_max_reference(data, ids, 6)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert bool(got[1, 2].isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert bool((got[3] == sk.NEG_INF).all()) and bool(
+        (got[4] == sk.NEG_INF).all())
+    got_s = sk.segment_sum_kernel(data, ids, 6)
+    want_s = sk.segment_sum_reference(data, ids, 6)
+    assert torch.equal(got_s.isnan(), want_s.isnan())
+    assert torch.equal(torch.nan_to_num(got_s), torch.nan_to_num(want_s))
+    half = data.nan_to_num().clamp(-10, 10).to(torch.bfloat16)
+    for k, r in ((sk.segment_sum_kernel, sk.segment_sum_reference),
+                 (sk.segment_max_kernel, sk.segment_max_reference)):
+        g = k(half, ids, 6)
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, r(half, ids, 6))
+        k(data[:0], ids[:0], 8192)  # the cap itself
+        with pytest.raises(ValueError):
+            k(data, ids, 8193)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        sk.segment_sum_kernel(data.clone().requires_grad_(), ids, 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 128])
+def test_cuda_k7_matches_plain_version(d):
+    from mpqe_tpu_torch.ops import sddmm as tsd
+
+    dev = _cuda()
+    gen = torch.Generator(dev).manual_seed(d)
+    for n, E in ((512, 2048), (4096, 3072), (8191, 65536)):
+        x = torch.randn((n, d), device=dev, generator=gen)
+        y = torch.randn((n, d), device=dev, generator=gen)
+        src = torch.randint(0, n, (E,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        dst = torch.randint(0, n, (E,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        src[:5] = torch.tensor([-1, n, 0, 3 * n, 1], device=dev)
+        dst[5:7] = torch.tensor([n + 7, -4], device=dev)
+        before = tsd.sddmm_kernel.launches
+        got = tsd.sddmm_kernel(x, y, src, dst)
+        want = tsd.sddmm_reference(x, y, src, dst)
+        torch.cuda.synchronize()
+        assert tsd.sddmm_kernel.launches == before + 1
+        assert _rel(got, want) <= 1e-4, (n, _rel(got, want))
+        assert bool((got[[0, 1, 3, 5, 6]] == 0).all())
+        oracle = tsd.sddmm_xla(x.double(), y.double(), src, dst)
+        assert _rel(got.double(), oracle) <= 1e-5
+    with pytest.raises(ValueError):
+        tsd.sddmm_kernel(torch.zeros((8192, d), device=dev),
+                         torch.zeros((8192, d), device=dev), src[:4], dst[:4])
+    with pytest.raises(NotImplementedError, match="forward only"):
+        tsd.sddmm_kernel(x.requires_grad_(), y, src, dst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("readout", ["tgt", "max", "mlp"])
+def test_cuda_encode_sparse_pallas_matches_cpu_plain_path(readout):
+    from mpqe_tpu_torch.data.batcher import (DenseQueryBatch,
+                                             dense_to_sparse,
+                                             template_edge_norm)
+    from mpqe_tpu_torch.ops import segment_kernels as sk
+
+    dev = _cuda()
+    cfg = tm.MPQEConfig(n_entities=N_ENT, n_modes=N_MODES, n_rels=N_RELS,
+                        embed_dim=128, n_layers=3, num_bases=16,
+                        readout=readout)
+    gen = torch.Generator(dev).manual_seed(3)
+    model = tm.init_mpqe(gen, cfg, device=dev)
+    cpu_model = tm.MPQE(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    rng = np.random.default_rng(4)
+    for s in STRUCTURE_NAMES:
+        spec = STRUCTURES[s]
+        B = 1024
+        rels = rng.integers(0, N_RELS, spec.n_edges).astype(np.int32)
+        b = DenseQueryBatch(
+            s, B, rng.integers(0, N_ENT, (B, spec.n_nodes)).astype(np.int32),
+            rng.integers(0, N_MODES, (B, spec.n_nodes)).astype(np.int32),
+            rels, template_edge_norm(spec, rels), np.zeros(B, np.int32),
+            np.zeros((B, 1), np.int32), np.ones((B, 1), np.float32),
+            np.ones(B, np.float32))
+        sb = dense_to_sparse(b, N_RELS)
+        arrays = (sb.node_entity, sb.node_mode, sb.node_is_var,
+                  sb.edges.src, sb.edges.dst, sb.edges.rel, sb.edges.norm,
+                  sb.node_query, sb.target_node)
+        a0, b0 = sk.segment_sum_kernel.launches, sk.segment_max_kernel.launches
+        with torch.no_grad():
+            got = tm.encode_sparse(
+                model, cfg, s, *(torch.from_numpy(a).to(dev) for a in arrays),
+                B, segment_backend="pallas")
+            want = tm.encode_sparse(
+                cpu_model, cfg, s, *(torch.from_numpy(a) for a in arrays), B,
+                segment_backend="pallas")
+        steps = tm.num_steps(cfg, s)
+        assert sk.segment_sum_kernel.launches - a0 == steps + (
+            readout == "mlp")
+        assert sk.segment_max_kernel.launches - b0 == (readout == "max")
+        assert got.shape == (B, 128)
+        assert _rel(got.cpu(), want) <= 1e-5, (s, readout)

@@ -116,7 +116,10 @@ def test_port_imports_no_jax():
         "import mpqe_tpu_torch\n"
         "for m in pkgutil.walk_packages(mpqe_tpu_torch.__path__, "
         "'mpqe_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n")
+        "    importlib.import_module(m.name)\n"
+        "for m in ('mpqe_tpu_torch.ops.segment_kernels', "
+        "'mpqe_tpu_torch.ops.sddmm', 'mpqe_tpu_torch.evaluate'):\n"
+        "    assert m in sys.modules, m\n")
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

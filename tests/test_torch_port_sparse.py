@@ -106,10 +106,17 @@ def test_segment_ops_match_jax(seed):
 
 
 def test_segment_pallas_backend_is_not_ported():
-    x = torch.zeros((3, 2))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tseg.segment_sum(x, torch.zeros(3, dtype=torch.int32), 2,
-                         backend="pallas")
+    # (named when the backend raised) the "pallas" backend is ported now
+    # (K4a / K4b): it gives the "xla" backend's sums and maxima
+    # (tests/test_torch_port_segment.py holds it to the Pallas interpret
+    # kernels); an unknown backend raises
+    x = torch.arange(6.0).reshape(3, 2)
+    ids = torch.tensor([1, 0, 1], dtype=torch.int32)
+    for op in (tseg.segment_sum, tseg.segment_max, tseg.segment_mean):
+        np.testing.assert_array_equal(op(x, ids, 2, backend="pallas").numpy(),
+                                      op(x, ids, 2).numpy())
+    with pytest.raises(ValueError, match="unknown segment backend"):
+        tseg.segment_sum(x, ids, 2, backend="tpu")
 
 
 def test_scatter_add_dense_matches_jax():
@@ -217,11 +224,19 @@ def test_encode_sparse_matches_jax(structure, readout):
 
 
 def test_encode_sparse_pallas_backend_raises():
+    # (named when the backend raised) the "pallas" backend runs K4a (its
+    # plain version here) and gives the "xla" backend's queries; like the
+    # reference kernels it is forward only, so it raises in grad mode on
+    # parameters that require grad
     _, tcfg, _, model = _models()
     z = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tm.encode_sparse(model, tcfg, "", z, z, z.float(), z, z, z, z.float(),
-                         z, z[:1], 1, segment_backend="pallas")
+    args = (model, tcfg, "", z, z, z.float(), z, z, z, z.float(), z, z[:1], 1)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        tm.encode_sparse(*args, segment_backend="pallas")
+    with torch.no_grad():
+        np.testing.assert_array_equal(
+            tm.encode_sparse(*args, segment_backend="pallas").numpy(),
+            tm.encode_sparse(*args).numpy())
 
 
 # --------------------------------------------------------- layout builders
