@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (``mpqe_tpu_torch``) on one GPU.
 
 Drives the serving path, the per-formula evaluation through the sparse
-encoder, the full ranking, the dense training path and the sparse
-training path (``--kernel fused`` and ``--kernel blocked``) at the
-flagship width (d = 128, 3 R-GCN layers, TGT readout, 16 bases or full
-per-relation weights, 266 relations, 4 modes, 1,000,000 entities;
-random weights from a seed) and checks every hand-written kernel on
-them.  The six kernel libraries build in parallel (one nvcc each),
-then:
+encoder, the full ranking, the dense training path, the sparse training
+path (``--kernel fused`` and ``--kernel blocked``) and the training
+through the edge-partitioned halo layers (``--parallel halo_ring`` /
+``halo_gather``) at the flagship width (d = 128, 3 R-GCN layers, TGT
+readout, 16 bases or full per-relation weights, 266 relations, 4 modes,
+1,000,000 entities; random weights from a seed) and checks every
+hand-written kernel on them.  The seven kernel libraries build in
+parallel (one nvcc each), then:
 
 1. ``kernel.fused_multi``: builds K3 (``csrc/fused_multi.cu``) with nvcc
    and, for all 7 structures at B = 256 and at a ragged B = 1000, holds
@@ -60,7 +61,16 @@ then:
    E = 2^20: vs its plain version (<= 1e-4) and an f64 oracle (<= 1e-5),
    out-of-range endpoints scoring 0; times beside the bound, the plain
    version and ``torch.sparse.sampled_addmm`` as the yardstick.
-8. ``eval.sparse``: ``evaluate`` on sampled validation queries through
+8. ``kernel.ring``: K8 (``csrc/ring.cu``) over rings of P parts on one
+   card: the general graph at P = 2, 3, 4, 8 and each structure's
+   template layout at B = 512 on 4 parts, launched P times per layer
+   call (counted from 0 over these 11 calls); each vs its plain version
+   (equal), the port's ``rgcn_ring_halo`` and the single-device
+   ``rgcn_sparse`` (<= 1e-5), and again with every aggregate delayed by
+   ``torch.cuda._sleep`` (equal: the ack events hold the copies back);
+   times (CUDA events, L2 flushed; K8's device time and the copy
+   stream's from the profiler) beside the bound and the plain version.
+9. ``eval.sparse``: ``evaluate`` on sampled validation queries through
    an adapter (``dense_to_sparse``, then ``encode_sparse`` with the
    ``"pallas"`` segment backend) for the flagship model (K4a) and a
    max-readout model (K4a, K4b): K4 launches equal to the expected
@@ -68,10 +78,10 @@ then:
    through the f32 ``encode_dense``, one formula per structure bit-equal
    through the plain K4; then 20 dense train steps with one validation
    round through ``run_train(eval_encode_fn=...)``.
-9. ``eval.ranking``: ``full_ranking`` over the same queries against all
+10. ``eval.ranking``: ``full_ranking`` over the same queries against all
    1M entities; one structure's ranks recomputed by ``torch.matmul`` and
    a per-row count give the same metrics.
-10. ``train``: ``run_train`` on the card with ``--kernel fused_fwd
+11. ``train``: ``run_train`` on the card with ``--kernel fused_fwd
    --fused_backward pallas`` (batch 512, 4 negatives, Adam lr 0.01, every
    structure from the first step) and one validation round through K3;
    K1 and K2 launch once per step, K3 during validation, every loss is
@@ -79,16 +89,23 @@ then:
    versions gives the same loss and gradients.  Step time p50/p95, real
    queries/s (and padded rows/s) and a ``torch.profiler`` account of 10
    steps.
-11. ``train.fused``, ``train.fused_full``, ``train.blocked``:
+12. ``train.fused``, ``train.fused_full``, ``train.blocked``:
    ``run_train`` through the sparse path (``--kernel fused`` with a
    16-basis and a full-weight model, ``--kernel blocked``), 50 steps
    each: launch counts equal to 2 K5 (or 2 K6a and 1 K6b) per layer of
    every step, finite losses, one step per structure recomputed through
    the plain versions (same loss and gradients, <= 1e-4: the segment
    sums use index_add_), step p50/p95 and a profile of 10 steps.
-12. ``train.cli``: ``python -m mpqe_tpu_torch.train`` as a subprocess on
-   a small KG with ``--kernel fused_fwd`` and with ``--kernel blocked``;
-   the final line and run dir of each; ``eval.cli``: ``python -m
+13. ``halo.train.ring``, ``halo.train.gather``: ``run_train`` through
+   ``make_halo_train_step`` (``rgcn_ring_halo`` / ``rgcn_dst_partitioned``)
+   on 4 parts of the card, 20 steps each: finite losses, step p50/p95
+   and real queries/s, one batch per structure whose halo loss and
+   gradients equal ``dense_batch_loss``'s from the same state (<= 1e-5),
+   and a profile of 10 steps.
+14. ``train.cli``: ``python -m mpqe_tpu_torch.train`` as a subprocess on
+   a small KG with ``--kernel fused_fwd``, with ``--kernel blocked`` and
+   with ``--parallel halo_ring`` (the default mesh: one part on one
+   card); the final line and run dir of each; ``eval.cli``: ``python -m
    mpqe_tpu_torch.evaluate --run_dir <the first run> --ranking``.
 
 Prints the card's name and power limit first, then one line per check,
@@ -2012,8 +2029,324 @@ def phase_train_sparse(kg, train_q, device, label):
     return launches
 
 
+# ----------------------------------------------------------------------
+# K8 (the ring-halo R-GCN layer) and training through the halo layers
+# ----------------------------------------------------------------------
+K8_KERNELS = ("ring_hop_kernel",)
+RING_SIZES = (2, 3, 4, 8)
+RING_TEMPLATE_PARTS = 4
+RING_SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's clock, per aggregate
+HALO_PARTS = 4
+HALO_STEPS = 20
+
+
+def k8_work(N: int, d: int, d_out: int, bb: int, n_rels: int, E: int,
+            n_parts: int) -> tuple:
+    """(bytes, bf16 FLOP, f32 FLOP) of one K8 layer call (all P hops): x,
+    the E real edges' src, dst, rel and norm (16 B each), the basis and
+    coeff read once, the [N, d_out] aggregate written once; the
+    transforms at 2 d d_out Bb per edge or per held source row, whichever
+    is fewer (min(E, P N)), plus the combine (Bb multiplies and adds per
+    output), the norm and the destination add per edge and column."""
+    nbytes = (N * d * 4 + E * 16 + bb * d * d_out * 4 + n_rels * bb * 4
+              + N * d_out * 4)
+    f32 = 2 * d * d_out * bb * min(E, n_parts * N) + E * d_out * (2 * bb + 2)
+    return nbytes, 0, f32
+
+
+def ring_cases(cfg, gen, device):
+    """One dict per K8 case (label, P, mesh, x, the ring's edge arrays on
+    the card, the single-device graph's (src, dst, rel, norm), its node
+    and edge counts): the reference's general graph for every ring size
+    (the same x), then each structure's template layout at TRAIN_BATCH
+    on RING_TEMPLATE_PARTS parts."""
+    from mpqe_tpu_torch.parallel import halo
+    from mpqe_tpu_torch.parallel import halo_train as ht
+    from mpqe_tpu_torch.parallel.mesh import make_mesh
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES, STRUCTURES
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    st = general_store(cfg)
+    m = st.pad_mask
+    single = tuple(t(a[m]) for a in (st.src, st.dst, st.rel, st.norm))
+    x0 = torch.randn((st.n_nodes, cfg.embed_dim), generator=gen,
+                     device=device)
+    for P in RING_SIZES:
+        pr = halo.partition_edges_ring(st, P)
+        x = torch.zeros((pr.n_nodes_padded, cfg.embed_dim), device=device)
+        x[:st.n_nodes] = x0
+        yield dict(label="general", P=P, x=x, n=st.n_nodes, E=int(m.sum()),
+                   mesh=make_mesh((P, 1), devices=[device] * P),
+                   edges=[t(a) for a in (pr.src_local, pr.dst_local, pr.rel,
+                                         pr.norm)], single=single)
+    B, P = TRAIN_BATCH, RING_TEMPLATE_PARTS
+    for s in STRUCTURE_NAMES:
+        spec = STRUCTURES[s]
+        lay = ht._template_layout(s, B, P, "ring", device)
+        er, en = template_rel_norm(gen, cfg, s)
+        slot = lay["slot_ordered"]
+        rel = torch.full((lay["total"],), cfg.n_rels, dtype=torch.int32,
+                         device=device)
+        rel[lay["flat"]] = er[slot]
+        norm = torch.zeros((lay["total"],), device=device)
+        norm[lay["flat"]] = en[slot]
+        offs = torch.arange(B, device=device)[:, None] * spec.n_nodes
+        src = (offs + torch.tensor(spec.edge_src, device=device)).reshape(-1)
+        dst = (offs + torch.tensor(spec.edge_dst, device=device)).reshape(-1)
+        yield dict(label=s, P=P, n=B * spec.n_nodes, E=B * spec.n_edges,
+                   x=torch.randn((lay["n_pad"], cfg.embed_dim),
+                                 generator=gen, device=device),
+                   mesh=make_mesh((P, 1), devices=[device] * P),
+                   edges=[lay["o_src"], lay["o_dst"],
+                          rel.reshape(lay["shape"]),
+                          norm.reshape(lay["shape"])],
+                   single=(src, dst, er.repeat(B), en.repeat(B)))
+
+
+def ring_device_ms(fn, iters: int, flush: torch.Tensor) -> tuple:
+    """(K8's device ms, the copy stream's busy ms, its operations) per
+    ``fn()`` call, each call after an L2 flush (torch.profiler): the
+    kernel alone, and every device operation on a stream that ran no K8
+    (the ring's copies; the slot set-up and the flush run on K8's
+    stream)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        k8 = [e for e in dev if any(k in e.name for k in K8_KERNELS)]
+        if k8:
+            streams = {e.device_resource_id for e in k8}
+            side = [e for e in dev if e.device_resource_id not in streams]
+            return (sum(e.time_range.elapsed_us() for e in k8) / iters / 1e3,
+                    sum(e.time_range.elapsed_us() for e in side)
+                    / iters / 1e3, len(side) // iters)
+        log(f"ring_device_ms: profile {attempt + 1} recorded no K8")
+    raise AssertionError(f"the profiler saw no K8 in {PROFILE_TRIES} "
+                         "profiles")
+
+
+class delayed_receivers:
+    """Within the block, every K8 launch is preceded on its stream by
+    ``torch.cuda._sleep``: each receiver's aggregate runs late, and only
+    the ack events keep the copy stream from overwriting a slot before it
+    has been read."""
+
+    def __enter__(self):
+        from mpqe_tpu_torch.ops import ring
+
+        self.saved = ring._launch_hop
+
+        def late(*a):
+            torch.cuda._sleep(RING_SLEEP_CYCLES)
+            return self.saved(*a)
+
+        ring._launch_hop = late
+        return self
+
+    def __exit__(self, *exc):
+        from mpqe_tpu_torch.ops import ring
+
+        ring._launch_hop = self.saved
+        return False
+
+
+def phase_ring(layer, cfg, device, gen, flush):
+    """K8's drive (counted from 0: P launches per layer call), then for
+    each case K8 against its plain version (equal), the port's
+    ``rgcn_ring_halo`` and the single-device ``rgcn_sparse``
+    (<= TOL_ORACLE), and again with delayed receivers (equal); times
+    beside the bound, the copy stream's busy time and the plain version.
+    Returns (launches of the drive, the JSON fields: sums over the 7
+    template layouts)."""
+    from mpqe_tpu_torch.ops import rgcn as rgcn_ops
+    from mpqe_tpu_torch.ops import ring
+    from mpqe_tpu_torch.parallel import halo
+
+    d, R, bb = cfg.embed_dim, cfg.n_rels, layer.basis.shape[0]
+    cases = list(ring_cases(cfg, gen, device))
+
+    def k8(c):
+        return ring.rgcn_ring_halo_rdma(c["mesh"], layer, c["x"],
+                                        *c["edges"], R)
+
+    ring.rgcn_ring_halo_rdma.launches = 0
+    with torch.no_grad():
+        outs = [k8(c) for c in cases]
+    torch.cuda.synchronize()
+    launches = ring.rgcn_ring_halo_rdma.launches
+    want = sum(c["P"] for c in cases)
+    log(f"kernel.ring: launches {launches} in {len(cases)} layer calls "
+        f"(expected {want}: P per call)")
+    if launches != want:
+        raise AssertionError(f"K8 launches {launches} != {want}")
+    acc = new_acc()
+    general_ref = None
+    for c, got in zip(cases, outs):
+        label, P, x, edges, n = c["label"], c["P"], c["x"], c["edges"], c["n"]
+        with torch.no_grad():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            plain = ring.rgcn_ring_halo_rdma_reference(c["mesh"], layer, x,
+                                                       *edges, R)
+            b.record()
+            xla = halo.rgcn_ring_halo(c["mesh"], layer, x, *edges, R)
+            if label != "general" or general_ref is None:
+                ref1 = rgcn_ops.rgcn_sparse(x[:n], layer, *c["single"], R)
+                if label == "general":
+                    general_ref = ref1
+            else:  # the same graph and x at every ring size
+                ref1 = general_ref
+            with delayed_receivers():
+                late = k8(c)
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        e_plain = float((got - plain).abs().max())
+        e_xla, e_single = rel_err(got, xla), rel_err(got[:n], ref1)
+        same_late = torch.equal(late, got)
+        line = (f"kernel.ring {label:14s} P={P} N={x.shape[0]} E={c['E']} "
+                f"err_vs_plain={e_plain:.3e} err_vs_rgcn_ring_halo="
+                f"{e_xla:.3e} err_vs_rgcn_sparse={e_single:.3e} "
+                f"delayed_receivers_equal={same_late}")
+        if (e_plain != 0.0 or e_xla > TOL_ORACLE or e_single > TOL_ORACLE
+                or not same_late or not bool(torch.isfinite(got).all())):
+            log(line + " FAIL")
+            raise AssertionError(line)
+        acc["max_abs_err"] = max(acc["max_abs_err"], e_plain)
+        iters = BIG_ITERS if label == "general" else ITERS
+        with torch.no_grad():
+            ms = time_ms(lambda: k8(c), iters, flush)
+            k_ms, copy_ms, n_copies = ring_device_ms(lambda: k8(c), iters,
+                                                     flush)
+        work = k8_work(x.shape[0], d, d, bb, R, c["E"], P)
+        if label == "general":
+            t_b, t_o = bound_times(work)
+            bound, by = max(t_b, t_o), ("bytes" if t_b >= t_o
+                                        else "operations")
+        else:
+            bound, by = add_case(acc, ms, plain_ms, 0.0, work, k_ms)
+        log(line + f" kernel_ms={ms:.4f} device_ms={k_ms:.4f} "
+            f"copy_stream_ms={copy_ms:.4f} ({n_copies} operations; the "
+            f"ring's copies carry {(P - 1) * x.shape[0] * d * 4} B) plain_ms="
+            f"{plain_ms:.4f} library_ms=none bound_ms={bound:.6f} ({by}: "
+            f"{work[0]} B, {work[2]} f32 FLOP)")
+        del plain, xla, late
+    del outs, cases, general_ref
+    log(f"kernel.ring sum of 7 at B={TRAIN_BATCH} P={RING_TEMPLATE_PARTS}: "
+        f"kernel_ms={acc['ms']:.4f} device_ms={acc['device_ms']:.4f} "
+        f"plain_ms={acc['plain_ms']:.4f} bound_ms={acc['bound_ms']:.6f}")
+    fields = finish_acc(acc)
+    fields["library_ms"] = None
+    return launches, fields
+
+
+def recheck_halo_step(state, cfg, stores, device, loss_fn, label):
+    """One batch per structure from the trained state through the halo
+    loss and through ``dense_batch_loss``: the same loss and gradients
+    (<= TOL_ORACLE relative; f32 both, other sum orders)."""
+    from mpqe_tpu_torch.data.store import pack_dense_batch_np
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    model = state.model
+    params = dict(model.named_parameters())
+    for structure, f_stores in stores.items():
+        fstore = max(f_stores, key=lambda f: f.n_queries)
+        batch = pack_dense_batch_np(
+            fstore, np.arange(min(fstore.n_queries, TRAIN_BATCH)),
+            TRAIN_BATCH, 4, 11)
+        t = loop_mod.batch_tensors(batch, device)
+        loss_h = loss_fn(model, cfg, structure, *t)
+        g_h = torch.autograd.grad(loss_h, list(params.values()),
+                                  allow_unused=True)
+        loss_d = mpqe_mod.dense_batch_loss(model, cfg, structure, *t)
+        g_d = torch.autograd.grad(loss_d, list(params.values()),
+                                  allow_unused=True)
+        lh, ld = float(loss_h.detach()), float(loss_d.detach())
+        e_loss = abs(lh - ld) / max(abs(ld), 1e-12)
+        e_grad = tree_rel_err(dict(zip(params, g_h)), dict(zip(params, g_d)))
+        line = (f"{label}.recheck {structure:14s} loss={lh:.6f} "
+                f"loss_err_vs_dense={e_loss:.3e} "
+                f"grad_err_vs_dense={e_grad:.3e}")
+        log(line)
+        if e_loss > TOL_ORACLE or e_grad > TOL_ORACLE or not np.isfinite(lh):
+            raise AssertionError(line)
+
+
+def phase_halo_train(kg, train_q, device):
+    """``run_train`` on the card through ``make_halo_train_step``'s loss
+    (``rgcn_ring_halo`` and ``rgcn_dst_partitioned``) on HALO_PARTS parts
+    of one card, HALO_STEPS steps each: finite losses, step p50/p95 and
+    real queries/s, one recheck per structure against the dense loss and
+    a profile of PROFILE_STEPS steps."""
+    from mpqe_tpu_torch.data.store import build_stores
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.parallel import halo_train as ht
+    from mpqe_tpu_torch.parallel.mesh import make_mesh
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
+    mesh = make_mesh((HALO_PARTS, 1), devices=[device] * HALO_PARTS)
+    stores = build_stores(train_q, kg=kg)
+    for kind in ("ring", "gather"):
+        label = f"halo.train.{kind}"
+        tc = loop_mod.TrainConfig(lr=0.01, batch_size=TRAIN_BATCH, n_neg=4,
+                                  max_steps=HALO_STEPS, val_every=1 << 30,
+                                  burn_in_structure="none", seed=0)
+        gen = torch.Generator(device=device).manual_seed(3)
+        state = ht.init_halo_train_state(gen, cfg, tc, mesh)
+        step = ht.make_halo_train_step(cfg, state.optimizer, mesh,
+                                       layer_kind=kind)
+        real = []  # per step, the batch's real rows
+
+        def counted(*a):
+            real.append(a[-1].sum())
+            return step(*a)
+
+        records = []
+        t0 = time.perf_counter()
+        loop_mod.run_train(state, cfg, tc, train_q, log_fn=records.append,
+                           train_step=counted, kg=kg, train_stores=stores)
+        wall = time.perf_counter() - t0
+        steps = [r for r in records if "loss" in r]
+        losses = [r["loss"] for r in steps]
+        ms = np.asarray([r["seconds"] * 1e3 for r in steps])
+        if len(losses) != HALO_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"{label}: {len(losses)} steps, finite: "
+                                 f"{all(np.isfinite(losses))}")
+        n_real = int(torch.stack(real).sum())
+        log(f"{label}: {state.step} steps in {wall:.2f} s on "
+            f"{HALO_PARTS} parts of {torch.cuda.get_device_name(device)}: "
+            f"loss first={losses[0]:.6f} last={losses[-1]:.6f} "
+            f"step_ms_p50={np.percentile(ms, 50):.3f} "
+            f"step_ms_p95={np.percentile(ms, 95):.3f} "
+            f"train_queries_per_s={n_real / ms.sum() * 1e3:.1f} "
+            f"({n_real} real rows of {len(ms) * TRAIN_BATCH}) "
+            f"padded_rows_per_s={len(ms) * TRAIN_BATCH / ms.sum() * 1e3:.1f}")
+        recheck_halo_step(state, cfg, stores, device,
+                          ht.halo_batch_loss_fn(mesh, layer_kind=kind), label)
+        ptc = dataclasses.replace(tc, max_steps=PROFILE_STEPS)
+        profile_device(f"{label}.profile ({PROFILE_STEPS} steps)",
+                       lambda: loop_mod.run_train(
+                           state, cfg, ptc, train_q, train_step=step, kg=kg,
+                           train_stores=stores))
+        del state, step
+        torch.cuda.empty_cache()
+
+
 def build_kernels() -> None:
-    """Build the six kernel libraries at once (one nvcc each, in
+    """Build the seven kernel libraries at once (one nvcc each, in
     parallel) and print what ptxas reports of registers and spills."""
     import threading
 
@@ -2021,6 +2354,7 @@ def build_kernels() -> None:
     from mpqe_tpu_torch.ops import fused_fwd as ff
     from mpqe_tpu_torch.ops import rgcn_blocked as rb
     from mpqe_tpu_torch.ops import rgcn_fused as rf
+    from mpqe_tpu_torch.ops import ring
     from mpqe_tpu_torch.ops import sddmm as sd
     from mpqe_tpu_torch.ops import segment_kernels as sk
 
@@ -2035,7 +2369,7 @@ def build_kernels() -> None:
     t0 = time.perf_counter()
     threads = [threading.Thread(target=build, args=(fn,))
                for fn in (ff._kernel, ff._tgt_kernel, rf._kernel, rb._kernel,
-                          sk._kernel, sd._kernel)]
+                          sk._kernel, sd._kernel, ring._kernel)]
     for t in threads:
         t.start()
     for t in threads:
@@ -2043,7 +2377,7 @@ def build_kernels() -> None:
     if errors:
         raise errors[0]
     names = ("fused_multi", "fused_tgt", "rgcn_fused", "rgcn_blocked",
-             "segment", "sddmm")
+             "segment", "sddmm", "ring")
     log(f"build: {' + '.join(names)} {time.perf_counter() - t0:.2f} s")
     for name in names:
         for ln in cuda_build.BUILD_LOGS.get(name, "").splitlines():
@@ -2094,6 +2428,8 @@ def main() -> int:
     del full_layer
     k4_fields = phase_segment(cfg, device, flush)
     k7_launches, k7_fields = phase_sddmm(model, cfg, device, flush)
+    k8_launches, k8_fields = phase_ring(model.layers[0], cfg, device, gen,
+                                        flush)
 
     t0 = time.perf_counter()
     kg = make_random_kg(**KG)
@@ -2113,9 +2449,11 @@ def main() -> int:
     for label in SPARSE_RUNS:
         for kid, n in phase_train_sparse(kg, train_q, device, label).items():
             sparse[kid] = sparse.get(kid, 0) + n
+    phase_halo_train(kg, train_q, device)
     phase_train_cli(["--kernel", "fused_fwd", "--fused_backward", "pallas"],
                     then=phase_eval_cli)
     phase_train_cli(["--kernel", "blocked"])
+    phase_train_cli(["--parallel", "halo_ring"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -2161,7 +2499,9 @@ def main() -> int:
             ("K4b", "segment_max", "segment.cu", "pallas_segment.py:120",
              k4_launches["K4b"], k4_fields["K4b"]),
             ("K7", "sddmm", "sddmm.cu", "pallas_sddmm.py:48", k7_launches,
-             k7_fields)):
+             k7_fields),
+            ("K8", "rgcn_ring_halo", "ring.cu", "pallas_ring.py:159",
+             k8_launches, k8_fields)):
         kernels.append({
             "name": name,
             "route": "cuda",

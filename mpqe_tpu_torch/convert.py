@@ -5,6 +5,9 @@ Two layouts reach the port:
 * the JAX parameter pytree as numpy arrays (``{"emb": {...}, "layers":
   [...], "readout": {...}}``, e.g. ``jax.tree.map(np.asarray, params)``):
   :func:`model_from_numpy` / :func:`model_to_numpy`;
+* one R-GCN layer's dict (``basis``/``coeff`` or ``w_rel``, ``w_self``,
+  ``bias``), as the reference's ``init_rgcn_layer`` makes it:
+  :func:`layer_from_numpy`;
 * the reference-shaped torch state dict that ``mpqe_tpu``'s
   ``export_mpqe_state_dict`` and ``tools/export_torch_checkpoint.py``
   write (``enc.ent.weight``, ``mode_embeddings.weight``,
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from mpqe_tpu_torch.models.mpqe import MPQE, MPQEConfig
+from mpqe_tpu_torch.ops.rgcn import RGCNLayer
 
 
 def _to_numpy(a) -> np.ndarray:
@@ -43,6 +47,31 @@ def model_from_numpy(tree: Mapping[str, Any], cfg: MPQEConfig,
     for leaf, arr in tree.get("readout", {}).items():
         flat[f"readout.{leaf}"] = arr
     return _load_flat(flat, cfg, device)
+
+
+def layer_from_numpy(params: Mapping[str, Any], device=None) -> RGCNLayer:
+    """The port's ``RGCNLayer`` holding one JAX layer dict's arrays (f32)
+    on ``device``; its widths, relation count and bases are read from
+    the arrays."""
+    w_self = _to_numpy(params["w_self"])
+    d_in, d_out = w_self.shape
+    if "basis" in params:
+        coeff = _to_numpy(params["coeff"])
+        n_rels, num_bases = coeff.shape
+        leaves = ("w_self", "bias", "basis", "coeff")
+    else:
+        n_rels, num_bases = _to_numpy(params["w_rel"]).shape[0], None
+        leaves = ("w_self", "bias", "w_rel")
+    layer = RGCNLayer(d_in, d_out, n_rels, num_bases, device=device)
+    with torch.no_grad():
+        for leaf in leaves:
+            a = torch.tensor(_to_numpy(params[leaf]), dtype=torch.float32)
+            p = getattr(layer, leaf)
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{leaf}: shape {tuple(a.shape)} != "
+                                 f"expected {tuple(p.shape)}")
+            p.copy_(a)
+    return layer
 
 
 def model_to_numpy(model: MPQE) -> Dict[str, Any]:

@@ -1,1 +1,3 @@
-"""Ranking helpers (single card; the sharded layer comes later)."""
+"""The parallel layer: the device mesh, the edge-partitioned halo layers
+and their training, and the ranking helpers (the sharded rank comes
+later)."""

@@ -9,7 +9,9 @@ stops the loop at a step boundary, saves the final checkpoint and exits
 0; ``--resume`` continues from the latest checkpoint.  The last line is
 ``final step=... macro_auc=... macro_apr=...``.
 
-``--data synthetic`` and ``--model rgcn`` only.  Every flag whose
+``--data synthetic`` and ``--model rgcn`` only.  ``--parallel
+halo_ring|halo_gather`` trains through the edge-partitioned halo layers
+over a ``--mesh`` (default: one part per card).  Every flag whose
 feature is not ported yet raises ``NotImplementedError`` naming its
 ROADMAP item.
 
@@ -17,6 +19,7 @@ ROADMAP item.
       --fused_backward pallas --num_bases 16 --steps 2000
   python -m mpqe_tpu_torch.train --kernel blocked --num_bases 16
   python -m mpqe_tpu_torch.train --device cpu --embed_dim 16 --steps 20
+  python -m mpqe_tpu_torch.train --parallel halo_ring --num_bases 16
 """
 
 from __future__ import annotations
@@ -137,8 +140,8 @@ def _refuse_unported(args) -> None:
          "shared negatives are ROADMAP Queue 1 item 2"),
         (args.self_adv_tau != 0.0, "--self_adv_tau",
          "shared negatives are ROADMAP Queue 1 item 2"),
-        (args.parallel != "none", f"--parallel {args.parallel}",
-         "the parallel layer is ROADMAP Queue 1 item 8"),
+        (args.parallel == "spmd", "--parallel spmd",
+         "the SPMD step (parallel/spmd.py) is ROADMAP Queue 1 item 8"),
         (args.prefetch > 0, "--prefetch",
          "the batch pipeline and C++ packer are ROADMAP Queue 1 item 2"),
         (args.steps_per_call > 1, "--steps_per_call > 1",
@@ -201,8 +204,43 @@ def load_data(args):
             group_queries_by_formula(val_q))
 
 
+def _refuse_parallel_combinations(args) -> None:
+    """``SystemExit`` with train.py's messages for what ``--parallel``
+    does not combine with."""
+    if args.parallel == "none":
+        return
+    if args.model != "rgcn":
+        raise SystemExit("--parallel requires --model rgcn")
+    if args.kernel != "dense":
+        raise SystemExit(
+            "--kernel {fused,blocked} is single-chip for now; the "
+            "distributed steps (--parallel) own their own layer path")
+    if args.shared_negatives:
+        raise SystemExit(
+            "--shared_negatives is single-chip for now; the "
+            "distributed steps own their own loss")
+
+
+def _halo_loss_fn(args, device, metrics):
+    """``--parallel halo_ring|halo_gather``: the halo batch loss over a
+    ``--mesh`` of the run's devices (default ``(device count, 1)``: every
+    card, or one CPU).  The CLI puts one part on each device."""
+    from mpqe_tpu_torch.parallel import halo_train
+    from mpqe_tpu_torch.parallel import mesh as mesh_lib
+
+    devices = (mesh_lib.default_devices() if device.type == "cuda"
+               else [device])
+    shape = (tuple(int(x) for x in args.mesh.split(","))
+             if args.mesh else (len(devices), 1))
+    mesh = mesh_lib.make_mesh(shape, devices=devices[: shape[0] * shape[1]])
+    metrics.log({"event": "mesh", "shape": dict(mesh.shape)})
+    kind = "ring" if args.parallel == "halo_ring" else "gather"
+    return halo_train.halo_batch_loss_fn(mesh, layer_kind=kind)
+
+
 def main(argv=None):
     args = parse_args(argv)
+    _refuse_parallel_combinations(args)
     _refuse_unported(args)
     device = resolve_device(args.device)
     if args.kernel == "blocked" and not args.num_bases:
@@ -228,6 +266,8 @@ def main(argv=None):
         def batch_loss_fn(*a):
             return mpqe_mod.dense_batch_loss_kernel_fused_fwd(
                 *a, backward=args.fused_backward)
+    if args.parallel != "none":
+        batch_loss_fn = _halo_loss_fn(args, device, metrics)
     tc = loop_mod.TrainConfig(
         lr=args.lr, batch_size=args.batch_size, n_neg=args.n_neg,
         max_steps=args.steps, val_every=args.val_every,

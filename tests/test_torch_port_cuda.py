@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2, K3, K4a, K4b, K5a, K5b, K6a, K6b, K7, the
-served path and the sparse encoder on the card, against their plain
+"""The CUDA kernels K1, K2, K3, K4a, K4b, K5a, K5b, K6a, K6b, K7, K8,
+the served path and the sparse encoder on the card, against their plain
 versions.  Needs an NVIDIA GPU: every test
 here skips itself without one.
 
@@ -10,7 +10,8 @@ runs there without the repository's conftest::
 
 Tolerance: each kernel output vs its plain version max|diff| / max|ref|
 <= 1e-4 (for K2 per output leaf); both sum in the same order, so the
-expected difference is 0.  K4b's maxima are exact: equal, NaN included.
+expected difference is 0.  K4b's maxima are exact: equal, NaN included;
+K8 is held to be equal.
 """
 
 import numpy as np
@@ -509,3 +510,41 @@ def test_cuda_encode_sparse_pallas_matches_cpu_plain_path(readout):
         assert sk.segment_max_kernel.launches - b0 == (readout == "max")
         assert got.shape == (B, 128)
         assert _rel(got.cpu(), want) <= 1e-5, (s, readout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_parts", [2, 4])
+@pytest.mark.parametrize("d,nb", [(128, 16), (16, 3)], ids=["flagship",
+                                                             "narrow"])
+def test_cuda_k8_matches_plain_version(n_parts, d, nb):
+    # a ring of n_parts parts on one card: one launch per hop, bit-equal
+    # to the plain version (same operations, same order)
+    from mpqe_tpu_torch.ops import rgcn as trg
+    from mpqe_tpu_torch.ops import ring as tring
+    from mpqe_tpu_torch.ops.edge_store import build_edge_store
+    from mpqe_tpu_torch.parallel import halo as thalo
+    from mpqe_tpu_torch.parallel import mesh as tmesh
+
+    dev = _cuda()
+    rng = np.random.default_rng(n_parts)
+    n, e = 1000, 8000
+    st = build_edge_store(rng.integers(0, n, e), rng.integers(0, n, e),
+                          rng.integers(0, N_RELS, e), n, N_RELS)
+    pr = thalo.partition_edges_ring(st, n_parts)
+    gen = torch.Generator(device=dev).manual_seed(n_parts)
+    layer = trg.init_rgcn_layer(gen, d, d, N_RELS, nb, device=dev)
+    x = torch.randn((pr.n_nodes_padded, d), generator=gen, device=dev)
+    edges = [torch.from_numpy(a).to(dev)
+             for a in (pr.src_local, pr.dst_local, pr.rel, pr.norm)]
+    mesh = tmesh.make_mesh((n_parts, 1), devices=[dev] * n_parts)
+    before = tring.rgcn_ring_halo_rdma.launches
+    with torch.no_grad():
+        got = tring.rgcn_ring_halo_rdma(mesh, layer, x, *edges, N_RELS)
+        want = tring.rgcn_ring_halo_rdma_reference(mesh, layer, x, *edges,
+                                                   N_RELS)
+        ring = thalo.rgcn_ring_halo(mesh, layer, x, *edges, N_RELS)
+    torch.cuda.synchronize()
+    assert tring.rgcn_ring_halo_rdma.launches == before + n_parts
+    assert got.shape == (pr.n_nodes_padded, d) and got.device.type == "cuda"
+    assert torch.equal(got, want)
+    assert _rel(got, ring) <= 1e-5

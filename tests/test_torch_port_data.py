@@ -118,7 +118,9 @@ def test_port_imports_no_jax():
         "'mpqe_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('mpqe_tpu_torch.ops.segment_kernels', "
-        "'mpqe_tpu_torch.ops.sddmm', 'mpqe_tpu_torch.evaluate'):\n"
+        "'mpqe_tpu_torch.ops.sddmm', 'mpqe_tpu_torch.evaluate', "
+        "'mpqe_tpu_torch.parallel.halo', 'mpqe_tpu_torch.parallel.halo_train', "
+        "'mpqe_tpu_torch.parallel.mesh', 'mpqe_tpu_torch.ops.ring'):\n"
         "    assert m in sys.modules, m\n")
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

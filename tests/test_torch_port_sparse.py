@@ -105,11 +105,10 @@ def test_segment_ops_match_jax(seed):
         rtol=1e-6, atol=1e-7)
 
 
-def test_segment_pallas_backend_is_not_ported():
-    # (named when the backend raised) the "pallas" backend is ported now
-    # (K4a / K4b): it gives the "xla" backend's sums and maxima
-    # (tests/test_torch_port_segment.py holds it to the Pallas interpret
-    # kernels); an unknown backend raises
+def test_segment_pallas_backend_matches_xla():
+    # the "pallas" backend (K4a / K4b) gives the "xla" backend's sums and
+    # maxima (tests/test_torch_port_segment.py holds it to the Pallas
+    # interpret kernels); an unknown backend raises
     x = torch.arange(6.0).reshape(3, 2)
     ids = torch.tensor([1, 0, 1], dtype=torch.int32)
     for op in (tseg.segment_sum, tseg.segment_max, tseg.segment_mean):
@@ -223,11 +222,10 @@ def test_encode_sparse_matches_jax(structure, readout):
     assert _rel(got.numpy(), want) <= 1e-5, (structure, readout)
 
 
-def test_encode_sparse_pallas_backend_raises():
-    # (named when the backend raised) the "pallas" backend runs K4a (its
-    # plain version here) and gives the "xla" backend's queries; like the
-    # reference kernels it is forward only, so it raises in grad mode on
-    # parameters that require grad
+def test_encode_sparse_pallas_backend_forward_only():
+    # the "pallas" backend runs K4a (its plain version here) and gives the
+    # "xla" backend's queries; like the reference kernels it is forward
+    # only, so it raises in grad mode on parameters that require grad
     _, tcfg, _, model = _models()
     z = torch.zeros(4, dtype=torch.int32)
     args = (model, tcfg, "", z, z, z.float(), z, z, z, z.float(), z, z[:1], 1)
