@@ -41,12 +41,17 @@ parallel (one nvcc each), then:
    and profiler, L2 flushed) beside the bound, the plain version and the
    ``torch.bmm`` yardstick on the per-chunk weights.
 5. ``kernel.rgcn_blocked``: K6a (forward and transpose layout) and K6b
-   of ``csrc/rgcn_blocked.cu`` on ``template_blocked`` for the 7
-   structures at both batches and ``bucket_edges_blocked`` of the same
-   general graph: each vs its plain version (<= 1e-4), K6a vs the f32
-   twin (<= 3e-2, train batch only), times as for K5 beside a cuBLAS
-   yardstick (the bf16 products ``xs @ [V_0 .. V_Bb]``, and for K6b also
-   ``xs^T rhs``).
+   of ``csrc/rgcn_blocked.cu`` (tensor cores) on ``template_blocked`` for
+   the 7 structures at both batches and ``bucket_edges_blocked`` of the
+   same general graph: K6a within ``blocked_error_bound`` of its plain
+   version, K6b under ``k6b_gate`` (dbasis <= 1e-4, each s_eb the plain
+   one or its bf16 neighbour, at most 1 % off it, dcoeff the ordered sum
+   of the kernel's own s_eb), each negative control failing (one edge, or
+   one relation, removed from the plain version), a repeat launch
+   bit-equal, K6a vs the f32 twin (<= 3e-2, train batch only); the edge
+   lists' build time (once per batch) apart; times as for K5 beside a
+   cuBLAS yardstick (the bf16 products ``xs @ [V_0 .. V_Bb]``, and for
+   K6b also ``xs^T rhs``).
 6. ``kernel.segment``: K4a and K4b (``csrc/segment.cu``) on the
    reference's chip-check shape (E = 1,000, S = 64), each structure's
    destination sum at B = 1,024 (the bucket of ``evaluate``'s 1,000
@@ -95,7 +100,8 @@ parallel (one nvcc each), then:
    each: launch counts equal to 2 K5 (or 2 K6a and 1 K6b) per layer of
    every step, finite losses, one step per structure recomputed through
    the plain versions (same loss and gradients, <= 1e-4: the segment
-   sums use index_add_), step p50/p95 and a profile of 10 steps.
+   sums use index_add_; ``train.blocked``'s gradients per leaf in
+   mean|diff| / mean|ref|), step p50/p95 and a profile of 10 steps.
 13. ``halo.train.ring``, ``halo.train.gather``: ``run_train`` through
    ``make_halo_train_step`` (``rgcn_ring_halo`` / ``rgcn_dst_partitioned``)
    on 4 parts of the card, 20 steps each: finite losses, step p50/p95
@@ -988,8 +994,8 @@ def phase_train_cli(kernel_args, then=None) -> None:
 # The sparse path: K5a / K5b (relation chunks) and K6a / K6b (blocked)
 # ----------------------------------------------------------------------
 K5_KERNELS = ("msg_kernel",)
-K6A_KERNELS = ("blocked_forward_kernel",)
-K6B_KERNELS = ("grad_s_kernel", "grad_dcoeff_kernel", "grad_dbasis_kernel",
+K6A_KERNELS = ("k6a_messages_kernel",)
+K6B_KERNELS = ("k6b_grad_kernel", "k6b_dcoeff_kernel",
                "reduce_partials_kernel")
 
 
@@ -1210,12 +1216,31 @@ def k6_cases(cfg, gen, device):
         GENERAL_NODES
 
 
+def k6a_check(rb, got, again, x, w, coeff, lay, R, n):
+    """K6a on one layout held to its plain version under
+    ``blocked_error_bound``, its repeat launch to the same bits, and the
+    negative control (the plain result with one real edge's message
+    removed) to a failing gate.  Returns (gate, control failed, max|diff|)."""
+    msg = rb._edge_messages(x, w, coeff, lay, R)
+    plain = rb._dst_sum(msg, lay, n)
+    bound = rb.blocked_error_bound(x, w, coeff, lay, R, n, msg)
+    gate = rb.k6a_gate(got, plain, bound)
+    gate["repeat_equal"] = torch.equal(got, again)
+    real = torch.nonzero(rb._real_edges(lay, n)[2]).squeeze(1)
+    e = real[real.numel() // 2:][:1]
+    cut = rb._dst_sum(msg.index_fill(0, e, 0.0), lay, n)
+    gate["control_fails"] = not rb.k6a_gate(got, cut, bound)["ok"]
+    return gate, float((got - plain).abs().max())
+
+
 def phase_rgcn_blocked(layer_b, cfg, device, gen, flush):
-    """K6a (forward and transpose layout) and K6b against their plain
-    versions (<= TOL_PLAIN), K6a against the f32 twin (<= TOL_F32, small
-    cases only: the twin materializes [E, Bb, d]), times beside the bound,
-    the plain version and a cuBLAS yardstick.  Returns both kernels'
-    JSON fields (launches excluded)."""
+    """K6a (forward and transpose layout) within its stated bound of its
+    plain version and K6b under its gate (``ops/rgcn_blocked.py``
+    ``k6a_gate``, ``k6b_gate``), each negative control failing, repeat
+    launches bit-equal, K6a against the f32 twin (<= TOL_F32, small cases
+    only: the twin materializes [E, Bb, d]); the edge lists' build time
+    apart, times beside the bound, the plain version and a cuBLAS
+    yardstick.  Returns both kernels' JSON fields (launches excluded)."""
     from mpqe_tpu_torch.ops import rgcn_blocked as rb
 
     d, R = cfg.embed_dim, cfg.n_rels
@@ -1226,36 +1251,65 @@ def phase_rgcn_blocked(layer_b, cfg, device, gen, flush):
     accs = {"K6a": new_acc(), "K6b": new_acc()}
     big = {"K6a": [], "K6b": []}
     for label, B, bk, n in k6_cases(cfg, gen, device):
-        lay = rb.layout_on(bk, device)
-        t_lay = rb.layout_on(bk, device, "t_")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lay, t_lay = rb.layouts_on(bk, device)
+        torch.cuda.synchronize()
+        lists_ms = (time.perf_counter() - t0) * 1e3
         x = torch.randn((n, d), generator=gen, device=device)
         g = torch.randn((n, d), generator=gen, device=device)
         E = lay["src_local"].shape[0]
         n_chunks = lay["chunk_dst_blk"].shape[0]
-        n_real = int((lay["rel"] < R).sum())
+        n_real = int(lay["part_ptr"][-1])
+        basis_t = basis.transpose(1, 2)
         with torch.no_grad():
             got = rb.messages_blocked(x, basis, coeff, lay, R)
-            got_t = rb.messages_blocked(g, basis.transpose(1, 2), coeff,
-                                        t_lay, R)
-            got_g = rb.grad_blocked(x, g, basis, coeff, lay, R)
-            plain = rb.messages_blocked_reference(x, basis, coeff, lay, R, n)
-            plain_t = rb.messages_blocked_reference(
-                g, basis.transpose(1, 2), coeff, t_lay, R, n)
-            plain_g = rb.grad_blocked_reference(x, g, basis, coeff, lay, R)
-        torch.cuda.synchronize()
-        for t in (got, got_t, *got_g):
-            if not bool(torch.isfinite(t).all()):
-                raise AssertionError(f"K6 {label} B={B}: non-finite")
-        e_a = max(rel_err(got, plain), rel_err(got_t, plain_t))
-        e_b = max(rel_err(a, b) for a, b in zip(got_g, plain_g))
-        accs["K6a"]["max_abs_err"] = max(
-            accs["K6a"]["max_abs_err"], float((got - plain).abs().max()),
-            float((got_t - plain_t).abs().max()))
+            got2 = rb.messages_blocked(x, basis, coeff, lay, R)
+            got_t = rb.messages_blocked(g, basis_t, coeff, t_lay, R)
+            got_t2 = rb.messages_blocked(g, basis_t, coeff, t_lay, R)
+            got_g = rb.grad_blocked_parts(x, g, basis, coeff, lay, R)
+            got_g2 = rb.grad_blocked_parts(x, g, basis, coeff, lay, R)
+            torch.cuda.synchronize()
+            for t in (got, got_t, *got_g):
+                if not bool(torch.isfinite(t).all()):
+                    raise AssertionError(f"K6 {label} B={B}: non-finite")
+            ga, err_a = k6a_check(rb, got, got2, x, basis, coeff, lay, R, n)
+            gt, err_t = k6a_check(rb, got_t, got_t2, g, basis_t, coeff,
+                                  t_lay, R, n)
+            plain_g = rb.grad_blocked_reference_parts(x, g, basis, coeff,
+                                                      lay, R)
+            s_bound = rb.grad_s_bound(x, g, basis, lay)
+            gb = rb.k6b_gate(got_g, plain_g, s_bound, lay["rel"], R)
+            gb["repeat_equal"] = all(torch.equal(a, b)
+                                     for a, b in zip(got_g, got_g2))
+            r = int(lay["edges"][0, 2])
+            cut_lay = dict(lay, norm=torch.where(lay["rel"] == r, 0.0,
+                                                 lay["norm"]))
+            bad = rb.k6b_gate(got_g, rb.grad_blocked_reference_parts(
+                x, g, basis, coeff, cut_lay, R), s_bound, lay["rel"], R)
+            gb["control_fails"] = not bad["dbasis_ok"] and \
+                not bad["dcoeff_ok"]
+        accs["K6a"]["max_abs_err"] = max(accs["K6a"]["max_abs_err"], err_a,
+                                         err_t)
         accs["K6b"]["max_abs_err"] = max(accs["K6b"]["max_abs_err"], *(
-            float((a - b).abs().max()) for a, b in zip(got_g, plain_g)))
+            float((a - b).abs().max()) for a, b in zip(got_g[:2],
+                                                       plain_g[:2])))
         line = (f"kernel.rgcn_blocked {label:14s} B={B:6d} E={E} "
-                f"K6a_err_vs_plain={e_a:.3e} K6b_err_vs_plain={e_b:.3e}")
-        e_twin = None
+                f"real={n_real} lists_ms={lists_ms:.3f} ")
+        for tag, gate in (("K6a", ga), ("K6a_t", gt)):
+            line += (f"{tag}: flip_share={gate['flip_share']:.3e} "
+                     f"rel_err={gate['rel_err']:.3e} "
+                     f"diff_over_bound={gate['bound_ratio']:.3e} "
+                     f"control_fails={gate['control_fails']} "
+                     f"repeat_equal={gate['repeat_equal']} ")
+        line += (f"K6b: dbasis_err={gb['dbasis_err']:.3e} "
+                 f"s_flip_share={gb['s_flip_share']:.3e} "
+                 f"s_beyond_neighbour={gb['s_beyond_neighbour']} "
+                 f"dcoeff_err={gb['dcoeff_err']:.3e} "
+                 f"control_fails={gb['control_fails']} "
+                 f"repeat_equal={gb['repeat_equal']}")
+        ok = all(gate["ok"] and gate["control_fails"]
+                 and gate["repeat_equal"] for gate in (ga, gt, gb))
         if B == TRAIN_BATCH:
             with torch.no_grad():
                 twin = rb._messages_xla_twin(
@@ -1265,17 +1319,17 @@ def phase_rgcn_blocked(layer_b, cfg, device, gen, flush):
                     lay["node_block"], lay["chunk"])
             e_twin = rel_err(got, twin)
             line += f" K6a_err_vs_f32_twin={e_twin:.3e}"
+            ok = ok and e_twin <= TOL_F32
             del twin
-        if e_a > TOL_PLAIN or e_b > TOL_PLAIN or (
-                e_twin is not None and e_twin > TOL_F32):
+        if not ok:
             log(line + " FAIL")
             raise AssertionError(line)
         log(line)
-        del plain, plain_t, plain_g
+        del plain_g, got2, got_t2, got_g2, s_bound
         iters = ITERS if B == TRAIN_BATCH else BIG_ITERS
         p_iters = PLAIN_ITERS_K6 if B == TRAIN_BATCH else 1
-        row, ok = rb._global_rows(lay, lay["src_local"], "chunk_src_blk", n)
-        xs16 = torch.where(ok[:, None], x[row], 0.0).to(torch.bfloat16)
+        row, okr = rb._global_rows(lay, lay["src_local"], "chunk_src_blk", n)
+        xs16 = torch.where(okr[:, None], x[row], 0.0).to(torch.bfloat16)
         rhs16 = torch.randn((E, bb * d), generator=gen, device=device).to(
             torch.bfloat16)
         cases = (
@@ -1302,18 +1356,20 @@ def phase_rgcn_blocked(layer_b, cfg, device, gen, flush):
                 t_b, t_o = bound_times(work)
                 bound, by = max(t_b, t_o), ("bytes" if t_b >= t_o
                                             else "operations")
-                big[kid].append((label, ms))
+                big[kid].append((label, ms, k_ms))
             log(f"kernel.rgcn_blocked {kid} {label:14s} B={B:6d} "
                 + work_line(ms, k_ms, plain_ms, lib_ms, bound, by, work))
-        del x, g, got, got_t, got_g, xs16, rhs16
+        del x, g, got, got_t, got_g, xs16, rhs16, lay, t_lay
     fields = {}
     for kid, acc in accs.items():
+        tpl = [(m, k) for lb, m, k in big[kid] if lb != "general"]
         log(f"kernel.rgcn_blocked {kid} sum of 7 at B={TRAIN_BATCH}: "
             f"kernel_ms={acc['ms']:.4f} device_ms={acc['device_ms']:.4f} "
             f"plain_ms={acc['plain_ms']:.4f} "
             f"library_ms={acc['library_ms']:.4f} "
             f"bound_ms={acc['bound_ms']:.6f}; at B={TRAIN_BIG}: kernel_ms="
-            f"{sum(m for lb, m in big[kid] if lb != 'general'):.4f}")
+            f"{sum(m for m, _ in tpl):.4f} device_ms="
+            f"{sum(k for _, k in tpl):.4f}")
         fields[kid] = finish_acc(acc)
     return fields
 
@@ -1919,7 +1975,8 @@ def recheck_sparse_step(state, cfg, stores, device, loss_name, label):
     """One step per structure from the trained state through the kernels
     and through their plain versions on the card: same loss and gradients
     (<= TOL_PLAIN relative, per leaf; the segment sums and the dx scatter
-    go through index_add_, whose atomics vary the last bits)."""
+    go through index_add_, whose atomics vary the last bits; for
+    ``train.blocked`` the gradients per leaf in mean|diff| / mean|ref|)."""
     from mpqe_tpu_torch.data.store import pack_dense_batch_np
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
     from mpqe_tpu_torch.train import loop as loop_mod
@@ -1942,9 +1999,20 @@ def recheck_sparse_step(state, cfg, stores, device, loss_name, label):
                                       allow_unused=True)
         lk, lp = float(loss_k.detach()), float(loss_p.detach())
         e_loss = abs(lk - lp) / max(abs(lp), 1e-12)
-        e_grad = tree_rel_err(dict(zip(params, g_k)), dict(zip(params, g_p)))
+        gk, gp = dict(zip(params, g_k)), dict(zip(params, g_p))
+        e_grad = tree_rel_err(gk, gp)
         line = (f"{label}.recheck {structure:14s} loss={lk:.6f} "
                 f"loss_err={e_loss:.3e} grad_err={e_grad:.3e}")
+        if label == "train.blocked":
+            # K6 takes its products on the tensor cores: a message can
+            # land one bf16 step from the plain one, and a ReLU mask
+            # downstream can flip with it, so single gradient elements
+            # move; held per leaf to mean|diff| / mean|ref|, the form K2's
+            # check uses, with the max-element figure beside it
+            e_max, e_grad = e_grad, tree_mean_err(gk, gp)
+            line = (f"{label}.recheck {structure:14s} loss={lk:.6f} "
+                    f"loss_err={e_loss:.3e} grad_mean_err={e_grad:.3e} "
+                    f"grad_max_err={e_max:.3e}")
         log(line)
         if e_loss > TOL_PLAIN or e_grad > TOL_PLAIN or not np.isfinite(lk):
             raise AssertionError(line)

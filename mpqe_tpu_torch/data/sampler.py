@@ -2,8 +2,8 @@
 
 The PyTorch port's own numpy copy of ``mpqe_tpu/data/sampler.py``: the
 same seed draws the same numbers, so both packages sample identical
-queries and KGs.  The training-data helpers (``edge_queries``,
-``make_rule_kg``) come with the training slice.
+queries and KGs.  The training-data helpers ``edge_queries`` and
+``make_rule_kg`` are not ported yet (ROADMAP Queue 1 item 2).
 
 The reference consumes pre-generated query pickles; the *generation* logic
 lives upstream in the GQE codebase (SURVEY.md §3.5).  This module rebuilds

@@ -451,14 +451,18 @@ def encode_sparse_blocked(model: MPQE, cfg: MPQEConfig, structure: str,
                           n_queries: int) -> torch.Tensor:
     """:func:`encode_sparse` with each layer through K6
     (``ops/rgcn_blocked.py:rgcn_sparse_blocked``, bf16 products) over a
-    (dst block, src block) bucketed layout; basis layers only."""
+    (dst block, src block) bucketed layout; basis layers only.  The
+    layout's device tensors and edge lists are built once, for all
+    layers (or given: the pair ``rgcn_blocked.layouts_on`` returns)."""
     from mpqe_tpu_torch.ops import rgcn_blocked
 
+    lays = bucketed if isinstance(bucketed, tuple) else \
+        rgcn_blocked.layouts_on(bucketed, node_entity.device)
     return _sparse_encode(
         model, cfg, structure, node_entity, node_mode, node_is_var,
         node_query, target_node, n_queries,
         lambda x, lp: rgcn_blocked.rgcn_sparse_blocked(
-            x, lp, bucketed, cfg.n_rels).to(cfg.dtype))
+            x, lp, lays, cfg.n_rels).to(cfg.dtype))
 
 
 def _sparse_view_on_device(structure: str, node_entity: torch.Tensor,
@@ -508,19 +512,21 @@ def dense_batch_loss_kernel_blocked(model: MPQE, cfg: MPQEConfig,
                                     chunk: int = 512) -> torch.Tensor:
     """:func:`dense_batch_loss` routed through K6 (``--kernel blocked``):
     diagonal query-aligned node blocks
-    (``ops/template_layout.py:template_blocked``) and
-    :func:`encode_sparse_blocked`.  Requires basis decomposition."""
+    (``ops/template_layout.py:template_blocked_layouts``: the
+    ``template_blocked`` layouts with K6's edge lists, their edge orders
+    cached per batch geometry) and :func:`encode_sparse_blocked`.
+    Requires basis decomposition."""
     from mpqe_tpu_torch.ops import template_layout
 
     if cfg.num_bases is None:
         raise ValueError("--kernel blocked requires num_bases > 0")
     ne_f, nm_f, niv, nq, tn, B = _sparse_view_on_device(
         structure, node_entity, node_mode)
-    bucketed = template_layout.template_blocked(
+    lays = template_layout.template_blocked_layouts(
         structure, edge_rel, edge_norm, B,
         queries_per_block=queries_per_block, chunk=chunk)
     q = encode_sparse_blocked(model, cfg, structure, ne_f, nm_f, niv,
-                              bucketed, nq, tn, B)
+                              lays, nq, tn, B)
     return margin_loss_from_queries(model, cfg, q, target, negatives,
                                     neg_mask, query_mask)
 

@@ -18,6 +18,7 @@ query graph, so the layouts the sparse kernels consume are made from
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -115,3 +116,38 @@ def template_blocked(structure: str, edge_rel: torch.Tensor,
         "t_chunk_first": first,
         "node_block": sb, "chunk": c, "n_blocks": n_blocks,
     }
+
+
+@functools.lru_cache(maxsize=None)
+def _blocked_layouts_of_geometry(structure: str, batch_size: int,
+                                 queries_per_block: int, chunk: int,
+                                 device: torch.device) -> tuple:
+    """``layouts_on`` of the template's blocked layout with relation 0 and
+    norm 1 on every edge: the edge orders, which do not change from batch
+    to batch (kept for the life of the process)."""
+    from mpqe_tpu_torch.ops import rgcn_blocked
+
+    ne = STRUCTURES[structure].n_edges
+    bk = template_blocked(
+        structure, torch.zeros((ne,), dtype=torch.int32, device=device),
+        torch.ones((ne,), device=device), batch_size, queries_per_block,
+        chunk)
+    return rgcn_blocked.layouts_on(bk, device)
+
+
+def template_blocked_layouts(structure: str, edge_rel: torch.Tensor,
+                             edge_norm: torch.Tensor, batch_size: int,
+                             queries_per_block: int = 512,
+                             chunk: int = 512) -> tuple:
+    """``rgcn_blocked.layouts_on(template_blocked(...))`` (the forward and
+    transpose layouts with K6's edge lists) on ``edge_rel``'s device, from
+    cached edge orders: per batch only the relations and norms are placed
+    (``rgcn_blocked.relabeled``)."""
+    from mpqe_tpu_torch.ops import rgcn_blocked
+
+    lay, t_lay = _blocked_layouts_of_geometry(
+        structure, batch_size, queries_per_block, chunk, edge_rel.device)
+    rel = edge_rel.to(torch.int32).repeat(batch_size)
+    norm = edge_norm.to(torch.float32).repeat(batch_size)
+    return (rgcn_blocked.relabeled(lay, rel, norm),
+            rgcn_blocked.relabeled(t_lay, rel, norm))

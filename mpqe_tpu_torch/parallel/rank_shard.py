@@ -2,7 +2,7 @@
 ``mpqe_tpu/parallel/rank_shard.py``).
 
 Only the float32 table is ported; the bfloat16 and int8 candidate tables
-are ROADMAP Queue 1 item 5, and the sharded rank/top-k is item 9.
+are ROADMAP Queue 1 item 5, and the sharded rank/top-k is item 8.
 """
 
 from __future__ import annotations

@@ -10,8 +10,10 @@ runs there without the repository's conftest::
 
 Tolerance: each kernel output vs its plain version max|diff| / max|ref|
 <= 1e-4 (for K2 per output leaf); both sum in the same order, so the
-expected difference is 0.  K4b's maxima are exact: equal, NaN included;
-K8 is held to be equal.
+expected difference is 0.  K6a and K6b take their products on the
+tensor cores and are held to the stated bounds of
+``ops/rgcn_blocked.py`` (``k6a_gate``, ``k6b_gate``) instead.  K4b's
+maxima are exact: equal, NaN included; K8 is held to be equal.
 """
 
 import numpy as np
@@ -276,33 +278,52 @@ def test_cuda_k5_match_plain_versions(d, nb):
 @pytest.mark.parametrize("d,nb", [(128, 16), (16, 4)],
                          ids=["flagship", "narrow"])
 def test_cuda_k6_match_plain_versions(d, nb):
+    """K6a (both layouts) within ``blocked_error_bound`` of its plain
+    version, K6b under ``k6b_gate``; each negative control fails; a second
+    launch on the same inputs gives the same bits."""
     from mpqe_tpu_torch.ops import rgcn_blocked as tprb
 
     dev = _cuda()
     gen = torch.Generator(dev).manual_seed(d + 1)
     basis = torch.randn((nb, d, d), device=dev, generator=gen) / d ** 0.5
     coeff = torch.randn((N_RELS, nb), device=dev, generator=gen)
+    basis_t = basis.transpose(1, 2)
     for name, _, bk, n in _sparse_layouts(d, nb, dev, seed=1):
-        lay, t_lay = tprb.layout_on(bk, dev), tprb.layout_on(bk, dev, "t_")
+        lay, t_lay = tprb.layouts_on(bk, dev)
         x = torch.randn((n, d), device=dev, generator=gen)
         g = torch.randn((n, d), device=dev, generator=gen)
         a0, b0 = tprb.messages_blocked.launches, tprb.grad_blocked.launches
-        got = tprb.messages_blocked(x, basis, coeff, lay, N_RELS)
-        got_t = tprb.messages_blocked(g, basis.transpose(1, 2), coeff, t_lay,
-                                      N_RELS)
-        got_g = tprb.grad_blocked(x, g, basis, coeff, lay, N_RELS)
-        want = tprb.messages_blocked_reference(x, basis, coeff, lay, N_RELS,
-                                               n)
-        want_t = tprb.messages_blocked_reference(
-            g, basis.transpose(1, 2), coeff, t_lay, N_RELS, n)
-        want_g = tprb.grad_blocked_reference(x, g, basis, coeff, lay, N_RELS)
+        for xin, w, ly in ((x, basis, lay), (g, basis_t, t_lay)):
+            got = tprb.messages_blocked(xin, w, coeff, ly, N_RELS)
+            again = tprb.messages_blocked(xin, w, coeff, ly, N_RELS)
+            msg = tprb._edge_messages(xin, w, coeff, ly, N_RELS)
+            want = tprb._dst_sum(msg, ly, n)
+            bound = tprb.blocked_error_bound(xin, w, coeff, ly, N_RELS, n,
+                                             msg)
+            gate = tprb.k6a_gate(got, want, bound)
+            assert gate["ok"], (name, gate)
+            assert torch.equal(got, again), name
+            e = torch.nonzero(tprb._real_edges(ly, n)[2])[:1, 0]
+            cut = tprb._dst_sum(msg.index_fill(0, e, 0.0), ly, n)
+            assert not tprb.k6a_gate(got, cut, bound)["ok"], name
+        got_g = tprb.grad_blocked_parts(x, g, basis, coeff, lay, N_RELS)
+        again = tprb.grad_blocked_parts(x, g, basis, coeff, lay, N_RELS)
+        want_g = tprb.grad_blocked_reference_parts(x, g, basis, coeff, lay,
+                                                   N_RELS)
+        s_bound = tprb.grad_s_bound(x, g, basis, lay)
+        gate = tprb.k6b_gate(got_g, want_g, s_bound, lay["rel"], N_RELS)
+        assert gate["ok"], (name, gate)
+        assert all(torch.equal(u, v) for u, v in zip(got_g, again)), name
+        r = int(lay["edges"][0, 2])
+        cut_lay = dict(lay, norm=torch.where(lay["rel"] == r, 0.0,
+                                             lay["norm"]))
+        cut = tprb.grad_blocked_reference_parts(x, g, basis, coeff, cut_lay,
+                                                N_RELS)
+        bad = tprb.k6b_gate(got_g, cut, s_bound, lay["rel"], N_RELS)
+        assert not bad["dbasis_ok"] and not bad["dcoeff_ok"], (name, bad)
         torch.cuda.synchronize()
-        assert tprb.messages_blocked.launches == a0 + 2
-        assert tprb.grad_blocked.launches == b0 + 1
-        assert _rel(got, want) <= 1e-4, (name, _rel(got, want))
-        assert _rel(got_t, want_t) <= 1e-4, (name, _rel(got_t, want_t))
-        for a, b in zip(got_g, want_g):
-            assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+        assert tprb.messages_blocked.launches == a0 + 4
+        assert tprb.grad_blocked.launches == b0 + 2
 
 
 @pytest.mark.cuda

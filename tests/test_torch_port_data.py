@@ -10,6 +10,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from mpqe_tpu import queries as jq
 from mpqe_tpu.data import batcher as jbatch
@@ -17,6 +18,13 @@ from mpqe_tpu.data import sampler as jsamp
 from mpqe_tpu_torch import queries as tq
 from mpqe_tpu_torch.data import batcher as tbatch
 from mpqe_tpu_torch.data import sampler as tsamp
+
+# Torch's intra-op threads, capped for the whole test process: the
+# tier-1 command runs 6 xdist workers on an 8-core machine, and a worker
+# imports every test module at collection, so this one module-level call
+# reaches every worker (and keeps the port's CPU-heavy tests from crowding
+# the wall-clock race in tests/test_native.py).
+torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANONICAL = jq.STRUCTURE_NAMES  # the 7 templates (other tests may register more)

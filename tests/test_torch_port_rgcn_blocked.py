@@ -137,12 +137,20 @@ def test_k6_layouts_and_first_flags():
         np.asarray(jprb._first_flags(jnp.asarray(bk["t_chunk_dst_blk"]))))
     np.testing.assert_array_equal(lay["chunk_first"].numpy(),
                                   bk["t_chunk_first"])
-    lo, hi = tprb._dst_block_ranges(tprb.layout_on(bk, "cpu"),
-                                    bk["n_blocks"])
-    c_dst = bk["chunk_dst_blk"]
-    for blk in range(bk["n_blocks"]):
-        idx = np.nonzero(c_dst == blk)[0]
-        assert (lo[blk], hi[blk]) == (idx.min(), idx.max() + 1)
+    # K6a's blocks own whole rows: consecutive, every row once, each
+    # block's first row where its share of the destination CSR starts
+    fwd = tprb.layout_on(bk, "cpu")
+    rows, ptr = fwd["cta_rows"].numpy(), fwd["csr_ptr"].numpy()
+    assert rows[0] == 0 and rows[-1] == fwd["n_cap"]
+    assert (np.diff(rows) >= 0).all()
+    E = bk["src_local"].size
+    per = min(tprb.K6A_EDGES_PER_BLOCK,
+              max(128, -(-E // tprb.K6A_MIN_BLOCKS)))
+    assert rows.size - 1 == -(-E // per)
+    starts = np.arange(rows.size - 1) * per
+    np.testing.assert_array_equal(
+        rows[:-1], np.minimum(np.searchsorted(ptr, starts, "left"),
+                              fwd["n_cap"]))
 
 
 def test_k6_partition_depends_on_edge_count_only():
@@ -262,3 +270,254 @@ def test_kernel_blocked_batch_loss_matches_jax(structure):
     for n, w in want.items():
         gr = np.zeros_like(w) if got[n] is None else got[n].numpy()
         assert np.abs(gr - w).max() <= 5e-2 * scale, (structure, n)
+
+
+# ------------------------------------- the kernels' edge lists and gates
+def _direction(bk, prefix):
+    """One direction of a bucketing as the Pallas kernel takes it."""
+    out = {k: bk[prefix + k] for k in tprb.LAYOUT_KEYS}
+    for k in ("node_block", "chunk", "n_blocks"):
+        out[k] = bk[k]
+    return out
+
+
+def _all_layouts(seed):
+    """(name, bucketed, n_nodes, prefix): a general bucketing and
+    ``template_blocked``, each in both directions."""
+    return [(f"{name}{p or '/'}", bk, n, p) for name, bk, n in
+            _layouts(seed) for p in ("", "t_")]
+
+
+@pytest.mark.parametrize("seed", [0, 6])
+def test_k6_edge_lists_follow_the_plain_order(seed):
+    """layout_on's destination CSR holds each row's real edges in the
+    order ``_ordered_rows_sum`` adds them (stable by edge position), drops
+    the padding edges, keeps empty rows; K6b's list keeps edge order."""
+    for name, bk, _, p in _all_layouts(seed):
+        lay = tprb.layout_on(bk, "cpu", p)
+        sb, chunk = bk["node_block"], bk["chunk"]
+        n_cap = bk["n_blocks"] * sb
+        src_l = np.asarray(bk[p + "src_local"]).astype(np.int64)
+        dst_l = np.asarray(bk[p + "dst_local"]).astype(np.int64)
+        src = np.repeat(np.asarray(bk[p + "chunk_src_blk"]), chunk) * sb + \
+            src_l
+        dst = np.repeat(np.asarray(bk[p + "chunk_dst_blk"]), chunk) * sb + \
+            dst_l
+        real = ((src_l >= 0) & (src_l < sb) & (dst_l >= 0) & (dst_l < sb)
+                & (src < n_cap) & (dst < n_cap))
+        pos = np.nonzero(real)[0]
+        n_real = pos.size
+        if not name.startswith("template"):
+            assert n_real < src.size, name  # the bucketing pads
+        # K6a's CSR: the real edges by destination (stable), then padding
+        order = pos[np.argsort(dst[pos], kind="stable")]
+        rel_l = np.asarray(bk[p + "rel"])
+        norm_bits = np.asarray(bk[p + "norm"], np.float32).view(np.int32)
+        rows_of = np.stack([src, dst, rel_l, norm_bits], 1).astype(np.int32)
+        csr = lay["csr"].numpy()
+        np.testing.assert_array_equal(csr[:n_real], rows_of[order])
+        counts = np.bincount(dst[pos], minlength=n_cap)
+        np.testing.assert_array_equal(lay["csr_ptr"].numpy(),
+                                      np.concatenate([[0],
+                                                      np.cumsum(counts)]))
+        P, n_part = tprb._partition(src.size)
+        if p:  # K6b reads the forward layout only
+            assert "edges" not in lay, name
+        else:
+            # K6b's list: the real edges in edge order, then padding
+            assert int(lay["part_ptr"][-1]) == n_real
+            np.testing.assert_array_equal(lay["edge_pos"].numpy()[:n_real],
+                                          pos)
+            np.testing.assert_array_equal(lay["edges"].numpy()[:n_real],
+                                          rows_of[pos])
+            np.testing.assert_array_equal(
+                lay["part_ptr"].numpy(),
+                np.searchsorted(pos, np.arange(n_part + 1) * P))
+        # the CSR order is the order in which the plain destination sum
+        # adds: a row's running sum of distinct powers of two records it
+        vals = torch.zeros((src.size, 1), dtype=torch.float64)
+        vals[torch.from_numpy(order), 0] = torch.arange(
+            order.size, dtype=torch.float64)
+        first = tprb._ordered_rows_sum(
+            n_cap, torch.from_numpy(dst).clamp(0, n_cap - 1), vals,
+            torch.from_numpy(real))
+        ptr = lay["csr_ptr"].numpy()
+        want = np.where(counts > 0, (ptr[:-1] + ptr[1:] - 1) * counts / 2, 0)
+        np.testing.assert_allclose(first[:, 0].numpy(), want)
+        if name.startswith("general"):
+            assert (counts == 0).any(), name  # empty rows stay rows
+        if p:
+            continue
+        # K6b's dcoeff runs (one relation within one partition), each
+        # summed in order and the partitions in order, give the plain
+        # version's dcoeff bit for bit
+        s_eb = torch.from_numpy(np.random.default_rng(seed).normal(
+            size=(src.size, 3)).astype(np.float32))
+        dpos = lay["dc_pos"].numpy()
+        dpart, drel, dend = lay["dc"].numpy()[:, :3].T
+        assert (drel[n_real:] == -1).all()
+        part = torch.zeros((n_part, N_RELS, 3))
+        for i in range(n_real):
+            if i and dend[i - 1] == dend[i]:
+                continue  # not the first entry of its run
+            run = slice(i, dend[i])
+            assert (dpart[run] == dpart[i]).all() and (drel[run] == drel[i]
+                                                       ).all()
+            assert dend[i] == n_real or (dpart[dend[i]], drel[dend[i]]) != (
+                dpart[i], drel[i])
+            acc = torch.zeros(3)
+            for j in range(i, dend[i]):
+                acc = acc + s_eb[dpos[j]]
+            assert dpart[i] == dpos[i] // P
+            part[dpart[i], drel[i]] = acc
+        dcoeff = torch.zeros((N_RELS, 3))
+        for q in range(n_part):
+            dcoeff = dcoeff + part[q]
+        assert torch.equal(dcoeff, tprb._ordered_dcoeff(
+            s_eb, _t(bk[p + "rel"]), N_RELS)), name
+
+
+@pytest.mark.parametrize("seed", [3, 5, 7, 11])
+def test_k6a_bound_holds_plain_against_pallas_interpret(seed):
+    """The Pallas kernel sums each product and each destination row in
+    another order (one-hot matmuls), the kind of difference the tensor
+    cores bring: plain K6a, on both layouts, lies within
+    ``blocked_error_bound`` of it, and a plain result with one real edge
+    removed does not."""
+    _, _, params, _ = _models(seed=seed)
+    lp = params["layers"][0]
+    basis, coeff = _t(np.asarray(lp["basis"])), _t(np.asarray(lp["coeff"]))
+    for name, bk, n, p in _all_layouts(seed):
+        rng = np.random.default_rng(seed + 2)
+        x = rng.normal(size=(n, D)).astype(np.float32)
+        w = basis if not p else basis.transpose(1, 2)
+        jw = lp["basis"] if not p else jnp.swapaxes(lp["basis"], 1, 2)
+        lay = tprb.layout_on(bk, "cpu", p)
+        msg = tprb._edge_messages(_t(x), w, coeff, lay, N_RELS)
+        plain = tprb._dst_sum(msg, lay, n)
+        pallas = _t(np.asarray(jprb._messages_blocked_pallas(
+            jnp.asarray(x), jw, lp["coeff"], _direction(bk, p), N_RELS,
+            interpret=True)))
+        bound = tprb.blocked_error_bound(_t(x), w, coeff, lay, N_RELS, n)
+        np.testing.assert_array_equal(
+            bound.numpy(), tprb.blocked_error_bound(
+                _t(x), w, coeff, lay, N_RELS, n, msg).numpy())
+        gate = tprb.k6a_gate(pallas, plain, bound)
+        assert gate["ok"], (name, gate)
+        real = torch.nonzero(tprb._real_edges(lay, n)[2]).squeeze(1)
+        e = int(real[real.numel() // 2])
+        cut = tprb._dst_sum(msg.index_fill(0, torch.tensor([e]), 0.0), lay,
+                            n)
+        assert not tprb.k6a_gate(pallas, cut, bound)["ok"], name
+
+
+@pytest.mark.parametrize("layout", ["general", "template"])
+def test_k6b_gate_and_its_negative_control(layout):
+    """``k6b_gate`` passes the plain parts against themselves and against
+    the Pallas kernel's dbasis; with every edge of one relation removed
+    from the plain version both its dbasis and its dcoeff checks fail."""
+    _, _, params, _ = _models(seed=1)
+    lp = params["layers"][0]
+    basis, coeff = _t(np.asarray(lp["basis"])), _t(np.asarray(lp["coeff"]))
+    bk, n = _general(2) if layout == "general" else _template(2)
+    rng = np.random.default_rng(3)
+    x = _t(rng.normal(size=(n, D)).astype(np.float32))
+    g = _t(rng.normal(size=(n, D)).astype(np.float32))
+    lay = tprb.layout_on(bk, "cpu")
+    parts = tprb.grad_blocked_reference_parts(x, g, basis, coeff, lay,
+                                              N_RELS)
+    s_bound = tprb.grad_s_bound(x, g, basis, lay)
+    assert s_bound.shape == parts[2].shape and (s_bound >= 0).all()
+    assert tprb.k6b_gate(parts, parts, s_bound, lay["rel"], N_RELS)["ok"]
+    wdb, _ = jprb._grad_blocked_pallas(jnp.asarray(x.numpy()),
+                                       jnp.asarray(g.numpy()), lp["basis"],
+                                       lp["coeff"], bk, N_RELS,
+                                       interpret=True)
+    assert tprb._rel_err(_t(np.asarray(wdb)), parts[0]) <= tprb.TOL_PLAIN
+    r = int(lay["edges"][0, 2])
+    cut_lay = dict(lay, norm=torch.where(lay["rel"] == r, 0.0,
+                                         lay["norm"]))
+    cut = tprb.grad_blocked_reference_parts(x, g, basis, coeff, cut_lay,
+                                            N_RELS)
+    bad = tprb.k6b_gate(parts, cut, s_bound, lay["rel"], N_RELS)
+    assert not bad["ok"] and not bad["dbasis_ok"] and not bad["dcoeff_ok"]
+
+
+def test_k6b_gate_counts_bf16_neighbours():
+    """One bf16 step either way is a flip, two are not (unless the
+    cancellation bound covers them); +0 and -0 are the same value; the
+    flip share is capped."""
+    base = torch.tensor([1.0, -1.0, 0.0, 3.0e-3])
+    up = torch.nextafter(base.to(torch.bfloat16), torch.tensor(
+        [2.0, -2.0, 1.0, 1.0], dtype=torch.bfloat16)).float()
+    assert tprb._bf16_steps(up, base).tolist() == [1, 1, 1, 1]
+    assert tprb._bf16_steps(torch.tensor([-0.0]), torch.tensor([0.0])) \
+        .tolist() == [0]
+    two = torch.nextafter(up.to(torch.bfloat16), torch.tensor(
+        [2.0, -2.0, 1.0, 1.0], dtype=torch.bfloat16)).float()
+    rel = torch.zeros(4, dtype=torch.int32)
+    db = (torch.ones(1), torch.zeros(1, 1))
+
+    def gate(s, bound):
+        got = (db[0], tprb._ordered_dcoeff(s[:, None], rel, 1), s[:, None])
+        want = (db[0], db[1], base[:, None])
+        return tprb.k6b_gate(got, want, bound[:, None], rel, 1)
+
+    zero = torch.zeros(4)
+    flips = gate(up, zero)
+    assert not flips["ok"] and flips["s_flip_share"] == 1.0  # > 1 %
+    assert flips["s_beyond_neighbour"] == 0
+    assert not gate(two, zero)["dcoeff_ok"]
+    assert gate(two, torch.full((4,), 1.0))["s_beyond_neighbour"] == 4
+
+
+def test_blocked_layer_takes_prebuilt_layouts():
+    _, _, _, model = _models()
+    bk, n = _general(1)
+    x = _t(np.random.default_rng(1).normal(size=(n, D)).astype(np.float32))
+    lt = model.layers[0]
+    want = tprb.rgcn_sparse_blocked(x, lt, bk, N_RELS)
+    got = tprb.rgcn_sparse_blocked(x, lt, tprb.layouts_on(bk, "cpu"),
+                                   N_RELS)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tprb.grad_blocked_parts(x, x, lt.basis, lt.coeff,
+                                tprb.layout_on(bk, "cpu"), N_RELS)
+
+
+def _same_layout(a, b, name):
+    assert a.keys() == b.keys(), name
+    for k in a:
+        if isinstance(a[k], torch.Tensor):
+            assert torch.equal(a[k], b[k]), (name, k)
+        else:
+            assert a[k] == b[k], (name, k)
+
+
+@pytest.mark.parametrize("structure,B", [("1-chain", 16), ("3-inter", 32),
+                                         ("3-chain_inter", 16)])
+def test_template_blocked_layouts_equal_the_generic_build(structure, B):
+    """The cached edge orders plus each batch's relations and norms give
+    what ``layouts_on(template_blocked(...))`` builds, array for array, and
+    ``relabeled`` does the same for a general bucketing with padding."""
+    from mpqe_tpu_torch.ops import template_layout as ttl
+
+    ne = STRUCTURES[structure].n_edges
+    for seed in (1, 2):
+        rng = np.random.default_rng(seed)
+        er = _t(rng.integers(0, N_RELS, ne).astype(np.int32))
+        en = _t(rng.uniform(0.5, 1.5, ne).astype(np.float32))
+        got = ttl.template_blocked_layouts(structure, er, en, B,
+                                           queries_per_block=8, chunk=8)
+        want = tprb.layouts_on(ttl.template_blocked(
+            structure, er, en, B, queries_per_block=8, chunk=8), "cpu")
+        for g, w, d in zip(got, want, ("", "t_")):
+            _same_layout(g, w, (structure, B, seed, d))
+    bk, _ = _general(B)
+    rng = np.random.default_rng(B)
+    rel = rng.integers(0, N_RELS, bk["rel"].size).astype(np.int32)
+    norm = rng.uniform(0.5, 1.5, bk["rel"].size).astype(np.float32)
+    lay = tprb.layout_on(bk, "cpu")
+    _same_layout(tprb.relabeled(lay, _t(rel), _t(norm)),
+                 tprb.layout_on(dict(bk, rel=rel, norm=norm), "cpu"),
+                 "general")
