@@ -52,14 +52,18 @@ parallel (one nvcc each), then:
    lists' build time (once per batch) apart; times as for K5 beside a
    cuBLAS yardstick (the bf16 products ``xs @ [V_0 .. V_Bb]``, and for
    K6b also ``xs^T rhs``).
-6. ``kernel.segment``: K4a and K4b (``csrc/segment.cu``) on the
-   reference's chip-check shape (E = 1,000, S = 64), each structure's
-   destination sum at B = 1,024 (the bucket of ``evaluate``'s 1,000
-   queries per formula) and the cap (E = 2^20, S = 8,192): each vs its
-   plain version (K4a <= 1e-4, K4b equal), K4a vs an f64 oracle
-   (<= 1e-5), dropped out-of-range rows and empty segments (0, -1e30);
-   times beside the bound, the plain version and one ``index_add_`` /
-   ``scatter_reduce`` as the yardstick.
+6. ``kernel.segment``: the K4 layout kernel and K4a / K4b
+   (``csrc/segment.cu``) on the reference's chip-check shape (E = 1,000,
+   S = 64), each structure's destination sum at B = 1,024 (the bucket of
+   ``evaluate``'s 1,000 queries per formula) and the cap (E = 2^20, S =
+   8,192): the layout equal to the plain layout and to a repeat launch;
+   K4a and K4b, with the layout built in the call and given, equal to
+   each other and to their plain versions (K4a <= 1e-4, K4b equal), K4a
+   vs an f64 oracle (<= 1e-5), dropped out-of-range rows and empty
+   segments (0, -1e30); times of each kernel with its layout built and
+   given and of the layout alone, beside the bound, the plain version
+   and one ``index_add_`` / ``scatter_reduce`` / stable ``argsort`` as
+   the yardstick.
 7. ``kernel.sddmm``: K7 (``csrc/sddmm.cu``) on N = 512 / E = 2,048, the
    final-layer node embeddings of the B = 1,024 batches over their own
    edges (K7's drive: it has no caller in the package) and N = 8,191 /
@@ -79,10 +83,12 @@ parallel (one nvcc each), then:
    an adapter (``dense_to_sparse``, then ``encode_sparse`` with the
    ``"pallas"`` segment backend) for the flagship model (K4a) and a
    max-readout model (K4a, K4b): K4 launches equal to the expected
-   counts, per-structure AUC and APR / 100 within 1e-3 of ``evaluate``
-   through the f32 ``encode_dense``, one formula per structure bit-equal
-   through the plain K4; then 20 dense train steps with one validation
-   round through ``run_train(eval_encode_fn=...)``.
+   counts (the layout once per encode for the destination sums, once
+   more for a sum, mlp or max readout), per-structure AUC and APR / 100
+   within 1e-3 of ``evaluate`` through the f32 ``encode_dense``, one
+   formula per structure bit-equal through the plain K4; then 20 dense
+   train steps with one validation round through
+   ``run_train(eval_encode_fn=...)``.
 10. ``eval.ranking``: ``full_ranking`` over the same queries against all
    1M entities; one structure's ranks recomputed by ``torch.matmul`` and
    a per-row count give the same metrics.
@@ -112,7 +118,9 @@ parallel (one nvcc each), then:
    a small KG with ``--kernel fused_fwd``, with ``--kernel blocked`` and
    with ``--parallel halo_ring`` (the default mesh: one part on one
    card); the final line and run dir of each; ``eval.cli``: ``python -m
-   mpqe_tpu_torch.evaluate --run_dir <the first run> --ranking``.
+   mpqe_tpu_torch.evaluate --run_dir <the first run> --ranking``;
+   ``serve.cli``: ``python -m mpqe_tpu_torch.serve --run_dir <the first
+   run>`` over all 7 structures.
 
 Prints the card's name and power limit first, then one line per check,
 a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -212,28 +220,45 @@ def device_ms(fn, iters: int, flush: torch.Tensor,
     alone (torch.profiler; by default those of ``csrc/fused_tgt.cu``),
     each call after an L2 flush as in :func:`time_ms`: the kernels' own
     time, without the wrapper's host work or its other device work (K2's
-    weight transposes, K6's bf16 casts).  A profile that records no
-    device event of those kernels (CUPTI drops one now and then) is taken
-    again, up to PROFILE_TRIES times in all."""
-    from torch.profiler import ProfilerActivity, profile
+    weight transposes, K6's bf16 casts).  The profile has a warmup step
+    of the same calls, whose events it drops: late in a long run a
+    profile without one lost the first 4 of its calls (46 of 50 launches
+    of a small kernel recorded, 1 of 5 of a large one).  A profile that
+    records fewer device events of those kernels than calls (each call
+    launches at least one) is taken again, up to PROFILE_TRIES times in
+    all; if none is whole, the fullest is returned and the log says so."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
+    best = (0, 0.0)  # (launches recorded, device us)
     for attempt in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and any(k in e.key for k in names))
-        if us > 0:
-            return us / iters / 1e3
-        log(f"device_ms: profile {attempt + 1} recorded none of {names}")
-    raise AssertionError(f"the profiler saw none of {names} in "
-                         f"{PROFILE_TRIES} profiles")
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):  # the warmup step, then the recorded one
+                for _ in range(iters):
+                    flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.key for k in names)]
+        got = (sum(e.count for e in rows),
+               sum(e.device_time_total for e in rows))
+        if got[0] >= iters and got[1] > 0:
+            return got[1] / iters / 1e3
+        log(f"device_ms: profile {attempt + 1} recorded {got[0]} launches "
+            f"of {names} in {iters} calls")
+        best = max(best, got)
+    if best[1] == 0:
+        raise AssertionError(f"the profiler saw none of {names} in "
+                             f"{PROFILE_TRIES} profiles")
+    log(f"device_ms: incomplete, {best[0]} launches of {names} recorded in "
+        f"{iters} calls")
+    return best[1] / iters / 1e3
 
 
 def k3_work(cfg, structure: str, node_entity, node_mode, edge_rel_q):
@@ -728,7 +753,7 @@ def phase_fused_tgt(model, cfg, device, gen, flush):
                                  flush)
             work = chain_work(cfg, structure, TRAIN_BIG, bwd)
             t_bytes, t_ops = bound_times(work)
-            big[kind].append(ms)
+            big[kind].append((ms, k_ms, lib_ms, max(t_bytes, t_ops)))
             log(f"kernel.fused_tgt{'_backward' if bwd else ''} "
                 f"{structure:14s} B={TRAIN_BIG} kernel_ms={ms:.4f} "
                 f"device_ms={k_ms:.4f} "
@@ -749,7 +774,10 @@ def phase_fused_tgt(model, cfg, device, gen, flush):
             f"plain_ms={acc['plain_ms']:.4f} "
             f"library_ms={acc['library_ms']:.4f} "
             f"bound_ms={acc['bound_ms']:.6f} ({by}); at B={TRAIN_BIG}: "
-            f"kernel_ms={sum(big[kind]):.4f}")
+            + " ".join(f"{name}={sum(r[i] for r in big[kind]):.4f}"
+                       for i, name in enumerate(("kernel_ms", "device_ms",
+                                                 "library_ms")))
+            + f" bound_ms={sum(r[3] for r in big[kind]):.6f}")
     return fields
 
 
@@ -1377,7 +1405,8 @@ def phase_rgcn_blocked(layer_b, cfg, device, gen, flush):
 # ----------------------------------------------------------------------
 # K4a / K4b (segment sum and max) and K7 (SDDMM)
 # ----------------------------------------------------------------------
-K4_KERNELS = ("segment_kernel",)
+K4_KERNELS = ("segment_kernel",)  # the reduce, not the layout kernels
+K4L_KERNELS = ("segment_layout",)  # the layout: one kernel, or three
 K7_KERNELS = ("sddmm_kernel",)
 EVAL_BATCH = 1024  # evaluate's bucket for its 1,000 queries per formula
 CAP_ROWS, CAP_SEGMENTS = 1 << 20, 8192  # K4's cap: 512 MiB of f32 rows
@@ -1385,10 +1414,28 @@ K7_CAP_NODES = 8191
 
 
 def k4_work(E: int, d: int, S: int) -> tuple:
-    """(bytes, bf16 FLOP, f32 FLOP) of one K4 launch: the f32 rows and the
-    int32 ids read once, the [S, d] f32 output written once; one add (or
-    compare) per input element."""
+    """(bytes, bf16 FLOP, f32 FLOP) of one K4 call from the ids: the f32
+    rows and the int32 ids read once, the [S, d] f32 output written once;
+    one add (or compare) per input element."""
     return E * d * 4 + E * 4 + S * d * 4, 0, E * d
+
+
+def k4_given_work(E: int, d: int, S: int) -> tuple:
+    """(bytes, bf16 FLOP, f32 FLOP) of one K4 launch on a given layout:
+    the rows, perm [E] and offs [S + 1] (int32) read once, the output
+    written once; one add (or compare) per input element."""
+    return E * d * 4 + E * 4 + (S + 1) * 4 + S * d * 4, 0, E * d
+
+
+def layout_work(E: int, S: int, id_bytes: int) -> tuple:
+    """(bytes, bf16 FLOP, f32 FLOP) of one layout: the ids read once, perm
+    [E] and offs [S + 1] (int32) written once; integer work only."""
+    return E * id_bytes + E * 4 + (S + 1) * 4, 0, 0
+
+
+def bound_of(work) -> tuple:
+    t_b, t_o = bound_times(work)
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
 def k7_work(N: int, d: int, E: int, same: bool = False) -> tuple:
@@ -1474,21 +1521,33 @@ def segment_cases(cfg, device):
 
 
 def phase_segment(cfg, device, flush):
-    """K4a and K4b against their plain versions (K4a <= TOL_PLAIN, K4b
-    exactly equal), K4a against an f64 oracle (<= TOL_ORACLE), the
-    out-of-range and empty-segment semantics; times (CUDA events and
-    profiler, L2 flushed) beside the bound, the plain version and the
-    library yardstick (one ``index_add_``, one ``scatter_reduce`` amax).
-    Returns both kernels' JSON fields (launches excluded): sums over the 7
-    structures' destination sums at EVAL_BATCH."""
+    """The layout kernel against the plain layout (equal, and equal again
+    on a repeat launch); K4a and K4b, with the layout built in the call
+    and with it given, against their plain versions (K4a <= TOL_PLAIN and
+    equal with and without a given layout, K4b exactly equal), K4a
+    against an f64 oracle (<= TOL_ORACLE), the out-of-range and
+    empty-segment semantics.  Times (CUDA events and profiler, L2
+    flushed) of each kernel with its layout built and given, and of the
+    layout alone, beside the bound, the plain version and the library
+    yardstick (one ``index_add_``, one ``scatter_reduce`` amax; for the
+    layout one stable ``torch.argsort`` of the ids with out-of-range ids
+    mapped to S, which gives ``perm`` but not ``offs``).  Returns the
+    JSON fields (launches excluded) of K4a, K4b (layout given) and the
+    layout: sums over the 7 structures' destination sums at EVAL_BATCH."""
     from mpqe_tpu_torch.ops import segment_kernels as sk
 
-    accs = {"K4a": new_acc(), "K4b": new_acc()}
+    accs = {k: new_acc() for k in ("K4a", "K4b", "K4a.built", "K4b.built",
+                                   "layout")}
     for label, data, ids, S in segment_cases(cfg, device):
         E, d = data.shape
         with torch.no_grad():
+            layout = sk.segment_layout(ids, S)
+            again = sk.segment_layout(ids, S)
+            plain_layout = sk.segment_layout_reference(ids, S)
             got_s = sk.segment_sum_kernel(data, ids, S)
             got_m = sk.segment_max_kernel(data, ids, S)
+            given_s = sk.segment_sum_kernel(data, ids, S, layout=layout)
+            given_m = sk.segment_max_kernel(data, ids, S, layout=layout)
             plain_s = sk.segment_sum_reference(data, ids, S)
             plain_m = sk.segment_max_reference(data, ids, S)
         ok = (ids >= 0) & (ids < S)
@@ -1497,6 +1556,11 @@ def phase_segment(cfg, device, flush):
         oracle.index_add_(0, ids_ok, data_ok.double())
         torch.cuda.synchronize()
         empty = torch.bincount(ids_ok, minlength=S) == 0
+        lay_same = all(torch.equal(a, b) for a, b in zip(layout,
+                                                         plain_layout))
+        lay_repeat = all(torch.equal(a, b) for a, b in zip(layout, again))
+        given_same = torch.equal(given_s, got_s) and torch.equal(given_m,
+                                                                 got_m)
         e_s, e_m = rel_err(got_s, plain_s), rel_err(got_m, plain_m)
         e_orc = float((got_s.double() - oracle).abs().max()
                       / oracle.abs().max())
@@ -1504,48 +1568,72 @@ def phase_segment(cfg, device, flush):
         sem = (bool((got_s[empty] == 0).all())
                and bool((got_m[empty] == sk.NEG_INF).all())
                and bool(torch.isfinite(got_s).all()))
-        accs["K4a"]["max_abs_err"] = max(accs["K4a"]["max_abs_err"], float(
-            (got_s - plain_s).abs().max()))
-        accs["K4b"]["max_abs_err"] = max(accs["K4b"]["max_abs_err"], float(
-            (got_m - plain_m).abs().max()))
+        for kid, got, plain in (("K4a", got_s, plain_s),
+                                ("K4b", got_m, plain_m)):
+            err = float((got - plain).abs().max())
+            for key in (kid, f"{kid}.built"):
+                accs[key]["max_abs_err"] = max(accs[key]["max_abs_err"], err)
         line = (f"kernel.segment {label:14s} E={E} S={S} "
+                f"layout_equal_plain={lay_same} "
+                f"layout_repeat_equal={lay_repeat} "
+                f"given_layout_equal={given_same} "
                 f"K4a_err_vs_plain={e_s:.3e} K4b_err_vs_plain={e_m:.3e} "
                 f"K4a_err_vs_f64_oracle={e_orc:.3e} "
                 f"dropped={int((~ok).sum())} empty={int(empty.sum())}")
-        if e_s > TOL_PLAIN or not same_m or e_orc > TOL_ORACLE or not sem:
+        if (e_s > TOL_PLAIN or not same_m or e_orc > TOL_ORACLE or not sem
+                or not (lay_same and lay_repeat and given_same)):
             log(line + " FAIL")
             raise AssertionError(line)
         log(line)
-        del plain_s, plain_m, oracle
+        del plain_s, plain_m, oracle, again, plain_layout
         big = E > 100_000
         iters, p_iters = (BIG_ITERS, 1) if big else (ITERS, PLAIN_ITERS)
         idx = ids_ok[:, None].expand(-1, d)
+        key = torch.where(ok, ids.long(), S)
+        both = K4_KERNELS + K4L_KERNELS
+        lib_s = lambda: torch.zeros((S, d), device=device).index_add_(  # noqa
+            0, ids_ok, data_ok)
+        lib_m = lambda: torch.full(  # noqa: E731
+            (S, d), sk.NEG_INF, device=device).scatter_reduce_(
+                0, idx, data_ok, "amax")
         cases = (
-            ("K4a", lambda: sk.segment_sum_kernel(data, ids, S),
-             lambda: sk.segment_sum_reference(data, ids, S),
-             lambda: torch.zeros((S, d), device=device).index_add_(
-                 0, ids_ok, data_ok)),
-            ("K4b", lambda: sk.segment_max_kernel(data, ids, S),
-             lambda: sk.segment_max_reference(data, ids, S),
-             lambda: torch.full((S, d), sk.NEG_INF, device=device
-                                ).scatter_reduce_(0, idx, data_ok, "amax")))
-        for kid, kfn, pfn, lfn in cases:
+            # (accumulator, kernel call, profiler names, plain call,
+            #  library call, work)
+            ("K4a.built", lambda: sk.segment_sum_kernel(data, ids, S), both,
+             lambda: sk.segment_sum_reference(data, ids, S), lib_s,
+             k4_work(E, d, S)),
+            ("K4a", lambda: sk.segment_sum_kernel(data, ids, S,
+                                                  layout=layout),
+             K4_KERNELS,
+             lambda: sk.segment_sum_reference(data, ids, S, layout=layout),
+             lib_s, k4_given_work(E, d, S)),
+            ("K4b.built", lambda: sk.segment_max_kernel(data, ids, S), both,
+             lambda: sk.segment_max_reference(data, ids, S), lib_m,
+             k4_work(E, d, S)),
+            ("K4b", lambda: sk.segment_max_kernel(data, ids, S,
+                                                  layout=layout),
+             K4_KERNELS,
+             lambda: sk.segment_max_reference(data, ids, S, layout=layout),
+             lib_m, k4_given_work(E, d, S)),
+            ("layout", lambda: sk.segment_layout(ids, S), K4L_KERNELS,
+             lambda: sk.segment_layout_reference(ids, S),
+             lambda: torch.argsort(key, stable=True),
+             layout_work(E, S, ids.element_size())))
+        for kid, kfn, names, pfn, lfn, work in cases:
             with torch.no_grad():
                 ms = time_ms(kfn, iters, flush)
-                k_ms = device_ms(kfn, iters, flush, K4_KERNELS)
+                k_ms = device_ms(kfn, iters, flush, names)
                 plain_ms = time_ms(pfn, p_iters, flush)
                 lib_ms = time_ms(lfn, iters, flush)
-            work = k4_work(E, d, S)
             if label in ("tpu_smoke", "cap"):
-                t_b, t_o = bound_times(work)
-                bound, by = max(t_b, t_o), ("bytes" if t_b >= t_o
-                                            else "operations")
+                bound, by = bound_of(work)
             else:
                 bound, by = add_case(accs[kid], ms, plain_ms, lib_ms, work,
                                      k_ms)
-            log(f"kernel.segment {kid} {label:14s} E={E} S={S} "
+            log(f"kernel.segment {kid:9s} {label:14s} E={E} S={S} "
                 + work_line(ms, k_ms, plain_ms, lib_ms, bound, by, work))
-        del data, ids, got_s, got_m, data_ok, idx
+        del data, ids, got_s, got_m, given_s, given_m, data_ok, idx, key
+        del layout
     fields = {}
     for kid, acc in accs.items():
         log(f"kernel.segment {kid} sum of 7 at B={EVAL_BATCH}: "
@@ -1554,14 +1642,18 @@ def phase_segment(cfg, device, flush):
             f"library_ms={acc['library_ms']:.4f} "
             f"bound_ms={acc['bound_ms']:.6f}")
         fields[kid] = finish_acc(acc)
+    for kid in ("K4a", "K4b"):
+        fields[kid]["built_ms"] = fields.pop(f"{kid}.built")["ms"]
     return fields
 
 
 def final_layer_nodes(model, cfg, sb, device):
     """The node embeddings after the last R-GCN layer of a sparse batch
-    (``encode_sparse``'s layers, K4a destination sums), ``[N, d]``."""
+    (``encode_sparse``'s layers, K4a destination sums over one layout),
+    ``[N, d]``."""
     from mpqe_tpu_torch.models import embeddings as emb_mod
     from mpqe_tpu_torch.ops import rgcn as rgcn_ops
+    from mpqe_tpu_torch.ops import segment_kernels as sk
 
     def t(a):
         return torch.from_numpy(a).to(device)
@@ -1570,10 +1662,12 @@ def final_layer_nodes(model, cfg, sb, device):
     with torch.no_grad():
         x = emb_mod.embed_nodes_sparse(model.emb, t(sb.node_entity),
                                        t(sb.node_mode), t(sb.node_is_var))
+        dst = t(e.dst)
+        layout = sk.segment_layout(dst, x.shape[0])
         for li, lp in enumerate(model.layers):
-            x = rgcn_ops.rgcn_sparse(x, lp, t(e.src), t(e.dst), t(e.rel),
+            x = rgcn_ops.rgcn_sparse(x, lp, t(e.src), dst, t(e.rel),
                                      t(e.norm), cfg.n_rels,
-                                     segment_backend="pallas")
+                                     segment_backend="pallas", layout=layout)
             if li < len(model.layers) - 1:
                 x = torch.relu(x)
     return x
@@ -1681,10 +1775,12 @@ class SparseEncode:
     """``evaluate``'s ``encode_fn`` through the sparse path:
     ``dense_to_sparse``, then ``encode_sparse(segment_backend="pallas")``
     (K4a in every layer's destination sum and the sum / mlp readouts, K4b
-    in the max readout).  Counts the K4 launches its calls should make."""
+    in the max readout, over one layout of the destinations and one of the
+    readout's query ids).  Counts the K4 launches its calls should
+    make."""
 
     def __init__(self):
-        self.want = {"K4a": 0, "K4b": 0}
+        self.want = {"K4a": 0, "K4b": 0, "layout": 0}
         self.calls = 0
 
     def __call__(self, model, cfg, structure, ne, nm, er, en):
@@ -1701,9 +1797,11 @@ class SparseEncode:
         sb = dense_to_sparse(b, cfg.n_rels)
         e = sb.edges
         self.calls += 1
-        self.want["K4a"] += mpqe_mod.num_steps(cfg, structure) + (
-            cfg.readout in ("sum", "mlp"))
+        steps = mpqe_mod.num_steps(cfg, structure)
+        self.want["K4a"] += steps + (cfg.readout in ("sum", "mlp"))
         self.want["K4b"] += cfg.readout == "max"
+        self.want["layout"] += (steps > 0) + (
+            cfg.readout in ("sum", "mlp", "max"))
         return mpqe_mod.encode_sparse(
             model, cfg, structure,
             *(torch.from_numpy(a).to(dev) for a in (
@@ -1715,7 +1813,8 @@ class SparseEncode:
 def k4_counters():
     from mpqe_tpu_torch.ops import segment_kernels as sk
 
-    return {"K4a": sk.segment_sum_kernel, "K4b": sk.segment_max_kernel}
+    return {"K4a": sk.segment_sum_kernel, "K4b": sk.segment_max_kernel,
+            "layout": sk.segment_layout}
 
 
 def recheck_eval_formulas(model, cfg, val_q, device, label):
@@ -1769,7 +1868,8 @@ def eval_sparse_run(model, cfg, val_q, device, label, profile=False):
         f"{wall:.3f} s ({n_q / wall:.1f} queries/s); launches "
         + " ".join(f"{k}={v}" for k, v in launches.items())
         + f" (expected {' '.join(f'{k}={v}' for k, v in enc.want.items())})")
-    if launches != enc.want or launches["K4a"] == 0:
+    if launches != enc.want or launches["K4a"] == 0 or \
+            launches["layout"] == 0:
         raise AssertionError(f"{label}: launches {launches} != {enc.want}")
     t0 = time.perf_counter()
     dense = evaluation.evaluate(model, cfg, val_q, n_neg=64)
@@ -1797,7 +1897,7 @@ def eval_sparse_run(model, cfg, val_q, device, label, profile=False):
         profile_device(f"{label}.profile (3-chain_inter formulas)",
                        lambda: evaluation.evaluate(model, cfg, part, n_neg=64,
                                                    encode_fn=SparseEncode()),
-                       also=K4_KERNELS)
+                       also=K4_KERNELS + K4L_KERNELS)
     return launches
 
 
@@ -1840,9 +1940,11 @@ def phase_eval_sparse(model, cfg, kg, train_q, val_q, device):
         f"validation round through eval_encode_fn in "
         f"{time.perf_counter() - t0:.2f} s; launches "
         + " ".join(f"{k}={v}" for k, v in launches.items())
-        + f" (expected K4a={enc.want['K4a']}); val macro_auc "
+        + f" (expected {' '.join(f'{k}={v}' for k, v in enc.want.items())})"
+        f"; val macro_auc "
         f"{vals[-1]['val']['auc_macro'] if vals else float('nan'):.4f}")
-    if len(vals) != 1 or launches != enc.want or launches["K4a"] == 0:
+    if len(vals) != 1 or launches != enc.want or launches["K4a"] == 0 or \
+            launches["layout"] == 0:
         raise AssertionError(f"eval.sparse.train: {len(vals)} rounds, "
                              f"launches {launches} != {enc.want}")
     for k, v in launches.items():
@@ -1920,11 +2022,38 @@ def phase_eval_cli(run_dir: str) -> None:
         raise AssertionError(f"unexpected evaluate CLI output {lines}")
 
 
+def phase_serve_cli(run_dir: str) -> None:
+    """``python -m mpqe_tpu_torch.serve --run_dir <run_dir>`` as a
+    subprocess: it restores the run's latest checkpoint (step 20) over
+    the KG rebuilt from the run's config and serves a sampled stream of
+    every structure on the card."""
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpqe_tpu_torch.serve", "--run_dir",
+         run_dir, "--requests", "21", "--batch", "8", "--structures",
+         ",".join(STRUCTURE_NAMES)], capture_output=True, text=True,
+        timeout=600)
+    last = (proc.stdout.strip().splitlines() or [""])[-1]
+    log(f"serve.cli --run_dir: rc={proc.returncode} "
+        f"{time.perf_counter() - t0:.2f} s: {last}")
+    if proc.returncode != 0:
+        raise AssertionError(f"serve CLI failed:\n{proc.stderr[-4000:]}")
+    out = json.loads(last)
+    if not (str(out.get("checkpoint", "")).endswith("step_20")
+            and out.get("device") == torch.cuda.get_device_name(0)
+            and out.get("requests") == 21
+            and np.isfinite(out.get("latency_ms_p50", np.nan))
+            and 0.0 <= out.get("hit_at_k", -1.0) <= 1.0):
+        raise AssertionError(f"unexpected serve CLI output {last!r}")
+
+
 class plain_sparse_kernels:
-    """Within the block, the K4, K5 and K6 wrappers that ``ops/segment.py``
-    and the autograd Functions of ``ops/rgcn_fused.py`` and
-    ``ops/rgcn_blocked.py`` call are their plain versions, on the card
-    (the train-step and eval.sparse rechecks)."""
+    """Within the block, the K4, K5 and K6 wrappers that ``ops/segment.py``,
+    ``encode_sparse`` (the K4 layout) and the autograd Functions of
+    ``ops/rgcn_fused.py`` and ``ops/rgcn_blocked.py`` call are their plain
+    versions, on the card (the train-step and eval.sparse rechecks)."""
 
     def __enter__(self):
         from mpqe_tpu_torch.ops import rgcn_blocked as rb
@@ -1933,7 +2062,8 @@ class plain_sparse_kernels:
 
         self.saved = (rf.messages_basis, rf.messages_wrel,
                       rb.messages_blocked, rb.grad_blocked,
-                      sk.segment_sum_kernel, sk.segment_max_kernel)
+                      sk.segment_sum_kernel, sk.segment_max_kernel,
+                      sk.segment_layout)
         rf.messages_basis = rf.messages_basis_reference
         rf.messages_wrel = rf.messages_wrel_reference
         rb.messages_blocked = lambda x, basis, coeff, lay, n_rels: \
@@ -1942,6 +2072,7 @@ class plain_sparse_kernels:
         rb.grad_blocked = rb.grad_blocked_reference
         sk.segment_sum_kernel = sk.segment_sum_reference
         sk.segment_max_kernel = sk.segment_max_reference
+        sk.segment_layout = sk.segment_layout_reference
         return self
 
     def __exit__(self, *exc):
@@ -1950,8 +2081,8 @@ class plain_sparse_kernels:
         from mpqe_tpu_torch.ops import segment_kernels as sk
 
         (rf.messages_basis, rf.messages_wrel, rb.messages_blocked,
-         rb.grad_blocked, sk.segment_sum_kernel,
-         sk.segment_max_kernel) = self.saved
+         rb.grad_blocked, sk.segment_sum_kernel, sk.segment_max_kernel,
+         sk.segment_layout) = self.saved
         return False
 
 
@@ -2519,7 +2650,7 @@ def main() -> int:
             sparse[kid] = sparse.get(kid, 0) + n
     phase_halo_train(kg, train_q, device)
     phase_train_cli(["--kernel", "fused_fwd", "--fused_backward", "pallas"],
-                    then=phase_eval_cli)
+                    then=lambda d: (phase_eval_cli(d), phase_serve_cli(d)))
     phase_train_cli(["--kernel", "blocked"])
     phase_train_cli(["--parallel", "halo_ring"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2566,6 +2697,10 @@ def main() -> int:
              k4_launches["K4a"], k4_fields["K4a"]),
             ("K4b", "segment_max", "segment.cu", "pallas_segment.py:120",
              k4_launches["K4b"], k4_fields["K4b"]),
+            # the first half of K4a's and K4b's port: the TPU kernels need
+            # no layout (a one-hot matmul per chunk of rows)
+            ("K4L", "segment_layout", "segment.cu", "pallas_segment.py:56",
+             k4_launches["layout"], k4_fields["layout"]),
             ("K7", "sddmm", "sddmm.cu", "pallas_sddmm.py:48", k7_launches,
              k7_fields),
             ("K8", "rgcn_ring_halo", "ring.cu", "pallas_ring.py:159",

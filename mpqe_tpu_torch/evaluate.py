@@ -96,30 +96,42 @@ def load_run_data(run_cfg: dict, use: str):
     return kg, val_q
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    with open(os.path.join(args.run_dir, "config.json")) as f:
+def read_run_dir(run_dir: str):
+    """(``config.json``, ``model_config.json``) of a run dir, as dicts."""
+    with open(os.path.join(run_dir, "config.json")) as f:
         run_cfg = json.load(f)
-    with open(os.path.join(args.run_dir, "model_config.json")) as f:
+    with open(os.path.join(run_dir, "model_config.json")) as f:
         mc = json.load(f)
-    _refuse_unported(args, mc)
-    cfg = config_from_json(mc)
-    device = resolve_device(args.device)
-    kg, val_q = load_run_data(run_cfg, args.use)
+    return run_cfg, mc
 
-    ckpt = args.ckpt or ckpt_mod.latest_checkpoint(
-        os.path.join(args.run_dir, "ckpt"))
+
+def restore_model(run_dir: str, cfg, ckpt, device):
+    """(checkpoint dir, its step, the model restored from its
+    ``state.pt`` on ``device``): ``ckpt``, else the run's latest;
+    ``SystemExit`` when there is none."""
+    ckpt = ckpt or ckpt_mod.latest_checkpoint(os.path.join(run_dir, "ckpt"))
     if ckpt is None:
         raise SystemExit("no checkpoint found")
     payload = torch.load(os.path.join(ckpt, ckpt_mod.STATE_FILE),
                          map_location=device, weights_only=True)
     model = mpqe_mod.MPQE(cfg, device=device)
     model.load_state_dict(payload["model"])
+    return ckpt, int(payload["step"]), model
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    run_cfg, mc = read_run_dir(args.run_dir)
+    _refuse_unported(args, mc)
+    cfg = config_from_json(mc)
+    device = resolve_device(args.device)
+    kg, val_q = load_run_data(run_cfg, args.use)
+    ckpt, step, model = restore_model(args.run_dir, cfg, args.ckpt, device)
 
     res = evaluation.evaluate_batched(model, cfg,
                                       evaluation.make_eval_set(val_q),
                                       n_neg=args.n_neg)
-    print(json.dumps({"checkpoint": ckpt, "step": int(payload["step"]),
+    print(json.dumps({"checkpoint": ckpt, "step": step,
                       "use": args.use, **res.flat()}), flush=True)
     if args.ranking:
         hits = tuple(int(k) for k in args.hits_at.split(","))

@@ -24,6 +24,7 @@ from mpqe_tpu_torch.models import embeddings as emb_mod
 from mpqe_tpu_torch.models import readout as readout_mod
 from mpqe_tpu_torch.ops import fused_fwd as fused_fwd_ops
 from mpqe_tpu_torch.ops import rgcn as rgcn_ops
+from mpqe_tpu_torch.ops import segment_kernels
 from mpqe_tpu_torch.queries import STRUCTURES
 
 
@@ -391,14 +392,15 @@ def encode_dense_multi_auto(
 def _sparse_encode(model: MPQE, cfg: MPQEConfig, structure: str,
                    node_entity, node_mode, node_is_var, node_query,
                    target_node, n_queries: int, layer,
-                   segment_backend: str = "xla") -> torch.Tensor:
+                   segment_backend: str = "xla",
+                   readout_layout=None) -> torch.Tensor:
     """Embed a flat node list, run ``layer(x, layer_params)`` for the
-    structure's depth (all layers for structure "") with ReLU between
-    layers, read out (segment sums and maxima by ``segment_backend``) →
-    ``[n_queries, d]``."""
+    structure's depth (:func:`_sparse_steps`) with ReLU between layers,
+    read out (segment sums and maxima by ``segment_backend``, over
+    ``readout_layout`` when given) → ``[n_queries, d]``."""
     x = emb_mod.embed_nodes_sparse(model.emb, node_entity, node_mode,
                                    node_is_var)
-    steps = num_steps(cfg, structure) if structure else cfg.n_layers
+    steps = _sparse_steps(cfg, structure)
     for li in range(steps):
         x = layer(x, model.layers[li])
         if li < steps - 1:
@@ -407,7 +409,14 @@ def _sparse_encode(model: MPQE, cfg: MPQEConfig, structure: str,
     return readout_mod.readout_sparse(cfg.readout, model.readout, x,
                                       node_query, target_node, n_queries,
                                       n_template_nodes=n_tpl,
-                                      segment_backend=segment_backend)
+                                      segment_backend=segment_backend,
+                                      layout=readout_layout)
+
+
+def _sparse_steps(cfg: MPQEConfig, structure: str) -> int:
+    """Layers a sparse encode runs: the structure's depth, all layers for
+    structure ""."""
+    return num_steps(cfg, structure) if structure else cfg.n_layers
 
 
 def encode_sparse(model: MPQE, cfg: MPQEConfig, structure: str,
@@ -419,14 +428,25 @@ def encode_sparse(model: MPQE, cfg: MPQEConfig, structure: str,
     ``encode_sparse``): layers of ``rgcn_sparse``.  ``segment_backend=
     "pallas"`` takes every layer's destination sum and the sum, mlp and max
     readouts through K4a / K4b (``ops/segment_kernels.py``), which are
-    forward only: call it under ``torch.no_grad()``."""
+    forward only: call it under ``torch.no_grad()``.  Their layouts are
+    built once per call: the destinations' from ``edge_dst`` for all
+    layers, the readout's from ``node_query``."""
+    dst_layout = readout_layout = None
+    if segment_backend == "pallas":
+        if _sparse_steps(cfg, structure):
+            dst_layout = segment_kernels.segment_layout(
+                edge_dst, node_entity.shape[0])
+        if cfg.readout in ("sum", "mlp", "max"):
+            readout_layout = segment_kernels.segment_layout(node_query,
+                                                            n_queries)
     return _sparse_encode(
         model, cfg, structure, node_entity, node_mode, node_is_var,
         node_query, target_node, n_queries,
         lambda x, lp: rgcn_ops.rgcn_sparse(x, lp, edge_src, edge_dst,
                                            edge_rel, edge_norm, cfg.n_rels,
-                                           segment_backend=segment_backend),
-        segment_backend=segment_backend)
+                                           segment_backend=segment_backend,
+                                           layout=dst_layout),
+        segment_backend=segment_backend, readout_layout=readout_layout)
 
 
 def encode_sparse_fused(model: MPQE, cfg: MPQEConfig, structure: str,

@@ -81,20 +81,23 @@ def readout_dense(kind: str, ro: Readout, x: torch.Tensor,
 def readout_sparse(kind: str, ro: Readout, x: torch.Tensor,
                    node_query: torch.Tensor, target_node: torch.Tensor,
                    n_queries: int, n_template_nodes=None,
-                   segment_backend: str = "xla") -> torch.Tensor:
+                   segment_backend: str = "xla", layout=None) -> torch.Tensor:
     """Flat ``x [N, d]`` with a ``node_query [N]`` segment map ->
     ``[n_queries, d]``.  ``concat`` needs a slot-regular batch
-    (``n_template_nodes`` nodes per query, in query order)."""
+    (``n_template_nodes`` nodes per query, in query order).  ``layout``:
+    with ``segment_backend="pallas"``, ``segment_layout(node_query,
+    n_queries)`` for the sum, max and mlp readouts (built by the
+    reduction when ``None``)."""
     from mpqe_tpu_torch.ops import segment as segment_ops
 
     if kind == "tgt":
         return x[target_node.long().clamp(0, x.shape[0] - 1)]
     if kind == "sum":
         return segment_ops.segment_sum(x, node_query, n_queries,
-                                       backend=segment_backend)
+                                       backend=segment_backend, layout=layout)
     if kind == "max":
         return segment_ops.segment_max(x, node_query, n_queries,
-                                       backend=segment_backend)
+                                       backend=segment_backend, layout=layout)
     if kind == "concat":
         n = n_template_nodes
         if n is None:
@@ -104,6 +107,7 @@ def readout_sparse(kind: str, ro: Readout, x: torch.Tensor,
     if kind == "mlp":
         h = torch.relu(x @ ro.w_pre + ro.b_pre)
         pooled = segment_ops.segment_sum(h, node_query, n_queries,
-                                         backend=segment_backend)
+                                         backend=segment_backend,
+                                         layout=layout)
         return pooled @ ro.w_post + ro.b_post
     raise ValueError(kind)

@@ -97,14 +97,16 @@ def _edge_weights(layer: RGCNLayer, edge_rel: torch.Tensor) -> torch.Tensor:
 def rgcn_sparse(x: torch.Tensor, layer: RGCNLayer, edge_src: torch.Tensor,
                 edge_dst: torch.Tensor, edge_rel: torch.Tensor,
                 edge_norm: torch.Tensor, n_rels: int,
-                segment_backend: str = "xla") -> torch.Tensor:
+                segment_backend: str = "xla", layout=None) -> torch.Tensor:
     """One R-GCN layer over an arbitrary padded edge list (reference
     ``rgcn_sparse``, the f32 oracle of the sparse kernels).  Basis-first:
     ``H[n, b] = x[n] @ V_b``, ``msg_e = sum_b a[rel_e, b] H[src_e, b]``,
     scaled by ``norm_e`` and summed into ``dst_e``.  ``src`` and ``rel``
     are clamped; padding edges carry ``dst == N`` (dropped by the segment
     sum) and ``norm == 0``.  A full-weight layer is treated as R one-hot
-    "bases"."""
+    "bases".  ``layout``: with ``segment_backend="pallas"``, the
+    destination sum's ``segment_layout(edge_dst, N)``, built once for all
+    layers by the caller (else by the sum)."""
     from mpqe_tpu_torch.ops import segment as segment_ops
 
     n_nodes = x.shape[0]
@@ -121,7 +123,7 @@ def rgcn_sparse(x: torch.Tensor, layer: RGCNLayer, edge_src: torch.Tensor,
     msg = torch.einsum("eb,ebo->eo", coeff_e, h_b[src_c])
     msg = msg * edge_norm[:, None].to(msg.dtype)
     agg = segment_ops.segment_sum(msg, edge_dst, n_nodes,
-                                  backend=segment_backend)
+                                  backend=segment_backend, layout=layout)
     return x @ layer.w_self + agg + layer.bias
 
 

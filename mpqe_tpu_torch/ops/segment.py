@@ -12,6 +12,9 @@ Two implementations share one API, as in the reference:
   (``ops/segment_kernels.py``), forward only and capped at 8,192
   segments like the reference's Pallas kernels; each segment's rows are
   added in one fixed order, so their sums are the same in every run.
+  They read a layout of the rows by segment
+  (``segment_kernels.segment_layout``): ``layout=`` hands over one built
+  before, for a caller that reduces over the same ids more than once.
 """
 
 from __future__ import annotations
@@ -30,6 +33,12 @@ def _check_backend(backend: str) -> None:
                          f"{BACKENDS}")
 
 
+def _check_layout_backend(backend: str, layout) -> None:
+    if layout is not None and backend != "pallas":
+        raise ValueError("layout= is the pallas backend's; backend="
+                         f"{backend!r} takes none")
+
+
 def _in_range(segment_ids: torch.Tensor, n: int):
     ids = segment_ids.long()
     ok = (ids >= 0) & (ids < n)
@@ -37,13 +46,17 @@ def _in_range(segment_ids: torch.Tensor, n: int):
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int, backend: str = "xla") -> torch.Tensor:
+                num_segments: int, backend: str = "xla",
+                layout=None) -> torch.Tensor:
     """Sum rows of ``data [E, ...]`` into ``[num_segments, ...]``; rows with
-    an id outside ``[0, num_segments)`` are dropped."""
+    an id outside ``[0, num_segments)`` are dropped.  ``layout``: the
+    pallas backend's ``segment_layout(segment_ids, num_segments)``, built
+    by the kernel's wrapper when ``None``."""
     _check_backend(backend)
+    _check_layout_backend(backend, layout)
     if backend == "pallas":
         return segment_kernels.segment_sum_kernel(data, segment_ids,
-                                                  num_segments)
+                                                  num_segments, layout=layout)
     ids, ok = _in_range(segment_ids, num_segments)
     out = data.new_zeros((num_segments, *data.shape[1:]))
     return out.index_add(0, ids[ok], data[ok])
@@ -51,13 +64,15 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int, backend: str = "xla",
-                empty_value: float = 0.0) -> torch.Tensor:
+                empty_value: float = 0.0, layout=None) -> torch.Tensor:
     """Max-reduce rows into segments; a segment that is empty (or whose max
-    is at or below ``NEG_INF / 2``) gets ``empty_value``."""
+    is at or below ``NEG_INF / 2``) gets ``empty_value``.  ``layout`` as
+    for :func:`segment_sum`."""
     _check_backend(backend)
+    _check_layout_backend(backend, layout)
     if backend == "pallas":
         out = segment_kernels.segment_max_kernel(data, segment_ids,
-                                                 num_segments)
+                                                 num_segments, layout=layout)
     else:
         ids, ok = _in_range(segment_ids, num_segments)
         out = data.new_full((num_segments, *data.shape[1:]), float("-inf"))
@@ -69,10 +84,17 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
-                 num_segments: int, backend: str = "xla") -> torch.Tensor:
-    s = segment_sum(data, segment_ids, num_segments, backend=backend)
+                 num_segments: int, backend: str = "xla",
+                 layout=None) -> torch.Tensor:
+    """Mean of each segment's rows (0 for an empty one); ``layout`` as for
+    :func:`segment_sum`, built once here for both sums when ``None``."""
+    if backend == "pallas" and layout is None:
+        layout = segment_kernels.segment_layout(segment_ids, num_segments)
+    s = segment_sum(data, segment_ids, num_segments, backend=backend,
+                    layout=layout)
     ones = data.new_ones((data.shape[0], 1))
-    cnt = segment_sum(ones, segment_ids, num_segments, backend=backend)
+    cnt = segment_sum(ones, segment_ids, num_segments, backend=backend,
+                      layout=layout)
     return s / torch.clamp(cnt, min=1.0)
 
 

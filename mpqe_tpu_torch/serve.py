@@ -16,12 +16,20 @@ sampled-stream mode of the root ``serve.py`` CLI:
 MPQE models only in this slice; serving runs on the card by default and
 raises when there is none (``device="cpu"`` runs it on the CPU).
 
-CLI::
+CLI (exactly one of ``--run_dir``, ``--state_dict``, ``--init_seed``)::
 
+  python -m mpqe_tpu_torch.serve --run_dir runs/xyz [--ckpt CKPT]
   python -m mpqe_tpu_torch.serve --init_seed 0 --syn_entities 1000000 \\
       --syn_modes 4 --syn_rels 133 --syn_triples 1000000 --batch 256
   python -m mpqe_tpu_torch.serve --model_config run/model_config.json \\
       --state_dict model.pt --syn_entities ... --seed ...
+
+``--run_dir`` serves a run dir of ``python -m mpqe_tpu_torch.train`` as
+the root ``serve.py`` does: the KG rebuilt from its ``config.json``, the
+model from ``model_config.json`` and ``ckpt/step_N/state.pt`` (``--ckpt``,
+else the latest); the ``--syn_*`` and ``--seed`` flags are then not read.
+The root CLI's ``--http``, ``--answer``, ``--table_dtype`` and
+``--shards`` are not ported (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -238,34 +246,63 @@ def parse_args(argv=None):
     p.add_argument("--structures", default="1-chain,2-chain,2-inter")
     p.add_argument("--device", default="cuda",
                    help="torch device; the card unless told otherwise")
+    model = p.add_mutually_exclusive_group(required=True)
+    model.add_argument("--run_dir", default=None,
+                       help="run dir of python -m mpqe_tpu_torch.train: its "
+                            "KG, model config and checkpoint")
+    model.add_argument("--state_dict", default=None,
+                       help="reference-shaped state dict (.pt), e.g. from "
+                            "tools/export_torch_checkpoint.py")
+    model.add_argument("--init_seed", type=int, default=None,
+                       help="serve a randomly initialized model from this "
+                            "seed (full width: d=128, 3 layers, 16 bases, "
+                            "unless --model_config says otherwise)")
+    p.add_argument("--ckpt", default=None,
+                   help="with --run_dir: the checkpoint dir to restore "
+                        "(defaults to the latest in run_dir/ckpt)")
     p.add_argument("--model_config", default=None,
                    help="model_config.json of a training run")
-    p.add_argument("--state_dict", default=None,
-                   help="reference-shaped state dict (.pt), e.g. from "
-                        "tools/export_torch_checkpoint.py")
-    p.add_argument("--init_seed", type=int, default=None,
-                   help="serve a randomly initialized model from this seed "
-                        "(full width: d=128, 3 layers, 16 bases, unless "
-                        "--model_config says otherwise)")
     p.add_argument("--seed", type=int, default=0, help="KG seed")
     p.add_argument("--syn_entities", type=int, default=500)
     p.add_argument("--syn_modes", type=int, default=3)
     p.add_argument("--syn_rels", type=int, default=6)
     p.add_argument("--syn_triples", type=int, default=5000)
     args = p.parse_args(argv)
-    if (args.state_dict is None) == (args.init_seed is None):
-        p.error("give exactly one of --state_dict and --init_seed")
     if args.state_dict is not None and args.model_config is None:
         p.error("--state_dict needs --model_config")
+    if args.run_dir is not None and args.model_config is not None:
+        p.error("--run_dir reads the run's own model_config.json")
+    if args.ckpt is not None and args.run_dir is None:
+        p.error("--ckpt needs --run_dir")
     return args
 
 
-def main(argv=None):
-    from mpqe_tpu_torch.convert import model_from_state_dict
-    from mpqe_tpu_torch.data.sampler import QuerySampler, make_random_kg
+def _from_run_dir(args, device):
+    """(cfg, kg, model, checkpoint dir) of ``--run_dir``."""
+    from mpqe_tpu_torch import evaluate as eval_cli
 
-    args = parse_args(argv)
-    device = resolve_device(args.device)
+    run_cfg, mc = eval_cli.read_run_dir(args.run_dir)
+    cfg = config_from_json(mc)  # a GQE run dir raises, naming item 4
+    ckpt, _, model = eval_cli.restore_model(args.run_dir, cfg, args.ckpt,
+                                            device)
+    kg, _ = eval_cli.load_run_data(run_cfg, "val")
+    _check_matches(cfg, kg)
+    return cfg, kg, model, ckpt
+
+
+def _check_matches(cfg, kg) -> None:
+    if (cfg.n_entities, cfg.n_rels) != (kg.n_entities, kg.n_rels):
+        raise SystemExit(
+            f"model ({cfg.n_entities} entities, {cfg.n_rels} relations) "
+            f"does not match the KG ({kg.n_entities}, {kg.n_rels})")
+
+
+def _from_flags(args, device):
+    """(cfg, kg, model, state dict path or None) of ``--state_dict`` or
+    ``--init_seed`` over the ``--syn_*`` KG."""
+    from mpqe_tpu_torch.convert import model_from_state_dict
+    from mpqe_tpu_torch.data.sampler import make_random_kg
+
     kg = make_random_kg(
         n_entities=args.syn_entities, n_modes=args.syn_modes,
         n_base_rels=args.syn_rels, n_triples=args.syn_triples,
@@ -277,10 +314,7 @@ def main(argv=None):
         cfg = mpqe_mod.MPQEConfig(n_entities=kg.n_entities,
                                   n_modes=kg.n_modes, n_rels=kg.n_rels,
                                   **FLAGSHIP)
-    if (cfg.n_entities, cfg.n_rels) != (kg.n_entities, kg.n_rels):
-        raise SystemExit(
-            f"model ({cfg.n_entities} entities, {cfg.n_rels} relations) "
-            f"does not match the KG ({kg.n_entities}, {kg.n_rels})")
+    _check_matches(cfg, kg)
     if args.init_seed is not None:
         gen = torch.Generator(device=device).manual_seed(args.init_seed)
         model = mpqe_mod.init_mpqe(gen, cfg, device=device)
@@ -288,6 +322,16 @@ def main(argv=None):
         sd = torch.load(args.state_dict, map_location="cpu",
                         weights_only=True)
         model = model_from_state_dict(sd, cfg, device=device)
+    return cfg, kg, model, args.state_dict
+
+
+def main(argv=None):
+    from mpqe_tpu_torch.data.sampler import QuerySampler
+
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg, kg, model, checkpoint = (_from_run_dir if args.run_dir is not None
+                                  else _from_flags)(args, device)
     server = QueryServer(model, cfg, kg.entity_mode, device=device)
 
     structures = args.structures.split(",")
@@ -311,7 +355,7 @@ def main(argv=None):
             hits += int(q.target in a.entity_ids.tolist())
     lat_ms = np.asarray(lat) * 1e3
     print(json.dumps({
-        "checkpoint": args.state_dict,
+        "checkpoint": checkpoint,
         "init_seed": args.init_seed,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else str(device)),

@@ -419,6 +419,100 @@ def test_cuda_k4_match_plain_versions(d):
         assert bool((got_s[empty] == 0).all())
 
 
+def _layout_cases(dev):
+    """(name, ids, num_segments) for the layout kernel: no rows, the
+    chip-check shape, each structure's destination and readout ids at
+    B = 1,024 (with padding edges), the one-block limit and one row past
+    it, and 2^20 rows at the cap; ids out of range both ways and empty
+    segments throughout, int32 and int64."""
+    from mpqe_tpu_torch.data.batcher import (DenseQueryBatch,
+                                             dense_to_sparse,
+                                             template_edge_norm)
+
+    rng = np.random.default_rng(17)
+
+    def knocked(E, S, dtype=np.int32):
+        ids = rng.integers(0, S, E).astype(dtype)
+        ids[ids == min(7, S - 1)] = S + 3  # an empty segment
+        bad = rng.choice(E, max(E // 50, 2), replace=False)
+        ids[bad[::2]] = -1 - rng.integers(0, 5, len(bad[::2]))
+        ids[bad[1::2]] = S
+        return torch.from_numpy(ids).to(dev)
+
+    out = [("no_rows", torch.zeros(0, dtype=torch.int32, device=dev), 16),
+           ("tpu_smoke", knocked(1000, 64), 64),
+           ("tpu_smoke_i64", knocked(1000, 64, np.int64), 64)]
+    B = 1024
+    for s in STRUCTURE_NAMES:
+        spec = STRUCTURES[s]
+        rels = rng.integers(0, N_RELS, spec.n_edges).astype(np.int32)
+        b = DenseQueryBatch(
+            s, B, rng.integers(0, N_ENT, (B, spec.n_nodes)).astype(np.int32),
+            rng.integers(0, N_MODES, (B, spec.n_nodes)).astype(np.int32),
+            rels, template_edge_norm(spec, rels), np.zeros(B, np.int32),
+            np.zeros((B, 1), np.int32), np.ones((B, 1), np.float32),
+            np.ones(B, np.float32))
+        sb = dense_to_sparse(b, N_RELS, B * spec.n_edges + 64)
+        out.append((f"{s}.dst", torch.from_numpy(sb.edges.dst).to(dev),
+                    sb.n_nodes))
+        out.append((f"{s}.query", torch.from_numpy(sb.node_query).to(dev),
+                    B))
+    out += [("one_block", knocked(8192, 4096), 4096),
+            ("two_ranges", knocked(8193, 8192), 8192),
+            ("ranges", knocked(40000, 300, np.int64), 300),
+            ("cap", knocked(1 << 20, 8192), 8192)]
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_k4_layout_matches_plain_layout():
+    from mpqe_tpu_torch.ops import segment_kernels as sk
+
+    dev = _cuda()
+    for name, ids, S in _layout_cases(dev):
+        l0 = sk.segment_layout.launches
+        perm, offs = sk.segment_layout(ids, S)
+        again = sk.segment_layout(ids, S)
+        want_perm, want_offs = sk.segment_layout_reference(ids, S)
+        torch.cuda.synchronize()
+        assert sk.segment_layout.launches == l0 + 2, name
+        assert perm.dtype == offs.dtype == torch.int32, name
+        assert torch.equal(perm, want_perm), name
+        assert torch.equal(offs, want_offs), name
+        assert torch.equal(again[0], perm) and torch.equal(again[1], offs)
+
+
+@pytest.mark.cuda
+def test_cuda_k4_with_a_given_layout_equals_without():
+    from mpqe_tpu_torch.ops import segment_kernels as sk
+
+    dev = _cuda()
+    gen = torch.Generator(dev).manual_seed(9)
+    for name, ids, S in _layout_cases(dev):
+        if ids.shape[0] > 100_000:
+            continue  # the cap's rows: chip_smoke.py's kernel.segment
+        data = torch.randn((ids.shape[0], 128), device=dev, generator=gen)
+        layout = sk.segment_layout(ids, S)
+        counts = (sk.segment_layout.launches, sk.segment_sum_kernel.launches,
+                  sk.segment_max_kernel.launches)
+        got_s = sk.segment_sum_kernel(data, ids, S, layout=layout)
+        got_m = sk.segment_max_kernel(data, ids, S, layout=layout)
+        assert (sk.segment_layout.launches, sk.segment_sum_kernel.launches,
+                sk.segment_max_kernel.launches) == (
+            counts[0], counts[1] + 1, counts[2] + 1), name
+        want_s = sk.segment_sum_kernel(data, ids, S)
+        want_m = sk.segment_max_kernel(data, ids, S)
+        assert sk.segment_layout.launches == counts[0] + 2, name
+        plain_s = sk.segment_sum_reference(data, ids, S, layout=layout)
+        torch.cuda.synchronize()
+        assert torch.equal(got_s, want_s) and torch.equal(got_m, want_m), name
+        assert torch.equal(got_s, plain_s), name
+        if name == "ranges":  # a layout of other ids is refused
+            with pytest.raises(ValueError, match="layout perm"):
+                sk.segment_sum_kernel(data, ids, S, layout=(layout[0][:-1],
+                                                            layout[1]))
+
+
 @pytest.mark.cuda
 def test_cuda_k4_nan_inf_bf16_and_cap():
     from mpqe_tpu_torch.ops import segment_kernels as sk
@@ -518,6 +612,7 @@ def test_cuda_encode_sparse_pallas_matches_cpu_plain_path(readout):
                   sb.edges.src, sb.edges.dst, sb.edges.rel, sb.edges.norm,
                   sb.node_query, sb.target_node)
         a0, b0 = sk.segment_sum_kernel.launches, sk.segment_max_kernel.launches
+        l0 = sk.segment_layout.launches
         with torch.no_grad():
             got = tm.encode_sparse(
                 model, cfg, s, *(torch.from_numpy(a).to(dev) for a in arrays),
@@ -529,6 +624,8 @@ def test_cuda_encode_sparse_pallas_matches_cpu_plain_path(readout):
         assert sk.segment_sum_kernel.launches - a0 == steps + (
             readout == "mlp")
         assert sk.segment_max_kernel.launches - b0 == (readout == "max")
+        # one layout for every layer's destination sum, one for the readout
+        assert sk.segment_layout.launches - l0 == 1 + (readout != "tgt")
         assert got.shape == (B, 128)
         assert _rel(got.cpu(), want) <= 1e-5, (s, readout)
 

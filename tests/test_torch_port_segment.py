@@ -254,3 +254,105 @@ def test_encode_sparse_pallas_is_forward_only():
     with pytest.raises(NotImplementedError, match="forward only"):
         tm.encode_sparse(model, tcfg, "2-chain", *args, tb.batch_size,
                          segment_backend="pallas")
+
+
+# ------------------------------------------------------- the K4 layout
+def _layout_cases():
+    """(name, ids, S): ids out of range above and below, negative, empty
+    segments, a sorted destination list, no rows, no segments."""
+    rng = np.random.default_rng(21)
+    ids = rng.integers(-3, 14, 300).astype(np.int32)
+    ids[ids == 5] = 11  # segment 5 stays empty
+    yield "mixed", ids, 11
+    yield "sorted", np.sort(rng.integers(0, 40, 500)).astype(np.int64), 64
+    yield "negative_only", np.full(17, -1, np.int32), 4
+    yield "no_rows", np.zeros(0, np.int32), 8
+    yield "no_segments", rng.integers(-2, 3, 9).astype(np.int32), 0
+    yield "one_segment", np.zeros(33, np.int64), 1
+
+
+@pytest.mark.parametrize("case", list(_layout_cases()), ids=lambda c: c[0])
+def test_k4_with_a_given_layout_equals_without(case):
+    _, ids_np, S = case
+    rng = np.random.default_rng(len(ids_np) + S)
+    data = _t(rng.normal(size=(len(ids_np), 6)).astype(np.float32))
+    data[1::7, 2] = float("nan") if len(ids_np) > 1 else 0.0
+    ids = _t(ids_np)
+    layout = tsk.segment_layout(ids, S)
+    perm, offs = layout
+    assert perm.dtype == offs.dtype == torch.int32
+    assert perm.shape == (len(ids_np),) and offs.shape == (S + 1,)
+    # the stable sort by segment, out-of-range rows last in row order
+    key = np.where((ids_np >= 0) & (ids_np < S), ids_np, S)
+    np.testing.assert_array_equal(perm.numpy(),
+                                  np.argsort(key, kind="stable"))
+    np.testing.assert_array_equal(
+        offs.numpy(), np.searchsorted(np.sort(key), np.arange(S + 1)))
+    for fn in (tsk.segment_sum_kernel, tsk.segment_max_kernel,
+               tsk.segment_sum_reference, tsk.segment_max_reference):
+        want = fn(data, ids, S)
+        got = fn(data, ids, S, layout=layout)
+        assert torch.equal(got.isnan(), want.isnan()), fn.__name__
+        assert torch.equal(got.nan_to_num(), want.nan_to_num()), fn.__name__
+    for op in (tseg.segment_sum, tseg.segment_mean, tseg.segment_max):
+        want = op(data, ids, S, backend="pallas")
+        got = op(data, ids, S, backend="pallas", layout=layout)
+        assert torch.equal(got.nan_to_num(), want.nan_to_num()), op.__name__
+
+
+def test_segment_mean_builds_one_layout(monkeypatch):
+    calls = []
+    real = tsk.segment_layout
+
+    def counted(ids, n):
+        calls.append(n)
+        return real(ids, n)
+
+    monkeypatch.setattr(tsk, "segment_layout", counted)
+    rng = np.random.default_rng(4)
+    data = _t(rng.normal(size=(50, 3)).astype(np.float32))
+    ids = _t(rng.integers(-1, 9, 50).astype(np.int32))
+    got = tseg.segment_mean(data, ids, 8, backend="pallas")
+    assert calls == [8]
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jseg.segment_mean(jnp.asarray(data.numpy()),
+                                                  jnp.asarray(ids.numpy()),
+                                                  8)), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="pallas"):
+        tseg.segment_sum(data, ids, 8, layout=real(ids, 8))
+    with pytest.raises(ValueError, match="too large"):
+        tsk.segment_layout(ids, 9000)
+
+
+@pytest.mark.parametrize("readout", READOUTS)
+@pytest.mark.parametrize("structure", list(STRUCTURE_NAMES))
+def test_encode_sparse_pallas_builds_each_layout_once(structure, readout,
+                                                      monkeypatch):
+    jcfg, tcfg, params, model = _models(readout)
+    jb, tb = _dense_batches(structure, seed=len(structure) + 1)
+    jsb = jbatch.dense_to_sparse(jb, N_RELS)
+    tsb = tbatch.dense_to_sparse(tb, N_RELS)
+    B = tb.batch_size
+    args = list(map(_t, _sparse_args(tsb)))
+    built = []
+    real = tsk.segment_layout
+
+    def counted(ids, n):
+        built.append((ids, n))
+        return real(ids, n)
+
+    monkeypatch.setattr(tsk, "segment_layout", counted)
+    with torch.no_grad():
+        got = tm.encode_sparse(model, tcfg, structure, *args, B,
+                               segment_backend="pallas").numpy()
+    want_built = [(args[4], tsb.n_nodes)]  # edge_dst, once for all layers
+    if readout in ("sum", "mlp", "max"):
+        want_built.append((args[7], B))  # node_query
+    assert len(built) == len(want_built), (structure, readout, built)
+    for (ids, n), (want_ids, want_n) in zip(built, want_built):
+        assert ids is want_ids and n == want_n
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jm.encode_sparse(
+            params, jcfg, structure, *map(jnp.asarray, _sparse_args(jsb)),
+            n_queries=B, segment_backend="xla"))
+    assert _rel(got, want) <= 1e-5, (structure, readout, _rel(got, want))

@@ -266,3 +266,75 @@ def test_cli_serves_a_jax_checkpoint(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["checkpoint"].endswith("model.pt")
     assert 0.0 <= out["hit_at_k"] <= 1.0
+
+
+TRAIN_CLI = ["--device", "cpu", "--data", "synthetic", "--embed_dim", "16",
+             "--n_layers", "2", "--num_bases", "4", "--batch_size", "16",
+             "--n_neg", "2", "--syn_entities", "120", "--syn_triples", "400",
+             "--syn_train_queries", "70", "--syn_val_queries", "28",
+             "--steps", "3", "--val_every", "3"]
+
+
+def test_cli_serves_a_run_dir(tmp_path, capsys, monkeypatch):
+    from mpqe_tpu_torch import evaluate as tev
+    from mpqe_tpu_torch.train import checkpoint as tckpt
+    from mpqe_tpu_torch.train.__main__ import main as train_main
+
+    run = str(tmp_path / "run")
+    train_main(TRAIN_CLI + ["--run_dir", run])
+    capsys.readouterr()
+    served = []  # (queries, answers) of every request the CLI answered
+    real_answer = tserve.QueryServer.answer
+
+    def answer(self, queries, k=10):
+        out = real_answer(self, queries, k=k)
+        served.append((list(queries), out))
+        return out
+
+    monkeypatch.setattr(tserve.QueryServer, "answer", answer)
+    tserve.main(["--run_dir", run, "--device", "cpu", "--requests", "4",
+                 "--structures", "1-chain,2-inter,3-chain"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    ckpt = os.path.join(run, "ckpt", "step_3")
+    assert out["checkpoint"] == ckpt == tckpt.latest_checkpoint(
+        os.path.join(run, "ckpt"))
+    assert out["requests"] == 4 and out["device"] == "cpu"
+    monkeypatch.setattr(tserve.QueryServer, "answer", real_answer)
+
+    # the same requests through a server over the model restored from the
+    # same state.pt, by hand
+    run_cfg = json.load(open(os.path.join(run, "config.json")))
+    kg, _ = tev.load_run_data(run_cfg, "val")
+    cfg = tserve.config_from_json(json.load(open(os.path.join(
+        run, "model_config.json"))))
+    model = tm.MPQE(cfg, device="cpu")
+    model.load_state_dict(torch.load(os.path.join(ckpt, "state.pt"),
+                                     weights_only=True)["model"])
+    server = tserve.QueryServer(model, cfg, kg.entity_mode, device="cpu")
+    requests = served[-4:]  # after the warmup's
+    hits = 0
+    for queries, answers in requests:
+        want = server.answer(queries, k=10)
+        for q, a, w in zip(queries, answers, want):
+            np.testing.assert_array_equal(a.entity_ids, w.entity_ids)
+            np.testing.assert_array_equal(a.scores, w.scores)
+            hits += int(q.target in w.entity_ids.tolist())
+    assert out["hit_at_k"] == hits / sum(len(q) for q, _ in requests)
+
+
+def test_cli_model_source_flags_are_exclusive(tmp_path, capsys):
+    for flags in (["--run_dir", str(tmp_path), "--init_seed", "0"],
+                  ["--run_dir", str(tmp_path), "--state_dict", "m.pt"],
+                  ["--init_seed", "0", "--ckpt", str(tmp_path)],
+                  ["--run_dir", str(tmp_path), "--model_config", "m.json"],
+                  []):
+        with pytest.raises(SystemExit) as e:
+            tserve.main(["--device", "cpu", *flags])
+        assert e.value.code == 2, flags  # argparse's usage error
+    assert "usage" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match="no checkpoint"):
+        (tmp_path / "config.json").write_text(json.dumps({"seed": 0}))
+        (tmp_path / "model_config.json").write_text(json.dumps(dict(
+            n_entities=3, n_modes=1, n_rels=2, embed_dim=4, n_layers=1,
+            num_bases=None, readout="tgt")))
+        tserve.main(["--device", "cpu", "--run_dir", str(tmp_path)])
