@@ -22,12 +22,15 @@ parallel (one nvcc each), then:
    number of eligible dispatches, and one dispatch per structure is
    recomputed through the plain K3 version and ``torch.matmul``.
 3. ``kernel.fused_tgt`` / ``kernel.fused_tgt_backward``: K1 and K2
-   (``csrc/fused_tgt.cu``) for all 7 structures at B = 512 and a ragged
-   B = 1000: K1 vs its plain version (<= 1e-4) and vs the f32
-   ``encode_dense`` (<= 3e-2); each K2 output (dA, every dW_l and db_l)
-   vs its plain version (<= 1e-4); K2's parameter gradients (through the
-   differentiable weight assembly) vs autograd of the f32 encoder within
-   the reference's depth tolerances.  Times both kernels at B = 512 and
+   (``csrc/fused_tgt.cu``, tensor cores, only the listed blocks of W_l)
+   for all 7 structures at B = 512 and a ragged B = 1000: K1 and K2 (dA,
+   every dW_l on the listed blocks and 0 off them, db_l) vs their plain
+   versions under ``ops/fused_fwd.py chain_gate``, both negative controls
+   (one block of W_0 zeroed, one anchor row moved 8 bf16 steps) failing
+   it, a repeat launch bit-equal; K1 vs the f32 ``encode_dense`` (<=
+   3e-2); K2's parameter gradients (through the differentiable weight
+   assembly) vs autograd of the f32 encoder within the reference's depth
+   tolerances.  Times both kernels at B = 512 and
    B = 131,072 (L2 flushed before each launch: the optimizer update
    between two steps streams GBs), CUDA events around the wrapper and the
    kernels' own device time (torch.profiler), beside the bound and, as a
@@ -97,7 +100,8 @@ parallel (one nvcc each), then:
    structure from the first step) and one validation round through K3;
    K1 and K2 launch once per step, K3 during validation, every loss is
    finite, and one step repeated from the same state through the plain
-   versions gives the same loss and gradients.  Step time p50/p95, real
+   versions gives the same loss (<= 1e-4) and gradients (per leaf
+   mean|diff| / mean|ref| <= 1e-4, the max printed beside it).  Step time p50/p95, real
    queries/s (and padded rows/s) and a ``torch.profiler`` account of 10
    steps.
 12. ``train.fused``, ``train.fused_full``, ``train.blocked``:
@@ -210,8 +214,9 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-TGT_KERNELS = ("tgt_forward_kernel", "tgt_backward_kernel",
-               "dw_partial_kernel", "reduce_partials_kernel")
+# every kernel of csrc/fused_tgt.cu: tgt_mma_chain_kernel (K1; K2's pass
+# A), tgt_mma_dw_kernel, tgt_mma_reduce_kernel, tgt_mma_reduce_db_kernel
+TGT_KERNELS = ("tgt_mma_",)
 
 
 def device_ms(fn, iters: int, flush: torch.Tensor,
@@ -634,10 +639,17 @@ def tree_mean_err(got: dict, want: dict) -> float:
     return worst
 
 
+def gate_text(gate: dict) -> str:
+    return " ".join(f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+                    for k, v in gate.items() if k != "ok")
+
+
 def phase_fused_tgt(model, cfg, device, gen, flush):
-    """K1 and K2 against their plain versions, the f32 encoder and its
-    autograd; times at the train batches.  Returns both kernels' JSON
-    fields (launches excluded)."""
+    """K1 and K2 against their plain versions under ``chain_gate`` (the
+    kernels' products run on the tensor cores), with both negative
+    controls failing it and a repeat launch bit-equal; K1 against the f32
+    encoder and K2's gradients against its autograd; times at the train
+    batches.  Returns both kernels' JSON fields (launches excluded)."""
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
     from mpqe_tpu_torch.ops import fused_fwd as ff
     from mpqe_tpu_torch.queries import STRUCTURE_NAMES
@@ -653,16 +665,25 @@ def phase_fused_tgt(model, cfg, device, gen, flush):
     big = {"fwd": [], "bwd": []}
     for structure in STRUCTURE_NAMES:
         depth = mpqe_mod.num_steps(cfg, structure)
+        blocks = ff.chain_blocks(cfg, structure)
         for B in (TRAIN_BATCH, RAGGED):
             args = shared_inputs(gen, cfg, structure, B)
             x0, ws, bs, n_a, dp = chain_operands(model, cfg, structure, args)
             g = torch.randn((B, d), generator=gen, device=device)
             with torch.no_grad():
-                got = ff._chain_forward(x0, ws, bs, d)
+                got = ff._chain_forward(x0, ws, bs, d, blocks)
+                again = ff._chain_forward(x0, ws, bs, d, blocks)
                 plain = ff._chain_forward_plain(x0, ws, bs, d)
                 f32 = mpqe_mod.encode_dense(model, cfg, structure, *args)
-                kb = ff._chain_backward(x0, ws, bs, g, n_a, d, dp)
+                kb = ff._chain_backward(x0, ws, bs, g, n_a, d, dp, blocks)
+                kb2 = ff._chain_backward(x0, ws, bs, g, n_a, d, dp, blocks)
                 pb = ff._chain_backward_plain(x0, ws, bs, g, n_a, d, dp)
+                controls = []
+                for name, x, w in ff.chain_gate_controls(x0, ws, blocks,
+                                                         n_a, d):
+                    controls.append((
+                        name, ff._chain_forward_plain(x, w, bs, d),
+                        ff._chain_backward_plain(x, w, bs, g, n_a, d, dp)))
             dpar, den, _ = ff.fused_tgt_backward(model, cfg, structure, *args,
                                                  None, g)
             en = args[3].clone().requires_grad_()
@@ -670,13 +691,20 @@ def phase_fused_tgt(model, cfg, device, gen, flush):
             ref = torch.autograd.grad(
                 q, list(model.parameters()) + [en], g, allow_unused=True)
             torch.cuda.synchronize()
-            for t in (got, *kb[1], *kb[2], kb[0]):
+            kleaves = [kb[0], *kb[1], *kb[2]]
+            for t in (got, *kleaves):
                 if not bool(torch.isfinite(t).all()):
                     raise AssertionError(f"{structure} B={B}: non-finite")
-            e_fwd, e_f32 = rel_err(got, plain), rel_err(got, f32)
-            kleaves = [kb[0], *kb[1], *kb[2]]
-            pleaves = [pb[0], *pb[1], *pb[2]]
-            e_bwd = max(rel_err(a, b) for a, b in zip(kleaves, pleaves))
+            repeat = bool(torch.equal(got, again)) and all(
+                torch.equal(a, b) for a, b in zip(
+                    kleaves, [kb2[0], *kb2[1], *kb2[2]]))
+            L = len(ws)
+            gf = ff.chain_gate(got, plain, L)
+            gb = ff.chain_gate(kb, pb, L, blocks)
+            fails = [not ff.chain_gate(got, cf, L)["ok"]
+                     and not ff.chain_gate(kb, cb, L, blocks)["ok"]
+                     for _, cf, cb in controls]
+            e_f32 = rel_err(got, f32)
             got_g = {n: dpar[n] for n in names}
             want_g = dict(zip(names, ref[:-1]))
             e_grad = tree_mean_err(got_g, want_g)
@@ -685,19 +713,25 @@ def phase_fused_tgt(model, cfg, device, gen, flush):
             # cancellation, so its relative error is ill-conditioned:
             # printed, not gated (it is data, not a parameter)
             e_den = rel_err(den, ref[-1])
+            masks = [blocks.mask(li).to(device) for li in range(L)]
             out["fwd"]["max_abs_err"] = max(out["fwd"]["max_abs_err"], float(
                 (got - plain).abs().max()))
-            out["bwd"]["max_abs_err"] = max(out["bwd"]["max_abs_err"], max(
-                float((a - b).abs().max()) for a, b in zip(kleaves, pleaves)))
+            out["bwd"]["max_abs_err"] = max(
+                out["bwd"]["max_abs_err"], float((kb[0] - pb[0]).abs().max()),
+                *(float((a - b)[m].abs().max())
+                  for a, b, m in zip(kb[1], pb[1], masks)),
+                *(float((a - b).abs().max()) for a, b in zip(kb[2], pb[2])))
             tol_grad = TOL_GRAD_BY_DEPTH[depth]
             line = (f"kernel.fused_tgt {structure:14s} B={B:5d} "
-                    f"fwd_err_vs_plain={e_fwd:.3e} fwd_err_vs_f32={e_f32:.3e} "
-                    f"bwd_err_vs_plain={e_bwd:.3e} "
+                    f"fwd_gate_ok={gf['ok']} ({gate_text(gf)}) "
+                    f"bwd_gate_ok={gb['ok']} ({gate_text(gb)}) "
+                    f"controls_fail={all(fails)} repeat_equal={repeat} "
+                    f"fwd_err_vs_f32={e_f32:.3e} "
                     f"grad_mean_err_vs_f32_autograd={e_grad:.3e} "
                     f"(tol {tol_grad:g}, depth {depth}; max-element "
                     f"{e_grad_max:.3e}; edge_norm {e_den:.3e})")
-            if (e_fwd > TOL_PLAIN or e_f32 > TOL_F32 or e_bwd > TOL_PLAIN
-                    or e_grad > tol_grad):
+            if (not gf["ok"] or not gb["ok"] or not all(fails) or not repeat
+                    or e_f32 > TOL_F32 or e_grad > tol_grad):
                 log(line + " FAIL")
                 raise AssertionError(line)
             log(line)
@@ -706,13 +740,13 @@ def phase_fused_tgt(model, cfg, device, gen, flush):
             for kind, bwd in (("fwd", False), ("bwd", True)):
                 if bwd:
                     def kfn():
-                        ff._chain_backward(x0, ws, bs, g, n_a, d, dp)
+                        ff._chain_backward(x0, ws, bs, g, n_a, d, dp, blocks)
 
                     def pfn():
                         ff._chain_backward_plain(x0, ws, bs, g, n_a, d, dp)
                 else:
                     def kfn():
-                        ff._chain_forward(x0, ws, bs, d)
+                        ff._chain_forward(x0, ws, bs, d, blocks)
 
                     def pfn():
                         ff._chain_forward_plain(x0, ws, bs, d)
@@ -744,8 +778,10 @@ def phase_fused_tgt(model, cfg, device, gen, flush):
         x0, ws, bs, n_a, dp = chain_operands(model, cfg, structure, args)
         g = torch.randn((TRAIN_BIG, d), generator=gen, device=device)
         for kind, bwd in (("fwd", False), ("bwd", True)):
-            kfn = ((lambda: ff._chain_backward(x0, ws, bs, g, n_a, d, dp))
-                   if bwd else (lambda: ff._chain_forward(x0, ws, bs, d)))
+            kfn = ((lambda: ff._chain_backward(x0, ws, bs, g, n_a, d, dp,
+                                               blocks))
+                   if bwd else (lambda: ff._chain_forward(x0, ws, bs, d,
+                                                          blocks)))
             with torch.no_grad():
                 ms = time_ms(kfn, BIG_ITERS, flush)
                 k_ms = device_ms(kfn, BIG_ITERS, flush)
@@ -821,7 +857,7 @@ class PlainChain(torch.autograd.Function):
     def forward(ctx, node_mode, layout, *tensors):
         from mpqe_tpu_torch.ops import fused_fwd as ff
 
-        cfg, v_slots, d_pad, n_a = layout
+        cfg, v_slots, d_pad, n_a, _ = layout
         L = (len(tensors) - n_a) // 2
         cols, Ws, bs = tensors[:n_a], tensors[n_a:n_a + L], tensors[n_a + L:]
         x0 = ff._layer0_operand(cols, node_mode, v_slots, cfg, d_pad)
@@ -844,7 +880,11 @@ class PlainChain(torch.autograd.Function):
 def recheck_train_step(state, cfg, stores, device) -> None:
     """One step per structure from the trained state, through the kernels
     and through their plain versions (:class:`PlainChain`) on the card:
-    same loss and gradients (<= TOL_PLAIN relative, per leaf)."""
+    the same loss (<= TOL_PLAIN relative) and gradients, per leaf
+    mean|diff| / mean|ref| <= TOL_PLAIN (the kernels' products take the
+    tensor cores' sum order, so a bf16 flip may move single elements; the
+    max-element figure is printed beside the gate, as for
+    ``recheck_sparse_step``)."""
     from mpqe_tpu_torch.data.store import pack_dense_batch_np
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
     from mpqe_tpu_torch.ops import fused_fwd as ff
@@ -863,16 +903,19 @@ def recheck_train_step(state, cfg, stores, device) -> None:
                                   allow_unused=True)
         v_slots, d_pad, cols, Ws, bs = ff._assemble(model, cfg, structure,
                                                     *t[:4], None)
-        q = PlainChain.apply(t[1], (cfg, tuple(v_slots), d_pad, len(cols)),
-                             *cols, *Ws, *bs)
+        q = PlainChain.apply(t[1], (cfg, tuple(v_slots), d_pad, len(cols),
+                                    None), *cols, *Ws, *bs)
         loss_p = mpqe_mod.margin_loss_from_queries(model, cfg, q, *t[4:])
         g_p = torch.autograd.grad(loss_p, list(params.values()),
                                   allow_unused=True)
         lk, lp = float(loss_k.detach()), float(loss_p.detach())
         e_loss = abs(lk - lp) / max(abs(lp), 1e-12)
-        e_grad = tree_rel_err(dict(zip(params, g_k)), dict(zip(params, g_p)))
+        gk, gp = dict(zip(params, g_k)), dict(zip(params, g_p))
+        e_grad = tree_mean_err(gk, gp)
+        e_grad_max = tree_rel_err(gk, gp)
         line = (f"train.recheck {structure:14s} loss={lk:.6f} "
-                f"loss_err={e_loss:.3e} grad_err={e_grad:.3e}")
+                f"loss_err={e_loss:.3e} grad_mean_err={e_grad:.3e} "
+                f"grad_max_err={e_grad_max:.3e}")
         log(line)
         if e_loss > TOL_PLAIN or e_grad > TOL_PLAIN or not np.isfinite(lk):
             raise AssertionError(line)
@@ -973,8 +1016,7 @@ def phase_train(kg, train_q, val_q, device):
     profile_device(f"train.profile ({PROFILE_STEPS} steps)",
                    lambda: loop_mod.run_train(state, cfg, ptc, train_q,
                                               batch_loss_fn=loss_fn, kg=kg),
-                   also=("tgt_forward_kernel", "tgt_backward_kernel",
-                         "dw_partial_kernel", "reduce_partials_kernel"))
+                   also=TGT_KERNELS)
     return k1, k2
 
 
@@ -2665,8 +2707,8 @@ def main() -> int:
         "library_ms": None,
     }]
     for name, line, n, kind in (
-            ("fused_tgt_forward", 704, k1, "fwd"),
-            ("fused_tgt_backward", 569, k2, "bwd")):
+            ("tgt_mma_forward", 704, k1, "fwd"),
+            ("tgt_mma_backward", 569, k2, "bwd")):
         kernels.append({
             "name": name,
             "route": "cuda",

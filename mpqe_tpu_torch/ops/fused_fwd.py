@@ -172,6 +172,15 @@ def _ordered_matmul(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
     return y
 
 
+def _reordered_matmul(x: torch.Tensor, w: torch.Tensor,
+                      d: int) -> torch.Tensor:
+    """``x[:, :d] @ w[:d]`` summed exactly (float64) and rounded once:
+    the same exact products as :func:`_ordered_matmul` in another sum
+    order, the stand-in for the tensor cores' order in the derivation of
+    :func:`chain_gate` (``tools/tgt_probe.py emulate``, the tests)."""
+    return (x[:, :d].double() @ w[:d].double()).float()
+
+
 def fused_tgt_forward_multi_reference(
     model,
     cfg,
@@ -398,15 +407,18 @@ fused_tgt_forward_multi.launches = 0
 # ``X_{l+1} = bf16(relu(Y_l))``; the output is the first d columns of
 # the last ``Y`` (the target slot's block).
 #
-# The kernels (``csrc/fused_tgt.cu``) and their plain versions here sum
-# every f32 value in one fixed order, one rounding per step:
+# The plain versions here sum every f32 value in one fixed order, one
+# rounding per step:
 # * products over k ascending (``_ordered_matmul``), then ``+ bias``;
 # * K2's ``dX = bf16(g) @ W^T`` over n ascending;
 # * ``dW_l = X_l^T bf16(g_l)`` and ``db_l = sum_rows g_l`` per row
 #   partition (:func:`_partition_rows`, fixed by B alone), rows
 #   ascending, then the partitions' partial sums in partition order.
-# A product of two bf16 values is exact in f32, so the kernels' fmaf
-# equals the plain multiply-then-add and the two agree bit for bit.
+# The kernels (``csrc/fused_tgt.cu``) take the K-deep sums inside the
+# products on the tensor cores, in the hardware's order, and multiply
+# only the blocks of W_l that :func:`chain_blocks` lists; K2's ``db``
+# sums each row tile, then the tiles in order.  :func:`chain_gate` states
+# how far kernel and plain version may differ.
 
 PARTITION_MAX = 64  # dW partitions: at most this many, ...
 PARTITION_MIN_ROWS = 16  # ... of at least this many rows
@@ -519,22 +531,26 @@ def _round_to(x: torch.Tensor, wire) -> torch.Tensor:
     return x.to(wire).to(torch.float32)
 
 
-def _chain_forward_plain(x0, ws, bs, d: int) -> torch.Tensor:
+def _chain_forward_plain(x0, ws, bs, d: int, mm=None) -> torch.Tensor:
     """Plain version of K1's kernel: ``[B, d]`` f32 from the layer-0
-    operand, the wire-typed weights and the f32 bias rows."""
+    operand, the wire-typed weights and the f32 bias rows.  ``mm(x, w,
+    k)`` takes the products (``_ordered_matmul`` unless given: the
+    reordering emulation of ``tools/tgt_probe.py`` passes another)."""
+    mm = mm or _ordered_matmul
     wire = x0.dtype
     x = x0.to(torch.float32)
     L = len(ws)
     for li in range(L):
-        y = _ordered_matmul(x, ws[li].to(torch.float32), x.shape[1]) + bs[li]
+        y = mm(x, ws[li].to(torch.float32), x.shape[1]) + bs[li]
         if li < L - 1:
             x = _round_to(torch.relu(y), wire)
     return y[:, :d].contiguous()
 
 
-def _partitioned_sums(x, gb, g, R: int):
+def _partitioned_sums(x, gb, g, R: int, mm=None):
     """``(x^T gb, sum_rows g)`` summed per R-row partition, rows
-    ascending, then over the partitions in order (K2's reduction)."""
+    ascending, then over the partitions in order (K2's reduction);
+    with ``mm`` each partition's ``x^T gb`` is ``mm(x_p^T, gb_p, R)``."""
     B, k = x.shape
     n = gb.shape[1]
     P = max(-(-B // R), 1)
@@ -545,8 +561,11 @@ def _partitioned_sums(x, gb, g, R: int):
     acc_w = x.new_zeros((P, k, n))
     acc_b = x.new_zeros((P, n))
     for r in range(R):
-        acc_w = acc_w + xp[:, r, :, None] * gbp[:, r, None, :]
+        if mm is None:
+            acc_w = acc_w + xp[:, r, :, None] * gbp[:, r, None, :]
         acc_b = acc_b + gp[:, r]
+    if mm is not None:
+        acc_w = torch.stack([mm(xp[p].t(), gbp[p], R) for p in range(P)])
     dw, db = x.new_zeros((k, n)), x.new_zeros((n,))
     for p in range(P):
         dw = dw + acc_w[p]
@@ -554,20 +573,23 @@ def _partitioned_sums(x, gb, g, R: int):
     return dw, db
 
 
-def _chain_backward_plain(x0, ws, bs, g, n_a: int, d: int, d_pad: int):
+def _chain_backward_plain(x0, ws, bs, g, n_a: int, d: int, d_pad: int,
+                          mm=None):
     """Plain version of K2's kernels → ``(dA [B, n_a, d], [dW_l],
     [db_l])``: recompute the chain, then per layer from the last
     ``dW_l = X_l^T bf16(g)``, ``db_l = sum_rows g``,
     ``g <- (bf16(g) @ W_l^T) * [Y_{l-1} > 0]``, and at layer 0 the anchor
     column blocks of ``bf16(g) @ W_0^T``.  With an f32 ``x0`` (the
-    reference's ``f32_wire``, tests only) nothing rounds to bf16."""
+    reference's ``f32_wire``, tests only) nothing rounds to bf16.  ``mm``
+    as in :func:`_chain_forward_plain`."""
     wire, f32 = x0.dtype, torch.float32
     B = x0.shape[0]
     L = len(ws)
     R = _partition_rows(B)
+    order = mm or _ordered_matmul
     xs, ys = [x0.to(f32)], []
     for li in range(L - 1):
-        y = _ordered_matmul(xs[-1], ws[li].to(f32), xs[-1].shape[1]) + bs[li]
+        y = order(xs[-1], ws[li].to(f32), xs[-1].shape[1]) + bs[li]
         ys.append(y)
         xs.append(_round_to(torch.relu(y), wire))
     gl = F.pad(g.to(f32), (0, ws[-1].shape[1] - d))
@@ -575,16 +597,283 @@ def _chain_backward_plain(x0, ws, bs, g, n_a: int, d: int, d_pad: int):
     da = None
     for li in range(L - 1, -1, -1):
         gb = _round_to(gl, wire)
-        dws[li], dbs[li] = _partitioned_sums(xs[li], gb, gl, R)
+        dws[li], dbs[li] = _partitioned_sums(xs[li], gb, gl, R, mm)
         w = ws[li].to(f32)
         n_l = w.shape[1]
         if li > 0:
-            dx = _ordered_matmul(gb, w.t(), n_l)
+            dx = order(gb, w.t(), n_l)
             gl = torch.where(ys[li - 1] > 0, dx, dx.new_zeros(()))
         else:
-            dx = _ordered_matmul(gb, w[:n_a * d_pad].t(), n_l)
+            dx = order(gb, w[:n_a * d_pad].t(), n_l)
             da = dx.view(B, n_a, d_pad)[:, :, :d].contiguous()
     return da, dws, dbs
+
+
+# ----------------------------------------------------------------------
+# The blocks of W_l the kernels multiply
+# ----------------------------------------------------------------------
+CHUNK = 128  # the kernels' output columns per chunk (csrc/fused_tgt.cu NC)
+K_TILE = 32  # contraction rows of one tile-table entry (csrc KT)
+_T_LAST, _T_NEWLAYER = 1, 2  # tile-table flags (csrc T_LAST, T_NEWLAYER)
+
+
+class ChainBlocks:
+    """The d_pad x d_pad blocks of each ``W_l`` that
+    :func:`_layer_matrices` can make nonzero, derived from the structure's
+    plan alone (never from the weights): ``pairs[l]`` lists ``(k-block,
+    n-block)`` sorted by n-block, then k-block.  The kernels multiply only
+    these; every other block is zero by construction, so skipping it
+    changes nothing.  Layer 0's k-blocks from ``n_anchor`` on are the
+    variable one-hot block(s).  The kernels' tile tables are built from it
+    once per device (:meth:`tables`)."""
+
+    def __init__(self, d_pad: int, ks, ns, pairs, n_anchor: int):
+        self.d_pad = d_pad
+        self.ks, self.ns = tuple(ks), tuple(ns)
+        self.pairs = tuple(tuple(p) for p in pairs)
+        self.n_anchor = n_anchor
+        self._tables: Dict[tuple, dict] = {}
+
+    def mask(self, li: int) -> torch.Tensor:
+        """``[k_l, n_l]`` bool: True on the listed blocks of layer li."""
+        dp = self.d_pad
+        m = torch.zeros((self.ks[li] // dp, self.ns[li] // dp),
+                        dtype=torch.bool)
+        for kb, nb in self.pairs[li]:
+            m[kb, nb] = True
+        return m.repeat_interleave(dp, 0).repeat_interleave(dp, 1)
+
+    def _chunks(self, li: int, rev: int, ncols: int):
+        """Layer li's chunks of output columns below ``ncols``, each a list
+        of tiles (layer, direction, column, contraction start): forward
+        over the k-blocks that feed the chunk's n-block, reverse over the
+        n-blocks that its k-block feeds."""
+        dp = self.d_pad
+        out = []
+        for c0 in range(0, ncols, CHUNK):
+            blk = c0 // dp
+            srcs = sorted(n if rev else k for k, n in self.pairs[li]
+                          if (k if rev else n) == blk)
+            if not srcs:
+                raise ValueError(f"layer {li}: block {blk} meets no listed "
+                                 f"weight block")
+            out.append([(li, rev, c0, src * dp + kt) for src in srcs
+                        for kt in range(0, dp, K_TILE)])
+        return out
+
+    @staticmethod
+    def _flatten(layers) -> List[tuple]:
+        """int4 rows (layer | direction << 4 | flags << 8, column, k, 0)
+        of a list of layers, each a list of chunks of tiles."""
+        rows = []
+        for chunks in layers:
+            first = True
+            for chunk in chunks:
+                for i, (li, rev, c0, k0) in enumerate(chunk):
+                    fl = (_T_LAST if i == len(chunk) - 1 else 0) | (
+                        _T_NEWLAYER if first else 0)
+                    first = False
+                    rows.append((li | rev << 4 | fl << 8, c0, k0, 0))
+        return rows
+
+    def host_tables(self, d: int) -> dict:
+        """The kernels' tables as lists: ``fwd`` (K1's tiles: every
+        layer, the last one's chunks below d), ``bwd`` (K2 pass A: the
+        recompute of layers 0..L-2, then the reverse sweep from L-1 down,
+        at layer 0 only the anchor columns), ``jobs`` (pass B: layer, row,
+        column of each listed 128 x 128 block of dW), ``jobmap`` (per
+        layer ``[k_l / 128][n_l / 128]``: job or -1, flat) and ``jm_off``."""
+        L, dp = len(self.ks), self.d_pad
+        fwd = [self._chunks(li, 0, self.ns[li] if li < L - 1
+                            else _round_up(d, CHUNK)) for li in range(L)]
+        rec = [self._chunks(li, 0, self.ns[li]) for li in range(L - 1)]
+        rev = [self._chunks(li, 1, self.ks[li] if li else self.n_anchor * dp)
+               for li in range(L - 1, -1, -1)]
+        jobs, jobmap, jm_off = [], [], []
+        sub = dp // CHUNK
+        for li in range(L):
+            m = [[-1] * (self.ns[li] // CHUNK)
+                 for _ in range(self.ks[li] // CHUNK)]
+            for kb, nb in self.pairs[li]:
+                for i in range(sub):
+                    for j in range(sub):
+                        m[kb * sub + i][nb * sub + j] = len(jobs)
+                        jobs.append((li, (kb * sub + i) * CHUNK,
+                                     (nb * sub + j) * CHUNK, 0))
+            jm_off.append(len(jobmap))
+            jobmap += [v for row in m for v in row]
+        return {"fwd": self._flatten(fwd), "bwd": self._flatten(rec + rev),
+                "jobs": jobs, "jobmap": jobmap, "jm_off": jm_off}
+
+    def tables(self, d: int, dev) -> dict:
+        """:meth:`host_tables` as int32 tensors on ``dev`` (cached)."""
+        key = (d, str(dev))
+        got = self._tables.get(key)
+        if got is None:
+            host = self.host_tables(d)
+            got = {k: (torch.tensor(v, dtype=torch.int32, device=dev)
+                       if k != "jm_off" else v) for k, v in host.items()}
+            self._tables[key] = got
+        return got
+
+
+_BLOCKS: Dict[tuple, ChainBlocks] = {}
+
+
+def chain_blocks(cfg, structure: str) -> ChainBlocks:
+    """K1/K2's block list for ``structure`` under ``cfg``, from ``_plan``
+    once per (config, structure) and cached (the train step asks twice a
+    step): per layer each distinct (source slot, output slot) pair of
+    :func:`_layer_matrices` (the self transforms and every edge), in
+    blocks of d_pad, the layer-0 variable slots folded into their one-hot
+    block(s)."""
+    got = _BLOCKS.get((cfg, structure))
+    if got is None:
+        got = _BLOCKS[(cfg, structure)] = _derive_blocks(cfg, structure)
+    return got
+
+
+def _derive_blocks(cfg, structure: str) -> ChainBlocks:
+    spec, steps, plan, a_slots, v_slots, d_pad = _checked_chain_plan(
+        cfg, structure)
+    packed, _ = _var_layout(cfg, len(v_slots), d_pad)
+    n_a = len(a_slots)
+    a_idx = {s: k for k, s in enumerate(a_slots)}
+    v_idx = {s: k for k, s in enumerate(v_slots)}
+    ks, ns, pairs = [], [], []
+    for li, (in_slots, out_slots, edges) in enumerate(plan):
+        ocol = {s: k for k, s in enumerate(out_slots)}
+        if li == 0:
+            def src(s):
+                if s in v_idx:
+                    return n_a if packed else n_a + v_idx[s]
+                return a_idx[s]
+            ks.append((n_a + (1 if packed else len(v_slots))) * d_pad
+                      if v_slots else n_a * d_pad)
+        else:
+            icol = {s: k for k, s in enumerate(in_slots)}
+
+            def src(s):
+                return icol[s]
+            ks.append(len(in_slots) * d_pad)
+        ns.append(len(out_slots) * d_pad)
+        links = {(s, s) for s in out_slots} | {
+            (spec.edge_src[j], spec.edge_dst[j]) for j in edges}
+        blocks = {(src(s), ocol[t]) for s, t in links}
+        pairs.append(sorted(blocks, key=lambda p: (p[1], p[0])))
+    return ChainBlocks(d_pad, ks, ns, pairs, n_a)
+
+
+# ----------------------------------------------------------------------
+# The gate: kernel against plain version
+# ----------------------------------------------------------------------
+# The kernels take each product's K-deep sum in the tensor cores' order,
+# the plain versions one by one.  Both sum the same exact bf16 x bf16
+# products, so before any bf16 rounding the two differ by f32
+# reassociation only: at most 2 (K - 1) 2^-24 of the sum of |terms| per
+# element, ~1e-7 of the leaf's max at these widths (measured: <= 2.1e-7
+# at d = 128; ``tools/tgt_probe.py emulate``).  A chain of one layer has
+# no bf16 rounding after a product, nor has db of the last layer: there
+# the gate is FLIP_FREE_TOL.  Deeper chains round ``X_{l+1} =
+# bf16(relu(Y_l))`` and ``gb = bf16(g)``; a last-bit difference next to
+# a rounding boundary flips that value by one bf16 step (2^-8 of it), or
+# a ReLU mask where ``Y`` is ~0, and the flip moves its row of the output
+# and, in K2, its row and column of the gradients.  Those are bounded by
+# the TPU kernel's own envelope (``tests/test_torch_port_fused_tgt.py``,
+# the seed sweep): rows of K1's output (and of dA) within ROW_MAX of the
+# max|ref| with at most SHARE of them beyond NOISE; each K2 leaf within
+# LEAF_MAX elementwise, at most SHARE beyond NOISE, and, since a flip
+# moves few elements while a wrong input moves a whole rank-one slice, a
+# mean|diff| / mean|ref| within LEAF_MEAN.  The emulation at d = 128, B =
+# 512 and 1,000, 7 structures, 4 seeds, biases 0 or N(0, 0.1), another
+# sum order (exact then rounded; or 16-deep exact steps added in f32)
+# reached rows 1.1e-3 (share 2.0 %), dA rows 5.7e-4, leaves 5.7e-4 (share
+# 0.3 %), leaf means 1.7e-5: inside the envelope, which is kept as it is.
+# Both negative controls (one nonzero block of W_0 zeroed; one query's
+# anchor row moved 8 bf16 steps) fail it in every structure.
+FLIP_FREE_TOL = 1e-4
+ROW_MAX = 2e-3
+LEAF_MAX = 2e-2
+NOISE = 1e-4
+SHARE = 0.1
+LEAF_MEAN = 1e-4
+
+
+def _row_figures(got: torch.Tensor, want: torch.Tensor):
+    rows = (got - want).abs().reshape(got.shape[0], -1).amax(1)
+    scale = float(want.abs().max())
+    if scale == 0:
+        return (0.0 if not bool(got.ne(0).any()) else float("inf")), 0.0
+    r = rows / scale
+    return float(r.max()) if r.numel() else 0.0, float(
+        (r > NOISE).float().mean()) if r.numel() else 0.0
+
+
+def _leaf_figures(got: torch.Tensor, want: torch.Tensor):
+    """(max, share beyond NOISE, mean form) of |got - want| against the
+    leaf's max|want| (mean|want| for the mean form)."""
+    diff = (got - want).abs()
+    scale = float(want.abs().max())
+    if scale == 0:
+        bad = float("inf") if bool(got.ne(0).any()) else 0.0
+        return bad, (1.0 if bad else 0.0), bad
+    e = diff / scale
+    return (float(e.max()), float((e > NOISE).float().mean()),
+            float(diff.mean() / want.abs().mean()))
+
+
+def chain_gate(got, want, n_layers: int, blocks: ChainBlocks = None) -> dict:
+    """Kernel ``got`` against plain ``want`` (see the constants above).
+
+    K1: ``got``, ``want`` are ``[B, d]`` outputs.  K2: ``(dA, [dW_l],
+    [db_l])`` triples; each dW_l is compared on the blocks ``blocks``
+    lists and must be exactly 0 elsewhere in ``got``.
+    Returns ``ok`` and the figures it was decided on."""
+    if isinstance(got, torch.Tensor):
+        if n_layers == 1:
+            e = _leaf_figures(got, want)[0]
+            return {"ok": e <= FLIP_FREE_TOL, "max": e}
+        mx, share = _row_figures(got, want)
+        return {"ok": mx <= ROW_MAX and share <= SHARE, "row_max": mx,
+                "row_share": share}
+    da, dws, dbs = got
+    wda, wdws, wdbs = want
+    leaves, zero_ok = [(da, wda)], True
+    for li, (a, b) in enumerate(zip(dws, wdws)):
+        m = blocks.mask(li).to(a.device)
+        zero_ok &= not bool(a[~m].ne(0).any())
+        leaves.append((a[m], b[m]))
+    leaves += list(zip(dbs[:-1], wdbs[:-1]))
+    figs = [_leaf_figures(a, b) for a, b in leaves]
+    last_db = _leaf_figures(dbs[-1], wdbs[-1])[0]
+    out = {"zero_ok": zero_ok, "last_db": last_db,
+           "leaf_max": max(f[0] for f in figs),
+           "leaf_share": max(f[1] for f in figs),
+           "leaf_mean": max(f[2] for f in figs)}
+    if n_layers == 1:
+        ok = out["leaf_max"] <= FLIP_FREE_TOL
+    else:
+        out["row_max"], out["row_share"] = _row_figures(da, wda)
+        ok = (out["leaf_max"] <= LEAF_MAX and out["leaf_share"] <= SHARE
+              and out["leaf_mean"] <= LEAF_MEAN
+              and out["row_max"] <= ROW_MAX and out["row_share"] <= SHARE)
+    out["ok"] = ok and zero_ok and last_db <= FLIP_FREE_TOL
+    return out
+
+
+def chain_gate_controls(x0, ws, blocks: ChainBlocks, n_a: int, d: int):
+    """The two negative controls of :func:`chain_gate` as ``(name, x0,
+    ws)``: a plain version fed these must fail the gate against the
+    kernel's output.  ``zero_block``: the first listed block of W_0 whose
+    source is an anchor, zeroed; ``anchor_row``: query 0's first anchor
+    row moved 8 bf16 steps up (3 % of each element)."""
+    dp = blocks.d_pad
+    kb, nb = next(p for p in blocks.pairs[0] if p[0] < n_a)
+    w0 = ws[0].clone()
+    w0[kb * dp:(kb + 1) * dp, nb * dp:(nb + 1) * dp] = 0
+    x = x0.clone()
+    x[0, :d] = (x[0, :d].view(torch.int16) + 8).view(x0.dtype)
+    return (("zero_block", x0, [w0, *ws[1:]]), ("anchor_row", x, list(ws)))
 
 
 def _tgt_kernel():
@@ -593,21 +882,28 @@ def _tgt_kernel():
     if _TGT_KERNEL is None:
         lib = cuda_build.load_library("fused_tgt", ["fused_tgt.cu"])
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mpqe_tgt_forward.argtypes = [p, i, i, p, p, p, p, p, i, p]
+        lib.mpqe_tgt_forward.argtypes = [p, i, i, p, p, p, p, p, i, p, i, i,
+                                         p]
         lib.mpqe_tgt_forward.restype = i
         lib.mpqe_tgt_backward.argtypes = [
-            p, i, i, p, p, p, p, p, p, i, i, i, p, p, p, i, i, p, p, p]
+            p, i, i, p, p, p, p, p, i, p, i, p, p, p, i, i, i, p, p, p, p,
+            i, i, i, p, p, p]
         lib.mpqe_tgt_backward.restype = i
-        lib.mpqe_tgt_smem_bytes.argtypes = [i, i, p, p]
+        lib.mpqe_tgt_smem_bytes.argtypes = [i, i, i, p, p]
         lib.mpqe_tgt_smem_bytes.restype = ll
         lib.mpqe_tgt_max_smem.argtypes = [i]
         lib.mpqe_tgt_max_smem.restype = ll
+        lib.mpqe_tgt_k_tile.argtypes = []
+        lib.mpqe_tgt_k_tile.restype = i
+        if lib.mpqe_tgt_k_tile() != K_TILE:
+            raise RuntimeError("csrc/fused_tgt.cu KT differs from K_TILE")
         _TGT_KERNEL = lib
     return _TGT_KERNEL
 
 
 _TGT_KERNEL = None
 MAX_LAYERS = 8  # the CUDA source's MAXL
+ROW_TILES = (128, 64, 32, 16)  # rows per block, largest first; 8 if none fits
 
 
 def _check_chain(x0, ws, bs, extra=()):
@@ -646,20 +942,49 @@ def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _check_smem(lib, bwd: int, ks, ns, dev) -> None:
-    """Raise unless one row tile's shared memory fits the card."""
+def _row_tile(lib, bwd: int, B: int, ks, ns, dev) -> int:
+    """Rows per block: the largest of ROW_TILES that still gives every SM
+    a block (the smallest whatever B) and whose shared memory fits the
+    card, else 8 (half-empty tensor-core tiles); raises ValueError when
+    not even that fits.  Cached per (kernel, batch, widths, card)."""
     with torch.cuda.device(dev):
-        have = lib.mpqe_tgt_max_smem(torch.cuda.current_device())
-    if lib.mpqe_tgt_smem_bytes(bwd, len(ks), _ints(ks), _ints(ns)) > have:
-        raise ValueError(f"layer widths {list(zip(ks, ns))} need more "
-                         f"shared memory per block than the card's {have} "
-                         f"bytes")
+        idx = torch.cuda.current_device()
+    key = (bwd, B, tuple(ks), tuple(ns), idx)
+    tq = _ROW_TILE.get(key)
+    if tq is not None:
+        return tq
+    have = lib.mpqe_tgt_max_smem(idx)
+    n_sm = torch.cuda.get_device_properties(idx).multi_processor_count
+    for tq in ROW_TILES + (8,):
+        if tq > ROW_TILES[-1] and -(-B // tq) < n_sm:
+            continue
+        need = lib.mpqe_tgt_smem_bytes(bwd, tq, len(ks), _ints(ks), _ints(ns))
+        if 0 < need <= have:
+            _ROW_TILE[key] = tq
+            return tq
+    raise ValueError(f"layer widths {list(zip(ks, ns))} need more shared "
+                     f"memory per block than the card's {have} bytes")
 
 
-def _chain_forward(x0, ws, bs, d: int) -> torch.Tensor:
+_ROW_TILE: Dict[tuple, int] = {}
+
+
+def _check_blocks(blocks: ChainBlocks, ks, ns, anchor_cols: int) -> None:
+    """Raise unless ``blocks`` lists blocks of this chain's widths, with
+    ``anchor_cols`` anchor columns in layer 0."""
+    if blocks.ks != tuple(ks) or blocks.ns != tuple(ns):
+        raise ValueError(f"block list for widths {blocks.ks} -> {blocks.ns},"
+                         f" chain {tuple(ks)} -> {tuple(ns)}")
+    if blocks.n_anchor * blocks.d_pad != anchor_cols:
+        raise ValueError(f"block list for {blocks.n_anchor} anchor blocks "
+                         f"of {blocks.d_pad}, not {anchor_cols} columns")
+
+
+def _chain_forward(x0, ws, bs, d: int, blocks: ChainBlocks) -> torch.Tensor:
     """K1's kernel on CUDA tensors (checked, launched on the current
-    stream, counted in ``fused_tgt_forward.launches``); the plain version
-    on CPU tensors; any other device raises."""
+    stream, counted in ``fused_tgt_forward.launches``), multiplying the
+    blocks ``blocks`` lists; the plain version on CPU tensors; any other
+    device raises."""
     dev = x0.device
     if dev.type == "cpu":
         return _chain_forward_plain(x0, ws, bs, d)
@@ -668,29 +993,33 @@ def _chain_forward(x0, ws, bs, d: int) -> torch.Tensor:
     ks, ns = _check_chain(x0, ws, bs)
     if ns[-1] < d:
         raise ValueError(f"last layer has {ns[-1]} columns, fewer than d={d}")
+    _check_blocks(blocks, ks, ns, blocks.n_anchor * blocks.d_pad)
     B = x0.shape[0]
     out = torch.empty((B, d), dtype=torch.float32, device=dev)
     if B == 0:
         return out
     lib = _tgt_kernel()
-    _check_smem(lib, 0, ks, ns, dev)
+    tq = _row_tile(lib, 0, B, ks, ns, dev)
+    tiles = blocks.tables(d, dev)["fwd"]
     with torch.cuda.device(dev):
         err = lib.mpqe_tgt_forward(
             x0.data_ptr(), B, len(ws), _ints(ks), _ints(ns), _ptrs(ws),
-            _ptrs(bs), out.data_ptr(), d,
-            torch.cuda.current_stream(dev).cuda_stream)
+            _ptrs(bs), tiles.data_ptr(), tiles.shape[0], out.data_ptr(), d,
+            tq, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_tgt kernel launch failed: cudaError {err}")
     fused_tgt_forward.launches += 1
     return out
 
 
-def _chain_backward(x0, ws, bs, g, n_a: int, d: int, d_pad: int):
+def _chain_backward(x0, ws, bs, g, n_a: int, d: int, d_pad: int,
+                    blocks: ChainBlocks):
     """K2's kernels on CUDA tensors (checked, launched on the current
     stream, counted in ``fused_tgt_backward.launches``); the plain
     version on CPU tensors; any other device raises.  Scratch (the
-    recomputed activations, the per-layer cotangents and the partial
-    sums of the row partitions) comes from ``torch.empty``."""
+    recomputed activations, bf16 cotangents, per-tile db sums and the
+    partitions' dW) comes from ``torch.empty``.  dW blocks off the list
+    are 0."""
     dev = x0.device
     if dev.type == "cpu":
         return _chain_backward_plain(x0, ws, bs, g, n_a, d, d_pad)
@@ -701,9 +1030,10 @@ def _chain_backward(x0, ws, bs, g, n_a: int, d: int, d_pad: int):
     if (g.dtype != torch.float32 or tuple(g.shape) != (B, d)
             or not g.is_contiguous()):
         raise ValueError(f"g must be a contiguous float32 [{B}, {d}]")
-    if ns[-1] < d or n_a * d_pad > ks[0] or d_pad % 128:
+    if ns[-1] < d or n_a < 1 or n_a * d_pad > ks[0] or d_pad % 128:
         raise ValueError("anchor blocks or d do not fit the chain")
-    f32 = torch.float32
+    _check_blocks(blocks, ks, ns, n_a * d_pad)
+    f32, bf16 = torch.float32, torch.bfloat16
     L = len(ws)
     da = torch.empty((B, n_a, d), dtype=f32, device=dev)
     sizes = [k * n + n for k, n in zip(ks, ns)]
@@ -716,21 +1046,26 @@ def _chain_backward(x0, ws, bs, g, n_a: int, d: int, d_pad: int):
     if B == 0:
         flat.zero_()
         return da, dws, dbs
+    lib = _tgt_kernel()
+    tq = _row_tile(lib, 1, B, ks, ns, dev)
+    tab = blocks.tables(d, dev)
     R = _partition_rows(B)
     P = -(-B // R)
-    xg = [x0] + [torch.empty((B, k), dtype=torch.bfloat16, device=dev)
+    xg = [x0] + [torch.empty((B, k), dtype=bf16, device=dev)
                  for k in ks[1:]]
-    gg = [torch.empty((B, n), dtype=f32, device=dev) for n in ns]
-    partial = torch.empty((P, sum(sizes)), dtype=f32, device=dev)
-    wts = [w.t().contiguous() for w in ws]
-    lib = _tgt_kernel()
-    _check_smem(lib, 1, ks, ns, dev)
+    gg = [torch.empty((B, n), dtype=bf16, device=dev) for n in ns]
+    dbp = torch.empty((-(-B // tq), sum(ns)), dtype=f32, device=dev)
+    n_jobs = tab["jobs"].shape[0]
+    partial = torch.empty((P, n_jobs, CHUNK, CHUNK), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         err = lib.mpqe_tgt_backward(
-            x0.data_ptr(), B, L, _ints(ks), _ints(ns), _ptrs(ws),
-            _ptrs(wts), _ptrs(bs), g.data_ptr(), d, d_pad, n_a,
-            da.data_ptr(), _ptrs(xg), _ptrs(gg), R, P, partial.data_ptr(),
-            flat.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            x0.data_ptr(), B, L, _ints(ks), _ints(ns), _ptrs(ws), _ptrs(bs),
+            tab["bwd"].data_ptr(), tab["bwd"].shape[0],
+            tab["jobs"].data_ptr(), n_jobs, tab["jobmap"].data_ptr(),
+            _ints(tab["jm_off"]), g.data_ptr(), d, d_pad, n_a,
+            da.data_ptr(), _ptrs(xg), _ptrs(gg), dbp.data_ptr(), tq, R, P,
+            partial.data_ptr(), flat.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"fused_tgt backward launch failed: cudaError {err}")
@@ -765,31 +1100,32 @@ def _assemble(model, cfg, structure, node_entity, node_mode, edge_rel,
 class FusedChain(torch.autograd.Function):
     """K1 forward, K2 backward, over the assembled operands: ``apply(
     node_mode, layout, *cols, *Ws, *biases)`` with ``layout = (cfg,
-    v_slots, d_pad, n_anchor_cols)``.  Gradients go to the anchor rows
+    v_slots, d_pad, n_anchor_cols, blocks)`` (``blocks``:
+    :func:`chain_blocks`).  Gradients go to the anchor rows
     and to the f32 ``W_l`` / bias rows (the bf16 wire cast passes them
     straight through, as in the reference), so autograd carries them on
     through :func:`_layer_matrices` and the anchor gather."""
 
     @staticmethod
     def forward(ctx, node_mode, layout, *tensors):
-        cfg, v_slots, d_pad, n_a = layout
+        cfg, v_slots, d_pad, n_a, blocks = layout
         L = (len(tensors) - n_a) // 2
         cols, Ws, bs = tensors[:n_a], tensors[n_a:n_a + L], tensors[n_a + L:]
         x0 = _layer0_operand(cols, node_mode, v_slots, cfg, d_pad)
         ws = [W.to(torch.bfloat16).contiguous() for W in Ws]
         bs = [b.contiguous() for b in bs]
         ctx.save_for_backward(x0, *ws, *bs)
-        ctx.meta = (n_a, L, cfg.embed_dim, d_pad)
-        return _chain_forward(x0, ws, bs, cfg.embed_dim)
+        ctx.meta = (n_a, L, cfg.embed_dim, d_pad, blocks)
+        return _chain_forward(x0, ws, bs, cfg.embed_dim, blocks)
 
     @staticmethod
     def backward(ctx, g):
-        n_a, L, d, d_pad = ctx.meta
+        n_a, L, d, d_pad, blocks = ctx.meta
         x0, *rest = ctx.saved_tensors
         ws, bs = rest[:L], rest[L:]
         da, dws, dbs = _chain_backward(
             x0, list(ws), list(bs), g.to(torch.float32).contiguous(), n_a,
-            d, d_pad)
+            d, d_pad, blocks)
         return (None, None, *(da[:, k] for k in range(n_a)), *dws, *dbs)
 
 
@@ -831,7 +1167,9 @@ def _fused_apply(model, cfg, structure, node_entity, node_mode, edge_rel,
         model, cfg, structure, node_entity, node_mode, edge_rel, edge_norm,
         anchor_rows)
     return FusedChain.apply(node_mode, (cfg, tuple(v_slots), d_pad,
-                                        len(cols)), *cols, *Ws, *bs)
+                                        len(cols),
+                                        chain_blocks(cfg, structure)),
+                            *cols, *Ws, *bs)
 
 
 def fused_tgt_forward_reference(model, cfg, structure, node_entity,
@@ -895,9 +1233,11 @@ def fused_tgt_backward(model, cfg, structure, node_entity, node_mode,
     gradient then reaches ``dparams["emb.ent"]``).  CUDA tensors run the
     hand-written kernels (counted in ``fused_tgt_backward.launches``),
     CPU tensors the plain version."""
-    return _backward_with(_chain_backward, model, cfg, structure,
-                          node_entity, node_mode, edge_rel, edge_norm,
-                          anchor_rows, g, torch.bfloat16)
+    blocks = chain_blocks(cfg, structure)
+    return _backward_with(
+        lambda *a: _chain_backward(*a, blocks=blocks), model, cfg,
+        structure, node_entity, node_mode, edge_rel, edge_norm, anchor_rows,
+        g, torch.bfloat16)
 
 
 fused_tgt_backward.launches = 0

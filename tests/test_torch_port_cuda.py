@@ -166,33 +166,104 @@ def _shared_inputs(structure, B, dev, seed=0):
 @pytest.mark.parametrize("d,nb", [(128, 16), (16, 4)],
                          ids=["flagship", "narrow"])
 def test_cuda_k1_k2_match_plain_versions(d, nb):
+    """K1/K2 under ``chain_gate`` against their plain versions (their
+    products run on the tensor cores): every structure and batch, a
+    repeat launch bit-equal, both negative controls failing the gate, one
+    counted launch per call."""
     dev = _cuda()
     cfg, model = _model(d, nb, dev)
     for structure in STRUCTURE_NAMES:
+        blocks = tff.chain_blocks(cfg, structure)
+        L = len(blocks.ks)
         for B in (1, 20, 1000, 5000):
             args = _shared_inputs(structure, B, dev, seed=B)
             g = torch.randn((B, d), device=dev,
                             generator=torch.Generator(dev).manual_seed(B))
+            with torch.no_grad():
+                v_slots, dp, cols, Ws, bs = tff._assemble(
+                    model, cfg, structure, *args, None)
+                x0 = tff._layer0_operand(cols, args[1], v_slots, cfg, dp)
+                ws = [W.to(torch.bfloat16).contiguous() for W in Ws]
+                bs = [b.contiguous() for b in bs]
+            n_a = len(cols)
             f0, b0 = tff.fused_tgt_forward.launches, \
                 tff.fused_tgt_backward.launches
-            with torch.no_grad():
-                got = tff.fused_tgt_forward(model, cfg, structure, *args)
-                want = tff.fused_tgt_forward_reference(model, cfg, structure,
-                                                       *args)
-            dp, den, _ = tff.fused_tgt_backward(model, cfg, structure,
-                                                *args, None, g)
-            dp_r, den_r, _ = tff.fused_tgt_backward_reference(
-                model, cfg, structure, *args, None, g)
+            got = tff._chain_forward(x0, ws, bs, d, blocks)
+            kb = tff._chain_backward(x0, ws, bs, g, n_a, d, dp, blocks)
+            again = tff._chain_forward(x0, ws, bs, d, blocks)
+            kb2 = tff._chain_backward(x0, ws, bs, g, n_a, d, dp, blocks)
             torch.cuda.synchronize()
-            assert tff.fused_tgt_forward.launches == f0 + 1
-            assert tff.fused_tgt_backward.launches == b0 + 1
+            assert tff.fused_tgt_forward.launches == f0 + 2
+            assert tff.fused_tgt_backward.launches == b0 + 2
             assert got.shape == (B, d) and got.device.type == "cuda"
-            assert _rel(got, want) <= 1e-4, (structure, B, _rel(got, want))
-            for name, t in dp_r.items():
-                if t.abs().max() > 0:
-                    e = _rel(dp[name], t)
-                    assert e <= 1e-4, (structure, B, name, e)
-            assert _rel(den, den_r) <= 1e-4, (structure, B)
+            assert torch.equal(got, again), (structure, B)
+            for a, b in zip([kb[0], *kb[1], *kb[2]],
+                            [kb2[0], *kb2[1], *kb2[2]]):
+                assert torch.equal(a, b), (structure, B)
+            plain = tff._chain_forward_plain(x0, ws, bs, d)
+            pb = tff._chain_backward_plain(x0, ws, bs, g, n_a, d, dp)
+            gf = tff.chain_gate(got, plain, L)
+            gb = tff.chain_gate(kb, pb, L, blocks)
+            assert gf["ok"], (structure, B, gf)
+            assert gb["ok"], (structure, B, gb)
+            if B > 1000:
+                # one query of 5,000 moves the gradients' statistics by
+                # ~1/sqrt(B): below what the gate resolves (derived and
+                # checked at B <= 1,000)
+                continue
+            for name, x, w in tff.chain_gate_controls(x0, ws, blocks, n_a,
+                                                      d):
+                cf = tff.chain_gate(got, tff._chain_forward_plain(
+                    x, w, bs, d), L)
+                cb = tff.chain_gate(kb, tff._chain_backward_plain(
+                    x, w, bs, g, n_a, d, dp), L, blocks)
+                assert not cf["ok"], (structure, B, name, cf)
+                assert not cb["ok"], (structure, B, name, cb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("structure,d", [("3-chain", 128), ("2-inter", 160)])
+def test_cuda_k1_k2_every_row_tile(structure, d, monkeypatch):
+    """Every row tile the kernels take whose shared memory fits (128 rows
+    down to the 8-row tile of the widest chains, forced here), at d_pad =
+    128 and 256: K1 gives the same bits at each (each output's sum runs
+    over the same k-steps in the same order), K2 passes ``chain_gate``
+    (db's partial sums follow the row tiles)."""
+    dev = _cuda()
+    cfg, model = _model(d, 3, dev)
+    blocks = tff.chain_blocks(cfg, structure)
+    B = 1000
+    args = _shared_inputs(structure, B, dev, seed=3)
+    g = torch.randn((B, d), device=dev,
+                    generator=torch.Generator(dev).manual_seed(3))
+    with torch.no_grad():
+        v_slots, dp, cols, Ws, bs = tff._assemble(model, cfg, structure,
+                                                  *args, None)
+        x0 = tff._layer0_operand(cols, args[1], v_slots, cfg, dp)
+        ws = [W.to(torch.bfloat16).contiguous() for W in Ws]
+        bs = [b.contiguous() for b in bs]
+    L, n_a = len(ws), len(cols)
+    pb = tff._chain_backward_plain(x0, ws, bs, g, n_a, d, dp)
+    lib = tff._tgt_kernel()
+    ks, ns = list(blocks.ks), list(blocks.ns)
+    have = lib.mpqe_tgt_max_smem(torch.cuda.current_device())
+    outs, ran = [], []
+    for tq in (128, 64, 32, 16, 8):
+        if max(lib.mpqe_tgt_smem_bytes(bwd, tq, L, tff._ints(ks),
+                                       tff._ints(ns)) for bwd in (0, 1)) \
+                > have:
+            continue
+        ran.append(tq)
+        monkeypatch.setattr(tff, "_row_tile", lambda *a, tq=tq: tq)
+        outs.append(tff._chain_forward(x0, ws, bs, d, blocks))
+        kb = tff._chain_backward(x0, ws, bs, g, n_a, d, dp, blocks)
+        gate = tff.chain_gate(kb, pb, L, blocks)
+        assert gate["ok"], (structure, tq, gate)
+    assert ran[-3:] == [32, 16, 8], ran
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0]), (structure, ran)
+    assert tff.chain_gate(outs[0], tff._chain_forward_plain(x0, ws, bs, d),
+                          L)["ok"]
 
 
 @pytest.mark.cuda
@@ -208,9 +279,13 @@ def test_cuda_k1_wrapper_checks_its_operands():
         (x0, [w.t().contiguous().t()], [b]),  # not contiguous
         (x0, [w.cpu()], [b]),  # mixed devices
     ]
+    blocks = tff.ChainBlocks(128, [256], [128], [[(0, 0), (1, 0)]], 1)
     for x, ws, bs in bad:
         with pytest.raises(ValueError):
-            tff._chain_forward(x, ws, bs, 16)
+            tff._chain_forward(x, ws, bs, 16, blocks)
+    with pytest.raises(ValueError):  # a block list of other widths
+        tff._chain_forward(x0, [w], [b], 16, tff.ChainBlocks(
+            128, [128], [128], [[(0, 0)]], 1))
 
 
 # ------------------------------------------------------------ K5 and K6

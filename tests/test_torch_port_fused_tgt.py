@@ -21,7 +21,19 @@ Tolerances (max|diff| / max|ref|, per output leaf for K2):
   ``test_fused_pallas_backward_f32_wire_structurally_exact`` holds its
   own kernel: the reverse sweep and the weight-assembly transpose are
   exact, so only f32 sum order remains.
+
+The CUDA kernels take their products on the tensor cores, in the
+hardware's sum order, and are held to their plain versions by
+``chain_gate`` (that envelope's form and figures, derived in
+``ops/fused_fwd.py``).  Here, at the flagship width (d = 128, B = 512):
+another sum order passes the gate and both negative controls fail it;
+the kernels' block list equals ``chip_smoke.chain_work``'s count and the
+blocks ``_layer_matrices`` fills; the kernels' tile tables, run in the
+plain order, give the plain version's bits.
 """
+
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -251,13 +263,18 @@ def test_cpu_wrappers_run_plain_versions():
     assert tff.fused_tgt_backward.launches == b0
 
 
-def _emulate_k2_passes(x0, ws, bs, g, n_a, d, d_pad, tq):
-    """K2's three passes as the CUDA source runs them: pass A per row tile
-    of ``tq`` rows (recompute, walk back, write dA and the scratch
-    activations / cotangents), pass B per row partition into the flat
-    ``[P][T]`` partial buffer (per layer dW then db), pass C in partition
-    order; returns (dA, flat [T])."""
+def _emulate_k2_passes(x0, ws, bs, g, n_a, d, d_pad, tq, blocks):
+    """K2's three passes as the CUDA source runs them, driven by the
+    kernel's own tables (``ChainBlocks.host_tables``), with each stretch
+    of contraction summed in ascending order (the plain version's, so the
+    tables' coverage is checked bit for bit): pass A per row tile of
+    ``tq`` rows (recompute, walk back with the masks ``X_l > 0``, write
+    dA, the scratch activations and bf16 cotangents, and each tile's
+    column sums of g), pass B per (listed 128 x 128 block, row partition),
+    pass C in partition order (dW, 0 off the list) and tile order (db).
+    Returns (dA, [dW_l], [db_l])."""
     f32, bf16 = torch.float32, torch.bfloat16
+    tab = blocks.host_tables(d)
     B = x0.shape[0]
     L = len(ws)
     ks = [w.shape[0] for w in ws]
@@ -265,55 +282,85 @@ def _emulate_k2_passes(x0, ws, bs, g, n_a, d, d_pad, tq):
     xg = [x0.to(f32)] + [torch.zeros((B, k)) for k in ks[1:]]
     gg = [torch.zeros((B, n)) for n in ns]
     da = torch.zeros((B, n_a, d))
+    tiles = []
+    dbs = [torch.zeros(n) for n in ns]
     for q0 in range(0, B, tq):
         rows = slice(q0, min(B, q0 + tq))
-        x, ys = xg[0][rows], []
-        for li in range(L - 1):
-            y = tff._ordered_matmul(x, ws[li].to(f32), ks[li]) + bs[li]
-            ys.append(y)
-            x = torch.relu(y).to(bf16).to(f32)
-            xg[li + 1][rows] = x
-        gl = torch.nn.functional.pad(g[rows], (0, ns[-1] - d))
-        gg[L - 1][rows] = gl
-        for li in range(L - 1, -1, -1):
-            gb = gl.to(bf16).to(f32)
-            wt = ws[li].to(f32).t()
-            if li > 0:
-                dx = tff._ordered_matmul(gb, wt, ns[li])
-                gl = torch.where(ys[li - 1] > 0, dx, dx.new_zeros(()))
-                gg[li - 1][rows] = gl
+        X = {0: x0[rows].to(f32)}
+        G = {}
+        tile_db = [torch.zeros(n) for n in ns]
+        acc = None
+        for code, col, k0, _ in tab["bwd"]:
+            li, rev, fl = code & 15, (code >> 4) & 1, code >> 8
+            if rev and li == L - 1 and fl & tff._T_NEWLAYER:
+                gl = torch.nn.functional.pad(g[rows], (0, ns[-1] - d))
+                G[L - 1] = gl.to(bf16).to(f32)
+                for r in range(gl.shape[0]):
+                    tile_db[L - 1] = tile_db[L - 1] + gl[r]
+            if acc is None:
+                acc = torch.zeros((X[0].shape[0], tff.CHUNK))
+            if rev:
+                a = G[li][:, k0:k0 + tff.K_TILE]
+                w = ws[li][col:col + tff.CHUNK, k0:k0 + tff.K_TILE].t()
             else:
-                dx = tff._ordered_matmul(gb, wt[:, :n_a * d_pad], ns[li])
-                da[rows] = dx.view(-1, n_a, d_pad)[:, :, :d]
+                a = X[li][:, k0:k0 + tff.K_TILE]
+                w = ws[li][k0:k0 + tff.K_TILE, col:col + tff.CHUNK]
+            w = w.to(f32)
+            for kk in range(tff.K_TILE):
+                acc = acc + a[:, kk:kk + 1] * w[kk]
+            if not fl & tff._T_LAST:
+                continue
+            cs = slice(col, col + tff.CHUNK)
+            if not rev:
+                y = acc + bs[li][cs]
+                X.setdefault(li + 1, torch.zeros((acc.shape[0],
+                                                  ks[li + 1])))
+                X[li + 1][:, cs] = torch.relu(y).to(bf16).to(f32)
+            elif li > 0:
+                gch = torch.where(X[li][:, cs] > 0, acc, acc.new_zeros(()))
+                G.setdefault(li - 1, torch.zeros((acc.shape[0], ns[li - 1])))
+                G[li - 1][:, cs] = gch.to(bf16).to(f32)
+                for r in range(gch.shape[0]):
+                    tile_db[li - 1][cs] = tile_db[li - 1][cs] + gch[r]
+            else:
+                nb = acc.shape[0]
+                for c in range(col, col + tff.CHUNK):
+                    if c % d_pad < d:
+                        da[rows, c // d_pad, c % d_pad] = acc[:nb, c - col]
+            acc = None
+        for li in range(1, L):
+            xg[li][rows] = X[li]
+        for li in range(L):
+            gg[li][rows] = G[li]
+        tiles.append(tile_db)
+    for tile_db in tiles:
+        for li in range(L):
+            dbs[li] = dbs[li] + tile_db[li]
     R = tff._partition_rows(B)
     P = -(-B // R)
-    T = sum(k * n + n for k, n in zip(ks, ns))
-    partial = torch.zeros((P, T))
-    for p in range(P):
-        off = 0
-        for li in range(L):
-            k, n = ks[li], ns[li]
-            acc_w, acc_b = torch.zeros((k, n)), torch.zeros((n,))
+    dws = [torch.zeros((k, n)) for k, n in zip(ks, ns)]
+    for li, r0, c0, _ in tab["jobs"]:
+        rs, cs = slice(r0, r0 + tff.CHUNK), slice(c0, c0 + tff.CHUNK)
+        tot = torch.zeros((tff.CHUNK, tff.CHUNK))
+        for p in range(P):
+            part = torch.zeros((tff.CHUNK, tff.CHUNK))
             for r in range(p * R, min(B, (p + 1) * R)):
-                gr = gg[li][r]
-                acc_w = acc_w + xg[li][r][:, None] * gr.to(bf16).to(f32)[None]
-                acc_b = acc_b + gr
-            partial[p, off:off + k * n] = acc_w.flatten()
-            partial[p, off + k * n:off + k * n + n] = acc_b
-            off += k * n + n
-    flat = torch.zeros((T,))
-    for p in range(P):
-        flat = flat + partial[p]
-    return da, flat
+                part = part + xg[li][r, rs][:, None] * gg[li][r, cs][None]
+            tot = tot + part
+        dws[li][rs, cs] = tot
+    return da, dws, dbs
 
 
 @pytest.mark.parametrize("structure", ["3-chain", "3-inter_chain", "1-chain"])
 def test_k2_pass_emulation_matches_plain_version(structure):
-    """The kernel's tiling, scratch and flat [dW_l, db_l] layout compute
-    the plain version's values bit for bit (4-row and 16-row tiles)."""
+    """The kernels' tile tables, scratch and flat [dW_l, db_l] layout
+    compute the plain version's dA and dW bit for bit on the listed
+    blocks (8- and 16-row tiles), 0 off the list; db differs only by the
+    order of its f32 sums (per row tile, then the tiles)."""
     _, tcfg, _, model = _models(KINDS["basis"])
     ne, nm, er, en, g = _inputs(structure, B=37, seed=9)
     targs = [torch.from_numpy(a) for a in (ne, nm, er, en)]
+    blocks = tff.chain_blocks(tcfg, structure)
     with torch.no_grad():
         v_slots, d_pad, cols, Ws, bs = tff._assemble(model, tcfg, structure,
                                                      *targs, None)
@@ -321,13 +368,140 @@ def test_k2_pass_emulation_matches_plain_version(structure):
         ws = [W.to(torch.bfloat16) for W in Ws]
         want = tff._chain_backward_plain(x0, ws, bs, torch.from_numpy(g),
                                          len(cols), D, d_pad)
-        for tq in (4, 16):
-            da, flat = _emulate_k2_passes(x0, ws, bs, torch.from_numpy(g),
-                                          len(cols), D, d_pad, tq)
+        for tq in (8, 16):
+            da, dws, dbs = _emulate_k2_passes(
+                x0, ws, bs, torch.from_numpy(g), len(cols), D, d_pad, tq,
+                blocks)
             assert torch.equal(da, want[0])
-            off = 0
-            for dw, db in zip(want[1], want[2]):
-                k, n = dw.shape
-                assert torch.equal(flat[off:off + k * n].view(k, n), dw)
-                assert torch.equal(flat[off + k * n:off + k * n + n], db)
-                off += k * n + n
+            for li, (dw, wdw, db, wdb) in enumerate(zip(dws, want[1], dbs,
+                                                        want[2])):
+                m = blocks.mask(li)
+                assert torch.equal(dw[m], wdw[m]), (structure, li)
+                assert not dw[~m].any()
+                torch.testing.assert_close(db, wdb, rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------------------- the gate
+# The flagship width, where chain_gate's figures were derived: d = 128,
+# 4 modes, 16 bases, biases N(0, 0.1) (every ReLU boundary in play).
+_FLAG = {}
+
+
+def _flagship(structure, B=512, seed=0):
+    if not _FLAG:
+        cfg = tm.MPQEConfig(n_entities=N_ENT, n_modes=4, n_rels=266,
+                            embed_dim=128, n_layers=3, num_bases=16)
+        gen = torch.Generator().manual_seed(0)
+        model = tm.init_mpqe(gen, cfg)
+        with torch.no_grad():
+            for lp in model.layers:
+                lp.bias.normal_(0.0, 0.1, generator=gen)
+        _FLAG.update(cfg=cfg, model=model)
+    cfg, model = _FLAG["cfg"], _FLAG["model"]
+    spec = STRUCTURES[structure]
+    rng = np.random.default_rng(seed)
+    targs = [torch.from_numpy(a) for a in (
+        rng.integers(0, N_ENT, (B, spec.n_nodes)).astype(np.int32),
+        rng.integers(0, 4, (B, spec.n_nodes)).astype(np.int32),
+        rng.integers(0, 266, (spec.n_edges,)).astype(np.int32),
+        rng.uniform(0.5, 1.5, (spec.n_edges,)).astype(np.float32))]
+    g = torch.from_numpy(rng.normal(size=(B, 128)).astype(np.float32))
+    with torch.no_grad():
+        v_slots, dp, cols, Ws, bs = tff._assemble(model, cfg, structure,
+                                                  *targs, None)
+        x0 = tff._layer0_operand(cols, targs[1], v_slots, cfg, dp)
+    ws = [W.to(torch.bfloat16) for W in Ws]
+    return cfg, x0, ws, bs, g, len(cols), dp
+
+
+def _reordered(x0, ws, bs, g, n_a, dp, blocks):
+    """The chain in another sum order (exact products summed exactly,
+    rounded once), dW off the block list zeroed as the kernel leaves it."""
+    mm = tff._reordered_matmul
+    out = tff._chain_forward_plain(x0, ws, bs, 128, mm=mm)
+    da, dws, dbs = tff._chain_backward_plain(x0, ws, bs, g, n_a, 128, dp,
+                                             mm=mm)
+    dws = [torch.where(blocks.mask(li), w, w.new_zeros(()))
+           for li, w in enumerate(dws)]
+    return out, (da, dws, dbs)
+
+
+@pytest.mark.parametrize("structure", list(STRUCTURE_NAMES))
+def test_chain_gate_holds_emulated_reordering(structure):
+    """Another sum order at the flagship width (d = 128, B = 512) passes
+    ``chain_gate`` for K1 and K2, with room: flips stay rare."""
+    cfg, x0, ws, bs, g, n_a, dp = _flagship(structure)
+    blocks = tff.chain_blocks(cfg, structure)
+    L = len(ws)
+    with torch.no_grad():
+        got_f, got_b = _reordered(x0, ws, bs, g, n_a, dp, blocks)
+        want_f = tff._chain_forward_plain(x0, ws, bs, 128)
+        want_b = tff._chain_backward_plain(x0, ws, bs, g, n_a, 128, dp)
+    gf = tff.chain_gate(got_f, want_f, L)
+    gb = tff.chain_gate(got_b, want_b, L, blocks)
+    assert gf["ok"], gf
+    assert gb["ok"], gb
+    if L == 1:
+        assert gf["max"] <= 1e-5 and gb["leaf_max"] <= 1e-5, (gf, gb)
+    else:
+        assert gf["row_max"] <= tff.ROW_MAX / 1.5, gf
+        assert gb["leaf_mean"] <= tff.LEAF_MEAN / 2, gb
+
+
+@pytest.mark.parametrize("control", ["zero_block", "anchor_row"])
+@pytest.mark.parametrize("structure", list(STRUCTURE_NAMES))
+def test_chain_gate_negative_controls_fail(structure, control):
+    """A kernel that is right (here: the reordered chain) held to a plain
+    version of a wrong input fails ``chain_gate``, for K1 and for K2."""
+    cfg, x0, ws, bs, g, n_a, dp = _flagship(structure, seed=1)
+    blocks = tff.chain_blocks(cfg, structure)
+    L = len(ws)
+    x, w = {name: (x, w) for name, x, w in tff.chain_gate_controls(
+        x0, ws, blocks, n_a, 128)}[control]
+    with torch.no_grad():
+        got_f, got_b = _reordered(x0, ws, bs, g, n_a, dp, blocks)
+        want_f = tff._chain_forward_plain(x, w, bs, 128)
+        want_b = tff._chain_backward_plain(x, w, bs, g, n_a, 128, dp)
+    assert not tff.chain_gate(got_f, want_f, L)["ok"]
+    assert not tff.chain_gate(got_b, want_b, L, blocks)["ok"]
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("n_modes", [4, 72], ids=["packed", "unpacked"])
+@pytest.mark.parametrize("structure", list(STRUCTURE_NAMES))
+def test_chain_blocks_match_chain_work_and_layer_matrices(structure,
+                                                          n_modes):
+    """The kernels' block list is ``chain_work``'s count of nonzero
+    blocks (plus the variable one-hot blocks it counts as selects), and
+    exactly the blocks ``_layer_matrices`` fills, for packed and unpacked
+    variable layouts."""
+    _, tcfg, _, model = _models(KINDS["basis"], n_modes=n_modes)
+    blocks = tff.chain_blocks(tcfg, structure)
+    assert tff.chain_blocks(tcfg, structure) is blocks  # cached
+    _, steps, plan, a_slots, v_slots = tff._plan(tcfg, structure)
+    spec = STRUCTURES[structure]
+    packed, _ = tff._var_layout(tcfg, len(v_slots), 128)
+    assert packed == (n_modes == 4 or len(v_slots) == 1)
+    _, bf16_flop, _ = _chip_smoke().chain_work(tcfg, structure, 1, False)
+    nnz = bf16_flop // (2 * D * D)
+    n_var = sum(kb >= blocks.n_anchor for kb, _ in blocks.pairs[0])
+    assert sum(len(p) for p in blocks.pairs) - n_var == nnz
+    ne, nm, er, en, _ = _inputs(structure, seed=4, n_modes=n_modes)
+    with torch.no_grad():
+        Ws, _ = tff._layer_matrices(model, tcfg, spec, steps, plan, a_slots,
+                                    v_slots, torch.from_numpy(er),
+                                    torch.from_numpy(en), 128)
+    for li, W in enumerate(Ws):
+        assert tuple(W.shape) == (blocks.ks[li], blocks.ns[li])
+        nz = W.reshape(W.shape[0] // 128, 128, W.shape[1] // 128, 128)
+        nz = nz.abs().amax((1, 3)) > 0
+        listed = torch.zeros_like(nz)
+        for kb, nb in blocks.pairs[li]:
+            listed[kb, nb] = True
+        assert torch.equal(nz, listed), (structure, li)
