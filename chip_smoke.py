@@ -36,13 +36,18 @@ parallel (one nvcc each), then:
    kernels' own device time (torch.profiler), beside the bound and, as a
    yardstick only, the same per-layer products through ``torch.matmul``.
 4. ``kernel.rgcn_fused``: K5a (16-basis layer) and K5b (full-weight
-   layer) of ``csrc/rgcn_fused.cu`` on the ``template_chunked`` layouts
-   of the 7 structures at B = 512 and 131,072 and on
-   ``chunk_by_relation`` of a general graph (65,536 nodes, 1,048,576
-   random typed edges, padded chunks): each vs its plain version
-   (<= 1e-4) and the f32 batched oracle (<= 1e-5); times (CUDA events
-   and profiler, L2 flushed) beside the bound, the plain version and the
-   ``torch.bmm`` yardstick on the per-chunk weights.
+   layer) of ``csrc/rgcn_fused.cu`` (tensor cores, split TF32) on the
+   ``template_chunked`` layouts of the 7 structures at B = 512 and
+   131,072 and on ``chunk_by_relation`` of a general graph (65,536 nodes,
+   1,048,576 random typed edges, padded chunks): each vs its plain
+   version (<= 1e-4) and the f32 batched oracle (<= 1e-5), a repeat
+   launch bit-equal, the negative control (one chunk's coefficients or
+   relation changed in the plain version) failing the plain gate, the
+   transposed-weight read (the backward's dxs) vs the plain version on a
+   transposed copy (<= 1e-4); times (CUDA events and profiler, L2
+   flushed) beside the bound (split-TF32 route; the f32-pipe route's
+   printed beside it), the plain version and the ``torch.bmm`` yardstick
+   on the per-chunk weights.
 5. ``kernel.rgcn_blocked``: K6a (forward and transpose layout) and K6b
    of ``csrc/rgcn_blocked.cu`` (tensor cores) on ``template_blocked`` for
    the 7 structures at both batches and ``bucket_edges_blocked`` of the
@@ -161,6 +166,7 @@ TOL_SCORE = 1e-4  # served top-k scores vs the plain recomputation
 # figure is printed beside the gate.
 TOL_GRAD_BY_DEPTH = {1: 3e-2, 2: 8e-2, 3: 2.5e-1}
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (H100 SXM data sheet)
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak (the same sheet)
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 L2_FLUSH_BYTES = 512 << 20  # > the 50 MB L2
@@ -220,7 +226,7 @@ TGT_KERNELS = ("tgt_mma_",)
 
 
 def device_ms(fn, iters: int, flush: torch.Tensor,
-              names=TGT_KERNELS) -> float:
+              names=TGT_KERNELS, per_call: int = 1) -> float:
     """Mean device ms per ``fn()`` call of the kernels named in ``names``
     alone (torch.profiler; by default those of ``csrc/fused_tgt.cu``),
     each call after an L2 flush as in :func:`time_ms`: the kernels' own
@@ -231,7 +237,10 @@ def device_ms(fn, iters: int, flush: torch.Tensor,
     of a small kernel recorded, 1 of 5 of a large one).  A profile that
     records fewer device events of those kernels than calls (each call
     launches at least one) is taken again, up to PROFILE_TRIES times in
-    all; if none is whole, the fullest is returned and the log says so."""
+    all; if none is whole, the fullest is returned and the log says so.
+    ``per_call``: the launches of those kernels one call makes at least
+    (K5a: its prologue and its messages), so that a profile that lost
+    calls is not taken for a whole one."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -253,7 +262,7 @@ def device_ms(fn, iters: int, flush: torch.Tensor,
                 and any(k in e.key for k in names)]
         got = (sum(e.count for e in rows),
                sum(e.device_time_total for e in rows))
-        if got[0] >= iters and got[1] > 0:
+        if got[0] >= iters * per_call and got[1] > 0:
             return got[1] / iters / 1e3
         log(f"device_ms: profile {attempt + 1} recorded {got[0]} launches "
             f"of {names} in {iters} calls")
@@ -309,10 +318,15 @@ def k3_work(cfg, structure: str, node_entity, node_mode, edge_rel_q):
 def bound_times(work) -> tuple:
     """(ms for the bytes, ms for the operations) on the card's peaks; the
     bf16 tensor-core and f32 pipes run side by side, so the operations
-    take the longer of the two."""
-    nbytes, mma, f32 = work
+    take the longer of the two.  A fourth entry (K5) is the TF32 FLOP of
+    another route to the same f32 products (split TF32 on the tensor
+    cores): the f32 FLOP take the faster of the two routes."""
+    nbytes, mma, f32 = work[:3]
+    t_f32 = f32 / H100_F32_FLOPS
+    if len(work) > 3:
+        t_f32 = min(t_f32, work[3] / H100_TF32_FLOPS)
     return (nbytes / H100_BYTES_PER_S * 1e3,
-            max(mma / H100_BF16_FLOPS, f32 / H100_F32_FLOPS) * 1e3)
+            max(mma / H100_BF16_FLOPS, t_f32) * 1e3)
 
 
 def random_inputs(gen: torch.Generator, cfg, structure: str, B: int, device):
@@ -1063,7 +1077,7 @@ def phase_train_cli(kernel_args, then=None) -> None:
 # ----------------------------------------------------------------------
 # The sparse path: K5a / K5b (relation chunks) and K6a / K6b (blocked)
 # ----------------------------------------------------------------------
-K5_KERNELS = ("msg_kernel",)
+K5_KERNELS = ("k5_msg_kernel", "k5_combine_kernel")
 K6A_KERNELS = ("k6a_messages_kernel",)
 K6B_KERNELS = ("k6b_grad_kernel", "k6b_dcoeff_kernel",
                "reduce_partials_kernel")
@@ -1090,16 +1104,19 @@ def template_rel_norm(gen, cfg, structure):
     return er, 0.5 + torch.rand((ne,), generator=gen, device=gen.device)
 
 
-def k5_work(n_edges_pad: int, n_real: int, K: int, N: int, n_chunks: int,
+def k5_work(n_edges_pad: int, n_real: int, n_src_rows: int, K: int, N: int,
             weight_bytes: int, coeff_bytes: int) -> tuple:
-    """(bytes, bf16 FLOP, f32 FLOP) of one K5 launch: the gathered rows
-    (xs), their src ids and norms, the chunk coefficients (K5a) or
-    relation ids (K5b), the weights (the basis once, or each distinct
-    relation's W once) and the f32 output, each once; 2 K N f32 FLOP per
-    real edge (padding edges need none)."""
-    nbytes = (n_edges_pad * (K * 4 + 4 + 4 + N * 4) + coeff_bytes
-              + weight_bytes)
-    return nbytes, 0, 2 * n_real * K * N
+    """(bytes, bf16 FLOP, f32 FLOP, TF32 FLOP) of one K5 launch: the
+    ``n_src_rows`` distinct rows of x that real edges gather, the src ids
+    and norms, the coefficients and relation ids, the weights (the basis
+    once, or each distinct relation's W once) and the f32 output, each
+    once; 2 K N f32 FLOP per real edge (padding edges need none), or 3 x
+    that in TF32 on the tensor cores (split TF32: f32-grade products), the
+    route ``bound_times`` takes when it is faster."""
+    nbytes = (n_src_rows * K * 4 + n_edges_pad * (4 + 4 + N * 4)
+              + coeff_bytes + weight_bytes)
+    f32 = 2 * n_real * K * N
+    return nbytes, 0, f32, 3 * f32
 
 
 def k6_work(n_edges_pad: int, n_chunks: int, n_real: int, n_rows: int,
@@ -1153,7 +1170,8 @@ def work_line(ms, dev_ms, plain_ms, lib_ms, bound, by, work) -> str:
     return (f"kernel_ms={ms:.4f} device_ms={dev_ms:.4f} "
             + (f"plain_ms={plain_ms:.4f} " if plain_ms is not None else "")
             + f"library_ms={lib_ms:.4f} bound_ms={bound:.6f} ({by}: "
-            f"{work[0]} B, {work[1]} bf16 FLOP, {work[2]} f32 FLOP)")
+            f"{work[0]} B, {work[1]} bf16 FLOP, {work[2]} f32 FLOP"
+            + (f" or {work[3]} TF32 FLOP" if len(work) > 3 else "") + ")")
 
 
 def k5_cases(cfg, gen, device):
@@ -1175,11 +1193,29 @@ def k5_cases(cfg, gen, device):
                          for k, v in ch.items()}, GENERAL_NODES
 
 
+def k5_control(coeff, crel, norm, chunk: int, basis_kind: bool, R: int):
+    """The negative control's chunk coefficients (K5a) or relations (K5b):
+    those of the first chunk with a real edge changed (its coefficient
+    row negated and shifted, or the next relation)."""
+    real = (norm.view(-1, chunk) != 0).any(1)
+    c = int(torch.nonzero(real)[0, 0])
+    bad = coeff.clone()
+    if basis_kind:
+        bad[c] = 1.0 - 2.0 * bad[c]
+    else:
+        bad[c] = (bad[c] + 1) % R
+    return bad
+
+
 def phase_rgcn_fused(layer_b, layer_f, cfg, device, gen, flush):
     """K5a (basis layer) and K5b (full-weight layer) against their plain
-    versions (<= TOL_PLAIN) and the f32 batched oracle (<= TOL_ORACLE),
-    times beside the bound, the plain version and the torch.bmm
-    yardstick.  Returns both kernels' JSON fields (launches excluded)."""
+    versions (<= TOL_PLAIN) and the f32 batched oracle (<= TOL_ORACLE), a
+    repeat launch bit-equal, the negative control (the plain version with
+    one chunk's coefficients or relation changed) failing the plain gate,
+    the transposed-weight read (the backward's) against the plain version
+    on a transposed copy (<= TOL_PLAIN); times beside the bound, the plain
+    version and the torch.bmm yardstick.  Returns both kernels' JSON fields
+    (launches excluded)."""
     from mpqe_tpu_torch.ops import rgcn_fused as rf
 
     d, R = cfg.embed_dim, cfg.n_rels
@@ -1189,6 +1225,7 @@ def phase_rgcn_fused(layer_b, layer_f, cfg, device, gen, flush):
     eye = torch.eye(R, device=device)
     accs = {"K5a": new_acc(), "K5b": new_acc()}
     big = {"K5a": [], "K5b": []}
+    f32_bound = {"K5a": 0.0, "K5b": 0.0}
     for label, B, ch, n in k5_cases(cfg, gen, device):
         src = ch["src"].to(torch.int32).contiguous()
         norm = ch["norm"].float().contiguous()
@@ -1196,75 +1233,103 @@ def phase_rgcn_fused(layer_b, layer_f, cfg, device, gen, flush):
         chunk = ch["chunk"]
         n_chunks = crel.shape[0]
         x = torch.randn((n, d), generator=gen, device=device)
+        rows = torch.randn((src.shape[0], d), generator=gen, device=device)
         valid = crel < R
-        n_real = int((norm != 0).sum())
+        real = norm != 0
+        n_real = int(real.sum())
+        n_src_rows = int(torch.unique(src[real].clamp(0, n - 1)).numel())
+        n_used = int(torch.unique(crel[valid]).numel())  # relations met
         for kid in ("K5a", "K5b"):
+            # the kernel's arguments between the weights and norm (kargs)
+            # and the plain version's (c: per-chunk coefficients or ids)
             if kid == "K5a":
                 c = rf._masked_chunk_coeff(coeff, crel, R).contiguous()
                 w, fn, ref = basis, rf.messages_basis, \
                     rf.messages_basis_reference
+                kargs = (coeff, crel, R)
                 oracle_w, oracle_c = basis, coeff
                 weight_bytes = basis.numel() * 4
-                coeff_bytes = n_chunks * basis.shape[0] * 4
+                coeff_bytes = n_used * basis.shape[0] * 4 + n_chunks * 4
                 w_c = rf.combine_basis(basis, c)
             else:
                 c = crel.clamp(0, R - 1)
                 w, fn, ref = w_rel, rf.messages_wrel, \
                     rf.messages_wrel_reference
+                kargs = (crel,)
                 oracle_w, oracle_c = w_rel, eye
-                weight_bytes = int(torch.unique(crel[valid]).numel()) * d * d * 4
+                weight_bytes = n_used * d * d * 4
                 coeff_bytes = n_chunks * 4
                 w_c = w_rel[c.long()]
             with torch.no_grad():
-                got = fn(x, src, w, c, norm, chunk)
+                got = fn(x, src, w, *kargs, norm, chunk)
+                again = fn(x, src, w, *kargs, norm, chunk)
                 plain = ref(x, src, w, c, norm, chunk)
                 oracle = rf._edge_messages_xla(x, oracle_w, oracle_c, src,
                                                norm, crel, R, chunk)
+                cut = ref(x, src, w, k5_control(c, crel, norm, chunk,
+                                                kid == "K5a", R),
+                          norm, chunk)
+                got_t = fn(rows, None, w, *kargs, norm, chunk,
+                           w_transposed=True)
+                plain_t = ref(rows, None, w.transpose(1, 2), c, norm, chunk)
             torch.cuda.synchronize()
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"{kid} {label} B={B}: non-finite")
             e_plain, e_orc = rel_err(got, plain), rel_err(got, oracle)
+            e_cut, e_t = rel_err(got, cut), rel_err(got_t, plain_t)
+            repeat = torch.equal(got, again)
             accs[kid]["max_abs_err"] = max(accs[kid]["max_abs_err"], float(
                 (got - plain).abs().max()))
             line = (f"kernel.rgcn_fused {kid} {label:14s} B={B:6d} "
                     f"E={src.shape[0]} err_vs_plain={e_plain:.3e} "
-                    f"err_vs_f32_oracle={e_orc:.3e}")
-            if e_plain > TOL_PLAIN or e_orc > TOL_ORACLE:
+                    f"err_vs_f32_oracle={e_orc:.3e} repeat_equal={repeat} "
+                    f"control_err={e_cut:.3e} transposed_err={e_t:.3e}")
+            if (e_plain > TOL_PLAIN or e_orc > TOL_ORACLE or not repeat
+                    or e_cut <= TOL_PLAIN or e_t > TOL_PLAIN):
                 log(line + " FAIL")
                 raise AssertionError(line)
+            del again, cut, got_t, plain_t
             iters = ITERS if B == TRAIN_BATCH else BIG_ITERS
             xs_c = x[src.long().clamp(0, n - 1)].view(-1, chunk, d)
             with torch.no_grad():
-                ms = time_ms(lambda: fn(x, src, w, c, norm, chunk), iters,
-                             flush)
-                k_ms = device_ms(lambda: fn(x, src, w, c, norm, chunk),
-                                 iters, flush, K5_KERNELS)
+                ms = time_ms(lambda: fn(x, src, w, *kargs, norm, chunk),
+                             iters, flush)
+                k_ms = device_ms(lambda: fn(x, src, w, *kargs, norm, chunk),
+                                 iters, flush, K5_KERNELS,
+                                 2 if kid == "K5a" else 1)
                 plain_ms = time_ms(lambda: ref(x, src, w, c, norm, chunk),
                                    PLAIN_ITERS if B == TRAIN_BATCH else 1,
                                    flush)
                 lib_ms = time_ms(lambda: torch.bmm(xs_c, w_c), iters, flush)
-            work = k5_work(src.shape[0], n_real, d, d, n_chunks,
+            work = k5_work(src.shape[0], n_real, n_src_rows, d, d,
                            weight_bytes, coeff_bytes)
+            f32_ms = max(bound_times(work[:3]))  # the f32-pipe route
             if B == TRAIN_BATCH:
                 bound, by = add_case(accs[kid], ms, plain_ms, lib_ms, work,
                                      k_ms)
+                f32_bound[kid] += f32_ms
             else:
                 t_b, t_o = bound_times(work)
                 bound, by = max(t_b, t_o), ("bytes" if t_b >= t_o
                                             else "operations")
-                big[kid].append((label, ms))
+                big[kid].append((label, ms, k_ms, lib_ms, bound, f32_ms))
             log(line + " " + work_line(ms, k_ms, plain_ms, lib_ms, bound, by,
-                                       work))
+                                       work)
+                + f" f32_route_bound_ms={f32_ms:.6f}")
             del got, plain, oracle, xs_c, w_c
-        del x
+        del x, rows
     fields = {}
     for kid, acc in accs.items():
+        t7 = [v for v in big[kid] if v[0] != "general"]
         log(f"kernel.rgcn_fused {kid} sum of 7 at B={TRAIN_BATCH}: "
             f"kernel_ms={acc['ms']:.4f} device_ms={acc['device_ms']:.4f} "
             f"plain_ms={acc['plain_ms']:.4f} "
             f"library_ms={acc['library_ms']:.4f} "
-            f"bound_ms={acc['bound_ms']:.6f}; at B={TRAIN_BIG}: kernel_ms="
-            f"{sum(m for lb, m in big[kid] if lb != 'general'):.4f}")
+            f"bound_ms={acc['bound_ms']:.6f} "
+            f"f32_route_bound_ms={f32_bound[kid]:.6f}; at B={TRAIN_BIG}: "
+            + " ".join(f"{k}={sum(v[i] for v in t7):.4f}" for i, k in (
+                (1, "kernel_ms"), (2, "device_ms"), (3, "library_ms"),
+                (4, "bound_ms"), (5, "f32_route_bound_ms"))))
         fields[kid] = finish_acc(acc)
     return fields
 
@@ -2091,6 +2156,26 @@ def phase_serve_cli(run_dir: str) -> None:
         raise AssertionError(f"unexpected serve CLI output {last!r}")
 
 
+def _plain_k5a(x, src, basis, coeff, chunk_rel, n_rels, norm, chunk,
+               w_transposed=False):
+    """K5a's plain version under the wrapper's signature (``w_transposed``:
+    the weights read transposed, as ``EdgeMessages.backward`` asks)."""
+    from mpqe_tpu_torch.ops import rgcn_fused as rf
+
+    return rf.messages_basis_reference(
+        x, src, basis.transpose(1, 2) if w_transposed else basis,
+        rf._masked_chunk_coeff(coeff, chunk_rel, n_rels), norm, chunk)
+
+
+def _plain_k5b(x, src, w_rel, chunk_rel, norm, chunk, w_transposed=False):
+    """K5b's plain version under the wrapper's signature."""
+    from mpqe_tpu_torch.ops import rgcn_fused as rf
+
+    return rf.messages_wrel_reference(
+        x, src, w_rel.transpose(1, 2) if w_transposed else w_rel, chunk_rel,
+        norm, chunk)
+
+
 class plain_sparse_kernels:
     """Within the block, the K4, K5 and K6 wrappers that ``ops/segment.py``,
     ``encode_sparse`` (the K4 layout) and the autograd Functions of
@@ -2106,8 +2191,8 @@ class plain_sparse_kernels:
                       rb.messages_blocked, rb.grad_blocked,
                       sk.segment_sum_kernel, sk.segment_max_kernel,
                       sk.segment_layout)
-        rf.messages_basis = rf.messages_basis_reference
-        rf.messages_wrel = rf.messages_wrel_reference
+        rf.messages_basis = _plain_k5a
+        rf.messages_wrel = _plain_k5b
         rb.messages_blocked = lambda x, basis, coeff, lay, n_rels: \
             rb.messages_blocked_reference(x, basis, coeff, lay, n_rels,
                                           x.shape[0])

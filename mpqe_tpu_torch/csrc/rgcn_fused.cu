@@ -1,4 +1,5 @@
-// Relation-chunked R-GCN edge messages (K5a, K5b) for Hopper (sm_90a).
+// Relation-chunked R-GCN edge messages (K5a, K5b) for Hopper (sm_90a), on
+// the tensor cores in split TF32.
 //
 // mpqe_rgcn_msg_basis replaces the Pallas TPU kernel
 // mpqe_tpu/ops/pallas_rgcn.py _messages_pallas_basis (:145; kernel body
@@ -8,161 +9,595 @@
 // The edges come in chunks of `chunk` rows that share one relation
 // (ops/rgcn_fused.py chunk_by_relation, ops/template_layout.py
 // template_chunked).  Per chunk c, with K = d_in and N = d_out, all f32:
-//   K5a:  W = c_0 V_0 + c_1 V_1 + ... (b ascending; ccoeff [n_chunks][Bb]
-//         is pad-masked by the wrapper, so a padding chunk gets W = 0);
-//   K5b:  W = w_rel[crel[c]] (crel clamped by the wrapper; padding edges
-//         rely on norm == 0);
+//   K5a:  W = c_0 V_0 + c_1 V_1 + ... (b ascending, each product and sum
+//         rounded on its own, as combine_basis) with c = coeff[crel[c]],
+//         crel clamped into [0, n_rels]; a padding chunk (crel >= n_rels)
+//         takes zero coefficients, as _masked_chunk_coeff does;
+//   K5b:  W = w_rel[crel[c]] (crel clamped into [0, R); padding edges rely
+//         on norm == 0);
 //   out[e] = (xs[e] @ W) * norm[e], xs[e] = x[clamp(src[e])] (the gather
 //   is fused here; with src == nullptr xs[e] = x[e], the backward's dxs).
-// Every f32 value has one fixed order and one rounding per operation:
-// W's terms b ascending, the product over k ascending, then * norm, each
-// product and sum rounded on its own (__fmul_rn / __fadd_rn, no FMA
-// contraction).  The plain versions in ops/rgcn_fused.py run the same
-// operations in the same order, so kernel and plain version agree bit
-// for bit.  This is the Pallas kernel's Precision.HIGHEST: no TF32, no
-// bf16.
+// With w_transposed the weights are read as W[k][n] = w[.][n][k]: the
+// backward's dxs = g @ W^T takes the layer's own basis or w_rel, with no
+// transposed copy.
 //
-// Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s f32 outside the tensor
-// cores), counting the function's own work (chip_smoke.py k5_work): the
-// bytes of xs (the gathered rows), norm, the chunk coefficients or
-// relation ids, the weights (the basis once, or each distinct relation's
-// W once) and the output, and 2 E K N FLOP.  At d = 128 an edge does
-// 32,768 FLOP for about 1 KB of row in and out, 32 FLOP per byte, over the
-// f32 balance point of 20: the f32 operations bound it (E = 1M: 0.51 ms
-// against 0.31 ms of bytes).  This design is the simple
-// one: products on the f32 pipes (no tensor cores, so that the sum order
-// is fixed), one block per (chunk, 64-column tile, row split) that first
-// builds its W column tile in shared memory (for K5a from the L2-resident
-// basis) and then streams the chunk's rows through it in tiles of 32
-// gathered rows.  The row split gives a chunk several blocks when there
-// are few chunks (the train batch of 512 has one to four).
+// Numerics.  The Pallas kernel is an f32 product at Precision.HIGHEST.
+// Here every product xs @ W runs on the tensor cores in split TF32: each
+// f32 operand a becomes hi = a rounded to TF32 (to nearest, ties away, as
+// cvt.rna, by integer operations) and lo = a - hi (exact in f32, read by
+// the tensor core truncated to TF32); per 8-deep k step three
+// mma.sync.m16n8k8 TF32 products (lo.hi, hi.lo, hi.hi, in that order) add
+// into f32 accumulators; the lo.lo term (~2^-22 of a product) is dropped.
+// The sum order is the tensor cores', not the plain version's k
+// ascending, so the kernel is held to gates, not to the plain bits: <=
+// 1e-4 of the plain version and <= 1e-5 of the f32 batched oracle
+// (max|diff| / max|ref|; chip_smoke.py phase 4,
+// tests/test_torch_port_cuda.py).  An emulation of this product in the
+// kernel's order, each mma's sum added to the accumulator and rounded
+// toward zero (a model of the tensor core's f32 accumulation: 3 K / 8
+// such roundings an output), lies within 1.2e-6 - 1.7e-6 of both at
+// d = 128, as the card does; one TF32 pass ~3e-4 off, failing both gates
+// (tools/k5_probe.py emulate).  W and the * norm keep the plain version's
+// f32 operations and order.  No float atomics, one fixed tile order: a
+// repeat launch gives the same bits.
+//
+// Bound on an H100 SXM (3.35 TB/s; 495 TFLOP/s TF32 on the tensor cores,
+// 67 TFLOP/s f32 outside them), counting the function's own work
+// (chip_smoke.py k5_work): the distinct source rows once, src and norm,
+// the coefficients or relation ids, the weights once and the f32 output,
+// and 2 E K N FLOP.  At d = 128 an edge writes 512 B and reads 8 B, plus
+// its share of the source rows, for 32,768 FLOP: on the f32 pipes the
+// operations bound it; in split TF32 (3 x 2 E K N at 495 TFLOP/s) the
+// bytes do on a template batch (each edge gathers a row of its own: 1.6x
+// the operations), the operations on the general graph (16 edges share a
+// source row: 1.16x the bytes).  The design, by what held the first
+// (f32-pipe) design back:
+// * (1) Two instructions per multiply-add and (2) shared-memory loads
+//   setting the pace: the products run on the tensor cores; a thread
+//   loads its fragments of two k steps with one float4 load per row
+//   (logical k j of an m16n8k8 step is physical k0 + 4 (j & 3) + 2 s +
+//   (j >> 2) on both operands) and splits them in registers; a warp owns
+//   a 32 x 32 output tile (8 independent mma chains).  In exploratory
+//   builds on the card, splitting with cvt.rna was slower than the
+//   integer rounding and a W tile kept pre-split in shared memory gained
+//   nothing, so both operands split as they load.
+// * (3) A slow, unoverlapped gather: a warp copies whole rows with
+//   16-byte cp.async, the row index read once per row (one load per lane,
+//   a tile ahead, broadcast by shuffle); two row buffers, so the next
+//   tile lands while this one is multiplied.  Row pitch P: K rounded up to
+//   an odd multiple of 16 floats, so that every float4 fragment load is
+//   free of bank conflicts (its 8-lane phases cover 32 banks).
+// * (4) W rebuilt in every block: K5a's prologue (k5_combine_kernel)
+//   combines each relation's W once, at the first chunk of each run of
+//   chunks with one relation slot, from that relation's own coefficient
+//   row, into a scratch buffer the wrapper keeps ((n_rels + 1) K N floats,
+//   17 MB at the flagship; slot n_rels, the padding chunks', has zero
+//   coefficients), elementwise over the basis as stored.  Runs of one
+//   relation that are not adjacent write the same slot with the same bits
+//   from the same inputs.  The messages kernel then treats K5a like K5b: a
+//   block loads its W column tile (float4 loads, 8 in flight a thread)
+//   when it enters a chunk of another slot than the last, so it loads W
+//   once per relation run it meets.  Building W inside every block
+//   instead, from all Bb bases, was in exploratory builds the largest part
+//   of K5a's time at B = 512 and a quarter of it at the large shapes: far
+//   more than the prologue's extra launch.
+// * Blocks: one wave of blocks, each walking an equal, contiguous share of
+//   the row tiles (a tile never straddles a chunk).  Two tile shapes: 128
+//   rows x 128 columns, 16 warps, one block an SM, where that gives every
+//   SM a tile (x is gathered once for all N <= 128 columns; 16 warps hide
+//   the mma and load latencies better than 8: exploratory builds of 64 x
+//   64, 64 x 128 and 128 x 128 tiles with 4 or 8 warps were slower); else
+//   32 x 32 tiles with 4 warps (the train batch of 512 has one to four
+//   chunks: narrow tiles put 64 to 256 blocks on the card, each loading
+//   16 KB of W).
+// What holds it back now: the products and the gather overlap only in
+// part (one synchronous pipeline per block); PERF.md has the phase
+// figures.  mma.sync reaches well under the TF32 peak; wgmma with
+// asynchronous accumulators and a producer warp are the levers left.
+// Width limit: shared memory (CT + 2 TM) P 4 bytes; the 32 x 32 tile needs
+// 384 P bytes, so K <= 592 on an H100 (232,448 bytes a block); the 128 x
+// 128 tile takes K <= 144.  N has no limit (column tiles).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int CT = 64;              // output columns per block
-constexpr int NPAIR = CT / 2;       // threads per row group (column pairs)
-constexpr int RG = THREADS / NPAIR; // row groups
-constexpr int RPT = 4;              // rows per thread
-constexpr int TR = RG * RPT;        // rows per pass (32)
+constexpr int MAX_DEVICES = 64;
 
-size_t smem_bytes(int K) {
-  return (size_t)K * CT * sizeof(float) + (size_t)TR * K * sizeof(float);
+// Row pitch (floats) of the shared tiles.
+__host__ __device__ __forceinline__ int pitch_of(int K) {
+  const int kp = (K + 15) / 16 * 16;
+  return (kp / 16) % 2 ? kp : kp + 16;
 }
 
-// grid.x = chunk * split + s, grid.y = column tile.
-template <bool BASIS>
-__global__ void __launch_bounds__(THREADS)
-msg_kernel(const float* __restrict__ x, int n_rows,
-           const int* __restrict__ src, const float* __restrict__ w,
-           int bb, const float* __restrict__ ccoeff,
-           const int* __restrict__ crel, const float* __restrict__ norm,
-           int chunk, int split, int rps, int K, int N,
-           float* __restrict__ out) {
+// A block tile of TM rows x CT columns: WM x WN warps, each MT m16 x NT n8
+// mma tiles; W's f32 column tile and two row buffers in shared memory.
+template <int WM_, int WN_, int MT_, int NT_>
+struct Shape {
+  static constexpr int WM = WM_, WN = WN_, MT = MT_, NT = NT_;
+  static constexpr int WARPS = WM * WN, THREADS = 32 * WARPS;
+  static constexpr int TM = WM * 16 * MT, CT = WN * 8 * NT;
+  static constexpr int RPW = TM / WARPS;  // rows each warp gathers
+  static_assert(RPW >= 1 && RPW <= 32 && TM % WARPS == 0, "row split");
+  static size_t smem(int K) {
+    return (size_t)(CT + 2 * TM) * pitch_of(K) * sizeof(float);
+  }
+};
+
+// 128 x 128 tiles, 16 warps, one block an SM (K <= 144), for row ranges
+// that give every SM a tile; 32 x 32 tiles, 4 warps, for fewer rows or a
+// wider K (<= 592).
+using Big = Shape<4, 4, 2, 4>;
+using Small = Shape<2, 2, 1, 2>;
+
+struct Args {
+  const float* x;     // [n_rows][K]
+  const int* src;     // [E] or null (x holds one row per edge)
+  const float* w;     // [.][K][N] ([.][N][K] if trans): w_rel, or K5a's W
+  const int* crel;    // [n_chunks] each chunk's matrix of w, clamped into
+  int crel_hi;        // [0, crel_hi]
+  const float* norm;  // [E]
+  float* out;         // [E][N]
+  long long q;        // row tiles a row block walks (the first r: q + 1)
+  int r;
+  int n_rows, chunk, tpc, K, N, P;
+  int trans;  // W[k][n] = w[.][n][k]
+  int xvec;   // rows by 16-byte copies (K % 4 == 0, x 16-byte aligned)
+  int wvec;   // W by float4 loads (its contiguous extent % 4 == 0, aligned)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// a ~ hi + lo: hi = a rounded to TF32 (to nearest, ties away from zero,
+// as cvt.rna: half of the 13 dropped bits' range added to the magnitude,
+// then the 13 bits cleared), lo = a - hi exactly in f32, passed whole: the
+// tensor core reads its top 19 bits (lo truncated to TF32).  Three integer
+// and float operations at full rate, no conversion instruction.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+// d += a (16 x 8, row) @ b (8 x 8, col), TF32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ int clamp_rel(const int* crel, long long c,
+                                         int hi) {
+  return min(max(__ldg(crel + c), 0), hi);
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// s (+)= c * v, one rounding per product and per sum.
+__device__ __forceinline__ void axpy4(float4& s, float c, const float4& v,
+                                      bool first) {
+  const float4 p = make_float4(__fmul_rn(c, v.x), __fmul_rn(c, v.y),
+                               __fmul_rn(c, v.z), __fmul_rn(c, v.w));
+  s = first ? p
+            : make_float4(__fadd_rn(s.x, p.x), __fadd_rn(s.y, p.y),
+                          __fadd_rn(s.z, p.z), __fadd_rn(s.w, p.w));
+}
+
+// K5a's prologue: W_s = c_0 V_0 + c_1 V_1 + ... (b ascending, each product
+// and sum rounded on its own, as combine_basis) into scratch[s], for each
+// slot s = clamp(crel[c], 0, n_rels) where a run of chunks begins (its
+// slot differs from chunk c - 1's), from coeff[s] (zeros for s = n_rels,
+// the padding slot); elementwise over the matrix as stored, 4 elements a
+// thread.  grid.x: element groups; grid.y: CB_CHUNKS chunks.
+constexpr int CB_THREADS = 128, CB_CHUNKS = 64;
+
+__global__ void __launch_bounds__(CB_THREADS)
+    k5_combine_kernel(const float* __restrict__ basis, int bb,
+                      const float* __restrict__ coeff,
+                      const int* __restrict__ crel, int n_chunks, int n_rels,
+                      long long mat, int vec, float* __restrict__ scratch) {
+  const long long e =
+      ((long long)blockIdx.x * CB_THREADS + threadIdx.x) * 4;
+  if (e >= mat) return;
+  const int c1 = min(n_chunks, (int)(blockIdx.y + 1) * CB_CHUNKS);
+  for (int c = blockIdx.y * CB_CHUNKS; c < c1; ++c) {
+    const int s = clamp_rel(crel, c, n_rels);
+    if (c > 0 && clamp_rel(crel, c - 1, n_rels) == s) continue;
+    const float* cf = coeff + (size_t)s * bb;
+    const bool pad = s == n_rels;
+    float* dst = scratch + (size_t)s * mat + e;
+    if (vec) {  // mat % 4 == 0 and 16-byte aligned
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int b0 = 0; b0 < bb; b0 += 8) {
+        float4 v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[j] = b0 + j < bb ? ldg4(basis + (b0 + j) * mat + e)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (b0 + j < bb)
+            axpy4(acc, pad ? 0.f : __ldg(cf + b0 + j), v[j], b0 + j == 0);
+      }
+      *reinterpret_cast<float4*>(dst) = acc;
+    } else {
+      for (int j = 0; j < 4 && e + j < mat; ++j) {
+        float v = __fmul_rn(pad ? 0.f : __ldg(cf), __ldg(basis + e + j));
+        for (int b = 1; b < bb; ++b)
+          v = __fadd_rn(v, __fmul_rn(pad ? 0.f : __ldg(cf + b),
+                                     __ldg(basis + b * mat + e + j)));
+        dst[j] = v;
+      }
+    }
+  }
+}
+
+// The block's W column tile into ws[n][k] (n < CT, k < P): matrix slot of
+// w; 0 for k >= K and for columns >= N.  Each thread has GB groups of 4
+// elements in flight.
+template <class S>
+__device__ void build_w(const Args& a, int slot, int col0, float* ws) {
+  constexpr int CT = S::CT, THREADS = S::THREADS, GB = 8;
+  const int K = a.K, N = a.N, P = a.P, tid = threadIdx.x;
+  const float* w = a.w + (size_t)slot * K * N;
+  if (!a.wvec) {
+    for (int i = tid; i < CT * P; i += THREADS) {
+      const int n = i / P, k = i - n * P;
+      float v = 0.f;
+      if (k < K && col0 + n < N)
+        v = __ldg(a.trans ? w + (size_t)(col0 + n) * K + k
+                          : w + (size_t)k * N + col0 + n);
+      ws[i] = v;
+    }
+    return;
+  }
+  // groups of 4 elements: (n, 4 k) with the source rows along k (trans),
+  // consecutive threads along k; else (k, 4 n), a warp reading 8 k rows x
+  // 16 columns (64 contiguous bytes a row) and storing them transposed
+  const int total = P * CT / 4, kq = P / 4, nq = CT / 16;
+  for (int i0 = tid; i0 < total; i0 += GB * THREADS) {
+    float4 v[GB];
+    int at[GB];
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      const int i = i0 + g * THREADS;
+      int n, k;
+      if (a.trans) {
+        n = i / kq;
+        k = (i - n * kq) * 4;
+      } else {
+        const int rest = i >> 5;
+        k = (rest / nq) * 8 + (i & 7);
+        n = ((rest % nq) * 4 + ((i >> 3) & 3)) * 4;
+      }
+      at[g] = i < total ? n * P + k : -1;
+      v[g] = i < total && k < K && col0 + n < N
+                 ? ldg4(a.trans ? w + (size_t)(col0 + n) * K + k
+                                : w + (size_t)k * N + col0 + n)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (at[g] < 0) continue;
+      const int st = a.trans ? 1 : P;  // the 4 elements' stride in the tile
+      ws[at[g]] = v[g].x;
+      ws[at[g] + st] = v[g].y;
+      ws[at[g] + 2 * st] = v[g].z;
+      ws[at[g] + 3 * st] = v[g].w;
+    }
+  }
+}
+
+// The source row of this warp's lane-th row of row tile T (-1: none).
+template <class S>
+__device__ __forceinline__ int row_index(const Args& a, long long T,
+                                         int warp, int lane) {
+  if (lane >= S::RPW) return -1;
+  const long long c = T / a.tpc;
+  const int rr = (int)(T - c * a.tpc) * S::TM + warp + S::WARPS * lane;
+  if (rr >= a.chunk) return -1;
+  const long long e = c * a.chunk + rr;
+  if (!a.src) return (int)e;
+  return min(max(__ldg(a.src + e), 0), a.n_rows - 1);
+}
+
+// Whole rows of x into xs: this warp's rows warp, warp + WARPS, ...
+template <class S>
+__device__ __forceinline__ void gather(const Args& a, float* xs, int idx,
+                                       int warp, int lane) {
+#pragma unroll 4
+  for (int j = 0; j < S::RPW; ++j) {
+    const int row = __shfl_sync(0xffffffffu, idx, j);
+    if (row < 0) continue;
+    const float* s = a.x + (size_t)row * a.K;
+    float* d = xs + (warp + S::WARPS * j) * a.P;
+    if (a.xvec) {
+      for (int p = lane * 4; p < a.K; p += 128) cp_async16(d + p, s + p);
+    } else {
+      for (int p = lane; p < a.K; p += 32) cp_async4(d + p, s + p);
+    }
+  }
+}
+
+// acc += xs (this warp's rows) @ W (its columns) in split TF32.  Logical
+// k j of an m16n8k8 step maps to physical k0 + 4 (j & 3) + 2 s + (j >> 2)
+// (step s of the 16-wide slice k0): a float4 load gives a thread its
+// fragments of two steps, the same map on both operands.
+template <class S>
+__device__ __forceinline__ void tile_products(const float* xs,
+                                              const float* ws, int P, int KP,
+                                              int wm, int wn, int lane,
+                                              float (&acc)[S::MT][S::NT][4]) {
+  constexpr int MT = S::MT, NT = S::NT;
+  const int g = lane >> 2, t = lane & 3;
+  const float* xa = xs + (wm * 16 * MT + g) * P + 4 * t;
+  const float* wb = ws + (wn * 8 * NT + g) * P + 4 * t;
+#pragma unroll 2
+  for (int k0 = 0; k0 < KP; k0 += 16) {
+    float4 av[MT][2], bv[NT];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      av[mi][0] = *reinterpret_cast<const float4*>(xa + mi * 16 * P + k0);
+      av[mi][1] = *reinterpret_cast<const float4*>(xa + (mi * 16 + 8) * P + k0);
+    }
+#pragma unroll
+    for (int nj = 0; nj < NT; ++nj)
+      bv[nj] = *reinterpret_cast<const float4*>(wb + nj * 8 * P + k0);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        split_tf32(s ? av[mi][0].z : av[mi][0].x, ah[mi][0], al[mi][0]);
+        split_tf32(s ? av[mi][1].z : av[mi][1].x, ah[mi][1], al[mi][1]);
+        split_tf32(s ? av[mi][0].w : av[mi][0].y, ah[mi][2], al[mi][2]);
+        split_tf32(s ? av[mi][1].w : av[mi][1].y, ah[mi][3], al[mi][3]);
+      }
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj) {
+        split_tf32(s ? bv[nj].z : bv[nj].x, bh[nj][0], bl[nj][0]);
+        split_tf32(s ? bv[nj].w : bv[nj].y, bh[nj][1], bl[nj][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj) mma_tf32(acc[mi][nj], al[mi], bh[nj]);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj) mma_tf32(acc[mi][nj], ah[mi], bl[nj]);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj) mma_tf32(acc[mi][nj], ah[mi], bh[nj]);
+    }
+  }
+}
+
+// grid.x: column tile; grid.y: row block, which walks row tiles
+// [T0, T1) in order (tile T: rows (T % tpc) TM .. of chunk T / tpc).
+template <class S>
+__global__ void __launch_bounds__(S::THREADS) k5_msg_kernel(const Args a) {
+  constexpr int TM = S::TM, CT = S::CT, MT = S::MT, NT = S::NT;
   extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                  // [K][CT] W column tile
-  float* xs = smem + (size_t)K * CT; // [TR][K] gathered rows
-  const int c = blockIdx.x / split, s = blockIdx.x % split;
-  const int col0 = blockIdx.y * CT;
-  const int tid = threadIdx.x;
-
-  // W column tile; for K5a one sweep of the tile per basis, b ascending
-  // (each thread owns the same elements in every sweep, so the loads of a
-  // sweep are independent and in flight together)
-  if (BASIS) {
-    const float* cf = ccoeff + (size_t)c * bb;
-    for (int b = 0; b < bb; ++b) {
-      const float cb = cf[b];
-      const float* vb = w + (size_t)b * K * N;
-#pragma unroll 4
-      for (int i = tid; i < K * CT; i += THREADS) {
-        const int col = col0 + i % CT;
-        const float p = col < N ? __fmul_rn(cb, vb[(size_t)(i / CT) * N + col])
-                                : 0.f;
-        ws[i] = b == 0 ? p : __fadd_rn(ws[i], p);
-      }
-    }
-  } else {
-    const float* wr = w + (size_t)crel[c] * K * N;
-#pragma unroll 4
-    for (int i = tid; i < K * CT; i += THREADS) {
-      const int col = col0 + i % CT;
-      ws[i] = col < N ? wr[(size_t)(i / CT) * N + col] : 0.f;
-    }
+  const int P = a.P, KP = (a.K + 15) / 16 * 16;
+  // ws [CT][P]: ws[n][k] = W[k][col0 + n]; then two buffers [TM][P] of
+  // gathered rows
+  float* ws = smem;
+  float* xs0 = smem + CT * P;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / S::WN, wn = warp % S::WN, g = lane >> 2, t = lane & 3;
+  const int col0 = blockIdx.x * CT;
+  const long long rb = blockIdx.y;
+  const long long T0 = rb * a.q + min(rb, (long long)a.r);
+  const long long T1 = T0 + a.q + (rb < a.r ? 1 : 0);
+  if (T0 >= T1) return;
+  if (KP != a.K) {  // the k padding [K, KP): zero once, no gather writes it
+    for (int i = tid; i < 2 * TM * P; i += S::THREADS) xs0[i] = 0.f;
+    __syncthreads();
   }
-
-  const int tc = tid % NPAIR, rg = tid / NPAIR;
-  const int col = col0 + 2 * tc;
-  const long long lo = (long long)c * chunk + (long long)s * rps;
-  const long long hi = min((long long)(c + 1) * chunk, lo + rps);
-  __shared__ long long rows[TR];
-  for (long long r0 = lo; r0 < hi; r0 += TR) {
-    __syncthreads();  // W built; the previous tile's rows read
-    if (tid < TR) {  // one index lookup per row, not per element
-      const long long e = r0 + tid;
-      rows[tid] = e >= hi ? -1 : (src ? min(max(src[e], 0), n_rows - 1) : e);
+  // the first tile in flight; idx: the next tile's rows
+  int idx = row_index<S>(a, T0, warp, lane);
+  gather<S>(a, xs0, idx, warp, lane);
+  cp_async_commit();
+  idx = T0 + 1 < T1 ? row_index<S>(a, T0 + 1, warp, lane) : -1;
+  // the slot whose W the tile holds, and the next tile's slot, read a tile
+  // ahead
+  int wslot = -1, next_slot = clamp_rel(a.crel, T0 / a.tpc, a.crel_hi);
+  for (long long T = T0; T < T1; ++T) {
+    const int buf = (int)((T - T0) & 1);
+    if (T + 1 < T1) {  // the next tile's rows land during this one
+      gather<S>(a, xs0 + (buf ^ 1) * TM * P, idx, warp, lane);
+      idx = T + 2 < T1 ? row_index<S>(a, T + 2, warp, lane) : -1;
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int i = tid; i < TR * K; i += THREADS) {
-      const long long row = rows[i / K];
-      xs[i] = row >= 0 ? x[row * K + i % K] : 0.f;
-    }
-    __syncthreads();
-    float acc[RPT][2];
+    cp_async_commit();
+    const long long c = T / a.tpc;
+    const int r0 = (int)(T - c * a.tpc) * TM;
+    const int rows = min(TM, a.chunk - r0);
+    const long long e0 = c * a.chunk + r0;
+    const int slot = next_slot;
+    if (T + 1 < T1)
+      next_slot = clamp_rel(a.crel, (T + 1) / a.tpc, a.crel_hi);
+    if (slot != wslot) build_w<S>(a, slot, col0, ws);
+    wslot = slot;
+    float nv[MT][2];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) acc[i][0] = acc[i][1] = 0.f;
-    const float* xr = xs + (size_t)rg * RPT * K;
-    for (int k = 0; k < K; ++k) {
-      const float2 wv = *reinterpret_cast<const float2*>(ws + k * CT + 2 * tc);
+    for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float xv = xr[i * K + k];
-        acc[i][0] = __fadd_rn(acc[i][0], __fmul_rn(xv, wv.x));
-        acc[i][1] = __fadd_rn(acc[i][1], __fmul_rn(xv, wv.y));
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 16 * MT + mi * 16 + g + 8 * h;
+        nv[mi][h] = r < rows ? __ldg(a.norm + e0 + r) : 0.f;
       }
-    }
+    cp_async_wait<1>();
+    __syncthreads();  // this tile's rows and W visible to every warp
+    float acc[MT][NT][4];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const long long e = r0 + rg * RPT + i;
-      if (e >= hi) continue;
-      const float nv = norm[e];
-      if (col < N) out[e * N + col] = __fmul_rn(acc[i][0], nv);
-      if (col + 1 < N) out[e * N + col + 1] = __fmul_rn(acc[i][1], nv);
-    }
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mi][nj][i] = 0.f;
+    tile_products<S>(xs0 + buf * TM * P, ws, P, KP, wm, wn, lane, acc);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 16 * MT + mi * 16 + g + 8 * h;
+        if (r >= rows) continue;
+        float* o = a.out + (size_t)(e0 + r) * a.N;
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj) {
+          const int col = col0 + wn * 8 * NT + nj * 8 + 2 * t;
+          const float v0 = __fmul_rn(acc[mi][nj][2 * h], nv[mi][h]);
+          const float v1 = __fmul_rn(acc[mi][nj][2 * h + 1], nv[mi][h]);
+          if (!(a.N & 1) && col + 1 < a.N) {
+            *reinterpret_cast<float2*>(o + col) = make_float2(v0, v1);
+          } else {
+            if (col < a.N) o[col] = v0;
+            if (col + 1 < a.N) o[col + 1] = v1;
+          }
+        }
+      }
+    __syncthreads();  // every warp done with this buffer and with W
   }
 }
 
-template <bool BASIS>
-int launch(const float* x, int n_rows, const int* src, const float* w,
-           int bb, const float* ccoeff, const int* crel, const float* norm,
-           int n_chunks, int chunk, int split, int K, int N, float* out,
-           void* stream) {
-  if (n_chunks < 0 || chunk <= 0 || split <= 0 || K <= 0 || N <= 0 ||
-      n_rows <= 0 || (BASIS && bb <= 0))
-    return (int)cudaErrorInvalidValue;
-  if (n_chunks == 0) return 0;
-  // rows per split, a whole number of passes
-  const int rps = ((chunk + split - 1) / split + TR - 1) / TR * TR;
-  const size_t smem = smem_bytes(K);
-  cudaError_t err = cudaFuncSetAttribute(
-      msg_kernel<BASIS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)n_chunks * split, (N + CT - 1) / CT);
-  msg_kernel<BASIS><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, n_rows, src, w, bb, ccoeff, crel, norm, chunk, split, rps, K, N, out);
+// Per device: SM count, shared memory a block may opt into, and for each
+// kernel instantiation whether its attribute is set and its occupancy at
+// the shared-memory sizes seen so far.  Filled once, read every launch.
+struct Occupancy {
+  const void* fn;
+  size_t smem;
+  int blocks;
+};
+struct DeviceInfo {
+  int n_sm = 0, optin = 0;
+  std::vector<const void*> attr_set;
+  std::vector<Occupancy> occ;
+};
+std::mutex info_mu;
+DeviceInfo infos[MAX_DEVICES];
+
+// Fills the device's SM count and opt-in shared memory; for fn, sets its
+// shared-memory attribute once and returns its blocks per SM at smem bytes
+// (0 on error; 1 for fn == nullptr).
+int device_occupancy(int dev, const void* fn, int threads, size_t smem,
+                     int* n_sm, int* optin) {
+  std::lock_guard<std::mutex> lock(info_mu);
+  DeviceInfo& d = infos[dev];
+  if (d.n_sm == 0) {
+    if (cudaDeviceGetAttribute(&d.n_sm, cudaDevAttrMultiProcessorCount,
+                               dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&d.optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess) {
+      d.n_sm = 0;
+      return 0;
+    }
+  }
+  *n_sm = d.n_sm;
+  *optin = d.optin;
+  if (fn == nullptr) return 1;
+  bool set = false;
+  for (const void* f : d.attr_set) set |= f == fn;
+  if (!set) {
+    if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             d.optin) != cudaSuccess)
+      return 0;
+    d.attr_set.push_back(fn);
+  }
+  for (const Occupancy& o : d.occ)
+    if (o.fn == fn && o.smem == smem) return o.blocks;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                    smem) != cudaSuccess ||
+      blocks <= 0)
+    return 0;
+  d.occ.push_back({fn, smem, blocks});
+  return blocks;
+}
+
+template <class S>
+int run(Args a, int dev, int n_chunks, cudaStream_t stream) {
+  const void* fn = reinterpret_cast<const void*>(k5_msg_kernel<S>);
+  const size_t smem = S::smem(a.K);
+  int n_sm = 0, optin = 0;
+  const int occ = device_occupancy(dev, fn, S::THREADS, smem, &n_sm, &optin);
+  if (occ <= 0) return (int)cudaErrorInvalidValue;
+  a.tpc = (a.chunk + S::TM - 1) / S::TM;
+  const long long n_tiles = (long long)n_chunks * a.tpc;
+  const int n_ct = (a.N + S::CT - 1) / S::CT;
+  // one wave of blocks, each walking an equal share of the row tiles
+  const long long blocks = ((long long)n_sm * occ + n_ct - 1) / n_ct;
+  const long long n_rb = n_tiles < blocks ? n_tiles : blocks;
+  a.q = n_tiles / n_rb;
+  a.r = (int)(n_tiles % n_rb);
+  const dim3 grid((unsigned)n_ct, (unsigned)n_rb);
+  k5_msg_kernel<S><<<grid, S::THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The messages through w [.][K][N] (trans: [.][N][K]) and crel.
+int launch(Args a, int n_chunks, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  int n_sm = 0, optin = 0;
+  if (device_occupancy(dev, nullptr, 0, 0, &n_sm, &optin) <= 0)
+    return (int)cudaErrorInvalidValue;
+  a.P = pitch_of(a.K);
+  a.xvec = a.K % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
+  a.wvec = (a.trans ? a.K : a.N) % 4 == 0 &&
+           reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
+  // the big tile where it fits and gives every SM a tile
+  const long long big_tiles = (long long)n_chunks *
+                              ((a.chunk + Big::TM - 1) / Big::TM) *
+                              ((a.N + Big::CT - 1) / Big::CT);
+  if (Big::smem(a.K) <= (size_t)optin && big_tiles >= n_sm)
+    return run<Big>(a, dev, n_chunks, stream);
+  if (Small::smem(a.K) > (size_t)optin) return (int)cudaErrorInvalidValue;
+  return run<Small>(a, dev, n_chunks, stream);
+}
+
+bool bad_shape(int n_rows, int n_chunks, int chunk, int K, int N) {
+  return n_chunks < 0 || chunk <= 0 || K <= 0 || N <= 0 || n_rows <= 0;
 }
 
 }  // namespace
 
-// Dynamic shared memory one block needs at input width K.
+// Dynamic shared memory a launch needs at least at input width K (the
+// small tile's).
 extern "C" long long mpqe_rgcn_msg_smem_bytes(int K) {
-  return (long long)smem_bytes(K);
+  return (long long)Small::smem(K);
 }
 
 extern "C" long long mpqe_rgcn_msg_max_smem(int device) {
@@ -173,24 +608,73 @@ extern "C" long long mpqe_rgcn_msg_max_smem(int device) {
   return (long long)optin;
 }
 
-// K5a.  x [n_rows][K]; src [n_chunks * chunk] or null; basis [bb][K][N];
-// ccoeff [n_chunks][bb]; norm [n_chunks * chunk]; out [n_chunks * chunk][N].
-// Returns cudaGetLastError() after the launch (0 on success).
+// K5a.  x [n_rows][K]; src [n_chunks * chunk] or null; basis [bb][K][N]
+// ([bb][N][K] with w_transposed); coeff [n_rels][bb]; crel [n_chunks],
+// each chunk's relation (>= n_rels: padding, W = 0); scratch
+// [n_rels + 1][K][N] (as basis is stored), written for the slots that
+// occur; norm [n_chunks * chunk]; out [n_chunks * chunk][N].  Two
+// launches: the prologue, then the messages.  Returns cudaGetLastError()
+// after them (0 on success).
 extern "C" int mpqe_rgcn_msg_basis(const float* x, int n_rows, const int* src,
                                    const float* basis, int bb,
-                                   const float* ccoeff, const float* norm,
-                                   int n_chunks, int chunk, int split, int K,
-                                   int N, float* out, void* stream) {
-  return launch<true>(x, n_rows, src, basis, bb, ccoeff, nullptr, norm,
-                      n_chunks, chunk, split, K, N, out, stream);
+                                   const float* coeff, const int* crel,
+                                   int n_rels, float* scratch,
+                                   const float* norm, int n_chunks, int chunk,
+                                   int K, int N, int w_transposed, float* out,
+                                   void* stream) {
+  if (bad_shape(n_rows, n_chunks, chunk, K, N) || bb <= 0 || n_rels <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_chunks == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long mat = (long long)K * N;
+  const int vec = mat % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(basis) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
+  const dim3 grid((unsigned)((mat + 4 * CB_THREADS - 1) / (4 * CB_THREADS)),
+                  (unsigned)((n_chunks + CB_CHUNKS - 1) / CB_CHUNKS));
+  k5_combine_kernel<<<grid, CB_THREADS, 0, s>>>(basis, bb, coeff, crel,
+                                                n_chunks, n_rels, mat, vec,
+                                                scratch);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  Args a{};
+  a.x = x;
+  a.n_rows = n_rows;
+  a.src = src;
+  a.w = scratch;
+  a.crel = crel;
+  a.crel_hi = n_rels;
+  a.norm = norm;
+  a.chunk = chunk;
+  a.K = K;
+  a.N = N;
+  a.trans = w_transposed != 0;
+  a.out = out;
+  return launch(a, n_chunks, s);
 }
 
-// K5b.  As K5a with w_rel [R][K][N] and crel [n_chunks] in [0, R).
+// K5b.  As K5a with w_rel [R][K][N] ([R][N][K] with w_transposed) and
+// crel [n_chunks], clamped into [0, R); one launch.
 extern "C" int mpqe_rgcn_msg_wrel(const float* x, int n_rows, const int* src,
-                                  const float* w_rel, const int* crel,
+                                  const float* w_rel, int R, const int* crel,
                                   const float* norm, int n_chunks, int chunk,
-                                  int split, int K, int N, float* out,
+                                  int K, int N, int w_transposed, float* out,
                                   void* stream) {
-  return launch<false>(x, n_rows, src, w_rel, 0, nullptr, crel, norm,
-                       n_chunks, chunk, split, K, N, out, stream);
+  if (bad_shape(n_rows, n_chunks, chunk, K, N) || R <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_chunks == 0) return 0;
+  Args a{};
+  a.x = x;
+  a.n_rows = n_rows;
+  a.src = src;
+  a.w = w_rel;
+  a.crel = crel;
+  a.crel_hi = R - 1;
+  a.norm = norm;
+  a.chunk = chunk;
+  a.K = K;
+  a.N = N;
+  a.trans = w_transposed != 0;
+  a.out = out;
+  return launch(a, n_chunks, static_cast<cudaStream_t>(stream));
 }

@@ -16,14 +16,21 @@ kernel:
 Each wrapper launches ``csrc/rgcn_fused.cu`` (built at first use) for
 CUDA tensors, counted in its ``launches``, and runs its plain PyTorch
 version (:func:`messages_basis_reference`, :func:`messages_wrel_reference`)
-for CPU tensors only.  Both versions take the same f32 operations in the
-same order, one rounding each: ``W``'s terms b ascending, the product
-over k ascending, then ``* norm``.  The kernel fuses the gather
-``x[src]`` that the reference leaves to XLA.
+for CPU tensors only.  The plain versions take every f32 operation in one
+order, one rounding each: ``W``'s terms b ascending, the product over k
+ascending, then ``* norm``.  The kernel builds ``W`` and scales by
+``norm`` the same way but takes the product on the tensor cores in split
+TF32 (three TF32 products per f32 product, f32 sums in the tensor cores'
+order), so it is held to gates, not to the plain bits: <= 1e-4 of the
+plain version and <= 1e-5 of the f32 oracle :func:`_edge_messages_xla`
+(``chip_smoke.py`` phase 4; ``tools/k5_probe.py emulate`` has the
+emulated figures).  The kernel fuses the gather ``x[src]`` that the
+reference leaves to XLA.
 
 :class:`EdgeMessages` is the reference's ``custom_vjp`` (:268-360): the
-backward's ``dxs`` is the same kernel on ``g`` with the weights
-transposed, the per-chunk ``dW = xs^T (g * norm)`` is one ``torch.bmm``
+backward's ``dxs`` is the same kernel on ``g``, reading the weights
+transposed (``w_transposed``: no transposed copy), the per-chunk ``dW =
+xs^T (g * norm)`` is one ``torch.bmm``
 (the reference leaves it to XLA), ``dx`` goes through
 ``scatter_add_dense`` and ``dbasis`` / ``dcoeff`` / ``dw_rel`` follow by
 einsums and a segment sum over chunk relations.
@@ -48,9 +55,6 @@ from mpqe_tpu_torch.ops.edge_store import EdgeStore
 MAX_BASIS_VMEM_BYTES = 8 * 1024 * 1024
 
 DEFAULT_CHUNK = 512
-TARGET_BLOCKS = 264  # row splits until a launch has about 2 blocks per SM
-ROW_TILE = 32  # the kernel's rows per pass (csrc/rgcn_fused.cu TR)
-COL_TILE = 64  # the kernel's columns per block (CT)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -142,6 +146,13 @@ def messages_wrel_reference(x, src, w_rel, chunk_rel_clipped, norm,
 # The kernels
 # ----------------------------------------------------------------------
 _KERNEL = None
+# the shared memory a block may use, per device index, and the least a
+# launch needs, per input width: host calls made once, not every launch
+_MAX_SMEM: Dict[int, int] = {}
+_SMEM_NEED: Dict[int, int] = {}
+# K5a's combined weights, one buffer per (device, stream, shape): launches
+# on one stream use it in turn
+_SCRATCH: Dict[tuple, torch.Tensor] = {}
 
 
 def _kernel():
@@ -150,11 +161,11 @@ def _kernel():
     if _KERNEL is None:
         lib = cuda_build.load_library("rgcn_fused", ["rgcn_fused.cu"])
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mpqe_rgcn_msg_basis.argtypes = [p, i, p, p, i, p, p, i, i, i, i,
-                                            i, p, p]
+        lib.mpqe_rgcn_msg_basis.argtypes = [p, i, p, p, i, p, p, i, p, p, i,
+                                            i, i, i, i, p, p]
         lib.mpqe_rgcn_msg_basis.restype = i
-        lib.mpqe_rgcn_msg_wrel.argtypes = [p, i, p, p, p, p, i, i, i, i, i,
-                                           p, p]
+        lib.mpqe_rgcn_msg_wrel.argtypes = [p, i, p, p, i, p, p, i, i, i, i,
+                                           i, p, p]
         lib.mpqe_rgcn_msg_wrel.restype = i
         lib.mpqe_rgcn_msg_smem_bytes.argtypes = [i]
         lib.mpqe_rgcn_msg_smem_bytes.restype = ll
@@ -176,14 +187,15 @@ def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _prepare(x, src, w, norm, chunk: int):
-    """Checks common to both kernels; returns (lib, out, n_chunks, split,
-    K, N)."""
+def _prepare(x, src, w, norm, chunk: int, w_transposed: bool):
+    """Checks common to both kernels; returns (lib, out, n_chunks, K, N)."""
     dev = x.device
     if x.dim() != 2 or w.dim() != 3:
-        raise ValueError("x must be [rows, K] and the weights [*, K, N]")
+        raise ValueError("x must be [rows, K] and the weights [*, K, N] "
+                         "([*, N, K] with w_transposed)")
     E = norm.shape[0]
-    K, N = w.shape[1], w.shape[2]
+    K, N = (w.shape[2], w.shape[1]) if w_transposed else (w.shape[1],
+                                                          w.shape[2])
     if chunk <= 0 or E % chunk:
         raise ValueError(f"{E} edges are not a whole number of chunks of "
                          f"{chunk}")
@@ -198,45 +210,75 @@ def _prepare(x, src, w, norm, chunk: int):
     if x.shape[0] == 0:
         raise ValueError("x has no rows")
     lib = _kernel()
-    with torch.cuda.device(dev):
-        have = lib.mpqe_rgcn_msg_max_smem(torch.cuda.current_device())
-    if lib.mpqe_rgcn_msg_smem_bytes(K) > have:
-        raise ValueError(f"input width {K} needs more shared memory per "
-                         f"block than the card's {have} bytes")
-    n_chunks = E // chunk
-    tiles = max(n_chunks * -(-N // COL_TILE), 1)
-    split = max(1, min(-(-TARGET_BLOCKS // tiles), -(-chunk // ROW_TILE)))
+    have = _MAX_SMEM.get(dev.index)
+    if have is None:
+        have = _MAX_SMEM[dev.index] = lib.mpqe_rgcn_msg_max_smem(dev.index)
+    need = _SMEM_NEED.get(K)
+    if need is None:
+        need = _SMEM_NEED[K] = lib.mpqe_rgcn_msg_smem_bytes(K)
+    if need > have:
+        raise ValueError(f"input width {K} needs {need} bytes of shared "
+                         f"memory per block, over the card's {have} (K5 "
+                         "takes K <= 592 on an H100)")
     out = torch.empty((E, N), dtype=torch.float32, device=dev)
-    return lib, out, n_chunks, split, K, N
+    return lib, out, E // chunk, K, N
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _chunk_rel_on(chunk_rel: torch.Tensor, n_chunks: int,
+                  dev) -> torch.Tensor:
+    """``chunk_rel [n_chunks]`` as the kernel reads it: int32, contiguous
+    (the kernel clamps it); no copy when it already is."""
+    if chunk_rel.device != dev or tuple(chunk_rel.shape) != (n_chunks,):
+        raise ValueError(f"chunk_rel must be [{n_chunks}] on {dev}")
+    if chunk_rel.dtype == torch.int32 and chunk_rel.is_contiguous():
+        return chunk_rel
+    return chunk_rel.to(torch.int32).contiguous()
+
+
 def messages_basis(x: torch.Tensor, src: Optional[torch.Tensor],
-                   basis: torch.Tensor, chunk_coeff: torch.Tensor,
-                   norm: torch.Tensor, chunk: int) -> torch.Tensor:
+                   basis: torch.Tensor, coeff: torch.Tensor,
+                   chunk_rel: torch.Tensor, n_rels: int,
+                   norm: torch.Tensor, chunk: int,
+                   w_transposed: bool = False) -> torch.Tensor:
     """K5a: per-edge messages ``[E_pad, N]`` f32 of relation chunks with
-    the pad-masked ``chunk_coeff [n_chunks, Bb]`` and ``basis [Bb, K,
-    N]``; ``src`` ``[E_pad]`` int32 gathers the rows of ``x`` (``None``:
-    ``x`` holds one row per edge).  CUDA tensors: the kernel, counted in
-    ``messages_basis.launches``; CPU tensors: the plain version."""
+    ``basis [Bb, K, N]`` (``w_transposed``: ``basis [Bb, N, K]``, read as
+    its transpose) and ``coeff [n_rels, Bb]``: chunk c takes the
+    coefficients of relation ``chunk_rel[c]`` (clamped below at 0; ``>=
+    n_rels``: a padding chunk, zero coefficients), as
+    :func:`_masked_chunk_coeff` gives them.  ``src`` ``[E_pad]`` int32
+    gathers the rows of ``x`` (``None``: ``x`` holds one row per edge).
+    CUDA tensors: the kernel, counted in ``messages_basis.launches``; its
+    prologue builds each relation's W once (and a zero W for padding) into
+    a buffer of ``(n_rels + 1) K N`` floats kept per device and stream.
+    CPU tensors: the plain version on the masked coefficients."""
     if x.device.type == "cpu":
-        return messages_basis_reference(x, src, basis, chunk_coeff, norm,
-                                        chunk)
+        return messages_basis_reference(
+            x, src, basis.transpose(1, 2) if w_transposed else basis,
+            _masked_chunk_coeff(coeff, chunk_rel, n_rels), norm, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"messages_basis: unsupported device {x.device}")
-    lib, out, n_chunks, split, K, N = _prepare(x, src, basis, norm, chunk)
+    lib, out, n_chunks, K, N = _prepare(x, src, basis, norm, chunk,
+                                        w_transposed)
     bb = basis.shape[0]
-    _check("chunk_coeff", chunk_coeff, torch.float32, (n_chunks, bb),
-           x.device)
+    _check("coeff", coeff, torch.float32, (n_rels, bb), x.device)
+    crel = _chunk_rel_on(chunk_rel, n_chunks, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    shape = (n_rels + 1,) + tuple(basis.shape[1:])
+    key = (x.device.index, stream, shape)
+    scratch = _SCRATCH.get(key)
+    if scratch is None:
+        scratch = _SCRATCH[key] = torch.empty(shape, dtype=torch.float32,
+                                              device=x.device)
     with torch.cuda.device(x.device):
         err = lib.mpqe_rgcn_msg_basis(
             x.data_ptr(), x.shape[0], _ptr(src), basis.data_ptr(), bb,
-            chunk_coeff.data_ptr(), norm.data_ptr(), n_chunks, chunk, split,
-            K, N, out.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            coeff.data_ptr(), crel.data_ptr(), n_rels, scratch.data_ptr(),
+            norm.data_ptr(), n_chunks, chunk, K, N, int(w_transposed),
+            out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K5a kernel launch failed: cudaError {err}")
     messages_basis.launches += 1
@@ -248,27 +290,28 @@ messages_basis.launches = 0
 
 def messages_wrel(x: torch.Tensor, src: Optional[torch.Tensor],
                   w_rel: torch.Tensor, chunk_rel_clipped: torch.Tensor,
-                  norm: torch.Tensor, chunk: int) -> torch.Tensor:
+                  norm: torch.Tensor, chunk: int,
+                  w_transposed: bool = False) -> torch.Tensor:
     """K5b: per-edge messages ``[E_pad, N]`` f32 through each chunk's
-    ``w_rel [R, K, N]`` block (``chunk_rel_clipped [n_chunks]``, clamped
-    into ``[0, R)`` here too).  CUDA tensors: the kernel, counted in
+    ``w_rel [R, K, N]`` block (``w_transposed``: ``w_rel [R, N, K]``, read
+    as its transpose; ``chunk_rel_clipped [n_chunks]``, clamped into ``[0,
+    R)`` by the kernel too).  CUDA tensors: the kernel, counted in
     ``messages_wrel.launches``; CPU tensors: the plain version."""
     if x.device.type == "cpu":
-        return messages_wrel_reference(x, src, w_rel, chunk_rel_clipped,
-                                       norm, chunk)
+        return messages_wrel_reference(
+            x, src, w_rel.transpose(1, 2) if w_transposed else w_rel,
+            chunk_rel_clipped, norm, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"messages_wrel: unsupported device {x.device}")
-    lib, out, n_chunks, split, K, N = _prepare(x, src, w_rel, norm, chunk)
-    if chunk_rel_clipped.device != x.device or \
-            tuple(chunk_rel_clipped.shape) != (n_chunks,):
-        raise ValueError(f"chunk_rel must be [{n_chunks}] on {x.device}")
-    crel = chunk_rel_clipped.to(torch.int32).clamp(
-        0, w_rel.shape[0] - 1).contiguous()
+    lib, out, n_chunks, K, N = _prepare(x, src, w_rel, norm, chunk,
+                                        w_transposed)
+    crel = _chunk_rel_on(chunk_rel_clipped, n_chunks, x.device)
     with torch.cuda.device(x.device):
         err = lib.mpqe_rgcn_msg_wrel(
             x.data_ptr(), x.shape[0], _ptr(src), w_rel.data_ptr(),
-            crel.data_ptr(), norm.data_ptr(), n_chunks, chunk, split, K, N,
-            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+            w_rel.shape[0], crel.data_ptr(), norm.data_ptr(), n_chunks,
+            chunk, K, N, int(w_transposed), out.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K5b kernel launch failed: cudaError {err}")
     messages_wrel.launches += 1
@@ -311,10 +354,10 @@ class EdgeMessages(torch.autograd.Function):
         ctx.save_for_backward(x, basis, coeff, src, norm, chunk_rel)
         x = x.contiguous()
         if coeff is None:
-            return messages_wrel(x, src, basis.contiguous(),
-                                 chunk_rel.clamp(0, n_rels - 1), norm, chunk)
-        ce = _masked_chunk_coeff(coeff, chunk_rel, n_rels).contiguous()
-        return messages_basis(x, src, basis.contiguous(), ce, norm, chunk)
+            return messages_wrel(x, src, basis.contiguous(), chunk_rel, norm,
+                                 chunk)
+        return messages_basis(x, src, basis.contiguous(), coeff.contiguous(),
+                              chunk_rel, n_rels, norm, chunk)
 
     @staticmethod
     def backward(ctx, g):
@@ -324,13 +367,13 @@ class EdgeMessages(torch.autograd.Function):
         src_cl = src.long().clamp(0, n - 1)
         g = g.to(torch.float32).contiguous()
         rel_cl = chunk_rel.long().clamp(0, n_rels - 1)
-        w_t = basis.transpose(1, 2).contiguous()
+        w = basis.contiguous()
         if coeff is None:
-            dxs = messages_wrel(g, None, w_t, rel_cl.to(torch.int32), norm,
-                                chunk)
+            dxs = messages_wrel(g, None, w, chunk_rel, norm, chunk,
+                                w_transposed=True)
         else:
-            ce = _masked_chunk_coeff(coeff, chunk_rel, n_rels).contiguous()
-            dxs = messages_basis(g, None, w_t, ce, norm, chunk)
+            dxs = messages_basis(g, None, w, coeff.contiguous(), chunk_rel,
+                                 n_rels, norm, chunk, w_transposed=True)
         dx = embed_ops.scatter_add_dense(n, src_cl, dxs.to(x.dtype))
         xs_c = x[src_cl].reshape(-1, chunk, d_in)
         gn_c = (g * norm[:, None]).reshape(-1, chunk, g.shape[-1])
@@ -341,6 +384,7 @@ class EdgeMessages(torch.autograd.Function):
                                              rel_cl, basis.shape[0])
             return dx, dw_rel.to(basis.dtype), None, None, None, None, \
                 None, None
+        ce = _masked_chunk_coeff(coeff, chunk_rel, n_rels)
         dbasis = torch.einsum("cb,cdo->bdo", ce, dw_c)
         dcoeff_c = torch.einsum("cdo,bdo->cb", dw_c, basis)
         dcoeff = segment_ops.segment_sum(dcoeff_c * valid[:, None], rel_cl,

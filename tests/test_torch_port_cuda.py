@@ -9,9 +9,11 @@ runs there without the repository's conftest::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
 Tolerance: each kernel output vs its plain version max|diff| / max|ref|
-<= 1e-4 (for K2 per output leaf); both sum in the same order, so the
-expected difference is 0.  K6a and K6b take their products on the
-tensor cores and are held to the stated bounds of
+<= 1e-4 (for K2 per output leaf); where both sum in the same order the
+expected difference is 0.  K5a and K5b take their products on the tensor
+cores in split TF32 (expected ~2e-6), each with a negative control that
+fails the gate and a bit-equal repeat.  K6a and K6b take their products
+on the tensor cores and are held to the stated bounds of
 ``ops/rgcn_blocked.py`` (``k6a_gate``, ``k6b_gate``) instead.  K4b's
 maxima are exact: equal, NaN included; K8 is held to be equal.
 """
@@ -316,10 +318,52 @@ def _sparse_layouts(d, nb, dev, seed=0):
     return out
 
 
+def _k5_check(fn, ref, xin, sin, w, kargs, c, norm, chunk, bad_c=None,
+              w_transposed=False):
+    """K5 on one case: one launch counted, <= 1e-4 of its plain version,
+    a repeat launch bit-equal, and (``bad_c``: the chunk coefficients or
+    relations with one chunk changed) the plain version on ``bad_c``
+    failing the gate.  ``kargs``: the kernel's arguments between the
+    weights and norm (K5a: coeff, chunk_rel, n_rels; K5b: chunk_rel);
+    ``c``: the plain version's (per-chunk coefficients or relations).  The
+    plain version with ``w_transposed`` runs on a transposed copy of the
+    weights."""
+    before = fn.launches
+    got = fn(xin, sin, w, *kargs, norm, chunk, w_transposed=w_transposed)
+    again = fn(xin, sin, w, *kargs, norm, chunk, w_transposed=w_transposed)
+    w_plain = w.transpose(1, 2).contiguous() if w_transposed else w
+    want = ref(xin, sin, w_plain, c, norm, chunk)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert got.shape == want.shape
+    assert _rel(got, want) <= 1e-4, (fn.__name__, _rel(got, want))
+    assert torch.equal(got, again), fn.__name__
+    if bad_c is not None:
+        cut = ref(xin, sin, w_plain, bad_c, norm, chunk)
+        assert _rel(got, cut) > 1e-4, (fn.__name__, _rel(got, cut))
+
+
+def _k5_control(c, norm, chunk, n_rels):
+    """``c`` with the first chunk that has a real edge changed: K5a's
+    coefficient row negated and shifted, K5b's relation the next one."""
+    k = int(torch.nonzero((norm.view(-1, chunk) != 0).any(1))[0, 0])
+    bad = c.clone()
+    if c.is_floating_point():
+        bad[k] = 1.0 - 2.0 * bad[k]
+    else:
+        bad[k] = (bad[k] + 1) % n_rels
+    return bad
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,nb", [(128, 16), (16, 4)],
                          ids=["flagship", "narrow"])
 def test_cuda_k5_match_plain_versions(d, nb):
+    """K5a and K5b (tensor cores, split TF32) within 1e-4 of their plain
+    versions on a template batch and a general graph, gathering and on
+    one row per edge, with the weights read as stored and transposed; a
+    repeat launch gives the same bits; the negative control (one chunk's
+    coefficients or relation changed in the plain version) fails."""
     from mpqe_tpu_torch.ops import rgcn_fused as tpr
 
     dev = _cuda()
@@ -336,17 +380,72 @@ def test_cuda_k5_match_plain_versions(d, nb):
         rows = torch.randn((src.shape[0], d), device=dev, generator=gen)
         ce = tpr._masked_chunk_coeff(coeff, crel, N_RELS).contiguous()
         rc = crel.clamp(0, N_RELS - 1)
-        for fn, ref, w, c in (
-                (tpr.messages_basis, tpr.messages_basis_reference, basis, ce),
-                (tpr.messages_wrel, tpr.messages_wrel_reference, w_rel, rc)):
+        for fn, ref, w, kargs, c in (
+                (tpr.messages_basis, tpr.messages_basis_reference, basis,
+                 (coeff, crel, N_RELS), ce),
+                (tpr.messages_wrel, tpr.messages_wrel_reference, w_rel,
+                 (crel,), rc)):
+            bad = _k5_control(c, norm, chunk, N_RELS)
             for xin, sin in ((x, src), (rows, None)):
-                before = fn.launches
-                got = fn(xin, sin, w, c, norm, chunk)
-                want = ref(xin, sin, w, c, norm, chunk)
-                torch.cuda.synchronize()
-                assert fn.launches == before + 1
-                assert _rel(got, want) <= 1e-4, (name, fn.__name__,
-                                                  _rel(got, want))
+                _k5_check(fn, ref, xin, sin, w, kargs, c, norm, chunk, bad)
+            _k5_check(fn, ref, rows, None, w, kargs, c, norm, chunk, bad,
+                      w_transposed=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,n_chunks", [(8, 5), (512, 3), (20, 7),
+                                            (100, 2)])
+@pytest.mark.parametrize("d_in,d_out", [(128, 128), (16, 24), (36, 20),
+                                        (13, 7)])
+def test_cuda_k5_ragged_cases(chunk, n_chunks, d_in, d_out):
+    """K5 at shapes the train path does not reach: chunks that are not a
+    whole number of row tiles (8, 20, 100) and of 512 rows, widths that
+    are not multiples of 16 (or of 4: 13, 7), out-of-range src on both
+    sides, padding chunks (K5a: chunk_rel = n_rels, zero coefficients),
+    runs of equal relations, changes between them and runs of one
+    relation that are not adjacent, src = None, and the transposed
+    weights; each <= 1e-4 of its plain version, repeats bit-equal."""
+    from mpqe_tpu_torch.ops import rgcn_fused as tpr
+
+    dev = _cuda()
+    rng = np.random.default_rng(chunk * 131 + d_in)
+    R, nb, n = 6, 3, 50
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(dev)
+
+    E = chunk * n_chunks
+    crel = rng.integers(0, R, n_chunks).astype(np.int32)
+    crel[1::3] = crel[0::3][:len(crel[1::3])]  # runs of one relation
+    if n_chunks >= 5:  # relation a, a, b, a: a run that is not adjacent
+        crel[2], crel[3] = (crel[0] + 1) % R, crel[0]
+    crel[-1] = R  # a padding chunk
+    crel, src = t(crel), t(rng.integers(-3, n + 3, E).astype(np.int32))
+    norm = rng.uniform(0.5, 1.5, E).astype(np.float32)
+    norm[-chunk:] = 0.0
+    norm = t(norm)
+    basis = t((rng.normal(size=(nb, d_in, d_out)) / d_in ** 0.5).astype(
+        np.float32))
+    coeff = t(rng.normal(size=(R, nb)).astype(np.float32))
+    w_rel = torch.einsum("rb,bio->rio", coeff, basis).contiguous()
+    ce = tpr._masked_chunk_coeff(coeff, crel, R).contiguous()
+    rc = crel.clamp(0, R - 1)
+    x = t(rng.normal(size=(n, d_in)).astype(np.float32))
+    rows = t(rng.normal(size=(E, d_in)).astype(np.float32))
+    g = t(rng.normal(size=(E, d_out)).astype(np.float32))
+    for fn, ref, w, kargs, c in (
+            (tpr.messages_basis, tpr.messages_basis_reference, basis,
+             (coeff, crel, R), ce),
+            (tpr.messages_wrel, tpr.messages_wrel_reference, w_rel, (crel,),
+             rc)):
+        bad = _k5_control(c, norm, chunk, R)
+        _k5_check(fn, ref, x, src, w, kargs, c, norm, chunk, bad)
+        _k5_check(fn, ref, rows, None, w, kargs, c, norm, chunk, bad)
+        _k5_check(fn, ref, g, None, w, kargs, c, norm, chunk, bad,
+                  w_transposed=True)
+    # a padding chunk's messages are 0 (K5a: W = 0; K5b: norm = 0)
+    assert not tpr.messages_basis(x, src, basis, coeff, crel, R, norm,
+                                  chunk)[-chunk:].any()
 
 
 @pytest.mark.cuda
@@ -411,20 +510,32 @@ def test_cuda_k5_k6_wrappers_check_their_inputs():
     x = torch.zeros((32, d), device=dev)
     src = torch.zeros((16,), dtype=torch.int32, device=dev)
     basis = torch.zeros((nb, d, d), device=dev)
-    ce = torch.zeros((2, nb), device=dev)
+    coeff = torch.zeros((3, nb), device=dev)
+    crel = torch.zeros(2, dtype=torch.int32, device=dev)
     norm = torch.zeros((16,), device=dev)
     bad = [
-        (x.double(), src, basis, ce, norm),  # wrong dtype
-        (x, src.long(), basis, ce, norm),
-        (x, src, basis, ce[:1], norm),  # wrong shape
-        (x, src, basis.transpose(1, 2), ce, norm),  # not contiguous
-        (x, src.cpu(), basis, ce, norm),  # mixed devices
+        (x.double(), src, basis, coeff, crel, norm),  # wrong dtype
+        (x, src.long(), basis, coeff, crel, norm),
+        (x, src, basis, coeff.double(), crel, norm),
+        (x, src, basis, coeff[:2], crel, norm),  # wrong shape
+        (x, src, basis, coeff, crel[:1], norm),
+        (x, src, basis.transpose(1, 2), coeff, crel, norm),  # not contiguous
+        (x, src.cpu(), basis, coeff, crel, norm),  # mixed devices
+        (x, src, basis, coeff, crel.cpu(), norm),
     ]
     for args in bad:
         with pytest.raises(ValueError):
-            tpr.messages_basis(*args, chunk)
+            tpr.messages_basis(*args[:5], 3, args[5], chunk)
     with pytest.raises(ValueError):  # 16 edges are not chunks of 5
-        tpr.messages_basis(x, src, basis, ce, norm, 5)
+        tpr.messages_basis(x, src, basis, coeff, crel, 3, norm, 5)
+    with pytest.raises(ValueError):  # transposed: [nb, N, K], K = 8 != 16
+        tpr.messages_basis(x, src, basis[:, :, :8].contiguous(), coeff, crel,
+                           3, norm, chunk, w_transposed=True)
+    wide = torch.zeros((1, 600, 8), device=dev)  # K = 600 > 592
+    with pytest.raises(ValueError):
+        tpr.messages_wrel(torch.zeros((16, 600), device=dev), None, wide,
+                          torch.zeros(2, dtype=torch.int32, device=dev),
+                          norm, chunk)
     lay = tprb.layout_on({
         "src_local": np.zeros(16, np.int32), "dst_local": np.zeros(16, np.int32),
         "rel": np.zeros(16, np.int32), "norm": np.zeros(16, np.float32),

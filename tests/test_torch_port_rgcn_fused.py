@@ -102,7 +102,8 @@ def test_plain_k5_matches_pallas_interpret(kind, gather):
             want = jpr._messages_pallas_basis(
                 jnp.asarray(xs), lp["basis"], jnp.asarray(ce),
                 jnp.asarray(norm), chunk, interpret=True)
-            args = (_t(np.asarray(lp["basis"])), _t(ce), _t(norm), chunk)
+            args = (_t(np.asarray(lp["basis"])), _t(np.asarray(lp["coeff"])),
+                    _t(crel), N_RELS, _t(norm), chunk)
             fn = tpr.messages_basis
         else:
             rc = np.clip(crel, 0, N_RELS - 1)
@@ -258,3 +259,101 @@ def test_kernel_fused_batch_loss_matches_jax(structure, nb):
         gr = got[n]
         gr = np.zeros_like(w) if gr is None else gr.numpy()
         assert np.abs(gr - w).max() <= 1e-3 * scale, (structure, n)
+
+
+# ------------------------------------------- K5's split-TF32 product (CPU)
+# The kernel takes its products on the tensor cores in split TF32
+# (csrc/rgcn_fused.cu): held to the plain version within 1e-4 and to the
+# f32 oracle within 1e-5 (chip_smoke.py TOL_PLAIN, TOL_ORACLE).  Here the
+# product is emulated in the kernel's order (tools/k5_probe.py: TF32 by
+# bit masking, per 8-deep k step the three passes' exact sums each added
+# to the accumulator and rounded toward zero) to show that three passes
+# meet both gates and that one pass, a kernel without the correction
+# products, fails both.
+K5_TOL_PLAIN, K5_TOL_ORACLE = 1e-4, 1e-5
+
+
+def test_k5_tf32_rounds_to_nearest_ties_away_and_truncates():
+    from mpqe_tpu_torch.tools import k5_probe
+
+    ulp = 2.0 ** -10  # TF32 keeps 10 mantissa bits
+    vals = torch.tensor([1.0, 1 + ulp / 2, 1 + ulp / 4, 1 + 3 * ulp / 4,
+                         -(1 + ulp / 2), 3.0 + 2.0 ** -10, 0.0, -0.0])
+    want = torch.tensor([1.0, 1 + ulp, 1.0, 1 + ulp, -(1 + ulp),
+                         3.0 + 2.0 ** -9, 0.0, -0.0])
+    got = k5_probe.tf32(vals)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    assert torch.equal(k5_probe.tf32_trunc(vals), torch.tensor(
+        [1.0, 1.0, 1.0, 1.0, -1.0, 3.0, 0.0, -0.0]))
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=1000).astype(np.float32))
+    hi = k5_probe.tf32(x)
+    lo = k5_probe.tf32_trunc(x - hi)  # the kernel's lo, as read
+    assert torch.equal(hi, k5_probe.tf32(hi))  # already TF32
+    assert torch.equal(lo, k5_probe.tf32(lo))
+    assert ((x - hi).abs() <= x.abs() * 2.0 ** -11).all()
+    assert ((x - hi - lo).abs() <= x.abs() * 2.0 ** -21).all()
+
+
+@pytest.mark.parametrize("layout", ["template", "general"])
+@pytest.mark.parametrize("d", [128, 16])
+def test_k5_split_tf32_emulation_meets_the_gates(d, layout):
+    from mpqe_tpu_torch.tools import k5_probe
+
+    for seed in range(3):
+        for kid, errs in zip(("K5a", "K5b"),
+                             k5_probe.emulate_case(d, layout, seed)):
+            case = (kid, seed, errs)
+            assert errs["3x_vs_oracle"] <= K5_TOL_ORACLE, case
+            assert errs["3x_vs_plain"] <= K5_TOL_PLAIN, case
+            # the negative control: one TF32 pass fails both gates
+            assert errs["1x_vs_oracle"] > K5_TOL_ORACLE, case
+            assert errs["1x_vs_plain"] > K5_TOL_PLAIN, case
+
+
+@pytest.mark.parametrize("kind", ["K5a", "K5b"])
+def test_k5_transposed_weights_on_cpu_equal_a_transposed_copy(kind):
+    # w_transposed reads [*, N, K] weights as their transpose (the
+    # backward's dxs): on the CPU the plain version on the same values
+    rng = np.random.default_rng(11)
+    n, chunk, d_in, d_out = 20, 8, 6, 5
+    x = _t(rng.normal(size=(n, d_out)).astype(np.float32))
+    src = _t(rng.integers(-2, n + 2, 3 * chunk).astype(np.int32))
+    norm = _t(rng.uniform(0.5, 1.5, 3 * chunk).astype(np.float32))
+    w = _t(rng.normal(size=(4, d_in, d_out)).astype(np.float32))
+    crel = _t(np.array([0, 3, 1], np.int32))
+    if kind == "K5a":
+        args = (_t(rng.normal(size=(4, 4)).astype(np.float32)), crel, 4)
+        fn = tpr.messages_basis
+    else:
+        args = (crel,)
+        fn = tpr.messages_wrel
+    got = fn(x, src, w, *args, norm, chunk, w_transposed=True)
+    want = fn(x, src, w.transpose(1, 2).contiguous(), *args, norm, chunk)
+    assert got.shape == (3 * chunk, d_in)
+    assert torch.equal(got, want)
+
+
+def test_k5a_takes_each_chunks_relation_coefficients():
+    # chunk c's W combines the basis with coeff[chunk_rel[c]]: runs of one
+    # relation that are not adjacent, a negative id (clamped to 0) and a
+    # padding chunk (chunk_rel >= n_rels: W = 0), against an f64 product
+    rng = np.random.default_rng(12)
+    n, chunk, d_in, d_out, R, nb = 30, 8, 6, 5, 4, 3
+    crel = np.array([2, 2, 1, 2, -1, R, R + 3], np.int32)
+    E = chunk * len(crel)
+    x = rng.normal(size=(n, d_in)).astype(np.float32)
+    src = rng.integers(0, n, E).astype(np.int32)
+    norm = rng.uniform(0.5, 1.5, E).astype(np.float32)
+    basis = rng.normal(size=(nb, d_in, d_out)).astype(np.float32)
+    coeff = rng.normal(size=(R, nb)).astype(np.float32)
+    got = tpr.messages_basis(_t(x), _t(src), _t(basis), _t(coeff), _t(crel),
+                             R, _t(norm), chunk).numpy()
+    for c, r in enumerate(crel):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        w = (np.einsum("b,bio->io", coeff[max(r, 0)].astype(np.float64),
+                       basis) if r < R else np.zeros((d_in, d_out)))
+        want = (x[src[rows]].astype(np.float64) @ w) * norm[rows, None]
+        assert np.abs(got[rows] - want).max() <= 1e-5 * max(
+            1.0, np.abs(want).max()), c
