@@ -1,402 +1,541 @@
-// Per-query-relation fused TGT forward (K3) for Hopper (sm_90a).
+// Per-query-relation fused TGT forward (K3) for Hopper (sm_90a), with its
+// products on the tensor cores.
 //
 // Replaces the Pallas TPU kernel mpqe_tpu/ops/pallas_fused_fwd.py
 // fused_tgt_forward_multi (:335; kernel body _make_multi_kernel :230).
 // It computes the same function, with the same bf16 rounding points:
-//   * anchor rows  x = bf16(ent[node_entity[:, s]])          (gathered here)
+//   * anchor rows  x = bf16(ent[node_entity[:, s]])   (gathered here, ids
+//     clamped as the reference's gather)
 //   * layer-0 variable slots are never materialized: their self term is
 //     the row bf16(var @ w_self_0)[mode] and their message source the
-//     rows bf16(var @ basis_0[b])[mode] (tables prepared on the host)
-//   * self term    x_bf16 @ bf16(w_self), f32 sums, + bias (f32)
+//     rows bf16(var @ basis_0[b])[mode] (tables prepared on the host; an
+//     out-of-range mode selects a zero row)
+//   * self term    x_bf16 @ bf16(w_self) (f32 sums) + bias (f32)
 //   * messages     h_b = x_src_bf16 @ bf16(basis_b) (f32 sums),
-//                  msg = (sum_b coeff[rel_q, b] * h_b) * norm_q,
-//                  summed per destination slot in the host's edge order
+//                  msg = (sum_b coeff[rel_q, b] * h_b) * norm_q (a relation
+//                  out of range gives coefficient 0), summed per
+//                  destination slot in the plan's edge order
 //   * y = (self + bias) + messages;  x = bf16(relu(y)) between layers,
 //     f32 y without ReLU after the last layer.
-// Every f32 sum runs in one fixed order (k ascending, bases ascending,
-// edges in descriptor order), one rounding per step: the plain version
-// in ops/fused_fwd.py runs the same order, so the two agree bit for bit.
-// (A product of two bf16 values is exact in f32, so fmaf equals the
-// plain version's multiply-then-add.)  With tensor cores the sum order
-// inside an MMA is the hardware's, and three layers of bf16 re-rounding
-// amplify that last-bit noise past 1e-4 of the output at B = 1000.
 //
-// Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s f32):
-// at the serving shape (B = 256 queries, d = 128, 16 bases, 266
-// relations) one launch needs at most ~0.6 GFLOP and reads ~2 MB (the
-// bf16 bases dominate), so the card could finish it in under a
-// microsecond (PERF.md has the per-structure bounds and times).  This
-// design is far from that bound, on purpose for now: it runs the
-// products on the f32 FMA pipes (~1/15 of the bf16 tensor rate) so that
-// its sums have a fixed order, its tile of TQ = 8 queries gives only 32
-// CTAs at B = 256 (a quarter of the 132 SMs), and each CTA streams the
-// layer's weights (512 KB of bases) from L2.  What it does about the
-// traffic: one CTA per tile holds the tile's live slots (f32 copies of
-// the bf16 activations) and message sums in shared memory for the whole
-// layer chain, so only the gathered anchor rows, the ids and the weights
-// are read and only the target rows are written; weight tiles of KT rows
-// are staged in shared memory with 16-byte cp.async, double-buffered, so
-// a tile loads while the previous one is used.
+// Numerics.  The K-deep sums inside the products x @ w_self and x @ basis_b
+// run on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate) in
+// the hardware's order.  Every other step keeps the plain version's order
+// and rounding points (ops/fused_fwd.py fused_tgt_forward_multi_reference):
+// msg starts at coeff_0 h_0 and adds coeff_b h_b for b ascending, each
+// product and add rounded once (__fmul_rn / __fadd_rn), then * norm; the
+// messages of one destination add up in the plan's edge order; (self +
+// bias) + that sum.  So kernel and plain version differ only where a
+// product's sum order moves its last bits, and a bf16 rounding between
+// layers can turn that into a one-step flip: they are held to
+// ops/fused_fwd.py multi_gate (K1's chain_gate on the output, and each
+// layer against the plain layer from the kernel's own inputs), not to 0.  No float atomics:
+// a repeat launch gives the same bits.
 //
-// The padded width DP (a multiple of 128) is a runtime argument: every
-// thread owns one column pair of each 128-wide column chunk, and the
-// chunks run one after another.  Shared memory grows with DP
-// (mpqe_fused_multi_smem_bytes), which bounds the widths one launch takes.
+// Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16): at the serving
+// shape (B = 256 queries, d = 128, 16 bases, 266 relations) a call needs
+// ~0.1-0.6 GFLOP and reads ~0.7-2 MB (the bf16 bases dominate), under a
+// few microseconds (chip_smoke.py k3_work; PERF.md has the per-structure
+// bounds and times).  What the design does:
+//   * one launch per layer, each block owning TQ = 16 queries and a
+//     CW = 16-column slice of the layer's output: it multiplies its rows
+//     by that slice of w_self and of every basis, so every sum of the
+//     basis combination (over b) and of the destination sums stays inside
+//     the block, and a layer fills d_pad / 16 x ceil(B / 16) blocks (128
+//     at B = 256, d = 128, for the card's 132 SMs).  Layers meet through
+//     bf16 activations in a scratch buffer ([2][slot][B][d_pad], the
+//     parities alternating, so no layer overwrites rows that blocks of the
+//     same layer still read), 0.25 MB a layer at B = 256, L2-resident;
+//   * the block's x rows (one per slot it multiplies) sit in shared memory
+//     as bf16 for the whole layer; the weight slices stream through it
+//     in stages of KT = 64 rows by 16-byte cp.async, double-buffered, in
+//     one pipeline over the layer's passes (the self product, then the
+//     bases in chunks of up to 8: 128 columns a stage);
+//   * each warp takes (source slot, basis) jobs of 16 x 16 outputs, A
+//     fragments by ldmatrix, B fragments by ldmatrix.trans from the
+//     staged [k][n] tile; at a pass's end the sums go to shared memory
+//     (f32), and each thread, owning one (query, column) cell, adds the
+//     chunk's bases into its edges' messages in ascending b;
+//   * host work per call is the L launches: each structure's descriptor
+//     is parsed once into a Plan the caller keeps, and the shared-memory
+//     attribute is set only when a plan needs more than the device has
+//     been given so far.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int CW = 128;                  // output columns per chunk
-constexpr int NP = CW / 2;               // threads per row group (column pairs)
-constexpr int RT = 2;                    // query rows per thread
-constexpr int TQ = (THREADS / NP) * RT;  // query rows per CTA
-constexpr int BC = 4;                    // bases per register chunk
-constexpr int KT = 32;                   // weight rows per shared-memory tile
-constexpr int PITCH = BC * CW;           // staged tile row pitch (bf16)
-constexpr int MAX_DESC = 256;            // int32 plan descriptor, see below
+typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+constexpr int THREADS = 256;  // 8 warps; one (query, column) cell a thread
+constexpr int WARPS = THREADS / 32;
+constexpr int TQ = 16;        // query rows per block (one m16 tile)
+constexpr int CW = 16;        // output columns per block (two n8 tiles)
+constexpr int KT = 64;        // weight rows per stage
+constexpr int PAD = 8;        // bf16 of padding per shared-memory row
+constexpr int MAX_NBC = 8;    // bases per chunk
+constexpr int SP = MAX_NBC * CW + PAD;  // stage row pitch (bf16)
+constexpr int STAGE = KT * SP;          // bf16 elements of one stage
+constexpr int MAXS = 8;       // slots of a structure
+constexpr int MAXE = 8;       // edges of a layer
+constexpr int MAXJ = 4;       // product jobs per warp and pass
+constexpr int MAX_JOBS = MAXJ * WARPS;
+static_assert(TQ * CW == THREADS, "one epilogue cell per thread");
+
+// One layer of the plan (ops/fused_fwd.py _descriptor), by value.
+struct Layer {
+  int l, last;
+  int n_a, a_slot[MAXS];  // slots whose rows this layer multiplies
+  int n_sp, sp_a[MAXS];   // message sources that are products -> a index
+  int n_ss, ss_a[MAXS];   // self terms that are products -> a index
+  int n_out, out_slot[MAXS], out_self[MAXS];  // self: index into ss, or
+                                              // -1 (layer-0 variable row)
+  int n_e, e_sp[MAXE], e_out[MAXE], e_j[MAXE], e_slot[MAXE];
+  // per edge, in the plan's order: source as product (index into sp) or
+  // -1 (layer-0 variable rows of slot e_slot); destination as index into
+  // the out list; edge id j
+  int nbc;  // bases per chunk
+};
+
+struct Args {
+  const float* ent;
+  long long n_ent;
+  int d, dp;
+  const int* node_entity;  // [B][n_nodes]
+  const int* node_mode;    // [B][n_nodes]
+  const int* rel;          // [B][n_edges]
+  const float* norm;       // [B][n_edges]
+  int B, n_nodes, n_edges;
+  const bf16* w_self;  // [L][dp][dp] (k, n)
+  const float* bias;   // [L][dp]
+  const bf16* vw;      // [L][dp][nb * dp] (k, b * dp + n)
+  const float* coeff;  // [L][R][nb]
+  int n_rels, nb;
+  const bf16* tself0;  // [M][dp]
+  const bf16* tvar0;   // [M][nb][dp]
+  int n_modes;
+  const bf16* x_in;  // [n_nodes][B][dp] (layers >= 1)
+  bf16* x_out;       // [n_nodes][B][dp] (all but the last layer)
+  float* out;        // [B][d] (the last layer)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ float2 ld_bf16x2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
 }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
-
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Copy rows [k0, k1) of nseg CW-wide segments of a bf16 weight panel
-// (segment c of row k at w + k * stride + c * seg_stride) to dst (segment
-// c at column c * CW, row pitch PITCH), 16 bytes per cp.async, spread over
-// the CTA; one commit group.
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* w,
-                                           size_t stride, int seg_stride,
-                                           int nseg, int k0, int k1) {
-  constexpr int PER_SEG = CW / 8;
-  const int per_row = nseg * PER_SEG;
-  const int total = (k1 - k0) * per_row;
-  for (int i = threadIdx.x; i < total; i += THREADS) {
-    const int r = i / per_row, rem = i % per_row;
-    const int c = rem / PER_SEG, v = (rem % PER_SEG) * 8;
-    cp_async16(dst + r * PITCH + c * CW + v,
-               w + (size_t)(k0 + r) * stride + (size_t)c * seg_stride + v);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
 }
 
-// h[i][c][j] += sum_{k < d} x[i][k] * W[k][c * seg_stride + n + j] for
-// c < nbc, in ascending k, one rounding per step.  W row k is at
-// w + k * stride; x[i][k] at xr[k * TQ + i] (a slot is stored k-major, so
-// a thread's RT rows are one vector load).  KT-row tiles of W are staged
-// in shared memory (two buffers, the next tile loading while this one is
-// used).  Every thread of the CTA calls this together.
-__device__ __forceinline__ void staged_gemm(float h[RT][BC][2],
-                                            const float* xr,
-                                            const __nv_bfloat16* w,
-                                            size_t stride, int seg_stride,
-                                            int nbc, int d, int n,
-                                            __nv_bfloat16* stage) {
-  const int tiles = (d + KT - 1) / KT;
-  stage_rows(stage, w, stride, seg_stride, nbc, 0, min(d, KT));
-  for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * KT, k1 = min(d, k0 + KT);
-    if (t + 1 < tiles) {
-      stage_rows(stage + ((t + 1) & 1) * KT * PITCH, w, stride, seg_stride,
-                 nbc, k1, min(d, k1 + KT));
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+// d += a (16 x 16, row) @ b (16 x 8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Shared memory of one block (bytes, 16-aligned pieces): the x rows
+// [n_a][TQ][dp + PAD] bf16, two weight stages [KT][SP] bf16, the chunk's
+// basis products [n_sp][nbc][TQ][CW] f32 and the self products
+// [n_ss][TQ][CW] f32.
+__host__ __device__ inline size_t x_bytes(int n_a, int dp) {
+  return (size_t)n_a * TQ * (dp + PAD) * sizeof(bf16);
+}
+__host__ __device__ inline size_t layer_smem(int n_a, int n_sp, int n_ss,
+                                             int nbc, int dp) {
+  return x_bytes(n_a, dp) + 2 * (size_t)STAGE * sizeof(bf16) +
+         ((size_t)n_sp * nbc + n_ss) * TQ * CW * sizeof(float);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+fused_multi_layer_kernel(const __grid_constant__ Layer ly,
+                         const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dp = a.dp, xp = dp + PAD;
+  bf16* const xs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* const stage = reinterpret_cast<bf16*>(smem_raw + x_bytes(ly.n_a, dp));
+  float* const hs = reinterpret_cast<float*>(stage + 2 * STAGE);
+  float* const ss = hs + (size_t)ly.n_sp * ly.nbc * TQ * CW;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * TQ, col0 = blockIdx.y * CW;
+  const int l = ly.l;
+  // this thread's epilogue cell
+  const int r = tid / CW, c = tid % CW;
+  const int q = q0 + r, col = col0 + c;
+  const bool qv = q < a.B;
+
+  // ---- the x rows this layer multiplies, bf16 in shared memory (rows
+  // past B and columns past d zero)
+  if (l == 0) {
+    const int per = TQ * dp;
+    for (int i = tid; i < ly.n_a * per; i += THREADS) {
+      const int ai = i / per, rem = i % per, rr = rem / dp, cc = rem % dp;
+      float v = 0.f;
+      if (q0 + rr < a.B && cc < a.d) {
+        long long id = a.node_entity[(long long)(q0 + rr) * a.n_nodes +
+                                     ly.a_slot[ai]];
+        id = id < 0 ? 0 : (id >= a.n_ent ? a.n_ent - 1 : id);
+        v = __ldg(a.ent + id * a.d + cc);
+      }
+      xs[(ai * TQ + rr) * xp + cc] = __float2bfloat16_rn(v);
     }
-    __syncthreads();
-    const __nv_bfloat16* st = stage + (t & 1) * KT * PITCH + n;
-    for (int k = k0; k < k1; ++k, st += PITCH) {
-      static_assert(RT == 2, "one float2 of x per k");
-      const float2 x2 = *reinterpret_cast<const float2*>(xr + k * TQ);
-      const float xv[RT] = {x2.x, x2.y};
-#pragma unroll
-      for (int c = 0; c < BC; ++c) {
-        const float2 wv = c < nbc ? ld_bf16x2(st + c * CW) : make_float2(0.f, 0.f);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          h[i][c][0] = fmaf(xv[i], wv.x, h[i][c][0]);
-          h[i][c][1] = fmaf(xv[i], wv.y, h[i][c][1]);
+  } else {
+    const int per = dp / 8;
+    for (int i = tid; i < ly.n_a * TQ * per; i += THREADS) {
+      const int ai = i / (TQ * per), rem = i % (TQ * per);
+      const int rr = rem / per, v = rem % per;
+      const bool ok = q0 + rr < a.B;
+      cp_async16(xs + (ai * TQ + rr) * xp + v * 8,
+                 a.x_in + ((size_t)ly.a_slot[ai] * a.B + (ok ? q0 + rr : 0)) *
+                              dp + v * 8,
+                 ok);
+    }
+  }
+
+  // ---- the passes: the self products (if any), then the basis chunks
+  // (if any source is a product); dp / KT stages each
+  const int tpp = dp / KT;
+  const int n_chunks = ly.n_sp > 0 ? (a.nb + ly.nbc - 1) / ly.nbc : 0;
+  const int has_self = ly.n_ss > 0;
+  const int n_tiles = (has_self + n_chunks) * tpp;
+  const size_t wrow = (size_t)a.nb * dp;  // vw row pitch
+  auto stage_tile = [&](int t) {
+    if (t < n_tiles) {
+      const int p = t / tpp, k0 = (t % tpp) * KT;
+      bf16* dst = stage + (t & 1) * STAGE;
+      if (has_self && p == 0) {
+        const bf16* w = a.w_self + ((size_t)l * dp + k0) * dp + col0;
+        for (int i = tid; i < KT * 2; i += THREADS)
+          cp_async16(dst + (i >> 1) * SP + (i & 1) * 8,
+                     w + (size_t)(i >> 1) * dp + (i & 1) * 8);
+      } else {
+        const int b0 = (p - has_self) * ly.nbc;
+        const int nbc = min(ly.nbc, a.nb - b0), per = 2 * nbc;
+        const bf16* w = a.vw + ((size_t)l * dp + k0) * wrow +
+                        (size_t)b0 * dp + col0;
+        for (int i = tid; i < KT * per; i += THREADS) {
+          const int rr = i / per, rem = i % per;
+          cp_async16(dst + rr * SP + rem * 8,
+                     w + (size_t)rr * wrow + (size_t)(rem >> 1) * dp +
+                         (rem & 1) * 8);
         }
       }
     }
-    __syncthreads();  // this buffer is refilled two tiles later
-  }
-}
-
-__device__ __forceinline__ void zero(float h[RT][BC][2]) {
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int c = 0; c < BC; ++c) h[i][c][0] = h[i][c][1] = 0.f;
-}
-
-size_t smem_bytes(int n_nodes, int dp) {
-  return 2 * (size_t)n_nodes * TQ * dp * sizeof(float) +
-         2 * (size_t)KT * PITCH * sizeof(__nv_bfloat16);
-}
-
-// Plan descriptor (int32, built by ops/fused_fwd.py _descriptor):
-//   [steps, n_gather, gather_slot * n_gather, is_anchor * n_nodes,
-//    per layer: n_out, out_slot * n_out, n_msg, (src, dst, edge) * n_msg]
-// Messages are listed by ascending source slot, then edge id: the order
-// in which the reference sums them into each destination.
-//
-// Weight layouts (prepared once per model on the host), DP = d_pad:
-//   w_self [L][DP][DP] bf16 (k, n)
-//   bias   [L][DP] f32
-//   vw     [L][DP][NB * DP] bf16 (k, b * DP + n): the bases side by side
-//   coeff  [L][R][NB] f32
-//   tself0 [M][DP] bf16 = bf16(var @ w_self_0)
-//   tvar0  [M][NB][DP] bf16 = bf16(var @ basis_0[b])
-//
-// Shared memory: the activation slots xs [slot][DP][TQ] (k-major), the
-// f32 sums acc [slot][TQ][DP], and the weight stage [2][KT][PITCH] bf16.
-// Threads: NP threads own one column pair (cc * CW + n, + 1) of every
-// column chunk cc each, for RT rows; THREADS / NP such row groups make a
-// tile of TQ rows.  Each thread only ever writes its own (row, column)
-// cells of the f32 message sums, so only the activation slots need
-// barriers.
-__global__ void __launch_bounds__(THREADS)
-fused_multi_kernel(const int* __restrict__ desc, int desc_len,
-                   const float* __restrict__ ent, long long n_ent, int d,
-                   const int* __restrict__ node_entity,
-                   const int* __restrict__ node_mode,
-                   const int* __restrict__ rel, const float* __restrict__ norm,
-                   int B, int n_nodes, int n_edges,
-                   const __nv_bfloat16* __restrict__ w_self,
-                   const float* __restrict__ bias,
-                   const __nv_bfloat16* __restrict__ vw,
-                   const float* __restrict__ coeff, int n_rels, int nb,
-                   const __nv_bfloat16* __restrict__ tself0,
-                   const __nv_bfloat16* __restrict__ tvar0, int n_modes,
-                   float* __restrict__ out, int dp) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int dsc[MAX_DESC];
-  float* xs = smem;                                   // [slot][DP][TQ]
-  float* acc = smem + (size_t)n_nodes * TQ * dp;      // [slot][TQ][DP]
-  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(
-      smem + 2 * (size_t)n_nodes * TQ * dp);          // [2][KT][PITCH]
-
-  const int tid = threadIdx.x;
-  const int n = 2 * (tid % NP);
-  const int r0 = (tid / NP) * RT;
-  const int q0 = blockIdx.x * TQ;
-  const int nc = dp / CW;
-  int qr[RT];
-  bool vr[RT];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    qr[i] = q0 + r0 + i;
-    vr[i] = qr[i] < B;
-  }
-
-  for (int i = tid; i < desc_len; i += THREADS) dsc[i] = desc[i];
-  __syncthreads();
-  const int steps = dsc[0];
-  const int n_gather = dsc[1];
-  const int* gather = dsc + 2;
-  const int* is_anchor = gather + n_gather;
-  int p = 2 + n_gather + n_nodes;
-
-  // anchor rows -> bf16-valued f32 slots (ids clamped like the
-  // reference's gather)
-  for (int gi = 0; gi < n_gather; ++gi) {
-    const int s = gather[gi];
-    for (int i = tid; i < TQ * dp; i += THREADS) {
-      const int r = i / dp, c = i % dp, q = q0 + r;
-      float v = 0.f;
-      if (q < B && c < d) {
-        long long id = node_entity[(long long)q * n_nodes + s];
-        id = id < 0 ? 0 : (id >= n_ent ? n_ent - 1 : id);
-        v = ent[id * d + c];
-      }
-      xs[((size_t)s * dp + c) * TQ + r] = bf16_round(v);
-    }
-  }
-  __syncthreads();
-
-  // mode of this thread's row i at slot s; -1 (zero table row) if invalid
-  auto mode_of = [&](int i, int s) -> int {
-    if (!vr[i]) return -1;
-    const int m = node_mode[(long long)qr[i] * n_nodes + s];
-    return (m >= 0 && m < n_modes) ? m : -1;
+    cp_async_commit();
   };
 
-  for (int l = 0; l < steps; ++l) {
-    const int n_out = dsc[p];
-    const int* outs = dsc + p + 1;
-    p += 1 + n_out;
-    const int n_msg = dsc[p];
-    const int* msgs = dsc + p + 1;
-    p += 1 + 3 * n_msg;
-    const bool last = l == steps - 1;
-
-    for (int oi = 0; oi < n_out; ++oi) {
-      float* a = acc + ((size_t)outs[oi] * TQ + r0) * dp + n;
-#pragma unroll 1
-      for (int cc = 0; cc < nc; ++cc)
+  // per-thread message sums of the layer's edges, and their relations
+  float msg[MAXE], nr[MAXE];
+  int rl[MAXE];
 #pragma unroll
-        for (int i = 0; i < RT; ++i) a[i * dp + cc * CW] = a[i * dp + cc * CW + 1] = 0.f;
-    }
-
-    const __nv_bfloat16* vwl = vw + (size_t)l * dp * nb * dp;
-    const float* cl = coeff + (size_t)l * n_rels * nb;
-    for (int e = 0; e < n_msg; ++e) {
-      const int src = msgs[3 * e], dst = msgs[3 * e + 1], j = msgs[3 * e + 2];
-      const bool table = l == 0 && !is_anchor[src];
-      int rl[RT], md[RT];
-      float nr[RT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const int r = vr[i] ? rel[(long long)qr[i] * n_edges + j] : -1;
-        rl[i] = (r >= 0 && r < n_rels) ? r : -1;
-        nr[i] = vr[i] ? norm[(long long)qr[i] * n_edges + j] : 0.f;
-        md[i] = table ? mode_of(i, src) : -1;
-      }
-      const float* xsrc = xs + (size_t)src * dp * TQ + r0;
-#pragma unroll 1
-      for (int cc = 0; cc < nc; ++cc) {
-        const int col = cc * CW + n;
-        float msg[RT][2];
-#pragma unroll
-        for (int i = 0; i < RT; ++i) msg[i][0] = msg[i][1] = 0.f;
-        for (int b0 = 0; b0 < nb; b0 += BC) {
-          const int nbc = min(BC, nb - b0);
-          float h[RT][BC][2];
-          zero(h);
-          if (table) {
-#pragma unroll
-            for (int i = 0; i < RT; ++i)
-#pragma unroll
-              for (int c = 0; c < BC; ++c)
-                if (md[i] >= 0 && c < nbc) {
-                  const float2 t = ld_bf16x2(
-                      tvar0 + ((size_t)md[i] * nb + b0 + c) * dp + col);
-                  h[i][c][0] = t.x;
-                  h[i][c][1] = t.y;
-                }
-          } else {
-            staged_gemm(h, xsrc, vwl + (size_t)b0 * dp + cc * CW,
-                        (size_t)nb * dp, dp, nbc, d, n, stage);
-          }
-          // msg += coeff[rel, b] * h_b, bases in ascending order
-#pragma unroll
-          for (int c = 0; c < BC; ++c) {
-            if (c >= nbc) break;
-#pragma unroll
-            for (int i = 0; i < RT; ++i) {
-              const float ce = rl[i] >= 0 ? cl[(size_t)rl[i] * nb + b0 + c] : 0.f;
-              msg[i][0] = __fadd_rn(msg[i][0], __fmul_rn(ce, h[i][c][0]));
-              msg[i][1] = __fadd_rn(msg[i][1], __fmul_rn(ce, h[i][c][1]));
-            }
-          }
-        }
-        float* a = acc + ((size_t)dst * TQ + r0) * dp + col;
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          a[i * dp] = __fadd_rn(a[i * dp], __fmul_rn(msg[i][0], nr[i]));
-          a[i * dp + 1] = __fadd_rn(a[i * dp + 1], __fmul_rn(msg[i][1], nr[i]));
-        }
-      }
-    }
-
-    // y = (self + bias) + messages, kept in acc
-    const __nv_bfloat16* wl = w_self + (size_t)l * dp * dp;
-    for (int oi = 0; oi < n_out; ++oi) {
-      const int s = outs[oi];
-#pragma unroll 1
-      for (int cc = 0; cc < nc; ++cc) {
-        const int col = cc * CW + n;
-        float y[RT][2];
-        if (l == 0 && !is_anchor[s]) {
-#pragma unroll
-          for (int i = 0; i < RT; ++i) {
-            const int m = mode_of(i, s);
-            const float2 t = m >= 0 ? ld_bf16x2(tself0 + (size_t)m * dp + col)
-                                    : make_float2(0.f, 0.f);
-            y[i][0] = t.x;
-            y[i][1] = t.y;
-          }
-        } else {
-          float h[RT][BC][2];
-          zero(h);
-          staged_gemm(h, xs + (size_t)s * dp * TQ + r0, wl + cc * CW, dp, dp,
-                      1, d, n, stage);
-#pragma unroll
-          for (int i = 0; i < RT; ++i) {
-            y[i][0] = h[i][0][0];
-            y[i][1] = h[i][0][1];
-          }
-        }
-        const float b_0 = bias[(size_t)l * dp + col];
-        const float b_1 = bias[(size_t)l * dp + col + 1];
-        float* a = acc + ((size_t)s * TQ + r0) * dp + col;
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          a[i * dp] = __fadd_rn(__fadd_rn(y[i][0], b_0), a[i * dp]);
-          a[i * dp + 1] = __fadd_rn(__fadd_rn(y[i][1], b_1), a[i * dp + 1]);
-        }
-      }
-    }
-    __syncthreads();  // every thread has read the slots this layer consumed
-
-    if (last) {
-      // the last layer's only out slot is the target (plan construction)
-      const float* a = acc + ((size_t)outs[0] * TQ + r0) * dp;
-#pragma unroll 1
-      for (int cc = 0; cc < nc; ++cc) {
-        const int col = cc * CW + n;
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          if (!vr[i]) continue;
-          if (col < d) out[(long long)qr[i] * d + col] = a[i * dp + col];
-          if (col + 1 < d) out[(long long)qr[i] * d + col + 1] = a[i * dp + col + 1];
-        }
-      }
-    } else {
-      for (int oi = 0; oi < n_out; ++oi) {
-        const size_t slot = (size_t)outs[oi] * TQ * dp;
-#pragma unroll 1
-        for (int cc = 0; cc < nc; ++cc) {
-          const int col = cc * CW + n;
-#pragma unroll
-          for (int i = 0; i < RT; ++i) {
-            const float* a = acc + slot + (size_t)(r0 + i) * dp + col;
-            xs[slot + (size_t)col * TQ + r0 + i] = bf16_round(fmaxf(a[0], 0.f));
-            xs[slot + (size_t)(col + 1) * TQ + r0 + i] = bf16_round(fmaxf(a[1], 0.f));
-          }
-        }
-      }
-      __syncthreads();
+  for (int e = 0; e < MAXE; ++e) {
+    msg[e] = 0.f;
+    nr[e] = 0.f;
+    rl[e] = -1;
+    if (e < ly.n_e && qv) {
+      const long long off = (long long)q * a.n_edges + ly.e_j[e];
+      const int v = a.rel[off];
+      rl[e] = (v >= 0 && v < a.n_rels) ? v : -1;
+      nr[e] = a.norm[off];
     }
   }
+  const float* cl = a.coeff + (size_t)l * a.n_rels * a.nb;
+
+  float acc[MAXJ][2][4];
+  stage_tile(0);  // with the x rows' copies: one commit group
+  for (int t = 0; t < n_tiles; ++t) {
+    const int p = t / tpp, kt = t % tpp;
+    const bool self = has_self && p == 0;
+    const int b0 = self ? 0 : (p - has_self) * ly.nbc;
+    const int nbc = self ? 1 : min(ly.nbc, a.nb - b0);
+    const int n_jobs = self ? ly.n_ss : ly.n_sp * nbc;
+    if (kt == 0) {
+#pragma unroll
+      for (int m = 0; m < MAXJ; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[m][h][i] = 0.f;
+    }
+    stage_tile(t + 1);
+    cp_async_wait<1>();
+    __syncthreads();  // stage t (and the x rows) landed
+
+    const bf16* bs = stage + (t & 1) * STAGE;
+#pragma unroll
+    for (int m = 0; m < MAXJ; ++m) {
+      const int j = warp + WARPS * m;
+      if (j >= n_jobs) break;
+      const int ai = self ? ly.ss_a[j] : ly.sp_a[j / nbc];
+      const int bl = self ? 0 : j % nbc;
+      const bf16* A = xs + (ai * TQ + (lane & 15)) * xp + kt * KT +
+                      (lane >> 4) * 8;
+      const bf16* Bm = bs + (lane & 15) * SP + bl * CW + (lane >> 4) * 8;
+#pragma unroll
+      for (int ks = 0; ks < KT / 16; ++ks) {
+        uint32_t fa[4], fb[4];
+        ldsm_x4(fa, A + ks * 16);
+        ldsm_x4_t(fb, Bm + ks * 16 * SP);
+        mma16816(acc[m][0], fa, fb[0], fb[1]);
+        mma16816(acc[m][1], fa, fb[2], fb[3]);
+      }
+    }
+    const bool pass_end = kt == tpp - 1;
+    if (pass_end) {  // the pass's sums to shared memory, f32
+      float* dst0 = self ? ss : hs;
+      const int gq = lane >> 2, t4 = lane & 3;
+#pragma unroll
+      for (int m = 0; m < MAXJ; ++m) {
+        const int j = warp + WARPS * m;
+        if (j >= n_jobs) break;
+        float* dst = dst0 + (size_t)j * TQ * CW;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int cc = h * 8 + 2 * t4;
+          dst[gq * CW + cc] = acc[m][h][0];
+          dst[gq * CW + cc + 1] = acc[m][h][1];
+          dst[(gq + 8) * CW + cc] = acc[m][h][2];
+          dst[(gq + 8) * CW + cc + 1] = acc[m][h][3];
+        }
+      }
+    }
+    __syncthreads();  // stage t's buffer is free; the pass's sums landed
+    if (pass_end && !self) {
+      // msg_e += coeff[rel_e, b] * h_b for the chunk's bases, ascending
+#pragma unroll
+      for (int e = 0; e < MAXE; ++e) {
+        if (e >= ly.n_e) break;
+        const int i = ly.e_sp[e];
+        if (i < 0) continue;
+        const float* h = hs + ((size_t)i * nbc * TQ + r) * CW + c;
+        for (int bl = 0; bl < nbc; ++bl) {
+          const float ce = rl[e] >= 0 ? __ldg(cl + (size_t)rl[e] * a.nb +
+                                              b0 + bl)
+                                      : 0.f;
+          const float pr = __fmul_rn(ce, h[(size_t)bl * TQ * CW]);
+          msg[e] = (b0 == 0 && bl == 0) ? pr : __fadd_rn(msg[e], pr);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  auto mode_of = [&](int slot) -> int {
+    if (!qv) return -1;
+    const int m = a.node_mode[(long long)q * a.n_nodes + slot];
+    return (m >= 0 && m < a.n_modes) ? m : -1;
+  };
+  // layer-0 variable sources: h_b = bf16(var @ basis_0[b])[mode]
+#pragma unroll
+  for (int e = 0; e < MAXE; ++e) {
+    if (e >= ly.n_e) break;
+    if (ly.e_sp[e] >= 0) continue;
+    const int md = mode_of(ly.e_slot[e]);
+    for (int b = 0; b < a.nb; ++b) {
+      const float ce = rl[e] >= 0 ? __ldg(cl + (size_t)rl[e] * a.nb + b) : 0.f;
+      const float h = md >= 0 ? __bfloat162float(
+                                    a.tvar0[((size_t)md * a.nb + b) * dp + col])
+                              : 0.f;
+      const float pr = __fmul_rn(ce, h);
+      msg[e] = b == 0 ? pr : __fadd_rn(msg[e], pr);
+    }
+  }
+
+  // ---- y = (self + bias) + the destination's messages, per out slot
+  const float bv = __ldg(a.bias + (size_t)l * dp + col);
+  for (int o = 0; o < ly.n_out; ++o) {
+    const int s = ly.out_slot[o];
+    float y;
+    if (ly.out_self[o] >= 0) {
+      y = ss[((size_t)ly.out_self[o] * TQ + r) * CW + c];
+    } else {
+      const int md = mode_of(s);
+      y = md >= 0 ? __bfloat162float(a.tself0[(size_t)md * dp + col]) : 0.f;
+    }
+    y = __fadd_rn(y, bv);
+    float m = 0.f;
+    bool any = false;
+#pragma unroll
+    for (int e = 0; e < MAXE; ++e) {
+      if (e >= ly.n_e) break;
+      if (ly.e_out[e] != o) continue;
+      const float pm = __fmul_rn(msg[e], nr[e]);
+      m = any ? __fadd_rn(m, pm) : pm;
+      any = true;
+    }
+    if (any) y = __fadd_rn(y, m);
+    if (!qv) continue;
+    if (ly.last) {
+      if (col < a.d) a.out[(size_t)q * a.d + col] = y;
+    } else {
+      a.x_out[((size_t)s * a.B + q) * dp + col] =
+          __float2bfloat16_rn(fmaxf(y, 0.f));
+    }
+  }
+}
+
+// Parse the host descriptor (ops/fused_fwd.py _descriptor):
+//   [steps, per layer: n_a, a_slot * n_a, n_sp, sp_a * n_sp, n_ss,
+//    ss_a * n_ss, n_out, (slot, self) * n_out, n_e,
+//    (sp, out, j, slot) * n_e]
+// into Layer records, the chunk width from the product sources.
+// Returns the number of layers, or -1 for a descriptor out of range.
+int parse(const int* desc, int desc_len, int n_nodes, int n_edges, int nb,
+          Layer* out, int max_layers) {
+  int p = 0;
+  auto next = [&](int lo, int hi, bool& ok) {
+    if (p >= desc_len) {
+      ok = false;
+      return 0;
+    }
+    const int v = desc[p++];
+    if (v < lo || v > hi) ok = false;
+    return v;
+  };
+  bool ok = true;
+  const int steps = next(1, max_layers, ok);
+  if (!ok) return -1;
+  for (int l = 0; l < steps; ++l) {
+    Layer& ly = out[l];
+    ly.l = l;
+    ly.last = l == steps - 1;
+    ly.n_a = next(0, MAXS, ok);
+    for (int i = 0; ok && i < ly.n_a; ++i)
+      ly.a_slot[i] = next(0, n_nodes - 1, ok);
+    ly.n_sp = next(0, MAXS, ok);
+    for (int i = 0; ok && i < ly.n_sp; ++i)
+      ly.sp_a[i] = next(0, ly.n_a - 1, ok);
+    ly.n_ss = next(0, MAXS, ok);
+    for (int i = 0; ok && i < ly.n_ss; ++i)
+      ly.ss_a[i] = next(0, ly.n_a - 1, ok);
+    ly.n_out = next(1, MAXS, ok);
+    for (int i = 0; ok && i < ly.n_out; ++i) {
+      ly.out_slot[i] = next(0, n_nodes - 1, ok);
+      ly.out_self[i] = next(-1, ly.n_ss - 1, ok);
+    }
+    ly.n_e = next(0, MAXE, ok);
+    for (int i = 0; ok && i < ly.n_e; ++i) {
+      ly.e_sp[i] = next(-1, ly.n_sp - 1, ok);
+      ly.e_out[i] = next(0, ly.n_out - 1, ok);
+      ly.e_j[i] = next(0, n_edges - 1, ok);
+      ly.e_slot[i] = next(0, n_nodes - 1, ok);
+    }
+    if (!ok || ly.n_ss > MAX_JOBS) return -1;
+    // bases per chunk: as many as MAX_NBC, while every job fits a warp
+    ly.nbc = ly.n_sp > 0 ? MAX_JOBS / ly.n_sp : MAX_NBC;
+    if (ly.nbc > MAX_NBC) ly.nbc = MAX_NBC;
+    if (ly.nbc > nb) ly.nbc = nb;
+    if (ly.nbc < 1) return -1;
+  }
+  return p == desc_len ? steps : -1;
+}
+
+constexpr int MAX_LAYERS = 8;
+constexpr int MAX_DEVICES = 64;
+
+// A descriptor parsed once at one padded width (mpqe_fused_multi_plan);
+// the caller keeps it for every launch of its structure.
+struct Plan {
+  Layer ls[MAX_LAYERS];
+  size_t smem[MAX_LAYERS];  // dynamic shared memory of each layer
+  size_t max_smem;
+  int steps, n_nodes, n_edges, nb, dp;
+};
+
+// The dynamic shared memory fused_multi_layer_kernel may use on each
+// device so far: the attribute is set only when a plan needs more.
+std::atomic<long long> g_smem_allowed[MAX_DEVICES];
+
+cudaError_t allow_smem(size_t smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && g_smem_allowed[dev].load() >= (long long)smem)
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(fused_multi_layer_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess && dev < MAX_DEVICES) {
+    long long seen = g_smem_allowed[dev].load();
+    while (seen < (long long)smem &&
+           !g_smem_allowed[dev].compare_exchange_weak(seen, (long long)smem)) {
+    }
+  }
+  return err;
 }
 
 }  // namespace
 
-extern "C" int mpqe_fused_multi_max_desc() { return MAX_DESC; }
+// Parse the descriptor of a structure with n_nodes slots and n_edges
+// edges, nb bases, at padded width dp (a multiple of 128).  Returns the
+// plan (free with mpqe_fused_multi_plan_free), or null for a descriptor
+// the kernel cannot take.
+extern "C" void* mpqe_fused_multi_plan(const int* desc, int desc_len,
+                                       int n_nodes, int n_edges, int nb,
+                                       int dp) {
+  if (nb <= 0 || dp <= 0 || dp % 128 != 0 || dp / CW > 65535) return nullptr;
+  Plan* p = new Plan();
+  p->steps = parse(desc, desc_len, n_nodes, n_edges, nb, p->ls, MAX_LAYERS);
+  if (p->steps < 0) {
+    delete p;
+    return nullptr;
+  }
+  p->n_nodes = n_nodes;
+  p->n_edges = n_edges;
+  p->nb = nb;
+  p->dp = dp;
+  p->max_smem = 0;
+  for (int l = 0; l < p->steps; ++l) {
+    const Layer& ly = p->ls[l];
+    p->smem[l] = layer_smem(ly.n_a, ly.n_sp, ly.n_ss, ly.nbc, dp);
+    if (p->smem[l] > p->max_smem) p->max_smem = p->smem[l];
+  }
+  return p;
+}
 
-// Dynamic shared memory one launch needs for a structure of n_nodes slots
-// at padded width dp.
-extern "C" long long mpqe_fused_multi_smem_bytes(int n_nodes, int dp) {
-  return (long long)smem_bytes(n_nodes, dp);
+extern "C" void mpqe_fused_multi_plan_free(void* plan) {
+  delete static_cast<Plan*>(plan);
+}
+
+// Dynamic shared memory a launch of this plan needs (its widest layer).
+extern "C" long long mpqe_fused_multi_plan_smem(const void* plan) {
+  return (long long)static_cast<const Plan*>(plan)->max_smem;
+}
+
+// Blocks in each layer's launch for B queries at padded width dp.
+extern "C" long long mpqe_fused_multi_blocks(int B, int dp) {
+  return (long long)((B + TQ - 1) / TQ) * (dp / CW);
 }
 
 // Dynamic shared memory a block of this kernel may have on `device`.
@@ -405,31 +544,69 @@ extern "C" long long mpqe_fused_multi_max_smem(int device) {
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device) != cudaSuccess)
     return 0;
-  return (long long)optin - MAX_DESC * (long long)sizeof(int);
+  return (long long)optin;
 }
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// K3: one launch per layer on `stream`, of the plan from
+// mpqe_fused_multi_plan.  scratch [planes][n_nodes][B][dp] bf16 holds the
+// activations between layers: layer l writes plane l % planes and the
+// next layer reads it, so planes is at least 2 for three or more layers
+// (no layer overwrites rows that blocks of the layer before still read)
+// and 1 for two; with planes = steps - 1 every layer's activations stay
+// there after the call.  A one-layer plan takes no scratch.  Returns the
+// first cudaError (0 on success); arguments out of range are
+// cudaErrorInvalidValue.
 extern "C" int mpqe_fused_multi_forward(
-    const int* desc, int desc_len, const float* ent, long long n_ent, int d,
+    const void* plan, const float* ent, long long n_ent, int d,
     const int* node_entity, const int* node_mode, const int* rel,
-    const float* norm, int B, int n_nodes, int n_edges, const void* w_self,
-    const float* bias, const void* vw, const float* coeff, int n_rels, int nb,
-    const void* tself0, const void* tvar0, int n_modes, float* out, int dp,
+    const float* norm, int B, const void* w_self, const float* bias,
+    const void* vw, const float* coeff, int n_rels, const void* tself0,
+    const void* tvar0, int n_modes, void* scratch, int planes, float* out,
     void* stream) {
+  const Plan* p = static_cast<const Plan*>(plan);
+  if (p == nullptr) return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  if (desc_len > MAX_DESC || nb <= 0 || dp <= 0 || dp % CW != 0 || d > dp)
+  const int dp = p->dp;
+  const int need = p->steps > 2 ? 2 : p->steps - 1;
+  if (d <= 0 || d > dp || planes < need || (need > 0 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(n_nodes, dp);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_multi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const long long tiles = (B + TQ - 1) / TQ;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(p->max_smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + TQ - 1) / TQ);
-  fused_multi_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      desc, desc_len, ent, n_ent, d, node_entity, node_mode, rel, norm, B,
-      n_nodes, n_edges, static_cast<const __nv_bfloat16*>(w_self), bias,
-      static_cast<const __nv_bfloat16*>(vw), coeff, n_rels, nb,
-      static_cast<const __nv_bfloat16*>(tself0),
-      static_cast<const __nv_bfloat16*>(tvar0), n_modes, out, dp);
-  return (int)cudaGetLastError();
+  const dim3 grid((unsigned)tiles, dp / CW);
+  const size_t plane = (size_t)p->n_nodes * B * dp;
+  bf16* buf = static_cast<bf16*>(scratch);
+  Args a;
+  a.ent = ent;
+  a.n_ent = n_ent;
+  a.d = d;
+  a.dp = dp;
+  a.node_entity = node_entity;
+  a.node_mode = node_mode;
+  a.rel = rel;
+  a.norm = norm;
+  a.B = B;
+  a.n_nodes = p->n_nodes;
+  a.n_edges = p->n_edges;
+  a.w_self = static_cast<const bf16*>(w_self);
+  a.bias = bias;
+  a.vw = static_cast<const bf16*>(vw);
+  a.coeff = coeff;
+  a.n_rels = n_rels;
+  a.nb = p->nb;
+  a.tself0 = static_cast<const bf16*>(tself0);
+  a.tvar0 = static_cast<const bf16*>(tvar0);
+  a.n_modes = n_modes;
+  a.out = out;
+  for (int l = 0; l < p->steps; ++l) {
+    a.x_in = l > 0 ? buf + (size_t)((l - 1) % planes) * plane : nullptr;
+    a.x_out = p->ls[l].last ? nullptr : buf + (size_t)(l % planes) * plane;
+    fused_multi_layer_kernel<<<grid, THREADS, p->smem[l],
+                               static_cast<cudaStream_t>(stream)>>>(p->ls[l],
+                                                                    a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

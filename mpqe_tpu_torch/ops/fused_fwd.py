@@ -25,9 +25,16 @@ K3 in three pieces, one function:
 * :func:`fused_tgt_forward_multi_reference` is the plain PyTorch version
   of the kernel's function, with those rounding points;
 * :func:`fused_tgt_forward_multi` is the wrapper: on CUDA tensors it
-  launches ``csrc/fused_multi.cu`` (built at first use) or raises; on CPU
-  tensors it runs the plain version.  ``fused_tgt_forward_multi.launches``
-  counts kernel launches.
+  launches ``csrc/fused_multi.cu`` (built at first use; one kernel launch
+  per layer) or raises; on CPU tensors it runs the plain version.
+  ``fused_tgt_forward_multi.launches`` counts its kernel launches on the
+  card (one per layer).
+
+The kernel takes its products on the tensor cores, so it is held to
+:func:`multi_gate` against the plain version (K1's :func:`chain_gate` on
+the output, and each layer against the plain layer from the kernel's own
+inputs, :func:`fused_tgt_forward_multi_layers`; its controls,
+:func:`multi_gate_controls`), not to 0.
 
 Both take the operands that :func:`prepare_fused_multi` built; ``model``
 stays in their signatures for parity with the reference.
@@ -110,7 +117,9 @@ class FusedMultiOperands:
     coeff: torch.Tensor  # [L, R, Bb] f32
     tself0: torch.Tensor  # [M, d_pad] bf16 = bf16(var @ w_self_0)
     tvar0: torch.Tensor  # [M, Bb, d_pad] bf16 = bf16(var @ basis_0[b])
-    descs: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    # per structure: the kernel's plan (the descriptor parsed by the
+    # library), checked against this card's shared memory at first use
+    descs: Dict[str, object] = dataclasses.field(default_factory=dict)
 
 
 def prepare_fused_multi(model, cfg) -> FusedMultiOperands:
@@ -181,6 +190,79 @@ def _reordered_matmul(x: torch.Tensor, w: torch.Tensor,
     return (x[:, :d].double() @ w[:d].double()).float()
 
 
+def _multi_anchor_rows(ops, node_entity, a_slots) -> Dict[int, torch.Tensor]:
+    """Layer 0's product rows: bf16 anchor rows (ids clamped, as the
+    reference's gather), in f32, zero-padded to ``d_pad``."""
+    n_ent = ops.ent.shape[0]
+    x = {}
+    for s in a_slots:
+        ids = node_entity[:, s].long().clamp(0, n_ent - 1)
+        x[s] = F.pad(ops.ent[ids].to(torch.bfloat16).to(torch.float32),
+                     (0, ops.d_pad - ops.d))
+    return x
+
+
+def _multi_layer_plain(ops, spec, plan, li, x, node_mode, edge_rel_q,
+                       edge_norm_q, mm) -> Dict[int, torch.Tensor]:
+    """Layer ``li`` of the plain K3 from its product rows ``x`` (slot ->
+    ``[B, d_pad]`` f32 holding bf16 values): ``y`` per output slot,
+    ``[B, d_pad]`` f32, before any ReLU or rounding."""
+    f32 = torch.float32
+    d, dp, nb = ops.d, ops.d_pad, ops.n_bases
+    anchors = set(spec.anchor_slots)
+    B = node_mode.shape[0]
+    _, out_slots, edges = plan[li]
+    w = ops.w_self[li].to(f32)  # [k, n]
+    vw = ops.vw[li].to(f32)  # [k, Bb * n]: one wide product per source
+    y = {}
+    for s in out_slots:
+        if li == 0 and s not in anchors:
+            self_term = _rows_by_mode(ops.tself0, node_mode[:, s])
+        else:
+            self_term = mm(x[s], w, d)
+        y[s] = self_term + ops.bias[li]
+    acc: Dict[int, torch.Tensor] = {}
+    for s_src in sorted({spec.edge_src[j] for j in edges}):
+        if li == 0 and s_src not in anchors:
+            h = _rows_by_mode(ops.tvar0, node_mode[:, s_src])
+        else:
+            h = mm(x[s_src], vw, d).view(B, nb, dp)
+        for j in edges:
+            if spec.edge_src[j] != s_src:
+                continue
+            r = edge_rel_q[:, j].long()
+            ok = ((r >= 0) & (r < ops.n_rels))[:, None]
+            ce = torch.where(
+                ok, ops.coeff[li][r.clamp(0, ops.n_rels - 1)],
+                ops.coeff.new_zeros(()))  # [B, Bb]
+            msg = ce[:, 0:1] * h[:, 0]
+            for b in range(1, nb):
+                msg = msg + ce[:, b:b + 1] * h[:, b]
+            msg = msg * edge_norm_q[:, j:j + 1].to(f32)
+            dst = spec.edge_dst[j]
+            acc[dst] = msg if dst not in acc else acc[dst] + msg
+    for s, m in acc.items():
+        y[s] = y[s] + m
+    return y
+
+
+def _multi_forward_plain(cfg, structure, node_entity, node_mode, edge_rel_q,
+                         edge_norm_q, ops, mm):
+    """The plain K3 → ``(out [B, d], acts)``; ``acts[l][s]`` is the
+    ``[B, d_pad]`` input row of slot s to layer l (``bf16(relu(y))`` of
+    layer l - 1, in f32) for every layer l >= 1."""
+    spec, steps, plan, a_slots, _ = _checked_plan(cfg, structure)
+    x = _multi_anchor_rows(ops, node_entity, a_slots)
+    acts: Dict[int, Dict[int, torch.Tensor]] = {}
+    for li in range(steps):
+        y = _multi_layer_plain(ops, spec, plan, li, x, node_mode, edge_rel_q,
+                               edge_norm_q, mm)
+        if li < steps - 1:
+            x = acts[li + 1] = {s: torch.relu(v).to(torch.bfloat16).to(
+                torch.float32) for s, v in y.items()}
+    return y[spec.target_slot][:, :ops.d].contiguous(), acts
+
+
 def fused_tgt_forward_multi_reference(
     model,
     cfg,
@@ -191,95 +273,77 @@ def fused_tgt_forward_multi_reference(
     edge_norm_q: torch.Tensor,  # [B, n_edges] float32
     *,
     operands: FusedMultiOperands,
+    mm=None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K3 → ``[B, d]`` f32.
 
     The rounding points are the Pallas kernel's: bf16 anchor rows,
     bf16 x bf16 products summed in f32, exact f32 coefficient selects,
-    ``msg = (sum_b c_b h_b) * norm`` summed per destination in
-    (source slot, edge) order, ``y = (self + bias) + msgs``,
-    ``bf16(relu(y))`` between layers and f32 ``y`` after the last.
-    Every sum runs in the CUDA kernel's order (k ascending, then bases
-    ascending), so on the card the two agree bit for bit."""
-    spec, steps, plan, a_slots, _ = _checked_plan(cfg, structure)
-    ops = operands
-    f32, bf16 = torch.float32, torch.bfloat16
-    d, dp, nb = ops.d, ops.d_pad, ops.n_bases
-    anchors = set(spec.anchor_slots)
-    n_ent = ops.ent.shape[0]
-    B = node_mode.shape[0]
-
-    x = {}
-    for s in a_slots:
-        ids = node_entity[:, s].long().clamp(0, n_ent - 1)
-        x[s] = F.pad(ops.ent[ids].to(bf16).to(f32), (0, dp - d))
-    y: Dict[int, torch.Tensor] = {}
-    for li, (_, out_slots, edges) in enumerate(plan):
-        w = ops.w_self[li].to(f32)  # [k, n]
-        vw = ops.vw[li].to(f32)  # [k, Bb * n]: one wide product per source
-        y = {}
-        for s in out_slots:
-            if li == 0 and s not in anchors:
-                self_term = _rows_by_mode(ops.tself0, node_mode[:, s])
-            else:
-                self_term = _ordered_matmul(x[s], w, d)
-            y[s] = self_term + ops.bias[li]
-        acc: Dict[int, torch.Tensor] = {}
-        for s_src in sorted({spec.edge_src[j] for j in edges}):
-            if li == 0 and s_src not in anchors:
-                h = _rows_by_mode(ops.tvar0, node_mode[:, s_src])
-            else:
-                h = _ordered_matmul(x[s_src], vw, d).view(B, nb, dp)
-            for j in edges:
-                if spec.edge_src[j] != s_src:
-                    continue
-                r = edge_rel_q[:, j].long()
-                ok = ((r >= 0) & (r < ops.n_rels))[:, None]
-                ce = torch.where(
-                    ok, ops.coeff[li][r.clamp(0, ops.n_rels - 1)],
-                    ops.coeff.new_zeros(()))  # [B, Bb]
-                msg = ce[:, 0:1] * h[:, 0]
-                for b in range(1, nb):
-                    msg = msg + ce[:, b:b + 1] * h[:, b]
-                msg = msg * edge_norm_q[:, j:j + 1].to(f32)
-                dst = spec.edge_dst[j]
-                acc[dst] = msg if dst not in acc else acc[dst] + msg
-        for s, m in acc.items():
-            y[s] = y[s] + m
-        if li < steps - 1:
-            x = {s: torch.relu(y[s]).to(bf16).to(f32) for s in out_slots}
-    return y[spec.target_slot][:, :d].contiguous()
+    ``msg = (sum_b c_b h_b) * norm`` (bases ascending, one rounding per
+    operation) summed per destination in (source slot, edge) order,
+    ``y = (self + bias) + msgs``, ``bf16(relu(y))`` between layers and
+    f32 ``y`` after the last.  ``mm(x, w, k)`` takes the products
+    (:func:`_ordered_matmul`, k ascending, unless given: the reordering
+    emulation of ``tools/k3_probe.py`` passes another); every other sum
+    runs in the CUDA kernel's order."""
+    return _multi_forward_plain(cfg, structure, node_entity, node_mode,
+                                edge_rel_q, edge_norm_q, operands,
+                                mm or _ordered_matmul)[0]
 
 
 def _descriptor(cfg, structure: str) -> List[int]:
-    """The kernel's int32 plan (layout documented in the CUDA source)."""
-    spec, steps, plan, a_slots, _ = _plan(cfg, structure)
+    """The kernel's int32 plan: ``[steps]``, then per layer
+    ``n_a, a_slot * n_a`` (the slots whose rows the layer multiplies),
+    ``n_sp, sp * n_sp`` (message sources that are products, as indices
+    into a_slot), ``n_ss, ss * n_ss`` (self terms that are products, the
+    same), ``n_out, (slot, self) * n_out`` (self: index into ss, or -1
+    for a layer-0 variable slot's premultiplied row), ``n_e, (sp, out,
+    j, slot) * n_e`` (each edge in (source slot, edge id) order: its
+    source as an index into sp, or -1 for a layer-0 variable source; its
+    destination as an index into the out list; its id; its source
+    slot).  Parsed by ``csrc/fused_multi.cu`` ``parse``."""
+    spec, steps, plan, _, _ = _plan(cfg, structure)
     anchors = set(spec.anchor_slots)
-    desc = [steps, len(a_slots), *a_slots,
-            *(int(s in anchors) for s in range(spec.n_nodes))]
-    for _, out_slots, edges in plan:
-        desc += [len(out_slots), *out_slots]
+    desc = [steps]
+    for li, (_, out_slots, edges) in enumerate(plan):
+        def product(s):
+            return li > 0 or s in anchors
         order = sorted(edges, key=lambda j: (spec.edge_src[j], j))
+        sp = [s for s in sorted({spec.edge_src[j] for j in edges})
+              if product(s)]
+        ss = [s for s in out_slots if product(s)]
+        a = sorted(set(sp) | set(ss))
+        desc += [len(a), *a, len(sp), *(a.index(s) for s in sp),
+                 len(ss), *(a.index(s) for s in ss), len(out_slots)]
+        for s in out_slots:
+            desc += [s, ss.index(s) if s in ss else -1]
         desc.append(len(order))
         for j in order:
-            desc += [spec.edge_src[j], spec.edge_dst[j], j]
+            s = spec.edge_src[j]
+            desc += [sp.index(s) if s in sp else -1,
+                     list(out_slots).index(spec.edge_dst[j]), j, s]
     return desc
 
 
 def _kernel():
-    """The built library, its entry point's argument types set (cached)."""
+    """The built library, its entry points' argument types set (cached)."""
     global _KERNEL
     if _KERNEL is None:
         lib = cuda_build.load_library("fused_multi", ["fused_multi.cu"])
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mpqe_fused_multi_forward.argtypes = [
-            p, i, p, ll, i, p, p, p, p, i, i, i, p, p, p, p, i, i, p, p, i,
-            p, i, p]
-        lib.mpqe_fused_multi_forward.restype = i
-        lib.mpqe_fused_multi_smem_bytes.argtypes = [i, i]
-        lib.mpqe_fused_multi_smem_bytes.restype = ll
+        lib.mpqe_fused_multi_plan.argtypes = [p, i, i, i, i, i]
+        lib.mpqe_fused_multi_plan.restype = p
+        lib.mpqe_fused_multi_plan_free.argtypes = [p]
+        lib.mpqe_fused_multi_plan_free.restype = None
+        lib.mpqe_fused_multi_plan_smem.argtypes = [p]
+        lib.mpqe_fused_multi_plan_smem.restype = ll
+        lib.mpqe_fused_multi_blocks.argtypes = [i, i]
+        lib.mpqe_fused_multi_blocks.restype = ll
         lib.mpqe_fused_multi_max_smem.argtypes = [i]
         lib.mpqe_fused_multi_max_smem.restype = ll
+        lib.mpqe_fused_multi_forward.argtypes = [
+            p, p, ll, i, p, p, p, p, i, p, p, p, p, i, p, p, i, p, i, p, p]
+        lib.mpqe_fused_multi_forward.restype = i
         _KERNEL = lib
     return _KERNEL
 
@@ -314,24 +378,86 @@ def _check_cuda_inputs(ops: FusedMultiOperands, spec, tensors) -> None:
                              f"inputs on {dev}")
 
 
+def multi_blocks(B: int, d_pad: int) -> int:
+    """Blocks in each of the card's K3 launches (one launch per layer),
+    as the library's grid has them."""
+    return int(_kernel().mpqe_fused_multi_blocks(B, d_pad))
+
+
+class _Plan:
+    """A structure's descriptor parsed by the library once, at one padded
+    width (``mpqe_fused_multi_plan``), freed with its operands."""
+
+    def __init__(self, lib, handle: int):
+        self.lib, self.handle = lib, handle
+
+    def __del__(self):
+        self.lib.mpqe_fused_multi_plan_free(self.handle)
+
+
 def _device_plan(lib, ops: FusedMultiOperands, cfg, structure: str,
-                 dev: torch.device) -> torch.Tensor:
-    """The structure's descriptor on ``dev``, after checking that it and
-    the padded width fit the kernel's limits on this card."""
+                 dev: torch.device) -> _Plan:
+    """The structure's parsed plan, after checking that the kernel takes
+    it and that its widest layer fits this card's shared memory at the
+    padded width."""
     spec = STRUCTURES[structure]
-    plan = _descriptor(cfg, structure)
-    max_desc = lib.mpqe_fused_multi_max_desc()
-    if len(plan) > max_desc:
-        raise ValueError(f"{structure}: plan descriptor of {len(plan)} ints "
-                         f"exceeds the kernel's {max_desc}")
-    need = lib.mpqe_fused_multi_smem_bytes(spec.n_nodes, ops.d_pad)
+    desc = _descriptor(cfg, structure)
+    handle = lib.mpqe_fused_multi_plan(
+        (ctypes.c_int * len(desc))(*desc), len(desc), spec.n_nodes,
+        spec.n_edges, ops.n_bases, ops.d_pad)
+    if not handle:
+        raise ValueError(f"{structure}: the plan exceeds the kernel's "
+                         f"limits (slots, edges or layers)")
+    plan = _Plan(lib, handle)
+    need = lib.mpqe_fused_multi_plan_smem(handle)
     with torch.cuda.device(dev):
         have = lib.mpqe_fused_multi_max_smem(torch.cuda.current_device())
     if need > have:
         raise ValueError(
             f"{structure} at embed_dim={ops.d} needs {need} B of shared "
             f"memory per block; the card allows {have}")
-    return torch.tensor(plan, dtype=torch.int32, device=dev)
+    return plan
+
+
+def _launch(cfg, structure, args, ops, keep: bool):
+    """Launch K3 on the current stream → ``(out, scratch)``: one launch a
+    layer, each counted in ``fused_tgt_forward_multi.launches``.  The
+    activations between layers go through a bf16 scratch ``[planes]
+    [slot][B][d_pad]`` from ``torch.empty`` (stream-ordered, so no two
+    calls share one): two planes the layers take in turns, or with
+    ``keep`` one plane a layer, so that every layer's activations are
+    there after the call."""
+    spec, steps, *_ = _checked_plan(cfg, structure)
+    _check_cuda_inputs(ops, spec, args)
+    node_entity, node_mode, edge_rel_q, edge_norm_q = args
+    dev = node_entity.device
+    B = node_entity.shape[0]
+    out = torch.empty((B, ops.d), dtype=torch.float32, device=dev)
+    planes = steps - 1 if keep else min(2, steps - 1)
+    plane = spec.n_nodes * B * ops.d_pad
+    stream = torch.cuda.current_stream(dev)
+    scratch = torch.empty(planes * plane, dtype=torch.bfloat16, device=dev)
+    if B == 0:
+        return out, scratch.view(planes, spec.n_nodes, B, ops.d_pad)
+    lib = _kernel()
+    plan = ops.descs.get(structure)
+    if plan is None:
+        plan = ops.descs[structure] = _device_plan(lib, ops, cfg, structure,
+                                                   dev)
+    with torch.cuda.device(dev):
+        err = lib.mpqe_fused_multi_forward(
+            plan.handle, ops.ent.data_ptr(), ops.ent.shape[0], ops.d,
+            node_entity.data_ptr(), node_mode.data_ptr(),
+            edge_rel_q.data_ptr(), edge_norm_q.data_ptr(), B,
+            ops.w_self.data_ptr(), ops.bias.data_ptr(), ops.vw.data_ptr(),
+            ops.coeff.data_ptr(), ops.n_rels, ops.tself0.data_ptr(),
+            ops.tvar0.data_ptr(), ops.n_modes,
+            scratch.data_ptr() if planes else None, planes,
+            out.data_ptr(), stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_multi kernel launch failed: cudaError {err}")
+    fused_tgt_forward_multi.launches += steps
+    return out, scratch.view(planes, spec.n_nodes, B, ops.d_pad)
 
 
 def fused_tgt_forward_multi(
@@ -347,49 +473,72 @@ def fused_tgt_forward_multi(
 ) -> torch.Tensor:
     """Per-query-relation fused forward → ``[B, d]`` f32.
 
-    CUDA tensors: one launch of the hand-written kernel on the current
-    stream (inputs checked, nothing falls back).  CPU tensors: the plain
-    version.  ``operands`` come from :func:`prepare_fused_multi`, built
-    once per model."""
-    spec, *_ = _checked_plan(cfg, structure)
-    ops = operands
+    CUDA tensors: the hand-written kernel on the current stream (inputs
+    checked, nothing falls back), one launch per layer, each counted
+    once, with the activations between layers in a bf16 scratch.  CPU tensors: the plain version.  ``operands`` come from
+    :func:`prepare_fused_multi`, built once per model."""
     args = (node_entity, node_mode, edge_rel_q, edge_norm_q)
     dev = node_entity.device
     if dev.type == "cpu":
         return fused_tgt_forward_multi_reference(
-            model, cfg, structure, *args, operands=ops)
+            model, cfg, structure, *args, operands=operands)
     if dev.type != "cuda":
         raise ValueError(f"fused_tgt_forward_multi: unsupported device {dev}")
-    _check_cuda_inputs(ops, spec, args)
-    B = node_entity.shape[0]
-    out = torch.empty((B, ops.d), dtype=torch.float32, device=dev)
-    if B == 0:
-        return out
-    lib = _kernel()
-    desc = ops.descs.get(structure)
-    if desc is None:
-        desc = ops.descs[structure] = _device_plan(lib, ops, cfg, structure,
-                                                   dev)
-    with torch.cuda.device(dev):
-        err = lib.mpqe_fused_multi_forward(
-            desc.data_ptr(), desc.numel(),
-            ops.ent.data_ptr(), ops.ent.shape[0], ops.d,
-            node_entity.data_ptr(), node_mode.data_ptr(),
-            edge_rel_q.data_ptr(), edge_norm_q.data_ptr(),
-            B, spec.n_nodes, spec.n_edges,
-            ops.w_self.data_ptr(), ops.bias.data_ptr(),
-            ops.vw.data_ptr(), ops.coeff.data_ptr(),
-            ops.n_rels, ops.n_bases,
-            ops.tself0.data_ptr(), ops.tvar0.data_ptr(), ops.n_modes,
-            out.data_ptr(), ops.d_pad,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_multi kernel launch failed: cudaError {err}")
-    fused_tgt_forward_multi.launches += 1
-    return out
+    return _launch(cfg, structure, args, operands, keep=False)[0]
 
 
 fused_tgt_forward_multi.launches = 0
+
+
+def fused_tgt_forward_multi_layers(model, cfg, structure: str, node_entity,
+                                   node_mode, edge_rel_q, edge_norm_q, *,
+                                   operands: FusedMultiOperands, mm=None):
+    """K3 with every layer's activations kept → ``(out, acts)`` for
+    :func:`multi_gate`: ``acts[l][s]`` is the ``[B, d_pad]`` input row of
+    slot s to layer l >= 1 (bf16 on the card, bf16 values in f32 on the
+    CPU).  CUDA tensors: the kernel (launches counted as in
+    :func:`fused_tgt_forward_multi`); CPU tensors: the plain version, its
+    products by ``mm`` (the reordering emulation passes
+    :func:`_reordered_matmul`)."""
+    args = (node_entity, node_mode, edge_rel_q, edge_norm_q)
+    dev = node_entity.device
+    if dev.type == "cpu":
+        return _multi_forward_plain(cfg, structure, *args, operands,
+                                    mm or _ordered_matmul)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_tgt_forward_multi: unsupported device {dev}")
+    _, _, plan, _, _ = _checked_plan(cfg, structure)
+    out, scratch = _launch(cfg, structure, args, operands, keep=True)
+    acts = {li + 1: {s: scratch[li, s] for s in plan[li][1]}
+            for li in range(len(plan) - 1)}
+    return out, acts
+
+
+def multi_gate_controls(cfg, structure: str, ops: FusedMultiOperands,
+                        node_entity: torch.Tensor, edge_rel_q: torch.Tensor,
+                        q: int = 0):
+    """The two negative controls of :func:`multi_gate` as ``(name,
+    operands, node_entity, edge_rel_q)``: the plain version fed these
+    must fail the gate against the kernel.  Both change query ``q`` (0,
+    an ordinary query) alone: ``relation``, its relation on the first
+    edge of the last layer replaced by the next one (the per-query
+    relation path that only K3 has); ``anchor_row``, its first anchor row
+    moved 8 bf16 steps up (3 % of each element), through a copy of the
+    entity table with that row appended."""
+    _, _, plan, a_slots, _ = _plan(cfg, structure)
+    j = plan[-1][2][0]
+    er = edge_rel_q.clone()
+    er[q, j] = (er[q, j].long() + 1) % ops.n_rels
+    a = a_slots[0]
+    n = ops.ent.shape[0]
+    row = ops.ent[node_entity[q, a].long().clamp(0, n - 1)].to(torch.bfloat16)
+    moved = (row.view(torch.int16) + 8).view(torch.bfloat16).to(torch.float32)
+    ne = node_entity.clone()
+    ne[q, a] = n
+    moved_ops = dataclasses.replace(
+        ops, ent=torch.cat([ops.ent, moved[None]]), descs={})
+    return (("relation", ops, node_entity, er),
+            ("anchor_row", moved_ops, ne, edge_rel_q))
 
 
 # ----------------------------------------------------------------------
@@ -767,9 +916,10 @@ def _derive_blocks(cfg, structure: str) -> ChainBlocks:
 # ----------------------------------------------------------------------
 # The gate: kernel against plain version
 # ----------------------------------------------------------------------
-# The kernels take each product's K-deep sum in the tensor cores' order,
-# the plain versions one by one.  Both sum the same exact bf16 x bf16
-# products, so before any bf16 rounding the two differ by f32
+# K1, K2 and K3 take each product's K-deep sum in the tensor cores' order,
+# the plain versions one by one (K3's gate, :func:`multi_gate`, holds its
+# output to the forward form below and adds a check layer by layer).
+# Both sum the same exact bf16 x bf16 products, so before any bf16 rounding the two differ by f32
 # reassociation only: at most 2 (K - 1) 2^-24 of the sum of |terms| per
 # element, ~1e-7 of the leaf's max at these widths (measured: <= 2.1e-7
 # at d = 128; ``tools/tgt_probe.py emulate``).  A chain of one layer has
@@ -874,6 +1024,102 @@ def chain_gate_controls(x0, ws, blocks: ChainBlocks, n_a: int, d: int):
     x = x0.clone()
     x[0, :d] = (x[0, :d].view(torch.int16) + 8).view(x0.dtype)
     return (("zero_block", x0, [w0, *ws[1:]]), ("anchor_row", x, list(ws)))
+
+
+# K3's gate.  The output, end to end, is held to :func:`chain_gate` over
+# ``num_steps`` layers: K3's products are K1's and its other steps keep
+# the plain order.  That envelope lets a flip near a bf16 rounding
+# boundary move a row by up to ROW_MAX of max|ref|, so a wrong input of
+# one query that moves its row by less passes it (an anchor row moved 8
+# bf16 steps, three layers from the output, moves it by 3e-4 to 3e-3 of
+# the row's own max, and less of max|ref|).  So each layer is held, too,
+# against the plain layer applied to the kernel's own input rows (its
+# activations, kept by :func:`fused_tgt_forward_multi_layers`), where no
+# rounding comes between the reordered sum and the comparison:
+# * a layer before the last writes ``bf16(relu(y))``: each element equal
+#   to the plain one or one bf16 step from it (a flip), or both within
+#   FLIP_FREE_TOL of the slot's max (a ReLU mask flipped where ``y`` is
+#   ~0), and at most MOVED_SHARE of the elements (or one) not equal;
+# * the last layer's ``y``: each row within FLIP_FREE_TOL of the row's own
+#   max|ref| (the sums differ by f32 reassociation only, ~1e-7).
+# A wrong input row, relation, coefficient or norm of one query moves
+# many elements of its row in the layer that reads it by several steps,
+# whatever the depth.  MOVED_SHARE: a flip needs a reordered sum within
+# its last bits of a bf16 rounding boundary, so flips are rare and
+# independent (one element allowed whatever the batch); a systematic
+# error of one step (a rounding mode, a precision) moves a large share.
+# ``tools/k3_probe.py emulate`` (the products summed exactly, then
+# rounded once; d = 16, 128, 160, 400 at B = 20, 256, 1,000, the 7
+# structures, 4 seeds) stays within one step everywhere and moves at
+# most 3.9e-4 of a layer's elements (one element, at B = 20; 2.1e-4 at
+# B >= 256); the last layer's rows reach 6.2e-7; both controls fail at
+# queries 0, B/2 and B - 1 in every case, the thinnest at 4 steps.
+MOVED_SHARE = 1e-3
+
+
+def _layer_figures(got: torch.Tensor, want: torch.Tensor):
+    """(largest distance in bf16 steps, number of elements not equal) of
+    one layer's ``[B, d]`` activations, ``got`` the kernel's, ``want``
+    the plain layer's from the same input rows; both bf16-valued, >= 0."""
+    g, w = got.to(torch.bfloat16), want.to(torch.bfloat16)
+    steps = (g.view(torch.int16).int() - w.view(torch.int16).int()).abs()
+    near0 = torch.maximum(g.float(), w.float()) <= (
+        FLIP_FREE_TOL * float(w.float().max()))
+    steps = torch.where(near0, steps.new_zeros(()), steps)
+    return (float(steps.max()) if steps.numel() else 0.0,
+            int(g.ne(w).sum()))
+
+
+def _last_layer_figure(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over rows of max|got - want| / the row's max|want|."""
+    if not got.numel():
+        return 0.0
+    diff = (got - want).abs().amax(1)
+    scale = want.abs().amax(1)
+    r = torch.where(scale > 0, diff / scale,
+                    torch.where(diff > 0, float("inf"), 0.0))
+    return float(r.max())
+
+
+def multi_gate(cfg, structure: str, operands: FusedMultiOperands, args,
+               got: torch.Tensor, acts, want: torch.Tensor = None) -> dict:
+    """K3's output ``got`` and activations ``acts`` (from
+    :func:`fused_tgt_forward_multi_layers`) against the plain version on
+    the inputs ``args = (node_entity, node_mode, edge_rel_q,
+    edge_norm_q)`` (see the constants above); ``want``, the plain output,
+    is computed unless given.  Returns ``ok`` and the figures it was
+    decided on: :func:`chain_gate`'s, ``steps`` and ``moved`` (the
+    worst layer before the last: bf16 steps, share of elements not
+    equal) and ``last``."""
+    spec, steps, plan, a_slots, _ = _checked_plan(cfg, structure)
+    ops = operands
+    ne, nm, er, en = args
+    if want is None:
+        want = _multi_forward_plain(cfg, structure, *args, ops,
+                                    _ordered_matmul)[0]
+    out = chain_gate(got, want, steps)
+    x = _multi_anchor_rows(ops, ne, a_slots)
+    worst, moved, moved_ok = 0.0, 0.0, True
+    for li in range(steps):
+        y = _multi_layer_plain(ops, spec, plan, li, x, nm, er, en,
+                               _ordered_matmul)
+        if li == steps - 1:
+            out["last"] = _last_layer_figure(got,
+                                             y[spec.target_slot][:, :ops.d])
+            break
+        x = {}
+        for s, v in y.items():
+            k = acts[li + 1][s].to(torch.float32)
+            st, n_moved = _layer_figures(k[:, :ops.d],
+                                         torch.relu(v[:, :ops.d]))
+            n = max(k[:, :ops.d].numel(), 1)
+            worst, moved = max(worst, st), max(moved, n_moved / n)
+            moved_ok &= n_moved <= max(1.0, MOVED_SHARE * n)
+            x[s] = k
+    out["steps"], out["moved"] = worst, moved
+    out["ok"] = (out["ok"] and worst <= 1 and moved_ok
+                 and out["last"] <= FLIP_FREE_TOL)
+    return out
 
 
 def _tgt_kernel():

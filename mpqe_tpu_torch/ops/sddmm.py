@@ -8,11 +8,10 @@ Hopper CUDA kernel, and the reference's plain formulations.
   TPU tiling arguments ``chunk`` and ``interpret`` have no counterpart).
   CUDA tensors launch ``csrc/sddmm.cu`` (built at first use), counted in
   ``sddmm_kernel.launches``; CPU tensors run the plain version
-  :func:`sddmm_reference`, which sums each score's products over k
-  ascending with one rounding per operation, as the kernel does: the two
-  agree bit for bit on the card.  Forward only, like the reference
-  kernel: a call in grad mode on an input that requires grad raises
-  ``NotImplementedError``.
+  :func:`sddmm_reference`, which sums each score in the kernel's order
+  (its docstring), one rounding per operation: the two agree bit for bit
+  on the card.  Forward only, like the reference kernel: a call in grad
+  mode on an input that requires grad raises ``NotImplementedError``.
 * :func:`sddmm_xla` (:96) and :func:`sddmm_relational_xla` (:107): the
   reference's composable oracles, in plain PyTorch.
 """
@@ -22,6 +21,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from mpqe_tpu_torch.ops import cuda_build
 from mpqe_tpu_torch.ops.cuda_build import refuse_grad
@@ -60,17 +60,33 @@ def sddmm_relational_xla(x: torch.Tensor, y: torch.Tensor,
     return torch.sum(xs * ty, dim=-1) * valid
 
 
+GROUP = 8  # lanes per edge in csrc/sddmm.cu (G)
+VEC = 4  # consecutive positions a lane owns per slice
+
+
 def sddmm_reference(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
                     dst: torch.Tensor) -> torch.Tensor:
-    """Plain version of K7: per edge the f32 products ``x[src][k] *
-    y[dst][k]``, summed over k ascending from 0, one rounding per
-    operation; 0 where an endpoint is out of range."""
+    """Plain version of K7, in the kernel's sum order: the f32 products
+    ``x[src][k] * y[dst][k]``, zero-padded to a multiple of 32 positions;
+    lane g of 8 sums the positions ``k = 32 j + 4 g + v`` from 0, j
+    ascending, then v ascending; then the lanes' sums meet in a fixed
+    butterfly, ``acc_g + acc_(g + m)`` for m = 4, 2, 1, so the score is
+    ``((a0 + a4) + (a2 + a6)) + ((a1 + a5) + (a3 + a7))``.  One rounding
+    per operation; 0 where an endpoint is out of range."""
     s, t, valid = _endpoints(x.shape[0], src, dst)
     p = x.to(torch.float32)[s] * y.to(torch.float32)[t]
-    acc = p.new_zeros(p.shape[0])
-    for k in range(p.shape[1]):
-        acc = acc + p[:, k]
-    return torch.where(valid, acc, torch.zeros_like(acc))
+    E, d = p.shape
+    J = -(-d // (GROUP * VEC))
+    p = F.pad(p, (0, J * GROUP * VEC - d)).view(E, J, GROUP, VEC)
+    acc = p.new_zeros((E, GROUP))
+    for j in range(J):
+        for v in range(VEC):
+            acc = acc + p[:, j, :, v]
+    m = GROUP // 2
+    while m:
+        acc = acc[:, :m] + acc[:, m:2 * m]
+        m //= 2
+    return torch.where(valid, acc[:, 0], torch.zeros_like(acc[:, 0]))
 
 
 _KERNEL = None

@@ -10,7 +10,11 @@ runs there without the repository's conftest::
 
 Tolerance: each kernel output vs its plain version max|diff| / max|ref|
 <= 1e-4 (for K2 per output leaf); where both sum in the same order the
-expected difference is 0.  K5a and K5b take their products on the tensor
+expected difference is 0 (K7 is held to be bit-equal).  K1, K2 and K3
+take their products on the tensor cores and are held to
+``ops/fused_fwd.py chain_gate`` (K3 to ``multi_gate``: that on its
+output, and each layer from its own activations), with negative
+controls that fail it and bit-equal repeats.  K5a and K5b take their products on the tensor
 cores in split TF32 (expected ~2e-6), each with a negative control that
 fails the gate and a bit-equal repeat.  K6a and K6b take their products
 on the tensor cores and are held to the stated bounds of
@@ -61,23 +65,40 @@ def _inputs(structure, B, dev, seed=0):
 @pytest.mark.parametrize("d,nb", [(128, 16), (16, 4), (160, 3), (400, 2)],
                          ids=["flagship", "narrow", "dpad256", "dpad512"])
 def test_cuda_kernel_matches_plain_version(d, nb):
+    """K3 under ``multi_gate`` (its products run on the tensor cores)
+    against its plain version for every structure and batch: the output
+    under ``chain_gate`` and each layer against the plain layer from the
+    kernel's own activations; a repeat launch through the serving path
+    bit-equal to the launch that keeps the activations, one counted
+    launch per layer, and both controls of ``multi_gate_controls`` on
+    query 0 failing the gate at every width."""
     dev = _cuda()
     cfg, model = _model(d, nb, dev)
     ops = tff.prepare_fused_multi(model, cfg)
     for structure in STRUCTURE_NAMES:
+        L = tm.num_steps(cfg, structure)
         for B in (1, 20, 1000):
             args = _inputs(structure, B, dev, seed=B)
             before = tff.fused_tgt_forward_multi.launches
             with torch.no_grad():
-                got = tff.fused_tgt_forward_multi(model, cfg, structure,
-                                                  *args, operands=ops)
-                want = tff.fused_tgt_forward_multi_reference(
+                got, acts = tff.fused_tgt_forward_multi_layers(
                     model, cfg, structure, *args, operands=ops)
+                again = tff.fused_tgt_forward_multi(model, cfg, structure,
+                                                    *args, operands=ops)
+                gate = tff.multi_gate(cfg, structure, ops, args, got, acts)
+                controls = [
+                    (name, tff.multi_gate(cfg, structure, o2,
+                                          (ne, args[1], er, args[3]), got,
+                                          acts))
+                    for name, o2, ne, er in tff.multi_gate_controls(
+                        cfg, structure, ops, args[0], args[2])]
             torch.cuda.synchronize()
-            assert tff.fused_tgt_forward_multi.launches == before + 1
+            assert tff.fused_tgt_forward_multi.launches == before + 2 * L
             assert got.shape == (B, d) and got.device.type == "cuda"
-            err = float((got - want).abs().max() / want.abs().max())
-            assert err <= 1e-4, (structure, B, err)
+            assert torch.equal(got, again), (structure, B)
+            assert gate["ok"], (structure, B, gate)
+            for name, c in controls:
+                assert not c["ok"], (structure, B, name, c)
 
 
 @pytest.mark.cuda
@@ -102,7 +123,9 @@ def test_cuda_wrapper_checks_its_inputs():
 @pytest.mark.cuda
 def test_cuda_wrapper_refuses_a_width_over_shared_memory():
     dev = _cuda()
-    cfg, model = _model(1000, 1, dev)  # d_pad 1024: 4 slots need 320 KB
+    # d_pad 2048: 3-chain's second layer multiplies the rows of 3 slots,
+    # 3 x 16 x (2048 + 8) bf16 (~193 KB) beside the weight stages
+    cfg, model = _model(2000, 1, dev)
     ops = tff.prepare_fused_multi(model, cfg)
     before = tff.fused_tgt_forward_multi.launches
     with pytest.raises(ValueError, match="shared memory"):
@@ -126,20 +149,26 @@ def test_cuda_server_matches_plain_recomputation():
     server = QueryServer(model, cfg, kg.entity_mode, device=dev)
     before = tff.fused_tgt_forward_multi.launches
     answers = server.answer(queries)
-    assert tff.fused_tgt_forward_multi.launches == before + len(STRUCTURE_NAMES)
+    assert tff.fused_tgt_forward_multi.launches == before + sum(
+        tm.num_steps(cfg, s) for s in STRUCTURE_NAMES)  # one per layer
     for s in STRUCTURE_NAMES:
         idx = [i for i, q in enumerate(queries) if q.formula.structure == s]
         _, *arrays = server._pack([queries[i] for i in idx])
         ne, nm, er, en, tgt_mode = [torch.from_numpy(a).to(dev)
                                     for a in arrays]
         with torch.no_grad():
-            q = tff.fused_tgt_forward_multi_reference(
+            # the serving layers, recomputed from the kernel's own vectors
+            qk, acts = tff.fused_tgt_forward_multi_layers(
                 model, cfg, s, ne, nm, er, en, operands=server._k3)
-            q = tm._l2_normalize(q)
+            q = tm._l2_normalize(qk)
             scores = q @ server._ent_norm_t
             scores.masked_fill_(server._mode_dev[None, :] != tgt_mode[:, None],
                                 float("-inf"))
             vals, ids = top_k(scores, 10)
+            # the kernel's vectors, within K3's gate of the plain version
+            gate = tff.multi_gate(cfg, s, server._k3, (ne, nm, er, en), qk,
+                                  acts)
+        assert gate["ok"], (s, gate)
         for row, i in enumerate(idx):
             np.testing.assert_array_equal(answers[i].entity_ids,
                                           ids[row].cpu().numpy())
@@ -734,13 +763,15 @@ def test_cuda_k4_nan_inf_bf16_and_cap():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("d", [1, 16, 37, 128])
 def test_cuda_k7_matches_plain_version(d):
+    """K7 bit-equal to its plain version (the same sum order), on ragged
+    edge counts and widths that are not multiples of 4 or 32."""
     from mpqe_tpu_torch.ops import sddmm as tsd
 
     dev = _cuda()
     gen = torch.Generator(dev).manual_seed(d)
-    for n, E in ((512, 2048), (4096, 3072), (8191, 65536)):
+    for n, E in ((512, 2047), (4096, 3071), (8191, 65537)):
         x = torch.randn((n, d), device=dev, generator=gen)
         y = torch.randn((n, d), device=dev, generator=gen)
         src = torch.randint(0, n, (E,), device=dev, generator=gen,
@@ -754,10 +785,15 @@ def test_cuda_k7_matches_plain_version(d):
         want = tsd.sddmm_reference(x, y, src, dst)
         torch.cuda.synchronize()
         assert tsd.sddmm_kernel.launches == before + 1
-        assert _rel(got, want) <= 1e-4, (n, _rel(got, want))
+        assert torch.equal(got, want), (n, d, _rel(got, want))
         assert bool((got[[0, 1, 3, 5, 6]] == 0).all())
         oracle = tsd.sddmm_xla(x.double(), y.double(), src, dst)
         assert _rel(got.double(), oracle) <= 1e-5
+        # rows that are not 16-byte aligned take the 4-byte loads
+        xo = x.flatten()[1:(n - 1) * d + 1].view(n - 1, d)
+        yo = y.flatten()[1:(n - 1) * d + 1].view(n - 1, d)
+        assert torch.equal(tsd.sddmm_kernel(xo, yo, src, dst),
+                           tsd.sddmm_reference(xo, yo, src, dst))
     with pytest.raises(ValueError):
         tsd.sddmm_kernel(torch.zeros((8192, d), device=dev),
                          torch.zeros((8192, d), device=dev), src[:4], dst[:4])

@@ -15,6 +15,14 @@ Tolerances (max|diff| / max|ref|):
   rows x 14 cases one row flipped (7.9e-4, 3-chain at d=128, seed 11).
 * plain K3 vs the f32 ``encode_dense_multi``: 3e-2, the JAX package's
   own bound for the same pair (tests/test_pallas_fused_fwd.py).
+
+The card's K3 takes its products on the tensor cores, so it is held to
+``multi_gate`` against the plain version (``chain_gate`` on the output,
+and each layer against the plain layer from the kernel's own
+activations); here the gate passes the plain version with its products
+summed in another order (``_reordered_matmul``: exact, rounded once) and
+fails both of ``multi_gate_controls`` on ordinary queries, for every
+structure at the flagship width and at d = 16.
 """
 
 import jax
@@ -176,54 +184,72 @@ def test_cpu_wrapper_runs_plain_version():
 
 
 def _emulate_descriptor(ops, structure, tcfg, ne, nm, er, en):
-    """Run the kernel's loop nest in numpy/torch from the int32 plan
-    descriptor alone (the layout the CUDA source parses), in the kernel's
-    summation order."""
+    """Run the kernel's per-layer work in torch from the int32 plan
+    descriptor alone (the layout ``csrc/fused_multi.cu`` parses), with
+    the plain version's products and the kernel's order for everything
+    else: x rows of the slots a layer multiplies, the self products,
+    per edge ``msg`` over the bases ascending, then per out slot
+    ``(self + bias) + sum of its edges' msg * norm`` in edge order."""
     desc = tff._descriptor(tcfg, structure)
     spec = STRUCTURES[structure]
-    n_nodes = spec.n_nodes
-    steps, n_gather = desc[0], desc[1]
-    gather = desc[2:2 + n_gather]
-    is_anchor = desc[2 + n_gather:2 + n_gather + n_nodes]
-    p = 2 + n_gather + n_nodes
     f32, d, dp, nb = torch.float32, ops.d, ops.d_pad, ops.n_bases
     B = ne.shape[0]
-    xs = torch.zeros((n_nodes, B, dp), dtype=f32)
-    for s in gather:
-        rows = ops.ent[ne[:, s].long()].to(torch.bfloat16).to(f32)
-        xs[s, :, :d] = rows
+    steps, p = desc[0], 1
+    x = {}  # slot -> [B, dp] bf16-valued f32 rows (layers >= 1)
     out = None
     for layer in range(steps):
-        n_out = desc[p]
-        outs = desc[p + 1:p + 1 + n_out]
-        p += 1 + n_out
-        n_msg = desc[p]
-        msgs = [desc[p + 1 + 3 * e:p + 4 + 3 * e] for e in range(n_msg)]
-        p += 1 + 3 * n_msg
-        acc = torch.zeros((n_nodes, B, dp), dtype=f32)
-        for src, dst, j in msgs:
+        def take(width=1):
+            """The next counted list of ``width``-tuples, flat."""
+            nonlocal p
+            n = desc[p]
+            vals = desc[p + 1:p + 1 + n * width]
+            p += 1 + n * width
+            return vals
+        a_slot, sp, ss = take(), take(), take()
+        outs = take(2)
+        edges = take(4)
+        n_out, n_e = len(outs) // 2, len(edges) // 4
+        rows = {}
+        for s in a_slot:
+            if layer == 0:
+                r = ops.ent[ne[:, s].long().clamp(0, ops.ent.shape[0] - 1)]
+                rows[s] = torch.nn.functional.pad(
+                    r.to(torch.bfloat16).to(f32), (0, dp - d))
+            else:
+                rows[s] = x[s]
+        selfs = [tff._ordered_matmul(rows[a_slot[i]],
+                                     ops.w_self[layer].to(f32), d)
+                 for i in ss]
+        msgs = []
+        for e in range(n_e):
+            e_sp, e_out, j, e_slot = edges[4 * e:4 * e + 4]
             ce = ops.coeff[layer][er[:, j].long()]
-            msg = torch.zeros((B, dp), dtype=f32)
+            msg = None
             for b in range(nb):
-                if layer == 0 and not is_anchor[src]:
-                    h = ops.tvar0[nm[:, src].long(), b].to(f32)
+                if e_sp < 0:
+                    h = ops.tvar0[nm[:, e_slot].long(), b].to(f32)
                 else:
                     w = ops.vw[layer][:, b * dp:(b + 1) * dp].to(f32)
-                    h = tff._ordered_matmul(xs[src], w, d)
-                msg = msg + ce[:, b:b + 1] * h
-            acc[dst] = acc[dst] + msg * en[:, j:j + 1]
-        for s in outs:
-            if layer == 0 and not is_anchor[s]:
-                y = ops.tself0[nm[:, s].long()].to(f32)
-            else:
-                y = tff._ordered_matmul(xs[s], ops.w_self[layer].to(f32), d)
-            acc[s] = (y + ops.bias[layer]) + acc[s]
+                    h = tff._ordered_matmul(rows[a_slot[sp[e_sp]]], w, d)
+                msg = ce[:, b:b + 1] * h if msg is None else \
+                    msg + ce[:, b:b + 1] * h
+            msgs.append((e_out, msg * en[:, j:j + 1]))
+        y = {}
+        for o in range(n_out):
+            s, self_i = outs[2 * o], outs[2 * o + 1]
+            v = (selfs[self_i] if self_i >= 0
+                 else ops.tself0[nm[:, s].long()].to(f32)) + ops.bias[layer]
+            acc = None
+            for e_out, m in msgs:
+                if e_out == o:
+                    acc = m if acc is None else acc + m
+            y[s] = v if acc is None else v + acc
         if layer == steps - 1:
-            assert outs == [spec.target_slot]
-            out = acc[outs[0], :, :d]
+            assert [outs[0]] == [spec.target_slot] and n_out == 1
+            out = y[outs[0]][:, :d]
         else:
-            for s in outs:
-                xs[s] = torch.relu(acc[s]).to(torch.bfloat16).to(f32)
+            x = {s: torch.relu(v).to(torch.bfloat16).to(f32)
+                 for s, v in y.items()}
     assert p == len(desc)
     return out
 
@@ -238,3 +264,98 @@ def test_descriptor_drives_the_same_function(structure):
                                                      *args, operands=ops)
         got = _emulate_descriptor(ops, structure, tcfg, *args)
     assert torch.equal(got, want), structure
+
+
+def _k3_gate_case(d, nb, structure, B, queries):
+    """The reordering emulation of K3 (products summed exactly, then
+    rounded once; activations kept) must pass ``multi_gate`` against
+    the ordered plain version, and both controls, on each of
+    ``queries``, must fail it."""
+    _, tcfg, _, model = _models(d, nb)
+    ops = tff.prepare_fused_multi(model, tcfg)
+    args = [torch.from_numpy(a) for a in _inputs(structure, B=B, seed=5)]
+    with torch.no_grad():
+        want = tff.fused_tgt_forward_multi_reference(
+            model, tcfg, structure, *args, operands=ops)
+        emu, acts = tff.fused_tgt_forward_multi_layers(
+            model, tcfg, structure, *args, operands=ops,
+            mm=tff._reordered_matmul)
+        gate = tff.multi_gate(tcfg, structure, ops, args, emu, acts)
+        assert gate["ok"], (structure, gate)
+        assert gate["steps"] <= 1 and gate["last"] <= 1e-6, gate
+        for q in queries:
+            for name, o2, ne, er in tff.multi_gate_controls(
+                    tcfg, structure, ops, args[0], args[2], q):
+                ctl = tff.multi_gate(tcfg, structure, o2,
+                                     (ne, args[1], er, args[3]), emu, acts)
+                assert not ctl["ok"], (structure, name, q, ctl)
+    return want, emu
+
+
+@pytest.mark.parametrize("structure", list(STRUCTURE_NAMES))
+def test_k3_gate_holds_reordering_and_fails_controls(structure):
+    """d = 128, 16 bases, B = 1,000: the plain K3 with another sum order
+    inside its products lies within ``multi_gate`` of the ordered plain
+    version (``tools/k3_probe.py emulate`` holds the same over seeds and
+    the card tests' widths); both negative controls, on query 0, fail
+    it."""
+    want, emu = _k3_gate_case(128, 16, structure, 1000, (0,))
+    assert not torch.equal(emu, want)  # the reordering does move bits
+
+
+@pytest.mark.parametrize("structure", list(STRUCTURE_NAMES))
+def test_k3_gate_fails_controls_on_ordinary_queries_at_narrow_width(
+        structure):
+    """d = 16, 4 bases, B = 60: the gate passes the reordering and sees
+    both controls on the first, a middle and the last query (the layer
+    check needs no query whose row is large)."""
+    _k3_gate_case(16, 4, structure, 60, (0, 30, 59))
+
+
+def test_k3_layer_figures_count_bf16_steps():
+    """One layer's figures: a one-step flip is one step and one moved
+    element; a ReLU flip next to 0 counts no step; two steps are two; a
+    one-step error everywhere moves every element."""
+    want = torch.tensor([[0.0, 1.0, 3.0, 0.5], [2.0, 0.25, 0.0, 1.5]])
+    up = (want.to(torch.bfloat16).view(torch.int16) + 1).view(
+        torch.bfloat16).float()
+    flip = want.clone()
+    flip[0, 1] = up[0, 1]
+    assert tff._layer_figures(want, want) == (0.0, 0)
+    assert tff._layer_figures(flip, want) == (1.0, 1)
+    relu = want.clone()
+    relu[0, 0] = 1e-6  # y ~0: the plain version masked it, the kernel not
+    assert tff._layer_figures(relu, want) == (0.0, 1)
+    two = want.clone()
+    two[1, 3] = (up[1, 3].to(torch.bfloat16).view(torch.int16) + 1).view(
+        torch.bfloat16).float()
+    assert tff._layer_figures(two, want) == (2.0, 1)
+    nonzero = want != 0
+    assert tff._layer_figures(torch.where(nonzero, up, want), want) == (
+        1.0, int(nonzero.sum()))
+
+
+def test_cpu_layers_wrapper_runs_plain_version():
+    """On CPU tensors ``fused_tgt_forward_multi_layers`` is the plain
+    version with its activations: the same output, and for every layer
+    after the first the bf16 rows each output slot feeds the next."""
+    _, tcfg, _, model = _models(16, 4)
+    ops = tff.prepare_fused_multi(model, tcfg)
+    before = tff.fused_tgt_forward_multi.launches
+    for structure in STRUCTURE_NAMES:
+        args = [torch.from_numpy(a) for a in _inputs(structure, 11, seed=4)]
+        _, steps, plan, _, _ = tff._plan(tcfg, structure)
+        with torch.no_grad():
+            out, acts = tff.fused_tgt_forward_multi_layers(
+                model, tcfg, structure, *args, operands=ops)
+            want = tff.fused_tgt_forward_multi_reference(
+                model, tcfg, structure, *args, operands=ops)
+        assert torch.equal(out, want), structure
+        assert sorted(acts) == list(range(1, steps)), structure
+        for li, layer in acts.items():
+            assert sorted(layer) == sorted(plan[li - 1][1]), structure
+            for x in layer.values():
+                assert x.shape == (11, ops.d_pad)
+                assert torch.equal(x, x.to(torch.bfloat16).float())
+                assert bool((x >= 0).all())
+    assert tff.fused_tgt_forward_multi.launches == before

@@ -177,3 +177,45 @@ def test_k7_over_a_sparse_batch_matches_pallas_interpret():
         *map(jnp.asarray, (xn, xn, e.src, e.dst)), interpret=True))
     assert got.shape == (e.capacity,)
     assert _rel(got, want) <= 1e-5
+
+
+def _numpy_k7_order(x, y, src, dst):
+    """The sum order ``csrc/sddmm.cu`` documents, in numpy float32: lane
+    g of 8 adds the products at k = 32 j + 4 g + v (j, then v ascending;
+    +0 past d), then the butterfly m = 4, 2, 1."""
+    n, d = x.shape
+    E = src.shape[0]
+    ok = (src >= 0) & (src < n) & (dst >= 0) & (dst < n)
+    xs = x[np.where(ok, src, 0)].astype(np.float32)
+    ys = y[np.where(ok, dst, 0)].astype(np.float32)
+    lanes = [np.zeros(E, np.float32) for _ in range(8)]
+    for j in range(-(-d // 32)):
+        for g in range(8):
+            for v in range(4):
+                k = 32 * j + 4 * g + v
+                p = (xs[:, k] * ys[:, k] if k < d
+                     else np.zeros(E, np.float32))
+                lanes[g] = (lanes[g] + p).astype(np.float32)
+    m = 4
+    while m:
+        lanes = [(lanes[g] + lanes[g + m]).astype(np.float32)
+                 for g in range(m)]
+        m //= 2
+    return np.where(ok, lanes[0], np.float32(0))
+
+
+@pytest.mark.parametrize("n,d,e", [(40, 1, 300), (40, 5, 300),
+                                   (64, 37, 500), (130, 128, 700),
+                                   (20, 200, 90), (16, 64, 0)])
+def test_plain_k7_follows_the_documented_sum_order(n, d, e):
+    rng = np.random.default_rng(d * 7 + e)
+    x, y, src, dst = _case(rng, n, d, e)
+    if e:
+        src[:2] = [-1, n]
+        dst[2] = n + 4
+    want = _numpy_k7_order(x, y, src, dst)
+    got = tsd.sddmm_reference(*map(_t, (x, y, src, dst))).numpy()
+    assert got.dtype == np.float32 and got.shape == (e,)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(
+        tsd.sddmm_kernel(*map(_t, (x, y, src, dst))).numpy(), got)
