@@ -1163,7 +1163,14 @@ def phase_train_cli(kernel_args, then=None) -> None:
 K5_KERNELS = ("k5_msg_kernel", "k5_combine_kernel")
 K6A_KERNELS = ("k6a_messages_kernel",)
 K6B_KERNELS = ("k6b_grad_kernel", "k6b_dcoeff_kernel",
-               "reduce_partials_kernel")
+               "reduce_partials_kernel", "k6b_s_")
+# widths beyond what K5 and K6 stage whole in shared memory: K5 at K = 768
+# (N = K, and N != K), K6 at d = 256 and 512, all with 16 bases, on the
+# 3-chain_inter template batch at the train batch
+WIDE_K5 = ((768, 768), (768, 256))
+WIDE_K6 = (256, 512)
+WIDE_BASES = 16
+WIDE_STRUCTURE = "3-chain_inter"
 
 
 def general_store(cfg):
@@ -1414,7 +1421,88 @@ def phase_rgcn_fused(layer_b, layer_f, cfg, device, gen, flush):
                 (1, "kernel_ms"), (2, "device_ms"), (3, "library_ms"),
                 (4, "bound_ms"), (5, "f32_route_bound_ms"))))
         fields[kid] = finish_acc(acc)
+    wide_rgcn_fused(cfg, device, gen, flush)
     return fields
+
+
+def wide_rgcn_fused(cfg, device, gen, flush):
+    """K5a and K5b at the widths of WIDE_K5 (k in stages on the card), on
+    the WIDE_STRUCTURE template at the train batch, random weights: the
+    gates, repeat and negative control of :func:`phase_rgcn_fused`, and
+    times beside the bound."""
+    from mpqe_tpu_torch.ops import rgcn_fused as rf
+    from mpqe_tpu_torch.ops import template_layout as tl
+    from mpqe_tpu_torch.queries import STRUCTURES
+
+    R, s, B = cfg.n_rels, WIDE_STRUCTURE, TRAIN_BATCH
+    er, en = template_rel_norm(gen, cfg, s)
+    ch = tl.template_chunked(s, er, en, B)
+    n = B * STRUCTURES[s].n_nodes
+    src = ch["src"].to(torch.int32).contiguous()
+    norm = ch["norm"].float().contiguous()
+    crel = ch["chunk_rel"].to(torch.int32).contiguous()
+    chunk = ch["chunk"]
+    real = norm != 0
+    n_real = int(real.sum())
+    n_src_rows = int(torch.unique(src[real].clamp(0, n - 1)).numel())
+    n_used = int(torch.unique(crel[crel < R]).numel())
+    for K, N in WIDE_K5:
+        x = torch.randn((n, K), generator=gen, device=device)
+        basis = torch.randn((WIDE_BASES, K, N), generator=gen,
+                            device=device) / K ** 0.5
+        coeff = torch.randn((R, WIDE_BASES), generator=gen, device=device)
+        for kid in ("K5a", "K5b"):
+            if kid == "K5a":
+                c = rf._masked_chunk_coeff(coeff, crel, R).contiguous()
+                w, fn, ref = basis, rf.messages_basis, \
+                    rf.messages_basis_reference
+                kargs, oracle_w, oracle_c = (coeff, crel, R), basis, coeff
+                weight_bytes = basis.numel() * 4
+                coeff_bytes = n_used * WIDE_BASES * 4 + crel.numel() * 4
+            else:
+                c = crel.clamp(0, R - 1)
+                w = torch.einsum("rb,bio->rio", coeff, basis).contiguous()
+                fn, ref = rf.messages_wrel, rf.messages_wrel_reference
+                kargs = (crel,)
+                oracle_w, oracle_c = w, torch.eye(R, device=device)
+                weight_bytes = n_used * K * N * 4
+                coeff_bytes = crel.numel() * 4
+            with torch.no_grad():
+                got = fn(x, src, w, *kargs, norm, chunk)
+                again = fn(x, src, w, *kargs, norm, chunk)
+                plain = ref(x, src, w, c, norm, chunk)
+                oracle = rf._edge_messages_xla(x, oracle_w, oracle_c, src,
+                                               norm, crel, R, chunk)
+                cut = ref(x, src, w, k5_control(c, crel, norm, chunk,
+                                                kid == "K5a", R),
+                          norm, chunk)
+            torch.cuda.synchronize()
+            e_plain, e_orc = rel_err(got, plain), rel_err(got, oracle)
+            e_cut, repeat = rel_err(got, cut), torch.equal(got, again)
+            line = (f"kernel.rgcn_fused.wide {kid} {s} B={B} K={K} N={N} "
+                    f"E={src.shape[0]} err_vs_plain={e_plain:.3e} "
+                    f"err_vs_f32_oracle={e_orc:.3e} repeat_equal={repeat} "
+                    f"control_err={e_cut:.3e}")
+            if (e_plain > TOL_PLAIN or e_orc > TOL_ORACLE or not repeat
+                    or e_cut <= TOL_PLAIN
+                    or not bool(torch.isfinite(got).all())):
+                log(line + " FAIL")
+                raise AssertionError(line)
+            del again, plain, oracle, cut
+            with torch.no_grad():
+                ms = time_ms(lambda: fn(x, src, w, *kargs, norm, chunk),
+                             ITERS, flush)
+                k_ms = device_ms(lambda: fn(x, src, w, *kargs, norm, chunk),
+                                 ITERS, flush, K5_KERNELS,
+                                 2 if kid == "K5a" else 1)
+            work = k5_work(src.shape[0], n_real, n_src_rows, K, N,
+                           weight_bytes, coeff_bytes)
+            t_b, t_o = bound_times(work)
+            log(line + f" kernel_ms={ms:.4f} device_ms={k_ms:.4f} "
+                f"bound_ms={max(t_b, t_o):.6f} ("
+                f"{'bytes' if t_b >= t_o else 'operations'})")
+            del got, w
+        del x, basis, coeff
 
 
 def k6_cases(cfg, gen, device):
@@ -1589,7 +1677,97 @@ def phase_rgcn_blocked(layer_b, cfg, device, gen, flush):
             f"{sum(m for m, _ in tpl):.4f} device_ms="
             f"{sum(k for _, k in tpl):.4f}")
         fields[kid] = finish_acc(acc)
+    wide_rgcn_blocked(cfg, device, gen, flush)
     return fields
+
+
+def wide_rgcn_blocked(cfg, device, gen, flush):
+    """K6a (both layouts) and K6b at the widths of WIDE_K6 with
+    WIDE_BASES bases (the basis streamed, dbasis in tiles, s_eb in column
+    tiles on the card), on the WIDE_STRUCTURE template at the train batch,
+    random weights: the gates, controls and repeats of
+    :func:`phase_rgcn_blocked`, and times beside the bound."""
+    from mpqe_tpu_torch.ops import rgcn_blocked as rb
+    from mpqe_tpu_torch.ops import template_layout as tl
+    from mpqe_tpu_torch.queries import STRUCTURES
+
+    R, s, B, bb = cfg.n_rels, WIDE_STRUCTURE, TRAIN_BATCH, WIDE_BASES
+    er, en = template_rel_norm(gen, cfg, s)
+    lay, t_lay = rb.layouts_on(tl.template_blocked(s, er, en, B), device)
+    n = B * STRUCTURES[s].n_nodes
+    E = lay["src_local"].shape[0]
+    n_chunks = lay["chunk_dst_blk"].shape[0]
+    n_real = int(lay["part_ptr"][-1])
+    for d in WIDE_K6:
+        basis = torch.randn((bb, d, d), generator=gen, device=device) \
+            / d ** 0.5
+        coeff = torch.randn((R, bb), generator=gen, device=device)
+        x = torch.randn((n, d), generator=gen, device=device)
+        g = torch.randn((n, d), generator=gen, device=device)
+        basis_t = basis.transpose(1, 2)
+        with torch.no_grad():
+            got = rb.messages_blocked(x, basis, coeff, lay, R)
+            got2 = rb.messages_blocked(x, basis, coeff, lay, R)
+            got_t = rb.messages_blocked(g, basis_t, coeff, t_lay, R)
+            got_t2 = rb.messages_blocked(g, basis_t, coeff, t_lay, R)
+            got_g = rb.grad_blocked_parts(x, g, basis, coeff, lay, R)
+            got_g2 = rb.grad_blocked_parts(x, g, basis, coeff, lay, R)
+            torch.cuda.synchronize()
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in (got, got_t, *got_g))
+            ga, _ = k6a_check(rb, got, got2, x, basis, coeff, lay, R, n)
+            gt, _ = k6a_check(rb, got_t, got_t2, g, basis_t, coeff, t_lay,
+                              R, n)
+            plain_g = rb.grad_blocked_reference_parts(x, g, basis, coeff,
+                                                      lay, R)
+            s_bound = rb.grad_s_bound(x, g, basis, lay)
+            gb = rb.k6b_gate(got_g, plain_g, s_bound, lay["rel"], R)
+            gb["repeat_equal"] = all(torch.equal(a, b)
+                                     for a, b in zip(got_g, got_g2))
+            r = int(lay["edges"][0, 2])
+            cut_lay = dict(lay, norm=torch.where(lay["rel"] == r, 0.0,
+                                                 lay["norm"]))
+            bad = rb.k6b_gate(got_g, rb.grad_blocked_reference_parts(
+                x, g, basis, coeff, cut_lay, R), s_bound, lay["rel"], R)
+            gb["control_fails"] = not bad["dbasis_ok"] and \
+                not bad["dcoeff_ok"]
+        line = f"kernel.rgcn_blocked.wide {s} B={B} d={d} bases={bb} E={E} "
+        for tag, gate in (("K6a", ga), ("K6a_t", gt)):
+            line += (f"{tag}: flip_share={gate['flip_share']:.3e} "
+                     f"rel_err={gate['rel_err']:.3e} "
+                     f"diff_over_bound={gate['bound_ratio']:.3e} "
+                     f"control_fails={gate['control_fails']} "
+                     f"repeat_equal={gate['repeat_equal']} ")
+        line += (f"K6b: dbasis_err={gb['dbasis_err']:.3e} "
+                 f"s_flip_share={gb['s_flip_share']:.3e} "
+                 f"s_beyond_neighbour={gb['s_beyond_neighbour']} "
+                 f"dcoeff_err={gb['dcoeff_err']:.3e} "
+                 f"control_fails={gb['control_fails']} "
+                 f"repeat_equal={gb['repeat_equal']}")
+        if not finite or not all(
+                gate["ok"] and gate["control_fails"] and gate["repeat_equal"]
+                for gate in (ga, gt, gb)):
+            log(line + " FAIL")
+            raise AssertionError(line)
+        log(line)
+        del got2, got_t2, got_g2, plain_g, s_bound, got, got_t, got_g
+        for kid, grad, kfn, names in (
+                ("K6a", False,
+                 lambda: rb.messages_blocked(x, basis, coeff, lay, R),
+                 K6A_KERNELS),
+                ("K6b", True,
+                 lambda: rb.grad_blocked(x, g, basis, coeff, lay, R),
+                 K6B_KERNELS)):
+            with torch.no_grad():
+                ms = time_ms(kfn, ITERS, flush)
+                k_ms = device_ms(kfn, ITERS, flush, names)
+            work = k6_work(E, n_chunks, n_real, n, d, d, bb, R, grad)
+            t_b, t_o = bound_times(work)
+            log(f"kernel.rgcn_blocked.wide {kid} {s} B={B} d={d} "
+                f"kernel_ms={ms:.4f} device_ms={k_ms:.4f} "
+                f"bound_ms={max(t_b, t_o):.6f} "
+                f"({'bytes' if t_b >= t_o else 'operations'})")
+        del x, g, basis, coeff, basis_t
 
 
 # ----------------------------------------------------------------------
@@ -2458,7 +2636,9 @@ def phase_train_sparse(kg, train_q, device, label):
 # ----------------------------------------------------------------------
 # K8 (the ring-halo R-GCN layer) and training through the halo layers
 # ----------------------------------------------------------------------
-K8_KERNELS = ("ring_hop_kernel",)
+K8_KERNELS = ("ring_sum_kernel", "ring_keys_kernel", "ring_bounds_kernel",
+              "ring_runs_kernel", "ring_rows_kernel", "ring_dst_kernel",
+              "k5_msg_kernel", "k5_combine_kernel")
 RING_SIZES = (2, 3, 4, 8)
 RING_TEMPLATE_PARTS = 4
 RING_SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's clock, per aggregate
@@ -2468,14 +2648,32 @@ HALO_STEPS = 20
 
 def k8_work(N: int, d: int, d_out: int, bb: int, n_rels: int, E: int,
             n_parts: int) -> tuple:
-    """(bytes, bf16 FLOP, f32 FLOP) of one K8 layer call (all P hops): x,
-    the E real edges' src, dst, rel and norm (16 B each), the basis and
-    coeff read once, the [N, d_out] aggregate written once; the
-    transforms at 2 d d_out Bb per edge or per held source row, whichever
-    is fewer (min(E, P N)), plus the combine (Bb multiplies and adds per
-    output), the norm and the destination add per edge and column."""
+    """(bytes, bf16 FLOP, f32 FLOP, TF32 FLOP) of one K8 layer call (all P
+    hops): x, the E real edges' src, dst, rel and norm (16 B each), the
+    basis and coeff read once, the [N, d_out] aggregate written once; the
+    least f32 work of three routes: per edge and basis (2 d d_out Bb an
+    edge), per held source row (2 d d_out Bb for each of the P N rows a
+    part holds over the ring), each plus the basis sum (2 Bb an output),
+    the norm and the destination add; per relation (2 d d_out an edge,
+    plus the combine, R Bb d d_out multiplies and adds, plus the norm and
+    the add).  The TF32 entry is the per-relation route's products in
+    split TF32 (3 x 2 d d_out an edge), which ``bound_times`` takes when
+    it is faster, as for K5."""
     nbytes = (N * d * 4 + E * 16 + bb * d * d_out * 4 + n_rels * bb * 4
               + N * d_out * 4)
+    tail = E * d_out * (2 * bb + 2)
+    f32 = min(2 * d * d_out * bb * E + tail,
+              2 * d * d_out * bb * n_parts * N + tail,
+              2 * d * d_out * E + 2 * n_rels * bb * d * d_out
+              + 2 * E * d_out)
+    return nbytes, 0, f32, 3 * 2 * d * d_out * E
+
+
+def k8_work_pr5(N: int, d: int, d_out: int, bb: int, n_rels: int, E: int,
+                n_parts: int) -> tuple:
+    """PR 5's count, printed beside: the cheaper of per edge and per held
+    row (min(E, P N)), f32 only."""
+    nbytes = k8_work(N, d, d_out, bb, n_rels, E, n_parts)[0]
     f32 = 2 * d * d_out * bb * min(E, n_parts * N) + E * d_out * (2 * bb + 2)
     return nbytes, 0, f32
 
@@ -2532,11 +2730,11 @@ def ring_cases(cfg, gen, device):
 
 
 def ring_device_ms(fn, iters: int, flush: torch.Tensor) -> tuple:
-    """(K8's device ms, the copy stream's busy ms, its operations) per
-    ``fn()`` call, each call after an L2 flush (torch.profiler): the
-    kernel alone, and every device operation on a stream that ran no K8
-    (the ring's copies; the slot set-up and the flush run on K8's
-    stream)."""
+    """(K8's device ms, the copy stream's busy ms, its operations, the
+    layouts' sort ms) per ``fn()`` call, each call after an L2 flush
+    (torch.profiler): K8's kernels alone; every device operation on a
+    stream that ran no K8 (the ring's copies; the slot set-up and the flush
+    run on K8's stream); the ``torch.sort`` kernels on K8's stream."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2554,9 +2752,13 @@ def ring_device_ms(fn, iters: int, flush: torch.Tensor) -> tuple:
         if k8:
             streams = {e.device_resource_id for e in k8}
             side = [e for e in dev if e.device_resource_id not in streams]
+            sort = [e for e in dev if e.device_resource_id in streams
+                    and "sort" in e.name.lower()]
             return (sum(e.time_range.elapsed_us() for e in k8) / iters / 1e3,
                     sum(e.time_range.elapsed_us() for e in side)
-                    / iters / 1e3, len(side) // iters)
+                    / iters / 1e3, len(side) // iters,
+                    sum(e.time_range.elapsed_us() for e in sort)
+                    / iters / 1e3)
         log(f"ring_device_ms: profile {attempt + 1} recorded no K8")
     raise AssertionError(f"the profiler saw no K8 in {PROFILE_TRIES} "
                          "profiles")
@@ -2587,14 +2789,60 @@ class delayed_receivers:
         return False
 
 
+def ring_library(c, layer, R: int):
+    """K8's yardstick, several PyTorch calls (no single call computes
+    K8): per hop one ``torch.bmm`` of the relation-chunked source rows by
+    their relations' combined W and one ``index_add_`` of the messages
+    into their destinations, on the operands of K8's own layouts gathered
+    before the timing (as K5's yardstick)."""
+    from mpqe_tpu_torch.ops import ring
+
+    P, x = c["P"], c["x"]
+    block = x.shape[0] // P
+    devs = c["mesh"].axis_devices("data")
+    g = ring._groups(devs, layer, x, c["edges"], block, R,
+                     "plain")[devs[0]]
+    rt, dev = g.route, x.device
+    w = ring.combined_weights(g.basis, g.coeff)
+    L, _, N = g.out.shape
+    live = rt.live.tolist()
+    hops = []
+    for s_, nl in enumerate(live):
+        if nl == 0:  # no edge reaches a part at this hop
+            continue
+        rows = nl * rt.chunk
+        xs = g.comm_rows[rt.src[s_, :rows].long()].view(nl, rt.chunk,
+                                                         x.shape[1])
+        wc = w[rt.crel[s_, :nl].long()]
+        drow, doffs = rt.drow[s_].long(), rt.doffs[s_].long()
+        pos = torch.arange(drow.shape[1], device=dev).expand(L, -1)
+        r = torch.searchsorted(doffs[:, 1:].contiguous(), pos.contiguous(),
+                               right=True)
+        ok = pos < doffs[:, -1:]
+        dest = torch.zeros(rows + 1, dtype=torch.long, device=dev)
+        at = torch.where(ok, drow, rows)
+        dest[at.reshape(-1)] = (r + torch.arange(L, device=dev)[:, None]
+                                * block).reshape(-1)
+        hops.append((xs, wc, dest[:rows]))
+    out = torch.zeros((L * block, N), device=dev)
+
+    def fn():
+        for xs, wc, dest in hops:
+            out.index_add_(0, dest, torch.bmm(xs, wc).view(-1, N))
+
+    return fn
+
+
 def phase_ring(layer, cfg, device, gen, flush):
-    """K8's drive (counted from 0: P launches per layer call), then for
-    each case K8 against its plain version (equal), the port's
-    ``rgcn_ring_halo`` and the single-device ``rgcn_sparse``
-    (<= TOL_ORACLE), and again with delayed receivers (equal); times
-    beside the bound, the copy stream's busy time and the plain version.
-    Returns (launches of the drive, the JSON fields: sums over the 7
-    template layouts)."""
+    """K8's drive (counted from 0: 6 + 2 P launches per layer call), then
+    for each case K8 against its plain version and the f32 oracles, the
+    port's ``rgcn_ring_halo`` and the single-device ``rgcn_sparse``, under
+    ``ops/ring.py ring_gate``; its two negative controls (the plain version
+    with one edge's rel changed, with one edge's src moved) failing it; a
+    repeat and a run with delayed receivers equal to the first; times
+    beside the bound (and PR 5's count of it), the copy stream's busy
+    time, the plain version and the yardstick.  Returns (launches of the
+    drive, the JSON fields: sums over the 7 template layouts)."""
     from mpqe_tpu_torch.ops import rgcn as rgcn_ops
     from mpqe_tpu_torch.ops import ring
     from mpqe_tpu_torch.parallel import halo
@@ -2611,15 +2859,16 @@ def phase_ring(layer, cfg, device, gen, flush):
         outs = [k8(c) for c in cases]
     torch.cuda.synchronize()
     launches = ring.rgcn_ring_halo_rdma.launches
-    want = sum(c["P"] for c in cases)
+    want = sum(6 + 2 * c["P"] for c in cases)
     log(f"kernel.ring: launches {launches} in {len(cases)} layer calls "
-        f"(expected {want}: P per call)")
+        f"(expected {want}: 6 + 2 P per call)")
     if launches != want:
         raise AssertionError(f"K8 launches {launches} != {want}")
     acc = new_acc()
     general_ref = None
     for c, got in zip(cases, outs):
         label, P, x, edges, n = c["label"], c["P"], c["x"], c["edges"], c["n"]
+        block = x.shape[0] // P
         with torch.no_grad():
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -2634,47 +2883,75 @@ def phase_ring(layer, cfg, device, gen, flush):
                     general_ref = ref1
             else:  # the same graph and x at every ring size
                 ref1 = general_ref
+            again = k8(c)
             with delayed_receivers():
                 late = k8(c)
+            controls = [ring.rgcn_ring_halo_rdma_reference(
+                c["mesh"], layer, x, *ce, R)
+                for ce in ring.ring_controls(edges, R, block)]
         torch.cuda.synchronize()
         plain_ms = a.elapsed_time(b)
-        e_plain = float((got - plain).abs().max())
-        e_xla, e_single = rel_err(got, xla), rel_err(got[:n], ref1)
-        same_late = torch.equal(late, got)
+        gate = ring.ring_gate(got, plain, [(got, xla), (got[:n], ref1)])
+        ctl = [ring.ring_gate(got, cp) for cp in controls]
+        repeat, same_late = torch.equal(again, got), torch.equal(late, got)
         line = (f"kernel.ring {label:14s} P={P} N={x.shape[0]} E={c['E']} "
-                f"err_vs_plain={e_plain:.3e} err_vs_rgcn_ring_halo="
-                f"{e_xla:.3e} err_vs_rgcn_sparse={e_single:.3e} "
+                f"gate_ok={gate['ok']} err_vs_plain="
+                f"{gate['err_vs_plain']:.3e} err_vs_rgcn_ring_halo="
+                f"{gate['err_vs_oracles'][0]:.3e} err_vs_rgcn_sparse="
+                f"{gate['err_vs_oracles'][1]:.3e} controls_fail="
+                f"{not any(g['ok'] for g in ctl)} (rel "
+                f"{ctl[0]['err_vs_plain']:.3e}, src "
+                f"{ctl[1]['err_vs_plain']:.3e}) repeat_equal={repeat} "
                 f"delayed_receivers_equal={same_late}")
-        if (e_plain != 0.0 or e_xla > TOL_ORACLE or e_single > TOL_ORACLE
-                or not same_late or not bool(torch.isfinite(got).all())):
+        if (not gate["ok"] or any(g["ok"] for g in ctl) or not repeat
+                or not same_late):
             log(line + " FAIL")
             raise AssertionError(line)
-        acc["max_abs_err"] = max(acc["max_abs_err"], e_plain)
+        acc["max_abs_err"] = max(acc["max_abs_err"],
+                                 float((got - plain).abs().max()))
+        del plain, xla, late, again, controls
+        devs = c["mesh"].axis_devices("data")
+        with torch.no_grad():  # the layout kernels against ring_route
+            lay_k, lay_p = (ring._groups(devs, layer, x, edges, block, R,
+                                         kind)[devs[0]].route
+                            for kind in ("kernel", "plain"))
+        lay_ok = ring.route_matches(lay_k, lay_p)
+        line += f" layout_equal_plain={lay_ok}"
+        if not lay_ok:
+            log(line + " FAIL")
+            raise AssertionError(line)
+        del lay_k, lay_p
         iters = BIG_ITERS if label == "general" else ITERS
         with torch.no_grad():
             ms = time_ms(lambda: k8(c), iters, flush)
-            k_ms, copy_ms, n_copies = ring_device_ms(lambda: k8(c), iters,
-                                                     flush)
+            k_ms, copy_ms, n_copies, sort_ms = ring_device_ms(
+                lambda: k8(c), iters, flush)
+            lib_fn = ring_library(c, layer, R)
+            lib_ms = time_ms(lib_fn, iters, flush)
+            del lib_fn
         work = k8_work(x.shape[0], d, d, bb, R, c["E"], P)
+        old = max(bound_times(k8_work_pr5(x.shape[0], d, d, bb, R, c["E"],
+                                          P)))
         if label == "general":
             t_b, t_o = bound_times(work)
             bound, by = max(t_b, t_o), ("bytes" if t_b >= t_o
                                         else "operations")
         else:
-            bound, by = add_case(acc, ms, plain_ms, 0.0, work, k_ms)
+            bound, by = add_case(acc, ms, plain_ms, lib_ms, work, k_ms)
         log(line + f" kernel_ms={ms:.4f} device_ms={k_ms:.4f} "
+            f"sort_ms={sort_ms:.4f} "
             f"copy_stream_ms={copy_ms:.4f} ({n_copies} operations; the "
             f"ring's copies carry {(P - 1) * x.shape[0] * d * 4} B) plain_ms="
-            f"{plain_ms:.4f} library_ms=none bound_ms={bound:.6f} ({by}: "
-            f"{work[0]} B, {work[2]} f32 FLOP)")
-        del plain, xla, late
+            f"{plain_ms:.4f} library_ms={lib_ms:.4f} (several calls: "
+            f"torch.bmm and index_add_ per hop) bound_ms={bound:.6f} ({by}: "
+            f"{work[0]} B, {work[2]} f32 FLOP or {work[3]} TF32 FLOP) "
+            f"pr5_bound_ms={old:.6f}")
     del outs, cases, general_ref
     log(f"kernel.ring sum of 7 at B={TRAIN_BATCH} P={RING_TEMPLATE_PARTS}: "
         f"kernel_ms={acc['ms']:.4f} device_ms={acc['device_ms']:.4f} "
-        f"plain_ms={acc['plain_ms']:.4f} bound_ms={acc['bound_ms']:.6f}")
-    fields = finish_acc(acc)
-    fields["library_ms"] = None
-    return launches, fields
+        f"plain_ms={acc['plain_ms']:.4f} library_ms={acc['library_ms']:.4f} "
+        f"(several calls) bound_ms={acc['bound_ms']:.6f}")
+    return launches, finish_acc(acc)
 
 
 def recheck_halo_step(state, cfg, stores, device, loss_fn, label):
@@ -2879,6 +3156,8 @@ def main() -> int:
     phase_train_cli(["--kernel", "fused_fwd", "--fused_backward", "pallas"],
                     then=lambda d: (phase_eval_cli(d), phase_serve_cli(d)))
     phase_train_cli(["--kernel", "blocked"])
+    # K6's wide paths on the train path (16 bases, as every CLI run here)
+    phase_train_cli(["--kernel", "blocked", "--embed_dim", "256"])
     phase_train_cli(["--parallel", "halo_ring"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -2930,7 +3209,8 @@ def main() -> int:
             ("K7", "sddmm", "sddmm.cu", "pallas_sddmm.py:48", k7_launches,
              k7_fields),
             ("K8", "rgcn_ring_halo", "ring.cu", "pallas_ring.py:159",
-             k8_launches, k8_fields)):
+             k8_launches, dict(k8_fields, library_calls=(
+                 "several: torch.bmm and index_add_ per hop")))):
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -63,6 +63,23 @@
 //   the other warps waited on; the pass needs no shared memory per
 //   relation, so the relation count has no limit.  The partitions'
 //   partial sums are then added in order.
+// Widths.  The paths above hold K6a's basis slice (Bb x KP x CW) and K6b's
+// V_b and [K, N] sum whole: K6a up to what shared memory holds (KP <= 208
+// at 16 bases on an H100), K6b up to K, N <= 128.  Wider:
+// * K6a's wide path (k6a_messages_kernel<4, true>): per 128-edge tile and
+//   pair of bases the rows' and the basis slice's k range streams through
+//   shared memory in units of 128 (two in flight), the A fragments
+//   reloaded per unit; the same k-steps in the same order into the same
+//   registers, so the messages are the narrow path's bits.  The basis
+//   slice is read once per tile and pair (from L2) instead of once per
+//   block.
+// * K6b: dbasis in 128 x 128 tiles over blockIdx.z, each tile's block
+//   walking its partition's edges in the same order; s_eb by k6b_s_kernel,
+//   one block per (partition, basis, 128-column tile) streaming k, each
+//   tile's partial (the narrow path's halves and shuffle order over its
+//   columns) added in tile order by k6b_s_sum_kernel, no atomics, then
+//   rounded to bf16.  The [n_part][T] scratch grows with K N: 64
+//   partitions at d = 512 and 16 bases are 1.07 GB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -162,6 +179,20 @@ size_t fwd_smem_bytes(int nt, int KP, int bb) {
          + 2 * CW * 4;                      // carried row sums
 }
 
+// The wide path (KP beyond what fwd_smem_bytes fits): per 128-edge tile
+// and pair of bases, the basis slice and the rows stream in units of KC
+// k (two units in flight): rows [FT][KC + 8], bases [2][KC][CW].
+constexpr int KC = 16 * KS_REG;
+
+size_t wide_smem_bytes(int nt) {
+  const size_t CW = 8 * (size_t)nt;
+  return 2 * (size_t)FT * (KC + 8) * 2     // xs units, two buffers
+         + 2 * 2 * (size_t)KC * CW * 2     // basis units, two buffers
+         + (size_t)FT * CW * 2             // messages
+         + 2 * (size_t)FT * 16             // src, dst, rel, norm, 2 buffers
+         + 2 * CW * 4;                     // carried row sums
+}
+
 // The B fragments (16 k x 8 n each) of the NW n-tiles [n0, n0 + NW) at
 // k-step ks of a CW-column basis slice (k rows of CW bf16, swizzled).
 template <int CW, int NW>
@@ -184,14 +215,16 @@ __device__ __forceinline__ void load_slice_b(uint32_t (&bq)[NW][2],
   }
 }
 
-template <int NT>
+// WIDE: the basis slice and the rows stream in units (wide_smem_bytes),
+// the same products in the same order.
+template <int NT, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1) k6a_messages_kernel(Fwd P) {
   constexpr int CW = 8 * NT, NW = NT / 2;  // n-tiles a warp
   constexpr int SEGS = THREADS / CW, SL = FT / SEGS;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int KP = P.KP, XS = KP + 8, KSTEPS = KP / 16;
+  const int KP = P.KP, XS = WIDE ? KC + 8 : KP + 8, KSTEPS = KP / 16;
   bf16* vs = reinterpret_cast<bf16*>(smem);
-  bf16* xs = vs + (size_t)P.bb * KP * CW;
+  bf16* xs = vs + (WIDE ? (size_t)4 * KC * CW : (size_t)P.bb * KP * CW);
   bf16* msg = xs + 2 * FT * XS;
   int* src_s = reinterpret_cast<int*>(msg + FT * CW);  // [2][FT] each
   int* dst_s = src_s + 2 * FT;
@@ -216,10 +249,12 @@ __global__ void __launch_bounds__(THREADS, 1) k6a_messages_kernel(Fwd P) {
   if (e_lo == e_hi) return;
 
   constexpr int VP = CW / 8;  // 16-byte pieces per basis row
-  for (int i = tid; i < P.bb * KP * VP; i += THREADS) {
-    const int row = i / VP, pc = i % VP, k = row % KP;
-    cp_async16(vs + (size_t)row * CW + vswz<CW>(pc, k) * 8,
-               P.basis + (size_t)row * P.NP + col0 + pc * 8, true);
+  if constexpr (!WIDE) {
+    for (int i = tid; i < P.bb * KP * VP; i += THREADS) {
+      const int row = i / VP, pc = i % VP, k = row % KP;
+      cp_async16(vs + (size_t)row * CW + vswz<CW>(pc, k) * 8,
+                 P.basis + (size_t)row * P.NP + col0 + pc * 8, true);
+    }
   }
   // a tile's per-edge lists: loaded into registers one tile ahead (thread
   // q < FT holds edge q), stored to shared memory before its rows are
@@ -255,19 +290,56 @@ __global__ void __launch_bounds__(THREADS, 1) k6a_messages_kernel(Fwd P) {
     }
   };
 
+  // WIDE: unit u of a tile is the k range [KC (u % n_kc), +KC) of bases
+  // 2 (u / n_kc) and 2 (u / n_kc) + 1 (zeros past bb), into buffer
+  // (tile units + u) & 1
+  const int n_kc = (KP + KC - 1) / KC, units = (P.bb + 1) / 2 * n_kc;
+  auto issue = [&](int t, int u) {  // after stage(t) and a barrier
+    const int ub = (int)(((long long)t * units + u) & 1);
+    const int b0 = 2 * (u / n_kc), k0 = KC * (u % n_kc);
+    const int kw = min(KC, KP - k0), XQ = kw / 8;
+    bf16* xb = xs + ub * FT * XS;
+    for (int i = tid; i < FT * XQ; i += THREADS) {
+      const int q = i / XQ, pc = i % XQ, row = src_s[(t & 1) * FT + q];
+      const bool ok = row >= 0 && row < P.n_rows;
+      cp_async16(xb + q * XS + pc * 8,
+                 P.x + (ok ? (size_t)row * KP + k0 + pc * 8 : 0), ok);
+    }
+    bf16* vb = vs + (size_t)ub * 2 * KC * CW;
+    for (int i = tid; i < 2 * kw * VP; i += THREADS) {
+      const int v = i / (kw * VP), k = (i / VP) % kw, pc = i % VP;
+      const bool ok = b0 + v < P.bb;
+      cp_async16(vb + (size_t)(v * KC + k) * CW + vswz<CW>(pc, k) * 8,
+                 P.basis + (ok ? ((size_t)(b0 + v) * KP + k0 + k) * P.NP +
+                                     col0 + pc * 8
+                               : 0),
+                 ok);
+    }
+  };
+
   const int n_tiles = (e_hi - e_lo + FT - 1) / FT;
   if (tid == 0) carry_row[0] = -1;
   fetch(0);
   stage(0);
   __syncthreads();
-  gather(0);
+  if constexpr (WIDE) {
+    issue(0, 0);
+  } else {
+    gather(0);
+  }
   cp_async_commit();
   if (n_tiles > 1) fetch(1);
   uint32_t af[2][KS_REG][4];
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1, cin = buf, cout = buf ^ 1;
     if (tid == 0) carry_row[cout] = -1;
-    if (t + 1 < n_tiles) {
+    if constexpr (WIDE) {
+      if (t + 1 < n_tiles) {
+        stage(t + 1);
+        if (t + 2 < n_tiles) fetch(t + 2);
+      }
+      __syncthreads();  // the next tile's lists, for its first unit
+    } else if (t + 1 < n_tiles) {
       stage(t + 1);
       __syncthreads();
       gather(t + 1);
@@ -277,7 +349,7 @@ __global__ void __launch_bounds__(THREADS, 1) k6a_messages_kernel(Fwd P) {
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();
+    if constexpr (!WIDE) __syncthreads();
 
     // this warp's 32 edges x NW n-tiles (warp w: edges [32 (w % 4),
     // +32), n-tiles [NW (w / 4), +NW)): h_b on the tensor cores, acc and
@@ -324,25 +396,44 @@ __global__ void __launch_bounds__(THREADS, 1) k6a_messages_kernel(Fwd P) {
       const bf16* vb1 = two ? vb0 + (size_t)KP * CW : vb0;
       for (int kc = 0; kc < KSTEPS; kc += KS_REG) {
         const int nks = min(KS_REG, KSTEPS - kc);
-        if (b == 0 || KSTEPS > KS_REG) {
+        // the k-steps' rows, basis slices and first k-step in them
+        const bf16 *xk = xb + kc * 16, *vk0 = vb0, *vk1 = vb1;
+        int k1 = kc;
+        if constexpr (WIDE) {  // this unit's buffers; the next unit's loads
+          const int u = b / 2 * n_kc + kc / KS_REG;
+          if (u + 1 < units) {
+            issue(t, u + 1);
+          } else if (t + 1 < n_tiles) {
+            issue(t + 1, 0);
+          }
+          cp_async_commit();
+          cp_async_wait<1>();
+          __syncthreads();
+          const int ub = (int)(((long long)t * units + u) & 1);
+          xk = xs + ub * FT * XS;
+          vk0 = vs + (size_t)ub * 2 * KC * CW;
+          vk1 = vk0 + KC * CW;
+          k1 = 0;
+        }
+        if (WIDE || b == 0 || KSTEPS > KS_REG) {
 #pragma unroll
           for (int m = 0; m < 2; ++m)
 #pragma unroll
             for (int s = 0; s < KS_REG; ++s)
               if (s < nks)
-                ldsm_x4(af[m][s], xb + (m0 + 16 * m + (lane & 15)) * XS +
-                                      (kc + s) * 16 + (lane >> 4) * 8);
+                ldsm_x4(af[m][s], xk + (m0 + 16 * m + (lane & 15)) * XS +
+                                      s * 16 + (lane >> 4) * 8);
         }
         uint32_t bq[2][2][NW][2];  // [stage][basis][n-tile]
-        load_slice_b<CW, NW>(bq[0][0], vb0, kc, n0, lane);
-        load_slice_b<CW, NW>(bq[0][1], vb1, kc, n0, lane);
+        load_slice_b<CW, NW>(bq[0][0], vk0, k1, n0, lane);
+        load_slice_b<CW, NW>(bq[0][1], vk1, k1, n0, lane);
 #pragma unroll
         for (int s = 0; s < KS_REG; ++s) {
           if (s < nks) {
             if (s + 1 < nks) {
-              const int ks = kc + s + 1;
-              load_slice_b<CW, NW>(bq[(s + 1) & 1][0], vb0, ks, n0, lane);
-              load_slice_b<CW, NW>(bq[(s + 1) & 1][1], vb1, ks, n0, lane);
+              const int ks = k1 + s + 1;
+              load_slice_b<CW, NW>(bq[(s + 1) & 1][0], vk0, ks, n0, lane);
+              load_slice_b<CW, NW>(bq[(s + 1) & 1][1], vk1, ks, n0, lane);
             }
 #pragma unroll
             for (int u = 0; u < 2; ++u)
@@ -353,6 +444,7 @@ __global__ void __launch_bounds__(THREADS, 1) k6a_messages_kernel(Fwd P) {
                   mma16816(h[u][m][j], af[m][s], bq[s & 1][u][j]);
           }
         }
+        if constexpr (WIDE) __syncthreads();  // the unit's buffers are free
       }
       // acc += ce_b * h_b, basis b, then basis b + 1
 #pragma unroll
@@ -446,6 +538,8 @@ struct Grad {
   float* partial;      // [n_part][T]
   int n_rows, n_rels, bb, K, N, KP, NP;
   long long T;
+  int n_nt;            // dbasis tiles of GW x GW: blockIdx.z = kt n_nt + nt
+  int E;               // the layout's edges (s_part's rows)
 };
 
 // 16-byte piece pc of row k of a 128-column bf16 tile (256-byte rows).
@@ -480,11 +574,19 @@ __device__ __forceinline__ void load_tile_b(uint32_t (&bq)[8][2],
   }
 }
 
+// One block per (edge partition, basis b, dbasis tile): the tile's rows
+// [k0, k0 + KP) of x and columns [n0, n0 + NP) of g and dbasis.  Where
+// K, N <= GW the one tile also gives s_eb; wider, k6b_s_kernel does.
 __global__ void __launch_bounds__(THREADS, 1) k6b_grad_kernel(Grad P) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int KP = P.KP, NP = P.NP, XS = KP + 8, GS = NP + 8;
+  const int kt = blockIdx.z / P.n_nt, ntl = blockIdx.z % P.n_nt;
+  const int k0 = kt * GW, n0 = ntl * GW;
+  const bool with_s = P.n_nt == 1 && P.KP <= GW;
+  // this tile's widths; the shared tiles' row pitches from the widest
+  const int KP = min(GW, P.KP - k0), NP = min(GW, P.NP - n0);
+  const int XS = min(GW, P.KP) + 8, GS = min(GW, P.NP) + 8;
   bf16* vs = reinterpret_cast<bf16*>(smem);
-  bf16* xs = vs + (size_t)KP * GW;
+  bf16* xs = vs + (size_t)(XS - 8) * GW;
   bf16* gs = xs + GS_N * GT * XS;
   bf16* rhs = gs + GS_N * GT * GS;
   int* src_s = reinterpret_cast<int*>(rhs + GT * GW);  // [GS_N][GT] each
@@ -499,10 +601,12 @@ __global__ void __launch_bounds__(THREADS, 1) k6b_grad_kernel(Grad P) {
   const int e_lo = P.part_ptr[p], e_hi = P.part_ptr[p + 1];
 
   const bf16* vg = P.basis + (size_t)b * KP * NP;
-  for (int i = tid; i < KP * (NP / 8); i += THREADS) {
-    const int k = i / (NP / 8), pc = i % (NP / 8);
-    cp_async16(vs + k * GW + gswz(pc, k) * 8, vg + (size_t)k * NP + pc * 8,
-               true);
+  if (with_s) {
+    for (int i = tid; i < KP * (NP / 8); i += THREADS) {
+      const int k = i / (NP / 8), pc = i % (NP / 8);
+      cp_async16(vs + k * GW + gswz(pc, k) * 8, vg + (size_t)k * NP + pc * 8,
+                 true);
+    }
   }
   // a tile's per-edge lists, one tile ahead in registers (thread q < GT
   // holds edge q), staged to shared memory before its rows are gathered
@@ -537,13 +641,13 @@ __global__ void __launch_bounds__(THREADS, 1) k6b_grad_kernel(Grad P) {
       const int q = i / (KP / 8), pc = i % (KP / 8), row = src_s[buf * GT + q];
       const bool ok = row >= 0 && row < P.n_rows;
       cp_async16(xb + q * XS + pc * 8,
-                 P.x + (ok ? (size_t)row * KP + pc * 8 : 0), ok);
+                 P.x + (ok ? (size_t)row * P.KP + k0 + pc * 8 : 0), ok);
     }
     for (int i = tid; i < GT * (NP / 8); i += THREADS) {
       const int q = i / (NP / 8), pc = i % (NP / 8), row = dst_s[buf * GT + q];
       const bool ok = row >= 0 && row < P.n_rows;
       cp_async16(gb + q * GS + pc * 8,
-                 P.g + (ok ? (size_t)row * NP + pc * 8 : 0), ok);
+                 P.g + (ok ? (size_t)row * P.NP + n0 + pc * 8 : 0), ok);
     }
   };
 
@@ -585,7 +689,7 @@ __global__ void __launch_bounds__(THREADS, 1) k6b_grad_kernel(Grad P) {
 
     // h_b = xs @ V_b for edges [16 wm, 16 wm + 16) x columns
     // [64 wn, 64 wn + 64); the partial sums of h_b * gn over them
-    {
+    if (with_s) {
       float h[8][4];
 #pragma unroll
       for (int j = 0; j < 8; ++j) h[j][0] = h[j][1] = h[j][2] = h[j][3] = 0.f;
@@ -651,7 +755,7 @@ __global__ void __launch_bounds__(THREADS, 1) k6b_grad_kernel(Grad P) {
     }
     __syncthreads();
 
-    if (tid < nt)  // s_eb = bf16(left half + right half)
+    if (with_s && tid < nt)  // s_eb = bf16(left half + right half)
       P.s_out[(size_t)pos_s[buf * GT + tid] * P.bb + b] = __bfloat162float(
           __float2bfloat16_rn(__fadd_rn(s_half[tid], s_half[GT + tid])));
     // dbasis[b] += xs^T @ rhs over the tile's 64 edges
@@ -692,14 +796,161 @@ __global__ void __launch_bounds__(THREADS, 1) k6b_grad_kernel(Grad P) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int kk = k + (i >> 1) * 8, cc = col + (i & 1);
-        if (kk < P.K && cc < P.N)
-          dst[((size_t)b * P.K + kk) * P.N + cc] = dacc[m][j][i];
+        if (k0 + kk < P.K && n0 + cc < P.N)
+          dst[((size_t)b * P.K + k0 + kk) * P.N + n0 + cc] = dacc[m][j][i];
       }
     }
   }
+  if (blockIdx.z != 0) return;
   const size_t off = (size_t)P.bb * P.K * P.N;  // dcoeff: 0 unless
   for (int r = tid; r < P.n_rels; r += THREADS)   // k6b_dcoeff_kernel adds
     dst[off + (size_t)r * P.bb + b] = 0.f;
+}
+
+// K6b's s_eb where K or N exceeds GW.  One block per (edge partition,
+// basis b, column tile nt of GW): per 64-edge tile, h_b = xs @ V_b for
+// the tile's columns with k streamed in units of KC (the rows' and the
+// basis's k range, two units in flight), the same k-steps in the same
+// order as k6b_grad_kernel; then the column tile's partial sum of h_b * gn
+// as k6b_grad_kernel takes it (each warp half's fixed shuffle order, then
+// left half + right half), into s_part[nt][position][b].
+__global__ void __launch_bounds__(THREADS, 1) k6b_s_kernel(Grad P,
+                                                          float* s_part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int XS = KC + 8, GS = GW + 8;
+  bf16* vs = reinterpret_cast<bf16*>(smem);  // [2][KC][GW]
+  bf16* xs = vs + 2 * KC * GW;                // [2][GT][XS]
+  bf16* gs = xs + 2 * GT * XS;                // [GT][GS]
+  int* src_s = reinterpret_cast<int*>(gs + GT * GS);
+  int* dst_s = src_s + GT;
+  int* pos_s = dst_s + GT;
+  float* norm_s = reinterpret_cast<float*>(pos_s + GT);
+  float* s_half = norm_s + GT;  // [2][GT]
+
+  const int p = blockIdx.x, b = blockIdx.y, ntl = blockIdx.z;
+  const int n0 = ntl * GW, NP = min(GW, P.NP - n0), KP = P.KP;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int e_lo = P.part_ptr[p], e_hi = P.part_ptr[p + 1];
+  const int n_kc = (KP + KC - 1) / KC;
+  const bf16* vg = P.basis + (size_t)b * KP * P.NP + n0;
+  auto issue = [&](int kc) {  // rows and basis rows [KC kc, +KC)
+    const int k0 = kc * KC, kw = min(KC, KP - k0), ub = kc & 1;
+    bf16* xb = xs + ub * GT * XS;
+    for (int i = tid; i < GT * (kw / 8); i += THREADS) {
+      const int q = i / (kw / 8), pc = i % (kw / 8), row = src_s[q];
+      const bool ok = row >= 0 && row < P.n_rows;
+      cp_async16(xb + q * XS + pc * 8,
+                 P.x + (ok ? (size_t)row * KP + k0 + pc * 8 : 0), ok);
+    }
+    bf16* vb = vs + ub * KC * GW;
+    for (int i = tid; i < kw * (NP / 8); i += THREADS) {
+      const int k = i / (NP / 8), pc = i % (NP / 8);
+      cp_async16(vb + k * GW + gswz(pc, k) * 8,
+                 vg + (size_t)(k0 + k) * P.NP + pc * 8, true);
+    }
+  };
+  for (int e0 = e_lo; e0 < e_hi; e0 += GT) {
+    const int nt = min(GT, e_hi - e0);
+    if (tid < GT) {
+      const bool ok = tid < nt;
+      const int4 v = ok ? P.edges[e0 + tid] : make_int4(-1, -1, -1, 0);
+      src_s[tid] = v.x;
+      dst_s[tid] = v.y;
+      norm_s[tid] = __int_as_float(v.w);
+      pos_s[tid] = ok ? P.pos[e0 + tid] : 0;
+    }
+    __syncthreads();
+    for (int i = tid; i < GT * (NP / 8); i += THREADS) {
+      const int q = i / (NP / 8), pc = i % (NP / 8), row = dst_s[q];
+      const bool ok = row >= 0 && row < P.n_rows;
+      cp_async16(gs + q * GS + pc * 8,
+                 P.g + (ok ? (size_t)row * P.NP + n0 + pc * 8 : 0), ok);
+    }
+    issue(0);
+    cp_async_commit();
+    float h[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) h[j][0] = h[j][1] = h[j][2] = h[j][3] = 0.f;
+    const int m0 = wm * 16;
+    for (int kc = 0; kc < n_kc; ++kc) {
+      if (kc + 1 < n_kc) issue(kc + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const bf16* xa = xs + (kc & 1) * GT * XS + (m0 + (lane & 15)) * XS +
+                       (lane >> 4) * 8;
+      const bf16* vb = vs + (kc & 1) * KC * GW;
+      const int ksteps = min(KC, KP - kc * KC) / 16;
+      uint32_t bq[2][8][2], a[2][4];
+      load_tile_b(bq[0], vb, 0, wn * 8, NP, lane);
+      ldsm_x4(a[0], xa);
+#pragma unroll
+      for (int ks = 0; ks < KC / 16; ++ks) {
+        if (ks < ksteps) {
+          if (ks + 1 < ksteps) {
+            load_tile_b(bq[(ks + 1) & 1], vb, (ks + 1) * 16, wn * 8, NP, lane);
+            ldsm_x4(a[(ks + 1) & 1], xa + (ks + 1) * 16);
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if ((wn * 8 + j) * 8 < NP) mma16816(h[j], a[ks & 1], bq[ks & 1][j]);
+        }
+      }
+      __syncthreads();  // the unit's buffers are free
+    }
+    const int r0 = m0 + (lane >> 2), r1 = r0 + 8;
+    const float q0 = norm_s[r0], q1 = norm_s[r1];
+    float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = (wn * 8 + j) * 8 + 2 * (lane & 3);
+      if (col < NP) {
+        const float2 g0 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(gs + r0 * GS + col));
+        const float2 g1 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(gs + r1 * GS + col));
+        p0 = __fadd_rn(p0, __fmul_rn(h[j][0], __fmul_rn(g0.x, q0)));
+        p0 = __fadd_rn(p0, __fmul_rn(h[j][1], __fmul_rn(g0.y, q0)));
+        p1 = __fadd_rn(p1, __fmul_rn(h[j][2], __fmul_rn(g1.x, q1)));
+        p1 = __fadd_rn(p1, __fmul_rn(h[j][3], __fmul_rn(g1.y, q1)));
+      }
+    }
+    p0 = __fadd_rn(p0, __shfl_xor_sync(0xffffffffu, p0, 1));
+    p1 = __fadd_rn(p1, __shfl_xor_sync(0xffffffffu, p1, 1));
+    p0 = __fadd_rn(p0, __shfl_xor_sync(0xffffffffu, p0, 2));
+    p1 = __fadd_rn(p1, __shfl_xor_sync(0xffffffffu, p1, 2));
+    if ((lane & 3) == 0) {
+      s_half[wn * GT + r0] = p0;
+      s_half[wn * GT + r1] = p1;
+    }
+    __syncthreads();
+    if (tid < nt)
+      s_part[((size_t)ntl * P.E + pos_s[tid]) * P.bb + b] =
+          __fadd_rn(s_half[tid], s_half[GT + tid]);
+    __syncthreads();  // the lists and g rows are free
+  }
+}
+
+size_t s_smem_bytes() {
+  return 2 * (size_t)KC * GW * 2 + 2 * (size_t)GT * (KC + 8) * 2 +
+         (size_t)GT * (GW + 8) * 2 + (size_t)GT * 16 + 2 * (size_t)GT * 4;
+}
+
+// s_eb = bf16(the column tiles' partials added in tile order), at each
+// real edge's position (edges [0, part_ptr[n_part]) of the list).
+__global__ void __launch_bounds__(RED_THREADS)
+k6b_s_sum_kernel(const float* __restrict__ s_part, int n_nt,
+                 const int* __restrict__ pos,
+                 const int* __restrict__ part_ptr, int n_part, int E, int bb,
+                 float* __restrict__ s) {
+  const long long i = (long long)blockIdx.x * RED_THREADS + threadIdx.x;
+  if (i >= (long long)__ldg(part_ptr + n_part) * bb) return;
+  const size_t at = (size_t)__ldg(pos + i / bb) * bb + i % bb;
+  float acc = s_part[at];
+  for (int t = 1; t < n_nt; ++t)
+    acc = __fadd_rn(acc, s_part[(size_t)t * E * bb + at]);
+  s[at] = __bfloat162float(__float2bfloat16_rn(acc));
 }
 
 // dcoeff partials.  The real edges sorted by (partition, relation), edge
@@ -752,44 +1003,24 @@ long long device_optin(void) {
   return optin;
 }
 
-template <int NT>
+template <int NT, bool WIDE>
 int launch_forward(const Fwd& P, int n_cta, size_t smem, cudaStream_t st) {
-  cudaError_t err = set_smem(k6a_messages_kernel<NT>, smem);
+  cudaError_t err = set_smem(k6a_messages_kernel<NT, WIDE>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)n_cta, (unsigned)(P.NP / (8 * NT)));
-  k6a_messages_kernel<NT><<<grid, THREADS, smem, st>>>(P);
+  k6a_messages_kernel<NT, WIDE><<<grid, THREADS, smem, st>>>(P);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-extern "C" long long mpqe_rgcn_blocked_max_smem(int device) {
-  int optin = 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return 0;
-  return (long long)optin;
-}
-
-// Dynamic shared memory of the smallest K6a block at these widths (16
-// columns), and with grad != 0 of the K6b block too: the larger.
-extern "C" long long mpqe_rgcn_blocked_smem_bytes(int K, int N, int bb,
-                                                  int grad) {
-  const int KP = (K + 15) / 16 * 16, NP = (N + 31) / 32 * 32;
-  size_t m = fwd_smem_bytes(2, KP, bb);
-  if (grad) {
-    const size_t g = grad_smem_bytes(KP, NP);
-    m = m > g ? m : g;
-  }
-  return (long long)m;
-}
 
 // K6a.  x [n_rows][KP] and basis [bb][KP][NP] bf16, zero-padded (KP a
 // multiple of 16, NP of 32), coeff [n_rels][bb] f32; the destination
 // CSR of the layout's edges (csr [E] rows of (src, dst, rel, norm's
 // bits), real ones first; ptr; cta_rows [n_cta + 1]); out [n_rows][N]
 // f32.  The widest column tile (32 or 16) whose basis slice fits in
-// shared memory.  Returns cudaGetLastError() after the launch.
+// shared memory, else the wide path (32 columns, the basis streamed).
+// Returns cudaGetLastError() after the launch.
 extern "C" int mpqe_rgcn_blocked_forward(
     const void* x, int n_rows, const void* basis, const void* coeff,
     int n_rels, int bb, int KP, int NP, int N, const void* csr,
@@ -807,47 +1038,69 @@ extern "C" int mpqe_rgcn_blocked_forward(
   for (int nt = 4; nt >= 2; nt /= 2) {
     const size_t smem = fwd_smem_bytes(nt, KP, bb);
     if ((long long)smem > have) continue;
-    if (nt == 4) return launch_forward<4>(P, n_cta, smem, st);
-    return launch_forward<2>(P, n_cta, smem, st);
+    if (nt == 4) return launch_forward<4, false>(P, n_cta, smem, st);
+    return launch_forward<2, false>(P, n_cta, smem, st);
   }
-  return (int)cudaErrorInvalidValue;
+  // wider: the basis slice and the rows stream (wide_smem_bytes)
+  const size_t smem = wide_smem_bytes(4);
+  if ((long long)smem > have) return (int)cudaErrorInvalidValue;
+  return launch_forward<4, true>(P, n_cta, smem, st);
 }
 
 // K6b: dbasis partials and s_eb, then the dcoeff partials, then the
 // partitions' sum.  x [n_rows][KP], g [n_rows][NP] and basis [bb][KP][NP]
-// bf16, zero-padded (K, N <= 128); the layout's E edges in edge order,
+// bf16, zero-padded; the layout's E edges in edge order,
 // real ones first (edges: rows of (src, dst, rel, norm's bits); pos) and
 // part_ptr [n_part + 1]; the same E entries sorted by (partition,
 // relation) (dc_pos; dc: rows of (partition, relation, run end, 0)); s
 // [E][bb] f32 gets each real edge's s_eb at its layout position; partial
 // [n_part][T] f32 scratch with T = bb K N + n_rels bb; out [T] = dbasis
-// [bb][K][N] then dcoeff [n_rels][bb].
+// [bb][K][N] then dcoeff [n_rels][bb].  Where K or N > GW, dbasis is
+// computed in GW x GW tiles (a grid dimension, at most 65,535) and s_eb by
+// k6b_s_kernel into s_part [ceil(N / GW)][E][bb] f32 scratch, then
+// k6b_s_sum_kernel; else s_part may be null.
 extern "C" int mpqe_rgcn_blocked_grad(
     const void* x, const void* g, int n_rows, const void* basis,
     const void* coeff, int n_rels, int bb, int K, int N, const void* edges,
     const void* pos, const void* part_ptr, int n_part, const void* dc_pos,
-    const void* dc, int E, float* s, float* partial, float* out,
-    void* stream) {
+    const void* dc, int E, float* s, float* s_part, float* partial,
+    float* out, void* stream) {
   const int KP = (K + 15) / 16 * 16, NP = (N + 31) / 32 * 32;
+  const int n_kt = (KP + GW - 1) / GW, n_nt = (NP + GW - 1) / GW;
+  const bool wide = n_kt > 1 || n_nt > 1;
   if (n_rows <= 0 || n_rels <= 0 || bb <= 0 || bb > 65535 || K <= 0 ||
-      N <= 0 || KP > GW || NP > GW || n_part <= 0 || E <= 0)
+      N <= 0 || (long long)n_kt * n_nt > 65535 || n_part <= 0 || E <= 0 ||
+      (wide && !s_part))
     return (int)cudaErrorInvalidValue;
   const long long T = (long long)bb * K * N + (long long)n_rels * bb;
   Grad P{static_cast<const bf16*>(x), static_cast<const bf16*>(g),
          static_cast<const bf16*>(basis), static_cast<const float*>(coeff),
          static_cast<const int4*>(edges), static_cast<const int*>(pos),
          static_cast<const int*>(part_ptr), s, partial, n_rows, n_rels, bb, K,
-         N, KP, NP, T};
+         N, KP, NP, T, n_nt, E};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = grad_smem_bytes(KP, NP);
+  const size_t smem = grad_smem_bytes(KP < GW ? KP : GW, NP < GW ? NP : GW);
   cudaError_t err = set_smem(k6b_grad_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  k6b_grad_kernel<<<dim3((unsigned)n_part, (unsigned)bb), THREADS, smem,
-                    st>>>(P);
+  k6b_grad_kernel<<<dim3((unsigned)n_part, (unsigned)bb,
+                         (unsigned)(n_kt * n_nt)),
+                    THREADS, smem, st>>>(P);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long n_dc = (long long)E * bb;
-  k6b_dcoeff_kernel<<<(unsigned)((n_dc + RED_THREADS - 1) / RED_THREADS),
-                      RED_THREADS, 0, st>>>(
+  const unsigned red_blocks =
+      (unsigned)((n_dc + RED_THREADS - 1) / RED_THREADS);
+  if (wide) {  // s_eb from the column tiles
+    const size_t ss = s_smem_bytes();
+    if ((err = set_smem(k6b_s_kernel, ss)) != cudaSuccess) return (int)err;
+    k6b_s_kernel<<<dim3((unsigned)n_part, (unsigned)bb, (unsigned)n_nt),
+                   THREADS, ss, st>>>(P, s_part);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    k6b_s_sum_kernel<<<red_blocks, RED_THREADS, 0, st>>>(
+        s_part, n_nt, static_cast<const int*>(pos),
+        static_cast<const int*>(part_ptr), n_part, E, bb, s);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  k6b_dcoeff_kernel<<<red_blocks, RED_THREADS, 0, st>>>(
       s, static_cast<const int*>(dc_pos), static_cast<const int4*>(dc), E,
       bb, n_rels, T, (long long)bb * K * N, partial);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

@@ -94,9 +94,19 @@
 // part (one synchronous pipeline per block); PERF.md has the phase
 // figures.  mma.sync reaches well under the TF32 peak; wgmma with
 // asynchronous accumulators and a producer warp are the levers left.
-// Width limit: shared memory (CT + 2 TM) P 4 bytes; the 32 x 32 tile needs
-// 384 P bytes, so K <= 592 on an H100 (232,448 bytes a block); the 128 x
-// 128 tile takes K <= 144.  N has no limit (column tiles).
+// Widths: whole K-wide rows and W tiles take (CT + 2 TM) P 4 bytes of
+// shared memory, so the 32 x 32 tile holds K <= 592 on an H100 (232,448
+// bytes a block) and the 128 x 128 tile K <= 144; at those widths the
+// kernel runs as above.  Wider rows go in k stages (128 columns for the
+// big tile, 256 for the small): per tile and stage the stage's W columns
+// and row slices are loaded (the next stage's rows in flight during this
+// one) and added into the same accumulators, k ascending, so every
+// output's sum order is the one-stage order; W is then reloaded per stage
+// of every tile.  N has no limit (column tiles), K none but int32 rows.
+//
+// K8 (ops/ring.py) uses this file's combine and messages kernels through
+// mpqe_rgcn_combine and mpqe_rgcn_msg_live (the chunk count read on the
+// device).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,16 +133,17 @@ struct Shape {
   static constexpr int TM = WM * 16 * MT, CT = WN * 8 * NT;
   static constexpr int RPW = TM / WARPS;  // rows each warp gathers
   static_assert(RPW >= 1 && RPW <= 32 && TM % WARPS == 0, "row split");
-  static size_t smem(int K) {
-    return (size_t)(CT + 2 * TM) * pitch_of(K) * sizeof(float);
+  static size_t smem(int KS) {  // KS: the widest k stage
+    return (size_t)(CT + 2 * TM) * pitch_of(KS) * sizeof(float);
   }
 };
 
 // 128 x 128 tiles, 16 warps, one block an SM (K <= 144), for row ranges
 // that give every SM a tile; 32 x 32 tiles, 4 warps, for fewer rows or a
-// wider K (<= 592).
+// wider K (<= 592).  Wider rows go in k stages of these widths.
 using Big = Shape<4, 4, 2, 4>;
 using Small = Shape<2, 2, 1, 2>;
+constexpr int BIG_STAGE = 128, SMALL_STAGE = 256;
 
 struct Args {
   const float* x;     // [n_rows][K]
@@ -142,9 +153,13 @@ struct Args {
   int crel_hi;        // [0, crel_hi]
   const float* norm;  // [E]
   float* out;         // [E][N]
+  const int* live;    // device count of the chunks to compute (the first
+                      // ones; null: all n_chunks)
   long long q;        // row tiles a row block walks (the first r: q + 1)
   int r;
   int n_rows, chunk, tpc, K, N, P;
+  int KS, n_st;       // k stages: n_st of KS columns (the last: the rest);
+                      // one stage of K where whole rows fit
   int trans;  // W[k][n] = w[.][n][k]
   int xvec;   // rows by 16-byte copies (K % 4 == 0, x 16-byte aligned)
   int wvec;   // W by float4 loads (its contiguous extent % 4 == 0, aligned)
@@ -261,18 +276,20 @@ __global__ void __launch_bounds__(CB_THREADS)
 }
 
 // The block's W column tile into ws[n][k] (n < CT, k < P): matrix slot of
-// w; 0 for k >= K and for columns >= N.  Each thread has GB groups of 4
-// elements in flight.
+// w, rows k0 .. k0 + kw - 1 (one k stage); 0 for k >= kw and for columns
+// >= N.  Each thread has GB groups of 4 elements in flight.
 template <class S>
-__device__ void build_w(const Args& a, int slot, int col0, float* ws) {
+__device__ void build_w(const Args& a, int slot, int col0, int k0, int kw,
+                        float* ws) {
   constexpr int CT = S::CT, THREADS = S::THREADS, GB = 8;
   const int K = a.K, N = a.N, P = a.P, tid = threadIdx.x;
-  const float* w = a.w + (size_t)slot * K * N;
+  const float* w = a.w + (size_t)slot * K * N +
+                   (a.trans ? (size_t)k0 : (size_t)k0 * N);
   if (!a.wvec) {
     for (int i = tid; i < CT * P; i += THREADS) {
       const int n = i / P, k = i - n * P;
       float v = 0.f;
-      if (k < K && col0 + n < N)
+      if (k < kw && col0 + n < N)
         v = __ldg(a.trans ? w + (size_t)(col0 + n) * K + k
                           : w + (size_t)k * N + col0 + n);
       ws[i] = v;
@@ -299,7 +316,7 @@ __device__ void build_w(const Args& a, int slot, int col0, float* ws) {
         n = ((rest % nq) * 4 + ((i >> 3) & 3)) * 4;
       }
       at[g] = i < total ? n * P + k : -1;
-      v[g] = i < total && k < K && col0 + n < N
+      v[g] = i < total && k < kw && col0 + n < N
                  ? ldg4(a.trans ? w + (size_t)(col0 + n) * K + k
                                 : w + (size_t)k * N + col0 + n)
                  : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -329,21 +346,27 @@ __device__ __forceinline__ int row_index(const Args& a, long long T,
   return min(max(__ldg(a.src + e), 0), a.n_rows - 1);
 }
 
-// Whole rows of x into xs: this warp's rows warp, warp + WARPS, ...
-template <class S>
+// Columns k0 .. k0 + kw - 1 of rows of x into xs (whole rows in one
+// stage): this warp's rows warp, warp + WARPS, ...; in k stages (ST) the
+// pad [kw, kpad) of a partial last stage is zeroed here (earlier stages
+// wrote it).
+template <class S, bool ST>
 __device__ __forceinline__ void gather(const Args& a, float* xs, int idx,
-                                       int warp, int lane) {
+                                       int k0, int kw, int kpad, int warp,
+                                       int lane) {
 #pragma unroll 4
   for (int j = 0; j < S::RPW; ++j) {
     const int row = __shfl_sync(0xffffffffu, idx, j);
     if (row < 0) continue;
-    const float* s = a.x + (size_t)row * a.K;
+    const float* s = a.x + (size_t)row * a.K + k0;
     float* d = xs + (warp + S::WARPS * j) * a.P;
     if (a.xvec) {
-      for (int p = lane * 4; p < a.K; p += 128) cp_async16(d + p, s + p);
+      for (int p = lane * 4; p < kw; p += 128) cp_async16(d + p, s + p);
     } else {
-      for (int p = lane; p < a.K; p += 32) cp_async4(d + p, s + p);
+      for (int p = lane; p < kw; p += 32) cp_async4(d + p, s + p);
     }
+    if (ST)
+      for (int p = kw + lane; p < kpad; p += 32) d[p] = 0.f;
   }
 }
 
@@ -403,50 +426,73 @@ __device__ __forceinline__ void tile_products(const float* xs,
 }
 
 // grid.x: column tile; grid.y: row block, which walks row tiles
-// [T0, T1) in order (tile T: rows (T % tpc) TM .. of chunk T / tpc).
-template <class S>
+// [T0, T1) in order (tile T: rows (T % tpc) TM .. of chunk T / tpc), each
+// in n_st k stages (ST; else one): step i is tile T0 + i / n_st, stage
+// i % n_st.  The stages add into the same accumulators in ascending k, so
+// the sum order of every output is the one-stage order.
+template <class S, bool ST>
 __global__ void __launch_bounds__(S::THREADS) k5_msg_kernel(const Args a) {
   constexpr int TM = S::TM, CT = S::CT, MT = S::MT, NT = S::NT;
   extern __shared__ __align__(16) float smem[];
-  const int P = a.P, KP = (a.K + 15) / 16 * 16;
-  // ws [CT][P]: ws[n][k] = W[k][col0 + n]; then two buffers [TM][P] of
-  // gathered rows
+  const int P = a.P, ns = ST ? a.n_st : 1, KP = (a.K + 15) / 16 * 16;
+  // ws [CT][P]: ws[n][k] = W[k0 + k][col0 + n]; then two buffers [TM][P]
+  // of gathered rows
   float* ws = smem;
   float* xs0 = smem + CT * P;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp / S::WN, wn = warp % S::WN, g = lane >> 2, t = lane & 3;
   const int col0 = blockIdx.x * CT;
-  const long long rb = blockIdx.y;
-  const long long T0 = rb * a.q + min(rb, (long long)a.r);
-  const long long T1 = T0 + a.q + (rb < a.r ? 1 : 0);
-  if (T0 >= T1) return;
-  if (KP != a.K) {  // the k padding [K, KP): zero once, no gather writes it
-    for (int i = tid; i < 2 * TM * P; i += S::THREADS) xs0[i] = 0.f;
-    __syncthreads();
+  long long q = a.q, rr = a.r;
+  if (a.live) {  // the first *live chunks, shared out as run() does
+    const long long n_tiles = (long long)__ldg(a.live) * a.tpc;
+    q = n_tiles / gridDim.y;
+    rr = n_tiles % gridDim.y;
   }
-  // the first tile in flight; idx: the next tile's rows
+  const long long rb = blockIdx.y;
+  const long long T0 = rb * q + min(rb, rr);
+  const long long T1 = T0 + q + (rb < rr ? 1 : 0);
+  if (T0 >= T1) return;
+  if (ns == 1 && KP != a.K) {  // the k padding [K, KP): zero once, no
+    for (int i = tid; i < 2 * TM * P; i += S::THREADS) xs0[i] = 0.f;
+    __syncthreads();            // gather writes it
+  }
+  auto kw_of = [&](int st) {
+    return ST ? min(a.KS, a.K - st * a.KS) : a.K;
+  };
+  const long long n_steps = (T1 - T0) * ns;
+  // the first step in flight; idx: the next step's rows
   int idx = row_index<S>(a, T0, warp, lane);
-  gather<S>(a, xs0, idx, warp, lane);
+  gather<S, ST>(a, xs0, idx, 0, kw_of(0), (kw_of(0) + 15) / 16 * 16, warp,
+                lane);
   cp_async_commit();
-  idx = T0 + 1 < T1 ? row_index<S>(a, T0 + 1, warp, lane) : -1;
+  idx = n_steps > 1 ? row_index<S>(a, T0 + (ns == 1), warp, lane) : -1;
   // the slot whose W the tile holds, and the next tile's slot, read a tile
   // ahead
-  int wslot = -1, next_slot = clamp_rel(a.crel, T0 / a.tpc, a.crel_hi);
-  for (long long T = T0; T < T1; ++T) {
-    const int buf = (int)((T - T0) & 1);
-    if (T + 1 < T1) {  // the next tile's rows land during this one
-      gather<S>(a, xs0 + (buf ^ 1) * TM * P, idx, warp, lane);
-      idx = T + 2 < T1 ? row_index<S>(a, T + 2, warp, lane) : -1;
+  int wslot = -1, slot = -1;
+  int next_slot = clamp_rel(a.crel, T0 / a.tpc, a.crel_hi);
+  float acc[MT][NT][4];
+  for (long long i = 0; i < n_steps; ++i) {
+    const long long T = T0 + i / ns;
+    const int st = (int)(i % ns), buf = (int)(i & 1);
+    if (i + 1 < n_steps) {  // the next step's rows land during this one
+      const int st1 = (int)((i + 1) % ns), kw1 = kw_of(st1);
+      gather<S, ST>(a, xs0 + (buf ^ 1) * TM * P, idx, st1 * a.KS, kw1,
+                    (kw1 + 15) / 16 * 16, warp, lane);
+      idx = i + 2 < n_steps ? row_index<S>(a, T0 + (i + 2) / ns, warp, lane)
+                            : -1;
     }
     cp_async_commit();
     const long long c = T / a.tpc;
     const int r0 = (int)(T - c * a.tpc) * TM;
     const int rows = min(TM, a.chunk - r0);
     const long long e0 = c * a.chunk + r0;
-    const int slot = next_slot;
-    if (T + 1 < T1)
-      next_slot = clamp_rel(a.crel, (T + 1) / a.tpc, a.crel_hi);
-    if (slot != wslot) build_w<S>(a, slot, col0, ws);
+    if (st == 0) {
+      slot = next_slot;
+      if (T + 1 < T1)
+        next_slot = clamp_rel(a.crel, (T + 1) / a.tpc, a.crel_hi);
+    }
+    const int kw = kw_of(st);
+    if (ns > 1 || slot != wslot) build_w<S>(a, slot, col0, st * a.KS, kw, ws);
     wslot = slot;
     float nv[MT][2];
 #pragma unroll
@@ -457,35 +503,39 @@ __global__ void __launch_bounds__(S::THREADS) k5_msg_kernel(const Args a) {
         nv[mi][h] = r < rows ? __ldg(a.norm + e0 + r) : 0.f;
       }
     cp_async_wait<1>();
-    __syncthreads();  // this tile's rows and W visible to every warp
-    float acc[MT][NT][4];
+    __syncthreads();  // this step's rows and W visible to every warp
+    if (st == 0) {
 #pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
+      for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-      for (int nj = 0; nj < NT; ++nj)
+        for (int nj = 0; nj < NT; ++nj)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mi][nj][i] = 0.f;
-    tile_products<S>(xs0 + buf * TM * P, ws, P, KP, wm, wn, lane, acc);
+          for (int u = 0; u < 4; ++u) acc[mi][nj][u] = 0.f;
+    }
+    tile_products<S>(xs0 + buf * TM * P, ws, P, (kw + 15) / 16 * 16, wm, wn,
+                     lane, acc);
+    if (st == ns - 1) {
 #pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
+      for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 16 * MT + mi * 16 + g + 8 * h;
-        if (r >= rows) continue;
-        float* o = a.out + (size_t)(e0 + r) * a.N;
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * 16 * MT + mi * 16 + g + 8 * h;
+          if (r >= rows) continue;
+          float* o = a.out + (size_t)(e0 + r) * a.N;
 #pragma unroll
-        for (int nj = 0; nj < NT; ++nj) {
-          const int col = col0 + wn * 8 * NT + nj * 8 + 2 * t;
-          const float v0 = __fmul_rn(acc[mi][nj][2 * h], nv[mi][h]);
-          const float v1 = __fmul_rn(acc[mi][nj][2 * h + 1], nv[mi][h]);
-          if (!(a.N & 1) && col + 1 < a.N) {
-            *reinterpret_cast<float2*>(o + col) = make_float2(v0, v1);
-          } else {
-            if (col < a.N) o[col] = v0;
-            if (col + 1 < a.N) o[col + 1] = v1;
+          for (int nj = 0; nj < NT; ++nj) {
+            const int col = col0 + wn * 8 * NT + nj * 8 + 2 * t;
+            const float v0 = __fmul_rn(acc[mi][nj][2 * h], nv[mi][h]);
+            const float v1 = __fmul_rn(acc[mi][nj][2 * h + 1], nv[mi][h]);
+            if (!(a.N & 1) && col + 1 < a.N) {
+              *reinterpret_cast<float2*>(o + col) = make_float2(v0, v1);
+            } else {
+              if (col < a.N) o[col] = v0;
+              if (col + 1 < a.N) o[col + 1] = v1;
+            }
           }
         }
-      }
+    }
     __syncthreads();  // every warp done with this buffer and with W
   }
 }
@@ -545,10 +595,10 @@ int device_occupancy(int dev, const void* fn, int threads, size_t smem,
   return blocks;
 }
 
-template <class S>
+template <class S, bool ST>
 int run(Args a, int dev, int n_chunks, cudaStream_t stream) {
-  const void* fn = reinterpret_cast<const void*>(k5_msg_kernel<S>);
-  const size_t smem = S::smem(a.K);
+  const void* fn = reinterpret_cast<const void*>(k5_msg_kernel<S, ST>);
+  const size_t smem = S::smem(a.KS);
   int n_sm = 0, optin = 0;
   const int occ = device_occupancy(dev, fn, S::THREADS, smem, &n_sm, &optin);
   if (occ <= 0) return (int)cudaErrorInvalidValue;
@@ -561,12 +611,23 @@ int run(Args a, int dev, int n_chunks, cudaStream_t stream) {
   a.q = n_tiles / n_rb;
   a.r = (int)(n_tiles % n_rb);
   const dim3 grid((unsigned)n_ct, (unsigned)n_rb);
-  k5_msg_kernel<S><<<grid, S::THREADS, smem, stream>>>(a);
+  k5_msg_kernel<S, ST><<<grid, S::THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The messages through w [.][K][N] (trans: [.][N][K]) and crel.
-int launch(Args a, int n_chunks, cudaStream_t stream) {
+// k stages of KS columns (KS a multiple of 16: the row copies and the
+// fragment map stay aligned).
+void stage(Args& a, int KS) {
+  a.KS = KS;
+  a.n_st = (a.K + KS - 1) / KS;
+  a.P = pitch_of(KS);
+}
+
+// The messages through w [.][K][N] (trans: [.][N][K]) and crel.  The
+// tile: the big one where whole rows fit and it gives every SM a tile
+// (with big_ok), else the small one; rows wider than the small tile's
+// shared memory holds go in k stages.
+int launch(Args a, int n_chunks, cudaStream_t stream, bool big_ok) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -574,39 +635,67 @@ int launch(Args a, int n_chunks, cudaStream_t stream) {
   int n_sm = 0, optin = 0;
   if (device_occupancy(dev, nullptr, 0, 0, &n_sm, &optin) <= 0)
     return (int)cudaErrorInvalidValue;
-  a.P = pitch_of(a.K);
+  stage(a, a.K);
   a.xvec = a.K % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
   a.wvec = (a.trans ? a.K : a.N) % 4 == 0 &&
            reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
-  // the big tile where it fits and gives every SM a tile
   const long long big_tiles = (long long)n_chunks *
                               ((a.chunk + Big::TM - 1) / Big::TM) *
                               ((a.N + Big::CT - 1) / Big::CT);
-  if (Big::smem(a.K) <= (size_t)optin && big_tiles >= n_sm)
-    return run<Big>(a, dev, n_chunks, stream);
-  if (Small::smem(a.K) > (size_t)optin) return (int)cudaErrorInvalidValue;
-  return run<Small>(a, dev, n_chunks, stream);
+  const bool big = big_ok && big_tiles >= n_sm;
+  if (big && Big::smem(a.K) <= (size_t)optin)
+    return run<Big, false>(a, dev, n_chunks, stream);
+  if (Small::smem(a.K) <= (size_t)optin)
+    return run<Small, false>(a, dev, n_chunks, stream);
+  if (big) {
+    stage(a, BIG_STAGE);
+    return run<Big, true>(a, dev, n_chunks, stream);
+  }
+  stage(a, SMALL_STAGE);
+  return run<Small, true>(a, dev, n_chunks, stream);
 }
 
 bool bad_shape(int n_rows, int n_chunks, int chunk, int K, int N) {
   return n_chunks < 0 || chunk <= 0 || K <= 0 || N <= 0 || n_rows <= 0;
 }
 
+// K5a's prologue for n_chunks chunks of relations crel (scratch as in
+// mpqe_rgcn_msg_basis).
+int combine(const float* basis, int bb, const float* coeff, const int* crel,
+            int n_chunks, int n_rels, int K, int N, float* scratch,
+            cudaStream_t s) {
+  const long long mat = (long long)K * N;
+  const int vec = mat % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(basis) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
+  const dim3 grid((unsigned)((mat + 4 * CB_THREADS - 1) / (4 * CB_THREADS)),
+                  (unsigned)((n_chunks + CB_CHUNKS - 1) / CB_CHUNKS));
+  k5_combine_kernel<<<grid, CB_THREADS, 0, s>>>(basis, bb, coeff, crel,
+                                                n_chunks, n_rels, mat, vec,
+                                                scratch);
+  return (int)cudaGetLastError();
+}
+
+Args wrel_args(const float* x, int n_rows, const int* src, const float* w,
+               const int* crel, int crel_hi, const float* norm, int chunk,
+               int K, int N, int w_transposed, float* out) {
+  Args a{};
+  a.x = x;
+  a.n_rows = n_rows;
+  a.src = src;
+  a.w = w;
+  a.crel = crel;
+  a.crel_hi = crel_hi;
+  a.norm = norm;
+  a.chunk = chunk;
+  a.K = K;
+  a.N = N;
+  a.trans = w_transposed != 0;
+  a.out = out;
+  return a;
+}
+
 }  // namespace
-
-// Dynamic shared memory a launch needs at least at input width K (the
-// small tile's).
-extern "C" long long mpqe_rgcn_msg_smem_bytes(int K) {
-  return (long long)Small::smem(K);
-}
-
-extern "C" long long mpqe_rgcn_msg_max_smem(int device) {
-  int optin = 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return 0;
-  return (long long)optin;
-}
 
 // K5a.  x [n_rows][K]; src [n_chunks * chunk] or null; basis [bb][K][N]
 // ([bb][N][K] with w_transposed); coeff [n_rels][bb]; crel [n_chunks],
@@ -626,31 +715,12 @@ extern "C" int mpqe_rgcn_msg_basis(const float* x, int n_rows, const int* src,
     return (int)cudaErrorInvalidValue;
   if (n_chunks == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long mat = (long long)K * N;
-  const int vec = mat % 4 == 0 &&
-                  reinterpret_cast<uintptr_t>(basis) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
-  const dim3 grid((unsigned)((mat + 4 * CB_THREADS - 1) / (4 * CB_THREADS)),
-                  (unsigned)((n_chunks + CB_CHUNKS - 1) / CB_CHUNKS));
-  k5_combine_kernel<<<grid, CB_THREADS, 0, s>>>(basis, bb, coeff, crel,
-                                                n_chunks, n_rels, mat, vec,
-                                                scratch);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  Args a{};
-  a.x = x;
-  a.n_rows = n_rows;
-  a.src = src;
-  a.w = scratch;
-  a.crel = crel;
-  a.crel_hi = n_rels;
-  a.norm = norm;
-  a.chunk = chunk;
-  a.K = K;
-  a.N = N;
-  a.trans = w_transposed != 0;
-  a.out = out;
-  return launch(a, n_chunks, s);
+  const int err = combine(basis, bb, coeff, crel, n_chunks, n_rels, K, N,
+                          scratch, s);
+  if (err != 0) return err;
+  return launch(wrel_args(x, n_rows, src, scratch, crel, n_rels, norm, chunk,
+                          K, N, w_transposed, out),
+                n_chunks, s, true);
 }
 
 // K5b.  As K5a with w_rel [R][K][N] ([R][N][K] with w_transposed) and
@@ -663,18 +733,40 @@ extern "C" int mpqe_rgcn_msg_wrel(const float* x, int n_rows, const int* src,
   if (bad_shape(n_rows, n_chunks, chunk, K, N) || R <= 0)
     return (int)cudaErrorInvalidValue;
   if (n_chunks == 0) return 0;
-  Args a{};
-  a.x = x;
-  a.n_rows = n_rows;
-  a.src = src;
-  a.w = w_rel;
-  a.crel = crel;
-  a.crel_hi = R - 1;
-  a.norm = norm;
-  a.chunk = chunk;
-  a.K = K;
-  a.N = N;
-  a.trans = w_transposed != 0;
-  a.out = out;
-  return launch(a, n_chunks, static_cast<cudaStream_t>(stream));
+  return launch(wrel_args(x, n_rows, src, w_rel, crel, R - 1, norm, chunk, K,
+                          N, w_transposed, out),
+                n_chunks, static_cast<cudaStream_t>(stream), true);
+}
+
+// K8's two uses of this file (ops/ring.py).  The combine alone: W_s for
+// the slots s = clamp(crel[c], 0, n_rels) of n_chunks chunks (K8: every
+// relation and the zero slot n_rels) into scratch [n_rels + 1][K][N], as
+// K5a's prologue; one launch.
+extern "C" int mpqe_rgcn_combine(const float* basis, int bb,
+                                 const float* coeff, const int* crel,
+                                 int n_chunks, int n_rels, int K, int N,
+                                 float* scratch, void* stream) {
+  if (n_chunks <= 0 || bb <= 0 || n_rels <= 0 || K <= 0 || N <= 0)
+    return (int)cudaErrorInvalidValue;
+  return combine(basis, bb, coeff, crel, n_chunks, n_rels, K, N, scratch,
+                 static_cast<cudaStream_t>(stream));
+}
+
+// The messages of K5b (w [R][K][N] as stored) over the first *live of
+// n_chunks chunks, *live read on the device (chunks past it are neither
+// read nor written); the big tile only for chunks of whole big tiles.
+// One launch.
+extern "C" int mpqe_rgcn_msg_live(const float* x, int n_rows, const int* src,
+                                  const float* w, int R, const int* crel,
+                                  const int* live, const float* norm,
+                                  int n_chunks, int chunk, int K, int N,
+                                  float* out, void* stream) {
+  if (bad_shape(n_rows, n_chunks, chunk, K, N) || R <= 0 || !live)
+    return (int)cudaErrorInvalidValue;
+  if (n_chunks == 0) return 0;
+  Args a = wrel_args(x, n_rows, src, w, crel, R - 1, norm, chunk, K, N, 0,
+                     out);
+  a.live = live;
+  return launch(a, n_chunks, static_cast<cudaStream_t>(stream),
+                chunk % Big::TM == 0);
 }

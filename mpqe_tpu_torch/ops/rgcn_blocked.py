@@ -37,7 +37,6 @@ the backward runs K6a once more on the transpose-graph bucketing
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict
 
 import numpy as np
@@ -613,7 +612,7 @@ def k6b_gate(got, want, s_bound: torch.Tensor, rel: torch.Tensor,
 # The kernels
 # ----------------------------------------------------------------------
 _KERNEL = None
-GRAD_WIDTH_MAX = 128  # K6b keeps dbasis[b] ([K, N] f32) in registers
+GRAD_TILE = 128  # K6b's dbasis tiles are GRAD_TILE x GRAD_TILE (GW)
 
 
 def _kernel():
@@ -621,29 +620,19 @@ def _kernel():
     global _KERNEL
     if _KERNEL is None:
         lib = cuda_build.load_library("rgcn_blocked", ["rgcn_blocked.cu"])
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        p, i = ctypes.c_void_p, ctypes.c_int
         lib.mpqe_rgcn_blocked_forward.argtypes = [
             p, i, p, p, i, i, i, i, i, p, p, p, i, p, p]
         lib.mpqe_rgcn_blocked_forward.restype = i
         lib.mpqe_rgcn_blocked_grad.argtypes = [
-            p, p, i, p, p, i, i, i, i, p, p, p, i, p, p, i, p, p, p, p]
+            p, p, i, p, p, i, i, i, i, p, p, p, i, p, p, i, p, p, p, p, p]
         lib.mpqe_rgcn_blocked_grad.restype = i
-        lib.mpqe_rgcn_blocked_smem_bytes.argtypes = [i, i, i, i]
-        lib.mpqe_rgcn_blocked_smem_bytes.restype = ll
-        lib.mpqe_rgcn_blocked_max_smem.argtypes = [i]
-        lib.mpqe_rgcn_blocked_max_smem.restype = ll
         _KERNEL = lib
     return _KERNEL
 
 
 CSR_KEYS = ("csr", "csr_ptr", "cta_rows")  # K6a's edge lists
 GRAD_KEYS = ("edges", "edge_pos", "part_ptr", "dc_pos", "dc")  # K6b's
-
-
-@functools.lru_cache(maxsize=None)
-def _max_smem(device_index: int) -> int:
-    """The card's shared memory a block may opt into, in bytes."""
-    return _kernel().mpqe_rgcn_blocked_max_smem(device_index)
 
 
 def _check_cuda(x, basis, coeff, lay, n_rels: int, n_rows: int,
@@ -676,17 +665,14 @@ def _check_cuda(x, basis, coeff, lay, n_rels: int, n_rows: int,
     for t in (basis, coeff, *extra):
         if t.device != dev:
             raise ValueError(f"operand on {t.device}, x on {dev}")
-    if grad and max(K, N) > GRAD_WIDTH_MAX:
-        raise ValueError(f"K6b takes widths up to {GRAD_WIDTH_MAX}, not "
-                         f"K={K}, N={N}")
-    lib = _kernel()
-    have = _max_smem(dev.index if dev.index is not None
-                     else torch.cuda.current_device())
-    if lib.mpqe_rgcn_blocked_smem_bytes(K, N, bb, int(grad)) > have:
-        raise ValueError(f"widths K={K}, N={N}, {bb} bases, {n_rels} "
-                         f"relations need more shared memory per block "
-                         f"than the card's {have} bytes")
-    return lib
+    if -(-N // 32) > 65535:
+        raise ValueError(f"K6a's grid: {N} output columns make more than "
+                         "65,535 column tiles of 32")
+    tiles = -(-K // GRAD_TILE) * -(-N // GRAD_TILE)
+    if grad and (bb > 65535 or tiles > 65535):
+        raise ValueError(f"K6b's grid: {bb} bases and {tiles} dbasis tiles "
+                         "of 128 x 128 must each be at most 65,535")
+    return _kernel()
 
 
 def _padded_basis(basis: torch.Tensor, KP: int, NP: int) -> torch.Tensor:
@@ -768,6 +754,9 @@ def grad_blocked_parts(x: torch.Tensor, g: torch.Tensor,
     vb = _padded_basis(basis, KP, NP)
     cf = coeff.to(torch.float32).contiguous()
     s = torch.zeros((E, bb), dtype=torch.float32, device=dev)
+    n_nt = -(-N // GRAD_TILE)
+    s_part = (torch.empty((n_nt, E, bb), dtype=torch.float32, device=dev)
+              if max(K, N) > GRAD_TILE else None)
     partial = torch.empty((n_part, T), dtype=torch.float32, device=dev)
     out = torch.empty((T,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -776,7 +765,7 @@ def grad_blocked_parts(x: torch.Tensor, g: torch.Tensor,
             n_rels, bb, K, N, *(lay[k].data_ptr() for k in (
                 "edges", "edge_pos", "part_ptr")), n_part,
             lay["dc_pos"].data_ptr(), lay["dc"].data_ptr(), E, s.data_ptr(),
-            partial.data_ptr(),
+            None if s_part is None else s_part.data_ptr(), partial.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K6b kernel launch failed: cudaError {err}")

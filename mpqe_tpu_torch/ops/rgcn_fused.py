@@ -146,10 +146,6 @@ def messages_wrel_reference(x, src, w_rel, chunk_rel_clipped, norm,
 # The kernels
 # ----------------------------------------------------------------------
 _KERNEL = None
-# the shared memory a block may use, per device index, and the least a
-# launch needs, per input width: host calls made once, not every launch
-_MAX_SMEM: Dict[int, int] = {}
-_SMEM_NEED: Dict[int, int] = {}
 # K5a's combined weights, one buffer per (device, stream, shape): launches
 # on one stream use it in turn
 _SCRATCH: Dict[tuple, torch.Tensor] = {}
@@ -160,17 +156,18 @@ def _kernel():
     global _KERNEL
     if _KERNEL is None:
         lib = cuda_build.load_library("rgcn_fused", ["rgcn_fused.cu"])
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        p, i = ctypes.c_void_p, ctypes.c_int
         lib.mpqe_rgcn_msg_basis.argtypes = [p, i, p, p, i, p, p, i, p, p, i,
                                             i, i, i, i, p, p]
         lib.mpqe_rgcn_msg_basis.restype = i
         lib.mpqe_rgcn_msg_wrel.argtypes = [p, i, p, p, i, p, p, i, i, i, i,
                                            i, p, p]
         lib.mpqe_rgcn_msg_wrel.restype = i
-        lib.mpqe_rgcn_msg_smem_bytes.argtypes = [i]
-        lib.mpqe_rgcn_msg_smem_bytes.restype = ll
-        lib.mpqe_rgcn_msg_max_smem.argtypes = [i]
-        lib.mpqe_rgcn_msg_max_smem.restype = ll
+        lib.mpqe_rgcn_combine.argtypes = [p, i, p, p, i, i, i, i, p, p]
+        lib.mpqe_rgcn_combine.restype = i
+        lib.mpqe_rgcn_msg_live.argtypes = [p, i, p, p, i, p, p, p, i, i, i,
+                                           i, p, p]
+        lib.mpqe_rgcn_msg_live.restype = i
         _KERNEL = lib
     return _KERNEL
 
@@ -194,6 +191,8 @@ def _prepare(x, src, w, norm, chunk: int, w_transposed: bool):
         raise ValueError("x must be [rows, K] and the weights [*, K, N] "
                          "([*, N, K] with w_transposed)")
     E = norm.shape[0]
+    if E >= 2 ** 31 or x.shape[0] >= 2 ** 31:
+        raise ValueError(f"{E} edges or {x.shape[0]} rows exceed int32")
     K, N = (w.shape[2], w.shape[1]) if w_transposed else (w.shape[1],
                                                           w.shape[2])
     if chunk <= 0 or E % chunk:
@@ -210,16 +209,6 @@ def _prepare(x, src, w, norm, chunk: int, w_transposed: bool):
     if x.shape[0] == 0:
         raise ValueError("x has no rows")
     lib = _kernel()
-    have = _MAX_SMEM.get(dev.index)
-    if have is None:
-        have = _MAX_SMEM[dev.index] = lib.mpqe_rgcn_msg_max_smem(dev.index)
-    need = _SMEM_NEED.get(K)
-    if need is None:
-        need = _SMEM_NEED[K] = lib.mpqe_rgcn_msg_smem_bytes(K)
-    if need > have:
-        raise ValueError(f"input width {K} needs {need} bytes of shared "
-                         f"memory per block, over the card's {have} (K5 "
-                         "takes K <= 592 on an H100)")
     out = torch.empty((E, N), dtype=torch.float32, device=dev)
     return lib, out, E // chunk, K, N
 

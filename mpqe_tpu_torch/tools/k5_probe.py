@@ -247,13 +247,15 @@ def ab(trees) -> None:
 # (phase, [(text in csrc/rgcn_fused.cu, its replacement), ...])
 PHASES = (
     ("W tile loads", [(
-        "    if (slot != wslot) build_w<S>(a, slot, col0, ws);\n", "")]),
+        "    if (ns > 1 || slot != wslot) build_w<S>(a, slot, col0, st * a.KS, "
+        "kw, ws);\n", "")]),
     ("K5a prologue", [(
         "  k5_combine_kernel<<<grid, CB_THREADS, 0, s>>>(basis, bb, coeff, "
         "crel,\n", "  if (false) k5_combine_kernel<<<grid, CB_THREADS, 0, s>>>("
         "basis, bb, coeff, crel,\n")]),
     ("next gather", [(
-        "      gather<S>(a, xs0 + (buf ^ 1) * TM * P, idx, warp, lane);\n",
+        "      gather<S, ST>(a, xs0 + (buf ^ 1) * TM * P, idx, st1 * a.KS, "
+        "kw1,\n                    (kw1 + 15) / 16 * 16, warp, lane);\n",
         "")]),
     # two of the three TF32 passes: what the split costs in products
     ("correction products", [
@@ -262,12 +264,12 @@ PHASES = (
         ("        for (int nj = 0; nj < NT; ++nj) mma_tf32(acc[mi][nj], ah[mi], "
          "bl[nj]);\n", "        ;\n")]),
     ("products", [(
-        "    tile_products<S>(xs0 + buf * TM * P, ws, P, KP, wm, wn, lane, acc);"
-        "\n", "")]),
+        "    tile_products<S>(xs0 + buf * TM * P, ws, P, (kw + 15) / 16 * 16, "
+        "wm, wn,\n                     lane, acc);\n", "")]),
     # the stores out, every sum still read (never true)
     ("stores", [(
-        "            *reinterpret_cast<float2*>(o + col) = make_float2(v0, v1);"
-        "\n", "            if (v0 == 1.2345e-30f) o[col] = v1;\n")]),
+        "              *reinterpret_cast<float2*>(o + col) = make_float2(v0, "
+        "v1);\n", "              if (v0 == 1.2345e-30f) o[col] = v1;\n")]),
     ("all but indices, norms and barriers", None),
 )
 
@@ -283,8 +285,7 @@ def _variant(name: str, source: str, lib0):
     subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o",
                     str(so), str(cu)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
-    for fn in ("mpqe_rgcn_msg_basis", "mpqe_rgcn_msg_wrel",
-               "mpqe_rgcn_msg_smem_bytes", "mpqe_rgcn_msg_max_smem"):
+    for fn in ("mpqe_rgcn_msg_basis", "mpqe_rgcn_msg_wrel"):
         getattr(lib, fn).argtypes = getattr(lib0, fn).argtypes
         getattr(lib, fn).restype = getattr(lib0, fn).restype
     return lib

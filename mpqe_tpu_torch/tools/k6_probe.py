@@ -58,7 +58,7 @@ PHASES = (
     ("xs @ V_b and s_eb", "K6b",
      "    // h_b = xs @ V_b for edges [16 wm, 16 wm + 16) x columns\n"
      "    // [64 wn, 64 wn + 64); the partial sums of h_b * gn over them\n"
-     "    {", "    if (false) {"),
+     "    if (with_s) {", "    if (false) {"),
     ("xs^T @ rhs", "K6b",
      "    // dbasis[b] += xs^T @ rhs over the tile's 64 edges\n    {",
      "    if (false) {"),
@@ -89,8 +89,7 @@ def _variant(name: str, source: str, lib0):
     subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o",
                     str(so), str(cu)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
-    for fn in ("mpqe_rgcn_blocked_forward", "mpqe_rgcn_blocked_grad",
-               "mpqe_rgcn_blocked_smem_bytes", "mpqe_rgcn_blocked_max_smem"):
+    for fn in ("mpqe_rgcn_blocked_forward", "mpqe_rgcn_blocked_grad"):
         getattr(lib, fn).argtypes = getattr(lib0, fn).argtypes
         getattr(lib, fn).restype = getattr(lib0, fn).restype
     return lib

@@ -18,8 +18,12 @@ controls that fail it and bit-equal repeats.  K5a and K5b take their products on
 cores in split TF32 (expected ~2e-6), each with a negative control that
 fails the gate and a bit-equal repeat.  K6a and K6b take their products
 on the tensor cores and are held to the stated bounds of
-``ops/rgcn_blocked.py`` (``k6a_gate``, ``k6b_gate``) instead.  K4b's
-maxima are exact: equal, NaN included; K8 is held to be equal.
+``ops/rgcn_blocked.py`` (``k6a_gate``, ``k6b_gate``) instead, at the
+flagship width and at the wide widths (K5 at K = 768, K6 at d = 256 and
+512 with 16 bases).  K4b's maxima are exact: equal, NaN included; K8
+(its products in split TF32 through K5's kernel) is held to
+``ops/ring.py ring_gate``, K5's gates, with two negative controls that
+fail it and bit-equal repeats.
 """
 
 import numpy as np
@@ -530,6 +534,101 @@ def test_cuda_k6_match_plain_versions(d, nb):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(768, 768), (768, 256)])
+def test_cuda_k5_wide_rows_go_in_k_stages(K, N):
+    """K5a and K5b at K = 768 (rows wider than the small tile's shared
+    memory: k in stages), N = K and N != K, 16 bases, on a template batch:
+    within 1e-4 of their plain versions, repeats bit-equal, the negative
+    control failing; gathering, on one row per edge and transposed."""
+    from mpqe_tpu_torch.ops import rgcn_fused as tpr
+    from mpqe_tpu_torch.ops import template_layout as ttl
+
+    dev = _cuda()
+    rng = np.random.default_rng(K + N)
+    s, B, nb = "3-chain_inter", 64, 16
+    spec = STRUCTURES[s]
+    ch = ttl.template_chunked(
+        s, torch.from_numpy(rng.integers(0, N_RELS, spec.n_edges).astype(
+            np.int32)).to(dev),
+        torch.from_numpy(rng.uniform(0.5, 1.5, spec.n_edges).astype(
+            np.float32)).to(dev), B)
+    src = ch["src"].to(torch.int32).contiguous()
+    norm, crel, chunk = ch["norm"].float().contiguous(), ch[
+        "chunk_rel"].to(torch.int32).contiguous(), ch["chunk"]
+    gen = torch.Generator(dev).manual_seed(K + N)
+    basis = torch.randn((nb, K, N), device=dev, generator=gen) / K ** 0.5
+    coeff = torch.randn((N_RELS, nb), device=dev, generator=gen)
+    w_rel = torch.einsum("rb,bio->rio", coeff, basis).contiguous()
+    x = torch.randn((B * spec.n_nodes, K), device=dev, generator=gen)
+    rows = torch.randn((src.shape[0], K), device=dev, generator=gen)
+    g = torch.randn((src.shape[0], N), device=dev, generator=gen)
+    ce = tpr._masked_chunk_coeff(coeff, crel, N_RELS).contiguous()
+    rc = crel.clamp(0, N_RELS - 1)
+    for fn, ref, w, kargs, c in (
+            (tpr.messages_basis, tpr.messages_basis_reference, basis,
+             (coeff, crel, N_RELS), ce),
+            (tpr.messages_wrel, tpr.messages_wrel_reference, w_rel, (crel,),
+             rc)):
+        bad = _k5_control(c, norm, chunk, N_RELS)
+        _k5_check(fn, ref, x, src, w, kargs, c, norm, chunk, bad)
+        _k5_check(fn, ref, rows, None, w, kargs, c, norm, chunk, bad)
+        _k5_check(fn, ref, g, None, w, kargs, c, norm, chunk, bad,
+                  w_transposed=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 512])
+def test_cuda_k6_wide_widths(d):
+    """K6a (both layouts; the basis streamed) under ``blocked_error_bound``
+    and K6b (dbasis in tiles, s_eb from column tiles) under ``k6b_gate``
+    at d = 256 and 512 with 16 bases, on a template batch; controls fail,
+    repeats bit-equal."""
+    from mpqe_tpu_torch.ops import rgcn_blocked as tprb
+    from mpqe_tpu_torch.ops import template_layout as ttl
+
+    dev = _cuda()
+    rng = np.random.default_rng(d)
+    s, B, nb = "3-chain_inter", 64, 16
+    spec = STRUCTURES[s]
+    bk = ttl.template_blocked(
+        s, torch.from_numpy(rng.integers(0, N_RELS, spec.n_edges).astype(
+            np.int32)).to(dev),
+        torch.from_numpy(rng.uniform(0.5, 1.5, spec.n_edges).astype(
+            np.float32)).to(dev), B)
+    lay, t_lay = tprb.layouts_on(bk, dev)
+    n = B * spec.n_nodes
+    gen = torch.Generator(dev).manual_seed(d)
+    basis = torch.randn((nb, d, d), device=dev, generator=gen) / d ** 0.5
+    coeff = torch.randn((N_RELS, nb), device=dev, generator=gen)
+    x = torch.randn((n, d), device=dev, generator=gen)
+    g = torch.randn((n, d), device=dev, generator=gen)
+    for xin, w, ly in ((x, basis, lay), (g, basis.transpose(1, 2), t_lay)):
+        got = tprb.messages_blocked(xin, w, coeff, ly, N_RELS)
+        again = tprb.messages_blocked(xin, w, coeff, ly, N_RELS)
+        msg = tprb._edge_messages(xin, w, coeff, ly, N_RELS)
+        bound = tprb.blocked_error_bound(xin, w, coeff, ly, N_RELS, n, msg)
+        gate = tprb.k6a_gate(got, tprb._dst_sum(msg, ly, n), bound)
+        assert gate["ok"], gate
+        assert torch.equal(got, again)
+        e = torch.nonzero(tprb._real_edges(ly, n)[2])[:1, 0]
+        cut = tprb._dst_sum(msg.index_fill(0, e, 0.0), ly, n)
+        assert not tprb.k6a_gate(got, cut, bound)["ok"]
+    got_g = tprb.grad_blocked_parts(x, g, basis, coeff, lay, N_RELS)
+    again = tprb.grad_blocked_parts(x, g, basis, coeff, lay, N_RELS)
+    want_g = tprb.grad_blocked_reference_parts(x, g, basis, coeff, lay,
+                                               N_RELS)
+    s_bound = tprb.grad_s_bound(x, g, basis, lay)
+    gate = tprb.k6b_gate(got_g, want_g, s_bound, lay["rel"], N_RELS)
+    assert gate["ok"], gate
+    assert all(torch.equal(u, v) for u, v in zip(got_g, again))
+    r = int(lay["edges"][0, 2])
+    cut_lay = dict(lay, norm=torch.where(lay["rel"] == r, 0.0, lay["norm"]))
+    bad = tprb.k6b_gate(got_g, tprb.grad_blocked_reference_parts(
+        x, g, basis, coeff, cut_lay, N_RELS), s_bound, lay["rel"], N_RELS)
+    assert not bad["dbasis_ok"] and not bad["dcoeff_ok"], bad
+
+
+@pytest.mark.cuda
 def test_cuda_k5_k6_wrappers_check_their_inputs():
     from mpqe_tpu_torch.ops import rgcn_blocked as tprb
     from mpqe_tpu_torch.ops import rgcn_fused as tpr
@@ -560,11 +659,11 @@ def test_cuda_k5_k6_wrappers_check_their_inputs():
     with pytest.raises(ValueError):  # transposed: [nb, N, K], K = 8 != 16
         tpr.messages_basis(x, src, basis[:, :, :8].contiguous(), coeff, crel,
                            3, norm, chunk, w_transposed=True)
-    wide = torch.zeros((1, 600, 8), device=dev)  # K = 600 > 592
-    with pytest.raises(ValueError):
-        tpr.messages_wrel(torch.zeros((16, 600), device=dev), None, wide,
-                          torch.zeros(2, dtype=torch.int32, device=dev),
-                          norm, chunk)
+    # the limit K5 keeps: int32 edge ids (2^31 edges: 8 GiB of norms)
+    huge = torch.empty((2 ** 31,), device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        tpr.messages_wrel(x, src, basis, crel, huge, chunk)
+    del huge
     lay = tprb.layout_on({
         "src_local": np.zeros(16, np.int32), "dst_local": np.zeros(16, np.int32),
         "rel": np.zeros(16, np.int32), "norm": np.zeros(16, np.float32),
@@ -581,6 +680,17 @@ def test_cuda_k5_k6_wrappers_check_their_inputs():
         tprb.messages_blocked(x, basis, coeff, broken, 3)
     with pytest.raises(ValueError):
         tprb.grad_blocked(x, x[:, :8], basis, coeff, lay, 3)
+    # the limits K6 keeps: its grids' 65,535 bases (K6b, blockIdx.y) and
+    # column tiles (K6a, blockIdx.y)
+    many = torch.zeros((65536, d, d), device=dev)
+    with pytest.raises(ValueError, match="65,535"):
+        tprb.grad_blocked(x, x, many, torch.zeros((3, 65536), device=dev),
+                          lay, 3)
+    del many
+    wide = torch.zeros((1, d, 32 * 65535 + 1), device=dev)
+    with pytest.raises(ValueError, match="column tiles"):
+        tprb.messages_blocked(x, wide, torch.zeros((3, 1), device=dev), lay,
+                              3)
 
 
 # ------------------------------------------------------------ K4 and K7
@@ -857,8 +967,11 @@ def test_cuda_encode_sparse_pallas_matches_cpu_plain_path(readout):
 @pytest.mark.parametrize("d,nb", [(128, 16), (16, 3)], ids=["flagship",
                                                              "narrow"])
 def test_cuda_k8_matches_plain_version(n_parts, d, nb):
-    # a ring of n_parts parts on one card: one launch per hop, bit-equal
-    # to the plain version (same operations, same order)
+    # a ring of n_parts parts on one card: 6 + 2 P launches (five layout
+    # kernels, the combine; per hop the messages and the destination sum),
+    # held to ring_gate
+    # against the plain version and rgcn_ring_halo; both controls fail it;
+    # a repeat gives the same bits
     from mpqe_tpu_torch.ops import rgcn as trg
     from mpqe_tpu_torch.ops import ring as tring
     from mpqe_tpu_torch.ops.edge_store import build_edge_store
@@ -880,11 +993,63 @@ def test_cuda_k8_matches_plain_version(n_parts, d, nb):
     before = tring.rgcn_ring_halo_rdma.launches
     with torch.no_grad():
         got = tring.rgcn_ring_halo_rdma(mesh, layer, x, *edges, N_RELS)
+        n_launch = tring.rgcn_ring_halo_rdma.launches - before
+        again = tring.rgcn_ring_halo_rdma(mesh, layer, x, *edges, N_RELS)
         want = tring.rgcn_ring_halo_rdma_reference(mesh, layer, x, *edges,
                                                    N_RELS)
         ring = thalo.rgcn_ring_halo(mesh, layer, x, *edges, N_RELS)
+        ctl = [tring.rgcn_ring_halo_rdma_reference(mesh, layer, x, *c,
+                                                   N_RELS)
+               for c in tring.ring_controls(edges, N_RELS, pr.block_size)]
     torch.cuda.synchronize()
-    assert tring.rgcn_ring_halo_rdma.launches == before + n_parts
+    assert n_launch == 6 + 2 * n_parts
     assert got.shape == (pr.n_nodes_padded, d) and got.device.type == "cuda"
-    assert torch.equal(got, want)
-    assert _rel(got, ring) <= 1e-5
+    gate = tring.ring_gate(got, want, [(got, ring)])
+    assert gate["ok"], gate
+    assert torch.equal(got, again)
+    assert not any(tring.ring_gate(got, c)["ok"] for c in ctl)
+
+
+@pytest.mark.cuda
+def test_cuda_k8_odd_ids_follow_the_plain_version():
+    # ids the partitioners never make: src outside the block (a zero row),
+    # rel outside [0, n_rels) (a zero W), dst outside (dropped), on the
+    # card under ring_gate against the plain version
+    from mpqe_tpu_torch.ops import rgcn as trg
+    from mpqe_tpu_torch.ops import ring as tring
+    from mpqe_tpu_torch.ops.edge_store import build_edge_store
+    from mpqe_tpu_torch.parallel import halo as thalo
+    from mpqe_tpu_torch.parallel import mesh as tmesh
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    n, e, P, d = 600, 5000, 3, 128
+    st = build_edge_store(rng.integers(0, n, e), rng.integers(0, n, e),
+                          rng.integers(0, N_RELS, e), n, N_RELS)
+    pr = thalo.partition_edges_ring(st, P)
+    src, dst, rel = (a.copy() for a in (pr.src_local, pr.dst_local, pr.rel))
+    real = dst < pr.block_size
+    pick = lambda: rng.random(src.shape) < 0.1  # noqa: E731
+    src[real & pick()] = pr.block_size + 3
+    src[real & pick()] = -2
+    rel[real & pick()] = -1
+    rel[real & pick()] = N_RELS + 1
+    dst[real & pick()] = -5
+    gen = torch.Generator(device=dev).manual_seed(3)
+    layer = trg.init_rgcn_layer(gen, d, d, N_RELS, 16, device=dev)
+    x = torch.randn((pr.n_nodes_padded, d), generator=gen, device=dev)
+    edges = [torch.from_numpy(a).to(dev) for a in (src, dst, rel, pr.norm)]
+    mesh = tmesh.make_mesh((P, 1), devices=[dev] * P)
+    with torch.no_grad():
+        got = tring.rgcn_ring_halo_rdma(mesh, layer, x, *edges, N_RELS)
+        want = tring.rgcn_ring_halo_rdma_reference(mesh, layer, x, *edges,
+                                                   N_RELS)
+    gate = tring.ring_gate(got, want)
+    assert gate["ok"], gate
+    # the layout kernels' route equals ring_route's where the kernels read
+    devs = mesh.axis_devices("data")
+    with torch.no_grad():
+        lay_k, lay_p = (tring._groups(devs, layer, x, edges, pr.block_size,
+                                      N_RELS, kind)[devs[0]].route
+                        for kind in ("kernel", "plain"))
+    assert tring.route_matches(lay_k, lay_p)

@@ -117,6 +117,39 @@ def test_plain_k6_matches_pallas_interpret():
         assert _rel(gg[1], wg[1]) <= 1e-4, (name, _rel(gg[1], wg[1]))
 
 
+def test_plain_k6_matches_pallas_interpret_at_d256():
+    # d = 256: a width the card takes through K6a's streamed basis and
+    # K6b's dbasis tiles; the plain versions, which the card is held to,
+    # against the reference, held as the seed sweep holds them (256-deep
+    # sums flip a bf16 message more often than 16-deep ones)
+    rng = np.random.default_rng(13)
+    d, nb = 256, 3
+    bk, n = _general(13, n_nodes=24, n_e=40, node_block=16, chunk=8)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    basis = (rng.normal(size=(nb, d, d)) / d ** 0.5).astype(np.float32)
+    coeff = rng.normal(size=(N_RELS, nb)).astype(np.float32)
+    lay = tprb.layout_on(bk, "cpu")
+    got = tprb.messages_blocked(_t(x), _t(basis), _t(coeff), lay,
+                                N_RELS).numpy()
+    want = np.asarray(jprb._messages_blocked_pallas(
+        jnp.asarray(x), jnp.asarray(basis), jnp.asarray(coeff), bk, N_RELS,
+        interpret=True))
+    assert got.shape == (n, d)
+    rows = np.abs(got - want).max(axis=1) / (np.abs(want).max() + 1e-12)
+    assert rows.max() <= 1e-2, rows.max()
+    assert (rows > 1e-4).mean() <= 0.1, np.sort(rows)[-5:]
+    gdb, gdc = tprb.grad_blocked(_t(x), _t(g), _t(basis), _t(coeff), lay,
+                                 N_RELS)
+    wdb, wdc = jprb._grad_blocked_pallas(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(basis),
+        jnp.asarray(coeff), bk, N_RELS, interpret=True)
+    assert gdb.shape == (nb, d, d)
+    # no bf16 rounding follows dbasis's sums; dcoeff sums bf16 s_eb
+    assert _rel(gdb.numpy(), wdb) <= 1e-4, _rel(gdb.numpy(), wdb)
+    assert _rel(gdc.numpy(), wdc) <= 1e-2, _rel(gdc.numpy(), wdc)
+
+
 @pytest.mark.parametrize("seed", [3, 5, 7, 11])
 def test_plain_k6_matches_pallas_interpret_seed_sweep(seed):
     _, _, params, _ = _models(seed=seed)

@@ -119,6 +119,41 @@ def test_plain_k5_matches_pallas_interpret(kind, gather):
                                                            want))
 
 
+@pytest.mark.parametrize("kind", ["K5a", "K5b"])
+def test_plain_k5_matches_pallas_interpret_at_k256(kind):
+    # K = 256 (and N = 128 != K): a width the card takes in k stages; the
+    # plain version, which the card is held to, against the reference
+    rng = np.random.default_rng(7)
+    K, N, nb = 256, 128, 3
+    _, ts = _stores(7, n_nodes=30, n_e=60)
+    ch = tpr.chunk_by_relation(ts, 8)
+    n_chunks, chunk = len(ch["chunk_rel"]), ch["chunk"]
+    x = rng.normal(size=(30, K)).astype(np.float32)
+    xs = x[np.clip(ch["src"], 0, 29)]
+    basis = (rng.normal(size=(nb, K, N)) / K ** 0.5).astype(np.float32)
+    coeff = rng.normal(size=(N_RELS, nb)).astype(np.float32)
+    crel, norm = ch["chunk_rel"], ch["norm"]
+    if kind == "K5a":
+        ce = np.asarray(jpr._masked_chunk_coeff(
+            jnp.asarray(coeff), jnp.asarray(crel), N_RELS))
+        want = jpr._messages_pallas_basis(
+            jnp.asarray(xs), jnp.asarray(basis), jnp.asarray(ce),
+            jnp.asarray(norm), chunk, interpret=True)
+        got = tpr.messages_basis(_t(x), _t(ch["src"]), _t(basis),
+                                 _t(coeff), _t(crel), N_RELS, _t(norm),
+                                 chunk)
+    else:
+        w_rel = np.einsum("rb,bio->rio", coeff, basis).astype(np.float32)
+        rc = np.clip(crel, 0, N_RELS - 1)
+        want = jpr._messages_pallas_wrel(
+            jnp.asarray(xs), jnp.asarray(w_rel), jnp.asarray(rc),
+            jnp.asarray(norm), chunk, interpret=True)
+        got = tpr.messages_wrel(_t(x), _t(ch["src"]), _t(w_rel), _t(rc),
+                                _t(norm), chunk)
+    assert got.shape == (n_chunks * chunk, N)
+    assert _rel(got.numpy(), want) <= TOL, _rel(got.numpy(), want)
+
+
 def test_k5_combined_weights_follow_basis_order():
     # W = c_0 V_0 + c_1 V_1 + ... with one rounding per product and sum
     rng = np.random.default_rng(3)

@@ -9,7 +9,17 @@ A ring of P parts here is ``make_mesh((P, 1), devices=["cpu"] * P)``:
 each part has its own double buffer and receives its neighbour's block
 only by a copy, as on one card.  Tolerance (max|diff| / max|ref|): f32
 on both sides, only the order of the sums differs: 1e-5.
+
+The kernels' per-relation route (``ring_route``, ``rgcn_ring_halo_route``)
+runs here in plain PyTorch: its layouts against a numpy recount, its
+out-of-range rules against the TPU kernel's semantics (1e-5), and its
+products emulated in the kernel's split-TF32 order
+(``tools/k5_probe.py emulated_messages``) within ``ring_gate`` (K5's
+gates: 1e-4 of the plain version, 1e-5 of the f32 oracles), while one
+TF32 pass and both negative controls fail it.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +35,7 @@ from mpqe_tpu_torch.ops import rgcn as trgcn
 from mpqe_tpu_torch.ops import ring as tring
 from mpqe_tpu_torch.parallel import halo as thalo
 from mpqe_tpu_torch.parallel import mesh as tmesh
+from mpqe_tpu_torch.tools import k5_probe
 
 D, N_RELS = 16, 6
 TOL = 1e-5
@@ -186,3 +197,145 @@ def test_k8_refusals():
             e = _edges(pr)
             tring.rgcn_ring_halo_rdma(m, layer, _t(x), e[0].float(), *e[1:],
                                       N_RELS)
+
+
+def _odd(pr, seed, share=0.15):
+    """``pr``'s arrays with ids the partitioners never make."""
+    rng = np.random.default_rng(seed)
+    src, dst, rel = (a.copy() for a in (pr.src_local, pr.dst_local, pr.rel))
+    real = dst < pr.block_size
+    pick = lambda: rng.random(src.shape) < share  # noqa: E731
+    src[real & pick()] = pr.block_size + 3
+    src[real & pick()] = -2
+    rel[real & pick()] = -1
+    rel[real & pick()] = N_RELS + 1
+    dst[real & pick()] = -5
+    return thalo.RingPartitionedEdges(
+        src_local=src, dst_local=dst, rel=rel, norm=pr.norm,
+        n_parts=pr.n_parts, block_size=pr.block_size, n_nodes=pr.n_nodes,
+        n_rels=N_RELS)
+
+
+@pytest.mark.parametrize("chunk", [4, 32])
+@pytest.mark.parametrize("n_parts", [2, 3])
+def test_k8_route_layouts_match_a_numpy_recount(n_parts, chunk):
+    # per hop and part: the edges whose dst lies in the block, in relation
+    # chunks (rel out of range: slot N_RELS, a zero W), each relation's
+    # run in bucket order and padded to whole chunks, the first live[s]
+    # chunks real; src out of range reads the zero row after both slots;
+    # the destination order stable in bucket order, as message rows
+    _, pr, _ = _ring_case(20 + n_parts, n_parts, 12 * n_parts,
+                          50 * n_parts)
+    odd = _odd(pr, n_parts)
+    P, block = n_parts, pr.block_size
+    L = P  # every part on one device
+    parts = torch.arange(P, dtype=torch.int32)
+    rt = tring.ring_route(*_edges(odd), parts, P, block, N_RELS, chunk)
+    e_max = odd.src_local.shape[-1]
+    assert rt.chunk == chunk
+    assert rt.n_chunks == L * (-(-e_max // chunk) + min(N_RELS + 1, e_max))
+    zero_row = 2 * L * block
+    for s in range(P):
+        base, n_live = 0, 0
+        for i in range(L):
+            b = (i - s) % P
+            src, dst = odd.src_local[i, b], odd.dst_local[i, b]
+            rel, norm = odd.rel[i, b], odd.norm[i, b]
+            keep = [e for e in range(e_max) if 0 <= dst[e] < block]
+            slot = {e: (rel[e] if 0 <= rel[e] < N_RELS else N_RELS)
+                    for e in keep}
+            row_of = {}
+            for r in sorted(set(slot.values())):
+                run = [e for e in keep if slot[e] == r]
+                for k, e in enumerate(run):
+                    row_of[e] = (base + k // chunk) * chunk + k % chunk
+                n_ch = -(-len(run) // chunk)
+                assert (rt.crel[s, base:base + n_ch] == r).all()
+                base += n_ch
+                n_live += n_ch
+            for e, row in row_of.items():
+                want = ((s % 2) * L + i) * block + src[e] \
+                    if 0 <= src[e] < block else zero_row
+                assert int(rt.src[s, row]) == want
+                assert float(rt.norm[s, row]) == float(norm[e])
+            order = sorted(keep, key=lambda e: (dst[e], e))
+            got = rt.drow[s, i, :len(order)].tolist()
+            assert got == [row_of[e] for e in order]
+            offs = [sum(1 for e in keep if dst[e] < r)
+                    for r in range(block + 1)]
+            assert rt.doffs[s, i].tolist() == offs
+        assert int(rt.live[s]) == n_live
+        assert (rt.crel[s, n_live:] == N_RELS).all()
+
+
+def test_k8_route_chunk_follows_the_bucket_size():
+    assert tring.route_chunk(128 * 267, 266) == 128
+    assert tring.route_chunk(128 * 267 - 1, 266) == 32
+
+
+@pytest.mark.parametrize("n_parts", [2, 3])
+def test_k8_route_odd_ids_follow_the_tpu_kernel(n_parts):
+    # the route's out-of-range rules give the TPU kernel's semantics (the
+    # float64 oracle), its products plain f32 (K5's k-ascending order)
+    _, pr, x = _ring_case(30 + n_parts, n_parts, 12 * n_parts, 60 * n_parts)
+    odd = _odd(pr, 40 + n_parts)
+    _, layer = _layer(2, n_parts)
+    with torch.no_grad():
+        got = tring.rgcn_ring_halo_route(_cpu_ring(n_parts), layer, _t(x),
+                                         *_edges(odd), N_RELS)
+    assert _rel(got.numpy(), _k8_oracle(layer, x, odd, N_RELS)) <= TOL
+
+
+@pytest.mark.parametrize("n_parts", [2, 3, 4])
+@pytest.mark.parametrize("d", [16, 128])
+def test_k8_route_in_split_tf32_meets_ring_gate(d, n_parts):
+    # the kernels' route with its products emulated in the kernel's order
+    # (split TF32, tools/k5_probe.py) within ring_gate of the plain
+    # version and of both f32 oracles; one TF32 pass fails it, and so does
+    # the plain version with one edge's rel changed or its src moved
+    rng = np.random.default_rng(d + n_parts)
+    n, e = 16 * n_parts * 3, 80 * n_parts * 3
+    st = tes.build_edge_store(rng.integers(0, n, e), rng.integers(0, n, e),
+                              rng.integers(0, N_RELS, e), n, N_RELS)
+    pr = thalo.partition_edges_ring(st, n_parts)
+    layer = trgcn.init_rgcn_layer(torch.Generator().manual_seed(d), d, d,
+                                  N_RELS, 3)
+    x = _t(rng.normal(size=(pr.n_nodes_padded, d)).astype(np.float32))
+    m, edges = _cpu_ring(n_parts), _edges(pr)
+    threads = torch.get_num_threads()
+    # the emulation's many small float64 products on one thread: beside
+    # other test workers, a thread pool each spins far longer than it works
+    torch.set_num_threads(1)
+    try:
+        _route_gate_case(st, pr, layer, x, m, edges)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _route_gate_case(st, pr, layer, x, m, edges):
+    with torch.no_grad():
+        plain = tring.rgcn_ring_halo_rdma_reference(m, layer, x, *edges,
+                                                    N_RELS)
+        ring = thalo.rgcn_ring_halo(m, layer, x, *edges, N_RELS)
+        single = trgcn.rgcn_sparse(x[:st.n_nodes], layer, _t(st.src),
+                                   _t(st.dst), _t(st.rel), _t(st.norm),
+                                   N_RELS)
+        got = {passes: tring.rgcn_ring_halo_route(
+            m, layer, x, *edges, N_RELS, messages=functools.partial(
+                k5_probe.emulated_messages, passes=passes))
+            for passes in (3, 1)}
+        controls = [tring.rgcn_ring_halo_rdma_reference(m, layer, x, *c,
+                                                        N_RELS)
+                    for c in tring.ring_controls(edges, N_RELS,
+                                                 pr.block_size)]
+
+    def gate(y):
+        return tring.ring_gate(y, plain, [(y, ring), (y[:st.n_nodes],
+                                                      single)])
+
+    g3 = gate(got[3])
+    assert g3["ok"], g3
+    assert g3["err_vs_plain"] <= 3e-6, g3  # the card's K5 figures: ~2e-6
+    assert not gate(got[1])["ok"]
+    for c in controls:
+        assert not tring.ring_gate(got[3], c)["ok"]
