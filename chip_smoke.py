@@ -3,9 +3,9 @@
 
 Drives the serving path, the per-formula evaluation through the sparse
 encoder, the full ranking, the dense training path, the sparse training
-path (``--kernel fused`` and ``--kernel blocked``) and the training
+path (``--kernel fused`` and ``--kernel blocked``), the training
 through the edge-partitioned halo layers (``--parallel halo_ring`` /
-``halo_gather``) at the flagship width (d = 128, 3 R-GCN layers, TGT
+``halo_gather``) and the GQE baselines at the flagship width (d = 128, 3 R-GCN layers, TGT
 readout, 16 bases or full per-relation weights, 266 relations, 4 modes,
 1,000,000 entities; random weights from a seed) and checks every
 hand-written kernel on them.  The seven kernel libraries build in
@@ -144,6 +144,33 @@ parallel (one nvcc each), then:
    mpqe_tpu_torch.evaluate --run_dir <the first run> --ranking``;
    ``serve.cli``: ``python -m mpqe_tpu_torch.serve --run_dir <the first
    run>`` over all 7 structures.
+15. ``gqe.train``: ``run_train`` of the GQE baseline (``--model gqe
+   --decoder bilinear --intersection deepsets``; no kernel: the
+   reference computes the GQE family outside Pallas) on the card at the
+   same width and batch, 50 steps and one validation round through
+   ``evaluate_batched``: finite losses, one step per structure repeated
+   from the same state on a CPU copy of the model (the same loss, <=
+   1e-5 relative, and gradients, per leaf mean|diff| / mean|ref| <=
+   1e-4), step p50/p95, real queries/s, peak memory and a profile of 10
+   steps.  ``gqe.train.variants``: 10 steps each of ``gqe_softand`` +
+   TransE, DistMult + min, box, ``gqe_softand`` + bibox and bilinear
+   with the neighborhood encoder (pool, fanout 8; its table built for
+   the 1M-entity KG, timed): finite losses, step p50.
+16. ``gqe.serve``: a ``QueryServer`` per head (bilinear, box, bibox with
+   SoftAnd; random weights) answers 8 requests of 256 queries drawn
+   across all 7 structures, k = 10: answers of the target's mode and
+   sorted, every served score equal to ``gqe.score_queries`` of its id
+   (row gathers, <= 1e-4), and for the first 8 queries of one dispatch
+   per structure the top-k ids equal, and scores within 1e-4 of, a CPU
+   recomputation over all 1M entities; latency p50/p95 and queries/s.
+17. ``gqe.eval.ranking``: ``full_ranking`` of the bilinear and the box
+   model against all 1M entities, wall time and peak memory; one
+   structure's ranks recounted row by row on the card give the same
+   metrics.  ``gqe.cli``: ``python -m mpqe_tpu_torch.train --model
+   gqe_softand --decoder bibox --bibox_w 0.5 --gqe_encoder
+   neighborhood`` on the small KG, then ``evaluate --ranking`` and
+   ``serve`` of its run dir; its config read back keeps ``bibox_w``
+   0.5.
 
 Prints the card's name and power limit first, then one line per check,
 a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -475,10 +502,10 @@ def phase_kernel(model, cfg, ops, device, gen, flush):
     return {"max_abs_err": max_abs, **tot, "bound_by": by}
 
 
-def sample_stream(kg, seed: int = 123):
+def sample_stream(kg, seed: int = 123, n_mixed: int = 4):
     """Requests over all 7 structures: 4 single-structure requests of
-    BATCH queries per structure (shuffled), then 4 requests of BATCH
-    queries drawn across every structure."""
+    BATCH queries per structure (shuffled), then ``n_mixed`` requests of
+    BATCH queries drawn across every structure."""
     from mpqe_tpu_torch.data.sampler import QuerySampler
     from mpqe_tpu_torch.queries import STRUCTURE_NAMES
 
@@ -493,7 +520,7 @@ def sample_stream(kg, seed: int = 123):
               for s in order]
     union = [q for s in STRUCTURE_NAMES for q in pools[s]]
     mixed = [[union[int(i)] for i in rng.integers(0, len(union), batch)]
-             for _ in range(4)]
+             for _ in range(n_mixed)]
     return single, mixed
 
 
@@ -1117,7 +1144,7 @@ def phase_train(kg, train_q, val_q, device):
     return k1, k2
 
 
-def phase_train_cli(kernel_args, then=None) -> None:
+def phase_train_cli(kernel_args, then=None, label="train.cli") -> None:
     """``python -m mpqe_tpu_torch.train`` with ``kernel_args`` on the card
     as a subprocess: its final line and its run dir, handed to ``then``
     before it is deleted."""
@@ -1138,7 +1165,7 @@ def phase_train_cli(kernel_args, then=None) -> None:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=600)
         last = (proc.stdout.strip().splitlines() or [""])[-1]
-        log(f"train.cli {' '.join(kernel_args)}: rc={proc.returncode} "
+        log(f"{label} {' '.join(kernel_args)}: rc={proc.returncode} "
             f"{time.perf_counter() - t0:.2f} s: {last}")
         if proc.returncode != 0:
             raise AssertionError(f"train CLI failed:\n{proc.stderr[-4000:]}")
@@ -1151,7 +1178,7 @@ def phase_train_cli(kernel_args, then=None) -> None:
                 raise AssertionError(f"run dir lacks {f}")
         if "step_20" not in ckpts:
             raise AssertionError(f"run dir checkpoints: {ckpts}")
-        log(f"train.cli: run dir holds config.json, model_config.json, "
+        log(f"{label}: run dir holds config.json, model_config.json, "
             f"metrics.jsonl, ckpt/{','.join(ckpts)}")
         if then is not None:
             then(run_dir)
@@ -3048,6 +3075,378 @@ def phase_halo_train(kg, train_q, device):
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# The GQE baselines: training, serving, full ranking and the CLIs (no
+# kernel: the reference computes them outside Pallas)
+# ----------------------------------------------------------------------
+GQE_STEPS = 50  # gqe.train
+GQE_VARIANT_STEPS = 10  # each run of gqe.train.variants
+GQE_SERVE_REQUESTS = 8
+GQE_RECHECK_QUERIES = 8  # per structure, recomputed over every entity
+GQE_TOL_LOSS = 1e-5  # card vs CPU copy: float32 both, sum order only
+# gqe.train.variants: (label, --model, GQEConfig fields)
+GQE_VARIANTS = (
+    ("gqe_softand+transe", "gqe_softand", dict(decoder="transe")),
+    ("gqe+distmult+min", "gqe", dict(decoder="distmult",
+                                     intersection="min")),
+    ("gqe+box", "gqe", dict(decoder="box")),
+    ("gqe_softand+bibox", "gqe_softand", dict(decoder="bibox")),
+    ("gqe+bilinear+neighborhood(pool, fanout 8)", "gqe",
+     dict(decoder="bilinear", encoder="neighborhood", aggregator="pool")),
+)
+GQE_FANOUT = 8
+
+
+def gqe_config(**kw):
+    """A GQE config at the flagship KG's width (d = 128, 266 relations, 4
+    modes, 1,000,000 entities)."""
+    from mpqe_tpu_torch.models import gqe as gqe_mod
+
+    base = {k: FLAGSHIP[k] for k in ("n_entities", "n_modes", "n_rels",
+                                     "embed_dim")}
+    return gqe_mod.GQEConfig(**base, **kw)
+
+
+def gqe_train_config(steps: int):
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    # burn-in off: every structure trains from the first step
+    return loop_mod.TrainConfig(lr=0.01, batch_size=TRAIN_BATCH, n_neg=4,
+                                max_steps=steps, val_every=steps,
+                                burn_in_structure="none", seed=0)
+
+
+def gqe_run(kg, train_q, cfg, steps, device, val_q=None, table=None,
+            seed=5):
+    """``run_train`` of a fresh GQE model on the card for ``steps`` steps
+    (one validation round through ``evaluate_batched`` with ``val_q``):
+    (state, loss fn, records, real rows per step)."""
+    import functools
+
+    from mpqe_tpu_torch.models import gqe as gqe_mod
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    tc = gqe_train_config(steps)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = loop_mod.init_train_state(gen, cfg, tc, device=device,
+                                      init_fn=gqe_mod.init_gqe)
+    loss = functools.partial(gqe_mod.dense_batch_loss, neighbor_table=table)
+    real = []
+
+    def counted(*a):
+        real.append(a[-1].sum())
+        return loss(*a)
+
+    records = []
+    loop_mod.run_train(state, cfg, tc, train_q, val_queries=val_q,
+                       log_fn=records.append, batch_loss_fn=counted, kg=kg,
+                       neighbor_table=table)
+    losses = [r["loss"] for r in records if "loss" in r]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{len(losses)} steps, finite: "
+                             f"{all(np.isfinite(losses))}")
+    return state, loss, records, real
+
+
+def step_line(records, real) -> str:
+    """Step p50/p95 (each step's seconds end with the host reading its
+    loss) and the real queries per second."""
+    ms = np.asarray([r["seconds"] * 1e3 for r in records if "loss" in r])
+    n_real = int(torch.stack(real).sum())
+    return (f"step_ms_p50={np.percentile(ms, 50):.3f} "
+            f"step_ms_p95={np.percentile(ms, 95):.3f} "
+            f"train_queries_per_s={n_real / ms.sum() * 1e3:.1f} "
+            f"({n_real} real rows of {len(ms) * TRAIN_BATCH})")
+
+
+def recheck_gqe_step(model, cfg, stores, device, loss_fn) -> None:
+    """One step per structure from the trained state on the card and on
+    a CPU copy of the model: the same loss (<= GQE_TOL_LOSS relative) and
+    gradients (per leaf mean|diff| / mean|ref| <= TOL_PLAIN; the
+    max-element figure printed beside it)."""
+    import copy
+
+    from mpqe_tpu_torch.data.store import pack_dense_batch_np
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    cpu = copy.deepcopy(model).to("cpu")
+    for structure, f_stores in stores.items():
+        fstore = max(f_stores, key=lambda f: f.n_queries)
+        batch = pack_dense_batch_np(fstore, np.arange(fstore.n_queries),
+                                    TRAIN_BATCH, 4, 11)
+        grads = []
+        for m, dev in ((model, device), (cpu, torch.device("cpu"))):
+            params = dict(m.named_parameters())
+            loss = loss_fn(m, cfg, structure,
+                           *loop_mod.batch_tensors(batch, dev))
+            g = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+            grads.append((float(loss.detach()), {
+                n: None if v is None else v.cpu()
+                for n, v in zip(params, g)}))
+        (lk, gk), (lp, gp) = grads
+        e_loss = abs(lk - lp) / max(abs(lp), 1e-12)
+        e_grad, e_max = tree_mean_err(gk, gp), tree_rel_err(gk, gp)
+        line = (f"gqe.train.recheck {structure:14s} loss={lk:.6f} "
+                f"loss_err_vs_cpu={e_loss:.3e} grad_mean_err={e_grad:.3e} "
+                f"grad_max_err={e_max:.3e}")
+        log(line)
+        if e_loss > GQE_TOL_LOSS or e_grad > TOL_PLAIN or \
+                not np.isfinite(lk):
+            raise AssertionError(line)
+    del cpu
+
+
+def phase_gqe_train(kg, train_q, val_q, device):
+    """``run_train`` of ``--model gqe --decoder bilinear --intersection
+    deepsets`` on the card, GQE_STEPS steps and one validation round;
+    the recheck against a CPU copy; a profile of PROFILE_STEPS steps."""
+    from mpqe_tpu_torch.data.store import build_stores
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    cfg = gqe_config(decoder="bilinear", intersection="deepsets")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state, loss, records, real = gqe_run(kg, train_q, cfg, GQE_STEPS,
+                                         device, val_q=val_q)
+    wall = time.perf_counter() - t0
+    losses = [r["loss"] for r in records if "loss" in r]
+    vals = [r["val"] for r in records if "val" in r]
+    if len(vals) != 1:
+        raise AssertionError(f"gqe.train: {len(vals)} validation rounds")
+    name = torch.cuda.get_device_name(device)
+    log(f"gqe.train: {state.step} steps of batch {TRAIN_BATCH} in "
+        f"{wall:.2f} s on {name}: loss first={losses[0]:.6f} "
+        f"last={losses[-1]:.6f}; val macro_auc={vals[0]['auc_macro']:.4f} "
+        f"apr_macro={vals[0]['apr_macro']:.2f}; {step_line(records, real)}; "
+        f"max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    stores = build_stores(train_q, kg=kg)
+    recheck_gqe_step(state.model, cfg, stores, device, loss)
+    ptc = dataclasses.replace(gqe_train_config(PROFILE_STEPS),
+                              val_every=1 << 30)
+    profile_device(f"gqe.train.profile ({PROFILE_STEPS} steps)",
+                   lambda: loop_mod.run_train(state, cfg, ptc, train_q,
+                                              batch_loss_fn=loss, kg=kg,
+                                              train_stores=stores))
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_gqe_variants(kg, train_q, device):
+    """GQE_VARIANT_STEPS steps of each of GQE_VARIANTS on the card: finite
+    losses and step p50 (the neighborhood table built for the 1M-entity
+    KG, its build timed)."""
+    from mpqe_tpu_torch.models import aggregators as agg_mod
+
+    for label, model_flag, kw in GQE_VARIANTS:
+        cfg = gqe_config(soft_and=model_flag == "gqe_softand", **kw)
+        table = None
+        if cfg.encoder == "neighborhood":
+            t0 = time.perf_counter()
+            table = agg_mod.build_neighbor_table_device(
+                kg, fanout=GQE_FANOUT, seed=0, device=device)
+            torch.cuda.synchronize()
+            log(f"gqe.train.variants {label}: neighbor table "
+                f"[{kg.n_entities}, {GQE_FANOUT}] built in "
+                f"{time.perf_counter() - t0:.2f} s")
+        try:
+            state, _, records, real = gqe_run(kg, train_q, cfg,
+                                              GQE_VARIANT_STEPS, device,
+                                              table=table)
+        except AssertionError as e:
+            raise AssertionError(f"gqe.train.variants {label}: {e}") from e
+        losses = [r["loss"] for r in records if "loss" in r]
+        log(f"gqe.train.variants {label}: {state.step} steps, loss "
+            f"first={losses[0]:.6f} last={losses[-1]:.6f}; "
+            f"{step_line(records, real)}")
+        del state, table
+        torch.cuda.empty_cache()
+
+
+def gqe_serving_models(device):
+    """(label, cfg, model) of the three served heads: bilinear (cosine),
+    box, and bibox with SoftAnd; random weights from seeds."""
+    from mpqe_tpu_torch.models import gqe as gqe_mod
+
+    out = []
+    for i, (label, kw) in enumerate((
+            ("bilinear", dict(decoder="bilinear")),
+            ("box", dict(decoder="box")),
+            ("bibox_softand", dict(decoder="bibox", soft_and=True)))):
+        cfg = gqe_config(**kw)
+        gen = torch.Generator(device=device).manual_seed(20 + i)
+        out.append((label, cfg, gqe_mod.init_gqe(gen, cfg, device=device)))
+    return out
+
+
+def gqe_cpu_top_k(model_cpu, cfg, structure, arrays, emode_cpu, k):
+    """Top-k over every entity of one packed dispatch's rows, recomputed
+    on the CPU (the normalized table built once; the box distance in
+    cache-sized entity chunks: the chunk changes no score)."""
+    from mpqe_tpu_torch.models import gqe as gqe_mod
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.serve import top_k
+
+    ne, _, er, _, tm = arrays
+    ent_t = None
+    if cfg.decoder != "box":
+        ent_t = mpqe_mod._l2_normalize(model_cpu.emb.ent.detach()).t()
+    saved = gqe_mod.BOX_CHUNK_BYTES
+    gqe_mod.BOX_CHUNK_BYTES = 4 << 20
+    try:
+        with torch.inference_mode():
+            scores = gqe_mod.rank_scores(model_cpu, cfg, structure, ne, er,
+                                         None, ent_t)
+            scores.masked_fill_(emode_cpu[None, :] != tm[:, None],
+                                float("-inf"))
+            return top_k(scores, k)
+    finally:
+        gqe_mod.BOX_CHUNK_BYTES = saved
+
+
+def recheck_gqe_dispatch(server, model_cpu, cfg, structure, req, answers):
+    """One dispatch of ``structure``: every served score equals
+    ``gqe.score_queries`` of the returned ids (row gathers, not the rank
+    matrix) within TOL_SCORE; for its first GQE_RECHECK_QUERIES queries
+    the top-k ids and scores equal a CPU recomputation over every
+    entity (scores within TOL_SCORE)."""
+    from mpqe_tpu_torch.models import gqe as gqe_mod
+
+    qs = [q for q in req if q.formula.structure == structure]
+    pos = [i for i, q in enumerate(req) if q.formula.structure == structure]
+    got_ids = np.stack([answers[i].entity_ids for i in pos])
+    got_sc = np.stack([answers[i].scores for i in pos])
+    _, *arrays = server._pack(qs)
+    n = len(qs)
+    ne, er = (torch.from_numpy(arrays[i][:n]).to(server.device)
+              for i in (0, 2))
+    with torch.inference_mode():
+        rows = gqe_mod.score_queries(
+            server.model, cfg, structure, ne, er,
+            torch.from_numpy(got_ids).to(server.device)).cpu().numpy()
+    row_err = float(np.abs(rows - got_sc).max())
+    m = min(GQE_RECHECK_QUERIES, n)
+    cpu_arrays = [torch.from_numpy(a[:m]) for a in arrays]
+    emode = torch.from_numpy(server.entity_mode)
+    t0 = time.perf_counter()
+    ref_sc, ref_ids = gqe_cpu_top_k(model_cpu, cfg, structure, cpu_arrays,
+                                    emode, got_ids.shape[1])
+    cpu_s = time.perf_counter() - t0
+    ids_equal = bool(np.array_equal(ref_ids.numpy(), got_ids[:m]))
+    top_err = float(np.abs(ref_sc.numpy() - got_sc[:m]).max())
+    line = (f"gqe.serve.recheck {structure:14s} n={n} "
+            f"score_queries_err={row_err:.3e} cpu_top_k: ids_equal="
+            f"{ids_equal} score_err={top_err:.3e} ({m} queries, "
+            f"{cpu_s:.2f} s on the CPU)")
+    log(line)
+    if row_err > TOL_SCORE or top_err > TOL_SCORE or not ids_equal:
+        raise AssertionError(line)
+
+
+def phase_gqe_serve(kg, device):
+    """A ``QueryServer`` per served head answers GQE_SERVE_REQUESTS
+    requests of BATCH queries drawn across all 7 structures: answers
+    checked, one dispatch per structure rechecked, latency printed."""
+    import copy
+
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+    from mpqe_tpu_torch.serve import QueryServer
+
+    t0 = time.perf_counter()
+    _, reqs = sample_stream(kg, seed=321, n_mixed=GQE_SERVE_REQUESTS)
+    log(f"setup: gqe.serve sampled {sum(map(len, reqs))} queries "
+        f"{time.perf_counter() - t0:.2f} s")
+    name = torch.cuda.get_device_name(device)
+    for label, cfg, model in gqe_serving_models(device):
+        server = QueryServer(model, cfg, kg.entity_mode, device=device)
+        server.warmup(STRUCTURE_NAMES, batch=1, k=K)
+        lat, served = [], []
+        for req in reqs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            answers = server.answer(req, k=K)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            served.append((req, answers))
+        for req, answers in served:
+            check_answers(server, req, answers, K)
+        ms = np.asarray(lat)
+        log(f"gqe.serve {label}: {len(ms)} requests of {BATCH} queries on "
+            f"{name}: latency_ms_p50={np.percentile(ms, 50):.3f} "
+            f"latency_ms_p95={np.percentile(ms, 95):.3f} "
+            f"queries_per_s={len(ms) * BATCH / ms.sum() * 1e3:.1f} "
+            f"(max_batch={server.max_batch})")
+        model_cpu = copy.deepcopy(model).to("cpu")
+        req, answers = served[0]
+        for s in STRUCTURE_NAMES:
+            recheck_gqe_dispatch(server, model_cpu, cfg, s, req, answers)
+        del server, model, model_cpu
+        torch.cuda.empty_cache()
+
+
+def phase_gqe_ranking(kg, val_q, device):
+    """``full_ranking`` of the bilinear and the box model against every
+    entity; one structure's ranks recounted row by row on the card."""
+    from mpqe_tpu_torch.data.batcher import bucket_size
+    from mpqe_tpu_torch.models import gqe as gqe_mod
+    from mpqe_tpu_torch.train import evaluation
+
+    es = evaluation.make_eval_set(val_q, 200, require_negatives=False)
+    n_q = sum(d["target"].shape[0] for d in es.by_structure.values())
+    emode = torch.from_numpy(kg.entity_mode.astype(np.int32)).to(device)
+    for label, cfg, model in gqe_serving_models(device)[:2]:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        rk = evaluation.full_ranking(model, cfg, val_q, kg.entity_mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        for s, m in rk.items():
+            log(f"gqe.eval.ranking {label} {s:14s} " + " ".join(
+                f"{k}={v:.6f}" for k, v in m.items()))
+        log(f"gqe.eval.ranking {label}: {n_q} queries against "
+            f"{cfg.n_entities} entities in {wall:.3f} s "
+            f"({n_q / wall:.1f} queries/s); max_memory_allocated="
+            f"{peak:.2f} GiB")
+        structure = "3-chain_inter"
+        data = es.by_structure[structure]
+        n = data["target"].shape[0]
+        pad = [evaluation._pad_chunk(data[k], 0, n, bucket_size(n), device)
+               for k in ("node_entity", "edge_rel")]
+        with torch.no_grad():
+            scores = gqe_mod.rank_scores(model, cfg, structure, *pad)
+        ranks = []
+        for i, t in enumerate(data["target"].tolist()):
+            row = scores[i]
+            ranks.append(1 + int(((row > row[t]) & (emode == emode[t])).sum()))
+        want = evaluation._rank_metrics(np.asarray(ranks, np.float64),
+                                        (1, 3, 10))
+        line = (f"gqe.eval.ranking.recheck {label} {structure}: {n} ranks "
+                f"recounted row by row: equal={want == rk[structure]}")
+        log(line)
+        if want != rk[structure]:
+            raise AssertionError(f"{line}: {want} != {rk[structure]}")
+        del model, scores
+        torch.cuda.empty_cache()
+
+
+def check_bibox_w(run_dir: str) -> None:
+    """The run dir's model config, read as the serve and evaluate CLIs
+    read it, keeps ``--bibox_w 0.5``."""
+    import os
+
+    from mpqe_tpu_torch.serve import config_from_json
+
+    with open(os.path.join(run_dir, "model_config.json")) as f:
+        cfg = config_from_json(json.load(f))
+    log(f"gqe.cli: served config decoder={cfg.decoder} "
+        f"soft_and={cfg.soft_and} encoder={cfg.encoder} "
+        f"bibox_w={cfg.bibox_w}")
+    if (cfg.decoder, cfg.soft_and, cfg.encoder, cfg.bibox_w) != (
+            "bibox", True, "neighborhood", 0.5):
+        raise AssertionError(f"gqe.cli: served config {cfg}")
+
+
 def build_kernels() -> None:
     """Build the seven kernel libraries at once (one nvcc each, in
     parallel) and print what ptxas reports of registers and spills."""
@@ -3159,6 +3558,17 @@ def main() -> int:
     # K6's wide paths on the train path (16 bases, as every CLI run here)
     phase_train_cli(["--kernel", "blocked", "--embed_dim", "256"])
     phase_train_cli(["--parallel", "halo_ring"])
+
+    t_gqe = time.perf_counter()
+    phase_gqe_train(kg, train_q, val_q, device)
+    phase_gqe_variants(kg, train_q, device)
+    phase_gqe_serve(kg, device)
+    phase_gqe_ranking(kg, val_q, device)
+    phase_train_cli(["--model", "gqe_softand", "--decoder", "bibox",
+                     "--bibox_w", "0.5", "--gqe_encoder", "neighborhood"],
+                    then=lambda d: (phase_eval_cli(d), phase_serve_cli(d),
+                                    check_bibox_w(d)), label="gqe.cli")
+    log(f"gqe phases {time.perf_counter() - t_gqe:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{

@@ -1,6 +1,7 @@
 """mpqe_tpu_torch: the PyTorch/CUDA port of ``mpqe_tpu``.
 
-MPQE query encoding and top-k answer serving on an NVIDIA GPU.  The port
+MPQE query encoding and its GQE baselines, their training, evaluation and
+top-k answer serving on an NVIDIA GPU.  The port
 is a package of its own: it imports ``torch`` and numpy, never ``jax`` and
 nothing of ``mpqe_tpu`` (whose ``__init__`` pulls in the JAX model), and
 keeps its own copies of the host-side modules it needs.  The module paths

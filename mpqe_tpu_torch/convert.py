@@ -1,6 +1,6 @@
-"""Carry MPQE weights across from the JAX package.
+"""Carry MPQE and GQE weights across from the JAX package.
 
-Two layouts reach the port:
+These layouts reach the port:
 
 * the JAX parameter pytree as numpy arrays (``{"emb": {...}, "layers":
   [...], "readout": {...}}``, e.g. ``jax.tree.map(np.asarray, params)``):
@@ -13,7 +13,9 @@ Two layouts reach the port:
   write (``enc.ent.weight``, ``mode_embeddings.weight``,
   ``rgcn.convs.{i}.{root,bias,weight,comp}``, ``readout.*``):
   :func:`model_from_state_dict`.  The key names are copied here, not
-  imported.
+  imported;
+* the JAX GQE pytree as numpy arrays (``{"emb": {...}, "rel_mat": ...,
+  "nbr": {...}}``): :func:`gqe_from_numpy` / :func:`gqe_to_numpy`.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from mpqe_tpu_torch.models.gqe import GQE, GQEConfig
 from mpqe_tpu_torch.models.mpqe import MPQE, MPQEConfig
 from mpqe_tpu_torch.ops.rgcn import RGCNLayer
 
@@ -110,8 +113,35 @@ def model_from_state_dict(sd: Mapping[str, Any], cfg: MPQEConfig,
     return _load_flat(flat, cfg, device)
 
 
-def _load_flat(flat: Dict[str, Any], cfg: MPQEConfig, device) -> MPQE:
-    model = MPQE(cfg, device=device)
+def gqe_from_numpy(tree: Mapping[str, Any], cfg: GQEConfig,
+                   device=None) -> GQE:
+    """The port's ``GQE`` holding the arrays of a JAX GQE parameter pytree
+    (nested dicts flattened with dots).  Every leaf of the model must be
+    present with its exact shape."""
+    flat: Dict[str, Any] = {}
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            for leaf, arr in val.items():
+                flat[f"{key}.{leaf}"] = arr
+        else:
+            flat[key] = val
+    return _load_flat(flat, cfg, device, GQE)
+
+
+def gqe_to_numpy(model: GQE) -> Dict[str, Any]:
+    """Inverse of :func:`gqe_from_numpy`: the JAX pytree layout."""
+    out: Dict[str, Any] = {}
+    for name, p in model.named_parameters():
+        head, _, leaf = name.partition(".")
+        if leaf:
+            out.setdefault(head, {})[leaf] = _to_numpy(p)
+        else:
+            out[head] = _to_numpy(p)
+    return out
+
+
+def _load_flat(flat: Dict[str, Any], cfg, device, cls=MPQE):
+    model = cls(cfg, device=device)
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(flat))
     extra = sorted(set(flat) - set(params))

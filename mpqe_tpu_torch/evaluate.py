@@ -11,11 +11,13 @@ and APR per structure, through ``evaluate_batched``), then with
 scores a fresh draw of the same size from the disjoint sampler seed
 ``seed + 7919``, as the reference does for synthetic data.
 
+MPQE and GQE run dirs alike; a GQE neighborhood model's neighbor table is
+rebuilt from the run's ``gqe_fanout`` and ``seed``, as it was trained.
 Runs on the card unless told otherwise (``--device cpu``); with no card
 and no ``--device cpu`` it raises.  Not ported yet, each raising
 ``NotImplementedError`` naming its ROADMAP item: ``--split`` (needs
-``data/loader.py:split_one_new_edge``, item 2), ``--shards > 1`` (the
-sharded ranking, item 8) and GQE run dirs (item 4).
+``data/loader.py:split_one_new_edge``, item 2) and ``--shards > 1`` (the
+sharded ranking, item 8).
 
   python -m mpqe_tpu_torch.evaluate --run_dir runs/xyz --ranking
   python -m mpqe_tpu_torch.evaluate --run_dir runs/xyz --use test \\
@@ -30,7 +32,7 @@ import os
 
 import torch
 
-from mpqe_tpu_torch.models import mpqe as mpqe_mod
+from mpqe_tpu_torch.models import build_model
 from mpqe_tpu_torch.queries import group_queries_by_formula
 from mpqe_tpu_torch.serve import config_from_json, resolve_device
 from mpqe_tpu_torch.train import checkpoint as ckpt_mod
@@ -63,7 +65,7 @@ def parse_args(argv=None):
     return args
 
 
-def _refuse_unported(args, mc: dict) -> None:
+def _refuse_unported(args) -> None:
     if args.split:
         raise NotImplementedError(
             "--split: not ported yet; it needs data/loader.py "
@@ -72,7 +74,6 @@ def _refuse_unported(args, mc: dict) -> None:
         raise NotImplementedError(
             "--shards > 1: not ported yet; the sharded ranking is ROADMAP "
             "Queue 1 item 8")
-    config_from_json(mc)  # a GQE run dir raises, naming item 4
 
 
 def load_run_data(run_cfg: dict, use: str):
@@ -114,29 +115,42 @@ def restore_model(run_dir: str, cfg, ckpt, device):
         raise SystemExit("no checkpoint found")
     payload = torch.load(os.path.join(ckpt, ckpt_mod.STATE_FILE),
                          map_location=device, weights_only=True)
-    model = mpqe_mod.MPQE(cfg, device=device)
+    model = build_model(cfg, device=device)
     model.load_state_dict(payload["model"])
     return ckpt, int(payload["step"]), model
+
+
+def run_neighbor_table(run_cfg: dict, cfg, kg, device):
+    """A GQE neighborhood model's neighbor table on ``device``, rebuilt
+    from the run's ``gqe_fanout`` and ``seed`` as the run built it; None
+    for any other model."""
+    if getattr(cfg, "encoder", None) != "neighborhood":
+        return None
+    from mpqe_tpu_torch.models.aggregators import build_neighbor_table_device
+
+    return build_neighbor_table_device(kg, fanout=run_cfg["gqe_fanout"],
+                                       seed=run_cfg["seed"], device=device)
 
 
 def main(argv=None):
     args = parse_args(argv)
     run_cfg, mc = read_run_dir(args.run_dir)
-    _refuse_unported(args, mc)
+    _refuse_unported(args)
     cfg = config_from_json(mc)
     device = resolve_device(args.device)
     kg, val_q = load_run_data(run_cfg, args.use)
     ckpt, step, model = restore_model(args.run_dir, cfg, args.ckpt, device)
+    nbr = run_neighbor_table(run_cfg, cfg, kg, device)
 
     res = evaluation.evaluate_batched(model, cfg,
                                       evaluation.make_eval_set(val_q),
-                                      n_neg=args.n_neg)
+                                      n_neg=args.n_neg, neighbor_table=nbr)
     print(json.dumps({"checkpoint": ckpt, "step": step,
                       "use": args.use, **res.flat()}), flush=True)
     if args.ranking:
         hits = tuple(int(k) for k in args.hits_at.split(","))
         rk = evaluation.full_ranking(model, cfg, val_q, kg.entity_mode,
-                                     hits_at=hits)
+                                     hits_at=hits, neighbor_table=nbr)
         for structure, m in rk.items():
             print(json.dumps({"ranking": structure, **m}), flush=True)
 

@@ -7,14 +7,18 @@ sampled-stream mode of the root ``serve.py`` CLI:
     one ``[B, d] @ [d, n_entities]`` float32 matmul per dispatch;
   * queries are grouped per structure and encoded in one call each by the
     per-query-relation encoder: K3, the hand-written CUDA kernel, for
-    eligible models (its operands are built once, here);
+    eligible MPQE models (its operands are built once, here);
+  * the GQE baselines rank by the cosine product against the normalized
+    table, by the box distance against the raw float32 table (box,
+    bibox), or by both (bibox); SoftAnd by the minimum over its branches'
+    score matrices;
   * batches are padded to power-of-two buckets (padded rows: entity 0,
     mode 0, relation 0, norm 1), as the reference pads them;
   * candidates are mode-masked and ranked on the card by :func:`top_k`,
     which returns ``lax.top_k``'s ids in ``lax.top_k``'s order.
 
-MPQE models only in this slice; serving runs on the card by default and
-raises when there is none (``device="cpu"`` runs it on the CPU).
+MPQE and GQE models; serving runs on the card by default and raises when
+there is none (``device="cpu"`` runs it on the CPU).
 
 CLI (exactly one of ``--run_dir``, ``--state_dict``, ``--init_seed``)::
 
@@ -27,9 +31,12 @@ CLI (exactly one of ``--run_dir``, ``--state_dict``, ``--init_seed``)::
 ``--run_dir`` serves a run dir of ``python -m mpqe_tpu_torch.train`` as
 the root ``serve.py`` does: the KG rebuilt from its ``config.json``, the
 model from ``model_config.json`` and ``ckpt/step_N/state.pt`` (``--ckpt``,
-else the latest); the ``--syn_*`` and ``--seed`` flags are then not read.
-The root CLI's ``--http``, ``--answer``, ``--table_dtype`` and
-``--shards`` are not ported (ROADMAP Queue 1 item 6).
+else the latest) and, for a GQE neighborhood model, its neighbor table
+from ``gqe_fanout`` and ``seed``; the ``--syn_*`` and ``--seed`` flags are
+then not read.  ``--state_dict`` and ``--init_seed`` serve MPQE models
+only (a GQE model is served from its run dir, as the root CLI serves
+it).  The root CLI's ``--http``, ``--answer`` and ``--table_dtype`` are
+not ported (ROADMAP Queue 1 item 6), nor is ``--shards`` (item 8).
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from mpqe_tpu_torch.data.batcher import bucket_size, template_edge_norm
+from mpqe_tpu_torch.models import is_mpqe
 from mpqe_tpu_torch.models import mpqe as mpqe_mod
 from mpqe_tpu_torch.ops import fused_fwd as fused_fwd_ops
 from mpqe_tpu_torch.parallel.rank_shard import (
@@ -99,58 +107,79 @@ def top_k(scores: torch.Tensor, k: int):
 
 
 class QueryServer:
-    """Serves MPQE models (both layer kinds) on ``device``.
+    """Serves MPQE models (both layer kinds) and the GQE baselines
+    (``cfg`` an ``MPQEConfig`` or a ``GQEConfig``) on ``device``.
 
     The model is moved to ``device``.  ``max_batch`` is capped so the
     ``[B, n_entities]`` score matrix stays near 1 GiB and rounded down to
-    a power of two, as in the reference."""
+    a power of two, as in the reference.  ``neighbor_table`` (``{"idx",
+    "mask"}``) serves a GQE neighborhood anchor encoder."""
 
     def __init__(
         self,
-        model: mpqe_mod.MPQE,
+        model,
         cfg,
         entity_mode: np.ndarray,
         max_batch: int = 8192,
         table_dtype: str = "float32",
         device=None,
+        neighbor_table: Optional[Dict[str, torch.Tensor]] = None,
     ):
-        if not isinstance(cfg, mpqe_mod.MPQEConfig):
-            raise NotImplementedError(
-                f"{type(cfg).__name__} checkpoints are not served yet: the "
-                "GQE family is ROADMAP Queue 1 item 4")
         check_table_dtype(table_dtype)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.table_dtype = table_dtype
         self.entity_mode = np.asarray(entity_mode, dtype=np.int32)
+        mpqe_model = is_mpqe(cfg)
         per_row = cfg.n_entities
-        if cfg.num_bases is None:
+        if mpqe_model and cfg.num_bases is None:
             per_row = max(per_row, cfg.embed_dim * cfg.embed_dim)
         eff = _effective_max_batch(cfg, max_batch, per_row)
         self.max_batch = 1 << (eff.bit_length() - 1)
         self.model = model.to(self.device)
-        with torch.no_grad():
-            ent = self.model.emb.ent.detach().to(torch.float32)
-            if cfg.scale_scores:
-                ent = mpqe_mod._l2_normalize(ent)
-            self._ent_norm_t = quantize_rows(ent, table_dtype).t()
+        self._nbr = (None if neighbor_table is None else
+                     {k: v.to(self.device) for k, v in
+                      neighbor_table.items()})
+        if not mpqe_model and cfg.encoder == "neighborhood" and \
+                self._nbr is None:
+            raise ValueError(
+                "GQEConfig.encoder='neighborhood' checkpoints need "
+                "neighbor_table= (build_neighbor_table(kg))")
+        # the cosine rank product's normalized table; a box model scores
+        # the raw float32 table inside gqe.box_score_all and needs none
+        self._ent_norm_t = None
+        if mpqe_model or cfg.decoder != "box":
+            with torch.no_grad():
+                ent = self.model.emb.ent.detach().to(torch.float32)
+                if cfg.scale_scores:
+                    ent = mpqe_mod._l2_normalize(ent)
+                self._ent_norm_t = quantize_rows(ent, table_dtype).t()
         self._mode_dev = torch.as_tensor(self.entity_mode, device=self.device)
         # K3's operands, built once per model (None: no structure of this
         # model can take the kernel)
         self._k3 = (fused_fwd_ops.prepare_fused_multi(self.model, cfg)
-                    if cfg.readout == "tgt" and cfg.num_bases is not None
-                    else None)
+                    if mpqe_model and cfg.readout == "tgt"
+                    and cfg.num_bases is not None else None)
 
     # ------------------------------------------------------------------
-    def _rank(self, structure: str, k: int, ne, nm, er, en, tm):
+    def _scores(self, structure: str, ne, nm, er, en) -> torch.Tensor:
+        """``[B, n_entities]`` scores of one dispatch."""
         cfg = self.cfg
+        if not is_mpqe(cfg):
+            from mpqe_tpu_torch.models import gqe as gqe_mod
+
+            return gqe_mod.rank_scores(self.model, cfg, structure, ne, er,
+                                       self._nbr, self._ent_norm_t)
+        q = mpqe_mod.encode_dense_multi_auto(
+            self.model, cfg, structure, ne, nm, er, en,
+            operands=self._k3).to(torch.float32)
+        if cfg.scale_scores:
+            q = mpqe_mod._l2_normalize(q)
+        return quantized_scores(q, self._ent_norm_t, self.table_dtype)
+
+    def _rank(self, structure: str, k: int, ne, nm, er, en, tm):
         with torch.inference_mode():
-            q = mpqe_mod.encode_dense_multi_auto(
-                self.model, cfg, structure, ne, nm, er, en,
-                operands=self._k3).to(torch.float32)
-            if cfg.scale_scores:
-                q = mpqe_mod._l2_normalize(q)
-            scores = quantized_scores(q, self._ent_norm_t, self.table_dtype)
+            scores = self._scores(structure, ne, nm, er, en)
             scores.masked_fill_(self._mode_dev[None, :] != tm[:, None],
                                 float("-inf"))
             return top_k(scores, k)
@@ -218,16 +247,30 @@ class QueryServer:
 FLAGSHIP = dict(embed_dim=128, n_layers=3, num_bases=16, readout="tgt")
 
 
-def config_from_json(mc: dict) -> mpqe_mod.MPQEConfig:
-    """An ``MPQEConfig`` from a run directory's ``model_config.json``."""
-    if "readout" not in mc:
-        raise NotImplementedError(
-            "GQE model configs are not served yet: the GQE family is "
-            "ROADMAP Queue 1 item 4")
+def config_from_json(mc: dict):
+    """The model config of a run directory's ``model_config.json``: an
+    ``MPQEConfig``, or a ``GQEConfig`` when it has no ``readout``.  A GQE
+    config keeps its ``bibox_w`` and ``box_alpha`` (the reference's CLIs
+    drop both and serve at the defaults; ROADMAP Queue 3 records the
+    difference)."""
     if "float32" not in str(mc.get("dtype", "float32")):
         raise NotImplementedError(
             f"model dtype {mc['dtype']!r}: only float32 models are ported; "
             "other model dtypes are ROADMAP Queue 1 item 5")
+    if "readout" not in mc:
+        from mpqe_tpu_torch.models import gqe as gqe_mod
+
+        defaults = gqe_mod.GQEConfig(1, 1, 1)
+        return gqe_mod.GQEConfig(
+            n_entities=mc["n_entities"], n_modes=mc["n_modes"],
+            n_rels=mc["n_rels"], embed_dim=mc["embed_dim"],
+            decoder=mc["decoder"], intersection=mc["intersection"],
+            soft_and=mc["soft_and"], margin=mc.get("margin", 1.0),
+            encoder=mc.get("encoder", "direct"),
+            aggregator=mc.get("aggregator", "mean"),
+            scale_scores=mc.get("scale_scores", True),
+            box_alpha=mc.get("box_alpha", defaults.box_alpha),
+            bibox_w=mc.get("bibox_w", defaults.bibox_w))
     return mpqe_mod.MPQEConfig(
         n_entities=mc["n_entities"], n_modes=mc["n_modes"],
         n_rels=mc["n_rels"], embed_dim=mc["embed_dim"],
@@ -238,7 +281,7 @@ def config_from_json(mc: dict) -> mpqe_mod.MPQEConfig:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="Serve sampled MPQE queries and report latency.")
+        description="Serve sampled queries and report latency.")
     p.add_argument("--k", type=int, default=10)
     p.add_argument("--requests", type=int, default=100)
     p.add_argument("--batch", type=int, default=1,
@@ -278,16 +321,18 @@ def parse_args(argv=None):
 
 
 def _from_run_dir(args, device):
-    """(cfg, kg, model, checkpoint dir) of ``--run_dir``."""
+    """(cfg, kg, model, checkpoint dir, neighbor table or None) of
+    ``--run_dir``."""
     from mpqe_tpu_torch import evaluate as eval_cli
 
     run_cfg, mc = eval_cli.read_run_dir(args.run_dir)
-    cfg = config_from_json(mc)  # a GQE run dir raises, naming item 4
+    cfg = config_from_json(mc)
     ckpt, _, model = eval_cli.restore_model(args.run_dir, cfg, args.ckpt,
                                             device)
     kg, _ = eval_cli.load_run_data(run_cfg, "val")
     _check_matches(cfg, kg)
-    return cfg, kg, model, ckpt
+    nbr = eval_cli.run_neighbor_table(run_cfg, cfg, kg, device)
+    return cfg, kg, model, ckpt, nbr
 
 
 def _check_matches(cfg, kg) -> None:
@@ -298,8 +343,8 @@ def _check_matches(cfg, kg) -> None:
 
 
 def _from_flags(args, device):
-    """(cfg, kg, model, state dict path or None) of ``--state_dict`` or
-    ``--init_seed`` over the ``--syn_*`` KG."""
+    """(cfg, kg, model, state dict path or None, None) of ``--state_dict``
+    or ``--init_seed`` over the ``--syn_*`` KG (MPQE models only)."""
     from mpqe_tpu_torch.convert import model_from_state_dict
     from mpqe_tpu_torch.data.sampler import make_random_kg
 
@@ -310,6 +355,10 @@ def _from_flags(args, device):
     if args.model_config is not None:
         with open(args.model_config) as f:
             cfg = config_from_json(json.load(f))
+        if not is_mpqe(cfg):
+            raise SystemExit("--state_dict and --init_seed serve MPQE "
+                             "models; serve a GQE model from its run dir "
+                             "(--run_dir)")
     else:
         cfg = mpqe_mod.MPQEConfig(n_entities=kg.n_entities,
                                   n_modes=kg.n_modes, n_rels=kg.n_rels,
@@ -322,7 +371,7 @@ def _from_flags(args, device):
         sd = torch.load(args.state_dict, map_location="cpu",
                         weights_only=True)
         model = model_from_state_dict(sd, cfg, device=device)
-    return cfg, kg, model, args.state_dict
+    return cfg, kg, model, args.state_dict, None
 
 
 def main(argv=None):
@@ -330,9 +379,11 @@ def main(argv=None):
 
     args = parse_args(argv)
     device = resolve_device(args.device)
-    cfg, kg, model, checkpoint = (_from_run_dir if args.run_dir is not None
-                                  else _from_flags)(args, device)
-    server = QueryServer(model, cfg, kg.entity_mode, device=device)
+    cfg, kg, model, checkpoint, nbr = (
+        _from_run_dir if args.run_dir is not None else _from_flags)(args,
+                                                                   device)
+    server = QueryServer(model, cfg, kg.entity_mode, device=device,
+                         neighbor_table=nbr)
 
     structures = args.structures.split(",")
     server.warmup(structures, batch=args.batch, k=args.k)

@@ -9,23 +9,29 @@ stops the loop at a step boundary, saves the final checkpoint and exits
 0; ``--resume`` continues from the latest checkpoint.  The last line is
 ``final step=... macro_auc=... macro_apr=...``.
 
-``--data synthetic`` and ``--model rgcn`` only.  ``--parallel
-halo_ring|halo_gather`` trains through the edge-partitioned halo layers
-over a ``--mesh`` (default: one part per card).  Every flag whose
-feature is not ported yet raises ``NotImplementedError`` naming its
-ROADMAP item.
+``--data synthetic`` only.  ``--model rgcn`` trains MPQE; ``--model gqe``
+and ``gqe_softand`` train the GQE baselines (``--decoder``,
+``--intersection``, ``--gqe_encoder``, ``--gqe_aggregator``,
+``--gqe_fanout``, ``--bibox_w``), through the dense path only, as in the
+reference.  ``--parallel halo_ring|halo_gather`` trains MPQE through the
+edge-partitioned halo layers over a ``--mesh`` (default: one part per
+card).  Every flag whose feature is not ported yet raises
+``NotImplementedError`` naming its ROADMAP item.
 
   python -m mpqe_tpu_torch.train --data synthetic --kernel fused_fwd \\
       --fused_backward pallas --num_bases 16 --steps 2000
   python -m mpqe_tpu_torch.train --kernel blocked --num_bases 16
   python -m mpqe_tpu_torch.train --device cpu --embed_dim 16 --steps 20
   python -m mpqe_tpu_torch.train --parallel halo_ring --num_bases 16
+  python -m mpqe_tpu_torch.train --model gqe_softand --decoder bibox \\
+      --gqe_encoder neighborhood --gqe_fanout 8
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import signal
 import threading
@@ -134,8 +140,6 @@ def _refuse_unported(args) -> None:
     """``NotImplementedError`` naming the ROADMAP item of every flag whose
     feature is not ported yet."""
     unported = [
-        (args.model != "rgcn", f"--model {args.model}",
-         "the GQE family is ROADMAP Queue 1 item 4"),
         (args.shared_negatives != 0, "--shared_negatives",
          "shared negatives are ROADMAP Queue 1 item 2"),
         (args.self_adv_tau != 0.0, "--self_adv_tau",
@@ -221,6 +225,43 @@ def _refuse_parallel_combinations(args) -> None:
             "distributed steps own their own loss")
 
 
+def _refuse_gqe_combinations(args) -> None:
+    """``SystemExit`` with train.py's messages for what ``--model
+    gqe|gqe_softand`` does not combine with."""
+    if args.model == "rgcn":
+        return
+    if args.kernel != "dense":
+        raise SystemExit("--kernel applies to --model rgcn only")
+    if args.shared_negatives:
+        raise SystemExit("--shared_negatives requires --model rgcn")
+    if args.self_adv_tau:
+        raise SystemExit("--self_adv_tau requires --model rgcn "
+                         "--shared_negatives")
+
+
+def _gqe_setup(args, kg, device):
+    """(GQEConfig, batch loss with the neighbor table bound, the table or
+    None) of ``--model gqe|gqe_softand``."""
+    from mpqe_tpu_torch.models import gqe as gqe_mod
+
+    cfg = gqe_mod.GQEConfig(
+        n_entities=kg.n_entities, n_modes=kg.n_modes, n_rels=kg.n_rels,
+        embed_dim=args.embed_dim, decoder=args.decoder,
+        intersection=args.intersection,
+        soft_and=args.model == "gqe_softand", encoder=args.gqe_encoder,
+        aggregator=args.gqe_aggregator, bibox_w=args.bibox_w,
+        margin=args.margin)
+    table = None
+    if args.gqe_encoder == "neighborhood":
+        from mpqe_tpu_torch.models import aggregators as agg_mod
+
+        table = agg_mod.build_neighbor_table_device(
+            kg, fanout=args.gqe_fanout, seed=args.seed, device=device)
+    loss_fn = functools.partial(gqe_mod.dense_batch_loss,
+                                neighbor_table=table)
+    return cfg, loss_fn, table
+
+
 def _halo_loss_fn(args, device, metrics):
     """``--parallel halo_ring|halo_gather``: the halo batch loss over a
     ``--mesh`` of the run's devices (default ``(device count, 1)``: every
@@ -241,6 +282,7 @@ def _halo_loss_fn(args, device, metrics):
 def main(argv=None):
     args = parse_args(argv)
     _refuse_parallel_combinations(args)
+    _refuse_gqe_combinations(args)
     _refuse_unported(args)
     device = resolve_device(args.device)
     if args.kernel == "blocked" and not args.num_bases:
@@ -253,15 +295,22 @@ def main(argv=None):
     metrics.write_config(vars(args))
 
     kg, train_q, val_q = load_data(args)
-    cfg = mpqe_mod.MPQEConfig(
-        n_entities=kg.n_entities, n_modes=kg.n_modes, n_rels=kg.n_rels,
-        embed_dim=args.embed_dim, n_layers=args.n_layers,
-        num_bases=args.num_bases or None, readout=args.readout,
-        margin=args.margin)
-    batch_loss_fn = {
-        "fused": mpqe_mod.dense_batch_loss_kernel_fused,
-        "blocked": mpqe_mod.dense_batch_loss_kernel_blocked,
-    }.get(args.kernel)
+    init_fn = neighbor_table = None
+    if args.model == "rgcn":
+        cfg = mpqe_mod.MPQEConfig(
+            n_entities=kg.n_entities, n_modes=kg.n_modes, n_rels=kg.n_rels,
+            embed_dim=args.embed_dim, n_layers=args.n_layers,
+            num_bases=args.num_bases or None, readout=args.readout,
+            margin=args.margin)
+        batch_loss_fn = {
+            "fused": mpqe_mod.dense_batch_loss_kernel_fused,
+            "blocked": mpqe_mod.dense_batch_loss_kernel_blocked,
+        }.get(args.kernel)
+    else:
+        from mpqe_tpu_torch.models import gqe as gqe_mod
+
+        cfg, batch_loss_fn, neighbor_table = _gqe_setup(args, kg, device)
+        init_fn = gqe_mod.init_gqe
     if args.kernel == "fused_fwd":
         def batch_loss_fn(*a):
             return mpqe_mod.dense_batch_loss_kernel_fused_fwd(
@@ -278,7 +327,8 @@ def main(argv=None):
     metrics.write_config(dataclasses.asdict(cfg), "model_config.json")
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = loop_mod.init_train_state(gen, cfg, tc, device=device)
+    state = loop_mod.init_train_state(gen, cfg, tc, device=device,
+                                      init_fn=init_fn)
     ckpt_dir = os.path.join(run_dir, "ckpt")
     if args.resume:
         latest = ckpt_mod.latest_checkpoint(ckpt_dir)
@@ -309,7 +359,7 @@ def main(argv=None):
             state, cfg, tc, train_q, val_queries=val_q,
             should_stop=stop_event.is_set, log_fn=metrics.log,
             checkpoint_fn=checkpoint_fn, batch_loss_fn=batch_loss_fn, kg=kg,
-            warmup=args.warmup)
+            warmup=args.warmup, neighbor_table=neighbor_table)
         # the handler stays installed until the save is done: a second
         # SIGTERM in the grace window is swallowed, not a crash mid-save
         final_path = manager.save(state)
@@ -327,7 +377,8 @@ def main(argv=None):
         metrics.close()
         return state
     res = evaluation.evaluate_batched(state.model, cfg,
-                                      evaluation.make_eval_set(val_q))
+                                      evaluation.make_eval_set(val_q),
+                                      neighbor_table=neighbor_table)
     metrics.log({"step": state.step, "final": res.flat()})
     print(f"final step={state.step} macro_auc={res.macro_auc:.4f} "
           f"macro_apr={res.macro_apr:.2f}")

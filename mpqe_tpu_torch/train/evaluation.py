@@ -11,17 +11,18 @@ ROC-AUC is exact (Mann-Whitney U with tie correction).  Three sweeps:
 
 * :func:`evaluate_batched` encodes all formulas of a structure at once
   through the per-query-relation encoder, K3
-  (``encode_dense_multi_auto``) for eligible models;
-* :func:`evaluate` is the reference's per-formula protocol: one padded
-  dense batch per formula through a caller's ``encode_fn`` (by default
-  the f32 ``encode_dense``; the sparse encoder through an adapter, as
-  ``run_train(eval_encode_fn=...)`` passes it);
+  (``encode_dense_multi_auto``) for eligible MPQE models, the GQE
+  baselines through ``gqe.score_pos_neg`` (SoftAnd by conjunct-min);
+* :func:`evaluate` is the reference's per-formula protocol for MPQE
+  models: one padded dense batch per formula through a caller's
+  ``encode_fn`` (by default the f32 ``encode_dense``; the sparse encoder
+  through an adapter, as ``run_train(eval_encode_fn=...)`` passes it);
 * :func:`full_ranking` ranks the true answer among every entity of its
   mode (MRR, Hits@K), one ``[B, n_entities]`` score matrix per chunk on
   the device.
 
-Every sweep runs under ``torch.no_grad()`` on the model's device.  MPQE
-models only: a GQE config raises (ROADMAP Queue 1 item 4).
+Every sweep runs under ``torch.no_grad()`` on the model's device.  The
+GQE sweeps take ``neighbor_table=`` for a neighborhood anchor encoder.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 
 from mpqe_tpu_torch.data.batcher import (bucket_size, make_dense_batch,
                                          template_edge_norm)
+from mpqe_tpu_torch.models import is_mpqe
 from mpqe_tpu_torch.queries import (INTERSECTION_STRUCTURES, STRUCTURES,
                                     Formula, Query)
 
@@ -201,20 +203,27 @@ def _apr_percentiles(pos, neg, mask):
     return perc[cnt > 0]
 
 
-def _require_mpqe(name: str, cfg) -> None:
-    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+def _k3_operands(model, cfg):
+    """K3's operands for an MPQE model that can take it, else None."""
+    from mpqe_tpu_torch.ops.fused_fwd import prepare_fused_multi
 
-    if not isinstance(cfg, mpqe_mod.MPQEConfig):
-        raise NotImplementedError(
-            f"{name} for {type(cfg).__name__}: the GQE family is ROADMAP "
-            "Queue 1 item 4")
+    if is_mpqe(cfg) and cfg.readout == "tgt" and cfg.num_bases is not None:
+        return prepare_fused_multi(model, cfg)
+    return None
 
 
-def _score_batch(model, cfg, structure, ne, nm, er, en, tgt, neg, operands):
+def _score_batch(model, cfg, structure, ne, nm, er, en, tgt, neg, operands,
+                 neighbor_table=None):
     """(pos scores [B], neg scores [B, K]) through the per-query-relation
-    encoder (K3 for eligible models)."""
+    encoder (K3 for eligible MPQE models; ``gqe.score_pos_neg`` for the
+    GQE baselines)."""
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
 
+    if not is_mpqe(cfg):
+        from mpqe_tpu_torch.models import gqe as gqe_mod
+
+        return gqe_mod.score_pos_neg(model, cfg, structure, ne, er, tgt, neg,
+                                     neighbor_table)
     q = mpqe_mod.encode_dense_multi_auto(model, cfg, structure, ne, nm, er,
                                          en, operands=operands)
     ent = model.emb.ent
@@ -230,25 +239,24 @@ def evaluate_batched(
     n_neg: int = 64,
     max_batch: int = 8192,
     seed: int = 0,
+    neighbor_table=None,
 ) -> EvalResult:
     """One encode+score sweep per structure (chunked at ``max_batch``) on
-    the model's device; metrics reduced with numpy.  MPQE models only: a
-    GQE config raises (ROADMAP Queue 1 item 4)."""
-    from mpqe_tpu_torch.ops.fused_fwd import prepare_fused_multi
-
-    _require_mpqe("evaluate_batched", cfg)
+    the model's device; metrics reduced with numpy.  ``cfg`` is an
+    ``MPQEConfig`` or a ``GQEConfig``; ``neighbor_table`` serves a GQE
+    neighborhood anchor encoder (train and evaluation must agree).  GQE
+    batches are not capped, as in the reference, though a bilinear hop
+    gathers ``[B, d, d]`` per edge slot."""
     device = model.emb.ent.device
     auc_s: Dict[str, float] = {}
     apr_s: Dict[str, float] = {}
     hard_s: Dict[str, float] = {}
     rng = np.random.default_rng(seed)
-    if cfg.num_bases is None:
+    if is_mpqe(cfg) and cfg.num_bases is None:
         # full-weight models gather [B, d, do] per edge slot
         max_batch = _effective_max_batch(cfg, max_batch,
                                          cfg.embed_dim * cfg.embed_dim)
-    operands = (prepare_fused_multi(model, cfg)
-                if cfg.readout == "tgt" and cfg.num_bases is not None
-                else None)
+    operands = _k3_operands(model, cfg)
 
     def sweep(data, negs):
         n_q = data["target"].shape[0]
@@ -265,7 +273,8 @@ def evaluate_batched(
                     _pad_chunk(data["edge_rel"], lo, hi, B, device),
                     _pad_chunk(data["edge_norm"], lo, hi, B, device, 1),
                     _pad_chunk(data["target"], lo, hi, B, device),
-                    _pad_chunk(negs, lo, hi, B, device), operands)
+                    _pad_chunk(negs, lo, hi, B, device), operands,
+                    neighbor_table)
             pos_all[lo:hi] = p_s.cpu().numpy()[:hi - lo]
             neg_all[lo:hi] = n_s.cpu().numpy()[:hi - lo]
         return pos_all, neg_all
@@ -350,10 +359,14 @@ def evaluate(
     """AUC + APR per structure (macro over formulas), hard-negative AUC
     for intersections: the reference's per-formula protocol, one
     ``encode_fn`` call per formula (and one more for its hard negatives).
-    ``encode_fn`` defaults to the f32 ``encode_dense``."""
+    ``encode_fn`` defaults to the f32 ``encode_dense``.  MPQE models only,
+    as in the reference; the GQE baselines take :func:`evaluate_batched`."""
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
 
-    _require_mpqe("evaluate", cfg)
+    if not is_mpqe(cfg):
+        raise ValueError(
+            f"evaluate takes an MPQEConfig, not {type(cfg).__name__}: "
+            "evaluate GQE models with evaluate_batched")
     if encode_fn is None:
         encode_fn = mpqe_mod.encode_dense
     auc_s: Dict[str, float] = {}
@@ -394,22 +407,31 @@ def evaluate(
     return EvalResult(auc_s, apr_s, hard_s)
 
 
-def _rank_all_impl(model, cfg, structure, ne, nm, er, en, operands=None):
+def _rank_all_impl(model, cfg, structure, ne, nm, er, en, operands=None,
+                   neighbor_table=None):
     """``[B, n_entities]`` scores of a chunk (MPQE: the per-query-relation
-    encoder, K3 for eligible models, then every entity)."""
+    encoder, K3 for eligible models, then every entity; GQE:
+    ``gqe.rank_scores``, the box and bibox heads against the raw table,
+    SoftAnd by the minimum over its branches' score matrices)."""
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
 
+    if not is_mpqe(cfg):
+        from mpqe_tpu_torch.models import gqe as gqe_mod
+
+        return gqe_mod.rank_scores(model, cfg, structure, ne, er,
+                                   neighbor_table)
     q = mpqe_mod.encode_dense_multi_auto(model, cfg, structure, ne, nm, er,
                                          en, operands=operands)
     return mpqe_mod.score_all_entities(model, cfg, q)
 
 
 def _rank_counts_impl(model, cfg, structure, ne, nm, er, en, target, emode,
-                      operands=None) -> torch.Tensor:
+                      operands=None, neighbor_table=None) -> torch.Tensor:
     """Rank on the device: ``1 + #(same-mode candidates scoring strictly
     above the true answer)``, ``[B]``; only that vector leaves the
     device."""
-    scores = _rank_all_impl(model, cfg, structure, ne, nm, er, en, operands)
+    scores = _rank_all_impl(model, cfg, structure, ne, nm, er, en, operands,
+                            neighbor_table)
     t = target.long()
     mode_ok = emode[None, :] == emode[t][:, None]
     true_s = torch.gather(scores, 1, t[:, None])
@@ -424,23 +446,20 @@ def full_ranking(
     hits_at: Tuple[int, ...] = (1, 3, 10),
     max_queries_per_formula: Optional[int] = 200,
     max_batch: int = 8192,
+    neighbor_table=None,
 ) -> Dict[str, Dict[str, float]]:
     """Full-candidate ranking metrics (MRR, mean rank, Hits@K) per
     structure: every entity of the target's mode competes (unfiltered),
     all formulas of a structure in one dispatch per ``max_batch`` chunk
-    (capped so one chunk's score matrix stays near 1 GiB)."""
-    from mpqe_tpu_torch.ops.fused_fwd import prepare_fused_multi
-
-    _require_mpqe("full_ranking", cfg)
+    (capped so one chunk's score matrix stays near 1 GiB).  ``cfg`` and
+    ``neighbor_table`` as for :func:`evaluate_batched`."""
+    operands = _k3_operands(model, cfg)
     device = model.emb.ent.device
     es = make_eval_set(queries_by_structure, max_queries_per_formula,
                        require_negatives=False)
     emode = torch.from_numpy(
         np.asarray(entity_mode).astype(np.int32)).to(device)
     max_batch = _effective_max_batch(cfg, max_batch, cfg.n_entities)
-    operands = (prepare_fused_multi(model, cfg)
-                if cfg.readout == "tgt" and cfg.num_bases is not None
-                else None)
     out: Dict[str, Dict[str, float]] = {}
     for structure, data in es.by_structure.items():
         n_q = data["target"].shape[0]
@@ -456,7 +475,7 @@ def full_ranking(
                     _pad_chunk(data["edge_rel"], lo, hi, B, device),
                     _pad_chunk(data["edge_norm"], lo, hi, B, device, 1),
                     _pad_chunk(data["target"], lo, hi, B, device), emode,
-                    operands)
+                    operands, neighbor_table)
             ranks[lo:hi] = r.cpu().numpy()[:hi - lo]
         if n_q:
             out[structure] = _rank_metrics(ranks, hits_at)

@@ -160,7 +160,7 @@ def make_optimizer(tc: TrainConfig, params) -> OptaxAdam:
 
 @dataclasses.dataclass
 class TrainState:
-    model: Any  # mpqe.MPQE
+    model: Any  # mpqe.MPQE or gqe.GQE
     optimizer: OptaxAdam
     step: int = 0
 
@@ -259,6 +259,7 @@ def run_train(
     steps_per_call: int = 1,
     train_stores=None,
     should_stop: Optional[Callable[[], bool]] = None,
+    neighbor_table=None,
 ) -> TrainState:
     """Curriculum training until convergence / max_steps / patience, in
     place on ``state``.  ``should_stop`` is polled each step (True stops
@@ -266,7 +267,9 @@ def run_train(
     carries its seconds, the loss included (the step ends on the host
     reading the loss).  Validation takes the batched sweep
     (``evaluate_batched``), or with ``eval_encode_fn`` the per-formula
-    protocol through that encoder (``evaluate``), as in the reference."""
+    protocol through that encoder (``evaluate``), as in the reference.
+    ``neighbor_table`` (a GQE neighborhood encoder's table) goes to the
+    validation sweep; the loss gets it bound in ``batch_loss_fn``."""
     if prefetch > 0:
         raise NotImplementedError(
             f"prefetch > 0 (the background batch pipeline, data/pipeline.py "
@@ -299,7 +302,8 @@ def run_train(
 
     def run_validation():
         if eval_set is not None:
-            return evaluation.evaluate_batched(state.model, cfg, eval_set)
+            return evaluation.evaluate_batched(
+                state.model, cfg, eval_set, neighbor_table=neighbor_table)
         return evaluation.evaluate(state.model, cfg, val_queries,
                                    encode_fn=eval_encode_fn)
 
@@ -372,8 +376,10 @@ def run_train(
 
 
 def init_train_state(gen: torch.Generator, cfg, tc: TrainConfig,
-                     device=None) -> TrainState:
-    """A fresh model from ``gen`` on ``device`` and its optimizer."""
-    model = mpqe_mod.init_mpqe(gen, cfg, device=device)
+                     device=None,
+                     init_fn: Optional[Callable] = None) -> TrainState:
+    """A fresh model from ``gen`` on ``device`` (``init_fn(gen, cfg,
+    device=...)``, by default ``init_mpqe``) and its optimizer."""
+    model = (init_fn or mpqe_mod.init_mpqe)(gen, cfg, device=device)
     return TrainState(model=model,
                       optimizer=make_optimizer(tc, model.parameters()))

@@ -1,6 +1,7 @@
 """The CUDA kernels K1, K2, K3, K4a, K4b, K5a, K5b, K6a, K6b, K7, K8,
 the served path and the sparse encoder on the card, against their plain
-versions.  Needs an NVIDIA GPU: every test
+versions, and the GQE baselines (no kernel) on the card against the
+same on the CPU.  Needs an NVIDIA GPU: every test
 here skips itself without one.
 
 This file imports no JAX (the machine with the card has none), so it
@@ -1053,3 +1054,95 @@ def test_cuda_k8_odd_ids_follow_the_plain_version():
                                       N_RELS, kind)[devs[0]].route
                         for kind in ("kernel", "plain"))
     assert tring.route_matches(lay_k, lay_p)
+
+
+def _gqe_kg():
+    from mpqe_tpu_torch.data.sampler import make_random_kg
+
+    return make_random_kg(n_entities=N_ENT, n_modes=N_MODES, n_base_rels=133,
+                          n_triples=20000, seed=0)
+
+
+def _gqe_model(decoder, dev, soft_and=False, seed=0):
+    from mpqe_tpu_torch.models import gqe as tgqe
+
+    cfg = tgqe.GQEConfig(n_entities=N_ENT, n_modes=N_MODES, n_rels=N_RELS,
+                         embed_dim=128, decoder=decoder, soft_and=soft_and)
+    return cfg, tgqe.init_gqe(torch.Generator(device=dev).manual_seed(seed),
+                              cfg, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decoder", ["bilinear", "box"])
+def test_cuda_gqe_train_step_matches_cpu(decoder):
+    """One GQE train step per structure on the card and on a CPU copy of
+    the model (float32 both, TF32 off): the same loss (<= 1e-5 relative)
+    and gradients (per leaf mean|diff| / mean|ref| <= 1e-4, the
+    ``gqe.train`` recheck of chip_smoke.py; the box attention's second
+    bias, whose gradient is zero in exact arithmetic, excepted)."""
+    import copy
+
+    from mpqe_tpu_torch.data.sampler import QuerySampler
+    from mpqe_tpu_torch.data.store import build_stores, pack_dense_batch_np
+    from mpqe_tpu_torch.models import gqe as tgqe
+    from mpqe_tpu_torch.queries import group_queries_by_formula
+    from mpqe_tpu_torch.train import loop as tloop
+
+    dev = _cuda()
+    kg = _gqe_kg()
+    cfg, model = _gqe_model(decoder, dev, seed=1)
+    cpu = copy.deepcopy(model).to("cpu")
+    sampler = QuerySampler(kg, seed=2)
+    stores = build_stores(group_queries_by_formula(
+        [q for s in STRUCTURE_NAMES
+         for q in sampler.sample_queries(s, 40, n_neg=8)]), kg=kg)
+    for s, fstores in stores.items():
+        fs = max(fstores, key=lambda f: f.n_queries)
+        batch = pack_dense_batch_np(fs, np.arange(fs.n_queries), 512, 4, 3)
+        out = []
+        for m, d in ((model, dev), (cpu, torch.device("cpu"))):
+            loss = tgqe.dense_batch_loss(m, cfg, s,
+                                         *tloop.batch_tensors(batch, d))
+            names = [n for n, _ in m.named_parameters()]
+            gs = torch.autograd.grad(loss, list(m.parameters()),
+                                     allow_unused=True)
+            out.append((float(loss.detach()),
+                        {n: g.cpu() for n, g in zip(names, gs)
+                                      if g is not None}))
+        (lk, gk), (lp, gp) = out
+        assert abs(lk - lp) <= 1e-5 * abs(lp), (s, lk, lp)
+        assert set(gk) == set(gp)
+        for n, w in gp.items():
+            if n == "box_att2_b" or float(w.abs().max()) == 0.0:
+                continue
+            err = float((gk[n] - w).abs().mean() / w.abs().mean())
+            assert err <= 1e-4, (s, n, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decoder,soft_and", [("bilinear", False),
+                                              ("box", False),
+                                              ("bibox", True)])
+def test_cuda_gqe_server_matches_cpu(decoder, soft_and):
+    """One ``QueryServer`` dispatch per structure on the card against the
+    same server on the CPU: the same top-10 ids, scores within 1e-4 (the
+    ``gqe.serve`` recheck of chip_smoke.py)."""
+    import copy
+
+    from mpqe_tpu_torch.data.sampler import QuerySampler
+    from mpqe_tpu_torch.serve import QueryServer
+
+    dev = _cuda()
+    kg = _gqe_kg()
+    cfg, model = _gqe_model(decoder, dev, soft_and=soft_and, seed=2)
+    cpu_server = QueryServer(copy.deepcopy(model).to("cpu"), cfg,
+                             kg.entity_mode, device="cpu")
+    server = QueryServer(model, cfg, kg.entity_mode, device=dev)
+    sampler = QuerySampler(kg, seed=3)
+    queries = [q for s in STRUCTURE_NAMES
+               for q in sampler.sample_queries(s, 12, n_neg=1)]
+    got, want = server.answer(queries), cpu_server.answer(queries)
+    for q, a, w in zip(queries, got, want):
+        np.testing.assert_array_equal(a.entity_ids, w.entity_ids)
+        np.testing.assert_allclose(a.scores, w.scores, rtol=0, atol=1e-4)
+        assert (kg.entity_mode[a.entity_ids] == q.formula.target_mode).all()

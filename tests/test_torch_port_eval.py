@@ -216,16 +216,27 @@ def test_evaluate_sparse_and_dense_agree():
 
 
 def test_evaluate_and_full_ranking_refuse_other_configs():
-    _, tkg, _, tq = _kgs_and_queries(n_val=1)
-    _, _, _, model = _models(tkg)
+    # the per-formula protocol is MPQE's only, as the reference's is; the
+    # full ranking takes a GQE model; a config of no model raises
+    from mpqe_tpu_torch.models import gqe as tgqe
 
-    class GQEConfig:  # the port has no GQE family yet
+    _, tkg, _, tq = _kgs_and_queries(n_val=1)
+    cfg = tgqe.GQEConfig(n_entities=tkg.n_entities, n_modes=tkg.n_modes,
+                         n_rels=tkg.n_rels, embed_dim=D, decoder="box")
+    model = tgqe.init_gqe(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(ValueError, match="evaluate_batched"):
+        teval.evaluate(model, cfg, tq)
+    rk = teval.full_ranking(model, cfg, tq, tkg.entity_mode)
+    assert set(rk) == set(tq)
+    for m in rk.values():
+        assert 0.0 < m["mrr"] <= 1.0 and m["mean_rank"] >= 1.0
+
+    class OtherConfig:
         pass
 
-    with pytest.raises(NotImplementedError, match="item 4"):
-        teval.evaluate(model, GQEConfig(), tq)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        teval.full_ranking(model, GQEConfig(), tq, tkg.entity_mode)
+    for fn in (teval.evaluate, teval.full_ranking):
+        with pytest.raises(TypeError, match="OtherConfig"):
+            fn(model, OtherConfig(), tq, tkg.entity_mode)
 
 
 @pytest.mark.parametrize("max_batch", [8192, 5])
@@ -337,7 +348,7 @@ def test_evaluate_cli_on_cpu(tmp_path, capsys):
     assert line["use"] == "test" and "auc_macro" in line
 
 
-def test_evaluate_cli_refuses_unported(tmp_path):
+def test_evaluate_cli_refuses_unported(tmp_path, capsys):
     from mpqe_tpu_torch import evaluate as tev
 
     run = _tiny_run(tmp_path)
@@ -345,16 +356,29 @@ def test_evaluate_cli_refuses_unported(tmp_path):
                                                    "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             tev.main(["--run_dir", run, "--device", "cpu", *flags])
-    path = os.path.join(run, "model_config.json")
-    mc = json.load(open(path))
-    json.dump({k: v for k, v in mc.items() if k != "readout"},
-              open(path, "w"))  # a GQE model config has no readout
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tev.main(["--run_dir", run, "--device", "cpu"])
     if not torch.cuda.is_available():
-        json.dump(mc, open(path, "w"))
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tev.main(["--run_dir", run])
+    # a GQE run dir is evaluated, its neighbor table rebuilt from the run
+    from mpqe_tpu_torch.train.__main__ import main
+
+    gqe_run = str(tmp_path / "gqe")
+    main(["--device", "cpu", "--model", "gqe", "--decoder", "transe",
+          "--gqe_encoder", "neighborhood", "--gqe_fanout", "3",
+          "--embed_dim", "16", "--batch_size", "16", "--n_neg", "2",
+          "--syn_entities", "120", "--syn_triples", "400",
+          "--syn_train_queries", "70", "--syn_val_queries", "28",
+          "--steps", "2", "--val_every", "2", "--run_dir", gqe_run])
+    capsys.readouterr()
+    tev.main(["--run_dir", gqe_run, "--device", "cpu", "--ranking"])
+    lines = [json.loads(ln) for ln in
+             capsys.readouterr().out.strip().splitlines()]
+    assert lines[0]["step"] == 2 and "auc_macro" in lines[0]
+    assert len(lines) > 1 and all("mrr" in ln for ln in lines[1:])
+    for flags, item in ((["--split"], "item 2"), (["--shards", "2"],
+                                                   "item 8")):
+        with pytest.raises(NotImplementedError, match=item):
+            tev.main(["--run_dir", gqe_run, "--device", "cpu", *flags])
 
 
 def test_segment_launches_stay_zero_on_the_cpu():

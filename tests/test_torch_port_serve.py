@@ -211,10 +211,29 @@ def test_server_refusals():
     with pytest.raises(ValueError):
         tserve.QueryServer(model, tcfg, mode, table_dtype="fp8",
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="GQE"):
-        tserve.QueryServer(model, object(), mode, device="cpu")
-    with pytest.raises(NotImplementedError, match="GQE"):
-        tserve.config_from_json({"n_entities": 3, "decoder": "bilinear"})
+    # GQE models are served (tests/test_torch_port_gqe_train.py holds
+    # them to JAX); a neighborhood model needs its table
+    from mpqe_tpu_torch.models import gqe as tgqe
+
+    mc = {"n_entities": 300, "n_modes": 4, "n_rels": 12, "embed_dim": 16,
+          "decoder": "bibox", "intersection": "min", "soft_and": True,
+          "encoder": "neighborhood", "bibox_w": 0.25,
+          "dtype": "torch.float32"}
+    gcfg = tserve.config_from_json(mc)
+    assert gcfg == tgqe.GQEConfig(
+        n_entities=300, n_modes=4, n_rels=12, embed_dim=16, decoder="bibox",
+        intersection="min", soft_and=True, encoder="neighborhood",
+        bibox_w=0.25)
+    gmodel = tgqe.init_gqe(torch.Generator().manual_seed(0), gcfg)
+    with pytest.raises(ValueError, match="need neighbor_table="):
+        tserve.QueryServer(gmodel, gcfg, mode, device="cpu")
+    table = {"idx": torch.zeros((300, 2), dtype=torch.int32),
+             "mask": torch.ones((300, 2))}
+    server = tserve.QueryServer(gmodel, gcfg, mode, device="cpu",
+                                neighbor_table=table)
+    assert server.max_batch == 8192 and server._nbr is not None
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tserve.config_from_json(dict(mc, dtype="bfloat16"))
 
 
 def test_max_batch_cap_matches_jax():

@@ -528,13 +528,29 @@ def test_evaluate_batched_matches_jax(nb):
 
 
 def test_evaluate_batched_refuses_other_configs():
-    _, _, _, model = _models()
+    # a GQE config is taken (tests/test_torch_port_gqe_train.py holds it to
+    # JAX); a config of no model raises
+    from mpqe_tpu.models import gqe as jgqe
+    from mpqe_tpu_torch.convert import gqe_from_numpy
+    from mpqe_tpu_torch.models import gqe as tgqe
 
-    class GQEConfig:  # the port has no GQE family yet
+    jkg, tkg, (_, jva), (_, tva) = _kg_queries(seed=5, n_train=1, n_val=4)
+    kw = dict(n_entities=300, n_modes=3, n_rels=12, embed_dim=D,
+              decoder="distmult", soft_and=True)
+    jcfg, tcfg = jgqe.GQEConfig(**kw), tgqe.GQEConfig(**kw)
+    params = jgqe.init_gqe(jax.random.PRNGKey(4), jcfg)
+    model = gqe_from_numpy(jax.tree.map(np.asarray, params), tcfg, "cpu")
+    jres = jeval.evaluate_batched(params, jcfg, jeval.make_eval_set(jva))
+    tres = teval.evaluate_batched(model, tcfg, teval.make_eval_set(tva))
+    assert set(jres.flat()) == set(tres.flat())
+    assert abs(jres.macro_auc - tres.macro_auc) <= 1e-6
+
+    class OtherConfig:
         pass
 
-    with pytest.raises(NotImplementedError, match="item 4"):
-        teval.evaluate_batched(model, GQEConfig(), teval.EvalSet({}))
+    with pytest.raises(TypeError, match="OtherConfig"):
+        teval.evaluate_batched(model, OtherConfig(),
+                               teval.make_eval_set(tva))
 
 
 # ---------------------------------------------------- checkpoints and CLI
@@ -643,7 +659,7 @@ def test_cli_blocked_needs_bases(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--model", "gqe"], ["--shared_negatives", "4"], ["--self_adv_tau", "1.0"],
+    ["--shared_negatives", "4"], ["--self_adv_tau", "1.0"],
     ["--parallel", "spmd"], ["--prefetch", "2"], ["--steps_per_call", "4"],
     ["--dtype", "bfloat16"], ["--data", "npz:kg.npz"], ["--trace", "5"]])
 def test_cli_unported_flags_raise(flag, tmp_path):
