@@ -5,9 +5,11 @@ Drives the serving path, the per-formula evaluation through the sparse
 encoder, the full ranking, the dense training path, the sparse training
 path (``--kernel fused`` and ``--kernel blocked``), the training
 through the edge-partitioned halo layers (``--parallel halo_ring`` /
-``halo_gather``) and the GQE baselines at the flagship width (d = 128, 3 R-GCN layers, TGT
-readout, 16 bases or full per-relation weights, 266 relations, 4 modes,
-1,000,000 entities; random weights from a seed) and checks every
+``halo_gather``), the GQE baselines and the data path (npz and GQE
+pickle datasets through the CLIs, and the quality benchmark) at the
+flagship width (d = 128, 3 R-GCN layers, TGT readout, 16 bases or full
+per-relation weights, 266 relations, 4 modes, 1,000,000 entities;
+random weights from a seed) and checks every
 hand-written kernel on them.  The seven kernel libraries build in
 parallel (one nvcc each), then:
 
@@ -171,6 +173,34 @@ parallel (one nvcc each), then:
    neighborhood`` on the small KG, then ``evaluate --ranking`` and
    ``serve`` of its run dir; its config read back keeps ``bibox_w``
    0.5.
+18. ``data.npz``: the 1M-entity KG written by ``save_kg_npz`` and read
+   back by ``load_kg_npz`` (equal arrays, both timed);
+   ``stores_from_edges`` over its 2M directed edges (timed), one batch
+   of 512 packed from each of the 8 largest relations' stores (every
+   unmasked negative of the range mode, not its target, outside its
+   head's answer set); then ``python -m mpqe_tpu_torch.train --data
+   npz:<file> --kernel fused_fwd --fused_backward pallas --num_bases
+   16`` in-process, 20 steps: its final line, finite losses, K1 and K2
+   once a step, K3 in validation, the data's load and query sampling
+   time apart from the steps.
+19. ``data.pkl``: ``make_rule_kg(30,000 entities, 3 modes, 6 base
+   relations, out-degree 2)`` prepared by ``python -m
+   mpqe_tpu_torch.tools.prepare_dataset --npz`` (a subprocess, timed);
+   the train CLI on ``--data pkl:<dir>`` at the flagship width (d = 128,
+   3 layers, TGT, 16 bases, batch 512) through K1/K2, 200 steps and one
+   validation round (K3), then 20 steps on a copy without
+   ``train_edges.pkl`` (``raw_edge_1chain_derived`` must count 2 x the
+   train triples); ``evaluate --split`` with ``--use val`` and ``--use
+   test`` (both buckets, their ``n`` adding up to the evaluated
+   queries, K3 launched); ``serve --answer <dir>/test_queries_3.pkl``
+   (ids of each query's target mode, sorted scores, ids equal to an
+   in-process ``QueryServer.answer`` of the same queries, scores within
+   1e-4; wall time and queries/s).
+20. ``quality``: ``python -m mpqe_tpu_torch.tools.quality_bench --steps
+   2000 --dim 128 --bases 16 --train_per_structure 1000
+   --val_per_structure 100`` in-process: both arms' held-out macro AUC
+   and APR beside the JAX package's CPU figures of the same command,
+   each AUC >= 0.70.
 
 Prints the card's name and power limit first, then one line per check,
 a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -3447,6 +3477,357 @@ def check_bibox_w(run_dir: str) -> None:
         raise AssertionError(f"gqe.cli: served config {cfg}")
 
 
+# ----------------------------------------------------------------------
+# The data path: npz and pickle datasets through the CLIs, and quality
+# ----------------------------------------------------------------------
+DATA_STEPS = 20  # the npz run and the raw-edge pkl run
+PKL_STEPS = 200  # the pkl run, one validation round at its end
+DATA_PACK_RELATIONS = 8  # raw-edge stores packed and checked
+DATA_NEG = 16  # negatives per packed raw-edge query
+# the pickle phase's KG: 30,000 entities on three 100 x 100 tori,
+# 120,000 triples (the reference tool writes one Python query object per
+# directed train edge, so the 10^6-triple KG stays in the npz phase)
+RULE_KG = dict(n_entities=30_000, n_modes=3, n_base_rels=6, out_degree=2,
+               seed=0)
+DATA_CLI = ["--kernel", "fused_fwd", "--fused_backward", "pallas",
+            "--embed_dim", "128", "--n_layers", "3", "--readout", "tgt",
+            "--num_bases", "16", "--batch_size", str(TRAIN_BATCH),
+            "--n_neg", "4"]
+QUALITY_ARGS = ["--steps", "2000", "--dim", "128", "--bases", "16",
+                "--train_per_structure", "1000", "--val_per_structure",
+                "100"]
+# held-out macro AUC gate of both quality arms: under the lowest of the
+# JAX package's CPU runs of the same command (seeds 0-2: MPQE 0.786-0.859,
+# GQE 0.895-0.928) by 0.086, well above chance (0.5); the port's initial
+# weights come from torch generators, so its figures are not the JAX ones
+QUALITY_GATE = 0.70
+JAX_CPU_QUALITY = {"mpqe": (0.786, "0.786-0.859"),
+                   "gqe": (0.895, "0.895-0.928")}
+
+
+def tgt_counters(reset: bool = False) -> tuple:
+    """(K1, K2, K3) launch counts, set to 0 first with ``reset``."""
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+
+    fns = (ff.fused_tgt_forward, ff.fused_tgt_backward,
+           ff.fused_tgt_forward_multi)
+    if reset:
+        for fn in fns:
+            fn.launches = 0
+    return tuple(fn.launches for fn in fns)
+
+
+def run_cli(main, argv, label: str) -> list:
+    """``main(argv)`` of a CLI in-process (so its launches can be read),
+    its standard output captured: the output lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    lines = buf.getvalue().strip().splitlines()
+    log(f"{label}: {time.perf_counter() - t0:.2f} s, {len(lines)} lines")
+    return lines
+
+
+def train_cli_run(argv, label: str) -> tuple:
+    """The train CLI in-process on the card: its final line checked, K1
+    and K2 once a step, K3 in validation, every loss finite.  Returns
+    (the run's metrics records, (K1, K2, K3))."""
+    import os
+    import re
+
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.train import __main__ as train_cli
+
+    real = []  # per step, the batch's real rows (the sum of query_mask)
+    loss_fn = mpqe_mod.dense_batch_loss_kernel_fused_fwd
+
+    def counted(*a, **kw):
+        real.append(a[-1].sum())
+        return loss_fn(*a, **kw)
+
+    mpqe_mod.dense_batch_loss_kernel_fused_fwd = counted
+    tgt_counters(reset=True)
+    try:
+        lines = run_cli(train_cli.main, argv, label)
+    finally:
+        mpqe_mod.dense_batch_loss_kernel_fused_fwd = loss_fn
+    k1, k2, k3 = tgt_counters()
+    run_dir = argv[argv.index("--run_dir") + 1]
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(ln) for ln in f]
+    steps = [r for r in records if "loss" in r]
+    vals = [r for r in records if "val" in r]
+    loaded = [r for r in records if r.get("event") == "data_loaded"]
+    ms = np.asarray([r["seconds"] * 1e3 for r in steps])
+    n_real = int(torch.stack(real).sum()) if real else 0
+    log(f"{label}: {len(steps)} steps; data loaded in "
+        f"{loaded[0]['seconds']:.2f} s ({loaded[0]['n_entities']} entities, "
+        f"{loaded[0]['n_triples']} triples); launches K1={k1} K2={k2} "
+        f"K3={k3}; loss first={steps[0]['loss']:.6f} "
+        f"last={steps[-1]['loss']:.6f}; step_ms_p50="
+        f"{np.percentile(ms, 50):.3f} step_ms_p95={np.percentile(ms, 95):.3f} "
+        f"train_queries_per_s={n_real / ms.sum() * 1e3:.1f} ({n_real} real "
+        f"rows of {len(ms) * TRAIN_BATCH}); {lines[-1]}")
+    if not re.fullmatch(rf"final step={len(steps)} macro_auc=\S+ "
+                        rf"macro_apr=\S+", lines[-1]):
+        raise AssertionError(f"{label}: final line {lines[-1]!r}")
+    if not all(np.isfinite([r["loss"] for r in steps])):
+        raise AssertionError(f"{label}: a loss is not finite")
+    if not (k1 == k2 == len(steps) == len(real)) or k3 == 0 or not vals:
+        raise AssertionError(f"{label}: launches K1={k1} K2={k2} K3={k3} "
+                             f"over {len(steps)} steps, {len(vals)} "
+                             "validation rounds")
+    return records, (k1, k2, k3)
+
+
+def check_raw_edge_batches(stores, kg) -> None:
+    """One batch of TRAIN_BATCH from each of the DATA_PACK_RELATIONS
+    largest raw-edge stores: every unmasked negative of the range mode,
+    not its query's target and outside its head's answer set."""
+    from mpqe_tpu_torch.data.store import pack_dense_batch_np
+
+    rng = np.random.default_rng(0)
+    largest = sorted(stores, key=lambda s: -s.n_queries)
+    n_neg = n_masked = 0
+    t0 = time.perf_counter()
+    for i, s in enumerate(largest[:DATA_PACK_RELATIONS]):
+        pick = rng.integers(0, s.n_queries, size=TRAIN_BATCH).astype(np.int64)
+        b = pack_dense_batch_np(s, pick, TRAIN_BATCH, DATA_NEG, seed=i)
+        mode = s.formula.node_modes[1]
+        for qi, tgt, row, m in zip(pick, b.target, b.negatives,
+                                   b.neg_mask):
+            g = s.ans_idx[qi]
+            answers = s.ans_pool[s.ans_ptr[g]:s.ans_ptr[g + 1]]
+            negs = row[m > 0]
+            n_neg += negs.size
+            n_masked += int((m == 0).sum())
+            if (kg.entity_mode[negs] != mode).any() or (negs == tgt).any() \
+                    or np.isin(negs, answers).any():
+                raise AssertionError(
+                    f"raw-edge batch of relation {s.formula.rels[0]}: "
+                    f"query {qi} has a negative of another mode, its "
+                    "target or one of its answers")
+    log(f"data.npz: {DATA_PACK_RELATIONS} batches of {TRAIN_BATCH} packed "
+        f"in {time.perf_counter() - t0:.2f} s: {n_neg} negatives of the "
+        f"range mode, none a target or an answer of its head; {n_masked} "
+        "slots masked")
+
+
+def phase_data_npz(kg, tmp: str, device) -> tuple:
+    """``data.npz``: the flagship KG through ``save_kg_npz`` /
+    ``load_kg_npz`` (equal arrays), ``stores_from_edges`` over its 2M
+    directed edges with packed batches checked, then the train CLI on
+    ``--data npz:``.  Returns its (K1, K2, K3) launches."""
+    import os
+
+    from mpqe_tpu_torch.data import loader
+    from mpqe_tpu_torch.data.store import stores_from_edges
+
+    path = os.path.join(tmp, "kg.npz")
+    t0 = time.perf_counter()
+    loader.save_kg_npz(path, kg)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = loader.load_kg_npz(path)
+    t_load = time.perf_counter() - t0
+    for f in ("entity_mode", "rel_domain", "rel_range", "heads", "rels",
+              "tails"):
+        if not np.array_equal(getattr(back, f), getattr(kg, f)):
+            raise AssertionError(f"data.npz: {f} differs after the round "
+                                 "trip")
+    log(f"data.npz: save_kg_npz {t_save:.2f} s, load_kg_npz {t_load:.2f} s "
+        f"({os.path.getsize(path) / 2**20:.1f} MiB; {back.n_entities} "
+        f"entities, {back.n_triples} triples): arrays equal")
+    t0 = time.perf_counter()
+    stores = stores_from_edges(back)["1-chain"]
+    t_st = time.perf_counter() - t0
+    n_q = sum(s.n_queries for s in stores)
+    log(f"data.npz: stores_from_edges {t_st:.2f} s: {len(stores)} stores, "
+        f"{n_q} edge queries, {len({id(s.fallback_pool) for s in stores})} "
+        "fallback pools")
+    if n_q != 2 * kg.n_triples:
+        raise AssertionError(f"data.npz: {n_q} edge queries for "
+                             f"{kg.n_triples} triples")
+    check_raw_edge_batches(stores, back)
+    del stores, back
+    _, launches = train_cli_run(
+        ["--data", f"npz:{path}", *DATA_CLI, "--device", str(device),
+         "--steps", str(DATA_STEPS),
+         "--val_every", str(DATA_STEPS), "--run_dir",
+         os.path.join(tmp, "npz_run")], "data.npz train.cli")
+    return launches
+
+
+def phase_data_pkl(tmp: str, device) -> tuple:
+    """``data.pkl``: a rule KG prepared into a GQE-layout directory by
+    ``python -m mpqe_tpu_torch.tools.prepare_dataset``, trained on with
+    ``--data pkl:`` (and without its ``train_edges.pkl``: the raw-edge
+    stores), evaluated with ``--split`` and ``--use test``, and answered
+    in bulk by ``serve --answer``.  Returns its (K1, K2, K3) launches."""
+    import os
+    import shutil
+
+    from mpqe_tpu_torch import evaluate as eval_cli
+    from mpqe_tpu_torch.data import loader
+    from mpqe_tpu_torch.data.sampler import make_rule_kg
+
+    t0 = time.perf_counter()
+    rule = make_rule_kg(**RULE_KG)
+    npz = os.path.join(tmp, "rule.npz")
+    loader.save_kg_npz(npz, rule)
+    log(f"data.pkl: make_rule_kg {time.perf_counter() - t0:.2f} s "
+        f"({rule.n_entities} entities, {rule.n_triples} triples)")
+    data = os.path.join(tmp, "rule")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpqe_tpu_torch.tools.prepare_dataset",
+         "--npz", npz, "--out", data], capture_output=True, text=True,
+        timeout=900)
+    t_prep = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"prepare_dataset failed:\n{proc.stderr[-4000:]}")
+    for ln in proc.stdout.strip().splitlines():
+        log(f"data.pkl: prepare_dataset: {ln}")
+    with open(os.path.join(data, "dataset.json")) as f:
+        meta = json.load(f)
+    log(f"data.pkl: prepare_dataset {t_prep:.2f} s (subprocess)")
+
+    run = os.path.join(tmp, "pkl_run")
+    _, (k1, k2, k3) = train_cli_run(
+        ["--data", f"pkl:{data}", *DATA_CLI, "--device", str(device),
+         "--steps", str(PKL_STEPS),
+         "--val_every", str(PKL_STEPS), "--run_dir", run],
+        "data.pkl train.cli")
+
+    bare = os.path.join(tmp, "rule_no_train_edges")
+    shutil.copytree(data, bare)
+    os.remove(os.path.join(bare, "train_edges.pkl"))
+    records, launches = train_cli_run(
+        ["--data", f"pkl:{bare}", *DATA_CLI, "--device", str(device),
+         "--steps", str(DATA_STEPS),
+         "--val_every", str(DATA_STEPS), "--run_dir",
+         os.path.join(tmp, "pkl_raw_run")], "data.pkl.raw_edges train.cli")
+    k1, k2, k3 = k1 + launches[0], k2 + launches[1], k3 + launches[2]
+    derived = [r["edge_queries"] for r in records
+               if r.get("event") == "raw_edge_1chain_derived"]
+    log(f"data.pkl.raw_edges: raw_edge_1chain_derived edge_queries="
+        f"{derived} (2 x {meta['train_triples']} train triples)")
+    if derived != [2 * meta["train_triples"]]:
+        raise AssertionError(f"data.pkl.raw_edges: derived {derived}")
+
+    kg, _, _ = loader.load_graph_pickle(os.path.join(data,
+                                                     "graph_data.pkl"))
+    for use in ("val", "test"):
+        tgt_counters(reset=True)
+        lines = run_cli(eval_cli.main, ["--run_dir", run, "--split",
+                                        "--use", use, "--device",
+                                        str(device)],
+                        f"data.pkl eval.cli --split --use {use}")
+        n3 = tgt_counters()[2]
+        k3 += n3
+        for ln in lines:
+            log(f"data.pkl eval.cli: {ln}")
+        head, buckets = json.loads(lines[0]), [json.loads(ln)
+                                               for ln in lines[1:]]
+        queries = loader.load_split_queries(data, kg, use)
+        n_eval = sum(len(qs) for by_f in queries.values()
+                     for qs in by_f.values())
+        names = [b["bucket"] for b in buckets]
+        log(f"data.pkl eval.cli --use {use}: K3 launches {n3}; buckets "
+            f"{[(b['bucket'], b['n']) for b in buckets]} of {n_eval} "
+            "evaluated queries")
+        if (head["use"] != use or names != ["seen_edges", "one_new_edge"]
+                or sum(b["n"] for b in buckets) != n_eval or n3 == 0
+                or not all(np.isfinite(b["auc_macro"]) for b in buckets)):
+            raise AssertionError(f"data.pkl eval.cli --use {use}: {lines}")
+
+    k3 += check_serve_answer(run, data, kg, tmp, device)
+    return k1, k2, k3
+
+
+def check_serve_answer(run, data, kg, tmp, device) -> int:
+    """``serve --answer <data>/test_queries_3.pkl``: ids of each query's
+    target mode, scores sorted, and ids equal to (scores within
+    TOL_SCORE of) an in-process ``QueryServer.answer`` of the same
+    queries.  Returns its K3 launches."""
+    import os
+
+    from mpqe_tpu_torch import evaluate as eval_cli
+    from mpqe_tpu_torch import serve as serve_cli
+    from mpqe_tpu_torch.data import loader
+
+    pkl = os.path.join(data, "test_queries_3.pkl")
+    out = os.path.join(tmp, "answers.npz")
+    tgt_counters(reset=True)
+    line = json.loads(run_cli(serve_cli.main, ["--run_dir", run, "--answer",
+                                               pkl, "--out", out, "--device",
+                                               str(device)],
+                              "data.pkl serve.cli --answer")[-1])
+    n3 = tgt_counters()[2]
+    log(f"data.pkl serve.cli --answer: K3 launches {n3}; {json.dumps(line)}")
+    got = np.load(out)
+    grouped = loader.load_queries_pickle(pkl, kg)
+    flat = [q for by_f in grouped.values() for qs in by_f.values()
+            for q in qs]
+    run_cfg, mc = eval_cli.read_run_dir(run)
+    cfg = serve_cli.config_from_json(mc)
+    _, _, model = eval_cli.restore_model(run, cfg, None, device)
+    server = serve_cli.QueryServer(model, cfg, kg.entity_mode, device=device)
+    want = server.answer(flat, k=K)
+    ids, scores = got["entity_ids"], got["scores"]
+    modes = np.asarray([q.formula.target_mode for q in flat])
+    same_ids = np.array_equal(ids, np.stack([a.entity_ids for a in want]))
+    err = float(np.abs(scores - np.stack([a.scores for a in want])).max())
+    log(f"data.pkl serve.cli --answer: {line['queries']} queries "
+        f"({line['seconds']:.4f} s, {line['queries_per_s']:.1f} "
+        f"queries/s, hit@{K}={line['hit_at_k']:.4f}); target mode "
+        f"{bool((kg.entity_mode[ids] == modes[:, None]).all())}, sorted "
+        f"{bool((np.diff(scores, axis=1) <= 0).all())}, ids equal "
+        f"in-process {same_ids}, score_err={err:.3e}")
+    if not ((kg.entity_mode[ids] == modes[:, None]).all()
+            and (np.diff(scores, axis=1) <= 0).all() and same_ids
+            and err <= TOL_SCORE and n3 > 0 and line["queries"] == len(flat)
+            and list(got["structure"]) == [q.formula.structure
+                                           for q in flat]):
+        raise AssertionError("data.pkl serve.cli --answer: check failed")
+    return n3
+
+
+def phase_quality(tmp: str, device) -> int:
+    """``quality``: ``python -m mpqe_tpu_torch.tools.quality_bench`` with
+    QUALITY_ARGS, in-process: both arms' held-out macro AUC and APR
+    beside the JAX package's CPU figures, each AUC >= QUALITY_GATE.
+    Returns its K3 launches (MPQE's validation rounds)."""
+    import os
+
+    from mpqe_tpu_torch.tools import quality_bench
+
+    tgt_counters(reset=True)
+    lines = run_cli(quality_bench.main,
+                    QUALITY_ARGS + ["--out", os.path.join(tmp, "quality"),
+                                    "--device", str(device)],
+                    f"quality {' '.join(QUALITY_ARGS)}")
+    n3 = tgt_counters()[2]
+    arms = {r["model"]: r for r in (json.loads(ln) for ln in lines
+                                    if ln.startswith("{"))}
+    for model, (seed0, spread) in JAX_CPU_QUALITY.items():
+        r = arms[model]
+        log(f"quality {model}: macro_auc={r['auc_macro']:.4f} "
+            f"macro_apr={r['apr_macro']:.2f} (JAX package on a CPU: seed 0 "
+            f"{seed0}, seeds 0-2 {spread}; gate >= {QUALITY_GATE})")
+    log(f"quality: K3 launches {n3} (MPQE validation rounds)")
+    if not all(arms[m]["auc_macro"] >= QUALITY_GATE
+               for m in JAX_CPU_QUALITY) or n3 == 0:
+        raise AssertionError(f"quality: {arms}")
+    return n3
+
+
 def build_kernels() -> None:
     """Build the seven kernel libraries at once (one nvcc each, in
     parallel) and print what ptxas reports of registers and spills."""
@@ -3569,6 +3950,21 @@ def main() -> int:
                     then=lambda d: (phase_eval_cli(d), phase_serve_cli(d),
                                     check_bibox_w(d)), label="gqe.cli")
     log(f"gqe phases {time.perf_counter() - t_gqe:.1f} s")
+
+    import tempfile
+
+    t_data = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_launches = [phase_data_npz(kg, tmp, device)]
+        del kg
+        data_launches.append(phase_data_pkl(tmp, device))
+        data_launches.append((0, 0, phase_quality(tmp, device)))
+    k1 += sum(n[0] for n in data_launches)
+    k2 += sum(n[1] for n in data_launches)
+    launches += sum(n[2] for n in data_launches)
+    log(f"data phases {time.perf_counter() - t_data:.1f} s; their launches "
+        f"(K1, K2, K3): npz {data_launches[0]}, pkl {data_launches[1]}, "
+        f"quality {data_launches[2]}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{

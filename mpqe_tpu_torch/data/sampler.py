@@ -2,8 +2,8 @@
 
 The PyTorch port's own numpy copy of ``mpqe_tpu/data/sampler.py``: the
 same seed draws the same numbers, so both packages sample identical
-queries and KGs.  The training-data helpers ``edge_queries`` and
-``make_rule_kg`` are not ported yet (ROADMAP Queue 1 item 2).
+queries, edge queries (``edge_queries``, ``all_edge_queries``) and KGs
+(``make_random_kg``, the rule-structured ``make_rule_kg``).
 
 The reference consumes pre-generated query pickles; the *generation* logic
 lives upstream in the GQE codebase (SURVEY.md §3.5).  This module rebuilds
@@ -128,6 +128,44 @@ class QuerySampler:
                     f"could not sample {structure} queries from this KG"
                 )
             out.append(q)
+        return out
+
+    def all_edge_queries(self, n_neg: int = 32) -> List[Query]:
+        """One 1-chain query per DIRECTED KG edge — the reference's
+        ``train_edges.pkl`` protocol (SURVEY.md §A.3): 1-chain training
+        covers every edge, so multi-hop held-out queries test the
+        composition of seen edges rather than unseen-edge prediction."""
+        src, rel, dst = self.kg.directed_edges()
+        return self.edge_queries(src, rel, dst, n_neg=n_neg)
+
+    def edge_queries(
+        self,
+        src: Sequence[int],
+        rel: Sequence[int],
+        dst: Sequence[int],
+        n_neg: int = 32,
+    ) -> List[Query]:
+        """1-chain queries for EXPLICIT directed edges.
+
+        Negatives exclude the full ``(head, rel)`` answer set of THIS
+        sampler's KG — pass the full graph's sampler when building
+        ``{val,test}_edges.pkl`` for held-out edges so true answers never
+        appear as negatives (reference protocol, SURVEY.md §A.4)."""
+        out: List[Query] = []
+        answers_cache: dict = {}
+        for h, r, t in zip(src, rel, dst):
+            h, r, t = int(h), int(r), int(t)
+            if (r, h) not in answers_cache:
+                answers_cache[(r, h)] = set(
+                    int(x) for x in self.kg.neighbors(r, h))
+            t_mode = int(self.kg.rel_id_modes(r)[1])
+            formula = Formula(
+                "1-chain", (r,), (int(self.kg.entity_mode[h]), t_mode))
+            answers = answers_cache[(r, h)]
+            if t not in answers:  # held-out edge: exclude t too, without
+                answers = answers | {t}  # copying per own-KG edge (hubs!)
+            negs = self._sample_negatives(t_mode, answers, n_neg)
+            out.append(Query(formula, (h,), t, negs, ()))
         return out
 
     # ------------------------------------------------------------------
@@ -284,6 +322,141 @@ def make_random_kg(
         [by_mode[rel_range[r]][rng.integers(len(by_mode[rel_range[r]]))] for r in rels]
     )
     triples = np.stack([heads, rels, tails], axis=1).astype(np.int32)
+    triples = np.unique(triples, axis=0)
+    return make_knowledge_graph(
+        triples,
+        entity_mode,
+        n_base_rels,
+        rel_domain=rel_domain,
+        rel_range=rel_range,
+    )
+
+
+def make_rule_kg(
+    n_entities: int = 600,
+    n_modes: int = 3,
+    n_base_rels: int = 6,
+    out_degree: int = 2,
+    seed: int = 0,
+    variant: str = "torus",
+    noise: float = 0.0,
+    seg_width: int = 8,
+) -> KnowledgeGraph:
+    """A rule-structured KG with LEARNABLE deterministic relations.
+
+    Entities of each mode sit on a g x g torus grid (a shared latent
+    geometry); relation r maps grid point p in its domain mode to
+    ``p + delta_{r,k}`` (mod g) in its range mode, for ``out_degree``
+    fixed shift vectors delta.  The edge set is thus generated by a few
+    global rules: embeddings can discover the latent coordinates from the
+    (fully observed) 1-chain edges, after which unseen multi-hop
+    COMPOSITIONS follow from the geometry — held-out compositional AUC
+    has a ~1.0 ceiling.  (A random-permutation relation would be
+    incompressible: no model could generalize to held-out compositions.)
+
+    This is the quality-benchmark substrate for the MPQE-vs-GQE
+    comparison (reference protocol SURVEY.md §A.4).  Unlike :func:`make_random_kg`, whose
+    (anchor, relation) -> answer mappings are unpredictable noise.
+
+    ``variant`` selects the rule family (the
+    torus shifts ARE linear maps, the exact inductive bias of GQE's
+    bilinear decoder, so that substrate favors GQE by construction):
+
+    * ``"torus"`` — p -> p + delta (translations; linear maps).
+    * ``"warp"``  — piecewise translations: the shift applied at p
+      depends on the parity of (i + j), so the relation is a
+      deterministic, compositional rule that is NOT a single affine map
+      of the latent coordinates.
+    * ``"band"``  — many-to-many: even relations map p to the whole
+      torus COLUMN i + a_r, odd relations to the whole ROW j + b_r
+      (out-degree g).  Single chains are maximally ambiguous (g
+      answers); a row x column intersection pins ONE cell — the regime
+      where encoder-side intersection expressiveness dominates.
+    * ``"band_seg"`` — band's set-valued character at BOUNDED
+      out-degree (``seg_width``), so it scales to AM-size entity counts
+      without band's g^3 edge blowup (1M entities under full band would
+      need ~1e11 edges): even relations map p=(i, j) to the column
+      SEGMENT {(i + a_r, j + t) : t < seg_width}, odd relations to the
+      row segment {(i + t, j + b_r)}.  Chains stay ambiguous
+      (seg_width answers per hop); a column x row segment intersection
+      pins ~one cell: the high-ceiling substrate at AM scale.
+
+    ``noise`` rewires that fraction of tails uniformly within the range
+    mode (incompressible edges; hurts every model's ceiling, but chained
+    compositions amplify it differently per encoder).
+    """
+    rng = np.random.default_rng(seed)
+    per_mode = n_entities // n_modes
+    g = int(np.floor(np.sqrt(per_mode)))
+    per_mode = g * g  # truncate to a full grid
+    n_entities = per_mode * n_modes
+    entity_mode = np.repeat(
+        np.arange(n_modes), per_mode).astype(np.int32)
+    base = np.arange(n_modes) * per_mode  # first entity id of each mode
+
+    rel_domain = np.asarray(
+        [r % n_modes for r in range(n_base_rels)], np.int32)
+    rel_range = np.asarray(
+        [(r + 1 + (r // n_modes)) % n_modes for r in range(n_base_rels)],
+        np.int32,
+    )
+    idx = np.arange(per_mode)
+    gi, gj = idx % g, idx // g
+    heads, rels, tails = [], [], []
+
+    def emit(r, ti, tj):
+        heads.append(base[rel_domain[r]] + idx)
+        rels.append(np.full(per_mode, r))
+        tails.append(base[rel_range[r]] + ti % g + (tj % g) * g)
+
+    for r in range(n_base_rels):
+        if variant == "torus":
+            for a, b in rng.integers(0, g, size=(out_degree, 2)):
+                emit(r, gi + a, gj + b)
+        elif variant == "warp":
+            for k in range(out_degree):
+                (a0, b0), (a1, b1) = rng.integers(0, g, size=(2, 2))
+                odd = (gi + gj) % 2
+                emit(r, gi + np.where(odd, a1, a0),
+                     gj + np.where(odd, b1, b0))
+            # force distinguishable parities: without this, entities
+            # within one parity class are related identically and the
+            # branch is unlearnable from edges alone — add one plain
+            # shift so coordinates stay identifiable
+            a, b = rng.integers(0, g, size=2)
+            emit(r, gi + a, gj + b)
+        elif variant == "band":
+            off = int(rng.integers(0, g))
+            # orientation alternates every n_modes relations so the two
+            # relations sharing a RANGE mode (r and r + n_modes under the
+            # range formula above) are crossed — their 2-inter pins a
+            # single cell instead of a whole line
+            if (r // n_modes) % 2 == 0:  # whole column i + off
+                for line in range(g):
+                    emit(r, gi + off, np.full(per_mode, line))
+            else:  # whole row j + off
+                for line in range(g):
+                    emit(r, np.full(per_mode, line), gj + off)
+        elif variant == "band_seg":
+            w = min(seg_width, g)
+            off = int(rng.integers(0, g))
+            if (r // n_modes) % 2 == 0:  # column segment at i + off
+                for t in range(w):
+                    emit(r, gi + off, gj + t)
+            else:  # row segment at j + off
+                for t in range(w):
+                    emit(r, gi + t, gj + off)
+        else:
+            raise ValueError(f"unknown rule-KG variant {variant!r}")
+    triples = np.stack(
+        [np.concatenate(heads), np.concatenate(rels), np.concatenate(tails)],
+        axis=1,
+    ).astype(np.int32)
+    if noise > 0.0:
+        flip = rng.random(triples.shape[0]) < noise
+        rr = rel_range[triples[flip, 1]]
+        triples[flip, 2] = (base[rr] + rng.integers(
+            0, per_mode, size=int(flip.sum()))).astype(np.int32)
     triples = np.unique(triples, axis=0)
     return make_knowledge_graph(
         triples,

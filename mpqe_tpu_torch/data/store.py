@@ -5,8 +5,9 @@ Each (formula -> query list) collapses once into flat numpy arrays —
 anchors ``[n_q, n_anchors]``, targets ``[n_q]``, CSR negative pools —
 which :func:`pack_dense_batch_np` turns into dense batches with no
 Python-object work per step.  Numpy only: the same seed gives the same
-arrays as the reference, exactly.  The reference's C++ packer binding
-and ``stores_from_edges`` are not ported yet (ROADMAP Queue 1 item 2).
+arrays as the reference, exactly.  :func:`stores_from_edges` builds the
+raw-edge 1-chain stores straight from a KG's arrays.  The reference's C++
+packer binding is not ported yet (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -100,6 +101,67 @@ def build_stores(
             stores.append(build_formula_store(f, qs, fallback_pool=fb))
         out[s] = stores
     return out
+
+
+def stores_from_edges(
+    kg, exclude_answers: bool = True
+) -> Dict[str, List[FormulaStore]]:
+    """Raw-edge 1-chain training stores straight from the KG's triple
+    arrays — zero per-edge Python objects (the 100M-edge scale path for
+    the reference's ``train_edges.pkl`` protocol, SURVEY.md §A.3).
+
+    One store per directed relation (anchors = sources, targets =
+    destinations); negatives come from the shared same-mode fallback
+    pool at pack time, EXCLUDING the full (head, rel) answer set — the
+    reference's train_edges protocol (SURVEY.md §A.4).  The exclusion
+    structure is the relation block itself regrouped by head (storage
+    O(edges)).  ``exclude_answers=False`` skips building it (one lexsort
+    per relation block — worth skipping only at extreme scale, where the
+    false-negative rate ~ answer-set-size / mode-size is negligible
+    anyway).  Pass the result as ``run_train``'s ``train_stores``."""
+    src, rel, dst = kg.directed_edges()
+    order = np.argsort(rel, kind="stable")
+    src = np.ascontiguousarray(src[order], np.int32)
+    rel = np.ascontiguousarray(rel[order], np.int32)
+    dst = np.ascontiguousarray(dst[order], np.int32)
+    bounds = np.searchsorted(rel, np.arange(kg.n_rels + 1))
+    stores: List[FormulaStore] = []
+    mode_pools: Dict[int, np.ndarray] = {}  # shared across stores
+    for r in range(kg.n_rels):
+        lo, hi = int(bounds[r]), int(bounds[r + 1])
+        if hi == lo:
+            continue
+        dm, rm = kg.rel_id_modes(r)
+        if int(rm) not in mode_pools:
+            mode_pools[int(rm)] = np.ascontiguousarray(
+                kg.entities_of_mode(int(rm)), np.int32)
+        n = hi - lo
+        # answer groups: one per unique head; each edge (query) points
+        # at its head's group, whose slice is that head's full tail set
+        s_blk, d_blk = src[lo:hi], dst[lo:hi]
+        ans_pool = ans_ptr = ans_idx = None
+        if exclude_answers:
+            grp_order = np.lexsort((d_blk, s_blk))
+            s_sorted = s_blk[grp_order]
+            ans_pool = np.ascontiguousarray(d_blk[grp_order])
+            heads, inv = np.unique(s_sorted, return_inverse=True)
+            ans_ptr = np.zeros(len(heads) + 1, np.int64)
+            np.add.at(ans_ptr, inv + 1, 1)
+            np.cumsum(ans_ptr, out=ans_ptr)
+            # ans_idx aligned to QUERY order (the unsorted block)
+            ans_idx = np.searchsorted(heads, s_blk).astype(np.int32)
+        stores.append(FormulaStore(
+            formula=Formula("1-chain", (int(r),), (int(dm), int(rm))),
+            anchors=np.ascontiguousarray(s_blk[:, None]),
+            targets=d_blk,
+            neg_pool=np.zeros(0, np.int32),
+            neg_ptr=np.zeros(n + 1, np.int64),
+            hard_pool=np.zeros(0, np.int32),
+            hard_ptr=np.zeros(n + 1, np.int64),
+            fallback_pool=mode_pools[int(rm)],
+            ans_pool=ans_pool, ans_ptr=ans_ptr, ans_idx=ans_idx,
+        ))
+    return {"1-chain": stores}
 
 
 def pack_dense_batch_np(

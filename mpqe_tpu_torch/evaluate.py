@@ -7,19 +7,24 @@ config, restores the checkpoint (``--ckpt``, else the latest) and prints
 one JSON line ``{"checkpoint", "step", "use", **EvalResult.flat()}`` (AUC
 and APR per structure, through ``evaluate_batched``), then with
 ``--ranking`` one ``{"ranking": structure, "mrr", "mean_rank",
-"hits@K"...}`` line per structure (``full_ranking``).  ``--use test``
-scores a fresh draw of the same size from the disjoint sampler seed
-``seed + 7919``, as the reference does for synthetic data.
+"hits@K"...}`` line per structure (``full_ranking``), then with
+``--split`` one ``{"bucket": "seen_edges" | "one_new_edge", "n", ...}``
+line per non-empty bucket of ``split_one_new_edge`` against the run's KG
+(the reference's generalization split).  ``--use test`` scores a
+``pkl:`` dataset's ``test_{edges,queries_2,queries_3}.pkl`` (and exits
+when it has none); for synthetic and ``npz:`` data, a fresh draw of the
+same size from the disjoint sampler seed ``seed + 7919``, as the
+reference does.
 
 MPQE and GQE run dirs alike; a GQE neighborhood model's neighbor table is
 rebuilt from the run's ``gqe_fanout`` and ``seed``, as it was trained.
 Runs on the card unless told otherwise (``--device cpu``); with no card
-and no ``--device cpu`` it raises.  Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: ``--split`` (needs
-``data/loader.py:split_one_new_edge``, item 2) and ``--shards > 1`` (the
-sharded ranking, item 8).
+and no ``--device cpu`` it raises.  Not ported yet: ``--shards > 1`` (the
+sharded ranking), raising ``NotImplementedError`` naming ROADMAP Queue 1
+item 8.
 
   python -m mpqe_tpu_torch.evaluate --run_dir runs/xyz --ranking
+  python -m mpqe_tpu_torch.evaluate --run_dir runs/xyz --use test --split
   python -m mpqe_tpu_torch.evaluate --run_dir runs/xyz --use test \\
       --device cpu
 """
@@ -32,6 +37,7 @@ import os
 
 import torch
 
+from mpqe_tpu_torch.data import loader as loader_mod
 from mpqe_tpu_torch.models import build_model
 from mpqe_tpu_torch.queries import group_queries_by_formula
 from mpqe_tpu_torch.serve import config_from_json, resolve_device
@@ -50,8 +56,11 @@ def parse_args(argv=None):
     p.add_argument("--ckpt", default=None,
                    help="defaults to the latest in run_dir/ckpt")
     p.add_argument("--split", action="store_true",
-                   help="seen-edges vs one-new-edge buckets (not ported)")
-    p.add_argument("--use", default="val", choices=["val", "test"])
+                   help="report seen-edges vs one-new-edge buckets")
+    p.add_argument("--use", default="val", choices=["val", "test"],
+                   help="which held-out set to score: val (default) or "
+                        "the test split (test_*.pkl for pkl: data, a "
+                        "fresh disjoint-seed draw otherwise)")
     p.add_argument("--n_neg", type=int, default=64)
     p.add_argument("--ranking", action="store_true",
                    help="also report full-candidate MRR / Hits@K per "
@@ -66,10 +75,6 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if args.split:
-        raise NotImplementedError(
-            "--split: not ported yet; it needs data/loader.py "
-            "(split_one_new_edge), ROADMAP Queue 1 item 2")
     if args.shards > 1:
         raise NotImplementedError(
             "--shards > 1: not ported yet; the sharded ranking is ROADMAP "
@@ -78,8 +83,9 @@ def _refuse_unported(args) -> None:
 
 def load_run_data(run_cfg: dict, use: str):
     """(kg, the held-out queries) exactly as the run saw them; ``use ==
-    "test"`` draws fresh queries, as many per structure as the val draw,
-    from ``QuerySampler(kg, seed + 7919)``."""
+    "test"`` reads a ``pkl:`` dataset's test split, and for other data
+    draws fresh queries, as many per structure as the val draw, from
+    ``QuerySampler(kg, seed + 7919)``."""
     from mpqe_tpu_torch.data.sampler import QuerySampler
     from mpqe_tpu_torch.train import __main__ as train_cli
 
@@ -87,7 +93,13 @@ def load_run_data(run_cfg: dict, use: str):
         [f"--{k}" if v is True else f"--{k}={v}"
          for k, v in run_cfg.items() if k in DATA_KEYS and v is not None])
     kg, _, val_q = train_cli.load_data(targs)
-    if use == "test":
+    if use == "test" and targs.data.startswith("pkl:"):
+        d = targs.data[4:]
+        test_q = loader_mod.load_split_queries(d, kg, "test")
+        if not test_q:
+            raise SystemExit(f"--use test: no test_*.pkl under {d}")
+        val_q = test_q
+    elif use == "test":
         sampler = QuerySampler(kg, seed=targs.seed + 7919)
         per_s = max(1, targs.syn_val_queries // max(len(val_q), 1))
         fresh = []
@@ -153,6 +165,19 @@ def main(argv=None):
                                      hits_at=hits, neighbor_table=nbr)
         for structure, m in rk.items():
             print(json.dumps({"ranking": structure, **m}), flush=True)
+    if args.split:
+        flat = [q for by_f in val_q.values() for qs in by_f.values()
+                for q in qs]
+        seen, new = loader_mod.split_one_new_edge(flat, kg)
+        for name, bucket in (("seen_edges", seen), ("one_new_edge", new)):
+            if not bucket:
+                continue
+            r = evaluation.evaluate_batched(
+                model, cfg,
+                evaluation.make_eval_set(group_queries_by_formula(bucket)),
+                n_neg=args.n_neg, neighbor_table=nbr)
+            print(json.dumps({"bucket": name, "n": len(bucket),
+                              **r.flat()}), flush=True)
 
 
 if __name__ == "__main__":

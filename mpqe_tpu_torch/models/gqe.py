@@ -400,7 +400,7 @@ def _min_over(scores: List[torch.Tensor]) -> torch.Tensor:
     return torch.amin(torch.stack(scores, dim=0), dim=0)
 
 
-def _score_rep(cfg: GQEConfig, rep, cand: torch.Tensor,
+def score_rep(cfg: GQEConfig, rep, cand: torch.Tensor,
                expand: bool) -> torch.Tensor:
     """Score one representation against candidate rows ``cand`` (``[B,
     d]``, or ``[B, K, d]`` with ``expand``)."""
@@ -419,9 +419,9 @@ def _score_branches(cfg: GQEConfig, model: GQE, branches, cand, expand):
     """SoftAnd: the minimum over the branches' scores; otherwise the
     score of their intersection."""
     if cfg.soft_and:
-        return _min_over([_score_rep(cfg, b, cand, expand)
+        return _min_over([score_rep(cfg, b, cand, expand)
                           for b in branches])
-    return _score_rep(cfg, _intersect_any(cfg, model, branches), cand, expand)
+    return score_rep(cfg, _intersect_any(cfg, model, branches), cand, expand)
 
 
 def score_pos_neg(model: GQE, cfg: GQEConfig, structure: str,

@@ -35,8 +35,16 @@ else the latest) and, for a GQE neighborhood model, its neighbor table
 from ``gqe_fanout`` and ``seed``; the ``--syn_*`` and ``--seed`` flags are
 then not read.  ``--state_dict`` and ``--init_seed`` serve MPQE models
 only (a GQE model is served from its run dir, as the root CLI serves
-it).  The root CLI's ``--http``, ``--answer`` and ``--table_dtype`` are
-not ported (ROADMAP Queue 1 item 6), nor is ``--shards`` (item 8).
+it).  ``--answer QUERIES_PKL --out FILE.npz`` is the root CLI's bulk
+offline mode: it answers every query of a GQE-format queries pickle
+(relation ids in the served KG's vocabulary), writes ``entity_ids [N,
+k]``, ``scores [N, k]``, ``structure [N]`` and ``target [N]`` and prints
+one JSON line with its wall time, queries/s and hit@k, instead of the
+sampled stream.  The root CLI's ``--http`` and ``--table_dtype`` are not
+ported (ROADMAP Queue 1 item 6), nor is ``--shards`` (item 8).
+
+  python -m mpqe_tpu_torch.serve --run_dir runs/xyz \\
+      --answer /data/AIFB/test_queries_3.pkl --out answers.npz
 """
 
 from __future__ import annotations
@@ -287,6 +295,13 @@ def parse_args(argv=None):
     p.add_argument("--batch", type=int, default=1,
                    help="queries per request")
     p.add_argument("--structures", default="1-chain,2-chain,2-inter")
+    p.add_argument("--answer", default=None, metavar="QUERIES_PKL",
+                   help="bulk offline mode: answer every query in a GQE-"
+                        "format queries pickle and write top-k ids/scores "
+                        "to --out (.npz); skips the latency benchmark")
+    p.add_argument("--out", default=None,
+                   help=".npz output for --answer (entity_ids [N,k], "
+                        "scores [N,k], structure [N], target [N])")
     p.add_argument("--device", default="cuda",
                    help="torch device; the card unless told otherwise")
     model = p.add_mutually_exclusive_group(required=True)
@@ -374,16 +389,54 @@ def _from_flags(args, device):
     return cfg, kg, model, args.state_dict, None
 
 
+def answer_pickle(server: QueryServer, kg, path: str, out: str, k: int,
+                  batch: int, checkpoint) -> dict:
+    """``--answer``: every query of the pickle at ``path`` answered in
+    one bulk request after warming each of its structures' buckets up to
+    ``max_batch``; the top-k written to ``out`` (.npz).  Returns the
+    printed record."""
+    from mpqe_tpu_torch.data import loader as loader_mod
+
+    grouped = loader_mod.load_queries_pickle(path, kg)
+    flat = [q for by_f in grouped.values() for qs in by_f.values()
+            for q in qs]
+    if not flat:
+        raise SystemExit(f"--answer: no queries in {path}")
+    # answer() chunks at max_batch, so no larger bucket is ever dispatched
+    server.warmup(sorted(grouped),
+                  batch=min(max(batch, len(flat)), server.max_batch), k=k)
+    t0 = time.perf_counter()
+    answers = server.answer(flat, k=k)
+    dt = time.perf_counter() - t0
+    np.savez(out,
+             entity_ids=np.stack([a.entity_ids for a in answers]),
+             scores=np.stack([a.scores for a in answers]),
+             structure=np.asarray([q.formula.structure for q in flat]),
+             target=np.asarray([q.target for q in flat], np.int32))
+    hits = sum(int(q.target in a.entity_ids.tolist())
+               for q, a in zip(flat, answers))
+    return {"checkpoint": checkpoint, "queries": len(flat), "k": k,
+            "out": out, "seconds": dt, "queries_per_s": len(flat) / dt,
+            "hit_at_k": hits / len(flat)}
+
+
 def main(argv=None):
     from mpqe_tpu_torch.data.sampler import QuerySampler
 
     args = parse_args(argv)
+    if args.answer and not args.out:
+        raise SystemExit("--answer requires --out <file.npz>")
     device = resolve_device(args.device)
     cfg, kg, model, checkpoint, nbr = (
         _from_run_dir if args.run_dir is not None else _from_flags)(args,
                                                                    device)
     server = QueryServer(model, cfg, kg.entity_mode, device=device,
                          neighbor_table=nbr)
+    if args.answer:
+        print(json.dumps(answer_pickle(server, kg, args.answer, args.out,
+                                       args.k, args.batch, checkpoint)),
+              flush=True)
+        return
 
     structures = args.structures.split(",")
     server.warmup(structures, batch=args.batch, k=args.k)

@@ -9,7 +9,12 @@ stops the loop at a step boundary, saves the final checkpoint and exits
 0; ``--resume`` continues from the latest checkpoint.  The last line is
 ``final step=... macro_auc=... macro_apr=...``.
 
-``--data synthetic`` only.  ``--model rgcn`` trains MPQE; ``--model gqe``
+``--data synthetic`` samples a random KG, ``--data npz:<kg.npz>`` a KG
+file, and ``--data pkl:<dir>`` reads a GQE-layout dataset directory (from
+``python -m mpqe_tpu_torch.tools.prepare_dataset``); a ``pkl:`` dataset
+without 1-chain training queries trains 1-chain on every edge of its
+graph (``stores_from_edges``; ``metrics.jsonl`` logs
+``raw_edge_1chain_derived``).  ``--model rgcn`` trains MPQE; ``--model gqe``
 and ``gqe_softand`` train the GQE baselines (``--decoder``,
 ``--intersection``, ``--gqe_encoder``, ``--gqe_aggregator``,
 ``--gqe_fanout``, ``--bibox_w``), through the dense path only, as in the
@@ -21,6 +26,8 @@ card).  Every flag whose feature is not ported yet raises
   python -m mpqe_tpu_torch.train --data synthetic --kernel fused_fwd \\
       --fused_backward pallas --num_bases 16 --steps 2000
   python -m mpqe_tpu_torch.train --kernel blocked --num_bases 16
+  python -m mpqe_tpu_torch.train --data pkl:/data/AIFB --kernel fused_fwd \\
+      --fused_backward pallas --num_bases 16
   python -m mpqe_tpu_torch.train --device cpu --embed_dim 16 --steps 20
   python -m mpqe_tpu_torch.train --parallel halo_ring --num_bases 16
   python -m mpqe_tpu_torch.train --model gqe_softand --decoder bibox \\
@@ -152,8 +159,6 @@ def _refuse_unported(args) -> None:
          "make_multistep_train_step is ROADMAP Queue 1 item 2"),
         (args.dtype != "float32", f"--dtype {args.dtype}",
          "non-float32 model dtypes are ROADMAP Queue 1 item 5"),
-        (args.data != "synthetic", f"--data {args.data}",
-         "data/loader.py is ROADMAP Queue 1 item 2"),
         (args.trace > 0, "--trace",
          "a torch.profiler trace window is ROADMAP Queue 1 item 9"),
     ]
@@ -188,24 +193,64 @@ def _register_custom_structures(path: str) -> None:
 
 
 def load_data(args):
+    """(kg, train queries, val queries) of ``--data``, as ``train.py``'s
+    ``load_data``: ``synthetic`` and ``npz:<file>`` sample queries over
+    the KG; ``pkl:<dir>`` reads a prepared GQE-layout directory
+    (``graph_data.pkl``, ``{train,val}_{edges,queries_2,queries_3}.pkl``).
+    """
+    from mpqe_tpu_torch.data import loader as loader_mod
+
     if args.custom_structures:
         _register_custom_structures(args.custom_structures)
     structures = (
         list(STRUCTURE_NAMES) if args.structures == "all"
         else (["1-chain", "2-chain", "3-chain"] if args.structures == "chains"
               else args.structures.split(",")))
-    kg = make_random_kg(n_entities=args.syn_entities, n_modes=args.syn_modes,
-                        n_base_rels=args.syn_rels, n_triples=args.syn_triples,
-                        seed=args.seed)
-    sampler = QuerySampler(kg, seed=args.seed)
-    per_s_train = max(1, args.syn_train_queries // len(structures))
-    per_s_val = max(1, args.syn_val_queries // len(structures))
-    train_q, val_q = [], []
-    for s in structures:
-        train_q += sampler.sample_queries(s, per_s_train, n_neg=32)
-        val_q += sampler.sample_queries(s, per_s_val, n_neg=64)
-    return (kg, group_queries_by_formula(train_q),
-            group_queries_by_formula(val_q))
+    if args.data == "synthetic" or args.data.startswith("npz:"):
+        if args.data == "synthetic":
+            kg = make_random_kg(
+                n_entities=args.syn_entities, n_modes=args.syn_modes,
+                n_base_rels=args.syn_rels, n_triples=args.syn_triples,
+                seed=args.seed)
+        else:
+            kg = loader_mod.load_kg_npz(args.data[4:])
+        sampler = QuerySampler(kg, seed=args.seed)
+        per_s_train = max(1, args.syn_train_queries // len(structures))
+        per_s_val = max(1, args.syn_val_queries // len(structures))
+        train_q, val_q = [], []
+        for s in structures:
+            train_q += sampler.sample_queries(s, per_s_train, n_neg=32)
+            val_q += sampler.sample_queries(s, per_s_val, n_neg=64)
+        return (kg, group_queries_by_formula(train_q),
+                group_queries_by_formula(val_q))
+    if args.data.startswith("pkl:"):
+        d = args.data[4:]
+        kg, _, _ = loader_mod.load_graph_pickle(
+            os.path.join(d, "graph_data.pkl"))
+        # 1-chain data comes from {train,val}_edges.pkl; without
+        # train_edges.pkl, main() derives the 1-chain training stores
+        # from the train graph's edges (stores_from_edges)
+        train_q = loader_mod.load_split_queries(d, kg, "train")
+        val_q = loader_mod.load_split_queries(d, kg, "val")
+        return kg, train_q, val_q
+    raise ValueError(f"unknown --data {args.data}")
+
+
+def raw_edge_stores(args, kg, train_q):
+    """The training stores of a ``pkl:`` dataset that ships no 1-chain
+    training queries while 1-chain is trained: ``build_stores`` of its
+    queries plus one raw-edge store per directed relation
+    (``stores_from_edges``), as ``train.py`` derives them; else None."""
+    from mpqe_tpu_torch.data.store import build_stores, stores_from_edges
+
+    want_1chain = (args.structures in ("all", "chains")
+                   or "1-chain" in args.structures.split(","))
+    if not (args.data.startswith("pkl:") and want_1chain
+            and "1-chain" not in train_q):
+        return None
+    stores = build_stores(train_q, kg=kg)
+    stores.update(stores_from_edges(kg))
+    return stores
 
 
 def _refuse_parallel_combinations(args) -> None:
@@ -294,7 +339,11 @@ def main(argv=None):
     metrics = MetricsWriter(run_dir)
     metrics.write_config(vars(args))
 
+    t0 = time.perf_counter()
     kg, train_q, val_q = load_data(args)
+    metrics.log({"event": "data_loaded", "data": args.data,
+                 "seconds": time.perf_counter() - t0,
+                 "n_entities": kg.n_entities, "n_triples": kg.n_triples})
     init_fn = neighbor_table = None
     if args.model == "rgcn":
         cfg = mpqe_mod.MPQEConfig(
@@ -339,6 +388,11 @@ def main(argv=None):
         else:
             metrics.log({"event": "resume_requested_no_checkpoint"})
     manager = ckpt_mod.CheckpointManager(ckpt_dir, keep_best=args.keep_best)
+    train_stores = raw_edge_stores(args, kg, train_q)
+    if train_stores is not None:
+        metrics.log({"event": "raw_edge_1chain_derived",
+                     "edge_queries": sum(
+                         s.n_queries for s in train_stores["1-chain"])})
 
     def checkpoint_fn(st, metric):
         path = manager.save(st, metric=metric)
@@ -359,7 +413,8 @@ def main(argv=None):
             state, cfg, tc, train_q, val_queries=val_q,
             should_stop=stop_event.is_set, log_fn=metrics.log,
             checkpoint_fn=checkpoint_fn, batch_loss_fn=batch_loss_fn, kg=kg,
-            warmup=args.warmup, neighbor_table=neighbor_table)
+            warmup=args.warmup, neighbor_table=neighbor_table,
+            train_stores=train_stores)
         # the handler stays installed until the save is done: a second
         # SIGTERM in the grace window is swallowed, not a crash mid-save
         final_path = manager.save(state)

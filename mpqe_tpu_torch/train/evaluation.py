@@ -340,9 +340,16 @@ def _encode_and_score(model, cfg, formula: Formula, queries: Sequence[Query],
         q = encode_fn(model, cfg, b.structure, t(b.node_entity),
                       t(b.node_mode), t(b.edge_rel), t(b.edge_norm))
         ent = model.emb.ent
-        pos = mpqe_mod.score(cfg, q, mpqe_mod._entity_rows(ent, t(b.target)))
-        neg = mpqe_mod.score(cfg, q[:, None, :],
-                             mpqe_mod._entity_rows(ent, t(b.negatives)))
+        tgt = mpqe_mod._entity_rows(ent, t(b.target))
+        negs = mpqe_mod._entity_rows(ent, t(b.negatives))
+        if is_mpqe(cfg):
+            pos = mpqe_mod.score(cfg, q, tgt)
+            neg = mpqe_mod.score(cfg, q[:, None, :], negs)
+        else:
+            from mpqe_tpu_torch.models import gqe as gqe_mod
+
+            pos = gqe_mod.score_rep(cfg, q, tgt, expand=False)
+            neg = gqe_mod.score_rep(cfg, q, negs, expand=True)
     n_q = b.n_queries
     return (pos.cpu().numpy()[:n_q], neg.cpu().numpy()[:n_q],
             b.neg_mask[:n_q])
@@ -359,14 +366,17 @@ def evaluate(
     """AUC + APR per structure (macro over formulas), hard-negative AUC
     for intersections: the reference's per-formula protocol, one
     ``encode_fn`` call per formula (and one more for its hard negatives).
-    ``encode_fn`` defaults to the f32 ``encode_dense``.  MPQE models only,
-    as in the reference; the GQE baselines take :func:`evaluate_batched`."""
+    ``encode_fn`` defaults to the f32 ``encode_dense`` of an MPQE model.
+    A GQE model is evaluated here only through its own ``encode_fn`` (the
+    reference's quality benchmark passes ``gqe.encode_dense``), scored by
+    its decoder; otherwise it takes :func:`evaluate_batched`."""
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
 
-    if not is_mpqe(cfg):
+    if not is_mpqe(cfg) and encode_fn is None:
         raise ValueError(
-            f"evaluate takes an MPQEConfig, not {type(cfg).__name__}: "
-            "evaluate GQE models with evaluate_batched")
+            f"evaluate takes an MPQEConfig, not {type(cfg).__name__}, "
+            "unless encode_fn is given: evaluate GQE models with "
+            "evaluate_batched")
     if encode_fn is None:
         encode_fn = mpqe_mod.encode_dense
     auc_s: Dict[str, float] = {}

@@ -352,10 +352,20 @@ def test_evaluate_cli_refuses_unported(tmp_path, capsys):
     from mpqe_tpu_torch import evaluate as tev
 
     run = _tiny_run(tmp_path)
-    for flags, item in ((["--split"], "item 2"), (["--shards", "2"],
-                                                   "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            tev.main(["--run_dir", run, "--device", "cpu", *flags])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tev.main(["--run_dir", run, "--device", "cpu", "--shards", "2"])
+    # --split is ported: one bucket line per non-empty bucket, their n
+    # adding up to the evaluated queries (all seen: one bucket)
+    capsys.readouterr()
+    tev.main(["--run_dir", run, "--device", "cpu", "--split"])
+    head, *buckets = [json.loads(ln) for ln in
+                      capsys.readouterr().out.strip().splitlines()]
+    run_cfg = json.load(open(os.path.join(run, "config.json")))
+    _, val_q = tev.load_run_data(run_cfg, "val")
+    n_val = sum(len(qs) for by_f in val_q.values() for qs in by_f.values())
+    assert "auc_macro" in head
+    assert [(b["bucket"], b["n"]) for b in buckets] == [("seen_edges",
+                                                         n_val)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tev.main(["--run_dir", run])
@@ -375,10 +385,13 @@ def test_evaluate_cli_refuses_unported(tmp_path, capsys):
              capsys.readouterr().out.strip().splitlines()]
     assert lines[0]["step"] == 2 and "auc_macro" in lines[0]
     assert len(lines) > 1 and all("mrr" in ln for ln in lines[1:])
-    for flags, item in ((["--split"], "item 2"), (["--shards", "2"],
-                                                   "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            tev.main(["--run_dir", gqe_run, "--device", "cpu", *flags])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tev.main(["--run_dir", gqe_run, "--device", "cpu", "--shards", "2"])
+    tev.main(["--run_dir", gqe_run, "--device", "cpu", "--split"])
+    buckets = [json.loads(ln) for ln in
+               capsys.readouterr().out.strip().splitlines()][1:]
+    assert [b["bucket"] for b in buckets] == ["seen_edges"]
+    assert all("auc_macro" in b for b in buckets)
 
 
 def test_segment_launches_stay_zero_on_the_cpu():
