@@ -6,9 +6,10 @@ encoder, the full ranking, the dense training path, the sparse training
 path (``--kernel fused`` and ``--kernel blocked``), the training
 through the edge-partitioned halo layers (``--parallel halo_ring`` /
 ``halo_gather``), the GQE baselines and the data path (npz and GQE
-pickle datasets through the CLIs, and the quality benchmark) at the
-flagship width (d = 128, 3 R-GCN layers, TGT readout, 16 bases or full
-per-relation weights, 266 relations, 4 modes, 1,000,000 entities;
+pickle datasets through the CLIs, the benchmark driver ``python -m
+mpqe_tpu_torch.bench`` and the quality benchmark) at the flagship width
+(d = 128, 3 R-GCN layers, TGT readout, 16 bases or full per-relation
+weights, 266 relations, 4 modes, 1,000,000 entities;
 random weights from a seed) and checks every
 hand-written kernel on them.  The seven kernel libraries build in
 parallel (one nvcc each), then:
@@ -44,7 +45,16 @@ parallel (one nvcc each), then:
    it, a repeat launch bit-equal; K1 vs the f32 ``encode_dense`` (<=
    3e-2); K2's parameter gradients (through the differentiable weight
    assembly) vs autograd of the f32 encoder within the reference's depth
-   tolerances.  Times both kernels at B = 512 and
+   tolerances.  K1's variants on the same batches (``kernel.fused_tgt.
+   variants``): ``out_bf16`` bit-equal to K1's own f32 output rounded to
+   bf16; ``fold_bias`` (layer 0's bias in W_0, biases nonzero) under
+   ``chain_gate`` against its plain version, within 1e-2 of the unfolded
+   K1 (the reference's own tolerance), its control (the folded bias row
+   zeroed in the plain version) failing the gate; K2 on ``fold_bias``'s
+   operands and block list (the folded bias row's gradient is layer 0's
+   bias gradient) under ``chain_gate`` against its plain version, both
+   controls failing; repeats bit-equal.
+   Times both kernels (and K1's variants) at B = 512 and
    B = 131,072 (L2 flushed before each launch: the optimizer update
    between two steps streams GBs), CUDA events around the wrapper and the
    kernels' own device time (torch.profiler), beside the bound and, as a
@@ -196,14 +206,26 @@ parallel (one nvcc each), then:
    (ids of each query's target mode, sorted scores, ids equal to an
    in-process ``QueryServer.answer`` of the same queries, scores within
    1e-4; wall time and queries/s).
-20. ``quality``: ``python -m mpqe_tpu_torch.tools.quality_bench --steps
+20. ``bench``: ``python -m mpqe_tpu_torch.bench`` as a subprocess with
+   ``MPQE_BENCH_MATRIX=1 MPQE_BENCH_KERNELS=1`` at
+   its full shapes (K1 at B = 131,072 and its ``out_bf16`` variant, the
+   dense f32 step, the four configs, the step through each of the four
+   ``--kernel`` paths, each path's device time by kernel): its log (each
+   row's peak memory) and its JSON line printed; the line must
+   hold the reference's keys, a finite positive ``value`` and
+   ``vs_baseline``, a K1 route as ``fwd_impl``, ``edge_msgs_per_fwd`` =
+   131,072 x 4, a roofline fraction in (0, 1.05], no broken timing and
+   every config and kernel-path row timed, none with an ``error``.
+21. ``quality``: ``python -m mpqe_tpu_torch.tools.quality_bench --steps
    2000 --dim 128 --bases 16 --train_per_structure 1000
    --val_per_structure 100`` in-process: both arms' held-out macro AUC
    and APR beside the JAX package's CPU figures of the same command,
    each AUC >= 0.70.
 
 Prints the card's name and power limit first, then one line per check,
-a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
+a JSON line ``{"kernels": [...]}`` (K1's entry, ``tgt_mma_forward``,
+carries its variants' figures under ``variants``: one kernel, its
+launches counted together) and, last, ``{"ok": true, "device":
 {...}}``.  Any failed check raises and the exit code is nonzero.  Needs
 one CUDA card and the repository's sources (it builds the kernels).
 
@@ -214,12 +236,15 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from mpqe_tpu_torch.utils.profiling import bound_times, chain_work
 
 TOL_PLAIN = 1e-4  # kernel vs its plain version: same function, sum order
 TOL_F32 = 3e-2  # kernel vs the float32 encoder: bf16 operands
@@ -236,10 +261,6 @@ TOL_SCORE = 1e-4  # served top-k scores vs the plain recomputation
 # precisions, mpqe_tpu/ops/pallas_fused_fwd.py:549-557).  The max-element
 # figure is printed beside the gate.
 TOL_GRAD_BY_DEPTH = {1: 3e-2, 2: 8e-2, 3: 2.5e-1}
-H100_BF16_FLOPS = 989e12  # dense tensor-core peak (H100 SXM data sheet)
-H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak (the same sheet)
-H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
-H100_BYTES_PER_S = 3.35e12
 L2_FLUSH_BYTES = 512 << 20  # > the 50 MB L2
 PROFILE_TRIES = 3
 
@@ -384,20 +405,6 @@ def k3_work(cfg, structure: str, node_entity, node_mode, edge_rel_q):
         mma += 2 * d * d * len(self_mm) + 2 * d * nb * d * len(msg_mm)
         f32 += len(edges) * (2 * nb * d + 2 * d) + len(out_slots) * 2 * d
     return nbytes, B * mma, B * f32
-
-
-def bound_times(work) -> tuple:
-    """(ms for the bytes, ms for the operations) on the card's peaks; the
-    bf16 tensor-core and f32 pipes run side by side, so the operations
-    take the longer of the two.  A fourth entry (K5) is the TF32 FLOP of
-    another route to the same f32 products (split TF32 on the tensor
-    cores): the f32 FLOP take the faster of the two routes."""
-    nbytes, mma, f32 = work[:3]
-    t_f32 = f32 / H100_F32_FLOPS
-    if len(work) > 3:
-        t_f32 = min(t_f32, work[3] / H100_TF32_FLOPS)
-    return (nbytes / H100_BYTES_PER_S * 1e3,
-            max(mma / H100_BF16_FLOPS, t_f32) * 1e3)
 
 
 def random_inputs(gen: torch.Generator, cfg, structure: str, B: int, device):
@@ -699,56 +706,137 @@ def shared_inputs(gen: torch.Generator, cfg, structure: str, B: int):
             0.5 + torch.rand((spec.n_edges,), generator=gen, device=dev))
 
 
-def chain_operands(model, cfg, structure: str, args):
-    """K1/K2's operands for a batch: (x0, ws, bs, n_anchor_cols, d_pad)."""
+def chain_operands(model, cfg, structure: str, args, fold_bias=False):
+    """K1/K2's operands for a batch: (x0, ws, bs, n_anchor_cols, d_pad);
+    with ``fold_bias`` K1's, layer 0's bias folded into W_0."""
     from mpqe_tpu_torch.ops import fused_fwd as ff
 
     with torch.no_grad():
-        v_slots, d_pad, cols, Ws, bs = ff._assemble(model, cfg, structure,
-                                                    *args, None)
-        x0 = ff._layer0_operand(cols, args[1], v_slots, cfg, d_pad)
+        v_slots, d_pad, cols, Ws, bs = ff._assemble(
+            model, cfg, structure, *args, None, fold_bias=fold_bias)
+        x0 = ff._layer0_operand(cols, args[1], v_slots, cfg, d_pad,
+                                fold_bias=fold_bias)
         ws = [W.to(torch.bfloat16).contiguous() for W in Ws]
         bs = [b.contiguous() for b in bs]
     return x0, ws, bs, len(cols), d_pad
 
 
-def chain_work(cfg, structure: str, B: int, backward: bool) -> tuple:
-    """(bytes, bf16 FLOP, f32 FLOP) one K1 (or K2) launch needs for a
-    batch of B rows: the function's work, not that of the dense operands
-    the wrapper builds.  Per layer, each distinct (source slot, output
-    slot) pair of ``_layer_matrices`` whose source is an anchor or an
-    activation is one nonzero d x d block of W_l, a product of 2 B d^2
-    bf16 FLOP; a pair whose source is a layer-0 variable selects one of
-    n_modes premultiplied rows by mode id and adds it (B d f32 FLOP); the
-    zero blocks of W_l count nothing.  Bytes, each input read once and
-    each output written once: the anchor rows in bf16 (B d per anchor
-    slot) and one int32 mode id per variable slot and row (as K3's count;
-    not the bf16 one-hot block the wrapper builds), the nonzero blocks
-    and variable rows of W_l in bf16, the bias in f32, and the output
-    (K1) or g read and dA, dW, db written (K2), f32.  K2's products: the
-    recompute of layers 0..L-2, then dW and dX over the same blocks; its
-    f32 FLOP are the db sums and the variable rows' dW."""
-    from mpqe_tpu_torch.ops.fused_fwd import _plan
+K1_FOLD_TOL = 1e-2  # fold_bias vs the unfolded K1: the reference's own
+# (tests/test_pallas_fused_fwd.py:499; the bias rounds to bf16 in W_0)
 
-    spec, _, plan, a_slots, v_slots = _plan(cfg, structure)
-    d, m = cfg.embed_dim, cfg.n_modes
-    blocks, var_rows, outs = [], 0, 0
-    for li, (_, out_slots, edges) in enumerate(plan):
-        var0 = set(v_slots) if li == 0 else set()
-        pairs = {(s, s) for s in out_slots} | {
-            (spec.edge_src[j], spec.edge_dst[j]) for j in edges}
-        blocks.append(sum(src not in var0 for src, _ in pairs))
-        var_rows += sum(src in var0 for src, _ in pairs)
-        outs += len(out_slots)
-    nnz = sum(blocks)
-    params = nnz * d * d + var_rows * m * d  # nonzero entries of the W_l
-    nbytes = (B * len(a_slots) * d * 2 + B * len(v_slots) * 4
-              + params * 2 + outs * d * 4 + B * d * 4)
-    f32 = B * d * (outs + var_rows)
-    if not backward:
-        return nbytes, 2 * B * d * d * nnz, f32
-    nbytes += B * len(a_slots) * d * 4 + (params + outs * d) * 4
-    return nbytes, 2 * B * d * d * (2 * nnz + sum(blocks[:-1])), f32
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor's bits (``torch.equal`` on them tells -0 from 0)."""
+    return t.view(torch.int16)
+
+
+def check_k1_variants(model, cfg, structure: str, args, x0, ws, bs, got, g):
+    """K1's variants on one batch, ``got`` being K1's own f32 output of
+    ``(x0, ws, bs)``: ``out_bf16`` bit-equal to ``got`` rounded to bf16
+    and to a repeat; ``fold_bias`` (biases nonzero) under ``chain_gate``
+    against its plain version, bit-equal to a repeat, within K1_FOLD_TOL
+    of ``got``, and its control (the folded bias row of W_0 zeroed in the
+    plain version) failing the gate; K2 on the fold operands and block
+    list (cotangent ``g``) under ``chain_gate`` against its plain
+    version, bit-equal to a repeat, both of ``chain_gate_controls``
+    failing it.  Returns (ok, line, figures)."""
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+
+    d, bf16 = cfg.embed_dim, torch.bfloat16
+    L = len(ws)
+    blocks = ff.chain_blocks(cfg, structure)
+    fblocks = ff.chain_blocks(cfg, structure, fold_bias=True)
+    with torch.no_grad():
+        ob = ff._chain_forward(x0, ws, bs, d, blocks, bf16)
+        ob2 = ff._chain_forward(x0, ws, bs, d, blocks, bf16)
+        fx0, fws, fbs, n_a, dp = chain_operands(model, cfg, structure, args,
+                                                fold_bias=True)
+        fk = ff._chain_forward(fx0, fws, fbs, d, fblocks)
+        fk2 = ff._chain_forward(fx0, fws, fbs, d, fblocks)
+        fplain = ff._chain_forward_plain(fx0, fws, fbs, d)
+        v_slots = ff._plan(cfg, structure)[4]
+        _, m8 = ff._var_layout(cfg, len(v_slots), dp)
+        w0 = fws[0].clone()
+        w0[n_a * dp + len(v_slots) * m8] = 0  # the folded bias row
+        fctrl = ff._chain_forward_plain(fx0, [w0, *fws[1:]], fbs, d)
+        fkb = ff._chain_backward(fx0, fws, fbs, g, n_a, d, dp, fblocks)
+        fkb2 = ff._chain_backward(fx0, fws, fbs, g, n_a, d, dp, fblocks)
+        fpb = ff._chain_backward_plain(fx0, fws, fbs, g, n_a, d, dp)
+        fcb = [ff._chain_backward_plain(x, w, fbs, g, n_a, d, dp)
+               for _, x, w in ff.chain_gate_controls(fx0, fws, fblocks, n_a,
+                                                     d)]
+    torch.cuda.synchronize()
+    fleaves = [fkb[0], *fkb[1], *fkb[2]]
+    for t in (fk, ob.float(), *fleaves):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{structure}: K1/K2 variant non-finite")
+    obf16_equal = bool(torch.equal(bits(ob), bits(got.to(bf16))))
+    repeat = bool(torch.equal(bits(ob), bits(ob2)) and torch.equal(fk, fk2)
+                  and all(torch.equal(a, b) for a, b in zip(
+                      fleaves, [fkb2[0], *fkb2[1], *fkb2[2]])))
+    gate = ff.chain_gate(fk, fplain, L)
+    control_fails = not ff.chain_gate(fk, fctrl, L)["ok"]
+    bgate = ff.chain_gate(fkb, fpb, L, fblocks)
+    bcontrols_fail = all(not ff.chain_gate(fkb, cb, L, fblocks)["ok"]
+                         for cb in fcb)
+    e_unfolded = rel_err(fk, got)
+    ok = (obf16_equal and repeat and gate["ok"] and control_fails
+          and e_unfolded <= K1_FOLD_TOL and bgate["ok"] and bcontrols_fail)
+    line = (f"out_bf16_bit_equal={obf16_equal} fold_gate_ok={gate['ok']} "
+            f"({gate_text(gate)}) fold_control_fails={control_fails} "
+            f"fold_vs_unfolded={e_unfolded:.3e} (tol {K1_FOLD_TOL:g}) "
+            f"fold_bwd_gate_ok={bgate['ok']} ({gate_text(bgate)}) "
+            f"fold_bwd_controls_fail={bcontrols_fail} "
+            f"variants_repeat_equal={repeat}")
+    return ok, line, {"fold_abs_err": float((fk - fplain).abs().max()),
+                      "fold_operands": (fx0, fws, fbs, fblocks),
+                      "out_bf16": ob}
+
+
+K1_VARIANTS = ("out_bf16", "fold_bias")
+
+
+def time_k1_variants(cfg, structure: str, B: int, base, fold, lib_fwd: float,
+                     acc: dict, gen, flush) -> None:
+    """Kernel, plain and yardstick ms of K1's variants on one batch,
+    added to ``acc[variant]`` beside each one's bound.  ``base``: (x0, ws,
+    bs, blocks) of K1; ``fold``: its fold_bias operands (x0, ws, bs,
+    blocks).  The yardstick of ``out_bf16`` is K1's (``lib_fwd``: the
+    same bf16 products); ``fold_bias``'s multiplies its own W_0."""
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+
+    d, bf16 = cfg.embed_dim, torch.bfloat16
+    x0, ws, bs, blocks = base
+    fx0, fws, fbs, fblocks = fold
+    runs = {
+        "out_bf16": (lambda: ff._chain_forward(x0, ws, bs, d, blocks, bf16),
+                     lambda: ff._chain_forward_plain(x0, ws, bs, d,
+                                                     out_dtype=bf16),
+                     None, dict(out_bf16=True)),
+        "fold_bias": (lambda: ff._chain_forward(fx0, fws, fbs, d, fblocks),
+                      lambda: ff._chain_forward_plain(fx0, fws, fbs, d),
+                      library_chain(fx0, fws, False, gen),
+                      dict(fold_bias=True)),
+    }
+    for v, (kfn, pfn, lib, kw) in runs.items():
+        with torch.no_grad():
+            ms = time_ms(kfn, ITERS, flush)
+            plain_ms = time_ms(pfn, PLAIN_ITERS, flush)
+            lib_ms = lib_fwd if lib is None else time_ms(lib, ITERS, flush)
+        work = chain_work(cfg, structure, B, False, **kw)
+        t_bytes, t_ops = bound_times(work)
+        a = acc[v]
+        a["ms"] += ms
+        a["plain_ms"] += plain_ms
+        a["library_ms"] += lib_ms
+        a["bound_ms"] += max(t_bytes, t_ops)
+        a["bytes_ms"] += t_bytes
+        a["ops_ms"] += t_ops
+        log(f"kernel.fused_tgt.{v} {structure:14s} B={B} kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={max(t_bytes, t_ops):.6f} "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+            f"{work[0]} B, {work[1]} bf16 FLOP, {work[2]} f32 FLOP)")
 
 
 def library_chain(x0, ws, backward: bool, gen):
@@ -815,8 +903,10 @@ def phase_fused_tgt(model, cfg, device, gen, flush):
         out[kind] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                          bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
                          library_ms=0.0)
+    variants = {v: dict(out["fwd"]) for v in K1_VARIANTS}
     dev_ms = {"fwd": 0.0, "bwd": 0.0}
     big = {"fwd": [], "bwd": []}
+    big_variants = {v: 0.0 for v in K1_VARIANTS}
     for structure in STRUCTURE_NAMES:
         depth = mpqe_mod.num_steps(cfg, structure)
         blocks = ff.chain_blocks(cfg, structure)
@@ -889,8 +979,23 @@ def phase_fused_tgt(model, cfg, device, gen, flush):
                 log(line + " FAIL")
                 raise AssertionError(line)
             log(line)
+            vok, vline, vfig = check_k1_variants(model, cfg, structure, args,
+                                                 x0, ws, bs, got, g)
+            vline = f"kernel.fused_tgt.variants {structure:14s} B={B:5d} " \
+                + vline
+            if not vok:
+                log(vline + " FAIL")
+                raise AssertionError(vline)
+            log(vline)
+            variants["out_bf16"]["max_abs_err"] = max(
+                variants["out_bf16"]["max_abs_err"], float(
+                    (vfig["out_bf16"].float()
+                     - plain.to(torch.bfloat16).float()).abs().max()))
+            variants["fold_bias"]["max_abs_err"] = max(
+                variants["fold_bias"]["max_abs_err"], vfig["fold_abs_err"])
             if B != TRAIN_BATCH:
                 continue
+            lib_fwd = 0.0
             for kind, bwd in (("fwd", False), ("bwd", True)):
                 if bwd:
                     def kfn():
@@ -920,6 +1025,7 @@ def phase_fused_tgt(model, cfg, device, gen, flush):
                 acc["bound_ms"] += max(t_bytes, t_ops)
                 acc["bytes_ms"] += t_bytes
                 acc["ops_ms"] += t_ops
+                lib_fwd = lib_ms if not bwd else lib_fwd
                 log(f"kernel.fused_tgt{'_backward' if bwd else ''} "
                     f"{structure:14s} B={B} kernel_ms={ms:.4f} "
                     f"device_ms={k_ms:.4f} "
@@ -927,6 +1033,9 @@ def phase_fused_tgt(model, cfg, device, gen, flush):
                     f"bound_ms={max(t_bytes, t_ops):.6f} "
                     f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
                     f"{work[0]} B, {work[1]} bf16 FLOP, {work[2]} f32 FLOP)")
+            time_k1_variants(cfg, structure, B, (x0, ws, bs, blocks),
+                             vfig["fold_operands"], lib_fwd, variants, gen,
+                             flush)
         # the flagship train batch: kernel, bound and yardstick only
         args = shared_inputs(gen, cfg, structure, TRAIN_BIG)
         x0, ws, bs, n_a, dp = chain_operands(model, cfg, structure, args)
@@ -951,7 +1060,23 @@ def phase_fused_tgt(model, cfg, device, gen, flush):
                 f"bound_ms={max(t_bytes, t_ops):.6f} "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
                 f"{work[0]} B, {work[1]} bf16 FLOP, {work[2]} f32 FLOP)")
-        del x0, ws, bs, g, args
+            if not bwd:
+                base_ms = ms
+        fx0, fws, fbs, _, _ = chain_operands(model, cfg, structure, args,
+                                             fold_bias=True)
+        fblocks = ff.chain_blocks(cfg, structure, fold_bias=True)
+        with torch.no_grad():
+            v_ms = {"out_bf16": time_ms(lambda: ff._chain_forward(
+                        x0, ws, bs, d, blocks, torch.bfloat16), BIG_ITERS,
+                        flush),
+                    "fold_bias": time_ms(lambda: ff._chain_forward(
+                        fx0, fws, fbs, d, fblocks), BIG_ITERS, flush)}
+        for v, t in v_ms.items():
+            big_variants[v] += t
+        log(f"kernel.fused_tgt.variants {structure:14s} B={TRAIN_BIG} "
+            f"kernel_ms base={base_ms:.4f} out_bf16={v_ms['out_bf16']:.4f} "
+            f"fold_bias={v_ms['fold_bias']:.4f}")
+        del x0, ws, bs, g, args, fx0, fws, fbs
     fields = {}
     for kind in ("fwd", "bwd"):
         acc = out[kind]
@@ -968,29 +1093,28 @@ def phase_fused_tgt(model, cfg, device, gen, flush):
                        for i, name in enumerate(("kernel_ms", "device_ms",
                                                  "library_ms")))
             + f" bound_ms={sum(r[3] for r in big[kind]):.6f}")
+    fields["fwd"]["variants"] = {}
+    for v, acc in variants.items():
+        by = "bytes" if acc.pop("bytes_ms") >= acc.pop("ops_ms") else \
+            "operations"
+        fields["fwd"]["variants"][v] = {**acc, "bound_by": by,
+                                        "big_ms": big_variants[v]}
+        log(f"kernel.fused_tgt.variants {v} sum of 7 at B={TRAIN_BATCH}: "
+            f"kernel_ms={acc['ms']:.4f} plain_ms={acc['plain_ms']:.4f} "
+            f"library_ms={acc['library_ms']:.4f} "
+            f"bound_ms={acc['bound_ms']:.6f} ({by}) "
+            f"max_abs_err={acc['max_abs_err']:.3e}; at B={TRAIN_BIG}: "
+            f"kernel_ms={big_variants[v]:.4f}")
     return fields
 
 
 def profile_device(label: str, fn, top: int = 8, also=()) -> None:
-    """Device time by kernel over ``fn()`` (torch.profiler) and the
-    device's busy share of its wall time: the ``top`` kernels, then any
-    other whose name contains one of ``also``."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time by kernel over ``fn()`` and the device's busy share of
+    its wall time (``profiling.device_profile``): the ``top`` kernels,
+    then any other whose name contains one of ``also``."""
+    from mpqe_tpu_torch.utils.profiling import device_profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device work only: a user annotation's range (``Optimizer.step``)
-    # spans kernels that are counted on their own
-    rows = sorted(((e.device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)),
-                  reverse=True)
+    wall_us, rows = device_profile(fn)
     busy = sum(r[0] for r in rows)
     log(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%)")
@@ -3828,6 +3952,102 @@ def phase_quality(tmp: str, device) -> int:
     return n3
 
 
+BENCH_TIMEOUT = 600  # seconds for the bench phase's subprocess
+BENCH_ROUTES = ("dense", "fused", "blocked", "fused_fwd")
+
+
+def check_bench_record(rec: dict, batch: int = TRAIN_BIG) -> list:
+    """What is wrong with the bench's JSON line (empty: nothing): the
+    reference's top-level keys, a finite positive ``value`` and
+    ``vs_baseline``, a K1 route as ``fwd_impl``, ``batch x 4`` executed
+    edge messages (``3-chain_inter``), a roofline fraction in (0, 1.05],
+    no broken timing, K1's device ms an iteration and the loop's busy
+    share in (0, 1] from the profile, the four config rows and the four
+    kernel-path rows each with finite positive times and no ``error``."""
+    bad = []
+
+    def pos(name, v):
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            bad.append(f"{name}={v!r} is not finite and positive")
+
+    for k in ("metric", "value", "unit", "vs_baseline", "extra"):
+        if k not in rec:
+            bad.append(f"no {k!r}")
+    if bad:
+        return bad
+    pos("value", rec["value"])
+    pos("vs_baseline", rec["vs_baseline"])
+    ex = rec["extra"]
+    if ex.get("fwd_impl") not in ("cuda_k1", "cuda_k1_obf16"):
+        bad.append(f"fwd_impl={ex.get('fwd_impl')!r} is not a K1 route")
+    if ex.get("edge_msgs_per_fwd") != batch * 4:
+        bad.append(f"edge_msgs_per_fwd={ex.get('edge_msgs_per_fwd')} != "
+                   f"{batch * 4}")
+    rf = ex.get("roofline_fraction")
+    if not (isinstance(rf, float) and 0 < rf <= 1.05):
+        bad.append(f"roofline_fraction={rf!r} not in (0, 1.05]")
+    if "broken_timings" in ex:
+        bad.append(f"broken_timings={ex['broken_timings']}")
+    for k in ("fwd_seconds", "fwd_seconds_xla", "fwd_seconds_k1",
+              "fwd_seconds_k1_obf16", "fwd_seconds_k1_fold_bias",
+              "train_step_seconds", "fwd_k1_kernel_ms"):
+        pos(k, ex.get(k))
+    busy = ex.get("fwd_device_busy_share")
+    if not (isinstance(busy, float) and 0 < busy <= 1):
+        bad.append(f"fwd_device_busy_share={busy!r} not in (0, 1]")
+    configs = ex.get("configs")
+    if not isinstance(configs, list) or len(configs) != 4:
+        bad.append(f"configs: {configs!r}")
+    else:
+        for row in configs:
+            pos(f"configs {row.get('name')} fwd_ms", row.get("fwd_ms"))
+            pos(f"configs {row.get('name')} train_step_ms",
+                row.get("train_step_ms"))
+    paths = ex.get("kernel_paths")
+    if not isinstance(paths, list) or tuple(
+            r.get("kernel") for r in paths) != BENCH_ROUTES:
+        bad.append(f"kernel_paths: {paths!r}")
+    else:
+        for row in paths:
+            if "error" in row:
+                bad.append(f"kernel_paths {row['kernel']}: {row['error']}")
+            else:
+                pos(f"kernel_paths {row['kernel']} train_step_ms",
+                    row.get("train_step_ms"))
+    return bad
+
+
+def phase_bench() -> float:
+    """``python -m mpqe_tpu_torch.bench`` as a subprocess with its config
+    matrix and kernel-path rows and their profiles (``MPQE_BENCH_MATRIX=1
+    MPQE_BENCH_KERNELS=1``) at its full shapes: its
+    stderr (each row's peak memory) and its JSON line printed, the line held to
+    :func:`check_bench_record`.  Returns the phase's wall seconds."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MPQE_BENCH_MATRIX="1", MPQE_BENCH_KERNELS="1")
+    torch.cuda.empty_cache()  # this process's cached blocks, for the child
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mpqe_tpu_torch.bench"],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for ln in proc.stderr.splitlines():
+        log(f"bench.log: {ln}")
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"bench: rc={proc.returncode}, "
+                             f"{len(lines)} stdout lines")
+    log(f"bench: {lines[-1]}")
+    bad = check_bench_record(json.loads(lines[-1]))
+    if bad:
+        log(f"bench: FAIL {bad}")
+        raise AssertionError(f"bench: {bad}")
+    log(f"bench: line ok, {wall:.1f} s")
+    return wall
+
+
 def build_kernels() -> None:
     """Build the seven kernel libraries at once (one nvcc each, in
     parallel) and print what ptxas reports of registers and spills."""
@@ -3958,11 +4178,13 @@ def main() -> int:
         data_launches = [phase_data_npz(kg, tmp, device)]
         del kg
         data_launches.append(phase_data_pkl(tmp, device))
+        bench_s = phase_bench()
         data_launches.append((0, 0, phase_quality(tmp, device)))
     k1 += sum(n[0] for n in data_launches)
     k2 += sum(n[1] for n in data_launches)
     launches += sum(n[2] for n in data_launches)
-    log(f"data phases {time.perf_counter() - t_data:.1f} s; their launches "
+    log(f"bench phase {bench_s:.1f} s; data phases "
+        f"{time.perf_counter() - t_data - bench_s:.1f} s; their launches "
         f"(K1, K2, K3): npz {data_launches[0]}, pkl {data_launches[1]}, "
         f"quality {data_launches[2]}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -16,6 +16,14 @@
 //        gb = bf16(g); dW_l = X_l^T gb; db_l = sum_rows g;
 //        g <- (gb W_l^T) * [X_l > 0]; at layer 0 the anchor column blocks
 //        of gb W_0^T are dA.
+// K1's variants, the reference's out_bf16 and fold_bias: with out_bf16
+// the last layer's output is stored as bf16 pairs (round to nearest even;
+// the f32 sums are unchanged), so it is the bf16 rounding of the f32
+// output bit for bit.  fold_bias needs nothing here: the wrapper moves
+// layer 0's bias into a row of W_0 fed by a constant-1 column of X_0 and
+// hands a zero bias row, which the epilogue adds as any other (y + 0 is
+// y); the wrapper's block list then holds the one-hot block against every
+// output block of layer 0.
 // The mask X_l > 0 is the plain version's Y_{l-1} > 0 except where
 // 0 < Y_{l-1} is so small that bf16 rounds it to 0 (below ~2^-133): bf16
 // keeps f32's exponent range, so no larger positive value rounds to 0.
@@ -104,6 +112,7 @@ constexpr int T_NEWLAYER = 2;  // the layer's (or direction's) first tile
 
 struct Chain {
   int L, B, d, dpad, n_a;
+  int out_bf16;          // K1: the output in bf16 (else f32)
   int k[MAXL], n[MAXL];
   const bf16* w[MAXL];   // W_l [k_l][n_l]
   const float* b[MAXL];  // b_l [n_l]
@@ -257,7 +266,7 @@ __device__ __forceinline__ void load_cotangent(const Bwd& bw, bf16* gs,
 template <int MT, bool BWD>
 __global__ void __launch_bounds__(THREADS, 1)
 tgt_mma_chain_kernel(Chain ch, const int4* __restrict__ tiles, int n_tiles,
-                     const bf16* __restrict__ x0, float* __restrict__ out,
+                     const bf16* __restrict__ x0, void* __restrict__ out,
                      Lay lay, Bwd bw) {
   constexpr int TQ = MT ? 16 * MT : 8;
   constexpr int STAGES = MT ? 3 : 2;
@@ -373,13 +382,29 @@ tgt_mma_chain_kernel(Chain ch, const int4* __restrict__ tiles, int n_tiles,
             const float y0 = __fadd_rn(acc[mi][j][2 * h], b0);
             const float y1 = __fadd_rn(acc[mi][j][2 * h + 1], b1);
             if (last) {
+              // pairs where d is even (every pair then starts on an even
+              // element: 8-byte f32 / 4-byte bf16 alignment), else by
+              // element; rows past B and columns past d are not written
               const int q = q0 + r;
-              if (q < B && col + 1 < ch.d && ch.d % 2 == 0) {
-                *reinterpret_cast<float2*>(out + (size_t)q * ch.d + col) =
-                    make_float2(y0, y1);
+              const size_t o = (size_t)q * ch.d + col;
+              const bool pair = col + 1 < ch.d && ch.d % 2 == 0;
+              if (q < B && ch.out_bf16) {
+                bf16* ob = static_cast<bf16*>(out);
+                if (pair) {
+                  *reinterpret_cast<__nv_bfloat162*>(ob + o) =
+                      __floats2bfloat162_rn(y0, y1);
+                } else {
+                  if (col < ch.d) ob[o] = __float2bfloat16_rn(y0);
+                  if (col + 1 < ch.d) ob[o + 1] = __float2bfloat16_rn(y1);
+                }
               } else if (q < B) {
-                if (col < ch.d) out[(size_t)q * ch.d + col] = y0;
-                if (col + 1 < ch.d) out[(size_t)q * ch.d + col + 1] = y1;
+                float* of = static_cast<float*>(out);
+                if (pair) {
+                  *reinterpret_cast<float2*>(of + o) = make_float2(y0, y1);
+                } else {
+                  if (col < ch.d) of[o] = y0;
+                  if (col + 1 < ch.d) of[o + 1] = y1;
+                }
               }
             } else {
               *reinterpret_cast<__nv_bfloat162*>(buf((l + 1) & 1) +
@@ -760,7 +785,7 @@ bool make_chain(Chain& ch, int L, int B, const int* k, const int* n,
   if (L <= 0 || L > MAXL) return false;
   ch.L = L;
   ch.B = B;
-  ch.d = ch.dpad = ch.n_a = 0;
+  ch.d = ch.dpad = ch.n_a = ch.out_bf16 = 0;
   for (int l = 0; l < L; ++l) {
     if (k[l] <= 0 || n[l] <= 0 || k[l] % NC || n[l] % NC) return false;
     if (l > 0 && k[l] != n[l - 1]) return false;
@@ -803,7 +828,7 @@ constexpr size_t DW_SMEM = (size_t)DW_STAGES * 2 * DW_ROWS * (NC + PAD) *
 
 template <int MT, bool BWD>
 cudaError_t launch_chain(const Chain& ch, const int4* tiles, int n_tiles,
-                         const bf16* x0, float* out, const Bwd& bw,
+                         const bf16* x0, void* out, const Bwd& bw,
                          cudaStream_t s) {
   constexpr int TQ = MT ? 16 * MT : 8;
   const size_t smem = chain_smem(BWD, TQ, ch);
@@ -819,7 +844,7 @@ cudaError_t launch_chain(const Chain& ch, const int4* tiles, int n_tiles,
 
 template <bool BWD>
 cudaError_t launch_tq(int tq, const Chain& ch, const int4* tiles,
-                      int n_tiles, const bf16* x0, float* out, const Bwd& bw,
+                      int n_tiles, const bf16* x0, void* out, const Bwd& bw,
                       cudaStream_t s) {
   switch (tq) {
     case 8: return launch_chain<0, BWD>(ch, tiles, n_tiles, x0, out, bw, s);
@@ -862,19 +887,22 @@ extern "C" long long mpqe_tgt_max_smem(int device) {
   return (long long)optin;
 }
 
-// K1: out [B][d] f32.  `tiles` (device, int4 [n_tiles]) is the forward
-// tile table.  Returns cudaGetLastError() after the launch (0 on success).
+// K1: out [B][d], bf16 when out_bf16 is 1 (the reference's out_bf16:
+// the f32 result rounded to nearest even), else f32.  `tiles` (device,
+// int4 [n_tiles]) is the forward tile table.  Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int mpqe_tgt_forward(const void* x0, int B, int L, const int* k,
                                 const int* n, const void* const* w,
                                 const void* const* b, const void* tiles,
-                                int n_tiles, float* out, int d, int tq,
-                                void* stream) {
+                                int n_tiles, void* out, int out_bf16, int d,
+                                int tq, void* stream) {
   Chain ch;
   if (!make_chain(ch, L, B, k, n, w, b) || d <= 0 || d > n[L - 1] ||
-      !valid_tq(tq) || n_tiles <= 0)
+      !valid_tq(tq) || n_tiles <= 0 || (out_bf16 != 0 && out_bf16 != 1))
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
   ch.d = d;
+  ch.out_bf16 = out_bf16;
   Bwd bw = {};
   return (int)launch_tq<false>(tq, ch, static_cast<const int4*>(tiles),
                                n_tiles, static_cast<const bf16*>(x0), out,

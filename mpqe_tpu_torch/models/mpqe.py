@@ -90,6 +90,18 @@ def num_steps(cfg: MPQEConfig, structure: str) -> int:
     return cfg.n_layers
 
 
+def executed_edge_messages(cfg: MPQEConfig, structure: str) -> int:
+    """Edge messages the forward actually computes per query: the TGT
+    readout's dead-slot-pruned plan skips messages into slots that can no
+    longer reach the target (4 of the logical 6 for ``3-chain_inter``),
+    so a throughput claim counts what runs, not ``steps * n_edges``."""
+    spec = STRUCTURES[structure]
+    steps = num_steps(cfg, structure)
+    if cfg.readout == "tgt":
+        return sum(len(edges) for _, _, edges in _live_slot_plan(spec, steps))
+    return steps * spec.n_edges
+
+
 def _live_slot_plan(spec, steps: int):
     """Per-layer (in_slots, out_slots, edge_ids) keeping only slots that
     can still influence the target within the remaining steps."""
@@ -215,6 +227,7 @@ class _FusedRecompute(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        g = g.to(torch.float32)  # an out_bf16 forward: upcast the cotangent
         edge_norm, anchor_rows, *params = ctx.saved_tensors
         en = edge_norm.detach().requires_grad_(ctx.needs_input_grad[1])
         ar = None if anchor_rows is None else anchor_rows.detach(
@@ -242,6 +255,7 @@ def encode_dense_fused(
     edge_norm: torch.Tensor,  # [n_edges] float32
     anchor_rows=None,  # None | [B, A, d] | sequence of [B, d]
     backward: str = "xla",
+    out_bf16: bool = False,
 ) -> torch.Tensor:
     """:func:`encode_dense` with the forward run by K1
     (:func:`ops.fused_fwd.fused_tgt_forward`, the hand-written CUDA kernel
@@ -255,14 +269,16 @@ def encode_dense_fused(
       through the differentiable ``_layer_matrices`` and the anchor
       gather into ``emb.ent``.
 
-    The reference's ``block``, ``interpret``, ``onehot_operand``,
-    ``split_gemm``, ``vmem_limit_mb`` and ``bwd_block`` tile the TPU and
-    have no counterpart; ``out_bf16`` is not ported (ROADMAP Queue 1
-    item 2).  Requires ``readout='tgt'``."""
+    ``out_bf16`` has K1 write its output in bf16, returned cast to
+    ``cfg.dtype`` (the reference's variant); both backward routes take
+    the cotangent in f32.  The reference's ``block``, ``interpret``,
+    ``onehot_operand``, ``split_gemm``, ``vmem_limit_mb`` and
+    ``bwd_block`` tile the TPU and have no counterpart.  Requires
+    ``readout='tgt'``."""
     if backward == "pallas":
         return fused_fwd_ops._fused_apply(model, cfg, structure, node_entity,
                                           node_mode, edge_rel, edge_norm,
-                                          anchor_rows)
+                                          anchor_rows, out_bf16=out_bf16)
     if backward != "xla":
         raise ValueError(f"unknown backward mode {backward!r}")
     if isinstance(anchor_rows, (tuple, list)):
@@ -272,7 +288,7 @@ def encode_dense_fused(
         if fused:
             return fused_fwd_ops.fused_tgt_forward(
                 model, cfg, structure, node_entity, node_mode, edge_rel, en,
-                ar)
+                ar, out_bf16=out_bf16)
         return encode_dense(model, cfg, structure, node_entity, node_mode,
                             edge_rel, en, anchor_rows=ar)
 

@@ -9,7 +9,7 @@ Counterparts of ``mpqe_tpu/ops/pallas_fused_fwd.py``:
   ``X_l @ W_l + b_l`` against per-layer block matrices that
   :func:`_layer_matrices` assembles from the parameters, and its reverse
   sweep.  Both run ``csrc/fused_tgt.cu``; see the section "K1 / K2"
-  below.
+  below.  K1 takes the reference's ``fold_bias`` and ``out_bf16``.
 * K3 :func:`fused_tgt_forward_multi` (reference :335, kernel
   ``_make_multi_kernel`` :230): one launch encodes a batch of queries of
   many formulas of one structure (per-query relations).  Basis-decomposed
@@ -568,6 +568,14 @@ def multi_gate_controls(cfg, structure: str, ops: FusedMultiOperands,
 # only the blocks of W_l that :func:`chain_blocks` lists; K2's ``db``
 # sums each row tile, then the tiles in order.  :func:`chain_gate` states
 # how far kernel and plain version may differ.
+#
+# K1's two variants (the reference's ``fold_bias`` and ``out_bf16``):
+# with ``fold_bias`` layer 0's bias is a bf16 row of W_0 fed by a
+# constant-1 column of the one-hot block, inside the product's sum, and
+# the bias row added after it is zero (``y + 0`` is ``y``: the kernel
+# needs no flag for it); ``out_bf16`` rounds the f32 output once to bf16
+# (round to nearest even, as ``Tensor.to``), so K1's bf16 output equals
+# the rounding of its own f32 output bit for bit.
 
 PARTITION_MAX = 64  # dW partitions: at most this many, ...
 PARTITION_MIN_ROWS = 16  # ... of at least this many rows
@@ -591,7 +599,7 @@ def _checked_chain_plan(cfg, structure: str):
 
 
 def _layer_matrices(model, cfg, spec, steps, plan, a_slots, v_slots,
-                    edge_rel, edge_norm, d_pad):
+                    edge_rel, edge_norm, d_pad, fold_bias0=False):
     """Per-layer block weight matrix ``[k_l, n_l]`` and bias row
     ``[n_l]``, both f32 and differentiable in the parameters and
     ``edge_norm`` (the port's counterpart of the reference's ``jax.vjp``
@@ -599,8 +607,13 @@ def _layer_matrices(model, cfg, spec, steps, plan, a_slots, v_slots,
     slot (``a_slots`` order), then the packed variable block (or one
     block per variable slot when packing does not fit); later layers
     follow the previous layer's out_slots.  The reference's bias is an
-    ``[8, n_l]`` tile whose row 0 is this row.  Its ``fold_bias0``
-    variant is not ported (ROADMAP Queue 1 item 2)."""
+    ``[8, n_l]`` tile whose row 0 is this row.
+
+    ``fold_bias0``: layer 0's bias moves into W_0, at row ``n_a * d_pad
+    + n_var * m8`` (the packed one-hot block's first unused column, which
+    :func:`_layer0_operand` sets to 1), so it rounds to bf16 with the rest
+    of W_0; layer 0's bias row is then zero (:func:`_check_fold` says
+    when the layout has that column)."""
     from mpqe_tpu_torch.ops import rgcn as rgcn_ops
 
     f32 = torch.float32
@@ -643,21 +656,40 @@ def _layer_matrices(model, cfg, spec, steps, plan, a_slots, v_slots,
             put(s, s, w_self)
         for j in edges:
             put(spec.edge_src[j], spec.edge_dst[j], w_e[j])
+        fold = fold_bias0 and li == 0
+        if fold:
+            ones_row = n_a * d_pad + len(v_slots) * m8
+            for s in out_slots:
+                W[ones_row, ocol[s] * d_pad:ocol[s] * d_pad + d] += \
+                    lp.bias.to(f32)
         Ws.append(W)
         bias = torch.zeros((len(out_slots) * d_pad,), dtype=f32, device=dev)
-        for s in out_slots:
-            bias[ocol[s] * d_pad:ocol[s] * d_pad + d] = lp.bias.to(f32)
+        if not fold:
+            for s in out_slots:
+                bias[ocol[s] * d_pad:ocol[s] * d_pad + d] = lp.bias.to(f32)
         biases.append(bias)
     return Ws, biases
 
 
+def _check_fold(cfg, v_slots, d_pad: int) -> None:
+    """The reference's refusal of ``fold_bias`` (same message): the
+    packed one-hot block needs a column no variable slot uses."""
+    packed, m8 = _var_layout(cfg, len(v_slots), d_pad)
+    if not (packed and v_slots and len(v_slots) * m8 < d_pad):
+        raise ValueError(
+            "fold_bias needs a free column in the packed one-hot block "
+            "(packed layout with n_var * round_up(n_modes, 8) < d_pad)")
+
+
 def _layer0_operand(cols, node_mode, v_slots, cfg, d_pad,
-                    wire=torch.bfloat16) -> torch.Tensor:
+                    wire=torch.bfloat16, fold_bias=False) -> torch.Tensor:
     """``X_0 [B, k_0]`` in the wire type: the anchor rows (one d_pad
     block each, zero-padded), then the variable one-hot block(s).  The
     packed block sets column ``k * m8 + mode`` for the k-th variable
     slot, as the reference's in-kernel expansion does (its
-    ``onehot_operand`` variant builds the same values outside)."""
+    ``onehot_operand`` variant builds the same values outside), and with
+    ``fold_bias`` also column ``n_var * m8``, the constant 1 that feeds
+    W_0's folded bias row."""
     B = node_mode.shape[0]
     parts = [F.pad(c.to(wire), (0, d_pad - c.shape[1])) for c in cols]
     if v_slots:
@@ -669,6 +701,8 @@ def _layer0_operand(cols, node_mode, v_slots, cfg, d_pad,
                              device=node_mode.device)
             for k in range(len(v_slots)):
                 oh |= (modes[:, k:k + 1] + k * m8) == iota
+            if fold_bias:
+                oh |= iota == len(v_slots) * m8
             parts.append(oh.to(wire))
         else:
             parts += [(modes[:, k:k + 1] == iota).to(wire)
@@ -680,11 +714,13 @@ def _round_to(x: torch.Tensor, wire) -> torch.Tensor:
     return x.to(wire).to(torch.float32)
 
 
-def _chain_forward_plain(x0, ws, bs, d: int, mm=None) -> torch.Tensor:
-    """Plain version of K1's kernel: ``[B, d]`` f32 from the layer-0
-    operand, the wire-typed weights and the f32 bias rows.  ``mm(x, w,
-    k)`` takes the products (``_ordered_matmul`` unless given: the
-    reordering emulation of ``tools/tgt_probe.py`` passes another)."""
+def _chain_forward_plain(x0, ws, bs, d: int, mm=None,
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of K1's kernel: ``[B, d]`` in ``out_dtype`` (f32,
+    or bf16 for ``out_bf16``: the f32 result rounded once) from the
+    layer-0 operand, the wire-typed weights and the f32 bias rows.
+    ``mm(x, w, k)`` takes the products (``_ordered_matmul`` unless given:
+    the reordering emulation of ``tools/tgt_probe.py`` passes another)."""
     mm = mm or _ordered_matmul
     wire = x0.dtype
     x = x0.to(torch.float32)
@@ -693,7 +729,7 @@ def _chain_forward_plain(x0, ws, bs, d: int, mm=None) -> torch.Tensor:
         y = mm(x, ws[li].to(torch.float32), x.shape[1]) + bs[li]
         if li < L - 1:
             x = _round_to(torch.relu(y), wire)
-    return y[:, :d].contiguous()
+    return y[:, :d].to(out_dtype).contiguous()
 
 
 def _partitioned_sums(x, gb, g, R: int, mm=None):
@@ -869,22 +905,28 @@ class ChainBlocks:
 _BLOCKS: Dict[tuple, ChainBlocks] = {}
 
 
-def chain_blocks(cfg, structure: str) -> ChainBlocks:
+def chain_blocks(cfg, structure: str, fold_bias: bool = False
+                 ) -> ChainBlocks:
     """K1/K2's block list for ``structure`` under ``cfg``, from ``_plan``
-    once per (config, structure) and cached (the train step asks twice a
-    step): per layer each distinct (source slot, output slot) pair of
-    :func:`_layer_matrices` (the self transforms and every edge), in
-    blocks of d_pad, the layer-0 variable slots folded into their one-hot
-    block(s)."""
-    got = _BLOCKS.get((cfg, structure))
+    once per (config, structure, fold_bias) and cached (the train step
+    asks twice a step): per layer each distinct (source slot, output
+    slot) pair of :func:`_layer_matrices` (the self transforms and every
+    edge), in blocks of d_pad, the layer-0 variable slots folded into
+    their one-hot block(s).  With ``fold_bias`` the packed variable block
+    is listed against every output block of layer 0 as well: its folded
+    bias row feeds them all (an unlisted block would drop the bias)."""
+    key = (cfg, structure, bool(fold_bias))
+    got = _BLOCKS.get(key)
     if got is None:
-        got = _BLOCKS[(cfg, structure)] = _derive_blocks(cfg, structure)
+        got = _BLOCKS[key] = _derive_blocks(cfg, structure, bool(fold_bias))
     return got
 
 
-def _derive_blocks(cfg, structure: str) -> ChainBlocks:
+def _derive_blocks(cfg, structure: str, fold_bias: bool) -> ChainBlocks:
     spec, steps, plan, a_slots, v_slots, d_pad = _checked_chain_plan(
         cfg, structure)
+    if fold_bias:
+        _check_fold(cfg, v_slots, d_pad)
     packed, _ = _var_layout(cfg, len(v_slots), d_pad)
     n_a = len(a_slots)
     a_idx = {s: k for k, s in enumerate(a_slots)}
@@ -909,6 +951,8 @@ def _derive_blocks(cfg, structure: str) -> ChainBlocks:
         links = {(s, s) for s in out_slots} | {
             (spec.edge_src[j], spec.edge_dst[j]) for j in edges}
         blocks = {(src(s), ocol[t]) for s, t in links}
+        if fold_bias and li == 0:
+            blocks |= {(n_a, ocol[t]) for t in out_slots}
         pairs.append(sorted(blocks, key=lambda p: (p[1], p[0])))
     return ChainBlocks(d_pad, ks, ns, pairs, n_a)
 
@@ -1129,7 +1173,7 @@ def _tgt_kernel():
         lib = cuda_build.load_library("fused_tgt", ["fused_tgt.cu"])
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mpqe_tgt_forward.argtypes = [p, i, i, p, p, p, p, p, i, p, i, i,
-                                         p]
+                                         i, p]
         lib.mpqe_tgt_forward.restype = i
         lib.mpqe_tgt_backward.argtypes = [
             p, i, i, p, p, p, p, p, i, p, i, p, p, p, i, i, i, p, p, p, p,
@@ -1226,14 +1270,18 @@ def _check_blocks(blocks: ChainBlocks, ks, ns, anchor_cols: int) -> None:
                          f"of {blocks.d_pad}, not {anchor_cols} columns")
 
 
-def _chain_forward(x0, ws, bs, d: int, blocks: ChainBlocks) -> torch.Tensor:
+def _chain_forward(x0, ws, bs, d: int, blocks: ChainBlocks,
+                   out_dtype=torch.float32) -> torch.Tensor:
     """K1's kernel on CUDA tensors (checked, launched on the current
     stream, counted in ``fused_tgt_forward.launches``), multiplying the
-    blocks ``blocks`` lists; the plain version on CPU tensors; any other
-    device raises."""
+    blocks ``blocks`` lists, its ``[B, d]`` output written in
+    ``out_dtype`` (f32, or bf16: ``out_bf16``); the plain version on CPU
+    tensors; any other device raises."""
     dev = x0.device
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"K1 writes float32 or bfloat16, not {out_dtype}")
     if dev.type == "cpu":
-        return _chain_forward_plain(x0, ws, bs, d)
+        return _chain_forward_plain(x0, ws, bs, d, out_dtype=out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"fused_tgt_forward: unsupported device {dev}")
     ks, ns = _check_chain(x0, ws, bs)
@@ -1241,7 +1289,7 @@ def _chain_forward(x0, ws, bs, d: int, blocks: ChainBlocks) -> torch.Tensor:
         raise ValueError(f"last layer has {ns[-1]} columns, fewer than d={d}")
     _check_blocks(blocks, ks, ns, blocks.n_anchor * blocks.d_pad)
     B = x0.shape[0]
-    out = torch.empty((B, d), dtype=torch.float32, device=dev)
+    out = torch.empty((B, d), dtype=out_dtype, device=dev)
     if B == 0:
         return out
     lib = _tgt_kernel()
@@ -1250,8 +1298,9 @@ def _chain_forward(x0, ws, bs, d: int, blocks: ChainBlocks) -> torch.Tensor:
     with torch.cuda.device(dev):
         err = lib.mpqe_tgt_forward(
             x0.data_ptr(), B, len(ws), _ints(ks), _ints(ns), _ptrs(ws),
-            _ptrs(bs), tiles.data_ptr(), tiles.shape[0], out.data_ptr(), d,
-            tq, torch.cuda.current_stream(dev).cuda_stream)
+            _ptrs(bs), tiles.data_ptr(), tiles.shape[0], out.data_ptr(),
+            int(out_dtype == torch.bfloat16), d, tq,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_tgt kernel launch failed: cudaError {err}")
     fused_tgt_forward.launches += 1
@@ -1334,35 +1383,45 @@ def _anchor_cols(model, node_entity, a_slots, anchor_rows):
 
 
 def _assemble(model, cfg, structure, node_entity, node_mode, edge_rel,
-              edge_norm, anchor_rows):
+              edge_norm, anchor_rows, fold_bias=False):
     spec, steps, plan, a_slots, v_slots, d_pad = _checked_chain_plan(
         cfg, structure)
+    if fold_bias:
+        _check_fold(cfg, v_slots, d_pad)
     cols = _anchor_cols(model, node_entity, a_slots, anchor_rows)
     Ws, biases = _layer_matrices(model, cfg, spec, steps, plan, a_slots,
-                                 v_slots, edge_rel, edge_norm, d_pad)
+                                 v_slots, edge_rel, edge_norm, d_pad,
+                                 fold_bias0=fold_bias)
     return v_slots, d_pad, cols, Ws, biases
 
 
 class FusedChain(torch.autograd.Function):
     """K1 forward, K2 backward, over the assembled operands: ``apply(
     node_mode, layout, *cols, *Ws, *biases)`` with ``layout = (cfg,
-    v_slots, d_pad, n_anchor_cols, blocks)`` (``blocks``:
-    :func:`chain_blocks`).  Gradients go to the anchor rows
-    and to the f32 ``W_l`` / bias rows (the bf16 wire cast passes them
-    straight through, as in the reference), so autograd carries them on
-    through :func:`_layer_matrices` and the anchor gather."""
+    v_slots, d_pad, n_anchor_cols, blocks, fold_bias, out_bf16)``
+    (``blocks``: :func:`chain_blocks` for ``fold_bias``).  With
+    ``out_bf16`` K1 writes bf16 and the output is that cast to
+    ``cfg.dtype``, as the reference's wrapper returns it; the cotangent
+    is taken in f32 either way.  Gradients go to the anchor rows and to
+    the f32 ``W_l`` / bias rows (the bf16 wire cast passes them straight
+    through, as in the reference), so autograd carries them on through
+    :func:`_layer_matrices` (a folded bias through W_0's row) and the
+    anchor gather."""
 
     @staticmethod
     def forward(ctx, node_mode, layout, *tensors):
-        cfg, v_slots, d_pad, n_a, blocks = layout
+        cfg, v_slots, d_pad, n_a, blocks, fold_bias, out_bf16 = layout
         L = (len(tensors) - n_a) // 2
         cols, Ws, bs = tensors[:n_a], tensors[n_a:n_a + L], tensors[n_a + L:]
-        x0 = _layer0_operand(cols, node_mode, v_slots, cfg, d_pad)
+        x0 = _layer0_operand(cols, node_mode, v_slots, cfg, d_pad,
+                             fold_bias=fold_bias)
         ws = [W.to(torch.bfloat16).contiguous() for W in Ws]
         bs = [b.contiguous() for b in bs]
         ctx.save_for_backward(x0, *ws, *bs)
         ctx.meta = (n_a, L, cfg.embed_dim, d_pad, blocks)
-        return _chain_forward(x0, ws, bs, cfg.embed_dim, blocks)
+        out = _chain_forward(x0, ws, bs, cfg.embed_dim, blocks,
+                             torch.bfloat16 if out_bf16 else torch.float32)
+        return out.to(cfg.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -1384,8 +1443,12 @@ def fused_tgt_forward(
     edge_rel: torch.Tensor,  # [n_edges] int
     edge_norm: torch.Tensor,  # [n_edges] float32
     anchor_rows=None,  # None | [B, A, d] | sequence of [B, d]
+    *,
+    fold_bias: bool = False,
+    out_bf16: bool = False,
 ) -> torch.Tensor:
-    """Whole pruned TGT forward of one formula's batch → ``[B, d]`` f32.
+    """Whole pruned TGT forward of one formula's batch → ``[B, d]`` in
+    ``cfg.dtype``.
 
     CUDA tensors: one launch of the hand-written kernel K1
     (``csrc/fused_tgt.cu``) on the current stream, counted in
@@ -1393,43 +1456,54 @@ def fused_tgt_forward(
     Differentiable through :func:`FusedChain` (K2 backward); the model's
     train path calls it through ``models.mpqe.encode_dense_fused``.
 
-    The reference's ``block``, ``vmem_limit_mb``, ``onehot_operand`` and
-    ``split_gemm`` tile the TPU or compute the same function another way
-    and have no counterpart here (the one-hot block is always built
-    outside the kernel, as ``onehot_operand`` does); ``out_bf16`` and
-    ``fold_bias`` change the numbers and are not ported (ROADMAP Queue 1
-    item 2)."""
+    The reference's variants: ``fold_bias`` moves layer 0's bias into
+    W_0 through a constant-1 column of the packed one-hot block (the bias
+    then rounds to bf16 with W_0; ``ValueError`` where the layout has no
+    free column); ``out_bf16`` has K1 write its output in bf16, returned
+    cast to ``cfg.dtype`` as the reference returns it.  The reference's
+    ``block``, ``vmem_limit_mb``, ``onehot_operand`` and ``split_gemm``
+    tile the TPU or compute the same function another way and have no
+    counterpart here (the one-hot block is always built outside the
+    kernel, as ``onehot_operand`` does)."""
     return _fused_apply(model, cfg, structure, node_entity, node_mode,
-                        edge_rel, edge_norm, anchor_rows)
+                        edge_rel, edge_norm, anchor_rows,
+                        fold_bias=fold_bias, out_bf16=out_bf16)
 
 
 fused_tgt_forward.launches = 0
 
 
 def _fused_apply(model, cfg, structure, node_entity, node_mode, edge_rel,
-                 edge_norm, anchor_rows):
+                 edge_norm, anchor_rows, fold_bias=False, out_bf16=False):
     """Differentiable K1 (K2 backward) from the model's parameters."""
     v_slots, d_pad, cols, Ws, bs = _assemble(
         model, cfg, structure, node_entity, node_mode, edge_rel, edge_norm,
-        anchor_rows)
+        anchor_rows, fold_bias)
     return FusedChain.apply(node_mode, (cfg, tuple(v_slots), d_pad,
                                         len(cols),
-                                        chain_blocks(cfg, structure)),
+                                        chain_blocks(cfg, structure,
+                                                     fold_bias),
+                                        bool(fold_bias), bool(out_bf16)),
                             *cols, *Ws, *bs)
 
 
 def fused_tgt_forward_reference(model, cfg, structure, node_entity,
                                 node_mode, edge_rel, edge_norm,
-                                anchor_rows=None) -> torch.Tensor:
+                                anchor_rows=None, *, fold_bias=False,
+                                out_bf16=False) -> torch.Tensor:
     """Plain PyTorch version of K1 (no gradient): the kernel's rounding
-    points and summation order, on any device."""
+    points and summation order, on any device; the variants as in
+    :func:`fused_tgt_forward`."""
     with torch.no_grad():
         v_slots, d_pad, cols, Ws, bs = _assemble(
             model, cfg, structure, node_entity, node_mode, edge_rel,
-            edge_norm, anchor_rows)
-        x0 = _layer0_operand(cols, node_mode, v_slots, cfg, d_pad)
-        return _chain_forward_plain(x0, [W.to(torch.bfloat16) for W in Ws],
-                                    bs, cfg.embed_dim)
+            edge_norm, anchor_rows, fold_bias)
+        x0 = _layer0_operand(cols, node_mode, v_slots, cfg, d_pad,
+                             fold_bias=fold_bias)
+        return _chain_forward_plain(
+            x0, [W.to(torch.bfloat16) for W in Ws], bs, cfg.embed_dim,
+            out_dtype=torch.bfloat16 if out_bf16 else torch.float32
+        ).to(cfg.dtype)
 
 
 def _backward_with(chain_bwd, model, cfg, structure, node_entity,

@@ -15,7 +15,10 @@ expected difference is 0 (K7 is held to be bit-equal).  K1, K2 and K3
 take their products on the tensor cores and are held to
 ``ops/fused_fwd.py chain_gate`` (K3 to ``multi_gate``: that on its
 output, and each layer from its own activations), with negative
-controls that fail it and bit-equal repeats.  K5a and K5b take their products on the tensor
+controls that fail it and bit-equal repeats; K1's ``out_bf16`` output
+is its own f32 output rounded to bf16, bit for bit, and its
+``fold_bias`` is held to ``chain_gate`` with the folded bias row's
+control failing it.  K5a and K5b take their products on the tensor
 cores in split TF32 (expected ~2e-6), each with a negative control that
 fails the gate and a bit-equal repeat.  K6a and K6b take their products
 on the tensor cores and are held to the stated bounds of
@@ -255,6 +258,125 @@ def test_cuda_k1_k2_match_plain_versions(d, nb):
                     x, w, bs, g, n_a, d, dp), L, blocks)
                 assert not cf["ok"], (structure, B, name, cf)
                 assert not cb["ok"], (structure, B, name, cb)
+
+
+def _chain(model, cfg, structure, args, fold_bias=False):
+    with torch.no_grad():
+        v_slots, dp, cols, Ws, bs = tff._assemble(
+            model, cfg, structure, *args, None, fold_bias=fold_bias)
+        x0 = tff._layer0_operand(cols, args[1], v_slots, cfg, dp,
+                                 fold_bias=fold_bias)
+        ws = [W.to(torch.bfloat16).contiguous() for W in Ws]
+        bs = [b.contiguous() for b in bs]
+    return x0, ws, bs, len(cols), dp, len(v_slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,nb", [(128, 16), (16, 4)],
+                         ids=["flagship", "narrow"])
+def test_cuda_k1_variants_match_plain_versions(d, nb):
+    """K1's ``out_bf16``: its bf16 output is K1's own f32 output rounded
+    to bf16, bit for bit; ``fold_bias`` (nonzero biases): under
+    ``chain_gate`` against its plain version, its control (the folded
+    bias row zeroed in the plain version) failing it; each repeat launch
+    bit-equal, each launch counted."""
+    dev = _cuda()
+    cfg, model = _model(d, nb, dev)
+    bf16 = torch.bfloat16
+    for structure in STRUCTURE_NAMES:
+        blocks = tff.chain_blocks(cfg, structure)
+        fblocks = tff.chain_blocks(cfg, structure, fold_bias=True)
+        L = len(blocks.ks)
+        for B in (1, 20, 1000):
+            args = _shared_inputs(structure, B, dev, seed=B)
+            x0, ws, bs, _, _, _ = _chain(model, cfg, structure, args)
+            fx0, fws, fbs, n_a, dp, n_v = _chain(model, cfg, structure, args,
+                                                 fold_bias=True)
+            f0 = tff.fused_tgt_forward.launches
+            got = tff._chain_forward(x0, ws, bs, d, blocks)
+            ob = tff._chain_forward(x0, ws, bs, d, blocks, bf16)
+            ob2 = tff._chain_forward(x0, ws, bs, d, blocks, bf16)
+            fk = tff._chain_forward(fx0, fws, fbs, d, fblocks)
+            fk2 = tff._chain_forward(fx0, fws, fbs, d, fblocks)
+            torch.cuda.synchronize()
+            assert tff.fused_tgt_forward.launches == f0 + 5
+            assert ob.dtype == bf16 and ob.shape == (B, d)
+            assert torch.equal(ob.view(torch.int16),
+                               got.to(bf16).view(torch.int16)), (structure, B)
+            assert torch.equal(ob.view(torch.int16), ob2.view(torch.int16))
+            assert torch.equal(fk, fk2), (structure, B)
+            gate = tff.chain_gate(fk, tff._chain_forward_plain(
+                fx0, fws, fbs, d), L)
+            assert gate["ok"], (structure, B, gate)
+            w0 = fws[0].clone()
+            w0[n_a * dp + n_v * 8] = 0  # m8 = 8 at 4 modes
+            ctrl = tff.chain_gate(fk, tff._chain_forward_plain(
+                fx0, [w0, *fws[1:]], fbs, d), L)
+            assert not ctrl["ok"], (structure, B, ctrl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,nb", [(128, 16), (16, 4)],
+                         ids=["flagship", "narrow"])
+def test_cuda_k2_fold_bias_matches_plain_version(d, nb):
+    """K2 on ``fold_bias``'s operands and block list (nonzero biases; the
+    folded bias row's gradient is layer 0's bias gradient): under
+    ``chain_gate`` against its plain version, both negative controls
+    failing it, a repeat launch bit-equal, each launch counted."""
+    dev = _cuda()
+    cfg, model = _model(d, nb, dev)
+    for structure in STRUCTURE_NAMES:
+        fblocks = tff.chain_blocks(cfg, structure, fold_bias=True)
+        L = len(fblocks.ks)
+        for B in (1, 20, 1000):
+            args = _shared_inputs(structure, B, dev, seed=B)
+            g = torch.randn((B, d), device=dev,
+                            generator=torch.Generator(dev).manual_seed(B))
+            fx0, fws, fbs, n_a, dp, _ = _chain(model, cfg, structure, args,
+                                               fold_bias=True)
+            b0 = tff.fused_tgt_backward.launches
+            kb = tff._chain_backward(fx0, fws, fbs, g, n_a, d, dp, fblocks)
+            kb2 = tff._chain_backward(fx0, fws, fbs, g, n_a, d, dp, fblocks)
+            torch.cuda.synchronize()
+            assert tff.fused_tgt_backward.launches == b0 + 2
+            for a, b in zip([kb[0], *kb[1], *kb[2]],
+                            [kb2[0], *kb2[1], *kb2[2]]):
+                assert torch.equal(a, b), (structure, B)
+            pb = tff._chain_backward_plain(fx0, fws, fbs, g, n_a, d, dp)
+            gate = tff.chain_gate(kb, pb, L, fblocks)
+            assert gate["ok"], (structure, B, gate)
+            for name, x, w in tff.chain_gate_controls(fx0, fws, fblocks, n_a,
+                                                      d):
+                cb = tff.chain_gate(kb, tff._chain_backward_plain(
+                    x, w, fbs, g, n_a, d, dp), L, fblocks)
+                assert not cb["ok"], (structure, B, name, cb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backward", ["xla", "pallas"])
+def test_cuda_encode_dense_fused_out_bf16(backward):
+    """``encode_dense_fused(out_bf16=True)`` on the card: the base route's
+    output rounded to bf16 (returned as f32), and the same gradients (the
+    cotangent is taken in f32 either way)."""
+    dev = _cuda()
+    cfg, model = _model(128, 16, dev)
+    structure = "3-chain_inter"
+    args = _shared_inputs(structure, 1000, dev, seed=4)
+    g = torch.randn((1000, 128), device=dev,
+                    generator=torch.Generator(dev).manual_seed(4))
+    outs, grads = [], []
+    for out_bf16 in (False, True):
+        q = tm.encode_dense_fused(model, cfg, structure, *args, None,
+                                  backward, out_bf16=out_bf16)
+        outs.append(q)
+        grads.append(torch.autograd.grad(q, list(model.parameters()), g,
+                                         allow_unused=True))
+    assert outs[1].dtype == torch.float32
+    assert torch.equal(outs[1], outs[0].to(torch.bfloat16).float())
+    for a, b in zip(*grads):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b), backward
 
 
 @pytest.mark.cuda

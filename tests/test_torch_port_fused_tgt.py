@@ -30,6 +30,15 @@ another sum order passes the gate and both negative controls fail it;
 the kernels' block list equals ``chip_smoke.chain_work``'s count and the
 blocks ``_layer_matrices`` fills; the kernels' tile tables, run in the
 plain order, give the plain version's bits.
+
+K1's variants: plain ``out_bf16`` is plain K1's f32 output rounded to
+bf16, exactly, and within ``chain_gate`` of the interpret kernel's;
+plain ``fold_bias`` within 1e-4 of the interpret kernel's (the bias
+rounds to bf16 in W_0 on both sides), its assembly equal to the JAX
+one and its block list the blocks that assembly fills; the reference's
+``ValueError`` where the one-hot block has no free column; and
+``encode_dense_fused(out_bf16=True)`` against the reference's wrapper,
+forward and both gradient routes.
 """
 
 import sys
@@ -505,3 +514,177 @@ def test_chain_blocks_match_chain_work_and_layer_matrices(structure,
         for kb, nb in blocks.pairs[li]:
             listed[kb, nb] = True
         assert torch.equal(nz, listed), (structure, li)
+
+
+# ------------------------------------------------------- K1's variants
+def _variant_outputs(structure, seed, **variant):
+    """(JAX interpret-kernel output, port plain output, plain K1's f32
+    output) of one variant on the same arrays."""
+    jcfg, tcfg, params, model = _models(KINDS["basis"])
+    ne, nm, er, en, _ = _inputs(structure, seed=seed)
+    jf = np.asarray(jff.fused_tgt_forward(
+        params, jcfg, structure, *map(jnp.asarray, (ne, nm, er, en)),
+        block=8, interpret=True, **variant))
+    targs = [torch.from_numpy(a) for a in (ne, nm, er, en)]
+    tf = tff.fused_tgt_forward_reference(model, tcfg, structure, *targs,
+                                         **variant)
+    base = tff.fused_tgt_forward_reference(model, tcfg, structure, *targs)
+    return jf, tf, base
+
+
+@pytest.mark.parametrize("structure", list(STRUCTURE_NAMES))
+def test_plain_k1_out_bf16_matches_pallas_interpret(structure):
+    """Plain K1 ``out_bf16`` is plain K1's f32 output rounded to bf16,
+    exactly (returned as f32, as the reference returns it), and lies
+    within ``chain_gate`` of the interpret kernel's ``out_bf16``."""
+    jf, tf, base = _variant_outputs(structure, 11, out_bf16=True)
+    assert tf.dtype == torch.float32
+    assert torch.equal(tf, base.to(torch.bfloat16).float()), structure
+    L = jm.num_steps(_models(KINDS["basis"])[0], structure)
+    gate = tff.chain_gate(tf, torch.from_numpy(np.array(jf)), L)
+    assert gate["ok"], (structure, gate)
+    x0 = torch.zeros((3, 128), dtype=torch.bfloat16)
+    ws = [torch.zeros((128, 128), dtype=torch.bfloat16)]
+    bs = [torch.zeros((128,))]
+    blocks = tff.ChainBlocks(128, [128], [128], [[(0, 0)]], 1)
+    with pytest.raises(ValueError):
+        tff._chain_forward(x0, ws, bs, D, blocks, torch.float16)
+
+
+@pytest.mark.parametrize("structure", ["3-chain_inter", "2-inter"])
+def test_plain_k1_fold_bias_matches_pallas_interpret(structure):
+    """Plain K1 ``fold_bias`` (biases N(0, 0.1)) within 1e-4 of the
+    interpret kernel's ``fold_bias`` (f32 sum order only: the bias rounds
+    to bf16 in W_0 on both sides), and within the reference's own 1e-2 of
+    the unfolded output (``tests/test_pallas_fused_fwd.py:499``)."""
+    jf, tf, base = _variant_outputs(structure, 13, fold_bias=True)
+    assert _rel(tf.numpy(), jf) <= 1e-4, (structure, _rel(tf.numpy(), jf))
+    err = _rel(tf.numpy(), base.numpy())
+    assert 0 < err < 1e-2, (structure, err)
+
+
+@pytest.mark.parametrize("structure", list(STRUCTURE_NAMES))
+def test_fold_bias_layer_matrices_and_blocks(structure):
+    """``_layer_matrices(fold_bias0=True)`` equals the JAX assembly (the
+    bias in W_0's row ``n_a d_pad + n_var m8``, layer 0's bias row zero),
+    and the ``fold_bias`` block list is exactly the blocks it fills: the
+    one-hot block against every output block of layer 0."""
+    jcfg, tcfg, params, model = _models(KINDS["basis"])
+    ne, nm, er, en, _ = _inputs(structure, seed=4)
+    spec, steps, plan, a_slots, v_slots = jff._plan(jcfg, structure)
+    jW, jb = jff._layer_matrices(params, jcfg, spec, steps, plan, a_slots,
+                                 v_slots, jnp.asarray(er), jnp.asarray(en),
+                                 128, fold_bias0=True)
+    with torch.no_grad():
+        tW, tb = tff._layer_matrices(model, tcfg, spec, steps, plan, a_slots,
+                                     v_slots, torch.from_numpy(er),
+                                     torch.from_numpy(en), 128,
+                                     fold_bias0=True)
+    for a, b in zip(jW, tW):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6,
+                                   atol=1e-7)
+    for a, b in zip(jb, tb):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a)[0])
+    assert not tb[0].any()
+    row = len(a_slots) * 128 + len(v_slots) * 8
+    for s, slot in enumerate(plan[0][1]):
+        np.testing.assert_array_equal(
+            tW[0][row, s * 128:s * 128 + D].numpy(),
+            model.layers[0].bias.detach().numpy())
+    blocks = tff.chain_blocks(tcfg, structure, fold_bias=True)
+    assert blocks is tff.chain_blocks(tcfg, structure, fold_bias=True)
+    assert blocks is not tff.chain_blocks(tcfg, structure)
+    for li, W in enumerate(tW):
+        nz = W.reshape(W.shape[0] // 128, 128, W.shape[1] // 128, 128)
+        nz = nz.abs().amax((1, 3)) > 0
+        listed = torch.zeros_like(nz)
+        for kb, nb in blocks.pairs[li]:
+            listed[kb, nb] = True
+        assert torch.equal(nz, listed), (structure, li)
+
+
+@pytest.mark.parametrize("n_modes", [64, 72], ids=["full", "unpacked"])
+def test_fold_bias_refused_without_a_free_column(n_modes):
+    """``3-chain_inter`` has two variable slots: 2 x 64 fills the packed
+    block, 2 x 72 does not fit it; both raise the reference's
+    ``ValueError``, in K1 and in its block list."""
+    jcfg, tcfg, params, model = _models(KINDS["basis"], n_modes=n_modes)
+    structure = "3-chain_inter"
+    ne, nm, er, en, _ = _inputs(structure, B=8, n_modes=n_modes)
+    msg = "fold_bias needs a free column"
+    with pytest.raises(ValueError, match=msg):
+        jff.fused_tgt_forward(params, jcfg, structure,
+                              *map(jnp.asarray, (ne, nm, er, en)), block=8,
+                              interpret=True, fold_bias=True)
+    targs = [torch.from_numpy(a) for a in (ne, nm, er, en)]
+    for fn in (tff.fused_tgt_forward, tff.fused_tgt_forward_reference):
+        with pytest.raises(ValueError, match=msg):
+            fn(model, tcfg, structure, *targs, fold_bias=True)
+    with pytest.raises(ValueError, match=msg):
+        tff.chain_blocks(tcfg, structure, fold_bias=True)
+    fn(model, tcfg, structure, *targs)  # the base kernel takes the layout
+
+
+@pytest.mark.parametrize("backward", ["xla", "pallas"])
+def test_encode_dense_fused_out_bf16_matches_jax(backward):
+    """``encode_dense_fused(out_bf16=True)`` against the reference's
+    wrapper (``tests/test_pallas_fused_fwd.py:521``): the forward within
+    ``chain_gate`` of the interpret kernel's, the gradients for one
+    output cotangent through both backward routes within 1e-5 (``xla``:
+    both recompute the f32 encoder) and 1e-4 (``pallas``: plain K2 vs the
+    interpret kernel, as ``test_encode_dense_fused_vjp_matches_jax``)."""
+    jcfg, tcfg, params, model = _models(KINDS["basis"])
+    tol = 1e-5 if backward == "xla" else 1e-4
+    for structure in ("1-chain", "3-inter_chain", "3-chain"):
+        ne, nm, er, en, g = _inputs(structure, seed=17)
+        with jax.default_matmul_precision("highest"):
+            out, vjp = jax.vjp(lambda p, e: jm.encode_dense_fused(
+                p, jcfg, structure, jnp.asarray(ne), jnp.asarray(nm),
+                jnp.asarray(er), e, None, 8, True, False, False, None,
+                backward, 8, True), params, jnp.asarray(en))
+            dp, den = vjp(jnp.asarray(g))
+        en_t = torch.from_numpy(en).requires_grad_()
+        q = tm.encode_dense_fused(model, tcfg, structure,
+                                  torch.from_numpy(ne), torch.from_numpy(nm),
+                                  torch.from_numpy(er), en_t, None, backward,
+                                  out_bf16=True)
+        assert q.dtype == torch.float32
+        gate = tff.chain_gate(q.detach(), torch.from_numpy(np.array(out)),
+                              jm.num_steps(jcfg, structure))
+        assert gate["ok"], (structure, gate)
+        got = torch.autograd.grad(q, list(model.parameters()) + [en_t],
+                                  torch.from_numpy(g), allow_unused=True)
+        want = _jax_leaves(dp, den)
+        names = [n for n, _ in model.named_parameters()] + ["edge_norm"]
+        for n, gr in zip(names, got):
+            if np.abs(want[n]).max() > 0:
+                assert _rel(gr.numpy(), want[n]) <= tol, (structure, n)
+
+
+@pytest.mark.parametrize("structure", ["3-chain_inter", "2-inter"])
+def test_fold_bias_is_differentiable_through_k2(structure):
+    """``fused_tgt_forward(fold_bias=True)`` differentiates through
+    :class:`FusedChain` (K2's plain version here): layer 0's bias gets its
+    gradient through W_0's folded row, ``sum_rows bf16(g) * 1`` where the
+    unfolded chain has ``sum_rows g``, so every leaf lies within bf16
+    rounding (1e-2, the reference's fold tolerance) of the unfolded
+    gradients, and layer 0's bias leaf is not zero."""
+    _, tcfg, _, model = _models(KINDS["basis"])
+    ne, nm, er, en, g = _inputs(structure, seed=21)
+    targs = [torch.from_numpy(a) for a in (ne, nm, er, en)]
+    grads = []
+    for fold in (False, True):
+        q = tff.fused_tgt_forward(model, tcfg, structure, *targs,
+                                  fold_bias=fold)
+        grads.append(dict(zip(
+            [n for n, _ in model.named_parameters()],
+            torch.autograd.grad(q, list(model.parameters()),
+                                torch.from_numpy(g), allow_unused=True))))
+    base, fold = grads
+    assert fold["layers.0.bias"] is not None
+    assert fold["layers.0.bias"].abs().max() > 0
+    for name, want in base.items():
+        if want is None or not want.abs().max() > 0:
+            continue
+        assert _rel(fold[name].numpy(), want.numpy()) < 1e-2, (structure,
+                                                               name)
