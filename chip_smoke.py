@@ -5,9 +5,11 @@ Drives the serving path, the per-formula evaluation through the sparse
 encoder, the full ranking, the dense training path, the sparse training
 path (``--kernel fused`` and ``--kernel blocked``), the training
 through the edge-partitioned halo layers (``--parallel halo_ring`` /
-``halo_gather``), the GQE baselines and the data path (npz and GQE
+``halo_gather``), the GQE baselines, the data path (npz and GQE
 pickle datasets through the CLIs, the benchmark driver ``python -m
-mpqe_tpu_torch.bench`` and the quality benchmark) at the flagship width
+mpqe_tpu_torch.bench`` and the quality benchmark) and reduced precision
+(a bf16 model trained through K1/K2 and served through K3 from float32,
+bfloat16 and int8 candidate tables) at the flagship width
 (d = 128, 3 R-GCN layers, TGT readout, 16 bases or full per-relation
 weights, 266 relations, 4 modes, 1,000,000 entities;
 random weights from a seed) and checks every
@@ -30,6 +32,13 @@ parallel (one nvcc each), then:
    call as a serving dispatch finds it) and its kernels' device time
    (profiler), the plain version and, as a yardstick only, the same
    products through ``torch.matmul``, beside the card's bound.
+   ``kernel.fused_multi.bf16``: the same at ``cfg.dtype = bfloat16`` (the
+   model's leaves rounded once; its bf16 entity table read as it is):
+   the f32 output under ``multi_gate``, both controls failing, the
+   output through the kernel's bf16 store bit-equal to that f32 output
+   rounded and to a repeat, within 3e-2 of the f32 ``encode_dense_multi``
+   of the same bf16 values; the bf16 store's kernel ms beside the f32
+   store's at B = 256.
 2. ``serve``: a ``QueryServer`` on the card answers a stream of sampled
    queries over all 7 structures; K3's launch count must equal one per
    layer of each eligible dispatch, and one dispatch per structure is
@@ -59,6 +68,13 @@ parallel (one nvcc each), then:
    between two steps streams GBs), CUDA events around the wrapper and the
    kernels' own device time (torch.profiler), beside the bound and, as a
    yardstick only, the same per-layer products through ``torch.matmul``.
+   ``kernel.fused_tgt.bf16``: K1 and K2 at ``cfg.dtype = bfloat16`` at B
+   = 512 and 1,000: K1's f32 output and K2's chain gradients under
+   ``chain_gate`` on the bf16 model's operands, both controls failing;
+   K1 through its wrapper bf16, bit-equal to that output rounded and to a
+   repeat, within 3e-2 of the f32 encoder of the same bf16 values; K2's
+   parameter gradients bf16, bit-equal to a repeat and within the depth
+   tolerance of the plain K2's; times at B = 512 and 131,072.
 4. ``kernel.rgcn_fused``: K5a (16-basis layer) and K5b (full-weight
    layer) of ``csrc/rgcn_fused.cu`` (tensor cores, split TF32) on the
    ``template_chunked`` layouts of the 7 structures at B = 512 and
@@ -193,7 +209,20 @@ parallel (one nvcc each), then:
    16`` in-process, 20 steps: its final line, finite losses, K1 and K2
    once a step, K3 in validation, the data's load and query sampling
    time apart from the steps.
-19. ``data.pkl``: ``make_rule_kg(30,000 entities, 3 modes, 6 base
+19. ``train.bf16``: ``python -m mpqe_tpu_torch.train --dtype bfloat16
+   --kernel fused_fwd --fused_backward pallas`` in-process on that KG
+   file at the flagship width, 50 steps with a run dir: its final line,
+   finite losses, K1 and K2 once a step, K3 in validation, every
+   parameter and Adam moment of its final checkpoint in bf16; step p50 /
+   p95 beside the float32 runs'.
+20. ``serve.bf16``: the serve CLI in-process on that run dir with
+   ``--table_dtype float32``, ``bfloat16`` and ``int8``, 32 requests of
+   256 queries over all 7 structures each (K3 launched; latency, queries/s,
+   table bytes and peak memory printed), then a ``QueryServer`` per table
+   on the same queries: each quantized table's top-10 overlap with the
+   float32 table's >= 0.8 and its scores within 0.05 (the reference's
+   rule), and int8 without cosine scoring refused.
+21. ``data.pkl``: ``make_rule_kg(30,000 entities, 3 modes, 6 base
    relations, out-degree 2)`` prepared by ``python -m
    mpqe_tpu_torch.tools.prepare_dataset --npz`` (a subprocess, timed);
    the train CLI on ``--data pkl:<dir>`` at the flagship width (d = 128,
@@ -206,7 +235,7 @@ parallel (one nvcc each), then:
    (ids of each query's target mode, sorted scores, ids equal to an
    in-process ``QueryServer.answer`` of the same queries, scores within
    1e-4; wall time and queries/s).
-20. ``bench``: ``python -m mpqe_tpu_torch.bench`` as a subprocess with
+22. ``bench``: ``python -m mpqe_tpu_torch.bench`` as a subprocess with
    ``MPQE_BENCH_MATRIX=1 MPQE_BENCH_KERNELS=1`` at
    its full shapes (K1 at B = 131,072 and its ``out_bf16`` variant, the
    dense f32 step, the four configs, the step through each of the four
@@ -216,7 +245,7 @@ parallel (one nvcc each), then:
    ``vs_baseline``, a K1 route as ``fwd_impl``, ``edge_msgs_per_fwd`` =
    131,072 x 4, a roofline fraction in (0, 1.05], no broken timing and
    every config and kernel-path row timed, none with an ``error``.
-21. ``quality``: ``python -m mpqe_tpu_torch.tools.quality_bench --steps
+23. ``quality``: ``python -m mpqe_tpu_torch.tools.quality_bench --steps
    2000 --dim 128 --bases 16 --train_per_structure 1000
    --val_per_structure 100`` in-process: both arms' held-out macro AUC
    and APR beside the JAX package's CPU figures of the same command,
@@ -224,8 +253,9 @@ parallel (one nvcc each), then:
 
 Prints the card's name and power limit first, then one line per check,
 a JSON line ``{"kernels": [...]}`` (K1's entry, ``tgt_mma_forward``,
-carries its variants' figures under ``variants``: one kernel, its
-launches counted together) and, last, ``{"ok": true, "device":
+carries its variants' figures under ``variants``, the bf16 model's
+among them, and K3's its bf16 store's: one kernel each, its launches
+counted together) and, last, ``{"ok": true, "device":
 {...}}``.  Any failed check raises and the exit code is nonzero.  Needs
 one CUDA card and the repository's sources (it builds the kernels).
 
@@ -537,6 +567,132 @@ def phase_kernel(model, cfg, ops, device, gen, flush):
         f"library_ms={tot['library_ms']:.4f} "
         f"bound_ms={tot['bound_ms']:.6f} ({by})")
     return {"max_abs_err": max_abs, **tot, "bound_by": by}
+
+
+def bf16_twin(model, cfg):
+    """The model at ``cfg.dtype = bfloat16`` (every leaf rounded once) and
+    its config, beside its float32 copy of those bf16 values and that
+    copy's config: ``(model16, cfg16, model32, cfg32)``."""
+    import copy
+
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    model16 = copy.deepcopy(model).to(torch.bfloat16)
+    return model16, cfg16, copy.deepcopy(model16).float(), cfg
+
+
+def phase_kernel_bf16(model, cfg, device, gen, flush):
+    """K3 at ``cfg.dtype = bfloat16`` (``kernel.fused_multi.bf16``): the
+    bf16 model's operands, its f32 output under ``multi_gate`` against
+    the plain version, both controls failing it; the output through the
+    kernel's bf16 store bit-equal to that f32 output rounded, to the plain
+    version's own bf16 output where the gate saw no flip, and to a repeat;
+    within TOL_F32 of the f32 ``encode_dense_multi`` of the same bf16
+    values.  Times the bf16 store beside the f32 one at the serving batch.
+    Returns the variant's JSON fields."""
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+
+    model16, cfg16, model32, cfg32 = bf16_twin(model, cfg)
+    ops = ff.prepare_fused_multi(model16, cfg16)
+    acc = dict(max_abs_err=0.0, ms=0.0, f32_store_ms=0.0, plain_ms=0.0,
+               library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    for structure in STRUCTURE_NAMES:
+        for B in (BATCH, RAGGED):
+            args = random_inputs(gen, cfg, structure, B, device)
+            with torch.inference_mode():
+                got, acts = ff.fused_tgt_forward_multi_layers(
+                    model16, cfg16, structure, *args, operands=ops)
+                out16 = ff.fused_tgt_forward_multi(model16, cfg16, structure,
+                                                   *args, operands=ops)
+                again = ff.fused_tgt_forward_multi(model16, cfg16, structure,
+                                                   *args, operands=ops)
+                plain16 = ff.fused_tgt_forward_multi_reference(
+                    model16, cfg16, structure, *args, operands=ops)
+                f32 = mpqe_mod.encode_dense_multi(model32, cfg32, structure,
+                                                  *args)
+                gate = ff.multi_gate(cfg16, structure, ops, args, got, acts)
+                controls = {name: ff.multi_gate(
+                    cfg16, structure, o2, (ne, args[1], er, args[3]), got,
+                    acts) for name, o2, ne, er in ff.multi_gate_controls(
+                        cfg16, structure, ops, args[0], args[2])}
+            torch.cuda.synchronize()
+            if out16.dtype != torch.bfloat16 or not bool(
+                    torch.isfinite(got).all()):
+                raise AssertionError(f"{structure} B={B}: bf16 output "
+                                     f"{out16.dtype}, finite "
+                                     f"{bool(torch.isfinite(got).all())}")
+            store_equal = bool(torch.equal(bits(out16),
+                                           bits(got.to(torch.bfloat16))))
+            repeat = bool(torch.equal(bits(out16), bits(again)))
+            fails = all(not c["ok"] for c in controls.values())
+            e_f32 = rel_err(out16.float(), f32)
+            # the plain version rounds at the same point: its bf16 output
+            # moves off the kernel's only where the f32 outputs straddle a
+            # rounding boundary (printed; the gate holds the f32 outputs)
+            n_off = int(out16.ne(plain16).sum())
+            acc["max_abs_err"] = max(acc["max_abs_err"], float(
+                (out16.float() - plain16.float()).abs().max()))
+            line = (f"kernel.fused_multi.bf16 {structure:14s} B={B:5d} "
+                    f"gate_ok={gate['ok']} ({gate_text(gate)}) "
+                    f"controls_fail={fails} bf16_store_bit_equal="
+                    f"{store_equal} repeat_equal={repeat} "
+                    f"off_plain_bf16={n_off}/{out16.numel()} "
+                    f"err_vs_f32={e_f32:.3e}")
+            if not (gate["ok"] and fails and store_equal and repeat
+                    and e_f32 <= TOL_F32):
+                log(line + " FAIL")
+                raise AssertionError(line)
+            if B == BATCH:
+                cfg_f32_out = dataclasses.replace(cfg16,
+                                                  dtype=torch.float32)
+                with torch.inference_mode():
+                    ms = time_ms(lambda: ff.fused_tgt_forward_multi(
+                        model16, cfg16, structure, *args, operands=ops),
+                        ITERS, flush)
+                    ms32 = time_ms(lambda: ff.fused_tgt_forward_multi(
+                        model16, cfg_f32_out, structure, *args,
+                        operands=ops), ITERS, flush)
+                    plain_ms = time_ms(
+                        lambda: ff.fused_tgt_forward_multi_reference(
+                            model16, cfg16, structure, *args, operands=ops),
+                        PLAIN_ITERS, flush)
+                    lib_ms = time_ms(library_multi(cfg, ops, structure, B,
+                                                   gen), ITERS, flush)
+                nb, bf, f32_ops = k3_work(cfg16, structure, *args[:3])
+                # k3_work counts an f32 output and f32 anchor rows; the
+                # bf16 model's are bf16, half of each
+                nb -= (B + k3_anchor_rows(cfg16, structure, args[0])) \
+                    * cfg.embed_dim * 2
+                t_bytes, t_ops = bound_times((nb, bf, f32_ops))
+                for k, v in (("ms", ms), ("f32_store_ms", ms32),
+                             ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                             ("bound_ms", max(t_bytes, t_ops)),
+                             ("bytes_ms", t_bytes), ("ops_ms", t_ops)):
+                    acc[k] += v
+                line += (f" kernel_ms={ms:.4f} f32_store_kernel_ms="
+                         f"{ms32:.4f} plain_ms={plain_ms:.4f} "
+                         f"library_ms={lib_ms:.4f} "
+                         f"bound_ms={max(t_bytes, t_ops):.6f}")
+            log(line)
+    by = "bytes" if acc.pop("bytes_ms") >= acc.pop("ops_ms") else \
+        "operations"
+    log(f"kernel.fused_multi.bf16 sum of 7 at B={BATCH}: bf16 store "
+        f"kernel_ms={acc['ms']:.4f} f32 store kernel_ms="
+        f"{acc['f32_store_ms']:.4f} plain_ms={acc['plain_ms']:.4f} "
+        f"library_ms={acc['library_ms']:.4f} bound_ms={acc['bound_ms']:.6f} "
+        f"({by}) max_abs_err={acc['max_abs_err']:.3e}")
+    return {**acc, "bound_by": by}
+
+
+def k3_anchor_rows(cfg, structure: str, node_entity) -> int:
+    """Distinct entity rows one K3 launch gathers (as :func:`k3_work`
+    counts them)."""
+    from mpqe_tpu_torch.ops.fused_fwd import _plan
+
+    a_slots = _plan(cfg, structure)[3]
+    return (torch.unique(node_entity[:, list(a_slots)]).numel()
+            if a_slots else 0)
 
 
 def sample_stream(kg, seed: int = 123, n_mixed: int = 4):
@@ -1108,6 +1264,138 @@ def phase_fused_tgt(model, cfg, device, gen, flush):
     return fields
 
 
+def phase_fused_tgt_bf16(model, cfg, device, gen, flush):
+    """K1 and K2 at ``cfg.dtype = bfloat16`` (``kernel.fused_tgt.bf16``):
+    on the bf16 model's operands, K1's f32 output and K2's (dA, dW, db)
+    under ``chain_gate`` against their plain versions, both controls of
+    ``chain_gate_controls`` failing it; K1 through the wrapper returns
+    bf16, bit-equal to its own f32 output rounded (the ``out_bf16``
+    store) and to a repeat, within TOL_F32 of the f32 ``encode_dense`` of
+    the same bf16 values; K2's parameter gradients (K2's chain gradients
+    mapped by autograd through the weight assembly) come back in bf16,
+    bit-equal to a repeat and, per leaf in mean|diff| / mean|ref|, within
+    TOL_GRAD_BY_DEPTH of the plain K2's.  (``chain_gate``'s own leaf
+    criteria hold at the chain level, where they were derived: the
+    assembly sums each basis gradient over edges and coefficients of
+    both signs, and on the card that cancellation lifted the mean form to
+    ~5e-4 at 3-chain while the chain's leaves stayed ~5e-5.)  Times K1
+    (bf16 store) and K2 on the bf16 model's operands at B = 512 and
+    131,072.  Returns the variant's JSON fields."""
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+
+    d, bf16 = cfg.embed_dim, torch.bfloat16
+    model16, cfg16, model32, cfg32 = bf16_twin(model, cfg)
+    acc = dict(max_abs_err=0.0, ms=0.0, bwd_ms=0.0, plain_ms=0.0,
+               bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, big_ms=0.0,
+               big_bwd_ms=0.0)
+    for structure in STRUCTURE_NAMES:
+        blocks = ff.chain_blocks(cfg16, structure)
+        tol_grad = TOL_GRAD_BY_DEPTH[mpqe_mod.num_steps(cfg, structure)]
+        for B in (TRAIN_BATCH, RAGGED):
+            args = shared_inputs(gen, cfg, structure, B)
+            x0, ws, bs, n_a, dp = chain_operands(model16, cfg16, structure,
+                                                 args)
+            L = len(ws)
+            g16 = torch.randn((B, d), generator=gen, device=device).to(bf16)
+            g = g16.float()
+            with torch.no_grad():
+                got = ff._chain_forward(x0, ws, bs, d, blocks)
+                plain = ff._chain_forward_plain(x0, ws, bs, d)
+                out16 = ff.fused_tgt_forward(model16, cfg16, structure,
+                                             *args)
+                again = ff.fused_tgt_forward(model16, cfg16, structure,
+                                             *args)
+                kb = ff._chain_backward(x0, ws, bs, g, n_a, d, dp, blocks)
+                pb = ff._chain_backward_plain(x0, ws, bs, g, n_a, d, dp)
+                f32 = mpqe_mod.encode_dense(model32, cfg32, structure, *args)
+                controls = [(ff._chain_forward_plain(x, w, bs, d),
+                             ff._chain_backward_plain(x, w, bs, g, n_a, d,
+                                                      dp))
+                            for _, x, w in ff.chain_gate_controls(
+                                x0, ws, blocks, n_a, d)]
+            dk, _, _ = ff.fused_tgt_backward(model16, cfg16, structure,
+                                             *args, None, g16)
+            dk2, _, _ = ff.fused_tgt_backward(model16, cfg16, structure,
+                                              *args, None, g16)
+            dp_, _, _ = ff.fused_tgt_backward_reference(
+                model16, cfg16, structure, *args, None, g16)
+            torch.cuda.synchronize()
+            gf = ff.chain_gate(got, plain, L)
+            gb = ff.chain_gate(kb, pb, L, blocks)
+            fails = all(not ff.chain_gate(got, cf, L)["ok"]
+                        and not ff.chain_gate(kb, cb, L, blocks)["ok"]
+                        for cf, cb in controls)
+            e_param = tree_mean_err({n: t.float() for n, t in dk.items()},
+                                    {n: t.float() for n, t in dp_.items()})
+            dtypes_ok = out16.dtype == bf16 and all(
+                t.dtype == bf16 for t in dk.values())
+            finite = bool(torch.isfinite(got).all()) and all(
+                bool(torch.isfinite(t).all()) for t in dk.values())
+            store_equal = bool(torch.equal(bits(out16), bits(got.to(bf16))))
+            repeat = bool(torch.equal(bits(out16), bits(again))) and all(
+                torch.equal(dk[n], dk2[n]) for n in dk)
+            e_f32 = rel_err(out16.float(), f32)
+            acc["max_abs_err"] = max(acc["max_abs_err"],
+                                     float((got - plain).abs().max()))
+            line = (f"kernel.fused_tgt.bf16 {structure:14s} B={B:5d} "
+                    f"fwd_gate_ok={gf['ok']} ({gate_text(gf)}) "
+                    f"bwd_gate_ok={gb['ok']} ({gate_text(gb)}) "
+                    f"controls_fail={fails} param_grad_mean_err_vs_plain="
+                    f"{e_param:.3e} (tol {tol_grad:g}) "
+                    f"bf16_out_and_grads={dtypes_ok} out_bf16_bit_equal="
+                    f"{store_equal} repeat_equal={repeat} "
+                    f"fwd_err_vs_f32={e_f32:.3e}")
+            if not (gf["ok"] and gb["ok"] and fails and e_param <= tol_grad
+                    and dtypes_ok and finite and store_equal and repeat
+                    and e_f32 <= TOL_F32):
+                log(line + " FAIL")
+                raise AssertionError(line)
+            if B == TRAIN_BATCH:
+                with torch.no_grad():
+                    ms = time_ms(lambda: ff._chain_forward(
+                        x0, ws, bs, d, blocks, bf16), ITERS, flush)
+                    bwd_ms = time_ms(lambda: ff._chain_backward(
+                        x0, ws, bs, g, n_a, d, dp, blocks), ITERS, flush)
+                    plain_ms = time_ms(lambda: ff._chain_forward_plain(
+                        x0, ws, bs, d, out_dtype=bf16), PLAIN_ITERS, flush)
+                t_bytes, t_ops = bound_times(chain_work(
+                    cfg16, structure, B, False, out_bf16=True))
+                for k, v in (("ms", ms), ("bwd_ms", bwd_ms),
+                             ("plain_ms", plain_ms),
+                             ("bound_ms", max(t_bytes, t_ops)),
+                             ("bytes_ms", t_bytes), ("ops_ms", t_ops)):
+                    acc[k] += v
+                line += (f" kernel_ms={ms:.4f} k2_kernel_ms={bwd_ms:.4f} "
+                         f"plain_ms={plain_ms:.4f} "
+                         f"bound_ms={max(t_bytes, t_ops):.6f}")
+            log(line)
+        args = shared_inputs(gen, cfg, structure, TRAIN_BIG)
+        x0, ws, bs, n_a, dp = chain_operands(model16, cfg16, structure, args)
+        g = torch.randn((TRAIN_BIG, d), generator=gen, device=device).to(
+            bf16).float()
+        with torch.no_grad():
+            big = time_ms(lambda: ff._chain_forward(x0, ws, bs, d, blocks,
+                                                    bf16), BIG_ITERS, flush)
+            big_bwd = time_ms(lambda: ff._chain_backward(
+                x0, ws, bs, g, n_a, d, dp, blocks), BIG_ITERS, flush)
+        acc["big_ms"] += big
+        acc["big_bwd_ms"] += big_bwd
+        log(f"kernel.fused_tgt.bf16 {structure:14s} B={TRAIN_BIG} "
+            f"kernel_ms={big:.4f} k2_kernel_ms={big_bwd:.4f}")
+        del x0, ws, bs, g, args
+    by = "bytes" if acc.pop("bytes_ms") >= acc.pop("ops_ms") else \
+        "operations"
+    log(f"kernel.fused_tgt.bf16 sum of 7 at B={TRAIN_BATCH}: K1 kernel_ms="
+        f"{acc['ms']:.4f} K2 kernel_ms={acc['bwd_ms']:.4f} plain_ms="
+        f"{acc['plain_ms']:.4f} bound_ms={acc['bound_ms']:.6f} ({by}); at "
+        f"B={TRAIN_BIG}: K1 kernel_ms={acc['big_ms']:.4f} K2 kernel_ms="
+        f"{acc['big_bwd_ms']:.4f}; max_abs_err={acc['max_abs_err']:.3e}")
+    del model16, model32
+    return {**acc, "bound_by": by}
+
+
 def profile_device(label: str, fn, top: int = 8, also=()) -> None:
     """Device time by kernel over ``fn()`` and the device's busy share of
     its wall time (``profiling.device_profile``): the ``top`` kernels,
@@ -1278,6 +1566,7 @@ def phase_train(kg, train_q, val_q, device):
     stores = build_stores(train_q, kg=kg)
     per_formula = [f.n_queries for fs in stores.values() for f in fs]
     name = torch.cuda.get_device_name(device)
+    STEP_MS["train"] = (np.percentile(ms, 50), np.percentile(ms, 95))
     # a batch holds the queries of one formula; on this KG nearly every
     # sampled formula is unique, so the batches are mostly padding
     log(f"train: {len(ms)} steps of batch {TRAIN_BATCH} on {name}: "
@@ -3629,6 +3918,11 @@ JAX_CPU_QUALITY = {"mpqe": (0.786, "0.786-0.859"),
                    "gqe": (0.895, "0.895-0.928")}
 
 
+# step time p50 / p95 (ms) of the train runs, by label, for the bf16
+# run's line
+STEP_MS = {}
+
+
 def tgt_counters(reset: bool = False) -> tuple:
     """(K1, K2, K3) launch counts, set to 0 first with ``reset``."""
     from mpqe_tpu_torch.ops import fused_fwd as ff
@@ -3689,6 +3983,7 @@ def train_cli_run(argv, label: str) -> tuple:
     vals = [r for r in records if "val" in r]
     loaded = [r for r in records if r.get("event") == "data_loaded"]
     ms = np.asarray([r["seconds"] * 1e3 for r in steps])
+    STEP_MS[label] = (np.percentile(ms, 50), np.percentile(ms, 95))
     n_real = int(torch.stack(real).sum()) if real else 0
     log(f"{label}: {len(steps)} steps; data loaded in "
         f"{loaded[0]['seconds']:.2f} s ({loaded[0]['n_entities']} entities, "
@@ -3923,6 +4218,129 @@ def check_serve_answer(run, data, kg, tmp, device) -> int:
     return n3
 
 
+BF16_STEPS = 50  # train.bf16: the flagship width through K1/K2 at bf16
+SERVE_BF16_REQUESTS = 32  # serve.bf16: requests of BATCH queries
+TABLE_DTYPES = ("float32", "bfloat16", "int8")
+QUANT_OVERLAP = 0.8  # quantized top-10 overlap with the f32 table, and
+QUANT_SCORE_ATOL = 0.05  # score tolerance: the reference's rule
+# (tests/test_serve.py:183-201)
+
+
+def phase_train_bf16(kg_path: str, tmp: str, device) -> tuple:
+    """``train.bf16``: ``python -m mpqe_tpu_torch.train --dtype bfloat16
+    --kernel fused_fwd --fused_backward pallas`` in-process on the
+    flagship KG file (``--data npz:``) at the flagship width, BF16_STEPS
+    steps with a run dir: K1 and K2 once a step, K3 in validation, every
+    loss finite (:func:`train_cli_run`), the final checkpoint's every
+    parameter and Adam moment in bf16; step p50 / p95 beside the f32
+    runs'.  Returns (run dir, (K1, K2, K3))."""
+    import os
+
+    run_dir = os.path.join(tmp, "bf16_run")
+    records, launches = train_cli_run(
+        ["--data", f"npz:{kg_path}", *DATA_CLI, "--dtype", "bfloat16",
+         "--device", str(device), "--steps", str(BF16_STEPS),
+         "--val_every", str(BF16_STEPS), "--run_dir", run_dir],
+        "train.bf16")
+    payload = torch.load(os.path.join(run_dir, "ckpt",
+                                      f"step_{BF16_STEPS}", "state.pt"),
+                         map_location="cpu", weights_only=True)
+    leaves = {f"model.{k}": v for k, v in payload["model"].items()}
+    for i, st in payload["optimizer"]["state"].items():
+        for k in ("mu", "nu"):
+            leaves[f"optimizer.{i}.{k}"] = st[k]
+    not_bf16 = sorted(k for k, v in leaves.items()
+                      if v.dtype != torch.bfloat16)
+    n_params = len(payload["model"])
+    log(f"train.bf16: checkpoint step_{BF16_STEPS}: {n_params} parameters "
+        f"and {len(leaves) - n_params} Adam moments, not bf16: {not_bf16}")
+    if not_bf16 or len(leaves) != 3 * n_params:
+        raise AssertionError(f"train.bf16: leaves not bf16 {not_bf16}, "
+                             f"{len(leaves)} of {3 * n_params}")
+    ref = " ".join(f"{k}: p50={v[0]:.3f} p95={v[1]:.3f}"
+                   for k, v in STEP_MS.items() if k != "train.bf16")
+    p50, p95 = STEP_MS["train.bf16"]
+    log(f"train.bf16: step_ms_p50={p50:.3f} step_ms_p95={p95:.3f} on "
+        f"{torch.cuda.get_device_name(device)}; float32 runs (ms) {ref}")
+    return run_dir, launches
+
+
+def phase_serve_bf16(run_dir: str, device) -> int:
+    """``serve.bf16``: the serve CLI in-process on the ``train.bf16`` run
+    dir with ``--table_dtype float32``, ``bfloat16`` and ``int8``, each
+    answering SERVE_BF16_REQUESTS requests of BATCH queries over all 7
+    structures (its JSON line: latency, queries/s, table bytes, peak
+    memory; K3 once per layer of each dispatch), then ``QueryServer``s of
+    the three tables on the same model answering the same queries: each
+    quantized table's top-10 overlap with the float32 table's >=
+    QUANT_OVERLAP and its scores within QUANT_SCORE_ATOL; int8 without
+    cosine scoring refused.  Returns K3's launches."""
+    from mpqe_tpu_torch import serve as serve_mod
+    from mpqe_tpu_torch.data.sampler import QuerySampler
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+
+    k3 = 0
+    for td in TABLE_DTYPES:
+        tgt_counters(reset=True)
+        torch.cuda.reset_peak_memory_stats(device)
+        lines = run_cli(serve_mod.main, [
+            "--run_dir", run_dir, "--table_dtype", td, "--requests",
+            str(SERVE_BF16_REQUESTS), "--batch", str(BATCH), "--structures",
+            ",".join(STRUCTURE_NAMES)], f"serve.bf16 --table_dtype {td}")
+        n3 = tgt_counters()[2]
+        out = json.loads(lines[-1])
+        log(f"serve.bf16 --table_dtype {td}: K3 launches {n3}; "
+            f"latency_ms_p50={out['latency_ms_p50']:.3f} "
+            f"p95={out['latency_ms_p95']:.3f} "
+            f"queries_per_s={out['queries_per_s']:.1f} "
+            f"table_bytes={out['table_bytes']} "
+            f"peak_mem_bytes={out['peak_mem_bytes']} "
+            f"hit_at_k={out['hit_at_k']:.4f}")
+        if n3 == 0 or out["table_dtype"] != td or not all(
+                np.isfinite([out["latency_ms_p50"], out["queries_per_s"]])):
+            raise AssertionError(f"serve.bf16 {td}: {lines[-1]}")
+        k3 += n3
+
+    args = serve_mod.parse_args(["--run_dir", run_dir])
+    cfg, kg, model, _, nbr = serve_mod._from_run_dir(args, device)
+    if cfg.dtype != torch.bfloat16:
+        raise AssertionError(f"serve.bf16: the run's model is {cfg.dtype}")
+    sampler = QuerySampler(kg, seed=7)
+    per = SERVE_BF16_REQUESTS * BATCH // len(STRUCTURE_NAMES)
+    queries = [q for s in STRUCTURE_NAMES
+               for q in sampler.sample_queries(s, per, n_neg=1)]
+    answers = {}
+    for td in TABLE_DTYPES:
+        server = serve_mod.QueryServer(model, cfg, kg.entity_mode,
+                                       device=device, table_dtype=td)
+        tgt_counters(reset=True)
+        answers[td] = server.answer(queries, k=K)
+        k3 += tgt_counters()[2]
+        del server
+    for td in TABLE_DTYPES[1:]:
+        overlap = float(np.mean([
+            len(set(a.entity_ids.tolist()) & set(b.entity_ids.tolist())) / K
+            for a, b in zip(answers["float32"], answers[td])]))
+        score_err = max(float(np.abs(a.scores - b.scores).max())
+                        for a, b in zip(answers["float32"], answers[td]))
+        line = (f"serve.bf16 {td} vs float32 table: {len(queries)} queries "
+                f"top-{K} overlap={overlap:.4f} (>= {QUANT_OVERLAP}) "
+                f"score_max_err={score_err:.4e} (<= {QUANT_SCORE_ATOL})")
+        if overlap < QUANT_OVERLAP or score_err > QUANT_SCORE_ATOL:
+            log(line + " FAIL")
+            raise AssertionError(line)
+        log(line)
+    try:
+        serve_mod.QueryServer(model, dataclasses.replace(
+            cfg, scale_scores=False), kg.entity_mode, device=device,
+            table_dtype="int8")
+    except ValueError as e:
+        log(f"serve.bf16: int8 without cosine scoring refused: {e}")
+    else:
+        raise AssertionError("serve.bf16: int8 without cosine served")
+    return k3
+
+
 def phase_quality(tmp: str, device) -> int:
     """``quality``: ``python -m mpqe_tpu_torch.tools.quality_bench`` with
     QUALITY_ARGS, in-process: both arms' held-out macro AUC and APR
@@ -4120,7 +4538,11 @@ def main() -> int:
                         device=device)
 
     fields = phase_kernel(model, cfg, ops, device, gen, flush)
+    fields["variants"] = {"bf16_store": phase_kernel_bf16(
+        model, cfg, device, gen, flush)}
     tgt_fields = phase_fused_tgt(model, cfg, device, gen, flush)
+    tgt_fields["fwd"]["variants"]["bf16_model"] = phase_fused_tgt_bf16(
+        model, cfg, device, gen, flush)
     from mpqe_tpu_torch.ops import rgcn as rgcn_ops
 
     full_layer = rgcn_ops.init_rgcn_layer(gen, cfg.embed_dim, cfg.embed_dim,
@@ -4171,22 +4593,30 @@ def main() -> int:
                                     check_bibox_w(d)), label="gqe.cli")
     log(f"gqe phases {time.perf_counter() - t_gqe:.1f} s")
 
+    import os
     import tempfile
 
     t_data = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         data_launches = [phase_data_npz(kg, tmp, device)]
         del kg
+        t_bf16 = time.perf_counter()
+        bf16_run, bf16_launches = phase_train_bf16(
+            os.path.join(tmp, "kg.npz"), tmp, device)
+        bf16_k3 = phase_serve_bf16(bf16_run, device)
+        bf16_s = time.perf_counter() - t_bf16
         data_launches.append(phase_data_pkl(tmp, device))
         bench_s = phase_bench()
         data_launches.append((0, 0, phase_quality(tmp, device)))
-    k1 += sum(n[0] for n in data_launches)
-    k2 += sum(n[1] for n in data_launches)
-    launches += sum(n[2] for n in data_launches)
-    log(f"bench phase {bench_s:.1f} s; data phases "
-        f"{time.perf_counter() - t_data - bench_s:.1f} s; their launches "
-        f"(K1, K2, K3): npz {data_launches[0]}, pkl {data_launches[1]}, "
-        f"quality {data_launches[2]}")
+    k1 += sum(n[0] for n in data_launches) + bf16_launches[0]
+    k2 += sum(n[1] for n in data_launches) + bf16_launches[1]
+    launches += sum(n[2] for n in data_launches) + bf16_launches[2] + \
+        bf16_k3
+    log(f"bench phase {bench_s:.1f} s; bf16 phases {bf16_s:.1f} s; data "
+        f"phases {time.perf_counter() - t_data - bench_s - bf16_s:.1f} s; "
+        f"their launches (K1, K2, K3): npz {data_launches[0]}, pkl "
+        f"{data_launches[1]}, quality {data_launches[2]}, train.bf16 "
+        f"{bf16_launches}, serve.bf16 K3={bf16_k3}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{

@@ -71,10 +71,10 @@ Differences from the reference, by function:
 * ``MPQE_FUSED_VMEM_MB`` and the fused routes' ``block``,
   ``vmem_limit_mb`` and ``bwd_block`` tile the TPU and have no
   counterpart.
-* ``bench_best_stack`` and ``bench_shared_negatives`` need
-  ``cfg.dtype = bfloat16`` and shared negatives, which are not ported:
-  their ``extra`` entries are strings naming ROADMAP Queue 1 items 5
-  and 2.
+* ``bench_best_stack`` and ``bench_shared_negatives`` need shared
+  negatives, which are not ported: their ``extra`` entries are strings
+  naming ROADMAP Queue 1 item 2 (the best stack's other half,
+  ``cfg.dtype = bfloat16``, is ported).
 * Iteration counts: ``N_SMALL``, ``N_LARGE`` and ``N_LARGE_FWD`` are the
   reference's; the matrix's small batches (<= 8,192) take
   ``MATRIX_SMALL_ITERS`` = (50, 550) forwards and (5, 55) steps, a tenth
@@ -644,8 +644,7 @@ def main(argv=None) -> int:
     extra.update(tb)
     extra["vs_baseline_fresh"] = vs
     extra["best_stack"] = (
-        "not ported: needs cfg.dtype=bfloat16 (ROADMAP Queue 1 item 5) and "
-        "shared negatives (ROADMAP Queue 1 item 2)")
+        "not ported: needs shared negatives (ROADMAP Queue 1 item 2)")
     if os.environ.get("MPQE_BENCH_MATRIX"):
         extra["configs"] = bench_matrix(device)
         extra["shared_neg_variant"] = (

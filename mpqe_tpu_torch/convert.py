@@ -16,6 +16,14 @@ These layouts reach the port:
   imported;
 * the JAX GQE pytree as numpy arrays (``{"emb": {...}, "rel_mat": ...,
   "nbr": {...}}``): :func:`gqe_from_numpy` / :func:`gqe_to_numpy`.
+
+Leaves are float32 or bfloat16.  A JAX bf16 array reaches numpy as an
+array whose ``dtype.name`` is ``"bfloat16"`` (an ``ml_dtypes`` type,
+which this package does not import): it is carried across bit for bit
+through its ``uint16`` view.  The other way, a bf16 leaf leaves the port
+as that ``uint16`` view (``np.ndarray.view(jnp.bfloat16)`` restores the
+JAX array's bits).  Every leaf is loaded in the model's dtype
+(``cfg.dtype``).
 """
 
 from __future__ import annotations
@@ -31,9 +39,27 @@ from mpqe_tpu_torch.ops.rgcn import RGCNLayer
 
 
 def _to_numpy(a) -> np.ndarray:
+    """A tensor or array as numpy; a bf16 tensor as its ``uint16``
+    view (numpy has no bfloat16)."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        a = a.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy().view(np.uint16)
+        return a.numpy()
     return np.asarray(a)
+
+
+def _to_tensor(a) -> torch.Tensor:
+    """A leaf from the JAX package or the port as a CPU tensor: a numpy
+    bfloat16 array (``dtype.name == "bfloat16"``) becomes a bf16 tensor
+    with the same bits; anything else keeps its values."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
 
 
 def model_from_numpy(tree: Mapping[str, Any], cfg: MPQEConfig,
@@ -53,9 +79,9 @@ def model_from_numpy(tree: Mapping[str, Any], cfg: MPQEConfig,
 
 
 def layer_from_numpy(params: Mapping[str, Any], device=None) -> RGCNLayer:
-    """The port's ``RGCNLayer`` holding one JAX layer dict's arrays (f32)
-    on ``device``; its widths, relation count and bases are read from
-    the arrays."""
+    """The port's ``RGCNLayer`` holding one JAX layer dict's arrays on
+    ``device``, in the arrays' dtype (float32 or bfloat16); its widths,
+    relation count and bases are read from the arrays."""
     w_self = _to_numpy(params["w_self"])
     d_in, d_out = w_self.shape
     if "basis" in params:
@@ -65,10 +91,11 @@ def layer_from_numpy(params: Mapping[str, Any], device=None) -> RGCNLayer:
     else:
         n_rels, num_bases = _to_numpy(params["w_rel"]).shape[0], None
         leaves = ("w_self", "bias", "w_rel")
-    layer = RGCNLayer(d_in, d_out, n_rels, num_bases, device=device)
+    dtype = _to_tensor(params["w_self"]).dtype
+    layer = RGCNLayer(d_in, d_out, n_rels, num_bases, device=device).to(dtype)
     with torch.no_grad():
         for leaf in leaves:
-            a = torch.tensor(_to_numpy(params[leaf]), dtype=torch.float32)
+            a = _to_tensor(params[leaf])
             p = getattr(layer, leaf)
             if tuple(a.shape) != tuple(p.shape):
                 raise ValueError(f"{leaf}: shape {tuple(a.shape)} != "
@@ -78,7 +105,8 @@ def layer_from_numpy(params: Mapping[str, Any], device=None) -> RGCNLayer:
 
 
 def model_to_numpy(model: MPQE) -> Dict[str, Any]:
-    """Inverse of :func:`model_from_numpy`: the JAX pytree layout."""
+    """Inverse of :func:`model_from_numpy`: the JAX pytree layout (bf16
+    leaves as ``uint16`` views)."""
     def leaves(mod):
         return {k: _to_numpy(v) for k, v in mod.named_parameters()}
 
@@ -151,7 +179,7 @@ def _load_flat(flat: Dict[str, Any], cfg, device, cls=MPQE):
             f"unexpected {extra}")
     with torch.no_grad():
         for name, p in params.items():
-            a = torch.tensor(_to_numpy(flat[name]), dtype=torch.float32)
+            a = _to_tensor(flat[name])
             if tuple(a.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(a.shape)} != "
                                  f"expected {tuple(p.shape)}")

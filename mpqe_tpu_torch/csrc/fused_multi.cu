@@ -16,7 +16,12 @@
 //                  out of range gives coefficient 0), summed per
 //                  destination slot in the plan's edge order
 //   * y = (self + bias) + messages;  x = bf16(relu(y)) between layers,
-//     f32 y without ReLU after the last layer.
+//     f32 y without ReLU after the last layer, or bf16(y) (round to nearest
+//     even, __float2bfloat16_rn) for a model whose dtype is bfloat16: the
+//     reference's out.astype(cfg.dtype) at :470, done in the store, so the
+//     bf16 output is the rounding of the f32 one bit for bit.
+// The entity table is f32 or bf16 (a bf16 model's own table; its rows are
+// bf16 already, so x = bf16(ent[...]) takes them as they are).
 //
 // Numerics.  The K-deep sums inside the products x @ w_self and x @ basis_b
 // run on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate) in
@@ -102,7 +107,8 @@ struct Layer {
 };
 
 struct Args {
-  const float* ent;
+  const void* ent;  // [n_ent][d] f32, or bf16 when ent_bf16
+  int ent_bf16;
   long long n_ent;
   int d, dp;
   const int* node_entity;  // [B][n_nodes]
@@ -120,7 +126,8 @@ struct Args {
   int n_modes;
   const bf16* x_in;  // [n_nodes][B][dp] (layers >= 1)
   bf16* x_out;       // [n_nodes][B][dp] (all but the last layer)
-  float* out;        // [B][d] (the last layer)
+  void* out;         // [B][d] (the last layer): f32, or bf16 when out_bf16
+  int out_bf16;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -206,7 +213,9 @@ fused_multi_layer_kernel(const __grid_constant__ Layer ly,
         long long id = a.node_entity[(long long)(q0 + rr) * a.n_nodes +
                                      ly.a_slot[ai]];
         id = id < 0 ? 0 : (id >= a.n_ent ? a.n_ent - 1 : id);
-        v = __ldg(a.ent + id * a.d + cc);
+        v = a.ent_bf16
+                ? __bfloat162float(static_cast<const bf16*>(a.ent)[id * a.d + cc])
+                : __ldg(static_cast<const float*>(a.ent) + id * a.d + cc);
       }
       xs[(ai * TQ + rr) * xp + cc] = __float2bfloat16_rn(v);
     }
@@ -397,7 +406,13 @@ fused_multi_layer_kernel(const __grid_constant__ Layer ly,
     if (any) y = __fadd_rn(y, m);
     if (!qv) continue;
     if (ly.last) {
-      if (col < a.d) a.out[(size_t)q * a.d + col] = y;
+      if (col < a.d) {
+        const size_t o_at = (size_t)q * a.d + col;
+        if (a.out_bf16)
+          static_cast<bf16*>(a.out)[o_at] = __float2bfloat16_rn(y);
+        else
+          static_cast<float*>(a.out)[o_at] = y;
+      }
     } else {
       a.x_out[((size_t)s * a.B + q) * dp + col] =
           __float2bfloat16_rn(fmaxf(y, 0.f));
@@ -553,16 +568,17 @@ extern "C" long long mpqe_fused_multi_max_smem(int device) {
 // next layer reads it, so planes is at least 2 for three or more layers
 // (no layer overwrites rows that blocks of the layer before still read)
 // and 1 for two; with planes = steps - 1 every layer's activations stay
-// there after the call.  A one-layer plan takes no scratch.  Returns the
-// first cudaError (0 on success); arguments out of range are
+// there after the call.  A one-layer plan takes no scratch.  ent is f32,
+// or bf16 with ent_bf16; out is written in f32, or in bf16 with out_bf16.
+// Returns the first cudaError (0 on success); arguments out of range are
 // cudaErrorInvalidValue.
 extern "C" int mpqe_fused_multi_forward(
-    const void* plan, const float* ent, long long n_ent, int d,
+    const void* plan, const void* ent, int ent_bf16, long long n_ent, int d,
     const int* node_entity, const int* node_mode, const int* rel,
     const float* norm, int B, const void* w_self, const float* bias,
     const void* vw, const float* coeff, int n_rels, const void* tself0,
-    const void* tvar0, int n_modes, void* scratch, int planes, float* out,
-    void* stream) {
+    const void* tvar0, int n_modes, void* scratch, int planes, void* out,
+    int out_bf16, void* stream) {
   const Plan* p = static_cast<const Plan*>(plan);
   if (p == nullptr) return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
@@ -579,6 +595,7 @@ extern "C" int mpqe_fused_multi_forward(
   bf16* buf = static_cast<bf16*>(scratch);
   Args a;
   a.ent = ent;
+  a.ent_bf16 = ent_bf16;
   a.n_ent = n_ent;
   a.d = d;
   a.dp = dp;
@@ -599,6 +616,7 @@ extern "C" int mpqe_fused_multi_forward(
   a.tvar0 = static_cast<const bf16*>(tvar0);
   a.n_modes = n_modes;
   a.out = out;
+  a.out_bf16 = out_bf16;
   for (int l = 0; l < p->steps; ++l) {
     a.x_in = l > 0 ? buf + (size_t)((l - 1) % planes) * plane : nullptr;
     a.x_out = p->ls[l].last ? nullptr : buf + (size_t)(l % planes) * plane;

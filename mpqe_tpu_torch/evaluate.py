@@ -16,8 +16,10 @@ when it has none); for synthetic and ``npz:`` data, a fresh draw of the
 same size from the disjoint sampler seed ``seed + 7919``, as the
 reference does.
 
-MPQE and GQE run dirs alike; a GQE neighborhood model's neighbor table is
-rebuilt from the run's ``gqe_fanout`` and ``seed``, as it was trained.
+MPQE and GQE run dirs alike, their models float32 or bfloat16 (as
+``model_config.json`` records it; the scores are f32 either way); a GQE
+neighborhood model's neighbor table is rebuilt from the run's
+``gqe_fanout`` and ``seed``, as it was trained.
 Runs on the card unless told otherwise (``--device cpu``); with no card
 and no ``--device cpu`` it raises.  Not ported yet: ``--shards > 1`` (the
 sharded ranking), raising ``NotImplementedError`` naming ROADMAP Queue 1

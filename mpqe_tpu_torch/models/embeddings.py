@@ -77,5 +77,6 @@ def embed_nodes_template(emb: Embeddings, node_entity: torch.Tensor,
                 ids = node_entity[:, s].long().clamp(0, emb.ent.shape[0] - 1)
                 cols.append(emb.ent[ids])
         else:
-            cols.append(_rows_by_mode(emb.var, node_mode[:, s]))
+            cols.append(_rows_by_mode(emb.var, node_mode[:, s]).to(
+                emb.var.dtype))
     return torch.stack(cols, dim=1)

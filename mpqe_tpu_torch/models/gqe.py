@@ -32,7 +32,9 @@ from torch import nn
 from mpqe_tpu_torch.models import aggregators as agg_mod
 from mpqe_tpu_torch.models import embeddings as emb_mod
 from mpqe_tpu_torch.models import mpqe as mpqe_mod
+from mpqe_tpu_torch.ops import dtypes
 from mpqe_tpu_torch.ops.rgcn import normal_
+from mpqe_tpu_torch.parallel.rank_shard import quantized_scores
 from mpqe_tpu_torch.queries import STRUCTURES
 
 DECODERS = ("bilinear", "transe", "distmult", "box", "bibox")
@@ -73,14 +75,12 @@ class GQEConfig:
             raise ValueError(f"encoder {self.encoder}")
         if self.aggregator not in agg_mod.AGGREGATORS:
             raise ValueError(f"aggregator {self.aggregator}")
-        if self.dtype != torch.float32:
-            raise NotImplementedError(
-                f"GQEConfig.dtype={self.dtype}: only float32 models are "
-                "ported; other model dtypes are ROADMAP Queue 1 item 5")
+        dtypes.check_model_dtype(self.dtype)
 
 
 class GQE(nn.Module):
-    """GQE parameters (uninitialized; see :func:`init_gqe`)."""
+    """GQE parameters in ``cfg.dtype`` (uninitialized; see
+    :func:`init_gqe`)."""
 
     def __init__(self, cfg: GQEConfig, device=None):
         super().__init__()
@@ -110,6 +110,7 @@ class GQE(nn.Module):
         if cfg.intersection == "deepsets":
             self.int_pre, self.int_pre_b = p(d, d), p(d)
             self.int_post, self.int_post_b = p(d, d), p(d)
+        self.to(cfg.dtype)
 
 
 def _fork(gen: torch.Generator) -> torch.Generator:
@@ -128,7 +129,8 @@ def init_gqe(gen: torch.Generator, cfg: GQEConfig, device=None) -> GQE:
     box centers ``N(0, 1/d)`` and offsets ``U(0, 0.5/sqrt(d))``, the
     intersection and attention weights ``N(0, 1/d)``, biases 0.  Torch's
     generator gives other bits than JAX's, so parity tests carry JAX
-    parameters across instead."""
+    parameters across instead.  Every leaf is drawn in f32 and rounded
+    once to ``cfg.dtype``, as the reference creates it in ``cfg.dtype``."""
     d, r = cfg.embed_dim, cfg.n_rels
     model = GQE(cfg, device="meta")
     model.emb = emb_mod.init_embeddings(gen, cfg.n_entities, cfg.n_modes, d,
@@ -166,7 +168,7 @@ def init_gqe(gen: torch.Generator, cfg: GQEConfig, device=None) -> GQE:
         put("int_pre_b", zeros(d))
         put("int_post", normal_(gen, (d, d), s2, device))
         put("int_post_b", zeros(d))
-    return model
+    return model.to(cfg.dtype)
 
 
 def _rel_rows(table: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
@@ -453,17 +455,19 @@ def score_queries(model: GQE, cfg: GQEConfig, structure: str,
 
 
 def score_all(model: GQE, cfg: GQEConfig, rep,
-              ent_norm_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+              ent_norm_t: Optional[torch.Tensor] = None,
+              table_dtype: str = "float32") -> torch.Tensor:
     """``[B, n_entities]`` affinities of one representation: the cosine
-    rank product (against ``ent_norm_t``, the normalized transposed table,
-    when given), the chunked box distance, or both for bibox."""
+    rank product (against ``ent_norm_t``, the normalized transposed table
+    in ``table_dtype``, when given), the chunked box distance, or both
+    for bibox."""
     def cosine(vec):
         if ent_norm_t is None:
             return mpqe_mod.score_all_entities(model, _score_cfg(cfg), vec)
         vec = vec.to(torch.float32)
         if cfg.scale_scores:
             vec = mpqe_mod._l2_normalize(vec)
-        return torch.matmul(vec, ent_norm_t)
+        return quantized_scores(vec, ent_norm_t, table_dtype)
 
     if cfg.decoder == "bibox":
         vec, box = rep
@@ -475,7 +479,8 @@ def score_all(model: GQE, cfg: GQEConfig, rep,
 
 def rank_scores(model: GQE, cfg: GQEConfig, structure: str, node_entity,
                 edge_rel_q, neighbor_table=None,
-                ent_norm_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                ent_norm_t: Optional[torch.Tensor] = None,
+                table_dtype: str = "float32") -> torch.Tensor:
     """``[B, n_entities]`` scores of a per-query-relation batch against
     every entity (the full-ranking and serving sweep): SoftAnd keeps a
     running minimum over the branches' score matrices, one matrix alive
@@ -484,10 +489,10 @@ def rank_scores(model: GQE, cfg: GQEConfig, structure: str, node_entity,
                               neighbor_table)
     if not cfg.soft_and:
         return score_all(model, cfg, _intersect_any(cfg, model, branches),
-                         ent_norm_t)
+                         ent_norm_t, table_dtype)
     out = None
     for b in branches:
-        s = score_all(model, cfg, b, ent_norm_t)
+        s = score_all(model, cfg, b, ent_norm_t, table_dtype)
         out = s if out is None else torch.minimum(out, s)
     return out
 

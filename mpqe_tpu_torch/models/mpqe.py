@@ -22,6 +22,7 @@ from torch import nn
 
 from mpqe_tpu_torch.models import embeddings as emb_mod
 from mpqe_tpu_torch.models import readout as readout_mod
+from mpqe_tpu_torch.ops import dtypes
 from mpqe_tpu_torch.ops import fused_fwd as fused_fwd_ops
 from mpqe_tpu_torch.ops import rgcn as rgcn_ops
 from mpqe_tpu_torch.ops import segment_kernels
@@ -39,19 +40,17 @@ class MPQEConfig:
     readout: str = "tgt"
     margin: float = 1.0
     scale_scores: bool = True  # cosine (normalized) vs raw dot scores
-    dtype: Any = torch.float32
+    dtype: Any = torch.float32  # the leaves' dtype: float32 or bfloat16
 
     def __post_init__(self):
         if self.readout not in readout_mod.READOUTS:
             raise ValueError(f"bad readout {self.readout}")
-        if self.dtype != torch.float32:
-            raise NotImplementedError(
-                f"MPQEConfig.dtype={self.dtype}: only float32 models are "
-                "ported; other model dtypes are ROADMAP Queue 1 item 5")
+        dtypes.check_model_dtype(self.dtype)
 
 
 class MPQE(nn.Module):
-    """MPQE parameters (uninitialized; see :func:`init_mpqe`)."""
+    """MPQE parameters in ``cfg.dtype`` (uninitialized; see
+    :func:`init_mpqe`)."""
 
     def __init__(self, cfg: MPQEConfig, device=None):
         super().__init__()
@@ -62,13 +61,15 @@ class MPQE(nn.Module):
             rgcn_ops.RGCNLayer(d, d, cfg.n_rels, cfg.num_bases, device=device)
             for _ in range(cfg.n_layers))
         self.readout = readout_mod.Readout(cfg.readout, d, device=device)
+        self.to(cfg.dtype)
 
 
 def init_mpqe(gen: torch.Generator, cfg: MPQEConfig, device=None) -> MPQE:
     """A randomly initialized model on ``device``, drawn from ``gen`` (on
     the generator's own device).  Same distributions as the reference's
     ``init_mpqe``; torch's generator gives other bits than JAX's, so
-    parity tests carry JAX parameters across instead."""
+    parity tests carry JAX parameters across instead.  Every leaf is
+    drawn in f32 and rounded once to ``cfg.dtype``."""
     model = MPQE(cfg, device="meta")
     d = cfg.embed_dim
     model.emb = emb_mod.init_embeddings(gen, cfg.n_entities, cfg.n_modes, d,
@@ -79,7 +80,7 @@ def init_mpqe(gen: torch.Generator, cfg: MPQEConfig, device=None) -> MPQE:
         for _ in range(cfg.n_layers))
     model.readout = readout_mod.init_readout(gen, cfg.readout, d,
                                              device=device)
-    return model
+    return model.to(cfg.dtype)
 
 
 def num_steps(cfg: MPQEConfig, structure: str) -> int:
@@ -145,7 +146,9 @@ def _encode_dense_tgt_pruned(model, cfg, spec, node_entity, node_mode,
     """TGT forward over the live slots only (``_live_slot_plan``).
     Layer-0 variable slots stay factored: their transforms run on the
     ``[n_modes, d]`` table and are then selected per query (exactly the
-    reference's one-hot matmul)."""
+    reference's one-hot matmul).  The reference's rounding points: f32
+    products of ``cfg.dtype`` operands, ``(acc + bias)`` rounded to
+    ``cfg.dtype`` once a layer."""
     plan = _live_slot_plan(spec, steps)
     in_slots0 = plan[0][0]
     anchors = set(spec.anchor_slots)
@@ -163,8 +166,9 @@ def _encode_dense_tgt_pruned(model, cfg, spec, node_entity, node_mode,
 
         def term(s, w):
             if s in xs:
-                return xs[s] @ w
-            return fused_fwd_ops._rows_by_mode(var @ w, node_mode[:, s])
+                return dtypes.dot_f32(xs[s], w)
+            return fused_fwd_ops._rows_by_mode(dtypes.dot_f32(var, w),
+                                               node_mode[:, s])
 
         nxt = {}
         for s in out_slots:
@@ -174,7 +178,7 @@ def _encode_dense_tgt_pruned(model, cfg, spec, node_entity, node_mode,
                     continue
                 msg = term(spec.edge_src[j], w_e[j])
                 acc = acc + msg * edge_norm[j].to(msg.dtype)
-            acc = acc + lp.bias
+            acc = (acc + lp.bias).to(cfg.dtype)
             nxt[s] = acc if last else torch.relu(acc)
         xs = nxt
     return xs[spec.target_slot]
@@ -191,7 +195,7 @@ def encode_dense(
     anchor_rows: Optional[torch.Tensor] = None,  # [B, A, d] pre-gathered
 ) -> torch.Tensor:
     """Embed + message-pass + read out one formula's batch → ``[B, d]``
-    f32 (the training encoder of ``--kernel dense``).  TGT runs the
+    in ``cfg.dtype`` (the training encoder of ``--kernel dense``).  TGT runs the
     dead-slot-pruned plan; the other readouts run every layer over every
     slot.  ``anchor_rows`` (columns per :func:`anchor_gather_slots`)
     replaces the entity gather."""
@@ -206,7 +210,8 @@ def encode_dense(
                                      anchor_rows=anchor_rows)
     for li in range(steps):
         x = rgcn_ops.rgcn_dense_template(x, model.layers[li], spec.edge_src,
-                                         spec.edge_dst, edge_rel, edge_norm)
+                                         spec.edge_dst, edge_rel, edge_norm
+                                         ).to(cfg.dtype)
         if li < steps - 1:
             x = torch.relu(x)
     return readout_mod.readout_dense(cfg.readout, model.readout, x,
@@ -227,7 +232,6 @@ class _FusedRecompute(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.to(torch.float32)  # an out_bf16 forward: upcast the cotangent
         edge_norm, anchor_rows, *params = ctx.saved_tensors
         en = edge_norm.detach().requires_grad_(ctx.needs_input_grad[1])
         ar = None if anchor_rows is None else anchor_rows.detach(
@@ -237,7 +241,12 @@ class _FusedRecompute(torch.autograd.Function):
                    if need]
         with torch.enable_grad():
             q = ctx.run(en, ar, False)
-        grads = iter(torch.autograd.grad(q, inputs, g, allow_unused=True))
+        # the cotangent in the recomputed output's dtype: an out_bf16
+        # forward of an f32 model upcasts it; at cfg.dtype = bfloat16 the
+        # output and its cotangent are bf16 (the reference's xla backward
+        # upcasts it there too, and its vjp then refuses the f32 cotangent)
+        grads = iter(torch.autograd.grad(q, inputs, g.to(q.dtype),
+                                         allow_unused=True))
         out = [None, next(grads) if en.requires_grad else None,
                next(grads) if ar is not None and ar.requires_grad else None]
         out += [next(grads) if need else None
@@ -270,8 +279,9 @@ def encode_dense_fused(
       gather into ``emb.ent``.
 
     ``out_bf16`` has K1 write its output in bf16, returned cast to
-    ``cfg.dtype`` (the reference's variant); both backward routes take
-    the cotangent in f32.  The reference's ``block``, ``interpret``,
+    ``cfg.dtype`` (the reference's variant; a bf16 model always takes
+    it).  K2 takes the cotangent in f32; the recompute in the dtype of
+    :func:`encode_dense`'s output.  The reference's ``block``, ``interpret``,
     ``onehot_operand``, ``split_gemm``, ``vmem_limit_mb`` and
     ``bwd_block`` tile the TPU and have no counterpart.  Requires
     ``readout='tgt'``."""
@@ -305,7 +315,8 @@ def encode_dense_multi(
     edge_rel_q: torch.Tensor,  # [B, n_edges] int — PER-QUERY relations
     edge_norm_q: torch.Tensor,  # [B, n_edges] float32
 ) -> torch.Tensor:
-    """Dense template forward with per-query relations → ``[B, d]`` f32.
+    """Dense template forward with per-query relations → ``[B, d]`` in
+    ``cfg.dtype`` (f32 products, ``(acc + bias)`` rounded once a layer).
 
     Basis layers contract basis-first per query (``h_b = x_src @ V_b``,
     then ``sum_b coeff[rel_e, b] h_b``); full-weight layers gather the
@@ -326,8 +337,8 @@ def encode_dense_multi(
         if s in anchors:
             xs[s] = _entity_rows(model.emb.ent, node_entity[:, s])
         else:
-            xs[s] = fused_fwd_ops._rows_by_mode(model.emb.var,
-                                                node_mode[:, s])
+            xs[s] = fused_fwd_ops._rows_by_mode(
+                model.emb.var, node_mode[:, s]).to(cfg.dtype)
     edge_norm_q = edge_norm_q.to(torch.float32)
     cur_slots = in_slots0
     for li, (in_slots, out_slots, edges) in enumerate(plan):
@@ -336,24 +347,25 @@ def encode_dense_multi(
         n_rel = (lp.coeff if has_basis else lp.w_rel).shape[0]
         if has_basis:
             src_slots = sorted({spec.edge_src[j] for j in edges})
-            h_b = {s: torch.einsum("bd,kdo->bko", xs[s], lp.basis)
+            h_b = {s: dtypes.einsum_f32("bd,kdo->bko", xs[s], lp.basis)
                    for s in src_slots}
         last = li == steps - 1
         nxt = {}
         for s in out_slots:
-            acc = xs[s] @ lp.w_self
+            acc = dtypes.dot_f32(xs[s], lp.w_self)
             for j in edges:
                 if spec.edge_dst[j] != s:
                     continue
                 rel = edge_rel_q[:, j].long().clamp(0, n_rel - 1)
                 if has_basis:
-                    msg = torch.einsum("bk,bko->bo", lp.coeff[rel],
-                                       h_b[spec.edge_src[j]])
+                    msg = dtypes.einsum_f32("bk,bko->bo", lp.coeff[rel],
+                                            h_b[spec.edge_src[j]])
                 else:
-                    msg = torch.einsum("bd,bdo->bo", xs[spec.edge_src[j]],
-                                       lp.w_rel[rel])
+                    msg = dtypes.einsum_f32("bd,bdo->bo",
+                                            xs[spec.edge_src[j]],
+                                            lp.w_rel[rel])
                 acc = acc + msg * edge_norm_q[:, j, None]
-            acc = acc + lp.bias
+            acc = (acc + lp.bias).to(cfg.dtype)
             nxt[s] = acc if last else torch.relu(acc)
         xs = nxt
         cur_slots = out_slots
@@ -447,6 +459,7 @@ def encode_sparse(model: MPQE, cfg: MPQEConfig, structure: str,
     forward only: call it under ``torch.no_grad()``.  Their layouts are
     built once per call: the destinations' from ``edge_dst`` for all
     layers, the readout's from ``node_query``."""
+    dtypes.refuse_reduced(cfg, "encode_sparse")
     dst_layout = readout_layout = None
     if segment_backend == "pallas":
         if _sparse_steps(cfg, structure):
@@ -474,6 +487,7 @@ def encode_sparse_fused(model: MPQE, cfg: MPQEConfig, structure: str,
     edge layout.  Every layer runs over every node (no TGT pruning)."""
     from mpqe_tpu_torch.ops import rgcn_fused
 
+    dtypes.refuse_reduced(cfg, "the K5 sparse encoder (--kernel fused)")
     return _sparse_encode(
         model, cfg, structure, node_entity, node_mode, node_is_var,
         node_query, target_node, n_queries,
@@ -492,6 +506,7 @@ def encode_sparse_blocked(model: MPQE, cfg: MPQEConfig, structure: str,
     layers (or given: the pair ``rgcn_blocked.layouts_on`` returns)."""
     from mpqe_tpu_torch.ops import rgcn_blocked
 
+    dtypes.refuse_reduced(cfg, "the K6 sparse encoder (--kernel blocked)")
     lays = bucketed if isinstance(bucketed, tuple) else \
         rgcn_blocked.layouts_on(bucketed, node_entity.device)
     return _sparse_encode(
@@ -530,6 +545,7 @@ def dense_batch_loss_kernel_fused(model: MPQE, cfg: MPQEConfig,
     :func:`encode_sparse_fused`."""
     from mpqe_tpu_torch.ops import template_layout
 
+    dtypes.refuse_reduced(cfg, "--kernel fused")
     ne_f, nm_f, niv, nq, tn, B = _sparse_view_on_device(
         structure, node_entity, node_mode)
     chunked = template_layout.template_chunked(structure, edge_rel,
@@ -554,6 +570,7 @@ def dense_batch_loss_kernel_blocked(model: MPQE, cfg: MPQEConfig,
     Requires basis decomposition."""
     from mpqe_tpu_torch.ops import template_layout
 
+    dtypes.refuse_reduced(cfg, "--kernel blocked")
     if cfg.num_bases is None:
         raise ValueError("--kernel blocked requires num_bases > 0")
     ne_f, nm_f, niv, nq, tn, B = _sparse_view_on_device(
@@ -582,11 +599,12 @@ def score(cfg: MPQEConfig, q: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
 
 def score_all_entities(model: MPQE, cfg: MPQEConfig,
                        q: torch.Tensor) -> torch.Tensor:
-    """``[B, n_entities]`` affinities — one big matmul (eval sweep)."""
+    """``[B, n_entities]`` f32 affinities — one big matmul (eval sweep),
+    the rows normalized in their own dtype, as the reference does."""
     e = model.emb.ent
     if cfg.scale_scores:
         q, e = _l2_normalize(q), _l2_normalize(e)
-    return q @ e.t()
+    return dtypes.dot_f32(q, e.t())
 
 
 def margin_loss_from_rows(cfg: MPQEConfig, q: torch.Tensor,

@@ -36,6 +36,12 @@ the output, and each layer against the plain layer from the kernel's own
 inputs, :func:`fused_tgt_forward_multi_layers`; its controls,
 :func:`multi_gate_controls`), not to 0.
 
+All three take models whose leaves are float32 or bfloat16
+(``cfg.dtype``): the operands are assembled from the leaves taken up to
+f32, and a bf16 model's output is written in bf16 by the kernel itself
+(K1's ``out_bf16`` store, K3's bf16 store), the reference's cast to
+``cfg.dtype``.  K2 takes the bf16 cotangent up to f32.
+
 Both take the operands that :func:`prepare_fused_multi` built; ``model``
 stays in their signatures for parity with the reference.
 """
@@ -110,7 +116,7 @@ class FusedMultiOperands:
     n_modes: int
     n_rels: int
     n_bases: int
-    ent: torch.Tensor  # [N, d] f32, the model's own table (not a copy)
+    ent: torch.Tensor  # [N, d] the model's own table (f32 or bf16, no copy)
     w_self: torch.Tensor  # [L, d_pad, d_pad] bf16 (k, n)
     bias: torch.Tensor  # [L, d_pad] f32
     vw: torch.Tensor  # [L, d_pad, Bb * d_pad] bf16 (k, b * d_pad + n)
@@ -123,11 +129,12 @@ class FusedMultiOperands:
 
 
 def prepare_fused_multi(model, cfg) -> FusedMultiOperands:
-    """Build K3's operands from the model's current parameters, on the
-    model's device.  The f32 products ``var @ w_self_0`` and
-    ``var @ basis_0[b]`` are taken before the bf16 rounding, as the
-    reference kernel's operand assembly does (on the card, with TF32
-    off)."""
+    """Build K3's operands from the model's current parameters (f32 or
+    bf16 leaves), on the model's device.  The f32 products ``var @
+    w_self_0`` and ``var @ basis_0[b]`` are taken before the bf16
+    rounding, as the reference kernel's operand assembly does (on the
+    card, with TF32 off).  The entity table is the model's own, in its
+    own dtype: the kernel gathers f32 or bf16 rows."""
     _check_model(cfg)
     f32, bf16 = torch.float32, torch.bfloat16
     d, dp, nb = cfg.embed_dim, _round_up(cfg.embed_dim, 128), cfg.num_bases
@@ -142,7 +149,7 @@ def prepare_fused_multi(model, cfg) -> FusedMultiOperands:
         return FusedMultiOperands(
             d=d, d_pad=dp, n_modes=cfg.n_modes, n_rels=cfg.n_rels,
             n_bases=nb,
-            ent=model.emb.ent.detach().to(f32).contiguous(),
+            ent=model.emb.ent.detach().contiguous(),
             w_self=pad_last(torch.stack([lp.w_self for lp in layers]))
             .to(bf16).contiguous(),
             bias=pad_last(torch.stack([lp.bias for lp in layers]), 1)
@@ -275,20 +282,21 @@ def fused_tgt_forward_multi_reference(
     operands: FusedMultiOperands,
     mm=None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K3 → ``[B, d]`` f32.
+    """Plain PyTorch version of K3 → ``[B, d]`` in ``cfg.dtype``.
 
     The rounding points are the Pallas kernel's: bf16 anchor rows,
     bf16 x bf16 products summed in f32, exact f32 coefficient selects,
     ``msg = (sum_b c_b h_b) * norm`` (bases ascending, one rounding per
     operation) summed per destination in (source slot, edge) order,
     ``y = (self + bias) + msgs``, ``bf16(relu(y))`` between layers and
-    f32 ``y`` after the last.  ``mm(x, w, k)`` takes the products
+    ``y`` after the last, rounded once to ``cfg.dtype`` (f32: as it is;
+    bf16: to nearest even, the kernel's bf16 store).  ``mm(x, w, k)`` takes the products
     (:func:`_ordered_matmul`, k ascending, unless given: the reordering
     emulation of ``tools/k3_probe.py`` passes another); every other sum
     runs in the CUDA kernel's order."""
     return _multi_forward_plain(cfg, structure, node_entity, node_mode,
                                 edge_rel_q, edge_norm_q, operands,
-                                mm or _ordered_matmul)[0]
+                                mm or _ordered_matmul)[0].to(cfg.dtype)
 
 
 def _descriptor(cfg, structure: str) -> List[int]:
@@ -342,7 +350,8 @@ def _kernel():
         lib.mpqe_fused_multi_max_smem.argtypes = [i]
         lib.mpqe_fused_multi_max_smem.restype = ll
         lib.mpqe_fused_multi_forward.argtypes = [
-            p, p, ll, i, p, p, p, p, i, p, p, p, p, i, p, p, i, p, i, p, p]
+            p, p, i, ll, i, p, p, p, p, i, p, p, p, p, i, p, p, i, p, i, p,
+            i, p]
         lib.mpqe_fused_multi_forward.restype = i
         _KERNEL = lib
     return _KERNEL
@@ -371,6 +380,10 @@ def _check_cuda_inputs(ops: FusedMultiOperands, spec, tensors) -> None:
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if ops.ent.dtype not in (torch.float32, torch.bfloat16) or \
+            not ops.ent.is_contiguous():
+        raise ValueError("operand ent must be a contiguous float32 or "
+                         f"bfloat16 table, got {ops.ent.dtype}")
     for f in dataclasses.fields(ops):
         t = getattr(ops, f.name)
         if isinstance(t, torch.Tensor) and t.device != dev:
@@ -419,9 +432,12 @@ def _device_plan(lib, ops: FusedMultiOperands, cfg, structure: str,
     return plan
 
 
-def _launch(cfg, structure, args, ops, keep: bool):
+def _launch(cfg, structure, args, ops, keep: bool,
+            out_dtype=torch.float32):
     """Launch K3 on the current stream → ``(out, scratch)``: one launch a
-    layer, each counted in ``fused_tgt_forward_multi.launches``.  The
+    layer, each counted in ``fused_tgt_forward_multi.launches``, the
+    output written in ``out_dtype`` (f32, or bf16 by the kernel's bf16
+    store).  The
     activations between layers go through a bf16 scratch ``[planes]
     [slot][B][d_pad]`` from ``torch.empty`` (stream-ordered, so no two
     calls share one): two planes the layers take in turns, or with
@@ -432,7 +448,9 @@ def _launch(cfg, structure, args, ops, keep: bool):
     node_entity, node_mode, edge_rel_q, edge_norm_q = args
     dev = node_entity.device
     B = node_entity.shape[0]
-    out = torch.empty((B, ops.d), dtype=torch.float32, device=dev)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"K3 writes float32 or bfloat16, not {out_dtype}")
+    out = torch.empty((B, ops.d), dtype=out_dtype, device=dev)
     planes = steps - 1 if keep else min(2, steps - 1)
     plane = spec.n_nodes * B * ops.d_pad
     stream = torch.cuda.current_stream(dev)
@@ -446,14 +464,16 @@ def _launch(cfg, structure, args, ops, keep: bool):
                                                    dev)
     with torch.cuda.device(dev):
         err = lib.mpqe_fused_multi_forward(
-            plan.handle, ops.ent.data_ptr(), ops.ent.shape[0], ops.d,
+            plan.handle, ops.ent.data_ptr(),
+            int(ops.ent.dtype == torch.bfloat16), ops.ent.shape[0], ops.d,
             node_entity.data_ptr(), node_mode.data_ptr(),
             edge_rel_q.data_ptr(), edge_norm_q.data_ptr(), B,
             ops.w_self.data_ptr(), ops.bias.data_ptr(), ops.vw.data_ptr(),
             ops.coeff.data_ptr(), ops.n_rels, ops.tself0.data_ptr(),
             ops.tvar0.data_ptr(), ops.n_modes,
             scratch.data_ptr() if planes else None, planes,
-            out.data_ptr(), stream.cuda_stream)
+            out.data_ptr(), int(out_dtype == torch.bfloat16),
+            stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_multi kernel launch failed: cudaError {err}")
     fused_tgt_forward_multi.launches += steps
@@ -471,11 +491,14 @@ def fused_tgt_forward_multi(
     *,
     operands: FusedMultiOperands,
 ) -> torch.Tensor:
-    """Per-query-relation fused forward → ``[B, d]`` f32.
+    """Per-query-relation fused forward → ``[B, d]`` in ``cfg.dtype``
+    (float32 or bfloat16; the kernel writes either, bf16 through its
+    bf16 store).
 
     CUDA tensors: the hand-written kernel on the current stream (inputs
     checked, nothing falls back), one launch per layer, each counted
-    once, with the activations between layers in a bf16 scratch.  CPU tensors: the plain version.  ``operands`` come from
+    once, with the activations between layers in a bf16 scratch.  CPU
+    tensors: the plain version.  ``operands`` come from
     :func:`prepare_fused_multi`, built once per model."""
     args = (node_entity, node_mode, edge_rel_q, edge_norm_q)
     dev = node_entity.device
@@ -484,7 +507,8 @@ def fused_tgt_forward_multi(
             model, cfg, structure, *args, operands=operands)
     if dev.type != "cuda":
         raise ValueError(f"fused_tgt_forward_multi: unsupported device {dev}")
-    return _launch(cfg, structure, args, operands, keep=False)[0]
+    return _launch(cfg, structure, args, operands, keep=False,
+                   out_dtype=cfg.dtype)[0]
 
 
 fused_tgt_forward_multi.launches = 0
@@ -494,7 +518,8 @@ def fused_tgt_forward_multi_layers(model, cfg, structure: str, node_entity,
                                    node_mode, edge_rel_q, edge_norm_q, *,
                                    operands: FusedMultiOperands, mm=None):
     """K3 with every layer's activations kept → ``(out, acts)`` for
-    :func:`multi_gate`: ``acts[l][s]`` is the ``[B, d_pad]`` input row of
+    :func:`multi_gate`, ``out`` in f32 whatever ``cfg.dtype`` (the gate's
+    figures; a bf16 model's output is its rounding): ``acts[l][s]`` is the ``[B, d_pad]`` input row of
     slot s to layer l >= 1 (bf16 on the card, bf16 values in f32 on the
     CPU).  CUDA tensors: the kernel (launches counted as in
     :func:`fused_tgt_forward_multi`); CPU tensors: the plain version, its
@@ -532,7 +557,7 @@ def multi_gate_controls(cfg, structure: str, ops: FusedMultiOperands,
     a = a_slots[0]
     n = ops.ent.shape[0]
     row = ops.ent[node_entity[q, a].long().clamp(0, n - 1)].to(torch.bfloat16)
-    moved = (row.view(torch.int16) + 8).view(torch.bfloat16).to(torch.float32)
+    moved = (row.view(torch.int16) + 8).view(torch.bfloat16).to(ops.ent.dtype)
     ne = node_entity.clone()
     ne[q, a] = n
     moved_ops = dataclasses.replace(
@@ -591,6 +616,9 @@ def _checked_chain_plan(cfg, structure: str):
     """K1/K2's plan after the reference's refusals (same messages)."""
     if cfg.readout != "tgt":
         raise ValueError("fused_tgt_forward requires readout='tgt'")
+    if cfg.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            "fused_tgt_forward requires cfg.dtype in {float32, bfloat16}")
     spec, steps, plan, a_slots, v_slots = _plan(cfg, structure)
     d_pad = _round_up(cfg.embed_dim, 128)
     if cfg.n_modes > d_pad:
@@ -1448,7 +1476,9 @@ def fused_tgt_forward(
     out_bf16: bool = False,
 ) -> torch.Tensor:
     """Whole pruned TGT forward of one formula's batch → ``[B, d]`` in
-    ``cfg.dtype``.
+    ``cfg.dtype`` (float32 or bfloat16: the leaves go up to f32 in
+    :func:`_layer_matrices` and the chain keeps its bf16 wire either
+    way; a bf16 model's output is K1's bf16 store, ``out_bf16``).
 
     CUDA tensors: one launch of the hand-written kernel K1
     (``csrc/fused_tgt.cu``) on the current stream, counted in
@@ -1475,7 +1505,9 @@ fused_tgt_forward.launches = 0
 
 def _fused_apply(model, cfg, structure, node_entity, node_mode, edge_rel,
                  edge_norm, anchor_rows, fold_bias=False, out_bf16=False):
-    """Differentiable K1 (K2 backward) from the model's parameters."""
+    """Differentiable K1 (K2 backward) from the model's parameters; a
+    bf16 model takes K1's bf16 store."""
+    out_bf16 = out_bf16 or cfg.dtype == torch.bfloat16
     v_slots, d_pad, cols, Ws, bs = _assemble(
         model, cfg, structure, node_entity, node_mode, edge_rel, edge_norm,
         anchor_rows, fold_bias)
@@ -1494,6 +1526,7 @@ def fused_tgt_forward_reference(model, cfg, structure, node_entity,
     """Plain PyTorch version of K1 (no gradient): the kernel's rounding
     points and summation order, on any device; the variants as in
     :func:`fused_tgt_forward`."""
+    out_bf16 = out_bf16 or cfg.dtype == torch.bfloat16
     with torch.no_grad():
         v_slots, d_pad, cols, Ws, bs = _assemble(
             model, cfg, structure, node_entity, node_mode, edge_rel,

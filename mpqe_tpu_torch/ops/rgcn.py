@@ -20,6 +20,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mpqe_tpu_torch.ops import dtypes
+
 
 def normal_(gen: torch.Generator, shape, scale: float,
             device) -> torch.Tensor:
@@ -87,11 +89,14 @@ def relation_weights(layer: RGCNLayer) -> torch.Tensor:
 
 
 def _edge_weights(layer: RGCNLayer, edge_rel: torch.Tensor) -> torch.Tensor:
-    """``W_{rel_e}`` for a (small) set of edges: ``[E, d_in, d_out]``."""
+    """``W_{rel_e}`` for a (small) set of edges: ``[E, d_in, d_out]`` in
+    the leaves' dtype.  At bf16 the basis combination is summed in f32
+    and rounded once, as XLA's bf16 einsum of the reference rounds it."""
     if layer.w_rel is not None:
         return layer.w_rel[edge_rel.long()]
     coeff = layer.coeff[edge_rel.long()]  # [E, B]
-    return torch.einsum("eb,bio->eio", coeff, layer.basis)
+    return dtypes.einsum_f32("eb,bio->eio", coeff, layer.basis).to(
+        layer.basis.dtype)
 
 
 def rgcn_sparse(x: torch.Tensor, layer: RGCNLayer, edge_src: torch.Tensor,
@@ -149,14 +154,16 @@ def rgcn_dense_template(x: torch.Tensor, layer: RGCNLayer, edge_src,
                         edge_dst, edge_rel: torch.Tensor,
                         edge_norm: torch.Tensor) -> torch.Tensor:
     """One R-GCN layer over B copies of a static query-DAG template:
-    ``x [B, n_nodes, d_in]`` → ``[B, n_nodes, d_out]``.  ``edge_src`` /
-    ``edge_dst`` are Python ints (the template), ``edge_rel`` /
-    ``edge_norm`` the formula's ``[n_edges]`` relations and 1/c."""
+    ``x [B, n_nodes, d_in]`` → ``[B, n_nodes, d_out]`` f32 (f32 products
+    of the leaves' dtype, as the reference's ``preferred_element_type``;
+    the caller rounds).  ``edge_src`` / ``edge_dst`` are Python ints (the
+    template), ``edge_rel`` / ``edge_norm`` the formula's ``[n_edges]``
+    relations and 1/c."""
     w_e = _edge_weights(layer, edge_rel)  # [n_edges, d_in, d_out]
-    out = torch.einsum("bnd,do->bno", x, layer.w_self)
+    out = dtypes.einsum_f32("bnd,do->bno", x, layer.w_self)
     cols = list(out.unbind(dim=1))
     for j in range(len(edge_src)):
-        msg = x[:, edge_src[j], :] @ w_e[j]
+        msg = dtypes.dot_f32(x[:, edge_src[j], :], w_e[j])
         cols[edge_dst[j]] = cols[edge_dst[j]] + msg * edge_norm[j].to(
             msg.dtype)
     return torch.stack(cols, dim=1) + layer.bias

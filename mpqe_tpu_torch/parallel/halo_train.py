@@ -28,6 +28,7 @@ import torch
 from mpqe_tpu_torch.models import embeddings as emb_mod
 from mpqe_tpu_torch.models import mpqe as mpqe_mod
 from mpqe_tpu_torch.models import readout as readout_mod
+from mpqe_tpu_torch.ops import dtypes
 from mpqe_tpu_torch.parallel import halo
 from mpqe_tpu_torch.parallel.mesh import Mesh
 from mpqe_tpu_torch.queries import STRUCTURES
@@ -136,6 +137,7 @@ def halo_dense_batch_loss(
     by the edge-partitioned layers over ``mesh``'s ``axis``."""
     if layer_kind not in ("ring", "gather"):
         raise ValueError(f"layer_kind {layer_kind!r}: 'ring' or 'gather'")
+    dtypes.refuse_reduced(cfg, "the halo layers (--parallel halo_*)")
     B, n = node_entity.shape
     dev = node_entity.device
     lay = _template_layout(structure, B, mesh.shape[axis], layer_kind, dev)

@@ -3,8 +3,10 @@
 Counterpart of ``mpqe_tpu/serve.py`` (``QueryServer``) and of the
 sampled-stream mode of the root ``serve.py`` CLI:
 
-  * entity embeddings are L2-normalized ONCE at load, so cosine scoring is
-    one ``[B, d] @ [d, n_entities]`` float32 matmul per dispatch;
+  * entity embeddings are L2-normalized ONCE at load and stored in the
+    candidate table's dtype (``table_dtype``: float32, bfloat16 or int8;
+    ``parallel/rank_shard.py``), so cosine scoring is one ``[B, d] @ [d,
+    n_entities]`` product per dispatch with f32 scores;
   * queries are grouped per structure and encoded in one call each by the
     per-query-relation encoder: K3, the hand-written CUDA kernel, for
     eligible MPQE models (its operands are built once, here);
@@ -17,8 +19,9 @@ sampled-stream mode of the root ``serve.py`` CLI:
   * candidates are mode-masked and ranked on the card by :func:`top_k`,
     which returns ``lax.top_k``'s ids in ``lax.top_k``'s order.
 
-MPQE and GQE models; serving runs on the card by default and raises when
-there is none (``device="cpu"`` runs it on the CPU).
+MPQE and GQE models, their leaves float32 or bfloat16 (``cfg.dtype``);
+serving runs on the card by default and raises when there is none
+(``device="cpu"`` runs it on the CPU).
 
 CLI (exactly one of ``--run_dir``, ``--state_dict``, ``--init_seed``)::
 
@@ -40,8 +43,10 @@ offline mode: it answers every query of a GQE-format queries pickle
 (relation ids in the served KG's vocabulary), writes ``entity_ids [N,
 k]``, ``scores [N, k]``, ``structure [N]`` and ``target [N]`` and prints
 one JSON line with its wall time, queries/s and hit@k, instead of the
-sampled stream.  The root CLI's ``--http`` and ``--table_dtype`` are not
-ported (ROADMAP Queue 1 item 6), nor is ``--shards`` (item 8).
+sampled stream.  ``--table_dtype bfloat16|int8`` serves from the
+quantized candidate table, as the root CLI does (int8 needs cosine
+scoring; a box model takes float32 only).  The root CLI's ``--http`` is
+not ported (ROADMAP Queue 1 item 6), nor is ``--shards`` (item 8).
 
   python -m mpqe_tpu_torch.serve --run_dir runs/xyz \\
       --answer /data/AIFB/test_queries_3.pkl --out answers.npz
@@ -62,6 +67,7 @@ from mpqe_tpu_torch.data.batcher import bucket_size, template_edge_norm
 from mpqe_tpu_torch.models import is_mpqe
 from mpqe_tpu_torch.models import mpqe as mpqe_mod
 from mpqe_tpu_torch.ops import fused_fwd as fused_fwd_ops
+from mpqe_tpu_torch.ops.dtypes import parse_dtype
 from mpqe_tpu_torch.parallel.rank_shard import (
     check_table_dtype, quantize_rows, quantized_scores)
 from mpqe_tpu_torch.queries import STRUCTURES, Formula, Query
@@ -114,6 +120,32 @@ def top_k(scores: torch.Tensor, k: int):
     return vals, ids.gather(-1, order)
 
 
+TABLE_CHUNK_ROWS = 1 << 16
+
+
+def candidate_table(ent: torch.Tensor, scale: bool,
+                    table_dtype: str) -> torch.Tensor:
+    """``[N, d]`` candidate rows in ``table_dtype``: each row taken to
+    f32, L2-normalized when ``scale`` (cosine scoring), then quantized
+    (:func:`parallel.rank_shard.quantize_rows`), in chunks of
+    ``TABLE_CHUNK_ROWS`` rows, so that no f32 copy of the whole table
+    lives beside a quantized one.  An f32 table that is not normalized is
+    the model's own."""
+    if table_dtype == "float32" and not scale and ent.dtype == torch.float32:
+        return ent.detach()
+    n, d = ent.shape
+    qdt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "int8": torch.int8}[table_dtype]
+    out = torch.empty((n, d), dtype=qdt, device=ent.device)
+    with torch.no_grad():
+        for lo in range(0, n, TABLE_CHUNK_ROWS):
+            rows = ent[lo:lo + TABLE_CHUNK_ROWS].detach().to(torch.float32)
+            if scale:
+                rows = mpqe_mod._l2_normalize(rows)
+            out[lo:lo + TABLE_CHUNK_ROWS] = quantize_rows(rows, table_dtype)
+    return out
+
+
 class QueryServer:
     """Serves MPQE models (both layer kinds) and the GQE baselines
     (``cfg`` an ``MPQEConfig`` or a ``GQEConfig``) on ``device``.
@@ -121,7 +153,15 @@ class QueryServer:
     The model is moved to ``device``.  ``max_batch`` is capped so the
     ``[B, n_entities]`` score matrix stays near 1 GiB and rounded down to
     a power of two, as in the reference.  ``neighbor_table`` (``{"idx",
-    "mask"}``) serves a GQE neighborhood anchor encoder."""
+    "mask"}``) serves a GQE neighborhood anchor encoder.
+
+    ``table_dtype``: the candidate table of the cosine rank product,
+    normalized in f32 and quantized once, here (only the quantized table
+    is kept): ``"float32"``, ``"bfloat16"`` (half the bytes) or ``"int8"``
+    (a quarter; needs ``cfg.scale_scores``, since the normalized rows
+    lie in [-1, 1]).  The score matrix stays f32 whatever the table.
+    Raises the reference's ``ValueError`` for an unknown dtype, int8
+    without cosine scoring, and a box model with a non-f32 table."""
 
     def __init__(
         self,
@@ -134,6 +174,17 @@ class QueryServer:
         neighbor_table: Optional[Dict[str, torch.Tensor]] = None,
     ):
         check_table_dtype(table_dtype)
+        if table_dtype == "int8" and not cfg.scale_scores:
+            raise ValueError(
+                "table_dtype='int8' needs cosine scoring "
+                "(cfg.scale_scores): quantization relies on normalized "
+                "rows being bounded by [-1, 1]")
+        if getattr(cfg, "decoder", None) == "box" and \
+                table_dtype != "float32":
+            raise ValueError(
+                "box-decoder serving scores L1 box distances against the "
+                "raw f32 entity table; table_dtype variants apply to the "
+                "cosine rank matmul only")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.table_dtype = table_dtype
@@ -157,11 +208,8 @@ class QueryServer:
         # the raw float32 table inside gqe.box_score_all and needs none
         self._ent_norm_t = None
         if mpqe_model or cfg.decoder != "box":
-            with torch.no_grad():
-                ent = self.model.emb.ent.detach().to(torch.float32)
-                if cfg.scale_scores:
-                    ent = mpqe_mod._l2_normalize(ent)
-                self._ent_norm_t = quantize_rows(ent, table_dtype).t()
+            self._ent_norm_t = candidate_table(
+                self.model.emb.ent, cfg.scale_scores, table_dtype).t()
         self._mode_dev = torch.as_tensor(self.entity_mode, device=self.device)
         # K3's operands, built once per model (None: no structure of this
         # model can take the kernel)
@@ -177,7 +225,8 @@ class QueryServer:
             from mpqe_tpu_torch.models import gqe as gqe_mod
 
             return gqe_mod.rank_scores(self.model, cfg, structure, ne, er,
-                                       self._nbr, self._ent_norm_t)
+                                       self._nbr, self._ent_norm_t,
+                                       self.table_dtype)
         q = mpqe_mod.encode_dense_multi_auto(
             self.model, cfg, structure, ne, nm, er, en,
             operands=self._k3).to(torch.float32)
@@ -260,11 +309,10 @@ def config_from_json(mc: dict):
     ``MPQEConfig``, or a ``GQEConfig`` when it has no ``readout``.  A GQE
     config keeps its ``bibox_w`` and ``box_alpha`` (the reference's CLIs
     drop both and serve at the defaults; ROADMAP Queue 3 records the
-    difference)."""
-    if "float32" not in str(mc.get("dtype", "float32")):
-        raise NotImplementedError(
-            f"model dtype {mc['dtype']!r}: only float32 models are ported; "
-            "other model dtypes are ROADMAP Queue 1 item 5")
+    difference).  ``dtype`` is read in the port's spelling
+    (``"torch.bfloat16"``) and in the JAX package's (``"<class
+    'jax.numpy.bfloat16'>"``); float32 when absent."""
+    dtype = parse_dtype(mc.get("dtype", "float32"))
     if "readout" not in mc:
         from mpqe_tpu_torch.models import gqe as gqe_mod
 
@@ -278,13 +326,13 @@ def config_from_json(mc: dict):
             aggregator=mc.get("aggregator", "mean"),
             scale_scores=mc.get("scale_scores", True),
             box_alpha=mc.get("box_alpha", defaults.box_alpha),
-            bibox_w=mc.get("bibox_w", defaults.bibox_w))
+            bibox_w=mc.get("bibox_w", defaults.bibox_w), dtype=dtype)
     return mpqe_mod.MPQEConfig(
         n_entities=mc["n_entities"], n_modes=mc["n_modes"],
         n_rels=mc["n_rels"], embed_dim=mc["embed_dim"],
         n_layers=mc["n_layers"], num_bases=mc["num_bases"],
         readout=mc["readout"], margin=mc.get("margin", 1.0),
-        scale_scores=mc.get("scale_scores", True))
+        scale_scores=mc.get("scale_scores", True), dtype=dtype)
 
 
 def parse_args(argv=None):
@@ -295,6 +343,11 @@ def parse_args(argv=None):
     p.add_argument("--batch", type=int, default=1,
                    help="queries per request")
     p.add_argument("--structures", default="1-chain,2-chain,2-inter")
+    p.add_argument("--table_dtype", default="float32",
+                   choices=["float32", "bfloat16", "int8"],
+                   help="candidate-table dtype for the rank product: "
+                        "bfloat16 halves / int8 quarters the table bytes "
+                        "(int8 needs cosine scoring)")
     p.add_argument("--answer", default=None, metavar="QUERIES_PKL",
                    help="bulk offline mode: answer every query in a GQE-"
                         "format queries pickle and write top-k ids/scores "
@@ -431,7 +484,7 @@ def main(argv=None):
         _from_run_dir if args.run_dir is not None else _from_flags)(args,
                                                                    device)
     server = QueryServer(model, cfg, kg.entity_mode, device=device,
-                         neighbor_table=nbr)
+                         neighbor_table=nbr, table_dtype=args.table_dtype)
     if args.answer:
         print(json.dumps(answer_pickle(server, kg, args.answer, args.out,
                                        args.k, args.batch, checkpoint)),
@@ -466,6 +519,14 @@ def main(argv=None):
         "requests": args.requests,
         "batch": args.batch,
         "k": args.k,
+        "table_dtype": args.table_dtype,
+        # the candidate table's bytes (none for a box model) and, on the
+        # card, the process's peak allocated device memory
+        "table_bytes": (0 if server._ent_norm_t is None else
+                        server._ent_norm_t.numel()
+                        * server._ent_norm_t.element_size()),
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
+                           if device.type == "cuda" else None),
         "latency_ms_p50": float(np.percentile(lat_ms, 50)),
         "latency_ms_p95": float(np.percentile(lat_ms, 95)),
         "queries_per_s": float(total / lat_ms.sum() * 1e3),

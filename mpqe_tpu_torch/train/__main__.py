@@ -20,12 +20,18 @@ and ``gqe_softand`` train the GQE baselines (``--decoder``,
 ``--gqe_fanout``, ``--bibox_w``), through the dense path only, as in the
 reference.  ``--parallel halo_ring|halo_gather`` trains MPQE through the
 edge-partitioned halo layers over a ``--mesh`` (default: one part per
-card).  Every flag whose feature is not ported yet raises
-``NotImplementedError`` naming its ROADMAP item.
+card).  ``--dtype bfloat16`` keeps every leaf and Adam moment in bf16
+(products with f32 results, as the reference's); it trains on the dense
+route and through K1/K2 (``--kernel fused_fwd``), while ``--kernel
+fused|blocked`` and ``--parallel halo_*`` at bf16 raise.  Every flag
+whose feature is not ported yet raises ``NotImplementedError`` naming
+its ROADMAP item.
 
   python -m mpqe_tpu_torch.train --data synthetic --kernel fused_fwd \\
       --fused_backward pallas --num_bases 16 --steps 2000
   python -m mpqe_tpu_torch.train --kernel blocked --num_bases 16
+  python -m mpqe_tpu_torch.train --dtype bfloat16 --kernel fused_fwd \
+      --fused_backward pallas --num_bases 16
   python -m mpqe_tpu_torch.train --data pkl:/data/AIFB --kernel fused_fwd \\
       --fused_backward pallas --num_bases 16
   python -m mpqe_tpu_torch.train --device cpu --embed_dim 16 --steps 20
@@ -48,6 +54,7 @@ import torch
 
 from mpqe_tpu_torch.data.sampler import QuerySampler, make_random_kg
 from mpqe_tpu_torch.models import mpqe as mpqe_mod
+from mpqe_tpu_torch.ops.dtypes import parse_dtype
 from mpqe_tpu_torch.queries import STRUCTURE_NAMES, group_queries_by_formula
 from mpqe_tpu_torch.serve import resolve_device
 from mpqe_tpu_torch.train import checkpoint as ckpt_mod
@@ -157,8 +164,14 @@ def _refuse_unported(args) -> None:
          "the batch pipeline and C++ packer are ROADMAP Queue 1 item 2"),
         (args.steps_per_call > 1, "--steps_per_call > 1",
          "make_multistep_train_step is ROADMAP Queue 1 item 2"),
-        (args.dtype != "float32", f"--dtype {args.dtype}",
-         "non-float32 model dtypes are ROADMAP Queue 1 item 5"),
+        (args.dtype != "float32" and args.kernel in ("fused", "blocked"),
+         f"--dtype {args.dtype} with --kernel {args.kernel}",
+         "the sparse kernel routes at reduced precision are what is left "
+         "of ROADMAP Queue 1 item 5"),
+        (args.dtype != "float32" and args.parallel != "none",
+         f"--dtype {args.dtype} with --parallel {args.parallel}",
+         "the halo layers at reduced precision are what is left of "
+         "ROADMAP Queue 1 item 5"),
         (args.trace > 0, "--trace",
          "a torch.profiler trace window is ROADMAP Queue 1 item 9"),
     ]
@@ -295,7 +308,7 @@ def _gqe_setup(args, kg, device):
         intersection=args.intersection,
         soft_and=args.model == "gqe_softand", encoder=args.gqe_encoder,
         aggregator=args.gqe_aggregator, bibox_w=args.bibox_w,
-        margin=args.margin)
+        margin=args.margin, dtype=parse_dtype(args.dtype))
     table = None
     if args.gqe_encoder == "neighborhood":
         from mpqe_tpu_torch.models import aggregators as agg_mod
@@ -350,7 +363,7 @@ def main(argv=None):
             n_entities=kg.n_entities, n_modes=kg.n_modes, n_rels=kg.n_rels,
             embed_dim=args.embed_dim, n_layers=args.n_layers,
             num_bases=args.num_bases or None, readout=args.readout,
-            margin=args.margin)
+            margin=args.margin, dtype=parse_dtype(args.dtype))
         batch_loss_fn = {
             "fused": mpqe_mod.dense_batch_loss_kernel_fused,
             "blocked": mpqe_mod.dense_batch_loss_kernel_blocked,

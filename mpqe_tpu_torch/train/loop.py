@@ -101,7 +101,16 @@ class OptaxAdam(torch.optim.Optimizer):
 
     A parameter without a gradient counts as a zero gradient, as in JAX.
     The update count lives in the param group, so ``state_dict()``
-    carries it."""
+    carries it.
+
+    bfloat16 parameters keep ``mu`` and ``nu`` in bf16 (``zeros_like``,
+    as ``optax.adam`` does) and follow optax's rounding points there:
+    every operation rounds to bf16, and every scalar (``b1``, ``1 - b1``,
+    ``eps``, the step size, ...) is first rounded to bf16, as JAX rounds
+    a weakly typed Python scalar into a bf16 array's dtype; ``1 - b^t``
+    is taken in f32 and then rounded, as optax's bias correction does.
+    (So ``b2 = 0.999`` acts as bf16's 1.0.)  The clip's global norm sums
+    each leaf's squares in the leaf's dtype."""
 
     def __init__(self, params, tc: TrainConfig):
         if tc.optimizer not in ("adam", "sgd"):
@@ -124,7 +133,9 @@ class OptaxAdam(torch.optim.Optimizer):
         if self.max_norm > 0:
             norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
             if not bool(norm < self.max_norm):
-                grads = [(g / norm) * self.max_norm for g in grads]
+                grads = [(g / norm.to(g.dtype)) * _rounded(self.max_norm,
+                                                             g.dtype)
+                         for g in grads]
         count = group["count"]
         step_size = -self.lr(count)
         t = count + 1
@@ -134,24 +145,39 @@ class OptaxAdam(torch.optim.Optimizer):
         f32 = torch.float32
         bc1 = float(1 - torch.tensor(self.b1, dtype=f32) ** t)
         bc2 = float(1 - torch.tensor(self.b2, dtype=f32) ** t)
+        scalars = {}
         for p, g in zip(params, grads):
+            if p.dtype not in scalars:
+                scalars[p.dtype] = [_rounded(v, p.dtype) for v in (
+                    step_size, self.b1, 1 - self.b1, self.b2, 1 - self.b2,
+                    bc1, bc2, self.eps, self.weight_decay)]
+            step, b1, c1, b2, c2, bc1_p, bc2_p, eps, wd = scalars[p.dtype]
             if self.kind == "sgd":
-                p.add_(g * step_size)
+                p.add_(g * step)
                 continue
             st = self.state[p]
             if not st:
                 st["mu"] = torch.zeros_like(p)
                 st["nu"] = torch.zeros_like(p)
             mu, nu = st["mu"], st["nu"]
-            mu.mul_(self.b1).add_(g * (1 - self.b1))
-            nu.mul_(self.b2).add_((g * g) * (1 - self.b2))
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            # each operation rounds once to the parameter's dtype: optax's
+            # rounding points (in bf16 too, its scalars rounded first)
+            mu.mul_(b1).add_(g * c1)
+            nu.mul_(b2).add_((g * g) * c2)
+            u = (mu / bc1_p) / (torch.sqrt(nu / bc2_p) + eps)
             if self.weight_decay > 0:
-                u = u + self.weight_decay * p
-            p.add_(u * step_size)
+                u = u + wd * p
+            p.add_(u * step)
         for g in self.param_groups:
             g["count"] = t
         return None
+
+
+def _rounded(v: float, dtype) -> float:
+    """The Python float ``v`` rounded to ``dtype`` through f32, as JAX
+    rounds a weakly typed Python scalar into a bf16 array's dtype (for an
+    f32 tensor PyTorch rounds it so itself)."""
+    return float(torch.tensor(v, dtype=torch.float32).to(dtype))
 
 
 def make_optimizer(tc: TrainConfig, params) -> OptaxAdam:

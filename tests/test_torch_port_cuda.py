@@ -1268,3 +1268,126 @@ def test_cuda_gqe_server_matches_cpu(decoder, soft_and):
         np.testing.assert_array_equal(a.entity_ids, w.entity_ids)
         np.testing.assert_allclose(a.scores, w.scores, rtol=0, atol=1e-4)
         assert (kg.entity_mode[a.entity_ids] == q.formula.target_mode).all()
+
+
+# ------------------------------------------- cfg.dtype = bfloat16 (K1-K3)
+TOL_GRAD_BY_DEPTH = {1: 3e-2, 2: 8e-2, 3: 2.5e-1}  # as chip_smoke.py
+
+
+def _bf16(cfg, model):
+    """The bf16 model of the same parameters and its config."""
+    import copy
+    import dataclasses
+
+    return (dataclasses.replace(cfg, dtype=torch.bfloat16),
+            copy.deepcopy(model).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_cuda_k3_bf16_store():
+    """K3 at ``cfg.dtype = bfloat16``: the bf16 model's output through the
+    kernel's bf16 store equals its own f32 output rounded to bf16 (round
+    to nearest even), bit for bit; that f32 output under ``multi_gate``
+    against the plain version; a repeat launch bit-equal."""
+    dev = _cuda()
+    cfg, model = _model(128, 16, dev)
+    cfg16, model16 = _bf16(cfg, model)
+    ops = tff.prepare_fused_multi(model16, cfg16)
+    assert ops.ent.dtype == torch.bfloat16
+    assert ops.ent.data_ptr() == model16.emb.ent.data_ptr()
+    for structure in STRUCTURE_NAMES:
+        L = tm.num_steps(cfg, structure)
+        for B in (1, 20, 1000):
+            args = _inputs(structure, B, dev, seed=B + 1)
+            before = tff.fused_tgt_forward_multi.launches
+            with torch.no_grad():
+                got, acts = tff.fused_tgt_forward_multi_layers(
+                    model16, cfg16, structure, *args, operands=ops)
+                out16 = tff.fused_tgt_forward_multi(model16, cfg16,
+                                                    structure, *args,
+                                                    operands=ops)
+                again = tff.fused_tgt_forward_multi(model16, cfg16,
+                                                    structure, *args,
+                                                    operands=ops)
+                gate = tff.multi_gate(cfg16, structure, ops, args, got, acts)
+            torch.cuda.synchronize()
+            assert tff.fused_tgt_forward_multi.launches == before + 3 * L
+            assert got.dtype == torch.float32
+            assert out16.dtype == torch.bfloat16
+            assert torch.equal(out16.view(torch.int16),
+                               got.to(torch.bfloat16).view(torch.int16))
+            assert torch.equal(out16.view(torch.int16),
+                               again.view(torch.int16))
+            assert gate["ok"], (structure, B, gate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backward", ["xla", "pallas"])
+def test_cuda_k1_k2_bf16(backward):
+    """K1 / K2 at ``cfg.dtype = bfloat16``: the output is bf16, equal to
+    K1's f32 output on the same bf16 parameters rounded (``out_bf16``),
+    and that f32 output under ``chain_gate`` against the plain version;
+    every parameter gradient comes back in bf16, for ``pallas`` (K2)
+    within the depth tolerance (mean form, per leaf) of the plain K2's."""
+    import dataclasses
+
+    dev = _cuda()
+    cfg, model = _model(128, 16, dev)
+    cfg16, model16 = _bf16(cfg, model)
+    cfg32 = dataclasses.replace(cfg16, dtype=torch.float32)
+    for structure in STRUCTURE_NAMES:
+        args = _shared_inputs(structure, 1000, dev, seed=7)
+        g = torch.randn((1000, 128), device=dev,
+                        generator=torch.Generator(dev).manual_seed(7)).to(
+                            torch.bfloat16)
+        with torch.no_grad():
+            f32_out = tff.fused_tgt_forward(model16, cfg32, structure, *args)
+            plain = tff.fused_tgt_forward_reference(model16, cfg32,
+                                                    structure, *args)
+        L = tm.num_steps(cfg, structure)
+        assert tff.chain_gate(f32_out, plain, L)["ok"], structure
+        q = tm.encode_dense_fused(model16, cfg16, structure, *args, None,
+                                  backward)
+        assert q.dtype == torch.bfloat16
+        assert torch.equal(q.detach().view(torch.int16),
+                           f32_out.to(torch.bfloat16).view(torch.int16))
+        params = list(model16.named_parameters())
+        grads = torch.autograd.grad(q, [p for _, p in params], g,
+                                    allow_unused=True)
+        for (name, p), gr in zip(params, grads):
+            assert gr is None or gr.dtype == torch.bfloat16, name
+        if backward != "pallas":
+            continue
+        want, _, _ = tff.fused_tgt_backward_reference(
+            model16, cfg16, structure, *args, None, g)
+        for (name, _), gr in zip(params, grads):
+            w = want[name].float()
+            if gr is None or not bool(w.abs().max() > 0):
+                continue
+            err = float((gr.float() - w).abs().mean() / w.abs().mean())
+            assert err <= TOL_GRAD_BY_DEPTH[L], (structure, name, err)
+
+
+@pytest.mark.cuda
+def test_cuda_quantized_scores_match_cpu():
+    """The rank product on the card: int8 equal to the CPU's (exact int32
+    sums; batches under 17 rows padded for ``torch._int_mm``), bf16 and
+    f32 within 1e-5 (sum order)."""
+    from mpqe_tpu_torch.parallel import rank_shard as trs
+
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(0)
+    ent = torch.randn((4096, 128), generator=gen)
+    ent = ent / ent.norm(dim=1, keepdim=True)
+    for B in (1, 16, 17, 256):
+        q = torch.randn((B, 128), generator=gen)
+        q = q / q.norm(dim=1, keepdim=True)
+        for td in ("int8", "bfloat16", "float32"):
+            t = trs.quantize_rows(ent, td)
+            want = trs.quantized_scores(q, t.t(), td)
+            got = trs.quantized_scores(q.to(dev), t.to(dev).t(), td).cpu()
+            assert got.dtype == torch.float32 and got.shape == (B, 4096)
+            if td == "int8":
+                assert torch.equal(got, want), B
+            else:
+                assert float((got - want).abs().max()) <= 1e-5, (B, td)

@@ -106,7 +106,8 @@ _NO_JAX = """
 import sys, importlib, pkgutil
 {imports}
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "mpqe_tpu") or k.startswith(("jax.", "mpqe_tpu.")))
+             if k in ("jax", "mpqe_tpu", "ml_dtypes")
+             or k.startswith(("jax.", "mpqe_tpu.", "ml_dtypes.")))
 print("BAD", bad)
 sys.exit(1 if bad else 0)
 """
@@ -149,6 +150,7 @@ def test_no_jax_in_port_sources_or_chip_smoke():
     for path in files:
         for mod in _imported_names(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "mpqe_tpu"), (path, mod)
+            assert top not in ("jax", "jaxlib", "mpqe_tpu", "ml_dtypes"), (
+                path, mod)
     proc = _run_isolated("import chip_smoke\n")
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -332,8 +332,9 @@ def test_config_validation_and_dtype():
                        ("encoder", "gnn"), ("aggregator", "sum")):
         with pytest.raises(ValueError, match=field):
             tgqe.GQEConfig(**kw, **{field: bad})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tgqe.GQEConfig(**kw, dtype=torch.bfloat16)
+    assert tgqe.GQEConfig(**kw, dtype=torch.bfloat16).dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="model dtype"):
+        tgqe.GQEConfig(**kw, dtype=torch.float16)
 
 
 @pytest.mark.parametrize("decoder", DECODERS)

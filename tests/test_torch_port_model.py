@@ -167,9 +167,13 @@ def test_init_mpqe_names_shapes_and_seed():
 
 
 def test_non_float32_configs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.MPQEConfig(n_entities=5, n_modes=2, n_rels=2,
-                      dtype=torch.bfloat16)
+    # bfloat16 is a model dtype (tests/test_torch_port_bf16.py); any
+    # other non-float32 dtype raises
+    assert tm.MPQEConfig(n_entities=5, n_modes=2, n_rels=2,
+                         dtype=torch.bfloat16).dtype == torch.bfloat16
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="model dtype"):
+            tm.MPQEConfig(n_entities=5, n_modes=2, n_rels=2, dtype=dtype)
 
 
 def test_score_matches_jax():

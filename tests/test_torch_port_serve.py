@@ -9,6 +9,7 @@ version) against the JAX package's ``QueryServer`` on a tiny KG.
   near-ties swap under bf16.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -204,10 +205,15 @@ def test_server_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tserve.QueryServer(model, tcfg, mode)  # device=None is the card
-    for dtype in ("bfloat16", "int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.QueryServer(model, tcfg, mode, table_dtype=dtype,
-                               device="cpu")
+    for dtype, torch_dtype in (("bfloat16", torch.bfloat16),
+                               ("int8", torch.int8)):
+        server = tserve.QueryServer(model, tcfg, mode, table_dtype=dtype,
+                                    device="cpu")
+        assert server._ent_norm_t.dtype == torch_dtype
+    with pytest.raises(ValueError, match="cosine scoring"):
+        tserve.QueryServer(model, dataclasses.replace(tcfg,
+                                                      scale_scores=False),
+                           mode, table_dtype="int8", device="cpu")
     with pytest.raises(ValueError):
         tserve.QueryServer(model, tcfg, mode, table_dtype="fp8",
                            device="cpu")
@@ -232,8 +238,10 @@ def test_server_refusals():
     server = tserve.QueryServer(gmodel, gcfg, mode, device="cpu",
                                 neighbor_table=table)
     assert server.max_batch == 8192 and server._nbr is not None
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tserve.config_from_json(dict(mc, dtype="bfloat16"))
+    for spelling in ("bfloat16", "torch.bfloat16",
+                     "<class 'jax.numpy.bfloat16'>"):
+        assert tserve.config_from_json(
+            dict(mc, dtype=spelling)).dtype == torch.bfloat16
 
 
 def test_max_batch_cap_matches_jax():

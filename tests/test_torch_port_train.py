@@ -661,7 +661,9 @@ def test_cli_blocked_needs_bases(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--shared_negatives", "4"], ["--self_adv_tau", "1.0"],
     ["--parallel", "spmd"], ["--prefetch", "2"], ["--steps_per_call", "4"],
-    ["--dtype", "bfloat16"], ["--trace", "5"]])
+    ["--trace", "5"], ["--dtype", "bfloat16", "--kernel", "fused"],
+    ["--dtype", "bfloat16", "--kernel", "blocked", "--num_bases", "4"],
+    ["--dtype", "bfloat16", "--parallel", "halo_ring"]])
 def test_cli_unported_flags_raise(flag, tmp_path):
     from mpqe_tpu_torch.train.__main__ import main
 
