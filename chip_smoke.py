@@ -9,7 +9,10 @@ through the edge-partitioned halo layers (``--parallel halo_ring`` /
 pickle datasets through the CLIs, the benchmark driver ``python -m
 mpqe_tpu_torch.bench`` and the quality benchmark) and reduced precision
 (a bf16 model trained through K1/K2 and served through K3 from float32,
-bfloat16 and int8 candidate tables) at the flagship width
+bfloat16 and int8 candidate tables; its sparse routes: K5 on bf16 rows,
+K6 and K8 on bf16 leaves, the sparse evaluate, and the train CLI at
+``--dtype bfloat16`` through ``--kernel fused|blocked`` and ``--parallel
+halo_ring``) at the flagship width
 (d = 128, 3 R-GCN layers, TGT readout, 16 bases or full per-relation
 weights, 266 relations, 4 modes, 1,000,000 entities;
 random weights from a seed) and checks every
@@ -73,8 +76,10 @@ parallel (one nvcc each), then:
    ``chain_gate`` on the bf16 model's operands, both controls failing;
    K1 through its wrapper bf16, bit-equal to that output rounded and to a
    repeat, within 3e-2 of the f32 encoder of the same bf16 values; K2's
-   parameter gradients bf16, bit-equal to a repeat and within the depth
-   tolerance of the plain K2's; times at B = 512 and 131,072.
+   parameter gradients bf16, bit-equal to a repeat and within
+   ``PARAM_GRAD_MEAN_BY_DEPTH`` of the plain K2's (its control, one
+   basis's gradient moved by 4x the limit, failing it and passing the
+   depth tolerance it replaces); times at B = 512 and 131,072.
 4. ``kernel.rgcn_fused``: K5a (16-basis layer) and K5b (full-weight
    layer) of ``csrc/rgcn_fused.cu`` (tensor cores, split TF32) on the
    ``template_chunked`` layouts of the 7 structures at B = 512 and
@@ -87,7 +92,14 @@ parallel (one nvcc each), then:
    transposed copy (<= 1e-4); times (CUDA events and profiler, L2
    flushed) beside the bound (split-TF32 route; the f32-pipe route's
    printed beside it), the plain version and the ``torch.bmm`` yardstick
-   on the per-chunk weights.
+   on the per-chunk weights.  ``kernel.rgcn_fused.bf16``: K5a and K5b
+   on bf16 rows (the rows of a bf16 model, gathered as stored and
+   widened in the kernel) on the same 7 layouts at both batches and the
+   general graph: bit-equal to K5 on the f32 rows ``x.float()`` and to a
+   repeat; at B = 512 and on the general graph within 1e-4 of the plain
+   version and 1e-5 of the oracle, the negative control failing; then at
+   K = 200 and 768 (k stages); kernel and device ms beside the f32-row
+   kernel's in the same run and the bound with 2-byte rows.
 5. ``kernel.rgcn_blocked``: K6a (forward and transpose layout) and K6b
    of ``csrc/rgcn_blocked.cu`` (tensor cores) on ``template_blocked`` for
    the 7 structures at both batches and ``bucket_edges_blocked`` of the
@@ -99,7 +111,11 @@ parallel (one nvcc each), then:
    bit-equal, K6a vs the f32 twin (<= 3e-2, train batch only); the edge
    lists' build time (once per batch) apart; times as for K5 beside a
    cuBLAS yardstick (the bf16 products ``xs @ [V_0 .. V_Bb]``, and for
-   K6b also ``xs^T rhs``).
+   K6b also ``xs^T rhs``).  ``kernel.rgcn_blocked.bf16``: the blocked
+   layer with bf16 leaves and rows (K6a forward and ``dx``, K6b) against
+   f32 leaves of the same values at B = 512 and on the general graph:
+   the output bit-equal, every gradient bf16 and equal to the f32
+   leaves' rounded, a repeat bit-equal.
 6. ``kernel.segment``: the K4 layout kernel and K4a / K4b
    (``csrc/segment.cu``) on the reference's chip-check shape (E = 1,000,
    S = 64), each structure's destination sum at B = 1,024 (the bucket of
@@ -129,6 +145,10 @@ parallel (one nvcc each), then:
    ``torch.cuda._sleep`` (equal: the ack events hold the copies back);
    times (CUDA events, L2 flushed; K8's device time and the copy
    stream's from the profiler) beside the bound and the plain version.
+   ``kernel.ring.bf16``: K8 at P = 4 on a bf16 layer and bf16 rows (the
+   general graph and the 7 templates): bit-equal to K8 on the widened
+   operands, under ``ring_gate`` against the plain version, its launches
+   counted with the drive's.
 9. ``eval.sparse``: ``evaluate`` on sampled validation queries through
    an adapter (``dense_to_sparse``, then ``encode_sparse`` with the
    ``"pallas"`` segment backend) for the flagship model (K4a) and a
@@ -138,7 +158,11 @@ parallel (one nvcc each), then:
    within 1e-3 of ``evaluate`` through the f32 ``encode_dense``, one
    formula per structure bit-equal through the plain K4; then 20 dense
    train steps with one validation round through
-   ``run_train(eval_encode_fn=...)``.
+   ``run_train(eval_encode_fn=...)``.  ``eval.sparse.bf16``: the same
+   ``evaluate`` of both models at ``cfg.dtype = bfloat16`` (f32
+   activations, as the reference's ``encode_sparse``): K4 launch counts,
+   one formula per structure within 1e-5 of the ``"xla"`` segment sums,
+   per-structure AUC within 1e-2 of the bf16 dense encoder's.
 10. ``eval.ranking``: ``full_ranking`` over the same queries against all
    1M entities; one structure's ranks recomputed by ``torch.matmul`` and
    a per-row count give the same metrics.
@@ -214,7 +238,16 @@ parallel (one nvcc each), then:
    file at the flagship width, 50 steps with a run dir: its final line,
    finite losses, K1 and K2 once a step, K3 in validation, every
    parameter and Adam moment of its final checkpoint in bf16; step p50 /
-   p95 beside the float32 runs'.
+   p95 beside the float32 runs'.  Then ``train.bf16.fused`` (``--kernel
+   fused``, K5a on bf16 rows), ``train.bf16.blocked`` (``--kernel
+   blocked``) and ``halo.train.bf16`` (``--parallel halo_ring``), 50, 50
+   and 20 steps on the same KG file: the final line, finite losses, K5 /
+   K6 launch counts, every parameter and Adam moment of the checkpoint in
+   bf16, one step per structure rechecked (the kernels against their
+   plain versions, per leaf in mean|diff| / mean|ref| <= 1e-2; the halo
+   loss on 4 parts of the card against the dense loss, two routes that
+   round their bf16 gradients at different points, <= 2e-1), the loss
+   <= 1e-3; step p50 / p95 beside the float32 runs'.
 20. ``serve.bf16``: the serve CLI in-process on that run dir with
    ``--table_dtype float32``, ``bfloat16`` and ``int8``, 32 requests of
    256 queries over all 7 structures each (K3 launched; latency, queries/s,
@@ -254,8 +287,9 @@ parallel (one nvcc each), then:
 Prints the card's name and power limit first, then one line per check,
 a JSON line ``{"kernels": [...]}`` (K1's entry, ``tgt_mma_forward``,
 carries its variants' figures under ``variants``, the bf16 model's
-among them, and K3's its bf16 store's: one kernel each, its launches
-counted together) and, last, ``{"ok": true, "device":
+among them, K3's its bf16 store's, and K5a's and K5b's their bf16
+rows': one kernel each, its launches counted together) and, last,
+``{"ok": true, "device":
 {...}}``.  Any failed check raises and the exit code is nonzero.  Needs
 one CUDA card and the repository's sources (it builds the kernels).
 
@@ -274,7 +308,8 @@ import time
 import numpy as np
 import torch
 
-from mpqe_tpu_torch.utils.profiling import bound_times, chain_work
+from mpqe_tpu_torch.utils.profiling import (PROFILE_PAD_S, bound_times,
+                                            chain_work)
 
 TOL_PLAIN = 1e-4  # kernel vs its plain version: same function, sum order
 TOL_F32 = 3e-2  # kernel vs the float32 encoder: bf16 operands
@@ -292,7 +327,10 @@ TOL_SCORE = 1e-4  # served top-k scores vs the plain recomputation
 # figure is printed beside the gate.
 TOL_GRAD_BY_DEPTH = {1: 3e-2, 2: 8e-2, 3: 2.5e-1}
 L2_FLUSH_BYTES = 512 << 20  # > the 50 MB L2
-PROFILE_TRIES = 3
+# host idle seconds at each end of a profile's recorded step, one entry a
+# try (device_ms, ring_device_ms): unpadded, a short profile sometimes
+# records no device event at all (profiling.PROFILE_PAD_S)
+PROFILE_PADS = (PROFILE_PAD_S, 0.25, 1.0)
 
 FLAGSHIP = dict(n_entities=1_000_000, n_modes=4, n_rels=266, embed_dim=128,
                 n_layers=3, num_bases=16)
@@ -356,29 +394,39 @@ def device_ms(fn, iters: int, flush: torch.Tensor,
     weight transposes, K6's bf16 casts).  The profile has a warmup step
     of the same calls, whose events it drops: late in a long run a
     profile without one lost the first 4 of its calls (46 of 50 launches
-    of a small kernel recorded, 1 of 5 of a large one).  A profile that
-    records fewer device events of those kernels than calls (each call
-    launches at least one) is taken again, up to PROFILE_TRIES times in
-    all; if none is whole, the fullest is returned and the log says so.
+    of a small kernel recorded, 1 of 5 of a large one).  The recorded
+    step has host idle time at each end (``PROFILE_PADS``): without it a
+    short step sometimes recorded none of its launches, three times
+    running for one K5 case.  A profile that records fewer device events
+    of those kernels than calls (each call launches at least one) is
+    taken again with the next, longer pad, up to ``len(PROFILE_PADS)``
+    profiles in all; if none is whole, the fullest is returned and the
+    log says so.
     ``per_call``: the launches of those kernels one call makes at least
     (K5a: its prologue and its messages), so that a profile that lost
     calls is not taken for a whole one."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    def calls():
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+
     fn()
     torch.cuda.synchronize()
     best = (0, 0.0)  # (launches recorded, device us)
-    for attempt in range(PROFILE_TRIES):
+    for attempt, pad in enumerate(PROFILE_PADS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
-            for _ in range(2):  # the warmup step, then the recorded one
-                for _ in range(iters):
-                    flush.zero_()
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
+            calls()  # the warmup step
+            prof.step()
+            time.sleep(pad)  # the recorded step, idle at each end
+            calls()
+            time.sleep(pad)
+            prof.step()
         rows = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and any(k in e.key for k in names)]
@@ -391,7 +439,7 @@ def device_ms(fn, iters: int, flush: torch.Tensor,
         best = max(best, got)
     if best[1] == 0:
         raise AssertionError(f"the profiler saw none of {names} in "
-                             f"{PROFILE_TRIES} profiles")
+                             f"{len(PROFILE_PADS)} profiles")
     log(f"device_ms: incomplete, {best[0]} launches of {names} recorded in "
         f"{iters} calls")
     return best[1] / iters / 1e3
@@ -882,8 +930,10 @@ K1_FOLD_TOL = 1e-2  # fold_bias vs the unfolded K1: the reference's own
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
-    """A bf16 tensor's bits (``torch.equal`` on them tells -0 from 0)."""
-    return t.view(torch.int16)
+    """A bf16 or f32 tensor's bits (``torch.equal`` on them tells -0 from
+    0)."""
+    return t.contiguous().view(torch.int32 if t.element_size() == 4
+                               else torch.int16)
 
 
 def check_k1_variants(model, cfg, structure: str, args, x0, ws, bs, got, g):
@@ -1274,11 +1324,14 @@ def phase_fused_tgt_bf16(model, cfg, device, gen, flush):
     the same bf16 values; K2's parameter gradients (K2's chain gradients
     mapped by autograd through the weight assembly) come back in bf16,
     bit-equal to a repeat and, per leaf in mean|diff| / mean|ref|, within
-    TOL_GRAD_BY_DEPTH of the plain K2's.  (``chain_gate``'s own leaf
-    criteria hold at the chain level, where they were derived: the
-    assembly sums each basis gradient over edges and coefficients of
-    both signs, and on the card that cancellation lifted the mean form to
-    ~5e-4 at 3-chain while the chain's leaves stayed ~5e-5.)  Times K1
+    ``ops/fused_fwd.py PARAM_GRAD_MEAN_BY_DEPTH`` of the plain K2's, whose
+    control (one basis's gradient moved by 4x that limit) fails it and
+    passes the depth tolerance TOL_GRAD_BY_DEPTH it replaces.
+    (``chain_gate``'s own leaf criteria hold at the chain level, where
+    they were derived: the assembly sums each basis gradient over edges
+    and coefficients of both signs, and on the card that cancellation
+    lifted the mean form to ~5e-4 at 3-chain while the chain's leaves
+    stayed ~5e-5.)  Times K1
     (bf16 store) and K2 on the bf16 model's operands at B = 512 and
     131,072.  Returns the variant's JSON fields."""
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
@@ -1292,7 +1345,8 @@ def phase_fused_tgt_bf16(model, cfg, device, gen, flush):
                big_bwd_ms=0.0)
     for structure in STRUCTURE_NAMES:
         blocks = ff.chain_blocks(cfg16, structure)
-        tol_grad = TOL_GRAD_BY_DEPTH[mpqe_mod.num_steps(cfg, structure)]
+        depth = mpqe_mod.num_steps(cfg, structure)
+        tol_grad = ff.PARAM_GRAD_MEAN_BY_DEPTH[depth]
         for B in (TRAIN_BATCH, RAGGED):
             args = shared_inputs(gen, cfg, structure, B)
             x0, ws, bs, n_a, dp = chain_operands(model16, cfg16, structure,
@@ -1327,8 +1381,10 @@ def phase_fused_tgt_bf16(model, cfg, device, gen, flush):
             fails = all(not ff.chain_gate(got, cf, L)["ok"]
                         and not ff.chain_gate(kb, cb, L, blocks)["ok"]
                         for cf, cb in controls)
-            e_param = tree_mean_err({n: t.float() for n, t in dk.items()},
-                                    {n: t.float() for n, t in dp_.items()})
+            e_param = ff.param_grad_mean_err(dk, dp_)
+            e_ctrl = ff.param_grad_mean_err(
+                ff.param_grad_control(dk, dp_, depth), dp_)
+            ctrl_ok = tol_grad < e_ctrl <= TOL_GRAD_BY_DEPTH[depth]
             dtypes_ok = out16.dtype == bf16 and all(
                 t.dtype == bf16 for t in dk.values())
             finite = bool(torch.isfinite(got).all()) and all(
@@ -1343,13 +1399,15 @@ def phase_fused_tgt_bf16(model, cfg, device, gen, flush):
                     f"fwd_gate_ok={gf['ok']} ({gate_text(gf)}) "
                     f"bwd_gate_ok={gb['ok']} ({gate_text(gb)}) "
                     f"controls_fail={fails} param_grad_mean_err_vs_plain="
-                    f"{e_param:.3e} (tol {tol_grad:g}) "
+                    f"{e_param:.3e} (tol {tol_grad:g}; control "
+                    f"{e_ctrl:.3e} fails it, passes the old "
+                    f"{TOL_GRAD_BY_DEPTH[depth]:g}: {ctrl_ok}) "
                     f"bf16_out_and_grads={dtypes_ok} out_bf16_bit_equal="
                     f"{store_equal} repeat_equal={repeat} "
                     f"fwd_err_vs_f32={e_f32:.3e}")
             if not (gf["ok"] and gb["ok"] and fails and e_param <= tol_grad
-                    and dtypes_ok and finite and store_equal and repeat
-                    and e_f32 <= TOL_F32):
+                    and ctrl_ok and dtypes_ok and finite and store_equal
+                    and repeat and e_f32 <= TOL_F32):
                 log(line + " FAIL")
                 raise AssertionError(line)
             if B == TRAIN_BATCH:
@@ -1665,15 +1723,16 @@ def template_rel_norm(gen, cfg, structure):
 
 
 def k5_work(n_edges_pad: int, n_real: int, n_src_rows: int, K: int, N: int,
-            weight_bytes: int, coeff_bytes: int) -> tuple:
+            weight_bytes: int, coeff_bytes: int, row_bytes: int = 4) -> tuple:
     """(bytes, bf16 FLOP, f32 FLOP, TF32 FLOP) of one K5 launch: the
-    ``n_src_rows`` distinct rows of x that real edges gather, the src ids
-    and norms, the coefficients and relation ids, the weights (the basis
-    once, or each distinct relation's W once) and the f32 output, each
-    once; 2 K N f32 FLOP per real edge (padding edges need none), or 3 x
-    that in TF32 on the tensor cores (split TF32: f32-grade products), the
-    route ``bound_times`` takes when it is faster."""
-    nbytes = (n_src_rows * K * 4 + n_edges_pad * (4 + 4 + N * 4)
+    ``n_src_rows`` distinct rows of x that real edges gather (``row_bytes``
+    an element: 2 for bf16 rows), the src ids and norms, the coefficients
+    and relation ids, the weights (the basis once, or each distinct
+    relation's W once) and the f32 output, each once; 2 K N f32 FLOP per
+    real edge (padding edges need none), or 3 x that in TF32 on the tensor
+    cores (split TF32: f32-grade products), the route ``bound_times`` takes
+    when it is faster."""
+    nbytes = (n_src_rows * K * row_bytes + n_edges_pad * (4 + 4 + N * 4)
               + coeff_bytes + weight_bytes)
     f32 = 2 * n_real * K * N
     return nbytes, 0, f32, 3 * f32
@@ -1767,6 +1826,25 @@ def k5_control(coeff, crel, norm, chunk: int, basis_kind: bool, R: int):
     return bad
 
 
+def k5_operands(kid, basis, coeff, w_rel, crel, R, d_in, d_out):
+    """(kernel, plain version, weights, kernel args, plain args, oracle
+    weights, oracle coefficients, weight bytes, coefficient bytes, the
+    per-chunk W) of K5a (``basis``, ``coeff``) or K5b (``w_rel``)."""
+    from mpqe_tpu_torch.ops import rgcn_fused as rf
+
+    n_used = int(torch.unique(crel[crel < R]).numel())
+    if kid == "K5a":
+        c = rf._masked_chunk_coeff(coeff, crel, R).contiguous()
+        return (rf.messages_basis, rf.messages_basis_reference, basis,
+                (coeff, crel, R), c, basis, coeff, basis.numel() * 4,
+                n_used * basis.shape[0] * 4 + crel.numel() * 4,
+                rf.combine_basis(basis, c))
+    c = crel.clamp(0, R - 1)
+    return (rf.messages_wrel, rf.messages_wrel_reference, w_rel, (crel,), c,
+            w_rel, torch.eye(R, device=w_rel.device),
+            n_used * d_in * d_out * 4, crel.numel() * 4, w_rel[c.long()])
+
+
 def phase_rgcn_fused(layer_b, layer_f, cfg, device, gen, flush):
     """K5a (basis layer) and K5b (full-weight layer) against their plain
     versions (<= TOL_PLAIN) and the f32 batched oracle (<= TOL_ORACLE), a
@@ -1782,7 +1860,6 @@ def phase_rgcn_fused(layer_b, layer_f, cfg, device, gen, flush):
     basis = layer_b.basis.detach()
     coeff = layer_b.coeff.detach()
     w_rel = layer_f.w_rel.detach()
-    eye = torch.eye(R, device=device)
     accs = {"K5a": new_acc(), "K5b": new_acc()}
     big = {"K5a": [], "K5b": []}
     f32_bound = {"K5a": 0.0, "K5b": 0.0}
@@ -1791,35 +1868,15 @@ def phase_rgcn_fused(layer_b, layer_f, cfg, device, gen, flush):
         norm = ch["norm"].float().contiguous()
         crel = ch["chunk_rel"].to(torch.int32).contiguous()
         chunk = ch["chunk"]
-        n_chunks = crel.shape[0]
         x = torch.randn((n, d), generator=gen, device=device)
         rows = torch.randn((src.shape[0], d), generator=gen, device=device)
-        valid = crel < R
         real = norm != 0
         n_real = int(real.sum())
         n_src_rows = int(torch.unique(src[real].clamp(0, n - 1)).numel())
-        n_used = int(torch.unique(crel[valid]).numel())  # relations met
         for kid in ("K5a", "K5b"):
-            # the kernel's arguments between the weights and norm (kargs)
-            # and the plain version's (c: per-chunk coefficients or ids)
-            if kid == "K5a":
-                c = rf._masked_chunk_coeff(coeff, crel, R).contiguous()
-                w, fn, ref = basis, rf.messages_basis, \
-                    rf.messages_basis_reference
-                kargs = (coeff, crel, R)
-                oracle_w, oracle_c = basis, coeff
-                weight_bytes = basis.numel() * 4
-                coeff_bytes = n_used * basis.shape[0] * 4 + n_chunks * 4
-                w_c = rf.combine_basis(basis, c)
-            else:
-                c = crel.clamp(0, R - 1)
-                w, fn, ref = w_rel, rf.messages_wrel, \
-                    rf.messages_wrel_reference
-                kargs = (crel,)
-                oracle_w, oracle_c = w_rel, eye
-                weight_bytes = n_used * d * d * 4
-                coeff_bytes = n_chunks * 4
-                w_c = w_rel[c.long()]
+            (fn, ref, w, kargs, c, oracle_w, oracle_c, weight_bytes,
+             coeff_bytes, w_c) = k5_operands(kid, basis, coeff, w_rel, crel,
+                                             R, d, d)
             with torch.no_grad():
                 got = fn(x, src, w, *kargs, norm, chunk)
                 again = fn(x, src, w, *kargs, norm, chunk)
@@ -1915,28 +1972,16 @@ def wide_rgcn_fused(cfg, device, gen, flush):
     real = norm != 0
     n_real = int(real.sum())
     n_src_rows = int(torch.unique(src[real].clamp(0, n - 1)).numel())
-    n_used = int(torch.unique(crel[crel < R]).numel())
     for K, N in WIDE_K5:
         x = torch.randn((n, K), generator=gen, device=device)
         basis = torch.randn((WIDE_BASES, K, N), generator=gen,
                             device=device) / K ** 0.5
         coeff = torch.randn((R, WIDE_BASES), generator=gen, device=device)
+        w_rel = torch.einsum("rb,bio->rio", coeff, basis).contiguous()
         for kid in ("K5a", "K5b"):
-            if kid == "K5a":
-                c = rf._masked_chunk_coeff(coeff, crel, R).contiguous()
-                w, fn, ref = basis, rf.messages_basis, \
-                    rf.messages_basis_reference
-                kargs, oracle_w, oracle_c = (coeff, crel, R), basis, coeff
-                weight_bytes = basis.numel() * 4
-                coeff_bytes = n_used * WIDE_BASES * 4 + crel.numel() * 4
-            else:
-                c = crel.clamp(0, R - 1)
-                w = torch.einsum("rb,bio->rio", coeff, basis).contiguous()
-                fn, ref = rf.messages_wrel, rf.messages_wrel_reference
-                kargs = (crel,)
-                oracle_w, oracle_c = w, torch.eye(R, device=device)
-                weight_bytes = n_used * K * N * 4
-                coeff_bytes = crel.numel() * 4
+            (fn, ref, w, kargs, c, oracle_w, oracle_c, weight_bytes,
+             coeff_bytes, _) = k5_operands(kid, basis, coeff, w_rel, crel, R,
+                                           K, N)
             with torch.no_grad():
                 got = fn(x, src, w, *kargs, norm, chunk)
                 again = fn(x, src, w, *kargs, norm, chunk)
@@ -1971,8 +2016,8 @@ def wide_rgcn_fused(cfg, device, gen, flush):
             log(line + f" kernel_ms={ms:.4f} device_ms={k_ms:.4f} "
                 f"bound_ms={max(t_b, t_o):.6f} ("
                 f"{'bytes' if t_b >= t_o else 'operations'})")
-            del got, w
-        del x, basis, coeff
+            del got
+        del x, basis, coeff, w_rel
 
 
 def k6_cases(cfg, gen, device):
@@ -2631,14 +2676,15 @@ class SparseEncode:
     ``dense_to_sparse``, then ``encode_sparse(segment_backend="pallas")``
     (K4a in every layer's destination sum and the sum / mlp readouts, K4b
     in the max readout, over one layout of the destinations and one of the
-    readout's query ids).  Counts the K4 launches its calls should
-    make."""
+    readout's query ids), or with ``backend="xla"`` the plain segment
+    sums.  Counts the K4 launches its calls should make."""
 
     def __init__(self):
         self.want = {"K4a": 0, "K4b": 0, "layout": 0}
         self.calls = 0
 
-    def __call__(self, model, cfg, structure, ne, nm, er, en):
+    def __call__(self, model, cfg, structure, ne, nm, er, en,
+                 backend="pallas"):
         from mpqe_tpu_torch.data.batcher import (DenseQueryBatch,
                                                  dense_to_sparse)
         from mpqe_tpu_torch.models import mpqe as mpqe_mod
@@ -2653,16 +2699,17 @@ class SparseEncode:
         e = sb.edges
         self.calls += 1
         steps = mpqe_mod.num_steps(cfg, structure)
-        self.want["K4a"] += steps + (cfg.readout in ("sum", "mlp"))
-        self.want["K4b"] += cfg.readout == "max"
-        self.want["layout"] += (steps > 0) + (
-            cfg.readout in ("sum", "mlp", "max"))
+        if backend == "pallas":
+            self.want["K4a"] += steps + (cfg.readout in ("sum", "mlp"))
+            self.want["K4b"] += cfg.readout == "max"
+            self.want["layout"] += (steps > 0) + (
+                cfg.readout in ("sum", "mlp", "max"))
         return mpqe_mod.encode_sparse(
             model, cfg, structure,
             *(torch.from_numpy(a).to(dev) for a in (
                 sb.node_entity, sb.node_mode, sb.node_is_var, e.src, e.dst,
                 e.rel, e.norm, sb.node_query, sb.target_node)), B,
-            segment_backend="pallas")
+            segment_backend=backend)
 
 
 def k4_counters():
@@ -3085,6 +3132,7 @@ def phase_train_sparse(kg, train_q, device, label):
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} != {want}")
     ms = np.asarray([r["seconds"] * 1e3 for r in steps])
+    STEP_MS[label] = (np.percentile(ms, 50), np.percentile(ms, 95))
     n_real = int(torch.stack(real).sum())
     log(f"{label}: {len(ms)} steps of batch {TRAIN_BATCH} on "
         f"{torch.cuda.get_device_name(device)}: "
@@ -3204,18 +3252,21 @@ def ring_device_ms(fn, iters: int, flush: torch.Tensor) -> tuple:
     layouts' sort ms) per ``fn()`` call, each call after an L2 flush
     (torch.profiler): K8's kernels alone; every device operation on a
     stream that ran no K8 (the ring's copies; the slot set-up and the flush
-    run on K8's stream); the ``torch.sort`` kernels on K8's stream."""
+    run on K8's stream); the ``torch.sort`` kernels on K8's stream.  Each
+    profile is padded and retried as in :func:`device_ms`."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(PROFILE_TRIES):
+    for attempt, pad in enumerate(PROFILE_PADS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             for _ in range(iters):
                 flush.zero_()
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
         dev = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         k8 = [e for e in dev if any(k in e.name for k in K8_KERNELS)]
@@ -3230,7 +3281,7 @@ def ring_device_ms(fn, iters: int, flush: torch.Tensor) -> tuple:
                     sum(e.time_range.elapsed_us() for e in sort)
                     / iters / 1e3)
         log(f"ring_device_ms: profile {attempt + 1} recorded no K8")
-    raise AssertionError(f"the profiler saw no K8 in {PROFILE_TRIES} "
+    raise AssertionError(f"the profiler saw no K8 in {len(PROFILE_PADS)} "
                          "profiles")
 
 
@@ -3499,6 +3550,7 @@ def phase_halo_train(kg, train_q, device):
             raise AssertionError(f"{label}: {len(losses)} steps, finite: "
                                  f"{all(np.isfinite(losses))}")
         n_real = int(torch.stack(real).sum())
+        STEP_MS[label] = (np.percentile(ms, 50), np.percentile(ms, 95))
         log(f"{label}: {state.step} steps in {wall:.2f} s on "
             f"{HALO_PARTS} parts of {torch.cuda.get_device_name(device)}: "
             f"loss first={losses[0]:.6f} last={losses[-1]:.6f} "
@@ -4242,21 +4294,7 @@ def phase_train_bf16(kg_path: str, tmp: str, device) -> tuple:
          "--device", str(device), "--steps", str(BF16_STEPS),
          "--val_every", str(BF16_STEPS), "--run_dir", run_dir],
         "train.bf16")
-    payload = torch.load(os.path.join(run_dir, "ckpt",
-                                      f"step_{BF16_STEPS}", "state.pt"),
-                         map_location="cpu", weights_only=True)
-    leaves = {f"model.{k}": v for k, v in payload["model"].items()}
-    for i, st in payload["optimizer"]["state"].items():
-        for k in ("mu", "nu"):
-            leaves[f"optimizer.{i}.{k}"] = st[k]
-    not_bf16 = sorted(k for k, v in leaves.items()
-                      if v.dtype != torch.bfloat16)
-    n_params = len(payload["model"])
-    log(f"train.bf16: checkpoint step_{BF16_STEPS}: {n_params} parameters "
-        f"and {len(leaves) - n_params} Adam moments, not bf16: {not_bf16}")
-    if not_bf16 or len(leaves) != 3 * n_params:
-        raise AssertionError(f"train.bf16: leaves not bf16 {not_bf16}, "
-                             f"{len(leaves)} of {3 * n_params}")
+    bf16_checkpoint(run_dir, BF16_STEPS, "train.bf16")
     ref = " ".join(f"{k}: p50={v[0]:.3f} p95={v[1]:.3f}"
                    for k, v in STEP_MS.items() if k != "train.bf16")
     p50, p95 = STEP_MS["train.bf16"]
@@ -4368,6 +4406,551 @@ def phase_quality(tmp: str, device) -> int:
                for m in JAX_CPU_QUALITY) or n3 == 0:
         raise AssertionError(f"quality: {arms}")
     return n3
+
+
+# ----------------------------------------------------------------------
+# The sparse routes at bf16: K5 on bf16 rows, K6 and K8 on bf16 leaves,
+# the sparse evaluate and the sparse train routes of a bf16 model
+# ----------------------------------------------------------------------
+BF16_SPARSE_STEPS = 50  # train.bf16.fused, train.bf16.blocked
+BF16_HALO_STEPS = 20  # halo.train.bf16
+# the bf16 step rechecks (kernels against their plain versions, the halo
+# loss against the dense one), per leaf in mean|diff| / mean|ref|: a bf16
+# step is 2^-8 of a value, and the gradient scatters round after every
+# add in bf16 (on the card by atomics, in an order that varies), so
+# elements that take several adds move by a step or so; the loss within
+# 1e-3 relative (the f32 sum over bf16 query vectors, a rare one-step
+# flip of an element moving it)
+TOL_BF16_STEP_GRAD = 1e-2
+TOL_BF16_STEP_LOSS = 1e-3
+# the halo loss against the dense loss at bf16: two routes that round
+# their bf16 gradients at different points (the halo route gathers every
+# node's mode row and every edge's coefficient row, as the reference's
+# does, and their bf16 gradients, each rounded, sum into a few rows that
+# cancel); measured in the mean form up to 7.9e-2 on an H100 (3-chain,
+# layer 0's coefficients) and 4.7e-2 on a CPU (d = 128, 16 bases, B =
+# 512, 7 structures), where the halo route's distance to the f32
+# gradient stays within 1.9 x (2 x the dense route's + 1e-3).  A lost or
+# doubled gradient term moves a leaf by ~1.
+TOL_BF16_HALO_GRAD = 2e-1
+# the sparse evaluate of a bf16 model (f32 activations, the reference's
+# encode_sparse) against the dense encoder (a bf16 rounding per layer):
+# scores part by ~1e-3, which swaps near-tied (positive, negative) pairs
+TOL_BF16_EVAL_AUC = 1e-2
+WIDE_K5_BF16 = ((200, 200), (768, 768), (768, 256))
+
+
+def phase_rgcn_fused_bf16(layer_b, layer_f, cfg, device, gen, flush):
+    """``kernel.rgcn_fused.bf16``: K5a and K5b on bf16 rows (gathered as
+    stored, widened in the kernel; one of the three split-TF32 passes,
+    whose products are exact zeros, skipped) on the 7 ``template_chunked``
+    layouts at B = 512 and 131,072 and on the general graph: bit-equal to
+    K5 on the f32 rows ``x.float()`` and to a repeat; at B = 512 and on
+    the general graph <= TOL_PLAIN of the plain version and <= TOL_ORACLE
+    of the f32 oracle, the negative control failing the plain gate; then
+    at the wide widths (200, and 768 in k stages) on the WIDE_STRUCTURE
+    template.  Times (kernel ms, L2 flushed, and device ms) beside the
+    f32-row kernel's in the same run, the bound with 2-byte rows, the
+    plain version and the ``torch.bmm`` yardstick (the f32 rows).
+    Returns both kernels' fields for their ``bf16_rows`` variant."""
+    from mpqe_tpu_torch.ops import rgcn_fused as rf
+    from mpqe_tpu_torch.ops import template_layout as tl
+    from mpqe_tpu_torch.queries import STRUCTURES
+
+    d, R = cfg.embed_dim, cfg.n_rels
+    basis, coeff = layer_b.basis.detach(), layer_b.coeff.detach()
+    w_rel = layer_f.w_rel.detach()
+    accs = {"K5a": new_acc(), "K5b": new_acc()}
+    f32_rows = {"K5a": [0.0, 0.0], "K5b": [0.0, 0.0]}  # at 512, 131,072
+    big = {"K5a": [0.0, 0.0], "K5b": [0.0, 0.0]}  # kernel, device ms
+
+    def check(kid, label, B, x, src, norm, crel, chunk, w_b, c_b, w_r,
+              K, N, plain_check):
+        (fn, ref, w, kargs, c, ow, oc, w_bytes, c_bytes,
+         w_c) = k5_operands(kid, w_b, c_b, w_r, crel, R, K, N)
+        x32 = x.float()
+        with torch.no_grad():
+            got = fn(x, src, w, *kargs, norm, chunk)
+            again = fn(x, src, w, *kargs, norm, chunk)
+            wide = fn(x32, src, w, *kargs, norm, chunk)
+        torch.cuda.synchronize()
+        equal = torch.equal(bits(got), bits(wide))
+        repeat = torch.equal(bits(got), bits(again))
+        line = (f"kernel.rgcn_fused.bf16 {kid} {label:14s} B={B:6d} K={K} "
+                f"N={N} E={src.shape[0]} bit_equal_f32_rows={equal} "
+                f"repeat_equal={repeat}")
+        ok = equal and repeat and bool(torch.isfinite(got).all())
+        err = 0.0
+        if plain_check:
+            with torch.no_grad():
+                plain = ref(x, src, w, c, norm, chunk)
+                oracle = rf._edge_messages_xla(x, ow, oc, src, norm, crel, R,
+                                               chunk)
+                cut = ref(x, src, w, k5_control(c, crel, norm, chunk,
+                                                kid == "K5a", R),
+                          norm, chunk)
+            e_plain, e_orc = rel_err(got, plain), rel_err(got, oracle)
+            e_cut = rel_err(got, cut)
+            err = float((got - plain).abs().max())
+            line += (f" err_vs_plain={e_plain:.3e} err_vs_f32_oracle="
+                     f"{e_orc:.3e} control_err={e_cut:.3e}")
+            ok = (ok and e_plain <= TOL_PLAIN and e_orc <= TOL_ORACLE
+                  and e_cut > TOL_PLAIN)
+            del plain, oracle, cut
+        if not ok:
+            log(line + " FAIL")
+            raise AssertionError(line)
+        n = x.shape[0]
+        real = norm != 0
+        work = k5_work(src.shape[0], int(real.sum()), int(torch.unique(
+            src[real].clamp(0, n - 1)).numel()), K, N, w_bytes, c_bytes, 2)
+        iters = BIG_ITERS if B == TRAIN_BIG else ITERS
+        per = 2 if kid == "K5a" else 1
+        with torch.no_grad():
+            ms = time_ms(lambda: fn(x, src, w, *kargs, norm, chunk), iters,
+                         flush)
+            k_ms = device_ms(lambda: fn(x, src, w, *kargs, norm, chunk),
+                             iters, flush, K5_KERNELS, per)
+            ms32 = time_ms(lambda: fn(x32, src, w, *kargs, norm, chunk),
+                           iters, flush)
+        return line, ms, k_ms, ms32, work, err, (fn, ref, w, c, w_c)
+
+    for label, B, ch, n in k5_cases(cfg, gen, device):
+        src = ch["src"].to(torch.int32).contiguous()
+        norm = ch["norm"].float().contiguous()
+        crel = ch["chunk_rel"].to(torch.int32).contiguous()
+        chunk = ch["chunk"]
+        x = torch.randn((n, d), generator=gen, device=device).to(
+            torch.bfloat16)
+        for kid in ("K5a", "K5b"):
+            line, ms, k_ms, ms32, work, err, (fn, ref, w, c, w_c) = check(
+                kid, label, B, x, src, norm, crel, chunk, basis, coeff,
+                w_rel, d, d, B != TRAIN_BIG)
+            t_b, t_o = bound_times(work)
+            bound, by = max(t_b, t_o), ("bytes" if t_b >= t_o
+                                        else "operations")
+            if B == TRAIN_BATCH:
+                xs_c = x[src.long().clamp(0, n - 1)].float().view(
+                    -1, chunk, d)
+                with torch.no_grad():
+                    plain_ms = time_ms(lambda: ref(x, src, w, c, norm,
+                                                   chunk), PLAIN_ITERS, flush)
+                    lib_ms = time_ms(lambda: torch.bmm(xs_c, w_c), ITERS,
+                                     flush)
+                add_case(accs[kid], ms, plain_ms, lib_ms, work, k_ms)
+                accs[kid]["max_abs_err"] = max(accs[kid]["max_abs_err"], err)
+                f32_rows[kid][0] += ms32
+                line += f" plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}"
+                del xs_c
+            elif B == TRAIN_BIG:
+                big[kid][0] += ms
+                big[kid][1] += k_ms
+                f32_rows[kid][1] += ms32
+            log(line + f" kernel_ms={ms:.4f} device_ms={k_ms:.4f} "
+                f"f32_rows_kernel_ms={ms32:.4f} bound_ms={bound:.6f} ({by}: "
+                f"{work[0]} B, {work[2]} f32 FLOP or {work[3]} TF32 FLOP)")
+            del w_c
+        del x
+    s, B = WIDE_STRUCTURE, TRAIN_BATCH
+    er, en = template_rel_norm(gen, cfg, s)
+    ch = tl.template_chunked(s, er, en, B)
+    n = B * STRUCTURES[s].n_nodes
+    src = ch["src"].to(torch.int32).contiguous()
+    norm = ch["norm"].float().contiguous()
+    crel = ch["chunk_rel"].to(torch.int32).contiguous()
+    for K, N in WIDE_K5_BF16:
+        x = torch.randn((n, K), generator=gen, device=device).to(
+            torch.bfloat16)
+        wb = torch.randn((WIDE_BASES, K, N), generator=gen,
+                         device=device) / K ** 0.5
+        wc = torch.randn((R, WIDE_BASES), generator=gen, device=device)
+        wr = torch.einsum("rb,bio->rio", wc, wb).contiguous()
+        for kid in ("K5a", "K5b"):
+            line, ms, k_ms, ms32, work, _, _ = check(
+                kid, f"{s}.wide", B, x, src, norm, crel, ch["chunk"], wb,
+                wc, wr, K, N, True)
+            t_b, t_o = bound_times(work)
+            log(line + f" kernel_ms={ms:.4f} device_ms={k_ms:.4f} "
+                f"f32_rows_kernel_ms={ms32:.4f} bound_ms="
+                f"{max(t_b, t_o):.6f}")
+        del x, wb, wc, wr
+    fields = {}
+    for kid, acc in accs.items():
+        log(f"kernel.rgcn_fused.bf16 {kid} sum of 7 at B={TRAIN_BATCH}: "
+            f"kernel_ms={acc['ms']:.4f} device_ms={acc['device_ms']:.4f} "
+            f"f32_rows_kernel_ms={f32_rows[kid][0]:.4f} "
+            f"plain_ms={acc['plain_ms']:.4f} "
+            f"library_ms={acc['library_ms']:.4f} "
+            f"bound_ms={acc['bound_ms']:.6f}; at B={TRAIN_BIG}: "
+            f"kernel_ms={big[kid][0]:.4f} device_ms={big[kid][1]:.4f} "
+            f"f32_rows_kernel_ms={f32_rows[kid][1]:.4f}")
+        fields[kid] = dict(finish_acc(acc), f32_rows_ms=f32_rows[kid][0],
+                           big_ms=big[kid][0],
+                           big_f32_rows_ms=f32_rows[kid][1])
+    return fields
+
+
+def phase_rgcn_blocked_bf16(layer_b, cfg, device, gen):
+    """``kernel.rgcn_blocked.bf16``: the blocked layer (K6a forward and
+    ``dx``, K6b) with bf16 leaves and bf16 rows against f32 leaves and
+    rows of the same values (the kernels read bf16 either way), on the 7
+    ``template_blocked`` layouts at B = 512 and the general graph: the
+    output bit-equal, every gradient bf16, each leaf's bit-equal to the
+    f32 leaves' gradient rounded to bf16 and the rows' to the bf16 sum of
+    its two parts rounded (the self term's and K6a's ``dx``), a repeat
+    bit-equal."""
+    import copy
+
+    from mpqe_tpu_torch.ops import rgcn_blocked as rb
+
+    d, R = cfg.embed_dim, cfg.n_rels
+    layer16 = copy.deepcopy(layer_b).to(torch.bfloat16)
+    layer32 = copy.deepcopy(layer16).float()
+    for label, B, bk, n in k6_cases(cfg, gen, device):
+        if B == TRAIN_BIG:
+            continue
+        lays = rb.layouts_on(bk, device)
+        x16 = torch.randn((n, d), generator=gen, device=device).to(
+            torch.bfloat16)
+        g = torch.randn((n, d), generator=gen, device=device)
+        outs = []
+        for layer, x in ((layer16, x16), (layer16, x16),
+                         (layer32, x16.float())):
+            xr = x.clone().requires_grad_()
+            out = rb.rgcn_sparse_blocked(xr, layer, lays, R)
+            grads = torch.autograd.grad(out, [xr, *layer.parameters()], g)
+            outs.append((out.detach(), grads))
+        torch.cuda.synchronize()
+        (o16, g16), (o16b, g16b), (o32, g32) = outs
+        out_equal = torch.equal(bits(o16), bits(o32))
+        grads_bf16 = all(t.dtype == torch.bfloat16 for t in g16)
+        grads_equal = all(torch.equal(bits(a), bits(b.to(torch.bfloat16)))
+                          for a, b in zip(g16[1:], g32[1:]))
+        # the rows' gradient has two parts, the self term's and K6a's dx,
+        # each rounded to bf16 before their sum (as the reference's bf16
+        # cotangents are): their f32 values from the f32 leaves, rounded,
+        # then added in bf16
+        with torch.no_grad():
+            parts = (rb.messages_blocked(g, layer32.basis.transpose(1, 2),
+                                         layer32.coeff, lays[1], R),
+                     g @ layer32.w_self.t())
+        want_x = sum(t.to(torch.bfloat16).float() for t in parts).to(
+            torch.bfloat16)
+        x_equal = torch.equal(bits(g16[0]), bits(want_x))
+        repeat = torch.equal(bits(o16), bits(o16b)) and all(
+            torch.equal(bits(a), bits(b)) for a, b in zip(g16, g16b))
+        line = (f"kernel.rgcn_blocked.bf16 {label:14s} B={B:6d} "
+                f"out_bit_equal_f32_leaves={out_equal} grads_bf16="
+                f"{grads_bf16} leaf_grads_equal_f32_leaves_rounded="
+                f"{grads_equal} x_grad_equal_rounded_parts={x_equal} "
+                f"repeat_equal={repeat}")
+        if not (out_equal and grads_bf16 and grads_equal and x_equal
+                and repeat):
+            log(line + " FAIL")
+            raise AssertionError(line)
+        log(line)
+        del outs, lays, x16, g
+
+
+def phase_ring_bf16(layer, cfg, device, gen):
+    """``kernel.ring.bf16``: K8 on a bf16 layer and bf16 rows (every
+    operand taken up to f32 in the wrapper, as the reference takes it) at
+    P = RING_TEMPLATE_PARTS on the general graph and the 7 template
+    layouts: bit-equal to K8 on the widened operands, under ``ring_gate``
+    against the plain version, 6 + 2 P launches a call.  Returns its
+    launches."""
+    import copy
+
+    from mpqe_tpu_torch.ops import ring
+
+    R = cfg.n_rels
+    layer16 = copy.deepcopy(layer).to(torch.bfloat16)
+    layer32 = copy.deepcopy(layer16).float()
+    total = 0
+    for c in ring_cases(cfg, gen, device):
+        if c["P"] != RING_TEMPLATE_PARTS:
+            continue
+        x16 = c["x"].to(torch.bfloat16)
+        before = ring.rgcn_ring_halo_rdma.launches
+        with torch.no_grad():
+            got = ring.rgcn_ring_halo_rdma(c["mesh"], layer16, x16,
+                                           *c["edges"], R)
+            n = ring.rgcn_ring_halo_rdma.launches - before
+            wide = ring.rgcn_ring_halo_rdma(c["mesh"], layer32, x16.float(),
+                                            *c["edges"], R)
+            plain = ring.rgcn_ring_halo_rdma_reference(c["mesh"], layer16,
+                                                       x16, *c["edges"], R)
+        torch.cuda.synchronize()
+        total += n
+        gate = ring.ring_gate(got, plain)
+        equal = got.dtype == torch.float32 and torch.equal(bits(got),
+                                                           bits(wide))
+        line = (f"kernel.ring.bf16 {c['label']:14s} P={c['P']} "
+                f"bit_equal_widened={equal} gate_ok={gate['ok']} "
+                f"err_vs_plain={gate['err_vs_plain']:.3e} launches={n}")
+        if not (equal and gate["ok"] and n == 6 + 2 * c["P"]):
+            log(line + " FAIL")
+            raise AssertionError(line)
+        log(line)
+        del got, wide, plain
+    return total
+
+
+def phase_eval_sparse_bf16(model, cfg, val_q, device):
+    """``eval.sparse.bf16``: the per-formula ``evaluate`` of the flagship
+    model and of a max-readout model at ``cfg.dtype = bfloat16`` through
+    :class:`SparseEncode` (``encode_sparse(segment_backend="pallas")``:
+    f32 activations, as the reference's): K4 launches equal to the
+    expected counts; one formula per structure recomputed with the
+    ``"xla"`` segment backend (<= TOL_ORACLE); per-structure AUC within
+    TOL_BF16_EVAL_AUC of ``evaluate`` through the bf16 dense encoder.
+    Returns the K4 launches."""
+    from mpqe_tpu_torch.data.batcher import bucket_size, make_dense_batch
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.train import evaluation
+
+    total = {"K4a": 0, "K4b": 0, "layout": 0}
+    mcfg = mpqe_mod.MPQEConfig(**dict(FLAGSHIP, readout="max"))
+    mmodel = mpqe_mod.init_mpqe(torch.Generator(device=device).manual_seed(
+        8), mcfg, device=device)
+    for label, (m, c) in (("eval.sparse.bf16", (model, cfg)),
+                          ("eval.sparse_max.bf16", (mmodel, mcfg))):
+        m16, c16, _, _ = bf16_twin(m, c)
+        enc = SparseEncode()
+        counters = k4_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = evaluation.evaluate(m16, c16, val_q, n_neg=64, encode_fn=enc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        dense = evaluation.evaluate(m16, c16, val_q, n_neg=64)
+        worst = max(abs(a - dense.auc_by_structure[s])
+                    for s, a in res.auc_by_structure.items())
+        line = (f"{label}: evaluate through the sparse path (bf16 model, "
+                f"readout {c16.readout}): {enc.calls} encode calls in "
+                f"{wall:.3f} s; launches "
+                + " ".join(f"{k}={v}" for k, v in launches.items())
+                + f" (expected "
+                f"{' '.join(f'{k}={v}' for k, v in enc.want.items())}); "
+                f"macro_auc {res.macro_auc:.6f} vs the bf16 dense encoder's "
+                f"{dense.macro_auc:.6f}, worst per-structure |diff| "
+                f"{worst:.3e} (<= {TOL_BF16_EVAL_AUC})")
+        log(line)
+        if launches != enc.want or launches["K4a"] == 0 or \
+                worst > TOL_BF16_EVAL_AUC:
+            raise AssertionError(line)
+        for k, v in launches.items():
+            total[k] += v
+        for structure, by_formula in val_q.items():
+            formula, qs = max(by_formula.items(), key=lambda kv: len(kv[1]))
+            b = make_dense_batch(formula, qs[:1000],
+                                 bucket_size(len(qs[:1000])), n_neg=64,
+                                 rng=np.random.default_rng(0))
+            args = [torch.from_numpy(getattr(b, f)).to(device) for f in (
+                "node_entity", "node_mode", "edge_rel", "edge_norm")]
+            with torch.no_grad():
+                q_k = enc(m16, c16, structure, *args)
+                q_x = enc(m16, c16, structure, *args, backend="xla")
+            torch.cuda.synchronize()
+            e = rel_err(q_k, q_x)
+            line = (f"{label}.recheck {structure:14s} B={b.batch_size} "
+                    f"dtype={q_k.dtype} err_vs_xla_segments={e:.3e}")
+            log(line)
+            if q_k.dtype != torch.float32 or e > TOL_ORACLE:
+                raise AssertionError(line)
+        del m16
+    del mmodel
+    return total
+
+
+def bf16_checkpoint(run_dir: str, steps: int, label: str) -> None:
+    """Every parameter and Adam moment of the run's checkpoint at
+    ``steps`` in bf16."""
+    import os
+
+    payload = torch.load(os.path.join(run_dir, "ckpt", f"step_{steps}",
+                                      "state.pt"),
+                         map_location="cpu", weights_only=True)
+    leaves = {f"model.{k}": v for k, v in payload["model"].items()}
+    for i, st in payload["optimizer"]["state"].items():
+        for k in ("mu", "nu"):
+            leaves[f"optimizer.{i}.{k}"] = st[k]
+    not_bf16 = sorted(k for k, v in leaves.items()
+                      if v.dtype != torch.bfloat16)
+    n_params = len(payload["model"])
+    log(f"{label}: checkpoint step_{steps}: {n_params} parameters and "
+        f"{len(leaves) - n_params} Adam moments, not bf16: {not_bf16}")
+    if not_bf16 or len(leaves) != 3 * n_params:
+        raise AssertionError(f"{label}: leaves not bf16 {not_bf16}, "
+                             f"{len(leaves)} of {3 * n_params}")
+
+
+def recheck_bf16_step(model, cfg, device, loss_fn, plain_fn, label,
+                      plain_ctx=None, tol_grad=TOL_BF16_STEP_GRAD):
+    """One random batch of TRAIN_BATCH per structure from the trained
+    bf16 state through ``loss_fn`` and ``plain_fn`` (the same route on
+    the plain versions, forward and backward within ``plain_ctx``, or
+    another route of the same function): losses within
+    TOL_BF16_STEP_LOSS, every gradient bf16 and per leaf within
+    ``tol_grad`` in mean|diff| / mean|ref| (its worst leaf named; the max
+    form printed beside)."""
+    import contextlib
+
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    params = dict(model.named_parameters())
+    for structure in STRUCTURE_NAMES:
+        B = TRAIN_BATCH
+        t = (*shared_inputs(gen, cfg, structure, B),
+             torch.randint(0, cfg.n_entities, (B,), generator=gen,
+                           device=device, dtype=torch.int32),
+             torch.randint(0, cfg.n_entities, (B, 4), generator=gen,
+                           device=device, dtype=torch.int32),
+             torch.ones((B, 4), device=device),
+             torch.ones((B,), device=device))
+        out = []
+        for fn, ctx in ((loss_fn, contextlib.nullcontext),
+                        (plain_fn, plain_ctx or contextlib.nullcontext)):
+            with ctx():
+                loss = fn(model, cfg, structure, *t)
+                grads = torch.autograd.grad(loss, list(params.values()),
+                                            allow_unused=True)
+            out.append((float(loss.detach()), {
+                n: (torch.zeros_like(p) if g is None else g)
+                for (n, p), g in zip(params.items(), grads)}))
+        (lk, gk), (lp, gp) = out
+        e_loss = abs(lk - lp) / max(abs(lp), 1e-12)
+        f32 = {n: g.float() for n, g in gk.items()}
+        want = {n: g.float() for n, g in gp.items()}
+        e_mean, e_max = tree_mean_err(f32, want), tree_rel_err(f32, want)
+        worst = max((tree_mean_err({n: f32[n]}, {n: w}), n)
+                    for n, w in want.items())[1]
+        dtypes_ok = all(g.dtype == torch.bfloat16 for g in gk.values())
+        line = (f"{label}.recheck {structure:14s} loss={lk:.6f} "
+                f"loss_err={e_loss:.3e} grad_mean_err={e_mean:.3e} "
+                f"({worst}; tol {tol_grad:g}) grad_max_err={e_max:.3e} "
+                f"grads_bf16={dtypes_ok}")
+        log(line)
+        if (e_loss > TOL_BF16_STEP_LOSS or e_mean > tol_grad
+                or not dtypes_ok or not np.isfinite(lk)):
+            raise AssertionError(line)
+
+
+BF16_SPARSE_RUNS = {
+    # label: (the CLI's route flags, steps, module, the loss it calls)
+    "train.bf16.fused": (["--kernel", "fused"], BF16_SPARSE_STEPS,
+                         "models.mpqe", "dense_batch_loss_kernel_fused"),
+    "train.bf16.blocked": (["--kernel", "blocked"], BF16_SPARSE_STEPS,
+                           "models.mpqe", "dense_batch_loss_kernel_blocked"),
+    "halo.train.bf16": (["--kernel", "dense", "--parallel", "halo_ring"],
+                        BF16_HALO_STEPS, "parallel.halo_train",
+                        "halo_dense_batch_loss"),
+}
+
+
+def phase_train_bf16_sparse(kg_path: str, tmp: str, device, label: str):
+    """``train.bf16.fused`` / ``train.bf16.blocked`` /
+    ``halo.train.bf16``: the train CLI at ``--dtype bfloat16`` on the
+    flagship KG file at the flagship width, in-process, its route's loss
+    counted: finite losses, K5 (2 a layer a step) or K6a / K6b (2 and 1)
+    launch counts, the checkpoint's parameters and Adam moments bf16, one
+    step per structure rechecked (:func:`recheck_bf16_step`: the kernels
+    against their plain versions; the halo loss on HALO_PARTS parts of the
+    card against ``dense_batch_loss``); step p50 / p95 beside the f32
+    runs'.  Returns the K5 / K6 launches by kernel id."""
+    import contextlib
+    import importlib
+    import io
+    import os
+    import re
+
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.parallel import halo_train as ht
+    from mpqe_tpu_torch.parallel.mesh import make_mesh
+    from mpqe_tpu_torch.serve import config_from_json
+    from mpqe_tpu_torch.train import __main__ as train_cli
+
+    flags, steps, mod_name, attr = BF16_SPARSE_RUNS[label]
+    module = importlib.import_module(f"mpqe_tpu_torch.{mod_name}")
+    loss_impl = getattr(module, attr)
+    real = []
+
+    def counted(*a, **kw):
+        real.append(a[-1].sum())
+        return loss_impl(*a, **kw)
+
+    run_dir = os.path.join(tmp, label.replace(".", "_"))
+    argv = ["--data", f"npz:{kg_path}", *DATA_CLI, *flags, "--dtype",
+            "bfloat16", "--device", str(device), "--steps", str(steps),
+            "--val_every", str(steps), "--run_dir", run_dir]
+    counters = sparse_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    setattr(module, attr, counted)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            state = train_cli.main(argv)
+    finally:
+        setattr(module, attr, loss_impl)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    lines = buf.getvalue().strip().splitlines()
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(ln) for ln in f]
+    recs = [r for r in records if "loss" in r]
+    losses = [r["loss"] for r in recs]
+    with open(os.path.join(run_dir, "model_config.json")) as f:
+        cfg = config_from_json(json.load(f))
+    if cfg.dtype != torch.bfloat16:
+        raise AssertionError(f"{label}: the run's model is {cfg.dtype}")
+    layers = sum(mpqe_mod.num_steps(cfg, r["structure"]) for r in recs)
+    want = {"K5a": 0, "K5b": 0, "K6a": 0, "K6b": 0}
+    if "fused" in flags:
+        want["K5a"] = 2 * layers
+    elif "blocked" in flags:
+        want.update(K6a=2 * layers, K6b=layers)
+    ms = np.asarray([r["seconds"] * 1e3 for r in recs])
+    n_real = int(torch.stack(real).sum()) if real else 0
+    ref = " ".join(f"{k}: p50={v[0]:.3f} p95={v[1]:.3f}"
+                   for k, v in STEP_MS.items())
+    STEP_MS[label] = (np.percentile(ms, 50), np.percentile(ms, 95))
+    log(f"{label}: {wall:.2f} s, {len(recs)} steps; launches "
+        + " ".join(f"{k}={v}" for k, v in launches.items())
+        + f" (expected {' '.join(f'{k}={v}' for k, v in want.items())}); "
+        f"loss first={losses[0]:.6f} last={losses[-1]:.6f}; step_ms_p50="
+        f"{np.percentile(ms, 50):.3f} step_ms_p95={np.percentile(ms, 95):.3f}"
+        f" train_queries_per_s={n_real / ms.sum() * 1e3:.1f} ({n_real} real "
+        f"rows of {len(ms) * TRAIN_BATCH}) on "
+        f"{torch.cuda.get_device_name(device)}; float32 runs (ms) {ref}; "
+        f"{lines[-1]}")
+    if not re.fullmatch(rf"final step={steps} macro_auc=\S+ macro_apr=\S+",
+                        lines[-1]):
+        raise AssertionError(f"{label}: final line {lines[-1]!r}")
+    if len(losses) != steps or not all(np.isfinite(losses)) or \
+            len(real) != steps:
+        raise AssertionError(f"{label}: {len(losses)} steps, finite: "
+                             f"{all(np.isfinite(losses))}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} != {want}")
+    bf16_checkpoint(run_dir, steps, label)
+    model = state.model
+    if "halo_ring" in flags:
+        mesh = make_mesh((HALO_PARTS, 1), devices=[device] * HALO_PARTS)
+        recheck_bf16_step(
+            model, cfg, device,
+            ht.halo_batch_loss_fn(mesh, layer_kind="ring"),
+            mpqe_mod.dense_batch_loss, label, tol_grad=TOL_BF16_HALO_GRAD)
+    else:
+        recheck_bf16_step(model, cfg, device, loss_impl, loss_impl, label,
+                          plain_sparse_kernels)
+    del state, model
+    return launches
 
 
 BENCH_TIMEOUT = 600  # seconds for the bench phase's subprocess
@@ -4549,12 +5132,23 @@ def main() -> int:
                                           cfg.n_rels, None, device=device)
     k5_fields = phase_rgcn_fused(model.layers[0], full_layer, cfg, device,
                                  gen, flush)
+    t_bf16_kernels = time.perf_counter()
+    for kid, fl in phase_rgcn_fused_bf16(model.layers[0], full_layer, cfg,
+                                         device, gen, flush).items():
+        k5_fields[kid]["variants"] = {"bf16_rows": fl}
+    bf16_kernels_s = time.perf_counter() - t_bf16_kernels
     k6_fields = phase_rgcn_blocked(model.layers[0], cfg, device, gen, flush)
+    t_bf16_kernels = time.perf_counter()
+    phase_rgcn_blocked_bf16(model.layers[0], cfg, device, gen)
+    bf16_kernels_s += time.perf_counter() - t_bf16_kernels
     del full_layer
     k4_fields = phase_segment(cfg, device, flush)
     k7_launches, k7_fields = phase_sddmm(model, cfg, device, flush)
     k8_launches, k8_fields = phase_ring(model.layers[0], cfg, device, gen,
                                         flush)
+    t_bf16_kernels = time.perf_counter()
+    k8_launches += phase_ring_bf16(model.layers[0], cfg, device, gen)
+    bf16_kernels_s += time.perf_counter() - t_bf16_kernels
 
     t0 = time.perf_counter()
     kg = make_random_kg(**KG)
@@ -4567,6 +5161,10 @@ def main() -> int:
     del ops
     train_q, val_q = sample_train_queries(kg)
     k4_launches = phase_eval_sparse(model, cfg, kg, train_q, val_q, device)
+    t_bf16_kernels = time.perf_counter()
+    for k, v in phase_eval_sparse_bf16(model, cfg, val_q, device).items():
+        k4_launches[k] += v
+    bf16_kernels_s += time.perf_counter() - t_bf16_kernels
     phase_eval_ranking(model, cfg, kg, val_q, device)
     del model
     k1, k2 = phase_train(kg, train_q, val_q, device)
@@ -4604,6 +5202,10 @@ def main() -> int:
         bf16_run, bf16_launches = phase_train_bf16(
             os.path.join(tmp, "kg.npz"), tmp, device)
         bf16_k3 = phase_serve_bf16(bf16_run, device)
+        for label in BF16_SPARSE_RUNS:
+            for kid, n in phase_train_bf16_sparse(
+                    os.path.join(tmp, "kg.npz"), tmp, device, label).items():
+                sparse[kid] += n
         bf16_s = time.perf_counter() - t_bf16
         data_launches.append(phase_data_pkl(tmp, device))
         bench_s = phase_bench()
@@ -4612,7 +5214,8 @@ def main() -> int:
     k2 += sum(n[1] for n in data_launches) + bf16_launches[1]
     launches += sum(n[2] for n in data_launches) + bf16_launches[2] + \
         bf16_k3
-    log(f"bench phase {bench_s:.1f} s; bf16 phases {bf16_s:.1f} s; data "
+    log(f"bench phase {bench_s:.1f} s; bf16 phases {bf16_s:.1f} s (and "
+        f"the bf16 kernel and evaluate checks {bf16_kernels_s:.1f} s); data "
         f"phases {time.perf_counter() - t_data - bench_s - bf16_s:.1f} s; "
         f"their launches (K1, K2, K3): npz {data_launches[0]}, pkl "
         f"{data_launches[1]}, quality {data_launches[2]}, train.bf16 "

@@ -104,6 +104,19 @@
 // output's sum order is the one-stage order; W is then reloaded per stage
 // of every tile.  N has no limit (column tiles), K none but int32 rows.
 //
+// bf16 rows (x_bf16; the rows of a bf16 model, which the Pallas kernels
+// read as they are and widen to f32 in the product): the gather copies
+// them as stored, 8 values per 16-byte cp.async (K % 8 == 0 and x 16-byte
+// aligned; else 2-byte copies), into bf16 row buffers of the same pitch
+// in elements, half the bytes; the fragment loads widen them (8 bytes,
+// conflict-free for the same reason).  A widened bf16 value is exact in
+// TF32: its split is (value, 0), so of the three passes only hi.lo and
+// hi.hi add anything, and the lo.hi pass, exact zeros, is skipped.  The
+// products, their sum order and the epilogue are the f32-row kernel's on
+// the widened rows: the output is bit-equal to K5 on x.float()
+// (chip_smoke.py kernel.rgcn_fused.bf16).  Bound: the distinct rows at 2
+// bytes an element instead of 4, the same operations.
+//
 // K8 (ops/ring.py) uses this file's combine and messages kernels through
 // mpqe_rgcn_combine and mpqe_rgcn_msg_live (the chunk count read on the
 // device).
@@ -133,8 +146,11 @@ struct Shape {
   static constexpr int TM = WM * 16 * MT, CT = WN * 8 * NT;
   static constexpr int RPW = TM / WARPS;  // rows each warp gathers
   static_assert(RPW >= 1 && RPW <= 32 && TM % WARPS == 0, "row split");
-  static size_t smem(int KS) {  // KS: the widest k stage
-    return (size_t)(CT + 2 * TM) * pitch_of(KS) * sizeof(float);
+  // KS: the widest k stage; Row: the type of the gathered rows
+  template <class Row>
+  static size_t smem(int KS) {
+    return (size_t)(CT * sizeof(float) + 2 * TM * sizeof(Row)) *
+           pitch_of(KS);
   }
 };
 
@@ -145,8 +161,11 @@ using Big = Shape<4, 4, 2, 4>;
 using Small = Shape<2, 2, 1, 2>;
 constexpr int BIG_STAGE = 128, SMALL_STAGE = 256;
 
+// A bf16 row element as stored (its bits; widened to f32 by a shift).
+using bf16_bits = unsigned short;
+
 struct Args {
-  const float* x;     // [n_rows][K]
+  const void* x;      // [n_rows][K] float, or bf16 with xbf
   const int* src;     // [E] or null (x holds one row per edge)
   const float* w;     // [.][K][N] ([.][N][K] if trans): w_rel, or K5a's W
   const int* crel;    // [n_chunks] each chunk's matrix of w, clamped into
@@ -161,7 +180,9 @@ struct Args {
   int KS, n_st;       // k stages: n_st of KS columns (the last: the rest);
                       // one stage of K where whole rows fit
   int trans;  // W[k][n] = w[.][n][k]
-  int xvec;   // rows by 16-byte copies (K % 4 == 0, x 16-byte aligned)
+  int xbf;    // x holds bf16 rows
+  int xvec;   // rows by 16-byte copies (K a multiple of 16 bytes' worth
+              // of elements, x 16-byte aligned)
   int wvec;   // W by float4 loads (its contiguous extent % 4 == 0, aligned)
 };
 
@@ -346,50 +367,73 @@ __device__ __forceinline__ int row_index(const Args& a, long long T,
   return min(max(__ldg(a.src + e), 0), a.n_rows - 1);
 }
 
-// Columns k0 .. k0 + kw - 1 of rows of x into xs (whole rows in one
-// stage): this warp's rows warp, warp + WARPS, ...; in k stages (ST) the
-// pad [kw, kpad) of a partial last stage is zeroed here (earlier stages
-// wrote it).
-template <class S, bool ST>
-__device__ __forceinline__ void gather(const Args& a, float* xs, int idx,
+// Columns k0 .. k0 + kw - 1 of rows of x (elements of type Row, copied as
+// they are) into xs (whole rows in one stage): this warp's rows warp,
+// warp + WARPS, ...; in k stages (ST) the pad [kw, kpad) of a partial last
+// stage is zeroed here (earlier stages wrote it).  16-byte cp.async where
+// the rows allow it; else 4-byte cp.async (f32) or, for bf16 rows of an
+// odd width, plain 2-byte copies.
+template <class S, bool ST, class Row>
+__device__ __forceinline__ void gather(const Args& a, Row* xs, int idx,
                                        int k0, int kw, int kpad, int warp,
                                        int lane) {
+  constexpr int V = 16 / sizeof(Row);  // elements a 16-byte copy moves
 #pragma unroll 4
   for (int j = 0; j < S::RPW; ++j) {
     const int row = __shfl_sync(0xffffffffu, idx, j);
     if (row < 0) continue;
-    const float* s = a.x + (size_t)row * a.K + k0;
-    float* d = xs + (warp + S::WARPS * j) * a.P;
+    const Row* s = static_cast<const Row*>(a.x) + (size_t)row * a.K + k0;
+    Row* d = xs + (warp + S::WARPS * j) * a.P;
     if (a.xvec) {
-      for (int p = lane * 4; p < kw; p += 128) cp_async16(d + p, s + p);
-    } else {
+      for (int p = lane * V; p < kw; p += 32 * V) cp_async16(d + p, s + p);
+    } else if (sizeof(Row) == 4) {
       for (int p = lane; p < kw; p += 32) cp_async4(d + p, s + p);
+    } else {
+      for (int p = lane; p < kw; p += 32) d[p] = __ldg(s + p);
     }
     if (ST)
-      for (int p = kw + lane; p < kpad; p += 32) d[p] = 0.f;
+      for (int p = kw + lane; p < kpad; p += 32) d[p] = Row(0);
   }
+}
+
+// Four consecutive row elements as f32 bit patterns: a float4, or four
+// bf16 values (8 bytes) widened (a bf16 value's bits are the top half of
+// its f32's, so the widening is exact).
+__device__ __forceinline__ uint4 row4(const float* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ uint4 row4(const bf16_bits* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_uint4(w.x << 16, w.x & 0xffff0000u, w.y << 16,
+                    w.y & 0xffff0000u);
 }
 
 // acc += xs (this warp's rows) @ W (its columns) in split TF32.  Logical
 // k j of an m16n8k8 step maps to physical k0 + 4 (j & 3) + 2 s + (j >> 2)
-// (step s of the 16-wide slice k0): a float4 load gives a thread its
-// fragments of two steps, the same map on both operands.
-template <class S>
-__device__ __forceinline__ void tile_products(const float* xs,
+// (step s of the 16-wide slice k0): one load of 4 row elements gives a
+// thread its fragments of two steps, the same map on both operands.
+// bf16 rows (Row = bf16_bits): a widened bf16 value is exact in TF32, so
+// its split is hi = the value, lo = 0 (split_tf32 gives those bits), and
+// the lo.hi pass, which would add exact zeros, is skipped: the products
+// and their sum order are the f32-row kernel's on the widened rows.
+template <class S, class Row>
+__device__ __forceinline__ void tile_products(const Row* xs,
                                               const float* ws, int P, int KP,
                                               int wm, int wn, int lane,
                                               float (&acc)[S::MT][S::NT][4]) {
   constexpr int MT = S::MT, NT = S::NT;
+  constexpr bool BF = sizeof(Row) == 2;
   const int g = lane >> 2, t = lane & 3;
-  const float* xa = xs + (wm * 16 * MT + g) * P + 4 * t;
+  const Row* xa = xs + (wm * 16 * MT + g) * P + 4 * t;
   const float* wb = ws + (wn * 8 * NT + g) * P + 4 * t;
 #pragma unroll 2
   for (int k0 = 0; k0 < KP; k0 += 16) {
-    float4 av[MT][2], bv[NT];
+    uint4 av[MT][2];
+    float4 bv[NT];
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi) {
-      av[mi][0] = *reinterpret_cast<const float4*>(xa + mi * 16 * P + k0);
-      av[mi][1] = *reinterpret_cast<const float4*>(xa + (mi * 16 + 8) * P + k0);
+      av[mi][0] = row4(xa + mi * 16 * P + k0);
+      av[mi][1] = row4(xa + (mi * 16 + 8) * P + k0);
     }
 #pragma unroll
     for (int nj = 0; nj < NT; ++nj)
@@ -399,20 +443,30 @@ __device__ __forceinline__ void tile_products(const float* xs,
       uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) {
-        split_tf32(s ? av[mi][0].z : av[mi][0].x, ah[mi][0], al[mi][0]);
-        split_tf32(s ? av[mi][1].z : av[mi][1].x, ah[mi][1], al[mi][1]);
-        split_tf32(s ? av[mi][0].w : av[mi][0].y, ah[mi][2], al[mi][2]);
-        split_tf32(s ? av[mi][1].w : av[mi][1].y, ah[mi][3], al[mi][3]);
+        const uint32_t f[4] = {s ? av[mi][0].z : av[mi][0].x,
+                               s ? av[mi][1].z : av[mi][1].x,
+                               s ? av[mi][0].w : av[mi][0].y,
+                               s ? av[mi][1].w : av[mi][1].y};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (BF)
+            ah[mi][u] = f[u];
+          else
+            split_tf32(__uint_as_float(f[u]), ah[mi][u], al[mi][u]);
+        }
       }
 #pragma unroll
       for (int nj = 0; nj < NT; ++nj) {
         split_tf32(s ? bv[nj].z : bv[nj].x, bh[nj][0], bl[nj][0]);
         split_tf32(s ? bv[nj].w : bv[nj].y, bh[nj][1], bl[nj][1]);
       }
+      if (!BF) {
 #pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
+        for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-        for (int nj = 0; nj < NT; ++nj) mma_tf32(acc[mi][nj], al[mi], bh[nj]);
+          for (int nj = 0; nj < NT; ++nj)
+            mma_tf32(acc[mi][nj], al[mi], bh[nj]);
+      }
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
@@ -430,15 +484,15 @@ __device__ __forceinline__ void tile_products(const float* xs,
 // in n_st k stages (ST; else one): step i is tile T0 + i / n_st, stage
 // i % n_st.  The stages add into the same accumulators in ascending k, so
 // the sum order of every output is the one-stage order.
-template <class S, bool ST>
+template <class S, bool ST, class Row>
 __global__ void __launch_bounds__(S::THREADS) k5_msg_kernel(const Args a) {
   constexpr int TM = S::TM, CT = S::CT, MT = S::MT, NT = S::NT;
   extern __shared__ __align__(16) float smem[];
   const int P = a.P, ns = ST ? a.n_st : 1, KP = (a.K + 15) / 16 * 16;
   // ws [CT][P]: ws[n][k] = W[k0 + k][col0 + n]; then two buffers [TM][P]
-  // of gathered rows
+  // of gathered rows (of type Row)
   float* ws = smem;
-  float* xs0 = smem + CT * P;
+  Row* xs0 = reinterpret_cast<Row*>(smem + CT * P);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp / S::WN, wn = warp % S::WN, g = lane >> 2, t = lane & 3;
   const int col0 = blockIdx.x * CT;
@@ -453,7 +507,7 @@ __global__ void __launch_bounds__(S::THREADS) k5_msg_kernel(const Args a) {
   const long long T1 = T0 + q + (rb < rr ? 1 : 0);
   if (T0 >= T1) return;
   if (ns == 1 && KP != a.K) {  // the k padding [K, KP): zero once, no
-    for (int i = tid; i < 2 * TM * P; i += S::THREADS) xs0[i] = 0.f;
+    for (int i = tid; i < 2 * TM * P; i += S::THREADS) xs0[i] = Row(0);
     __syncthreads();            // gather writes it
   }
   auto kw_of = [&](int st) {
@@ -462,8 +516,8 @@ __global__ void __launch_bounds__(S::THREADS) k5_msg_kernel(const Args a) {
   const long long n_steps = (T1 - T0) * ns;
   // the first step in flight; idx: the next step's rows
   int idx = row_index<S>(a, T0, warp, lane);
-  gather<S, ST>(a, xs0, idx, 0, kw_of(0), (kw_of(0) + 15) / 16 * 16, warp,
-                lane);
+  gather<S, ST, Row>(a, xs0, idx, 0, kw_of(0), (kw_of(0) + 15) / 16 * 16,
+                     warp, lane);
   cp_async_commit();
   idx = n_steps > 1 ? row_index<S>(a, T0 + (ns == 1), warp, lane) : -1;
   // the slot whose W the tile holds, and the next tile's slot, read a tile
@@ -476,8 +530,8 @@ __global__ void __launch_bounds__(S::THREADS) k5_msg_kernel(const Args a) {
     const int st = (int)(i % ns), buf = (int)(i & 1);
     if (i + 1 < n_steps) {  // the next step's rows land during this one
       const int st1 = (int)((i + 1) % ns), kw1 = kw_of(st1);
-      gather<S, ST>(a, xs0 + (buf ^ 1) * TM * P, idx, st1 * a.KS, kw1,
-                    (kw1 + 15) / 16 * 16, warp, lane);
+      gather<S, ST, Row>(a, xs0 + (buf ^ 1) * TM * P, idx, st1 * a.KS, kw1,
+                         (kw1 + 15) / 16 * 16, warp, lane);
       idx = i + 2 < n_steps ? row_index<S>(a, T0 + (i + 2) / ns, warp, lane)
                             : -1;
     }
@@ -512,8 +566,8 @@ __global__ void __launch_bounds__(S::THREADS) k5_msg_kernel(const Args a) {
 #pragma unroll
           for (int u = 0; u < 4; ++u) acc[mi][nj][u] = 0.f;
     }
-    tile_products<S>(xs0 + buf * TM * P, ws, P, (kw + 15) / 16 * 16, wm, wn,
-                     lane, acc);
+    tile_products<S, Row>(xs0 + buf * TM * P, ws, P, (kw + 15) / 16 * 16,
+                          wm, wn, lane, acc);
     if (st == ns - 1) {
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi)
@@ -595,10 +649,10 @@ int device_occupancy(int dev, const void* fn, int threads, size_t smem,
   return blocks;
 }
 
-template <class S, bool ST>
+template <class S, bool ST, class Row>
 int run(Args a, int dev, int n_chunks, cudaStream_t stream) {
-  const void* fn = reinterpret_cast<const void*>(k5_msg_kernel<S, ST>);
-  const size_t smem = S::smem(a.KS);
+  const void* fn = reinterpret_cast<const void*>(k5_msg_kernel<S, ST, Row>);
+  const size_t smem = S::template smem<Row>(a.KS);
   int n_sm = 0, optin = 0;
   const int occ = device_occupancy(dev, fn, S::THREADS, smem, &n_sm, &optin);
   if (occ <= 0) return (int)cudaErrorInvalidValue;
@@ -611,7 +665,7 @@ int run(Args a, int dev, int n_chunks, cudaStream_t stream) {
   a.q = n_tiles / n_rb;
   a.r = (int)(n_tiles % n_rb);
   const dim3 grid((unsigned)n_ct, (unsigned)n_rb);
-  k5_msg_kernel<S, ST><<<grid, S::THREADS, smem, stream>>>(a);
+  k5_msg_kernel<S, ST, Row><<<grid, S::THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -623,11 +677,13 @@ void stage(Args& a, int KS) {
   a.P = pitch_of(KS);
 }
 
-// The messages through w [.][K][N] (trans: [.][N][K]) and crel.  The
-// tile: the big one where whole rows fit and it gives every SM a tile
-// (with big_ok), else the small one; rows wider than the small tile's
-// shared memory holds go in k stages.
-int launch(Args a, int n_chunks, cudaStream_t stream, bool big_ok) {
+// The messages through w [.][K][N] (trans: [.][N][K]) and crel, rows of
+// type Row.  The tile: the big one where whole rows fit and it gives every
+// SM a tile (with big_ok), else the small one; rows wider than the small
+// tile's shared memory holds go in k stages.  Neither choice changes an
+// output's sum order.
+template <class Row>
+int launch_rows(Args a, int n_chunks, cudaStream_t stream, bool big_ok) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -636,23 +692,29 @@ int launch(Args a, int n_chunks, cudaStream_t stream, bool big_ok) {
   if (device_occupancy(dev, nullptr, 0, 0, &n_sm, &optin) <= 0)
     return (int)cudaErrorInvalidValue;
   stage(a, a.K);
-  a.xvec = a.K % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
+  a.xvec = a.K % (16 / (int)sizeof(Row)) == 0 &&
+           reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
   a.wvec = (a.trans ? a.K : a.N) % 4 == 0 &&
            reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
   const long long big_tiles = (long long)n_chunks *
                               ((a.chunk + Big::TM - 1) / Big::TM) *
                               ((a.N + Big::CT - 1) / Big::CT);
   const bool big = big_ok && big_tiles >= n_sm;
-  if (big && Big::smem(a.K) <= (size_t)optin)
-    return run<Big, false>(a, dev, n_chunks, stream);
-  if (Small::smem(a.K) <= (size_t)optin)
-    return run<Small, false>(a, dev, n_chunks, stream);
+  if (big && Big::smem<Row>(a.K) <= (size_t)optin)
+    return run<Big, false, Row>(a, dev, n_chunks, stream);
+  if (Small::smem<Row>(a.K) <= (size_t)optin)
+    return run<Small, false, Row>(a, dev, n_chunks, stream);
   if (big) {
     stage(a, BIG_STAGE);
-    return run<Big, true>(a, dev, n_chunks, stream);
+    return run<Big, true, Row>(a, dev, n_chunks, stream);
   }
   stage(a, SMALL_STAGE);
-  return run<Small, true>(a, dev, n_chunks, stream);
+  return run<Small, true, Row>(a, dev, n_chunks, stream);
+}
+
+int launch(Args a, int n_chunks, cudaStream_t stream, bool big_ok) {
+  return a.xbf ? launch_rows<bf16_bits>(a, n_chunks, stream, big_ok)
+               : launch_rows<float>(a, n_chunks, stream, big_ok);
 }
 
 bool bad_shape(int n_rows, int n_chunks, int chunk, int K, int N) {
@@ -676,11 +738,13 @@ int combine(const float* basis, int bb, const float* coeff, const int* crel,
   return (int)cudaGetLastError();
 }
 
-Args wrel_args(const float* x, int n_rows, const int* src, const float* w,
-               const int* crel, int crel_hi, const float* norm, int chunk,
-               int K, int N, int w_transposed, float* out) {
+Args wrel_args(const void* x, int x_bf16, int n_rows, const int* src,
+               const float* w, const int* crel, int crel_hi,
+               const float* norm, int chunk, int K, int N, int w_transposed,
+               float* out) {
   Args a{};
   a.x = x;
+  a.xbf = x_bf16 != 0;
   a.n_rows = n_rows;
   a.src = src;
   a.w = w;
@@ -697,14 +761,16 @@ Args wrel_args(const float* x, int n_rows, const int* src, const float* w,
 
 }  // namespace
 
-// K5a.  x [n_rows][K]; src [n_chunks * chunk] or null; basis [bb][K][N]
+// K5a.  x [n_rows][K], f32 or (x_bf16) bf16; src [n_chunks * chunk] or
+// null; basis [bb][K][N]
 // ([bb][N][K] with w_transposed); coeff [n_rels][bb]; crel [n_chunks],
 // each chunk's relation (>= n_rels: padding, W = 0); scratch
 // [n_rels + 1][K][N] (as basis is stored), written for the slots that
 // occur; norm [n_chunks * chunk]; out [n_chunks * chunk][N].  Two
 // launches: the prologue, then the messages.  Returns cudaGetLastError()
 // after them (0 on success).
-extern "C" int mpqe_rgcn_msg_basis(const float* x, int n_rows, const int* src,
+extern "C" int mpqe_rgcn_msg_basis(const void* x, int x_bf16, int n_rows,
+                                   const int* src,
                                    const float* basis, int bb,
                                    const float* coeff, const int* crel,
                                    int n_rels, float* scratch,
@@ -718,14 +784,15 @@ extern "C" int mpqe_rgcn_msg_basis(const float* x, int n_rows, const int* src,
   const int err = combine(basis, bb, coeff, crel, n_chunks, n_rels, K, N,
                           scratch, s);
   if (err != 0) return err;
-  return launch(wrel_args(x, n_rows, src, scratch, crel, n_rels, norm, chunk,
-                          K, N, w_transposed, out),
+  return launch(wrel_args(x, x_bf16, n_rows, src, scratch, crel, n_rels,
+                          norm, chunk, K, N, w_transposed, out),
                 n_chunks, s, true);
 }
 
 // K5b.  As K5a with w_rel [R][K][N] ([R][N][K] with w_transposed) and
 // crel [n_chunks], clamped into [0, R); one launch.
-extern "C" int mpqe_rgcn_msg_wrel(const float* x, int n_rows, const int* src,
+extern "C" int mpqe_rgcn_msg_wrel(const void* x, int x_bf16, int n_rows,
+                                  const int* src,
                                   const float* w_rel, int R, const int* crel,
                                   const float* norm, int n_chunks, int chunk,
                                   int K, int N, int w_transposed, float* out,
@@ -733,8 +800,8 @@ extern "C" int mpqe_rgcn_msg_wrel(const float* x, int n_rows, const int* src,
   if (bad_shape(n_rows, n_chunks, chunk, K, N) || R <= 0)
     return (int)cudaErrorInvalidValue;
   if (n_chunks == 0) return 0;
-  return launch(wrel_args(x, n_rows, src, w_rel, crel, R - 1, norm, chunk, K,
-                          N, w_transposed, out),
+  return launch(wrel_args(x, x_bf16, n_rows, src, w_rel, crel, R - 1, norm,
+                          chunk, K, N, w_transposed, out),
                 n_chunks, static_cast<cudaStream_t>(stream), true);
 }
 
@@ -764,7 +831,7 @@ extern "C" int mpqe_rgcn_msg_live(const float* x, int n_rows, const int* src,
   if (bad_shape(n_rows, n_chunks, chunk, K, N) || R <= 0 || !live)
     return (int)cudaErrorInvalidValue;
   if (n_chunks == 0) return 0;
-  Args a = wrel_args(x, n_rows, src, w, crel, R - 1, norm, chunk, K, N, 0,
+  Args a = wrel_args(x, 0, n_rows, src, w, crel, R - 1, norm, chunk, K, N, 0,
                      out);
   a.live = live;
   return launch(a, n_chunks, static_cast<cudaStream_t>(stream),

@@ -458,8 +458,10 @@ def encode_sparse(model: MPQE, cfg: MPQEConfig, structure: str,
     readouts through K4a / K4b (``ops/segment_kernels.py``), which are
     forward only: call it under ``torch.no_grad()``.  Their layouts are
     built once per call: the destinations' from ``edge_dst`` for all
-    layers, the readout's from ``node_query``."""
-    dtypes.refuse_reduced(cfg, "encode_sparse")
+    layers, the readout's from ``node_query``.  Like the reference's, it
+    does not round between layers: a bf16 model's layer 0 takes the bf16
+    embeddings, every later layer and the readout the f32 activations
+    (its weights widened), and the result is f32."""
     dst_layout = readout_layout = None
     if segment_backend == "pallas":
         if _sparse_steps(cfg, structure):
@@ -484,10 +486,10 @@ def encode_sparse_fused(model: MPQE, cfg: MPQEConfig, structure: str,
                         n_queries: int) -> torch.Tensor:
     """:func:`encode_sparse` with each layer through K5
     (``ops/rgcn_fused.py:rgcn_sparse_fused``) over a relation-chunked
-    edge layout.  Every layer runs over every node (no TGT pruning)."""
+    edge layout.  Every layer runs over every node (no TGT pruning), and
+    its f32 output is rounded to ``cfg.dtype``, as the reference does."""
     from mpqe_tpu_torch.ops import rgcn_fused
 
-    dtypes.refuse_reduced(cfg, "the K5 sparse encoder (--kernel fused)")
     return _sparse_encode(
         model, cfg, structure, node_entity, node_mode, node_is_var,
         node_query, target_node, n_queries,
@@ -503,10 +505,11 @@ def encode_sparse_blocked(model: MPQE, cfg: MPQEConfig, structure: str,
     (``ops/rgcn_blocked.py:rgcn_sparse_blocked``, bf16 products) over a
     (dst block, src block) bucketed layout; basis layers only.  The
     layout's device tensors and edge lists are built once, for all
-    layers (or given: the pair ``rgcn_blocked.layouts_on`` returns)."""
+    layers (or given: the pair ``rgcn_blocked.layouts_on`` returns).
+    Each layer's f32 output is rounded to ``cfg.dtype``, as the
+    reference does."""
     from mpqe_tpu_torch.ops import rgcn_blocked
 
-    dtypes.refuse_reduced(cfg, "the K6 sparse encoder (--kernel blocked)")
     lays = bucketed if isinstance(bucketed, tuple) else \
         rgcn_blocked.layouts_on(bucketed, node_entity.device)
     return _sparse_encode(
@@ -545,7 +548,6 @@ def dense_batch_loss_kernel_fused(model: MPQE, cfg: MPQEConfig,
     :func:`encode_sparse_fused`."""
     from mpqe_tpu_torch.ops import template_layout
 
-    dtypes.refuse_reduced(cfg, "--kernel fused")
     ne_f, nm_f, niv, nq, tn, B = _sparse_view_on_device(
         structure, node_entity, node_mode)
     chunked = template_layout.template_chunked(structure, edge_rel,
@@ -570,7 +572,6 @@ def dense_batch_loss_kernel_blocked(model: MPQE, cfg: MPQEConfig,
     Requires basis decomposition."""
     from mpqe_tpu_torch.ops import template_layout
 
-    dtypes.refuse_reduced(cfg, "--kernel blocked")
     if cfg.num_bases is None:
         raise ValueError("--kernel blocked requires num_bases > 0")
     ne_f, nm_f, niv, nq, tn, B = _sparse_view_on_device(

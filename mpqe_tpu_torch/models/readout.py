@@ -1,6 +1,8 @@
 """Readouts: batched node embeddings -> one query vector (counterpart of
 ``mpqe_tpu/models/readout.py``): TGT (take the target slot), SUM, MAX,
-CONCAT (pad-to-4-slots linear) and MLP (deep-sets)."""
+CONCAT (pad-to-4-slots linear) and MLP (deep-sets).  Products promote as
+JAX's do (``ops/dtypes.py:matmul``): ``encode_sparse`` of a bf16 model
+reads out f32 activations through bf16 weights, in f32."""
 
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ import math
 import torch
 from torch import nn
 
+from mpqe_tpu_torch.ops import dtypes
 from mpqe_tpu_torch.ops.rgcn import normal_
 
 READOUTS = ("tgt", "sum", "max", "concat", "mlp")
@@ -70,11 +73,11 @@ def readout_dense(kind: str, ro: Readout, x: torch.Tensor,
     if kind == "concat":
         pad = x.new_zeros((B, MAX_TEMPLATE_NODES - n, d))
         flat = torch.cat([x, pad], dim=1).reshape(B, MAX_TEMPLATE_NODES * d)
-        return flat @ ro.w_cat + ro.b_cat
+        return dtypes.matmul(flat, ro.w_cat) + ro.b_cat
     if kind == "mlp":
-        h = torch.relu(torch.einsum("bnd,do->bno", x, ro.w_pre) + ro.b_pre)
+        h = torch.relu(dtypes.matmul(x, ro.w_pre) + ro.b_pre)
         pooled = torch.sum(h, dim=1)
-        return pooled @ ro.w_post + ro.b_post
+        return dtypes.matmul(pooled, ro.w_post) + ro.b_post
     raise ValueError(kind)
 
 
@@ -105,9 +108,9 @@ def readout_sparse(kind: str, ro: Readout, x: torch.Tensor,
         return readout_dense(kind, ro, x.reshape(n_queries, n, x.shape[-1]),
                              0)
     if kind == "mlp":
-        h = torch.relu(x @ ro.w_pre + ro.b_pre)
+        h = torch.relu(dtypes.matmul(x, ro.w_pre) + ro.b_pre)
         pooled = segment_ops.segment_sum(h, node_query, n_queries,
                                          backend=segment_backend,
                                          layout=layout)
-        return pooled @ ro.w_post + ro.b_post
+        return dtypes.matmul(pooled, ro.w_post) + ro.b_post
     raise ValueError(kind)

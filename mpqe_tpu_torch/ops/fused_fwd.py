@@ -1098,6 +1098,57 @@ def chain_gate_controls(x0, ws, blocks: ChainBlocks, n_a: int, d: int):
     return (("zero_block", x0, [w0, *ws[1:]]), ("anchor_row", x, list(ws)))
 
 
+# K2's parameter gradients (the chain's dA, dW_l and db_l mapped by
+# autograd through :func:`_layer_matrices`, which sums each basis
+# gradient over edges and coefficients of both signs) against the plain
+# K2's, per leaf in mean|diff| / mean|ref|, the worst leaf, by the
+# structure's depth.  ``chain_gate`` holds the chain triples; the
+# assembly's cancellations lift small relative differences in a few
+# leaves (the coefficients of the few relations a formula uses) above
+# its LEAF_MEAN.  ``tools/tgt_probe.py emulate`` (the chain in another
+# sum order, exact then rounded, mapped through the assembly of a bf16
+# model: d = 128, 16 bases, B = 512 and 1,000, the 7 structures, seeds 0
+# to 3, biases 0 or N(0, 0.1)) reached 2.7e-4 at one layer, 5.7e-4 at
+# two and 6.8e-4 at three; the limits are about 3x those.  The negative
+# control (:func:`param_grad_control`) moves one basis's gradient by
+# PARAM_CONTROL_FACTOR times the limit: the limit fails it, the depth
+# tolerance K2's gradients were held to before (3e-2 / 8e-2 / 2.5e-1,
+# against f32 autograd) does not.
+PARAM_GRAD_MEAN_BY_DEPTH = {1: 1e-3, 2: 2e-3, 3: 2e-3}
+PARAM_CONTROL_FACTOR = 4.0
+
+
+def param_grad_mean_err(got: Dict[str, torch.Tensor],
+                        want: Dict[str, torch.Tensor]) -> float:
+    """max over leaves of mean|got - want| / mean|want| (in f32; leaves
+    where ``want`` is zero everywhere are skipped)."""
+    worst = 0.0
+    for name, w in want.items():
+        w = w.to(torch.float32)
+        if bool(w.abs().max() > 0):
+            worst = max(worst, float((got[name].to(torch.float32) - w).abs()
+                                     .mean() / w.abs().mean()))
+    return worst
+
+
+def param_grad_control(got: Dict[str, torch.Tensor],
+                       want: Dict[str, torch.Tensor],
+                       n_layers: int) -> Dict[str, torch.Tensor]:
+    """:func:`param_grad_mean_err`'s negative control: ``got`` (in f32)
+    with layer 0's basis 0 gradient scaled by ``1 + s``, ``s`` chosen so
+    that the leaf's mean|diff| / mean|ref| grows by PARAM_CONTROL_FACTOR
+    times the depth's limit (a wrong gradient of one basis, which the
+    assembly's sum over bases would carry into every relation)."""
+    out = {n: t.to(torch.float32) for n, t in got.items()}
+    g = out["layers.0.basis"].clone()
+    target = PARAM_CONTROL_FACTOR * PARAM_GRAD_MEAN_BY_DEPTH[n_layers]
+    s = target * float(want["layers.0.basis"].to(torch.float32).abs().sum()
+                       / g[0].abs().sum())
+    g[0] = g[0] * (1.0 + s)
+    out["layers.0.basis"] = g
+    return out
+
+
 # K3's gate.  The output, end to end, is held to :func:`chain_gate` over
 # ``num_steps`` layers: K3's products are K1's and its other steps keep
 # the plain order.  That envelope lets a flip near a bf16 rounding

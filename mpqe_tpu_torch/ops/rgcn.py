@@ -82,10 +82,13 @@ def init_rgcn_layer(
 
 
 def relation_weights(layer: RGCNLayer) -> torch.Tensor:
-    """Materialize ``W_r`` for all relations: ``[R, d_in, d_out]``."""
+    """Materialize ``W_r`` for all relations: ``[R, d_in, d_out]`` in the
+    leaves' dtype (at bf16 summed in f32 and rounded once, as XLA's bf16
+    einsum of the reference rounds it)."""
     if layer.w_rel is not None:
         return layer.w_rel
-    return torch.einsum("rb,bio->rio", layer.coeff, layer.basis)
+    return dtypes.einsum_f32("rb,bio->rio", layer.coeff, layer.basis).to(
+        layer.basis.dtype)
 
 
 def _edge_weights(layer: RGCNLayer, edge_rel: torch.Tensor) -> torch.Tensor:
@@ -124,12 +127,12 @@ def rgcn_sparse(x: torch.Tensor, layer: RGCNLayer, edge_src: torch.Tensor,
     else:
         basis = layer.basis
         coeff_e = layer.coeff[rel_cl]  # [E, B]
-    h_b = torch.einsum("nd,bdo->nbo", x, basis)
-    msg = torch.einsum("eb,ebo->eo", coeff_e, h_b[src_c])
+    h_b = dtypes.einsum_f32("nd,bdo->nbo", x, basis)
+    msg = dtypes.einsum_f32("eb,ebo->eo", coeff_e, h_b[src_c])
     msg = msg * edge_norm[:, None].to(msg.dtype)
     agg = segment_ops.segment_sum(msg, edge_dst, n_nodes,
                                   backend=segment_backend, layout=layout)
-    return x @ layer.w_self + agg + layer.bias
+    return dtypes.dot_f32(x, layer.w_self) + agg + layer.bias
 
 
 def rgcn_sparse_relblock(x: torch.Tensor, layer: RGCNLayer,
@@ -144,10 +147,10 @@ def rgcn_sparse_relblock(x: torch.Tensor, layer: RGCNLayer,
     w = relation_weights(layer)
     w_e = w[edge_rel.long().clamp(0, n_rels - 1)]
     xs = x[edge_src.long().clamp(0, n_nodes - 1)]
-    msg = torch.einsum("ed,edo->eo", xs, w_e)
+    msg = dtypes.einsum_f32("ed,edo->eo", xs, w_e)
     msg = msg * edge_norm[:, None].to(msg.dtype)
     agg = segment_ops.segment_sum(msg, edge_dst, n_nodes)
-    return x @ layer.w_self + agg + layer.bias
+    return dtypes.dot_f32(x, layer.w_self) + agg + layer.bias
 
 
 def rgcn_dense_template(x: torch.Tensor, layer: RGCNLayer, edge_src,

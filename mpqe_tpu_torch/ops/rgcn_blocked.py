@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from mpqe_tpu_torch.ops import cuda_build
+from mpqe_tpu_torch.ops import dtypes
 from mpqe_tpu_torch.ops import segment as segment_ops
 from mpqe_tpu_torch.ops.edge_store import EdgeStore
 
@@ -838,7 +839,9 @@ def rgcn_sparse_blocked(x: torch.Tensor, layer, bucketed,
     ``template_blocked`` (tensors), transpose arrays included, or is the
     pair :func:`layouts_on` built from one (once for all of an encode's
     layers).  Expect ~1e-2 relative deviation from the f32 paths (bf16
-    products)."""
+    products).  The leaves may be f32 or bf16 (the kernels read bf16
+    either way); the result is f32 and the gradients come in the leaves'
+    dtypes, as the reference's."""
     if layer.basis is None:
         raise ValueError(
             "rgcn_sparse_blocked requires basis decomposition; use "
@@ -853,4 +856,4 @@ def rgcn_sparse_blocked(x: torch.Tensor, layer, bucketed,
         lay, t_lay = layouts_on(bucketed, x.device)
     agg = BlockedMessages.apply(x, layer.basis, layer.coeff, lay, t_lay,
                                 n_rels)
-    return x @ layer.w_self + agg + layer.bias
+    return dtypes.dot_f32(x, layer.w_self) + agg + layer.bias

@@ -25,7 +25,11 @@ order), so it is held to gates, not to the plain bits: <= 1e-4 of the
 plain version and <= 1e-5 of the f32 oracle :func:`_edge_messages_xla`
 (``chip_smoke.py`` phase 4; ``tools/k5_probe.py emulate`` has the
 emulated figures).  The kernel fuses the gather ``x[src]`` that the
-reference leaves to XLA.
+reference leaves to XLA.  The rows of a bf16 model are gathered as bf16
+(half the bytes) and widened in the kernel, whose products and sums are
+then those of the f32 rows ``x.float()`` bit for bit (a bf16 value is
+exact in TF32, so one of the three passes adds only zeros and is
+skipped); the plain versions compute on ``x.float()``.
 
 :class:`EdgeMessages` is the reference's ``custom_vjp`` (:268-360): the
 backward's ``dxs`` is the same kernel on ``g``, reading the weights
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 
 from mpqe_tpu_torch.ops import cuda_build
+from mpqe_tpu_torch.ops import dtypes
 from mpqe_tpu_torch.ops import embed as embed_ops
 from mpqe_tpu_torch.ops import segment as segment_ops
 from mpqe_tpu_torch.ops.edge_store import EdgeStore
@@ -100,9 +105,11 @@ def chunk_by_relation(store: EdgeStore,
 # Plain versions
 # ----------------------------------------------------------------------
 def _gather_rows(x: torch.Tensor, src: Optional[torch.Tensor]):
-    if src is None:
-        return x
-    return x[src.long().clamp(0, x.shape[0] - 1)]
+    """The rows ``x[clamp(src)]`` (``x`` itself without ``src``) in f32:
+    bf16 rows widen exactly, as the kernels widen them."""
+    if src is not None:
+        x = x[src.long().clamp(0, x.shape[0] - 1)]
+    return x.to(torch.float32)
 
 
 def _chunk_products(xs: torch.Tensor, w_c: torch.Tensor,
@@ -128,7 +135,8 @@ def combine_basis(basis: torch.Tensor,
 
 def messages_basis_reference(x, src, basis, chunk_coeff, norm,
                              chunk: int) -> torch.Tensor:
-    """Plain version of K5a: ``[E_pad, N]`` f32."""
+    """Plain version of K5a: ``[E_pad, N]`` f32 (``x`` f32 or bf16, the
+    weights and coefficients f32)."""
     xs = _gather_rows(x, src)
     y = _chunk_products(xs, combine_basis(basis, chunk_coeff), chunk)
     return y * norm[:, None]
@@ -157,11 +165,11 @@ def _kernel():
     if _KERNEL is None:
         lib = cuda_build.load_library("rgcn_fused", ["rgcn_fused.cu"])
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mpqe_rgcn_msg_basis.argtypes = [p, i, p, p, i, p, p, i, p, p, i,
-                                            i, i, i, i, p, p]
+        lib.mpqe_rgcn_msg_basis.argtypes = [p, i, i, p, p, i, p, p, i, p, p,
+                                            i, i, i, i, i, p, p]
         lib.mpqe_rgcn_msg_basis.restype = i
-        lib.mpqe_rgcn_msg_wrel.argtypes = [p, i, p, p, i, p, p, i, i, i, i,
-                                           i, p, p]
+        lib.mpqe_rgcn_msg_wrel.argtypes = [p, i, i, p, p, i, p, p, i, i, i,
+                                           i, i, p, p]
         lib.mpqe_rgcn_msg_wrel.restype = i
         lib.mpqe_rgcn_combine.argtypes = [p, i, p, p, i, i, i, i, p, p]
         lib.mpqe_rgcn_combine.restype = i
@@ -198,7 +206,9 @@ def _prepare(x, src, w, norm, chunk: int, w_transposed: bool):
     if chunk <= 0 or E % chunk:
         raise ValueError(f"{E} edges are not a whole number of chunks of "
                          f"{chunk}")
-    _check("x", x, torch.float32, (x.shape[0], K), dev)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    _check("x", x, x.dtype, (x.shape[0], K), dev)
     _check("norm", norm, torch.float32, (E,), dev)
     _check("weights", w, torch.float32, w.shape, dev)
     if src is None:
@@ -239,7 +249,10 @@ def messages_basis(x: torch.Tensor, src: Optional[torch.Tensor],
     coefficients of relation ``chunk_rel[c]`` (clamped below at 0; ``>=
     n_rels``: a padding chunk, zero coefficients), as
     :func:`_masked_chunk_coeff` gives them.  ``src`` ``[E_pad]`` int32
-    gathers the rows of ``x`` (``None``: ``x`` holds one row per edge).
+    gathers the rows of ``x`` (``None``: ``x`` holds one row per edge),
+    f32 or bf16 (read as they are: half the gather's bytes; the products
+    are the f32 rows' on ``x.float()``, bit for bit); the weights, the
+    coefficients and ``norm`` are f32.
     CUDA tensors: the kernel, counted in ``messages_basis.launches``; its
     prologue builds each relation's W once (and a zero W for padding) into
     a buffer of ``(n_rels + 1) K N`` floats kept per device and stream.
@@ -264,7 +277,8 @@ def messages_basis(x: torch.Tensor, src: Optional[torch.Tensor],
                                               device=x.device)
     with torch.cuda.device(x.device):
         err = lib.mpqe_rgcn_msg_basis(
-            x.data_ptr(), x.shape[0], _ptr(src), basis.data_ptr(), bb,
+            x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0],
+            _ptr(src), basis.data_ptr(), bb,
             coeff.data_ptr(), crel.data_ptr(), n_rels, scratch.data_ptr(),
             norm.data_ptr(), n_chunks, chunk, K, N, int(w_transposed),
             out.data_ptr(), stream)
@@ -284,7 +298,8 @@ def messages_wrel(x: torch.Tensor, src: Optional[torch.Tensor],
     """K5b: per-edge messages ``[E_pad, N]`` f32 through each chunk's
     ``w_rel [R, K, N]`` block (``w_transposed``: ``w_rel [R, N, K]``, read
     as its transpose; ``chunk_rel_clipped [n_chunks]``, clamped into ``[0,
-    R)`` by the kernel too).  CUDA tensors: the kernel, counted in
+    R)`` by the kernel too); ``x`` f32 or bf16, as for K5a.  CUDA tensors:
+    the kernel, counted in
     ``messages_wrel.launches``; CPU tensors: the plain version."""
     if x.device.type == "cpu":
         return messages_wrel_reference(
@@ -297,7 +312,8 @@ def messages_wrel(x: torch.Tensor, src: Optional[torch.Tensor],
     crel = _chunk_rel_on(chunk_rel_clipped, n_chunks, x.device)
     with torch.cuda.device(x.device):
         err = lib.mpqe_rgcn_msg_wrel(
-            x.data_ptr(), x.shape[0], _ptr(src), w_rel.data_ptr(),
+            x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0],
+            _ptr(src), w_rel.data_ptr(),
             w_rel.shape[0], crel.data_ptr(), norm.data_ptr(), n_chunks,
             chunk, K, N, int(w_transposed), out.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
@@ -325,17 +341,27 @@ def _edge_messages_xla(x, basis, coeff, src, norm, chunk_rel, n_rels: int,
     batched product (``msg_e = (x[src_e] @ W_{rel_e}) * norm_e``)."""
     xs = _gather_rows(x, src)
     ce = _masked_chunk_coeff(coeff, chunk_rel, n_rels)
-    w_c = torch.einsum("cb,bio->cio", ce, basis)
+    w_c = dtypes.einsum_f32("cb,bio->cio", ce, basis)
     msg = torch.einsum("ced,cdo->ceo", xs.reshape(-1, chunk, x.shape[1]),
                        w_c)
     return msg.reshape(-1, basis.shape[-1]) * norm[:, None].float()
 
 
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` as contiguous f32 (no copy when it is)."""
+    return None if t is None else t.to(torch.float32).contiguous()
+
+
 class EdgeMessages(torch.autograd.Function):
-    """Per-edge messages ``[E_pad, d_out]`` through K5:
+    """Per-edge messages ``[E_pad, d_out]`` f32 through K5:
     ``apply(x, basis, coeff, src, norm, chunk_rel, n_rels, chunk)``.  For a
     full-weight layer pass ``coeff=None`` and ``w_rel [R, d_in, d_out]``
-    as ``basis``.  Gradients reach ``x``, ``basis`` and ``coeff``."""
+    as ``basis``.  Gradients reach ``x``, ``basis`` and ``coeff``.  At a
+    bf16 model (the reference's ``_edge_messages_fwd`` / ``_bwd``): the
+    kernels read the bf16 rows as they are and the weights taken up to
+    f32; ``dx`` is scattered in ``x``'s dtype, ``dW`` and the leaves'
+    gradients are f32 products of the bf16 values, rounded to the leaves'
+    dtypes at the end."""
 
     @staticmethod
     def forward(ctx, x, basis, coeff, src, norm, chunk_rel, n_rels, chunk):
@@ -343,10 +369,9 @@ class EdgeMessages(torch.autograd.Function):
         ctx.save_for_backward(x, basis, coeff, src, norm, chunk_rel)
         x = x.contiguous()
         if coeff is None:
-            return messages_wrel(x, src, basis.contiguous(), chunk_rel, norm,
-                                 chunk)
-        return messages_basis(x, src, basis.contiguous(), coeff.contiguous(),
-                              chunk_rel, n_rels, norm, chunk)
+            return messages_wrel(x, src, _f32(basis), chunk_rel, norm, chunk)
+        return messages_basis(x, src, _f32(basis), _f32(coeff), chunk_rel,
+                              n_rels, norm, chunk)
 
     @staticmethod
     def backward(ctx, g):
@@ -356,15 +381,15 @@ class EdgeMessages(torch.autograd.Function):
         src_cl = src.long().clamp(0, n - 1)
         g = g.to(torch.float32).contiguous()
         rel_cl = chunk_rel.long().clamp(0, n_rels - 1)
-        w = basis.contiguous()
+        w = _f32(basis)
         if coeff is None:
             dxs = messages_wrel(g, None, w, chunk_rel, norm, chunk,
                                 w_transposed=True)
         else:
-            dxs = messages_basis(g, None, w, coeff.contiguous(), chunk_rel,
-                                 n_rels, norm, chunk, w_transposed=True)
+            dxs = messages_basis(g, None, w, _f32(coeff), chunk_rel, n_rels,
+                                 norm, chunk, w_transposed=True)
         dx = embed_ops.scatter_add_dense(n, src_cl, dxs.to(x.dtype))
-        xs_c = x[src_cl].reshape(-1, chunk, d_in)
+        xs_c = _gather_rows(x, src_cl).reshape(-1, chunk, d_in)
         gn_c = (g * norm[:, None]).reshape(-1, chunk, g.shape[-1])
         dw_c = torch.bmm(xs_c.transpose(1, 2), gn_c)
         valid = (chunk_rel < n_rels).to(dw_c.dtype)
@@ -374,8 +399,8 @@ class EdgeMessages(torch.autograd.Function):
             return dx, dw_rel.to(basis.dtype), None, None, None, None, \
                 None, None
         ce = _masked_chunk_coeff(coeff, chunk_rel, n_rels)
-        dbasis = torch.einsum("cb,cdo->bdo", ce, dw_c)
-        dcoeff_c = torch.einsum("cdo,bdo->cb", dw_c, basis)
+        dbasis = dtypes.einsum_f32("cb,cdo->bdo", ce, dw_c)
+        dcoeff_c = dtypes.einsum_f32("cdo,bdo->cb", dw_c, basis)
         dcoeff = segment_ops.segment_sum(dcoeff_c * valid[:, None], rel_cl,
                                          coeff.shape[0])
         return (dx, dbasis.to(basis.dtype), dcoeff.to(coeff.dtype), None,
@@ -404,7 +429,8 @@ def rgcn_sparse_fused(x: torch.Tensor, layer, chunked: Dict[str, object],
     to ``x``'s device) or ``template_chunked`` (tensors).  A basis layer
     whose table exceeds :data:`MAX_BASIS_VMEM_BYTES` (the reference's
     rule, d padded to 128) materializes ``W_rel`` by an einsum and takes
-    K5b, as the reference does; full-weight layers always take K5b."""
+    K5b, as the reference does; full-weight layers always take K5b.  The
+    result is f32 whatever the leaves' dtype (the caller rounds)."""
     n = x.shape[0]
     dev = x.device
     src = _as_device(chunked["src"], dev).to(torch.int32)
@@ -416,7 +442,9 @@ def rgcn_sparse_fused(x: torch.Tensor, layer, chunked: Dict[str, object],
         bb, d_in, d_out = layer.basis.shape
         vmem = bb * _round_up(d_in, 128) * _round_up(d_out, 128) * 4
         if vmem > MAX_BASIS_VMEM_BYTES:
-            w_rel = torch.einsum("rb,bio->rio", layer.coeff, layer.basis)
+            # rounded once to the leaves' dtype, as XLA's einsum rounds it
+            w_rel = dtypes.einsum_f32("rb,bio->rio", layer.coeff,
+                                      layer.basis).to(layer.basis.dtype)
             msg = rgcn_edge_messages(x, w_rel, None, src, norm, n_rels,
                                      chunk, chunk_rel)
         else:
@@ -426,4 +454,4 @@ def rgcn_sparse_fused(x: torch.Tensor, layer, chunked: Dict[str, object],
         msg = rgcn_edge_messages(x, layer.w_rel, None, src, norm, n_rels,
                                  chunk, chunk_rel)
     agg = segment_ops.segment_sum(msg, dst, n)
-    return x @ layer.w_self + agg + layer.bias
+    return dtypes.dot_f32(x, layer.w_self) + agg + layer.bias

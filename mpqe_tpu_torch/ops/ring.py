@@ -28,7 +28,9 @@ the aggregate of hop s and overlaps it, as the RDMA overlaps it on the TPU.
 All buffers are allocated before the first hop on the compute stream and
 marked for the copy stream (``record_stream``).  The self-loop and bias,
 ``x @ w_self + agg + bias``, run outside the kernels, one ``addmm`` per
-device.
+device.  A bf16 layer or bf16 rows are taken up to f32 here, every
+operand, as the reference takes them (``pallas_ring.py:192-201``): the
+output is f32 and equals K8 on the widened operands.
 
 The kernels take the per-relation route (``csrc/ring.cu``): once per layer
 call and device, the layouts (five layout kernels around one stable
@@ -524,9 +526,11 @@ def _launch_hop(g: RingGroup, n_parts: int, hop: int, cur: int,
 def _check_args(layer, x_padded, edges, n_parts: int):
     if layer.basis is None:
         raise ValueError("rgcn_ring_halo_rdma requires basis decomposition")
-    if x_padded.dim() != 2 or x_padded.dtype != torch.float32:
-        raise ValueError(f"x_padded must be [P * block, d] float32, got "
-                         f"{tuple(x_padded.shape)} {x_padded.dtype}")
+    if x_padded.dim() != 2 or x_padded.dtype not in (torch.float32,
+                                                     torch.bfloat16):
+        raise ValueError(f"x_padded must be [P * block, d] float32 or "
+                         f"bfloat16, got {tuple(x_padded.shape)} "
+                         f"{x_padded.dtype}")
     if x_padded.shape[0] % n_parts:
         raise ValueError(f"{x_padded.shape[0]} rows do not split into "
                          f"{n_parts} parts")
@@ -668,7 +672,8 @@ def _ring(mesh: Mesh, layer: RGCNLayer, x_padded, edges, n_rels: int,
         x = _on(x_padded.view(n_parts, block, -1), dev, torch.float32,
                 g.parts, n_parts).view(L * block, -1)
         y = torch.addmm(g.out.view(L * block, N), x,
-                        layer.w_self.to(dev)).add_(layer.bias.to(dev))
+                        layer.w_self.to(dev, torch.float32)).add_(
+            layer.bias.to(dev, torch.float32))
         if g.parts == list(range(n_parts)):  # the whole ring on one device
             return y.to(x_padded.device)
         for i, p in enumerate(g.parts):

@@ -34,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from mpqe_tpu_torch.ops import dtypes
 from mpqe_tpu_torch.ops import segment as segment_ops
 from mpqe_tpu_torch.ops.edge_store import EdgeStore
 from mpqe_tpu_torch.ops.rgcn import RGCNLayer
@@ -185,15 +186,17 @@ def _basis_and_coeff(layer: RGCNLayer, rel_cl: torch.Tensor, n_b_rels: int,
 def _messages(x_src: torch.Tensor, basis: torch.Tensor, coeff_e, src_e,
               norm_e) -> torch.Tensor:
     """``(sum_b coeff_e[e, b] (x_src @ V_b)[src_e]) * norm_e``, basis
-    first, as the reference's local functions compute it."""
-    h_b = torch.einsum("nd,bdo->nbo", x_src, basis)
-    msg = torch.einsum("eb,ebo->eo", coeff_e, h_b[src_e])
+    first, as the reference's local functions compute it: f32 products
+    (its ``preferred_element_type``), an f32 result at any leaf dtype."""
+    h_b = dtypes.einsum_f32("nd,bdo->nbo", x_src, basis)
+    msg = dtypes.einsum_f32("eb,ebo->eo", coeff_e, h_b[src_e])
     return msg * norm_e[:, None].to(msg.dtype)
 
 
 def _self_term(layer: RGCNLayer, x_local: torch.Tensor, agg: torch.Tensor):
     dev = x_local.device
-    return x_local @ layer.w_self.to(dev) + agg + layer.bias.to(dev)
+    return (dtypes.dot_f32(x_local, layer.w_self.to(dev)) + agg
+            + layer.bias.to(dev))
 
 
 def rgcn_dst_partitioned(

@@ -28,7 +28,6 @@ import torch
 from mpqe_tpu_torch.models import embeddings as emb_mod
 from mpqe_tpu_torch.models import mpqe as mpqe_mod
 from mpqe_tpu_torch.models import readout as readout_mod
-from mpqe_tpu_torch.ops import dtypes
 from mpqe_tpu_torch.parallel import halo
 from mpqe_tpu_torch.parallel.mesh import Mesh
 from mpqe_tpu_torch.queries import STRUCTURES
@@ -134,10 +133,11 @@ def halo_dense_batch_loss(
     axis: str = "data",
 ) -> torch.Tensor:
     """Same math as ``mpqe.dense_batch_loss`` with the message passing run
-    by the edge-partitioned layers over ``mesh``'s ``axis``."""
+    by the edge-partitioned layers over ``mesh``'s ``axis``.  The
+    embeddings and each layer's f32 output are rounded to ``cfg.dtype``,
+    as the reference's ``halo_dense_batch_loss`` rounds them."""
     if layer_kind not in ("ring", "gather"):
         raise ValueError(f"layer_kind {layer_kind!r}: 'ring' or 'gather'")
-    dtypes.refuse_reduced(cfg, "the halo layers (--parallel halo_*)")
     B, n = node_entity.shape
     dev = node_entity.device
     lay = _template_layout(structure, B, mesh.shape[axis], layer_kind, dev)
@@ -146,7 +146,8 @@ def halo_dense_batch_loss(
     pad = torch.zeros(n_pad - N, dtype=torch.int32, device=dev)
     ne = torch.cat([node_entity.reshape(N).to(torch.int32), pad])
     nm = torch.cat([node_mode.reshape(N).to(torch.int32), pad])
-    x = emb_mod.embed_nodes_sparse(model.emb, ne, nm, lay["node_is_var"])
+    x = emb_mod.embed_nodes_sparse(model.emb, ne, nm,
+                                   lay["node_is_var"]).to(cfg.dtype)
 
     # place the formula's per-edge rel/norm into the static layout
     flat, slot = lay["flat"], lay["slot_ordered"]
@@ -163,7 +164,8 @@ def halo_dense_batch_loss(
                 else halo.rgcn_dst_partitioned)
     steps = mpqe_mod.num_steps(cfg, structure)
     for li in range(steps):
-        x = layer_fn(mesh, model.layers[li], x, *args, axis=axis)
+        x = layer_fn(mesh, model.layers[li], x, *args, axis=axis).to(
+            cfg.dtype)
         if li < steps - 1:
             x = torch.relu(x)
 

@@ -9,6 +9,10 @@
     _edge_messages_xla``, gate 1e-5) and the plain versions (gate 1e-4),
     max|diff| / max|ref|, at d = 128 and 16 on a template layout
     (``3-chain_inter``) and a ``chunk_by_relation`` layout, seeds 0 to 2.
+    Then the bf16-row variant (``emulate_bf16_case``): on bf16 rows, whose
+    lo halves are 0, the two passes the kernel keeps (hi.lo, hi.hi) against
+    all three, bit for bit, and against the gates, at d = 16, 128 and 200
+    on both layouts.
 ``ab TREE [TREE ...]`` (one CUDA card)
     One ``--kernel fused`` train step of ``3-chain_inter`` (the flagship
     model with 16 bases, K5a, and with full weights, K5b; 4 negatives,
@@ -74,8 +78,9 @@ def emulated_messages(x: torch.Tensor, src, w_c: torch.Tensor,
     and lo = a - hi, read truncated to TF32; k zero-padded to a multiple
     of 16 and walked in the kernel's 8-deep steps (step s of slice k0:
     k0 + 4 q + 2 s + h, q < 4, h < 2); per step the mma products lo.hi,
-    hi.lo, hi.hi (``passes=3``) or hi.hi alone (``passes=1``, one TF32
-    pass), each an exact 8-term sum added to the f32 accumulator and
+    hi.lo, hi.hi (``passes=3``), hi.lo and hi.hi (``passes=2``, the
+    bf16-row kernel's: it skips lo.hi) or hi.hi alone (``passes=1``, one
+    TF32 pass), each an exact 8-term sum added to the f32 accumulator and
     rounded toward zero, as a model of the tensor core's f32 accumulation;
     then ``* norm`` in f32.  Rounding to nearest there instead gives a
     third of the error that the card shows (PERF.md)."""
@@ -92,7 +97,8 @@ def emulated_messages(x: torch.Tensor, src, w_c: torch.Tensor,
     wl = tf32_trunc(w_c - wh)
     xh, xl = (t.reshape(-1, chunk, kp).double() for t in (xh, xl))
     wh, wl = wh.double(), wl.double()
-    pairs = ((xl, wh), (xh, wl), (xh, wh)) if passes == 3 else ((xh, wh),)
+    pairs = {3: ((xl, wh), (xh, wl), (xh, wh)), 2: ((xh, wl), (xh, wh)),
+             1: ((xh, wh),)}[passes]
     acc = torch.zeros((xh.shape[0], chunk, N), dtype=torch.float32)
     for k0 in range(0, kp, 16):
         for s in range(2):
@@ -103,9 +109,10 @@ def emulated_messages(x: torch.Tensor, src, w_c: torch.Tensor,
     return acc.reshape(-1, N) * norm[:, None]
 
 
-def emulate_case(d: int, layout: str, seed: int, n_rels: int = 8):
-    """One case of ``emulate``: (K5a, K5b) dicts of the emulated products'
-    errors, keys ``{3,1}x_vs_{oracle,plain}`` (max|diff| / max|ref|)."""
+def _case(d: int, layout: str, seed: int, n_rels: int, bf16: bool = False):
+    """The inputs of one ``emulate`` case: ``(x, src, norm, chunk, [(w_c,
+    plain, oracle) of K5a, of K5b])``; ``bf16``: the rows rounded to
+    bf16."""
     import numpy as np
 
     from mpqe_tpu_torch.ops import edge_store as es
@@ -138,22 +145,31 @@ def emulate_case(d: int, layout: str, seed: int, n_rels: int = 8):
         return torch.from_numpy(np.asarray(a, np.float32))
 
     x = t(rng.normal(size=(n, d)))
+    if bf16:
+        x = x.to(torch.bfloat16)
     basis = t(rng.normal(size=(4, d, d)) / d ** 0.5)
     coeff = t(rng.normal(size=(n_rels, 4)))
     w_rel = torch.einsum("rb,bio->rio", coeff, basis).contiguous()
     eye = torch.eye(n_rels)
     ce = rf._masked_chunk_coeff(coeff, crel, n_rels)
     rc = crel.clamp(0, n_rels - 1)
+    return x, src, norm, chunk, (
+        (rf.combine_basis(basis, ce),
+         rf.messages_basis_reference(x, src, basis, ce, norm, chunk),
+         rf._edge_messages_xla(x, basis, coeff, src, norm, crel, n_rels,
+                               chunk)),
+        (w_rel[rc.long()],
+         rf.messages_wrel_reference(x, src, w_rel, rc, norm, chunk),
+         rf._edge_messages_xla(x, w_rel, eye, src, norm, crel, n_rels,
+                               chunk)))
+
+
+def emulate_case(d: int, layout: str, seed: int, n_rels: int = 8):
+    """One case of ``emulate``: (K5a, K5b) dicts of the emulated products'
+    errors, keys ``{3,1}x_vs_{oracle,plain}`` (max|diff| / max|ref|)."""
+    x, src, norm, chunk, kernels = _case(d, layout, seed, n_rels)
     out = []
-    for w_c, plain, oracle in (
-            (rf.combine_basis(basis, ce),
-             rf.messages_basis_reference(x, src, basis, ce, norm, chunk),
-             rf._edge_messages_xla(x, basis, coeff, src, norm, crel, n_rels,
-                                   chunk)),
-            (w_rel[rc.long()],
-             rf.messages_wrel_reference(x, src, w_rel, rc, norm, chunk),
-             rf._edge_messages_xla(x, w_rel, eye, src, norm, crel, n_rels,
-                                   chunk))):
+    for w_c, plain, oracle in kernels:
         errs = {}
         for passes in (3, 1):
             got = emulated_messages(x, src, w_c, norm, chunk, passes)
@@ -161,6 +177,25 @@ def emulate_case(d: int, layout: str, seed: int, n_rels: int = 8):
                 errs[f"{passes}x_vs_{name}"] = float(
                     (got - ref).abs().max() / ref.abs().max())
         out.append(errs)
+    return out
+
+
+def emulate_bf16_case(d: int, layout: str, seed: int, n_rels: int = 8):
+    """One bf16-row case of ``emulate``: per kernel (K5a, K5b) whether the
+    two passes the bf16-row kernel keeps give the three passes' bits on
+    the same bf16 rows, and the two passes' errors ``2x_vs_{oracle,plain}``
+    against the gates."""
+    x, src, norm, chunk, kernels = _case(d, layout, seed, n_rels, True)
+    out = []
+    for w_c, plain, oracle in kernels:
+        three = emulated_messages(x, src, w_c, norm, chunk, 3)
+        two = emulated_messages(x, src, w_c, norm, chunk, 2)
+        out.append({"bit_equal": torch.equal(three.view(torch.int32),
+                                              two.view(torch.int32)),
+                    **{f"2x_vs_{name}": float((two - ref).abs().max()
+                                              / ref.abs().max())
+                       for name, ref in (("oracle", oracle),
+                                         ("plain", plain))}})
     return out
 
 
@@ -181,6 +216,14 @@ def emulate() -> None:
     for k, (lo, hi) in worst.items():
         print(f"emulate: {k} from {lo:.3e} to {hi:.3e} (gates: oracle 1e-5, "
               "plain 1e-4)")
+    for d in (16, 128, 200):
+        for layout in ("template", "general"):
+            for kid, r in zip(("K5a", "K5b"), emulate_bf16_case(d, layout,
+                                                                0)):
+                print(f"emulate bf16 rows d={d:3d} {layout:8s} {kid}: two "
+                      f"passes bit-equal to three: {r['bit_equal']}; "
+                      f"2x_vs_oracle={r['2x_vs_oracle']:.3e} "
+                      f"2x_vs_plain={r['2x_vs_plain']:.3e}", flush=True)
 
 
 AB_RUN = r"""
@@ -254,18 +297,19 @@ PHASES = (
         "crel,\n", "  if (false) k5_combine_kernel<<<grid, CB_THREADS, 0, s>>>("
         "basis, bb, coeff, crel,\n")]),
     ("next gather", [(
-        "      gather<S, ST>(a, xs0 + (buf ^ 1) * TM * P, idx, st1 * a.KS, "
-        "kw1,\n                    (kw1 + 15) / 16 * 16, warp, lane);\n",
+        "      gather<S, ST, Row>(a, xs0 + (buf ^ 1) * TM * P, idx, st1 * "
+        "a.KS, kw1,\n                         (kw1 + 15) / 16 * 16, warp, "
+        "lane);\n",
         "")]),
     # two of the three TF32 passes: what the split costs in products
     ("correction products", [
-        ("        for (int nj = 0; nj < NT; ++nj) mma_tf32(acc[mi][nj], al[mi], "
-         "bh[nj]);\n", "        ;\n"),
+        ("            mma_tf32(acc[mi][nj], al[mi], bh[nj]);\n",
+         "            ;\n"),
         ("        for (int nj = 0; nj < NT; ++nj) mma_tf32(acc[mi][nj], ah[mi], "
          "bl[nj]);\n", "        ;\n")]),
     ("products", [(
-        "    tile_products<S>(xs0 + buf * TM * P, ws, P, (kw + 15) / 16 * 16, "
-        "wm, wn,\n                     lane, acc);\n", "")]),
+        "    tile_products<S, Row>(xs0 + buf * TM * P, ws, P, (kw + 15) / 16 "
+        "* 16,\n                          wm, wn, lane, acc);\n", "")]),
     # the stores out, every sum still read (never true)
     ("stores", [(
         "              *reinterpret_cast<float2*>(o + col) = make_float2(v0, "

@@ -23,7 +23,12 @@
     plain versions against the same chain in another sum order
     (``_reordered_matmul``: exact sums, rounded once) at d = 128, B = 512
     and 1,000, the 7 structures, seeds 0 to 3, biases 0 or N(0, 0.1);
-    then the two negative controls' figures.
+    then the two negative controls' figures.  Then the figures behind
+    ``PARAM_GRAD_MEAN_BY_DEPTH``: the same reordered chain backward of a
+    bf16 model mapped through the weight assembly to the parameter
+    gradients (``param_figures``), against the plain K2's, worst per
+    depth, and the control's (``param_grad_control``) against both the
+    limit and the depth tolerance it replaces.
 
 Usage: python3 mpqe_tpu_torch/tools/tgt_probe.py phases
        python3 mpqe_tpu_torch/tools/tgt_probe.py ab runs/parent . . runs/parent
@@ -280,6 +285,80 @@ def emulate() -> None:
               f"{fails[name]} of {cases} cases")
 
 
+def param_figures(model, cfg, structure: str, B: int, seed: int):
+    """(reordered, control) figures of one case: ``param_grad_mean_err``
+    of the parameter gradients of the chain backward in another sum order
+    (exact, then rounded; dW_l kept on the listed blocks) against the
+    plain K2's, and of ``param_grad_control`` of them."""
+    import numpy as np
+    import torch
+
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.queries import STRUCTURES
+
+    spec = STRUCTURES[structure]
+    rng = np.random.default_rng(seed * 7 + B)
+    targs = [torch.from_numpy(a) for a in (
+        rng.integers(0, cfg.n_entities, (B, spec.n_nodes)).astype(np.int32),
+        rng.integers(0, cfg.n_modes, (B, spec.n_nodes)).astype(np.int32),
+        rng.integers(0, cfg.n_rels, (spec.n_edges,)).astype(np.int32),
+        rng.uniform(0.5, 1.5, (spec.n_edges,)).astype(np.float32))]
+    g = torch.from_numpy(rng.normal(size=(B, cfg.embed_dim)).astype(
+        np.float32)).to(torch.bfloat16)
+    blocks = ff.chain_blocks(cfg, structure)
+
+    def reordered(x0, ws, bs, g, n_a, d, dp):
+        da, dws, dbs = ff._chain_backward_plain(x0, ws, bs, g, n_a, d, dp,
+                                                mm=ff._reordered_matmul)
+        return da, [torch.where(blocks.mask(li), w, w.new_zeros(()))
+                    for li, w in enumerate(dws)], dbs
+
+    got, _, _ = ff._backward_with(reordered, model, cfg, structure, *targs,
+                                  None, g, torch.bfloat16)
+    want, _, _ = ff._backward_with(ff._chain_backward_plain, model, cfg,
+                                   structure, *targs, None, g,
+                                   torch.bfloat16)
+    depth = mpqe_mod.num_steps(cfg, structure)
+    return (ff.param_grad_mean_err(got, want), ff.param_grad_mean_err(
+        ff.param_grad_control(got, want, depth), want))
+
+
+def emulate_params() -> None:
+    import torch
+
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+
+    old = {1: 3e-2, 2: 8e-2, 3: 2.5e-1}  # the depth tolerance replaced
+    cfg = mpqe_mod.MPQEConfig(n_entities=5000, n_modes=4, n_rels=266,
+                              embed_dim=128, n_layers=3, num_bases=16,
+                              dtype=torch.bfloat16)
+    worst, ctrl = {}, {}
+    for seed in range(4):
+        gen = torch.Generator().manual_seed(seed)
+        model = mpqe_mod.init_mpqe(gen, cfg)
+        with torch.no_grad():
+            for lp in model.layers:
+                if seed % 2:
+                    lp.bias.normal_(0.0, 0.1, generator=gen)
+        for B in (512, 1000):
+            for structure in STRUCTURE_NAMES:
+                depth = mpqe_mod.num_steps(cfg, structure)
+                e, c = param_figures(model, cfg, structure, B, seed)
+                worst[depth] = max(worst.get(depth, 0.0), e)
+                lo, hi = ctrl.get(depth, (1.0, 0.0))
+                ctrl[depth] = (min(lo, c), max(hi, c))
+    for depth in sorted(worst):
+        lim = ff.PARAM_GRAD_MEAN_BY_DEPTH[depth]
+        print(f"emulate params depth {depth}: reordering worst "
+              f"{worst[depth]:.3e} (limit {lim:g}); control "
+              f"{ctrl[depth][0]:.3e} to {ctrl[depth][1]:.3e} (fails the limit: "
+              f"{ctrl[depth][0] > lim}; passes the old {old[depth]:g}: "
+              f"{ctrl[depth][1] <= old[depth]})", flush=True)
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     if argv[:1] == ["ab"] and len(argv) > 1:
@@ -288,6 +367,7 @@ def main(argv) -> int:
         phases()
     elif argv == ["emulate"]:
         emulate()
+        emulate_params()
     else:
         print(__doc__, file=sys.stderr)
         return 2

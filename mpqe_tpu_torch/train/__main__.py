@@ -21,17 +21,19 @@ and ``gqe_softand`` train the GQE baselines (``--decoder``,
 reference.  ``--parallel halo_ring|halo_gather`` trains MPQE through the
 edge-partitioned halo layers over a ``--mesh`` (default: one part per
 card).  ``--dtype bfloat16`` keeps every leaf and Adam moment in bf16
-(products with f32 results, as the reference's); it trains on the dense
-route and through K1/K2 (``--kernel fused_fwd``), while ``--kernel
-fused|blocked`` and ``--parallel halo_*`` at bf16 raise.  Every flag
-whose feature is not ported yet raises ``NotImplementedError`` naming
-its ROADMAP item.
+(products with f32 results, as the reference's) on every route: dense,
+``--kernel fused_fwd`` (K1/K2), ``--kernel fused`` (K5 on bf16 rows),
+``--kernel blocked`` (K6) and ``--parallel halo_*``.  Every flag whose
+feature is not ported yet raises ``NotImplementedError`` naming its
+ROADMAP item.
 
   python -m mpqe_tpu_torch.train --data synthetic --kernel fused_fwd \\
       --fused_backward pallas --num_bases 16 --steps 2000
   python -m mpqe_tpu_torch.train --kernel blocked --num_bases 16
-  python -m mpqe_tpu_torch.train --dtype bfloat16 --kernel fused_fwd \
+  python -m mpqe_tpu_torch.train --dtype bfloat16 --kernel fused_fwd \\
       --fused_backward pallas --num_bases 16
+  python -m mpqe_tpu_torch.train --dtype bfloat16 --kernel fused \\
+      --num_bases 16
   python -m mpqe_tpu_torch.train --data pkl:/data/AIFB --kernel fused_fwd \\
       --fused_backward pallas --num_bases 16
   python -m mpqe_tpu_torch.train --device cpu --embed_dim 16 --steps 20
@@ -164,14 +166,6 @@ def _refuse_unported(args) -> None:
          "the batch pipeline and C++ packer are ROADMAP Queue 1 item 2"),
         (args.steps_per_call > 1, "--steps_per_call > 1",
          "make_multistep_train_step is ROADMAP Queue 1 item 2"),
-        (args.dtype != "float32" and args.kernel in ("fused", "blocked"),
-         f"--dtype {args.dtype} with --kernel {args.kernel}",
-         "the sparse kernel routes at reduced precision are what is left "
-         "of ROADMAP Queue 1 item 5"),
-        (args.dtype != "float32" and args.parallel != "none",
-         f"--dtype {args.dtype} with --parallel {args.parallel}",
-         "the halo layers at reduced precision are what is left of "
-         "ROADMAP Queue 1 item 5"),
         (args.trace > 0, "--trace",
          "a torch.profiler trace window is ROADMAP Queue 1 item 9"),
     ]

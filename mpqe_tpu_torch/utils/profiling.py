@@ -32,6 +32,12 @@ H100_TF32_FLOPS = 495e12  # TF32 tensor cores
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12  # HBM3
 
+# Host idle seconds at each end of a profiled window.  Without it a short
+# window on the H100 sometimes records none of its device events (3 of
+# 200 five-kernel windows; none of 400 with 5 or 50 ms:
+# ``python -m mpqe_tpu_torch.tools.profile_probe``).
+PROFILE_PAD_S = 0.02
+
 # The roofline model of :func:`mpqe_fwd_roofline`: the function's own
 # work on the H100's peaks.  Its fractions are not comparable with the
 # reference's "compulsory-traffic-v2" (TPU v5e peaks, padded-block FLOP).
@@ -109,16 +115,20 @@ def device_profile(fn) -> tuple:
     ``torch.profiler``: the host's wall time from a synchronised start to
     a synchronised end, and per kernel ``(device us, launches, name)``,
     largest first.  Device work only: a user annotation's range
-    (``Optimizer.step``) spans kernels that are counted on their own."""
+    (``Optimizer.step``) spans kernels that are counted on their own.
+    The window is padded with ``PROFILE_PAD_S`` of host idle time at each
+    end; the wall time leaves the pads out."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(PROFILE_PAD_S)
     rows = sorted(((e.device_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA

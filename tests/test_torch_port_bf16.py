@@ -2,8 +2,9 @@
 package at the same dtype: the dense encoders, the plain K1 / K2 / K3
 (the Pallas kernels in interpret mode, ``block=8``), the losses and
 their gradients, the optimizer against optax, the training loop and the
-CLIs, ``convert.py``'s bf16 leaves, the GQE leaves, and the routes that
-refuse bf16.  Inputs come from numpy with a seed, parameters from the
+CLIs, ``convert.py``'s bf16 leaves, the GQE leaves, the sparse and halo
+routes running a bf16 model, and K2's parameter-gradient limit at the
+card's width.  Inputs come from numpy with a seed, parameters from the
 JAX ``init_mpqe`` / ``init_gqe`` at bf16 (MPQE biases N(0, 0.1), rounded
 to bf16), carried across bit for bit by ``model_from_numpy``.
 
@@ -249,6 +250,25 @@ def test_plain_k2_bf16_matches_pallas(structure):
         model, tcfg, structure, *map(torch.from_numpy, (ne, nm, er, en)),
         None, torch.from_numpy(g).to(BF16))
     _check_grads(dpt, _jax_grads(dpj))
+
+
+@pytest.mark.parametrize("structure", list(STRUCTURES))
+def test_k2_param_grad_limit_and_its_control(structure):
+    """``PARAM_GRAD_MEAN_BY_DEPTH`` at the card's width (d = 128, 16
+    bases, a bf16 model, B = 512; ``tools/tgt_probe.py emulate`` runs 4
+    seeds and B = 1,000 too): K2's chain in another sum order, mapped
+    through the weight assembly, stays within it; the control fails it
+    and passes the depth tolerance it replaced."""
+    from mpqe_tpu_torch.tools import tgt_probe
+
+    cfg = tm.MPQEConfig(n_entities=5000, n_modes=4, n_rels=266,
+                        embed_dim=128, n_layers=3, num_bases=16, dtype=BF16)
+    model = tm.init_mpqe(torch.Generator().manual_seed(1), cfg)
+    depth = tm.num_steps(cfg, structure)
+    e, c = tgt_probe.param_figures(model, cfg, structure, 512, 1)
+    assert e <= tff.PARAM_GRAD_MEAN_BY_DEPTH[depth], e
+    assert tff.PARAM_GRAD_MEAN_BY_DEPTH[depth] < c <= {
+        1: 3e-2, 2: 8e-2, 3: 2.5e-1}[depth], c
 
 
 @pytest.mark.parametrize("structure", list(STRUCTURES))
@@ -502,22 +522,53 @@ def test_config_from_json_reads_the_jax_spelling(tmp_path):
     assert gcfg.dtype == BF16
 
 
-# ----------------------------------------------- routes that refuse bf16
+# ------------------------------------------ the sparse routes at bf16
 def test_sparse_and_halo_routes_refuse_bf16_before_any_work():
+    """The sparse and halo routes once refused a bf16 model before any
+    work; each now runs it: ``encode_sparse`` to f32 query vectors (no
+    rounding between layers, as the reference's), the K5 and K6 encoders
+    to bf16 ones, and the K5, K6 and halo losses to a finite f32 loss with
+    every gradient in bf16 (held to JAX's in
+    ``tests/test_torch_port_bf16_sparse.py``)."""
+    from mpqe_tpu_torch.ops import template_layout as ttl
     from mpqe_tpu_torch.parallel import halo_train
+    from mpqe_tpu_torch.parallel import mesh as tmesh
 
     _, tcfg, _, model = _models()
-    boom = object()  # any work on it would raise something else
-    for fn, n_args in ((tm.encode_sparse, 10), (tm.encode_sparse_fused, 7),
-                       (tm.encode_sparse_blocked, 7),
-                       (tm.dense_batch_loss_kernel_fused, 8),
-                       (tm.dense_batch_loss_kernel_blocked, 8)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 5"):
-            fn(model, tcfg, "1-chain", *([boom] * n_args))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        halo_train.halo_dense_batch_loss(model, tcfg, boom, "ring",
-                                         "1-chain", *([boom] * 8))
+    s = "3-chain_inter"
+    ne, nm, er, en, tgt, neg, nmask, qmask = map(torch.from_numpy,
+                                                 _batch(s, B=16))
+    view = tm._sparse_view_on_device(s, ne, nm)
+    B = view[-1]
+    ch = ttl.template_chunked(s, er, en, B, 8)
+    lays = ttl.template_blocked_layouts(s, er, en, B, queries_per_block=8,
+                                        chunk=8)
+    with torch.no_grad():
+        q = tm.encode_sparse(model, tcfg, s, *view[:3], ch["src"],
+                             ch["dst"], er.repeat_interleave(B), ch["norm"],
+                             *view[3:5], B)
+        q5 = tm.encode_sparse_fused(model, tcfg, s, *view[:3], ch,
+                                    *view[3:5], B)
+        q6 = tm.encode_sparse_blocked(model, tcfg, s, *view[:3], lays,
+                                      *view[3:5], B)
+    assert q.dtype == torch.float32 and q5.dtype == q6.dtype == BF16
+    for t in (q, q5, q6):
+        assert t.shape == (B, D) and bool(torch.isfinite(t).all())
+    batch = (ne, nm, er, en, tgt, neg, nmask, qmask)
+    mesh = tmesh.make_mesh((2, 1), devices=["cpu"] * 2)
+    for loss_fn in (
+            lambda: tm.dense_batch_loss_kernel_fused(model, tcfg, s, *batch,
+                                                     chunk=8),
+            lambda: tm.dense_batch_loss_kernel_blocked(
+                model, tcfg, s, *batch, queries_per_block=8, chunk=8),
+            lambda: halo_train.halo_dense_batch_loss(model, tcfg, mesh,
+                                                     "ring", s, *batch)):
+        loss = loss_fn()
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
+        assert loss.dtype == torch.float32
+        assert np.isfinite(float(loss.detach()))
+        assert all(g is None or g.dtype == BF16 for g in grads)
 
 
 # ----------------------------------------------------------------- GQE

@@ -661,14 +661,31 @@ def test_cli_blocked_needs_bases(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--shared_negatives", "4"], ["--self_adv_tau", "1.0"],
     ["--parallel", "spmd"], ["--prefetch", "2"], ["--steps_per_call", "4"],
-    ["--trace", "5"], ["--dtype", "bfloat16", "--kernel", "fused"],
-    ["--dtype", "bfloat16", "--kernel", "blocked", "--num_bases", "4"],
-    ["--dtype", "bfloat16", "--parallel", "halo_ring"]])
+    ["--trace", "5"]])
 def test_cli_unported_flags_raise(flag, tmp_path):
     from mpqe_tpu_torch.train.__main__ import main
 
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         main(CLI + flag + ["--run_dir", str(tmp_path / "r")])
+
+
+@pytest.mark.parametrize("flag", [
+    ["--dtype", "bfloat16", "--kernel", "fused"],
+    ["--dtype", "bfloat16", "--kernel", "blocked", "--num_bases", "4"],
+    ["--dtype", "bfloat16", "--parallel", "halo_ring"]])
+def test_cli_bf16_sparse_routes_train(flag, tmp_path, capsys):
+    """The sparse routes at ``--dtype bfloat16`` train: bf16 leaves,
+    finite losses, the final line."""
+    from mpqe_tpu_torch.train.__main__ import main
+
+    state = main(CLI + flag + ["--steps", "4", "--val_every", "4",
+                               "--run_dir", str(tmp_path / "r")])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert re.fullmatch(r"final step=4 macro_auc=\S+ macro_apr=\S+", last)
+    assert all(p.dtype == torch.bfloat16 for p in state.model.parameters())
+    with open(tmp_path / "r" / "metrics.jsonl") as f:
+        losses = [json.loads(ln)["loss"] for ln in f if '"loss"' in ln]
+    assert len(losses) == 4 and np.all(np.isfinite(losses))
 
 
 def test_cli_needs_a_card_unless_told_otherwise(tmp_path):
