@@ -299,6 +299,7 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -3576,7 +3577,7 @@ def phase_halo_train(kg, train_q, device):
 # ----------------------------------------------------------------------
 GQE_STEPS = 50  # gqe.train
 GQE_VARIANT_STEPS = 10  # each run of gqe.train.variants
-GQE_SERVE_REQUESTS = 8
+GQE_SERVE_REQUESTS = 4
 GQE_RECHECK_QUERIES = 8  # per structure, recomputed over every entity
 GQE_TOL_LOSS = 1e-5  # card vs CPU copy: float32 both, sum order only
 # gqe.train.variants: (label, --model, GQEConfig fields)
@@ -3987,16 +3988,21 @@ def tgt_counters(reset: bool = False) -> tuple:
     return tuple(fn.launches for fn in fns)
 
 
+# what the last in-process CLI's main returned (the train CLI: its state)
+CLI_RESULT = {}
+
+
 def run_cli(main, argv, label: str) -> list:
     """``main(argv)`` of a CLI in-process (so its launches can be read),
-    its standard output captured: the output lines."""
+    its standard output captured: the output lines.  Its return value is
+    kept in ``CLI_RESULT[label]``."""
     import contextlib
     import io
 
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        main(argv)
+        CLI_RESULT[label] = main(argv)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     lines = buf.getvalue().strip().splitlines()
@@ -4004,10 +4010,15 @@ def run_cli(main, argv, label: str) -> list:
     return lines
 
 
-def train_cli_run(argv, label: str) -> tuple:
+def train_cli_run(argv, label: str,
+                  counted_loss: str = "dense_batch_loss_kernel_fused_fwd"
+                  ) -> tuple:
     """The train CLI in-process on the card: its final line checked, K1
-    and K2 once a step, K3 in validation, every loss finite.  Returns
-    (the run's metrics records, (K1, K2, K3))."""
+    and K2 once a step (each call of ``models.mpqe.<counted_loss>`` is
+    one step), K3 in validation, every loss finite, the C++ packer
+    feeding it (``"native_packer": true``).  A record of K steps a call
+    (``--steps_per_call``) counts K steps, its seconds spread over them.
+    Returns (the run's metrics records, (K1, K2, K3))."""
     import os
     import re
 
@@ -4015,54 +4026,63 @@ def train_cli_run(argv, label: str) -> tuple:
     from mpqe_tpu_torch.train import __main__ as train_cli
 
     real = []  # per step, the batch's real rows (the sum of query_mask)
-    loss_fn = mpqe_mod.dense_batch_loss_kernel_fused_fwd
+    loss_fn = getattr(mpqe_mod, counted_loss)
 
     def counted(*a, **kw):
         real.append(a[-1].sum())
         return loss_fn(*a, **kw)
 
-    mpqe_mod.dense_batch_loss_kernel_fused_fwd = counted
+    setattr(mpqe_mod, counted_loss, counted)
     tgt_counters(reset=True)
     try:
         lines = run_cli(train_cli.main, argv, label)
     finally:
-        mpqe_mod.dense_batch_loss_kernel_fused_fwd = loss_fn
+        setattr(mpqe_mod, counted_loss, loss_fn)
     k1, k2, k3 = tgt_counters()
     run_dir = argv[argv.index("--run_dir") + 1]
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         records = [json.loads(ln) for ln in f]
     steps = [r for r in records if "loss" in r]
+    n_steps = sum(r.get("k", 1) for r in steps)
     vals = [r for r in records if "val" in r]
     loaded = [r for r in records if r.get("event") == "data_loaded"]
-    ms = np.asarray([r["seconds"] * 1e3 for r in steps])
+    ms = np.concatenate([[r["seconds"] * 1e3 / r.get("k", 1)]
+                         * r.get("k", 1) for r in steps])
     STEP_MS[label] = (np.percentile(ms, 50), np.percentile(ms, 95))
     n_real = int(torch.stack(real).sum()) if real else 0
-    log(f"{label}: {len(steps)} steps; data loaded in "
+    log(f"{label}: {n_steps} steps in {len(steps)} calls; data loaded in "
         f"{loaded[0]['seconds']:.2f} s ({loaded[0]['n_entities']} entities, "
-        f"{loaded[0]['n_triples']} triples); launches K1={k1} K2={k2} "
+        f"{loaded[0]['n_triples']} triples; native_packer="
+        f"{loaded[0].get('native_packer')}); launches K1={k1} K2={k2} "
         f"K3={k3}; loss first={steps[0]['loss']:.6f} "
         f"last={steps[-1]['loss']:.6f}; step_ms_p50="
         f"{np.percentile(ms, 50):.3f} step_ms_p95={np.percentile(ms, 95):.3f} "
         f"train_queries_per_s={n_real / ms.sum() * 1e3:.1f} ({n_real} real "
         f"rows of {len(ms) * TRAIN_BATCH}); {lines[-1]}")
-    if not re.fullmatch(rf"final step={len(steps)} macro_auc=\S+ "
+    if not re.fullmatch(rf"final step={n_steps} macro_auc=\S+ "
                         rf"macro_apr=\S+", lines[-1]):
         raise AssertionError(f"{label}: final line {lines[-1]!r}")
     if not all(np.isfinite([r["loss"] for r in steps])):
         raise AssertionError(f"{label}: a loss is not finite")
-    if not (k1 == k2 == len(steps) == len(real)) or k3 == 0 or not vals:
+    if loaded[0].get("native_packer") is not True:
+        raise AssertionError(f"{label}: the C++ packer did not feed the "
+                             f"run: {loaded[0]}")
+    if not (k1 == k2 == n_steps == len(real)) or k3 == 0 or not vals:
         raise AssertionError(f"{label}: launches K1={k1} K2={k2} K3={k3} "
-                             f"over {len(steps)} steps, {len(vals)} "
+                             f"over {n_steps} steps, {len(vals)} "
                              "validation rounds")
     return records, (k1, k2, k3)
 
 
-def check_raw_edge_batches(stores, kg) -> None:
+def check_raw_edge_batches(stores, kg, pack=None,
+                           label: str = "data.npz") -> None:
     """One batch of TRAIN_BATCH from each of the DATA_PACK_RELATIONS
-    largest raw-edge stores: every unmasked negative of the range mode,
-    not its query's target and outside its head's answer set."""
+    largest raw-edge stores, by ``pack`` (the numpy packer unless given):
+    every unmasked negative of the range mode, not its query's target and
+    outside its head's answer set."""
     from mpqe_tpu_torch.data.store import pack_dense_batch_np
 
+    pack_dense_batch_np = pack or pack_dense_batch_np
     rng = np.random.default_rng(0)
     largest = sorted(stores, key=lambda s: -s.n_queries)
     n_neg = n_masked = 0
@@ -4084,7 +4104,7 @@ def check_raw_edge_batches(stores, kg) -> None:
                     f"raw-edge batch of relation {s.formula.rels[0]}: "
                     f"query {qi} has a negative of another mode, its "
                     "target or one of its answers")
-    log(f"data.npz: {DATA_PACK_RELATIONS} batches of {TRAIN_BATCH} packed "
+    log(f"{label}: {DATA_PACK_RELATIONS} batches of {TRAIN_BATCH} packed "
         f"in {time.perf_counter() - t0:.2f} s: {n_neg} negatives of the "
         f"range mode, none a target or an answer of its head; {n_masked} "
         "slots masked")
@@ -4788,14 +4808,18 @@ def bf16_checkpoint(run_dir: str, steps: int, label: str) -> None:
 
 
 def recheck_bf16_step(model, cfg, device, loss_fn, plain_fn, label,
-                      plain_ctx=None, tol_grad=TOL_BF16_STEP_GRAD):
+                      plain_ctx=None, tol_grad=TOL_BF16_STEP_GRAD,
+                      tol_loss=TOL_BF16_STEP_LOSS, control=None):
     """One random batch of TRAIN_BATCH per structure from the trained
-    bf16 state through ``loss_fn`` and ``plain_fn`` (the same route on
-    the plain versions, forward and backward within ``plain_ctx``, or
-    another route of the same function): losses within
-    TOL_BF16_STEP_LOSS, every gradient bf16 and per leaf within
-    ``tol_grad`` in mean|diff| / mean|ref| (its worst leaf named; the max
-    form printed beside)."""
+    state through ``loss_fn`` and ``plain_fn`` (the same route on the
+    plain versions, forward and backward within ``plain_ctx``, or another
+    route of the same function): losses within ``tol_loss``, every
+    gradient in the leaves' dtype (bf16, or f32 for an f32 model) and per
+    leaf within ``tol_grad`` in mean|diff| / mean|ref| (its worst leaf
+    named; the max form printed beside).  ``tol_grad`` may be a function
+    of the structure.  ``control(got, want, structure)``, when given,
+    returns the kernel's gradients made wrong by a known amount, which
+    must fail ``tol_grad`` (the limit's negative control)."""
     import contextlib
 
     from mpqe_tpu_torch.queries import STRUCTURE_NAMES
@@ -4811,6 +4835,7 @@ def recheck_bf16_step(model, cfg, device, loss_fn, plain_fn, label,
                            device=device, dtype=torch.int32),
              torch.ones((B, 4), device=device),
              torch.ones((B,), device=device))
+        tol = tol_grad(structure) if callable(tol_grad) else tol_grad
         out = []
         for fn, ctx in ((loss_fn, contextlib.nullcontext),
                         (plain_fn, plain_ctx or contextlib.nullcontext)):
@@ -4828,13 +4853,20 @@ def recheck_bf16_step(model, cfg, device, loss_fn, plain_fn, label,
         e_mean, e_max = tree_mean_err(f32, want), tree_rel_err(f32, want)
         worst = max((tree_mean_err({n: f32[n]}, {n: w}), n)
                     for n, w in want.items())[1]
-        dtypes_ok = all(g.dtype == torch.bfloat16 for g in gk.values())
+        dtypes_ok = all(g.dtype == cfg.dtype for g in gk.values())
         line = (f"{label}.recheck {structure:14s} loss={lk:.6f} "
                 f"loss_err={e_loss:.3e} grad_mean_err={e_mean:.3e} "
-                f"({worst}; tol {tol_grad:g}) grad_max_err={e_max:.3e} "
-                f"grads_bf16={dtypes_ok}")
+                f"({worst}; tol {tol:g}) grad_max_err={e_max:.3e} "
+                f"grads_{'bf16' if cfg.dtype == torch.bfloat16 else 'f32'}="
+                f"{dtypes_ok}")
+        if control is not None:
+            e_control = tree_mean_err(control(f32, want, structure), want)
+            line += f" control={e_control:.3e}"
+            if e_control <= tol:
+                raise AssertionError(f"{line}: the control passes the "
+                                     "limit")
         log(line)
-        if (e_loss > TOL_BF16_STEP_LOSS or e_mean > tol_grad
+        if (e_loss > tol_loss or e_mean > tol
                 or not dtypes_ok or not np.isfinite(lk)):
             raise AssertionError(line)
 
@@ -4953,7 +4985,637 @@ def phase_train_bf16_sparse(kg_path: str, tmp: str, device, label: str):
     return launches
 
 
-BENCH_TIMEOUT = 600  # seconds for the bench phase's subprocess
+# ----------------------------------------------------------------------
+# The training host path (the C++ binding, the pipeline, K steps a call,
+# shared negatives) and the HTTP front end
+# ----------------------------------------------------------------------
+HTTP_CLIENTS = 8
+HTTP_REQUESTS = 16  # per client, one after another
+HTTP_QUERIES = 32  # per request, drawn across every structure
+HTTP_WAIT_MS = 5.0  # the batcher's max_wait_ms (the CLI's default)
+HTTP_TIMEOUT_S = 60
+NATIVE_PACKS = 50  # batches of TRAIN_BATCH timed per packer
+MULTISTEP_K = 8
+MULTISTEP_STEPS = 16  # each train.multistep run: 2 calls of K = 8
+MULTISTEP_TOL = 1e-4  # K steps a call vs one: index_add_ atomics only
+# each timed window of run_train: HOST_WARM_CALLS calls (the pipeline's
+# start, its first batch), then HOST_WINDOW_STEPS steps on the host clock,
+# then HOST_PROFILE_STEPS under the profiler, then the pipeline's stop
+# (device activity only: with the host's too, 64 profiled steps cost
+# ~10 s more a window on the H100)
+HOST_WARM_CALLS = 2
+HOST_WINDOW_STEPS = 128
+HOST_PROFILE_STEPS = 16
+# (prefetch, steps_per_call) of the timed windows: each lever alone, both
+HOST_WINDOWS = ((0, 1), (0, MULTISTEP_K), (2, 1), (2, MULTISTEP_K))
+HOST_PIPE_BATCHES = 16  # batches the pipeline alone is timed over
+SHARED_NEGS = 512
+SHARED_STEPS = 20
+
+
+def write_ntriples(kg, path: str) -> None:
+    """``kg`` as gzipped N-Triples: one ``rdf:type`` statement per entity
+    (its mode) and one statement per triple."""
+    import gzip
+
+    from mpqe_tpu_torch.data.rdf import RDF_TYPE
+
+    with gzip.open(path, "wt", compresslevel=1) as f:
+        f.writelines(f"<http://s/e{e}> <{RDF_TYPE}> <http://s/M{m}> .\n"
+                     for e, m in enumerate(kg.entity_mode.tolist()))
+        f.writelines(f"<http://s/e{h}> <http://s/r{r}> <http://s/e{t}> .\n"
+                     for h, r, t in zip(kg.heads.tolist(), kg.rels.tolist(),
+                                        kg.tails.tolist()))
+
+
+def phase_native(tmp: str) -> None:
+    """``native``: the C++ host library built from ``cpp/mpqe_host.cpp``
+    (the phase fails if it is unavailable); ``load_ntriples_kg(
+    native=True)`` equal to the Python parse, array for array, on the
+    rule KG written as N-Triples; the raw-edge batches of the C++ packer
+    checked as the numpy packer's are; both packers' host ms a batch."""
+    import os
+
+    from mpqe_tpu_torch.data import native, rdf
+    from mpqe_tpu_torch.data.sampler import make_rule_kg
+    from mpqe_tpu_torch.data.store import pack_dense_batch_np, \
+        stores_from_edges
+
+    t0 = time.perf_counter()
+    ok = native.ensure_built()
+    log(f"native: ensure_built {time.perf_counter() - t0:.2f} s: "
+        f"available={ok} {native.library_path().name} "
+        f"error={native.BUILD_ERROR}")
+    if not ok:
+        raise AssertionError(f"native: the C++ host library is unavailable: "
+                             f"{native.BUILD_ERROR}")
+    rule = make_rule_kg(**RULE_KG)
+    path = os.path.join(tmp, "rule.nt.gz")
+    t0 = time.perf_counter()
+    write_ntriples(rule, path)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = rdf.load_ntriples_kg(path, native=True)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = rdf.load_ntriples_kg(path, native=False)
+    t_python = time.perf_counter() - t0
+    fields = ("entity_mode", "rel_domain", "rel_range", "heads", "rels",
+              "tails")
+    equal = all(np.array_equal(getattr(got, f), getattr(want, f))
+                for f in fields) and got.rel_names == want.rel_names \
+        and got.mode_names == want.mode_names
+    log(f"native: N-Triples of {rule.n_entities} entities and "
+        f"{rule.n_triples} triples ({os.path.getsize(path) / 2**20:.1f} MiB "
+        f"gzipped, written in {t_write:.2f} s): load_ntriples_kg "
+        f"native=True {t_native:.2f} s, native=False {t_python:.2f} s; "
+        f"arrays equal {equal} ({got.n_entities} entities, {got.n_triples} "
+        "triples)")
+    if not equal or got.n_triples != rule.n_triples:
+        raise AssertionError("native: the C++ parse differs from the "
+                             "Python parse")
+    stores = stores_from_edges(got)["1-chain"]
+    check_raw_edge_batches(stores, got, native.pack_dense_batch_native,
+                           "native")
+    store = max(stores, key=lambda s: s.n_queries)
+    rng = np.random.default_rng(1)
+    picks = [rng.integers(0, store.n_queries, TRAIN_BATCH).astype(np.int64)
+             for _ in range(NATIVE_PACKS)]
+    ms = {}
+    for name, pack in (("cpp", native.pack_dense_batch_native),
+                       ("numpy", pack_dense_batch_np)):
+        t0 = time.perf_counter()
+        for i, pick in enumerate(picks):
+            pack(store, pick, TRAIN_BATCH, DATA_NEG, i)
+        ms[name] = (time.perf_counter() - t0) * 1e3 / NATIVE_PACKS
+    log(f"native: host ms a raw-edge batch of {TRAIN_BATCH} x {DATA_NEG} "
+        f"negatives (mean of {NATIVE_PACKS}): C++ {ms['cpp']:.3f}, numpy "
+        f"{ms['numpy']:.3f} ({ms['numpy'] / ms['cpp']:.1f}x)")
+
+
+def http_requests(kg, seed: int = 321) -> list:
+    """HTTP_CLIENTS x HTTP_REQUESTS requests of HTTP_QUERIES queries drawn
+    across every structure (as ``sample_stream``'s mixed requests)."""
+    from mpqe_tpu_torch.data.sampler import QuerySampler
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+
+    sampler = QuerySampler(kg, seed=seed)
+    union = [q for s in STRUCTURE_NAMES
+             for q in sampler.sample_queries(s, 64, n_neg=1)]
+    rng = np.random.default_rng(seed)
+    return [[union[int(i)] for i in rng.integers(0, len(union),
+                                                 HTTP_QUERIES)]
+            for _ in range(HTTP_CLIENTS * HTTP_REQUESTS)]
+
+
+def same_up_to_ties(ids, scores, ref_ids, ref_scores, tol: float) -> tuple:
+    """(equal, swapped): ``ids`` / ``scores`` (k) against a reference
+    top-(k+1): scores within ``tol`` place by place, and every id that
+    differs sits where the reference's score ties (within ``tol``) with
+    its neighbour's, the (k+1)-th included; ``swapped`` counts them."""
+    k = len(ids)
+    fin = np.isfinite(ref_scores[:k])
+    if not (np.array_equal(fin, np.isfinite(scores))
+            and (np.abs(scores[fin] - ref_scores[:k][fin]) <= tol).all()):
+        return False, 0
+    swapped = 0
+    for j in np.flatnonzero(ids != ref_ids[:k]):
+        tie = any(abs(ref_scores[j] - ref_scores[i]) <= tol
+                  for i in (j - 1, j + 1) if 0 <= i <= k)
+        if not tie:
+            return False, swapped
+        swapped += 1
+    return True, swapped
+
+
+def phase_serve_http(model, cfg, kg, device) -> int:
+    """``serve.http``: the port's HTTP front end (``netserve``) on
+    127.0.0.1:0 over the serve phase's model; HTTP_CLIENTS client
+    threads each send HTTP_REQUESTS requests of HTTP_QUERIES mixed
+    queries.  Every answer equals ``QueryServer.answer`` of the same
+    request up to ties; ``/statz`` shows more than one request's queries
+    per dispatch; K3 launches one per layer per eligible structure group
+    of each dispatch the batcher made; a bad body gets 400 and the
+    server stays up.  Returns K3's launches under the traffic."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.netserve import make_http_server
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+    from mpqe_tpu_torch.serve import QueryServer
+
+    server = QueryServer(model, cfg, kg.entity_mode, device=device)
+    server.warmup(STRUCTURE_NAMES, batch=HTTP_CLIENTS * HTTP_QUERIES, k=K)
+    reqs = http_requests(kg)
+    answer = server.answer
+    dispatched = []  # per batcher dispatch, its structures
+    dispatch_ms = []
+
+    def recorded(queries, k=10):
+        dispatched.append([q.formula.structure for q in queries])
+        t0 = time.perf_counter()
+        out = answer(queries, k=k)
+        dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    server.answer = recorded
+    httpd = make_http_server(server, kg, "127.0.0.1", 0, default_k=K,
+                             max_wait_ms=HTTP_WAIT_MS)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    loop = threading.Thread(target=httpd.serve_forever, daemon=True)
+    loop.start()
+
+    def post(body):
+        req = urllib.request.Request(
+            url + "/v1/answer", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def get(path):
+        with urllib.request.urlopen(url + path,
+                                    timeout=HTTP_TIMEOUT_S) as r:
+            return r.status, json.loads(r.read())
+
+    got = [None] * len(reqs)
+    lat = [0.0] * len(reqs)
+
+    def client(c):
+        for i in range(c * HTTP_REQUESTS, (c + 1) * HTTP_REQUESTS):
+            body = {"queries": [{"structure": q.formula.structure,
+                                 "anchors": list(q.anchors),
+                                 "rels": list(q.formula.rels)}
+                                for q in reqs[i]], "k": K}
+            t0 = time.perf_counter()
+            got[i] = post(body)
+            lat[i] = (time.perf_counter() - t0) * 1e3
+
+    try:
+        tgt_counters(reset=True)
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(HTTP_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=HTTP_CLIENTS * HTTP_REQUESTS * HTTP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        launches = tgt_counters()[2]
+        _, statz = get("/statz")
+        bad = post({"queries": [{"structure": "nope", "anchors": [0],
+                                 "rels": [0]}]})
+        health = get("/healthz")[0]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.batcher.stop()
+        loop.join(timeout=HTTP_TIMEOUT_S)
+        server.answer = answer
+    expected = 0
+    for structures in dispatched:
+        for s in STRUCTURE_NAMES:
+            n = structures.count(s)
+            if n and mpqe_mod.multi_kernel_eligible(cfg, s):
+                expected += -(-n // server.max_batch) * \
+                    mpqe_mod.num_steps(cfg, s)
+    status = [g[0] if g else None for g in got]
+    ms = np.asarray(lat)
+    n_q = len(reqs) * HTTP_QUERIES
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else str(device))
+    log(f"serve.http: {len(reqs)} requests of {HTTP_QUERIES} mixed queries "
+        f"from {HTTP_CLIENTS} clients on {name}: request latency_ms_p50="
+        f"{np.percentile(ms, 50):.3f} latency_ms_p95="
+        f"{np.percentile(ms, 95):.3f} queries_per_s={n_q / wall:.1f} "
+        f"(wall {wall:.3f} s); statz total_dispatches="
+        f"{statz['total_dispatches']} total_queries={statz['total_queries']}"
+        f" mean_queries_per_dispatch="
+        f"{statz['mean_queries_per_dispatch']:.2f} recent_dispatch_sizes="
+        f"{statz['recent_dispatch_sizes'][-8:]}; QueryServer.answer a "
+        f"dispatch: p50 {np.percentile(dispatch_ms, 50):.3f} ms, p95 "
+        f"{np.percentile(dispatch_ms, 95):.3f} ms, sum "
+        f"{sum(dispatch_ms):.1f} ms (the clients share the server's "
+        "process)")
+    log(f"serve.http: K3 launches {launches}, expected {expected} (one per "
+        f"layer of each eligible structure group of {len(dispatched)} "
+        f"dispatches); bad body -> {bad[0]} {bad[1]}; /healthz after -> "
+        f"{health}")
+    if set(status) != {200} or statz["total_queries"] != n_q:
+        raise AssertionError(f"serve.http: statuses {set(status)}, statz "
+                             f"{statz}")
+    if statz["mean_queries_per_dispatch"] <= HTTP_QUERIES:
+        raise AssertionError("serve.http: no dispatch coalesced requests")
+    if launches == 0 or launches != expected:
+        raise AssertionError(f"serve.http: K3 launches {launches} != "
+                             f"{expected}")
+    if bad[0] != 400 or "unknown structure" not in bad[1]["error"] or \
+            health != 200:
+        raise AssertionError(f"serve.http: bad body {bad}, then {health}")
+    swapped = 0
+    for req, (_, body) in zip(reqs, got):
+        ref = answer(req, k=K + 1)
+        for q, a, r in zip(req, body["answers"], ref):
+            ok, n = same_up_to_ties(np.asarray(a["entities"]),
+                                    np.asarray(a["scores"], np.float32),
+                                    r.entity_ids, r.scores, TOL_SCORE)
+            swapped += n
+            mode = kg.entity_mode[np.asarray(a["entities"])]
+            if not ok or (mode != q.formula.target_mode).any():
+                raise AssertionError(
+                    f"serve.http: {q.formula.structure} answer "
+                    f"{a} != QueryServer's {r.entity_ids.tolist()} "
+                    f"{r.scores.tolist()}")
+    log(f"serve.http.recheck: {n_q} answers equal QueryServer.answer of "
+        f"the same requests (scores within {TOL_SCORE:g}; {swapped} ids "
+        "swapped within ties)")
+    return launches
+
+
+class plain_tgt_kernels:
+    """Within the block, K1 and K2 under ``FusedChain`` are their plain
+    versions, on the card (the shared-negatives recheck); K1's bf16
+    store is its f32 output rounded, as the kernel's is."""
+
+    def __enter__(self):
+        from mpqe_tpu_torch.ops import fused_fwd as ff
+
+        self.saved = (ff._chain_forward, ff._chain_backward)
+        ff._chain_forward = lambda x0, ws, bs, d, blocks, \
+            out_dtype=torch.float32: ff._chain_forward_plain(
+                x0, ws, bs, d).to(out_dtype)
+        ff._chain_backward = lambda x0, ws, bs, g, n_a, d, d_pad, blocks: \
+            ff._chain_backward_plain(x0, ws, bs, g, n_a, d, d_pad)
+        return self
+
+    def __exit__(self, *exc):
+        from mpqe_tpu_torch.ops import fused_fwd as ff
+
+        ff._chain_forward, ff._chain_backward = self.saved
+        return False
+
+
+def host_window(state, cfg, tc, stores, loss_fn, prefetch: int,
+                k: int) -> dict:
+    """One ``run_train`` at ``prefetch`` and ``steps_per_call`` ``k`` over
+    HOST_WARM_CALLS calls, then HOST_WINDOW_STEPS steps timed on the host
+    clock call by call (from one call's record to the next: the batch's
+    draw or wait, the step and the loss's read), then HOST_PROFILE_STEPS
+    steps under the profiler (its wall from the profiler's start to the
+    last record), all in one phase with no convergence stop; the
+    pipeline's start and stop fall outside both spans.  Returns the step
+    ms over calls (``p50``, ``p95``, ``mean``), ``calls``, the profiled
+    span's ``wall_ms`` / ``busy_ms`` a step and ``idle``, the window's
+    seconds in all (``seconds``) and those of the profiler's start, stop
+    and summary (``profile_s``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    timed = HOST_WINDOW_STEPS // k
+    profiled = HOST_PROFILE_STEPS // k
+    stamps = []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    span = {"profile_s": 0.0}
+
+    def log_fn(rec):
+        if "loss" not in rec:
+            return
+        stamps.append(time.perf_counter())
+        if len(stamps) == HOST_WARM_CALLS + timed:
+            prof.start()
+            span["t0"] = time.perf_counter()
+            span["profile_s"] += span["t0"] - stamps[-1]
+        elif len(stamps) == HOST_WARM_CALLS + timed + profiled:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            span["wall_s"] = t1 - span["t0"]
+            prof.stop()
+            span["profile_s"] += time.perf_counter() - t1
+
+    # one phase (no burn-in: its switch restarts the pipeline) and no
+    # convergence stop (the window's deque never fills)
+    steps = (HOST_WARM_CALLS + timed + profiled) * k
+    t_window = time.perf_counter()
+    loop_mod.run_train(
+        state, cfg, dataclasses.replace(
+            tc, max_steps=steps, burn_in_structure="", conv_window=1 << 30),
+        None, log_fn=log_fn, train_stores=stores, batch_loss_fn=loss_fn,
+        prefetch=prefetch, steps_per_call=k)
+    if "wall_s" not in span:
+        raise AssertionError(f"host window: {len(stamps)} calls of {k}, "
+                             f"not {HOST_WARM_CALLS + timed + profiled}")
+    per_step = np.diff(stamps[HOST_WARM_CALLS - 1:HOST_WARM_CALLS + timed]
+                       ) * 1e3 / k
+    t1 = time.perf_counter()
+    busy_us = sum(e.device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    span["profile_s"] += time.perf_counter() - t1
+    if busy_us <= 0:
+        raise AssertionError("host window: the profiler recorded no device "
+                             "time")
+    wall_ms = span["wall_s"] * 1e3
+    return {"p50": float(np.percentile(per_step, 50)),
+            "p95": float(np.percentile(per_step, 95)),
+            "mean": float(per_step.mean()), "calls": len(per_step),
+            "wall_ms": wall_ms / (profiled * k),
+            "busy_ms": busy_us / 1e3 / (profiled * k),
+            "idle": 1 - busy_us / 1e3 / wall_ms,
+            "seconds": time.perf_counter() - t_window,
+            "profile_s": span["profile_s"]}
+
+
+def phase_train_multistep(kg_path: str, tmp: str, device) -> tuple:
+    """``train.multistep``: the train CLI in-process on the flagship KG
+    file at ``--kernel fused_fwd --fused_backward pallas --steps_per_call
+    8 --prefetch 2`` and at ``--steps_per_call 1 --prefetch 0``
+    (:func:`train_cli_run`: launches, finite losses, the C++ packer).
+    The first call's 8 losses are held to 8 single steps (K1/K2, one a
+    call) from the same seeded weights on the same 8 batches within
+    MULTISTEP_TOL.  Then ``run_train`` at each of HOST_WINDOWS (each lever
+    alone and both; :func:`host_window`): step ms p50 / p95 over calls on
+    the host clock, then the device's idle share under the profiler; and
+    the pipeline alone: its first batch, its rate with no consumer, its
+    stop.  Returns the CLI runs' (K1, K2, K3)."""
+    import os
+
+    from mpqe_tpu_torch.data.pipeline import BatchPipeline
+    from mpqe_tpu_torch.data.store import build_stores
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.train import __main__ as train_cli
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    base = ["--data", f"npz:{kg_path}", *DATA_CLI, "--device", str(device),
+            "--steps", str(MULTISTEP_STEPS), "--val_every",
+            str(MULTISTEP_STEPS)]
+    first = []
+    run_stacked = loop_mod.run_multistep_stacked
+
+    def captured(step, state, batch):
+        losses = run_stacked(step, state, batch)
+        if not first:
+            first.append((dataclasses.replace(batch, **{
+                f: torch.as_tensor(getattr(batch, f)).cpu()
+                for f in loop_mod.BATCH_FIELDS}),
+                losses))
+        return losses
+
+    loop_mod.run_multistep_stacked = captured
+    try:
+        _, n_multi = train_cli_run(
+            base + ["--steps_per_call", str(MULTISTEP_K), "--prefetch", "2",
+                    "--run_dir", os.path.join(tmp, "multistep_run")],
+            "train.multistep")
+    finally:
+        loop_mod.run_multistep_stacked = run_stacked
+    _, n_single = train_cli_run(
+        base + ["--steps_per_call", "1", "--prefetch", "0", "--run_dir",
+                os.path.join(tmp, "singlestep_run")],
+        "train.multistep.single")
+
+    args = train_cli.parse_args(base)
+    kg, train_q, _ = train_cli.load_data(args)
+    cfg = mpqe_mod.MPQEConfig(
+        n_entities=kg.n_entities, n_modes=kg.n_modes, n_rels=kg.n_rels,
+        embed_dim=args.embed_dim, n_layers=args.n_layers,
+        num_bases=args.num_bases, readout=args.readout)
+
+    def loss_fn(*a):
+        return mpqe_mod.dense_batch_loss_kernel_fused_fwd(*a,
+                                                          backward="pallas")
+
+    def fresh(tc):
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        return loop_mod.init_train_state(gen, cfg, tc, device=device)
+
+    stacked, k_losses = first[0]
+    tc = loop_mod.TrainConfig(lr=args.lr, batch_size=args.batch_size,
+                              n_neg=args.n_neg, seed=args.seed,
+                              max_steps=MULTISTEP_K,
+                              val_every=1 << 30)
+    state = fresh(tc)
+    step = loop_mod.make_train_step(cfg, state.optimizer, loss_fn)
+    single = [loop_mod.run_step(step, state, dataclasses.replace(
+        stacked, **{f: getattr(stacked, f)[i]
+                    for f in loop_mod.BATCH_FIELDS}))
+        for i in range(MULTISTEP_K)]
+    err = max(abs(a - b) / abs(b) for a, b in zip(k_losses, single))
+    log(f"train.multistep.recheck: the first call's {MULTISTEP_K} losses "
+        f"against {MULTISTEP_K} single steps on the same batches from the "
+        f"same weights: max relative diff {err:.3e} (tol "
+        f"{MULTISTEP_TOL:g}); first {k_losses[0]:.6f} / {single[0]:.6f}, "
+        f"last {k_losses[-1]:.6f} / {single[-1]:.6f}")
+    if err > MULTISTEP_TOL:
+        raise AssertionError(f"train.multistep: {k_losses} vs {single}")
+
+    stores = build_stores(train_q, kg=kg)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else str(device))
+    windows = {}
+    for prefetch, k in HOST_WINDOWS:
+        w = windows[prefetch, k] = host_window(fresh(tc), cfg, tc, stores,
+                                                loss_fn, prefetch, k)
+        log(f"train.multistep.window --prefetch {prefetch} --steps_per_call "
+            f"{k}: on {name}: step_ms_p50={w['p50']:.3f} step_ms_p95="
+            f"{w['p95']:.3f} mean={w['mean']:.3f} over {w['calls']} calls "
+            f"({HOST_WINDOW_STEPS} steps after {HOST_WARM_CALLS} warm calls;"
+            f" host clock, record to record, pipeline start and stop "
+            f"outside); profiled {HOST_PROFILE_STEPS} steps: "
+            f"{w['wall_ms']:.3f} ms a step, device busy {w['busy_ms']:.3f}, "
+            f"idle share {w['idle']:.3f}; window {w['seconds']:.2f} s, of "
+            f"which the profiler's start, stop and summary "
+            f"{w['profile_s']:.2f} s")
+    for k in (1, MULTISTEP_K):
+        t0 = time.perf_counter()
+        pipe = BatchPipeline(stores, args.batch_size, args.n_neg,
+                             seed=args.seed, device=device,
+                             steps_per_call=k).start()
+        next(pipe)
+        t_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(HOST_PIPE_BATCHES):
+            next(pipe)
+        t_each = (time.perf_counter() - t0) / HOST_PIPE_BATCHES
+        t0 = time.perf_counter()
+        pipe.stop()
+        log(f"train.multistep.pipeline steps_per_call={k}: start to first "
+            f"batch {t_first * 1e3:.3f} ms, then {t_each * 1e3:.3f} ms a "
+            f"batch with no consumer ({t_each * 1e3 / k:.3f} a step), stop "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    plain, both = windows[0, 1], windows[2, MULTISTEP_K]
+    log(f"train.multistep: on {name}: --prefetch 2 --steps_per_call "
+        f"{MULTISTEP_K} step_ms_p50={both['p50']:.3f} step_ms_p95="
+        f"{both['p95']:.3f} idle share {both['idle']:.3f} against --prefetch "
+        f"0 --steps_per_call 1 step_ms_p50={plain['p50']:.3f} step_ms_p95="
+        f"{plain['p95']:.3f} idle share {plain['idle']:.3f} (the windows "
+        "above)")
+    return tuple(a + b for a, b in zip(n_multi, n_single))
+
+
+# The f32 shared-negatives recheck's gradient limit by depth: the worst
+# leaf's mean|diff| / mean|ref| of K1/K2 against plain K1/K2 on this
+# phase's batches read 1.07e-5 at one layer, 1.05e-4 at two and 7.5e-5 at
+# three on the H100 (the same in four runs: the trained state and the
+# batches are seeded), and the limits are 2.4x to 4.7x those.  A K2 whose
+# parameter gradients had bf16's error (2.7e-4 / 5.7e-4 / 6.8e-4, the
+# worst of ``tools/tgt_probe.py emulate``: ``ops/fused_fwd.py``) fails
+# them, and so does SHARED_F32_CONTROL, one basis's gradient moved by it.
+SHARED_F32_GRAD_TOL = {1: 5e-5, 2: 2.5e-4, 3: 2.5e-4}
+SHARED_F32_CONTROL = {1: 2.7e-4, 2: 5.7e-4, 3: 6.8e-4}
+
+
+def shared_grad_tol(cfg, structure: str) -> float:
+    """The f32 shared-negatives recheck's gradient limit at the
+    structure's depth (SHARED_F32_GRAD_TOL)."""
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+
+    return SHARED_F32_GRAD_TOL[mpqe_mod.num_steps(cfg, structure)]
+
+
+def shared_grad_control(cfg, got: dict, want: dict, structure: str) -> dict:
+    """``got`` with layer 0's basis 0 gradient scaled by ``1 + s``, ``s``
+    chosen so that the leaf's mean|diff| / mean|ref| grows by
+    SHARED_F32_CONTROL at the structure's depth: a wrong gradient of one
+    basis at bf16's error, which :func:`shared_grad_tol` must refuse."""
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+
+    out = dict(got)
+    g = got["layers.0.basis"].clone()
+    amount = SHARED_F32_CONTROL[mpqe_mod.num_steps(cfg, structure)]
+    g[0] = g[0] * (1.0 + amount * float(want["layers.0.basis"].abs().sum()
+                                        / g[0].abs().sum()))
+    out["layers.0.basis"] = g
+    return out
+
+
+HALO_MULTISTEP = ["--parallel", "halo_ring", "--steps_per_call", "4",
+                  "--steps", "8", "--val_every", "8"]
+
+
+def phase_halo_multistep(device) -> None:
+    """``halo.train.multistep``: the train CLI in-process at ``--parallel
+    halo_ring --steps_per_call 4`` (one part on the card) on the synthetic
+    KG of ``phase_train_cli``'s runs: the final line, two calls of 4 steps
+    with finite losses, a checkpoint at the end."""
+    import os
+    import re
+    import tempfile
+
+    from mpqe_tpu_torch.train import __main__ as train_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        lines = run_cli(train_cli.main, [
+            "--data", "synthetic", *HALO_MULTISTEP, "--num_bases", "16",
+            "--n_neg", "4", "--syn_entities", "20000", "--syn_modes", "4",
+            "--syn_rels", "20", "--syn_triples", "60000",
+            "--syn_train_queries", "700", "--syn_val_queries", "140",
+            "--device", str(device), "--run_dir", run_dir],
+            "halo.train.multistep")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            steps = [r for r in map(json.loads, f) if "loss" in r]
+        ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+    log(f"halo.train.multistep {' '.join(HALO_MULTISTEP)}: {lines[-1]}; "
+        f"calls {[(r['step'], r['k']) for r in steps]}, losses "
+        f"{[round(r['loss'], 6) for r in steps]}; ckpt/{','.join(ckpts)}")
+    if not re.fullmatch(r"final step=8 macro_auc=\S+ macro_apr=\S+",
+                        lines[-1]) or [r["k"] for r in steps] != [4, 4] \
+            or not np.isfinite([r["loss"] for r in steps]).all() \
+            or "step_8" not in ckpts:
+        raise AssertionError(f"halo.train.multistep: {lines[-1]} {steps} "
+                             f"{ckpts}")
+
+
+def phase_train_shared_negs(kg_path: str, tmp: str, device) -> tuple:
+    """``train.shared_negs``: the train CLI in-process on the flagship KG
+    file with ``--shared_negatives 512 --kernel fused_fwd
+    --fused_backward pallas``, float32 and ``--dtype bfloat16``
+    (:func:`train_cli_run`, each call of ``dense_batch_loss_shared_negs``
+    a step); then one step per structure from the trained state through
+    K1/K2 and through their plain versions (:class:`plain_tgt_kernels`):
+    f32 with the loss at ``train.recheck``'s TOL_PLAIN and the gradients
+    at SHARED_F32_GRAD_TOL (:func:`shared_grad_tol`; its control,
+    :func:`shared_grad_control`, failing it), bf16 at
+    ``recheck_bf16_step``'s tolerances.  Returns the runs' (K1, K2,
+    K3)."""
+    import os
+
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.serve import config_from_json
+
+    total = (0, 0, 0)
+    for dtype in ("float32", "bfloat16"):
+        label = f"train.shared_negs.{dtype}"
+        _, n = train_cli_run(
+            ["--data", f"npz:{kg_path}", *DATA_CLI, "--device", str(device),
+             "--dtype", dtype, "--shared_negatives", str(SHARED_NEGS),
+             "--steps", str(SHARED_STEPS), "--val_every", str(SHARED_STEPS),
+             "--run_dir", os.path.join(tmp, f"shared_{dtype}")], label,
+            counted_loss="dense_batch_loss_shared_negs")
+        total = tuple(a + b for a, b in zip(total, n))
+        state = CLI_RESULT[label]
+        with open(os.path.join(tmp, f"shared_{dtype}",
+                               "model_config.json")) as f:
+            cfg = config_from_json(json.load(f))
+        loss_fn = mpqe_mod.make_shared_negs_batch_loss(
+            SHARED_NEGS, encoder="fused_fwd", fused_backward="pallas")
+        f32 = dtype == "float32"
+        recheck_bf16_step(state.model, cfg, device, loss_fn, loss_fn, label,
+                          plain_ctx=plain_tgt_kernels,
+                          tol_grad=(functools.partial(shared_grad_tol, cfg)
+                                    if f32 else TOL_BF16_STEP_GRAD),
+                          tol_loss=TOL_PLAIN if f32 else TOL_BF16_STEP_LOSS,
+                          control=(functools.partial(shared_grad_control, cfg)
+                                   if f32 else None))
+    return total
+
+
 BENCH_ROUTES = ("dense", "fused", "blocked", "fused_fwd")
 
 
@@ -4963,8 +5625,10 @@ def check_bench_record(rec: dict, batch: int = TRAIN_BIG) -> list:
     ``vs_baseline``, a K1 route as ``fwd_impl``, ``batch x 4`` executed
     edge messages (``3-chain_inter``), a roofline fraction in (0, 1.05],
     no broken timing, K1's device ms an iteration and the loop's busy
-    share in (0, 1] from the profile, the four config rows and the four
-    kernel-path rows each with finite positive times and no ``error``."""
+    share in (0, 1] from the profile, the best stack's and the shared-
+    negatives variant's step times finite and positive, the four config
+    rows and the four kernel-path rows each with finite positive times
+    and no ``error``."""
     bad = []
 
     def pos(name, v):
@@ -5004,6 +5668,13 @@ def check_bench_record(rec: dict, batch: int = TRAIN_BIG) -> list:
             pos(f"configs {row.get('name')} fwd_ms", row.get("fwd_ms"))
             pos(f"configs {row.get('name')} train_step_ms",
                 row.get("train_step_ms"))
+    for key in ("best_stack", "shared_neg_variant"):
+        row = ex.get(key)
+        if not isinstance(row, dict):
+            bad.append(f"{key}={row!r} is not a record")
+            continue
+        for k in ("train_step_ms", "train_queries_per_s"):
+            pos(f"{key} {k}", row.get(k))
     paths = ex.get("kernel_paths")
     if not isinstance(paths, list) or tuple(
             r.get("kernel") for r in paths) != BENCH_ROUTES:
@@ -5018,34 +5689,57 @@ def check_bench_record(rec: dict, batch: int = TRAIN_BIG) -> list:
     return bad
 
 
+# the bench's loops cut in depth for this check (the shapes, batches and
+# rows are the bench's own): ~60 s instead of ~150 s on the H100
+BENCH_DEPTH = dict(N_LARGE=15, N_LARGE_FWD=55, MATRIX_SMALL_ITERS=(10, 110),
+                   BEST_STACK_ITERS=(2, 10))
+
+
 def phase_bench() -> float:
-    """``python -m mpqe_tpu_torch.bench`` as a subprocess with its config
+    """``mpqe_tpu_torch.bench``'s ``main`` in-process with its config
     matrix and kernel-path rows and their profiles (``MPQE_BENCH_MATRIX=1
-    MPQE_BENCH_KERNELS=1``) at its full shapes: its
-    stderr (each row's peak memory) and its JSON line printed, the line held to
-    :func:`check_bench_record`.  Returns the phase's wall seconds."""
+    MPQE_BENCH_KERNELS=1``) at its full shapes, its loops cut to
+    BENCH_DEPTH: its stderr (each row's time and peak memory) and its JSON
+    line printed, the line held to :func:`check_bench_record`.  Returns
+    the phase's wall seconds."""
+    import contextlib
+    import io
     import os
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, MPQE_BENCH_MATRIX="1", MPQE_BENCH_KERNELS="1")
-    torch.cuda.empty_cache()  # this process's cached blocks, for the child
+    from mpqe_tpu_torch import bench
+
+    saved = {k: getattr(bench, k) for k in BENCH_DEPTH}
+    env = {k: os.environ.get(k) for k in ("MPQE_BENCH_MATRIX",
+                                          "MPQE_BENCH_KERNELS")}
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "mpqe_tpu_torch.bench"],
-                          cwd=root, env=env, capture_output=True, text=True,
-                          timeout=BENCH_TIMEOUT)
+    try:
+        for k, v in BENCH_DEPTH.items():
+            setattr(bench, k, v)
+        os.environ.update(MPQE_BENCH_MATRIX="1", MPQE_BENCH_KERNELS="1")
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = bench.main([])
+    finally:
+        for k, v in saved.items():
+            setattr(bench, k, v)
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     wall = time.perf_counter() - t0
-    for ln in proc.stderr.splitlines():
+    for ln in err.getvalue().splitlines():
         log(f"bench.log: {ln}")
-    lines = proc.stdout.strip().splitlines()
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"bench: rc={proc.returncode}, "
-                             f"{len(lines)} stdout lines")
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"bench: rc={rc}, {len(lines)} stdout lines")
     log(f"bench: {lines[-1]}")
     bad = check_bench_record(json.loads(lines[-1]))
     if bad:
         log(f"bench: FAIL {bad}")
         raise AssertionError(f"bench: {bad}")
-    log(f"bench: line ok, {wall:.1f} s")
+    log(f"bench: line ok, {wall:.1f} s (loops {BENCH_DEPTH})")
     return wall
 
 
@@ -5108,7 +5802,16 @@ def main() -> int:
 
     device = torch.device("cuda")
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(label: str) -> None:
+        """Log the seconds since the last lap and since the start."""
+        now = time.perf_counter()
+        log(f"lap {label}: {now - t_lap[0]:.1f} s (at {now - t_start:.1f} s)")
+        t_lap[0] = now
+
     build_kernels()
+    lap("build")
 
     cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -5149,6 +5852,7 @@ def main() -> int:
     t_bf16_kernels = time.perf_counter()
     k8_launches += phase_ring_bf16(model.layers[0], cfg, device, gen)
     bf16_kernels_s += time.perf_counter() - t_bf16_kernels
+    lap("kernel phases")
 
     t0 = time.perf_counter()
     kg = make_random_kg(**KG)
@@ -5159,6 +5863,12 @@ def main() -> int:
         raise AssertionError("KG does not match the flagship model")
     launches = phase_serve(model, cfg, ops, kg, device)
     del ops
+    lap("serve")
+    t_host = time.perf_counter()
+    http_k3 = phase_serve_http(model, cfg, kg, device)
+    launches += http_k3
+    host_s = time.perf_counter() - t_host
+    lap("serve.http")
     train_q, val_q = sample_train_queries(kg)
     k4_launches = phase_eval_sparse(model, cfg, kg, train_q, val_q, device)
     t_bf16_kernels = time.perf_counter()
@@ -5167,18 +5877,27 @@ def main() -> int:
     bf16_kernels_s += time.perf_counter() - t_bf16_kernels
     phase_eval_ranking(model, cfg, kg, val_q, device)
     del model
+    lap("eval")
     k1, k2 = phase_train(kg, train_q, val_q, device)
+    lap("train")
     sparse = {}
     for label in SPARSE_RUNS:
         for kid, n in phase_train_sparse(kg, train_q, device, label).items():
             sparse[kid] = sparse.get(kid, 0) + n
+    lap("train sparse")
     phase_halo_train(kg, train_q, device)
+    lap("halo.train")
     phase_train_cli(["--kernel", "fused_fwd", "--fused_backward", "pallas"],
                     then=lambda d: (phase_eval_cli(d), phase_serve_cli(d)))
     phase_train_cli(["--kernel", "blocked"])
     # K6's wide paths on the train path (16 bases, as every CLI run here)
     phase_train_cli(["--kernel", "blocked", "--embed_dim", "256"])
     phase_train_cli(["--parallel", "halo_ring"])
+    lap("train.cli")
+    t_host = time.perf_counter()
+    phase_halo_multistep(device)
+    host_s += time.perf_counter() - t_host
+    lap("halo.train.multistep")
 
     t_gqe = time.perf_counter()
     phase_gqe_train(kg, train_q, val_q, device)
@@ -5190,6 +5909,7 @@ def main() -> int:
                     then=lambda d: (phase_eval_cli(d), phase_serve_cli(d),
                                     check_bibox_w(d)), label="gqe.cli")
     log(f"gqe phases {time.perf_counter() - t_gqe:.1f} s")
+    lap("gqe")
 
     import os
     import tempfile
@@ -5198,6 +5918,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         data_launches = [phase_data_npz(kg, tmp, device)]
         del kg
+        lap("data.npz")
+        t_host = time.perf_counter()
+        phase_native(tmp)
+        lap("native")
+        host_launches = [
+            phase_train_multistep(os.path.join(tmp, "kg.npz"), tmp, device)]
+        lap("train.multistep")
+        host_launches.append(phase_train_shared_negs(
+            os.path.join(tmp, "kg.npz"), tmp, device))
+        lap("train.shared_negs")
+        host_data_s = time.perf_counter() - t_host
+        host_s += host_data_s
         t_bf16 = time.perf_counter()
         bf16_run, bf16_launches = phase_train_bf16(
             os.path.join(tmp, "kg.npz"), tmp, device)
@@ -5207,16 +5939,26 @@ def main() -> int:
                     os.path.join(tmp, "kg.npz"), tmp, device, label).items():
                 sparse[kid] += n
         bf16_s = time.perf_counter() - t_bf16
+        lap("bf16 runs")
         data_launches.append(phase_data_pkl(tmp, device))
+        lap("data.pkl")
         bench_s = phase_bench()
+        lap("bench")
         data_launches.append((0, 0, phase_quality(tmp, device)))
+        lap("quality")
+    data_launches += host_launches
     k1 += sum(n[0] for n in data_launches) + bf16_launches[0]
     k2 += sum(n[1] for n in data_launches) + bf16_launches[1]
     launches += sum(n[2] for n in data_launches) + bf16_launches[2] + \
         bf16_k3
+    log(f"host-path phases {host_s:.1f} s (native, serve.http, "
+        f"train.multistep, train.shared_negs, halo.train.multistep); their "
+        f"launches (K1, K2, K3): serve.http K3={http_k3}, train.multistep "
+        f"{host_launches[0]}, train.shared_negs {host_launches[1]}")
     log(f"bench phase {bench_s:.1f} s; bf16 phases {bf16_s:.1f} s (and "
         f"the bf16 kernel and evaluate checks {bf16_kernels_s:.1f} s); data "
-        f"phases {time.perf_counter() - t_data - bench_s - bf16_s:.1f} s; "
+        f"phases {time.perf_counter() - t_data - bench_s - bf16_s - host_data_s:.1f}"
+        " s; "
         f"their launches (K1, K2, K3): npz {data_launches[0]}, pkl "
         f"{data_launches[1]}, quality {data_launches[2]}, train.bf16 "
         f"{bf16_launches}, serve.bf16 K3={bf16_k3}")

@@ -71,10 +71,10 @@ Differences from the reference, by function:
 * ``MPQE_FUSED_VMEM_MB`` and the fused routes' ``block``,
   ``vmem_limit_mb`` and ``bwd_block`` tile the TPU and have no
   counterpart.
-* ``bench_best_stack`` and ``bench_shared_negatives`` need shared
-  negatives, which are not ported: their ``extra`` entries are strings
-  naming ROADMAP Queue 1 item 2 (the best stack's other half,
-  ``cfg.dtype = bfloat16``, is ported).
+* ``bench_best_stack`` (``extra["best_stack"]``: bf16, 512 shared
+  negatives, K1 with K2 as its backward) runs on the CPU too, where the
+  reference's skips; ``bench_shared_negatives``
+  (``extra["shared_neg_variant"]``, with the matrix) is the reference's.
 * Iteration counts: ``N_SMALL``, ``N_LARGE`` and ``N_LARGE_FWD`` are the
   reference's; the matrix's small batches (<= 8,192) take
   ``MATRIX_SMALL_ITERS`` = (50, 550) forwards and (5, 55) steps, a tenth
@@ -107,6 +107,8 @@ N_LAYERS = 3
 STRUCTURE = "3-chain_inter"
 BATCH = 131_072
 N_NEG = 4
+N_SHARED = 512  # the shared-negatives variants' candidates
+BEST_STACK_ITERS = (3, 28)  # the reference's (n_small, n_large) for it
 N_SMALL, N_LARGE = 5, 55
 N_LARGE_FWD = 255  # forward loops are cheap enough for tighter stats
 SAMPLES = 3  # positive deltas per timing (loop_time's samples)
@@ -492,6 +494,63 @@ def bench_kernel_paths(device):
     return rows
 
 
+def _shared_negs_step(device, label: str, dtype, encoder: str,
+                      fused_backward: str, n_small=None, n_large=None):
+    """Seconds per train step of ``dense_batch_loss_shared_negs`` at the
+    flagship shape (``BATCH`` queries of ``STRUCTURE``, ``N_SHARED``
+    candidates from numpy seed 0) with Adam at lr 0.01, from the seeded
+    weights at ``dtype``."""
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+
+    cfg = _config(dtype=dtype)
+    model = _model(cfg, device)
+    ne, nm, er, en, tgt, _, _, qmask = _batch(cfg, STRUCTURE, BATCH, device)
+    sneg = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.n_entities, (N_SHARED,)).astype(np.int32)).to(device)
+
+    def loss_fn(m):
+        return mpqe_mod.dense_batch_loss_shared_negs(
+            m, cfg, STRUCTURE, ne, nm, er, en, tgt, sneg, qmask,
+            encoder=encoder, fused_backward=fused_backward)
+
+    log(f"[{label}] train step (B={BATCH}, {N_SHARED} shared negatives)...")
+    _reset_peak(device)
+    dt = _timed_loop(_step_loop(model, _optimizer(model), loss_fn), device,
+                     n_small=n_small, n_large=n_large)
+    log(f"[{label}] train step: {dt * 1e3:.4f} ms ({_peak(device)})")
+    return dt
+
+
+def bench_best_stack(device):
+    """The composed train-step variant the reference measured best:
+    bf16 leaves, ``N_SHARED`` batch-shared negatives, and the forward
+    through K1 with K2 as its backward (``--dtype bfloat16
+    --shared_negatives 512 --kernel fused_fwd --fused_backward pallas``).
+    A protocol variant, labelled as one; the f32 per-query-negatives
+    numbers stay the headline."""
+    dt = _shared_negs_step(device, "best-stack", torch.bfloat16,
+                           "fused_fwd", "pallas", *BEST_STACK_ITERS)
+    return {
+        "config": (f"dtype=bfloat16 shared_negatives={N_SHARED} "
+                   "kernel=fused_fwd fused_backward=pallas"),
+        "train_step_ms": dt * 1e3,
+        "train_queries_per_s": BATCH / dt,
+        "protocol_note": ("VARIANT: reduced precision + batch-shared "
+                          "candidates; the headline stays the f32 "
+                          "per-query-negatives step"),
+    }
+
+
+def bench_shared_negatives(device):
+    """The f32 ``encode_dense`` train step with ``N_SHARED`` batch-shared
+    negatives (a protocol variant, labelled as one)."""
+    dt = _shared_negs_step(device, "shared-neg", torch.float32, "dense",
+                           "xla")
+    return {"train_step_ms": dt * 1e3, "train_queries_per_s": BATCH / dt,
+            "n_shared_negatives": N_SHARED,
+            "protocol": "shared_negatives_variant"}
+
+
 def _log_profile(label: str, loop, n: int = PROFILE_STEPS) -> dict:
     """Device time by kernel over ``loop(n)`` and its wall time
     (``profiling.device_profile``), the ``PROFILE_TOP`` largest: a device
@@ -643,12 +702,10 @@ def main(argv=None) -> int:
         "is not carried)")
     extra.update(tb)
     extra["vs_baseline_fresh"] = vs
-    extra["best_stack"] = (
-        "not ported: needs shared negatives (ROADMAP Queue 1 item 2)")
+    extra["best_stack"] = bench_best_stack(device)
     if os.environ.get("MPQE_BENCH_MATRIX"):
         extra["configs"] = bench_matrix(device)
-        extra["shared_neg_variant"] = (
-            "not ported: needs shared negatives (ROADMAP Queue 1 item 2)")
+        extra["shared_neg_variant"] = bench_shared_negatives(device)
     if os.environ.get("MPQE_BENCH_KERNELS"):
         extra["kernel_paths"] = bench_kernel_paths(device)
     if BROKEN_TIMINGS:

@@ -27,9 +27,9 @@ lineage's conventions:
 end: ``.nt(.gz)`` -> ``graph_data.pkl`` + ``{train,val,test}_edges.pkl``
 + ``{train,val,test}_queries_{2,3}.pkl`` (+ ``kg.npz``), a run-ready
 dataset directory for ``python -m mpqe_tpu_torch.train --data
-pkl:<dir>``.  The parser is the Python one: the reference's C++ parser
-(``native=True``) needs a binding to ``cpp/libmpqe_host.so``, ROADMAP
-Queue 1 item 2.
+pkl:<dir>``.  :func:`load_ntriples_kg` parses with the C++ parser
+(``cpp/mpqe_host.cpp nt_parse`` through ``data/native.py``) when the
+library builds, else with the Python one; both give the same arrays.
 """
 
 from __future__ import annotations
@@ -308,15 +308,31 @@ def kg_from_rdf(
 
 def load_ntriples_kg(path: str, native: Optional[bool] = None,
                      **kw) -> KnowledgeGraph:
-    """``.nt(.gz)`` file -> KnowledgeGraph through the Python parser.
+    """``.nt(.gz)`` file -> KnowledgeGraph.
 
-    ``native=None`` and ``native=False`` parse in Python (the reference's
-    ``None`` takes its C++ parser when built; both front ends give the
-    same arrays).  ``native=True`` raises ``NotImplementedError``: the
-    C++ parser's binding is not ported yet."""
-    if native:
-        raise NotImplementedError(
-            "native=True: the C++ N-Triples parser (cpp/libmpqe_host.so "
-            "nt_parse) has no binding in the port yet; ROADMAP Queue 1 "
-            "item 2")
+    ``native=None`` parses with the C++ parser (``cpp/mpqe_host.cpp
+    nt_parse``: term interning at native speed, the IO-heavy half of
+    ingestion) when ``data/native.py`` can build and load it, else with
+    the Python parser; ``True`` forces the C++ parser (``RuntimeError``
+    when it is unavailable), ``False`` the Python one.  Both give the
+    same arrays."""
+    from mpqe_tpu_torch.data import native as native_mod
+
+    if native is None:
+        use_native = native_mod.available()
+    elif native:
+        if not native_mod.available():
+            raise RuntimeError(
+                "native N-Triples parser requested but the C++ host "
+                "library (cpp/mpqe_host.cpp) is unavailable: "
+                f"{native_mod.BUILD_ERROR}")
+        use_native = True
+    else:
+        use_native = False
+    if use_native:
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(path, "rb") as f:
+            data = f.read()
+        spo, lit, terms = native_mod.parse_ntriples_native(data)
+        return kg_from_terms(spo, lit, terms, **kw)
     return kg_from_rdf(iter_ntriples_file(path), **kw)

@@ -6,8 +6,9 @@ anchors ``[n_q, n_anchors]``, targets ``[n_q]``, CSR negative pools —
 which :func:`pack_dense_batch_np` turns into dense batches with no
 Python-object work per step.  Numpy only: the same seed gives the same
 arrays as the reference, exactly.  :func:`stores_from_edges` builds the
-raw-edge 1-chain stores straight from a KG's arrays.  The reference's C++
-packer binding is not ported yet (ROADMAP Queue 1 item 2).
+raw-edge 1-chain stores straight from a KG's arrays.  The C++ packer
+(``data/native.py pack_dense_batch_native``) packs the same fields from
+another random stream; the training loop takes it when it builds.
 """
 
 from __future__ import annotations

@@ -8,8 +8,11 @@ one (``convert.py``).  The forward functions are plain functions with the
 reference's signatures: the per-query-relation encoder that serving and
 evaluation run, the shared-relation dense encoder and its fused-kernel
 form (K1 forward, K2 or a recomputation backward) that training runs, and
-the margin losses, and the sparse encoders (``encode_sparse``, and its
-K5 and K6 forms behind ``--kernel fused`` and ``--kernel blocked``).
+the margin losses (with per-query negatives, with batch-shared
+negatives behind ``--shared_negatives``, and with one table lookup and a
+chosen gradient scatter), and the sparse encoders (``encode_sparse``,
+and its K5 and K6 forms behind ``--kernel fused`` and ``--kernel
+blocked``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from torch import nn
 from mpqe_tpu_torch.models import embeddings as emb_mod
 from mpqe_tpu_torch.models import readout as readout_mod
 from mpqe_tpu_torch.ops import dtypes
+from mpqe_tpu_torch.ops import embed as embed_ops
 from mpqe_tpu_torch.ops import fused_fwd as fused_fwd_ops
 from mpqe_tpu_torch.ops import rgcn as rgcn_ops
 from mpqe_tpu_torch.ops import segment_kernels
@@ -659,3 +663,120 @@ def dense_batch_loss_kernel_fused_fwd(model: MPQE, cfg: MPQEConfig,
                            edge_rel, edge_norm, None, backward)
     return margin_loss_from_queries(model, cfg, q, target, negatives,
                                     neg_mask, query_mask)
+
+
+def dense_batch_loss_fused(model: MPQE, cfg: MPQEConfig, structure: str,
+                           node_entity, node_mode, edge_rel, edge_norm,
+                           target, negatives, neg_mask, query_mask,
+                           grad_scatter: str = "dense") -> torch.Tensor:
+    """:func:`dense_batch_loss` with one entity-table access: the anchor,
+    target and negative rows in one :func:`ops.embed.embedding_lookup`,
+    whose gradient is summed by ``grad_scatter`` (``dense``, ``sorted``
+    or ``dedup``).  The same value as :func:`dense_batch_loss`."""
+    a_slots = list(anchor_gather_slots(cfg, structure))
+    n_a = len(a_slots)
+    idx = torch.cat([node_entity[:, a_slots], target[:, None], negatives],
+                    dim=1)
+    rows = embed_ops.embedding_lookup(model.emb.ent, idx, grad_scatter)
+    q = encode_dense(model, cfg, structure, node_entity, node_mode,
+                     edge_rel, edge_norm, anchor_rows=rows[:, :n_a, :])
+    return margin_loss_from_rows(cfg, q, rows[:, n_a, :],
+                                 rows[:, n_a + 1:, :], neg_mask, query_mask)
+
+
+def dense_batch_loss_shared_negs(
+    model: MPQE,
+    cfg: MPQEConfig,
+    structure: str,
+    node_entity: torch.Tensor,
+    node_mode: torch.Tensor,
+    edge_rel: torch.Tensor,
+    edge_norm: torch.Tensor,
+    target: torch.Tensor,  # [B]
+    shared_negatives: torch.Tensor,  # [K]: ONE negative set for the batch
+    query_mask: torch.Tensor,  # [B]
+    encoder: str = "dense",
+    fused_backward: str = "xla",
+    self_adv_tau: float = 0.0,
+) -> torch.Tensor:
+    """Margin loss with batch-shared negatives (a protocol variant):
+    every query is scored against one set of K candidates, so the table
+    rows read per batch drop from ``B (anchors + 1 + K)`` to ``B (anchors
+    + 1) + K`` and the negative scores are one ``[B, d] @ [d, K]``
+    product (f32 results of f32 operands).
+
+    ``encoder`` is ``"dense"`` (:func:`encode_dense`) or ``"fused_fwd"``
+    (:func:`encode_dense_fused`: K1, with ``fused_backward`` ``"xla"`` or
+    ``"pallas"``: K2).  A candidate equal to a query's target is masked
+    out of that query's terms.  ``self_adv_tau > 0`` weights each query's
+    violations by ``softmax(tau * score)`` over its live candidates, the
+    weights detached (self-adversarial sampling, arXiv:1902.10197 §3.1);
+    a row with no live candidate (a padded query) contributes nothing and
+    no NaN."""
+    a_slots = list(anchor_gather_slots(cfg, structure))
+    n_a = len(a_slots)
+    idx = torch.cat([node_entity[:, a_slots], target[:, None]], dim=1)
+    rows = embed_ops.embedding_lookup(model.emb.ent, idx)
+    anchor_rows = rows[:, :n_a, :]
+    pos_rows = rows[:, n_a, :]
+    neg_rows = embed_ops.embedding_lookup(model.emb.ent, shared_negatives)
+    if encoder == "fused_fwd":
+        q = encode_dense_fused(model, cfg, structure, node_entity, node_mode,
+                               edge_rel, edge_norm, anchor_rows,
+                               fused_backward)
+    elif encoder == "dense":
+        q = encode_dense(model, cfg, structure, node_entity, node_mode,
+                         edge_rel, edge_norm, anchor_rows=anchor_rows)
+    else:
+        raise ValueError(f"unknown encoder {encoder!r}")
+    qf = q.to(torch.float32)
+    nf = neg_rows.to(torch.float32)
+    if cfg.scale_scores:
+        qf, nf = _l2_normalize(qf), _l2_normalize(nf)
+    pos = score(cfg, q, pos_rows)  # [B]
+    neg = dtypes.dot_f32(qf, nf.t())  # [B, K]
+    viol = torch.relu(cfg.margin - pos[:, None] + neg)
+    not_self = shared_negatives[None, :] != target[:, None]
+    w = query_mask[:, None] * not_self.to(viol.dtype)
+    if self_adv_tau > 0.0:
+        live = w > 0
+        logits = torch.where(live, self_adv_tau * neg,
+                             torch.full_like(neg, float("-inf")))
+        has_live = torch.sum(w, dim=1) > 0
+        p_adv = torch.softmax(
+            torch.where(has_live[:, None], logits, torch.zeros_like(logits)),
+            dim=1).detach()
+        per_q = torch.sum(torch.where(live, p_adv * viol,
+                                      torch.zeros_like(viol)), dim=1)
+        live_q = has_live.to(viol.dtype) * query_mask
+        return torch.sum(per_q * live_q) / torch.clamp(torch.sum(live_q),
+                                                       min=1.0)
+    return torch.sum(viol * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def make_shared_negs_batch_loss(n_shared: int, encoder: str = "dense",
+                                fused_backward: str = "xla",
+                                self_adv_tau: float = 0.0):
+    """:func:`dense_batch_loss_shared_negs` behind the training loop's
+    ``batch_loss_fn`` signature (``train --shared_negatives K``).  The
+    shared set is drawn from the batch's own negatives: the first
+    negative of ``min(K, B)`` donor queries strided across the batch; a
+    padded donor (``query_mask == 0``) gives the first query's
+    negative instead."""
+    if n_shared <= 0:
+        raise ValueError("n_shared must be positive")
+
+    def fn(model, cfg, structure, node_entity, node_mode, edge_rel,
+           edge_norm, target, negatives, neg_mask, query_mask):
+        bsz = negatives.shape[0]
+        k = min(n_shared, bsz)
+        donors = (torch.arange(k, device=negatives.device)
+                  * max(bsz // k, 1)) % bsz
+        cand = negatives[donors, 0]
+        shared = torch.where(query_mask[donors] > 0, cand, negatives[0, 0])
+        return dense_batch_loss_shared_negs(
+            model, cfg, structure, node_entity, node_mode, edge_rel,
+            edge_norm, target, shared, query_mask, encoder=encoder,
+            fused_backward=fused_backward, self_adv_tau=self_adv_tau)
+
+    return fn

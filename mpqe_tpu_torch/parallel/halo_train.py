@@ -6,7 +6,9 @@ The train step's forward runs the distributed R-GCN of
 ``rgcn_dst_partitioned`` (the ``all_gather`` halo) — and its backward is
 autograd through the per-part lists and their copies
 (``parallel/mesh.py``).  Selected by ``python -m mpqe_tpu_torch.train
---parallel halo_ring`` / ``--parallel halo_gather``.
+--parallel halo_ring`` / ``--parallel halo_gather``; with
+``--steps_per_call K`` each call takes K steps
+(:func:`make_halo_multistep_train_step`).
 
 For dense template batches the batched query graph's edge endpoints are
 a static function of (structure, batch size): B tiled copies of the
@@ -36,9 +38,6 @@ from mpqe_tpu_torch.train import loop as loop_mod
 _SHARDED_TABLE_LATER = (
     "shard_entity_table=True (the entity table row-sharded over the model "
     "axis) needs parallel/sharding.py: ROADMAP Queue 1 item 8")
-_MULTISTEP_LATER = (
-    "make_halo_multistep_train_step needs make_multistep_train_step: "
-    "ROADMAP Queue 1 item 2")
 
 
 def _template_layout_np(structure: str, batch_size: int, n_parts: int,
@@ -200,9 +199,17 @@ def make_halo_train_step(cfg: mpqe_mod.MPQEConfig,
         batch_loss_fn=halo_batch_loss_fn(mesh, layer_kind, axis))
 
 
-def make_halo_multistep_train_step(*args, **kwargs) -> Callable:
-    """K halo steps per call: not ported (``NotImplementedError``)."""
-    raise NotImplementedError(_MULTISTEP_LATER)
+def make_halo_multistep_train_step(cfg: mpqe_mod.MPQEConfig,
+                                   optimizer: loop_mod.OptaxAdam,
+                                   mesh: Mesh, layer_kind: str = "ring",
+                                   axis: str = "data") -> Callable:
+    """K halo train steps per call over batch tensors with a leading
+    ``[K]`` axis: ``loop.make_multistep_train_step`` (the losses stay on
+    the device until the caller reads them) with each step's forward and
+    backward through the halo layers."""
+    return loop_mod.make_multistep_train_step(
+        cfg, optimizer,
+        batch_loss_fn=halo_batch_loss_fn(mesh, layer_kind, axis))
 
 
 def init_halo_train_state(gen: torch.Generator, cfg, tc: loop_mod.TrainConfig,

@@ -45,11 +45,16 @@ k]``, ``scores [N, k]``, ``structure [N]`` and ``target [N]`` and prints
 one JSON line with its wall time, queries/s and hit@k, instead of the
 sampled stream.  ``--table_dtype bfloat16|int8`` serves from the
 quantized candidate table, as the root CLI does (int8 needs cosine
-scoring; a box model takes float32 only).  The root CLI's ``--http`` is
-not ported (ROADMAP Queue 1 item 6), nor is ``--shards`` (item 8).
+scoring; a box model takes float32 only).  ``--http HOST:PORT`` serves
+the HTTP JSON API of :mod:`mpqe_tpu_torch.netserve` (``POST /v1/answer``,
+``GET /healthz``, ``GET /statz``) with cross-request micro-batching
+(``--max_wait_ms``) instead of the sampled stream: it prints one
+``{"listening": "HOST:PORT", ...}`` line and serves until interrupted.
+The root CLI's ``--shards`` is not ported (ROADMAP Queue 1 item 8).
 
   python -m mpqe_tpu_torch.serve --run_dir runs/xyz \\
       --answer /data/AIFB/test_queries_3.pkl --out answers.npz
+  python -m mpqe_tpu_torch.serve --run_dir runs/xyz --http 127.0.0.1:8080
 """
 
 from __future__ import annotations
@@ -355,6 +360,13 @@ def parse_args(argv=None):
     p.add_argument("--out", default=None,
                    help=".npz output for --answer (entity_ids [N,k], "
                         "scores [N,k], structure [N], target [N])")
+    p.add_argument("--http", default=None, metavar="HOST:PORT",
+                   help="serve an HTTP JSON API (POST /v1/answer, GET "
+                        "/healthz, GET /statz) with cross-request micro-"
+                        "batching instead of the sampled-stream benchmark")
+    p.add_argument("--max_wait_ms", type=float, default=5.0,
+                   help="--http: how long a request waits to coalesce "
+                        "with concurrent traffic into one dispatch")
     p.add_argument("--device", default="cuda",
                    help="torch device; the card unless told otherwise")
     model = p.add_mutually_exclusive_group(required=True)
@@ -473,12 +485,45 @@ def answer_pickle(server: QueryServer, kg, path: str, out: str, k: int,
             "hit_at_k": hits / len(flat)}
 
 
+def serve_http(server: QueryServer, kg, address, k: int,
+               max_wait_ms: float, structures) -> None:
+    """``--http``: the netserve front end on ``address`` until
+    interrupted (Ctrl-C), then the batcher stopped and the socket
+    closed."""
+    from mpqe_tpu_torch.netserve import make_http_server
+
+    httpd = make_http_server(server, kg, *address, default_k=k,
+                             max_wait_ms=max_wait_ms)
+    print(json.dumps({
+        "listening": f"{httpd.server_address[0]}:{httpd.server_address[1]}",
+        "endpoints": ["GET /healthz", "GET /statz", "POST /v1/answer"],
+        "warmed_structures": list(structures),
+        "max_wait_ms": max_wait_ms,
+    }), flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.batcher.stop()
+        httpd.server_close()
+
+
 def main(argv=None):
     from mpqe_tpu_torch.data.sampler import QuerySampler
 
     args = parse_args(argv)
     if args.answer and not args.out:
         raise SystemExit("--answer requires --out <file.npz>")
+    http = None
+    if args.http:
+        # a malformed flag fails before the model loads and warms up
+        host, _, port_s = args.http.rpartition(":")
+        try:
+            http = (host or "127.0.0.1", int(port_s))
+        except ValueError:
+            raise SystemExit(
+                f"--http expects HOST:PORT, got {args.http!r}") from None
     device = resolve_device(args.device)
     cfg, kg, model, checkpoint, nbr = (
         _from_run_dir if args.run_dir is not None else _from_flags)(args,
@@ -493,6 +538,9 @@ def main(argv=None):
 
     structures = args.structures.split(",")
     server.warmup(structures, batch=args.batch, k=args.k)
+    if http is not None:
+        serve_http(server, kg, http, args.k, args.max_wait_ms, structures)
+        return
     sampler = QuerySampler(kg, seed=123)
     pools = {s: sampler.sample_queries(
         s, max(args.requests // len(structures) + args.batch, args.batch),

@@ -23,9 +23,17 @@ edge-partitioned halo layers over a ``--mesh`` (default: one part per
 card).  ``--dtype bfloat16`` keeps every leaf and Adam moment in bf16
 (products with f32 results, as the reference's) on every route: dense,
 ``--kernel fused_fwd`` (K1/K2), ``--kernel fused`` (K5 on bf16 rows),
-``--kernel blocked`` (K6) and ``--parallel halo_*``.  Every flag whose
-feature is not ported yet raises ``NotImplementedError`` naming its
-ROADMAP item.
+``--kernel blocked`` (K6) and ``--parallel halo_*``.
+``--shared_negatives K`` trains MPQE against K batch-shared negative
+candidates (``--kernel dense`` or ``fused_fwd``; ``--self_adv_tau``
+weights them self-adversarially); ``--prefetch N`` packs batches on a
+producer thread N ahead and copies them to the card on a stream of its
+own; ``--steps_per_call K`` takes K steps per call (also with
+``--parallel halo_*``).  Batches come from the C++ packer when it builds
+(``data/native.py``), else from the numpy packer; the ``data_loaded``
+record of ``metrics.jsonl`` says which (``"native_packer"``).
+``--parallel spmd`` and ``--trace``, not ported yet, raise
+``NotImplementedError`` naming their ROADMAP item.
 
   python -m mpqe_tpu_torch.train --data synthetic --kernel fused_fwd \\
       --fused_backward pallas --num_bases 16 --steps 2000
@@ -38,6 +46,10 @@ ROADMAP item.
       --fused_backward pallas --num_bases 16
   python -m mpqe_tpu_torch.train --device cpu --embed_dim 16 --steps 20
   python -m mpqe_tpu_torch.train --parallel halo_ring --num_bases 16
+  python -m mpqe_tpu_torch.train --kernel fused_fwd --fused_backward pallas \\
+      --num_bases 16 --prefetch 2 --steps_per_call 8
+  python -m mpqe_tpu_torch.train --dtype bfloat16 --kernel fused_fwd \\
+      --fused_backward pallas --num_bases 16 --shared_negatives 512
   python -m mpqe_tpu_torch.train --model gqe_softand --decoder bibox \\
       --gqe_encoder neighborhood --gqe_fanout 8
 """
@@ -108,7 +120,9 @@ def parse_args(argv=None):
     p.add_argument("--val_every", type=int, default=1000)
     p.add_argument("--patience", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--steps_per_call", type=int, default=1)
+    p.add_argument("--steps_per_call", type=int, default=1,
+                   help=">1: K train steps per call, their losses read "
+                        "once per call")
     p.add_argument("--kernel", default="dense",
                    choices=["dense", "fused", "blocked", "fused_fwd"],
                    help="dense = f32 template encoder (default); fused = "
@@ -116,8 +130,16 @@ def parse_args(argv=None):
                         "layers through K6 (needs --num_bases); fused_fwd "
                         "= forward through K1 (needs --readout tgt); K1, "
                         "K5 and K6 are hand-written CUDA kernels")
-    p.add_argument("--shared_negatives", type=int, default=0, metavar="K")
-    p.add_argument("--self_adv_tau", type=float, default=0.0, metavar="TAU")
+    p.add_argument("--shared_negatives", type=int, default=0, metavar="K",
+                   help="train against K batch-shared negative candidates "
+                        "instead of per-query negatives (a protocol "
+                        "variant; rgcn, --kernel dense or fused_fwd); 0 = "
+                        "off")
+    p.add_argument("--self_adv_tau", type=float, default=0.0, metavar="TAU",
+                   help="with --shared_negatives: weight each query's "
+                        "candidate violations by softmax(TAU * score), "
+                        "detached, instead of the uniform mean; 0 = "
+                        "uniform")
     p.add_argument("--fused_backward", default="xla",
                    choices=["xla", "pallas"],
                    help="gradient path of --kernel fused_fwd: xla = "
@@ -130,7 +152,8 @@ def parse_args(argv=None):
     p.add_argument("--parallel", default="none",
                    choices=["none", "spmd", "halo_ring", "halo_gather"])
     p.add_argument("--mesh", default="")
-    p.add_argument("--prefetch", type=int, default=0)
+    p.add_argument("--prefetch", type=int, default=0,
+                   help=">0: background batch pipeline depth")
     p.add_argument("--warmup", action="store_true",
                    help="one throwaway step per structure before training")
     p.add_argument("--resume", action="store_true",
@@ -156,16 +179,8 @@ def _refuse_unported(args) -> None:
     """``NotImplementedError`` naming the ROADMAP item of every flag whose
     feature is not ported yet."""
     unported = [
-        (args.shared_negatives != 0, "--shared_negatives",
-         "shared negatives are ROADMAP Queue 1 item 2"),
-        (args.self_adv_tau != 0.0, "--self_adv_tau",
-         "shared negatives are ROADMAP Queue 1 item 2"),
         (args.parallel == "spmd", "--parallel spmd",
          "the SPMD step (parallel/spmd.py) is ROADMAP Queue 1 item 8"),
-        (args.prefetch > 0, "--prefetch",
-         "the batch pipeline and C++ packer are ROADMAP Queue 1 item 2"),
-        (args.steps_per_call > 1, "--steps_per_call > 1",
-         "make_multistep_train_step is ROADMAP Queue 1 item 2"),
         (args.trace > 0, "--trace",
          "a torch.profiler trace window is ROADMAP Queue 1 item 9"),
     ]
@@ -348,9 +363,12 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     kg, train_q, val_q = load_data(args)
+    from mpqe_tpu_torch.data import native as native_mod
+
     metrics.log({"event": "data_loaded", "data": args.data,
                  "seconds": time.perf_counter() - t0,
-                 "n_entities": kg.n_entities, "n_triples": kg.n_triples})
+                 "n_entities": kg.n_entities, "n_triples": kg.n_triples,
+                 "native_packer": native_mod.available()})
     init_fn = neighbor_table = None
     if args.model == "rgcn":
         cfg = mpqe_mod.MPQEConfig(
@@ -371,6 +389,17 @@ def main(argv=None):
         def batch_loss_fn(*a):
             return mpqe_mod.dense_batch_loss_kernel_fused_fwd(
                 *a, backward=args.fused_backward)
+    if args.model == "rgcn" and args.shared_negatives:
+        if args.kernel not in ("dense", "fused_fwd"):
+            raise SystemExit(
+                "--shared_negatives requires --kernel dense or fused_fwd")
+        batch_loss_fn = mpqe_mod.make_shared_negs_batch_loss(
+            args.shared_negatives,
+            encoder="fused_fwd" if args.kernel == "fused_fwd" else "dense",
+            fused_backward=args.fused_backward,
+            self_adv_tau=args.self_adv_tau)
+    elif args.self_adv_tau:
+        raise SystemExit("--self_adv_tau requires --shared_negatives")
     if args.parallel != "none":
         batch_loss_fn = _halo_loss_fn(args, device, metrics)
     tc = loop_mod.TrainConfig(
@@ -421,7 +450,8 @@ def main(argv=None):
             should_stop=stop_event.is_set, log_fn=metrics.log,
             checkpoint_fn=checkpoint_fn, batch_loss_fn=batch_loss_fn, kg=kg,
             warmup=args.warmup, neighbor_table=neighbor_table,
-            train_stores=train_stores)
+            train_stores=train_stores, prefetch=args.prefetch,
+            steps_per_call=args.steps_per_call)
         # the handler stays installed until the save is done: a second
         # SIGTERM in the grace window is swallowed, not a crash mid-save
         final_path = manager.save(state)

@@ -9,9 +9,14 @@ validation checkpoints on best and stops early on a plateau.
 The optimizer follows optax's formulas step by step (:class:`OptaxAdam`,
 :func:`make_optimizer`): torch's own Adam places ``eps`` and the bias
 corrections differently and ``clip_grad_norm_`` adds 1e-6 to the norm.
-Batches are packed by the numpy packer (``data/store.py``); the C++
-packer, the background pipeline (``prefetch``) and K-steps-per-call
-(``steps_per_call``) are not ported yet (ROADMAP Queue 1 item 2).
+Batches are packed by the C++ packer (``data/native.py``) when it builds,
+else by the numpy packer (``data/store.py``), as in the reference;
+``prefetch > 0`` packs them on a producer thread and copies them to the
+card ahead of use (``data/pipeline.py``).  ``steps_per_call = K`` takes
+K steps per call (:func:`make_multistep_train_step`): eager PyTorch has
+no ``lax.scan``, so the K steps run one after another in one Python
+call, their losses stay on the device, and the host reads them once per
+call: one synchronisation per K steps instead of K.
 """
 
 from __future__ import annotations
@@ -20,18 +25,15 @@ import collections
 import dataclasses
 import math
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from mpqe_tpu_torch.data.batcher import DenseQueryBatch
 from mpqe_tpu_torch.models import mpqe as mpqe_mod
-from mpqe_tpu_torch.queries import INTERSECTION_STRUCTURES, Formula, Query
+from mpqe_tpu_torch.queries import Formula, Query
 from mpqe_tpu_torch.train import evaluation
-
-NOT_PORTED = "ROADMAP Queue 1 item 2"
-
 
 @dataclasses.dataclass
 class TrainConfig:
@@ -213,13 +215,34 @@ def make_train_step(cfg, optimizer: OptaxAdam,
     return step_fn
 
 
+def make_multistep_train_step(cfg, optimizer: OptaxAdam,
+                              batch_loss_fn: Optional[Callable] = None
+                              ) -> Callable:
+    """``step(model, structure, *batch tensors with a leading [K] axis)
+    -> losses [K]``: K train steps of :func:`make_train_step`, one per
+    slice of the stacked batch, in one call.  The losses stay on the
+    device (the reference's ``lax.scan`` returns them so), so a caller
+    that reads them once synchronises once per K steps."""
+    one = make_train_step(cfg, optimizer, batch_loss_fn)
+
+    def step_fn(model, structure, *stacked):
+        return torch.stack([one(model, structure, *(a[i] for a in stacked))
+                            for i in range(stacked[0].shape[0])])
+
+    return step_fn
+
+
 BATCH_FIELDS = ("node_entity", "node_mode", "edge_rel", "edge_norm",
                 "target", "negatives", "neg_mask", "query_mask")
 
 
 def batch_tensors(batch: DenseQueryBatch, device) -> List[torch.Tensor]:
-    return [torch.from_numpy(np.ascontiguousarray(getattr(batch, f)))
-            .to(device, non_blocking=True) for f in BATCH_FIELDS]
+    """The batch's arrays as tensors on ``device``; tensors already there
+    (the pipeline's copies) are taken as they are."""
+    return [torch.as_tensor(np.ascontiguousarray(a)
+                            if isinstance(a, np.ndarray) else a)
+            .to(device, non_blocking=True)
+            for a in (getattr(batch, f) for f in BATCH_FIELDS)]
 
 
 def run_step(train_step: Callable, state: TrainState,
@@ -228,6 +251,25 @@ def run_step(train_step: Callable, state: TrainState,
                       *batch_tensors(batch, state.model.emb.ent.device))
     state.step += 1
     return float(loss)
+
+
+def run_multistep(train_step: Callable, state: TrainState,
+                  batches: Sequence[DenseQueryBatch]) -> List[float]:
+    """Stack K same-structure batches and take K steps in one call."""
+    from mpqe_tpu_torch.data.pipeline import stack_batches
+
+    return run_multistep_stacked(train_step, state, stack_batches(batches))
+
+
+def run_multistep_stacked(train_step: Callable, state: TrainState,
+                          batch: DenseQueryBatch) -> List[float]:
+    """One call of a multistep step over a batch already stacked on a
+    leading ``[K]`` axis (by ``BatchPipeline(steps_per_call=K)`` on its
+    thread); the K losses are read from the device once."""
+    losses = train_step(state.model, batch.structure,
+                        *batch_tensors(batch, state.model.emb.ent.device))
+    state.step += int(losses.shape[0])
+    return losses.tolist()
 
 
 def check_conv(losses: collections.deque, tol: float) -> bool:
@@ -293,31 +335,45 @@ def run_train(
     carries its seconds, the loss included (the step ends on the host
     reading the loss).  Validation takes the batched sweep
     (``evaluate_batched``), or with ``eval_encode_fn`` the per-formula
-    protocol through that encoder (``evaluate``), as in the reference.
+    protocol through that encoder (``evaluate``), as in the reference;
+    it runs whenever the step count crosses a ``val_every`` boundary.
     ``neighbor_table`` (a GQE neighborhood encoder's table) goes to the
-    validation sweep; the loss gets it bound in ``batch_loss_fn``."""
-    if prefetch > 0:
-        raise NotImplementedError(
-            f"prefetch > 0 (the background batch pipeline, data/pipeline.py "
-            f"and the C++ packer): {NOT_PORTED}")
-    if steps_per_call > 1:
-        raise NotImplementedError(
-            f"steps_per_call > 1 (make_multistep_train_step): {NOT_PORTED}")
-    from mpqe_tpu_torch.data.store import build_stores, pack_dense_batch_np
+    validation sweep; the loss gets it bound in ``batch_loss_fn``.
+
+    ``prefetch > 0`` takes batches from a ``data/pipeline.py
+    BatchPipeline`` of that depth, one per curriculum phase (restarted
+    from ``tc.seed`` at the burn-in switch, as the reference does).
+    ``steps_per_call > 1`` takes that many same-formula steps per call of
+    :func:`make_multistep_train_step` (of the default step only: a custom
+    ``train_step`` raises), and its records carry ``loss`` (the last),
+    ``loss_mean_k`` and ``k``."""
+    from mpqe_tpu_torch.data.pipeline import draw_batch, packer
+    from mpqe_tpu_torch.data.store import build_stores
 
     rng = np.random.default_rng(tc.seed)
     device = state.model.emb.ent.device
-    hard_step = None
+    hard_step = multi_step = hard_multi = None
     if train_step is None:
         train_step = make_train_step(cfg, state.optimizer, batch_loss_fn)
+        if steps_per_call > 1:
+            multi_step = make_multistep_train_step(cfg, state.optimizer,
+                                                   batch_loss_fn)
         if tc.hard_margin > 0.0:
             hcfg = dataclasses.replace(cfg, margin=tc.hard_margin)
             hard_step = make_train_step(hcfg, state.optimizer, batch_loss_fn)
+            if steps_per_call > 1:
+                hard_multi = make_multistep_train_step(
+                    hcfg, state.optimizer, batch_loss_fn)
     elif tc.hard_margin > 0.0:
         raise ValueError("hard_margin needs the default train step")
+    elif steps_per_call > 1:
+        raise ValueError("steps_per_call > 1 needs the default train step "
+                         "(batch_loss_fn picks the loss)")
 
     stores = (train_stores if train_stores is not None
               else build_stores(train_queries, kg=kg))
+    pack = packer()
+    k = steps_per_call if multi_step is not None else 1
     structures = [s for s in stores if stores[s]]
     if warmup:
         warmup_train_step(
@@ -338,66 +394,98 @@ def run_train(
     best_val = -np.inf
     bad_evals = 0
     phase = "burn_in" if burn_in else "full"
-    # validation fires on crossing a val_every boundary
+    # validation fires on crossing a val_every boundary (with K steps a
+    # call the count strides by K)
     last_val_bucket = state.step // tc.val_every
+
+    def make_pipeline(ph):
+        from mpqe_tpu_torch.data.pipeline import BatchPipeline
+
+        return BatchPipeline(
+            stores, batch_size=tc.batch_size, n_neg=tc.n_neg,
+            structures=([tc.burn_in_structure] if ph == "burn_in"
+                        else structures),
+            hard_neg_prob=tc.hard_neg_prob, seed=tc.seed, prefetch=prefetch,
+            device=device,
+            steps_per_call=k).start()
+
+    pipeline = make_pipeline(phase) if prefetch > 0 else None
     target_step = state.step + tc.max_steps
-    while state.step < target_step:
-        if should_stop is not None and should_stop():
-            if log_fn:
-                log_fn({"step": state.step, "event": "preempt_stop"})
-            break
-        structure = (tc.burn_in_structure if phase == "burn_in"
-                     else structures[rng.integers(len(structures))])
-        f_stores = stores[structure]
-        fstore = f_stores[rng.integers(len(f_stores))]
-        pick = rng.integers(0, fstore.n_queries,
-                            size=min(tc.batch_size, fstore.n_queries)
-                            ).astype(np.int64)
-        use_hard = (structure in INTERSECTION_STRUCTURES
-                    and rng.random() < tc.hard_neg_prob)
-        seed = int(rng.integers(2**62))
-        batch = pack_dense_batch_np(fstore, pick, tc.batch_size, tc.n_neg,
-                                    seed, use_hard)
-        t0 = time.perf_counter()
-        use_hard_margin = hard_step is not None and batch.used_hard
-        loss = run_step(hard_step if use_hard_margin else train_step, state,
-                        batch)
-        dt = time.perf_counter() - t0
-        losses.append(loss)
-        if log_fn:
-            log_fn({"step": state.step, "loss": loss, "structure": structure,
-                    "phase": phase, "seconds": dt})
-
-        if phase == "burn_in" and check_conv(losses, tc.conv_tol):
-            phase = "full"
-            losses.clear()
-            if log_fn:
-                log_fn({"step": state.step, "event": "burn_in_done"})
-
-        if val_queries and state.step // tc.val_every > last_val_bucket:
-            last_val_bucket = state.step // tc.val_every
-            res = run_validation()
-            metric = res.macro_auc
-            if log_fn:
-                log_fn({"step": state.step, "val": res.flat()})
-            if not np.isfinite(metric):
+    try:
+        while state.step < target_step:
+            if should_stop is not None and should_stop():
                 if log_fn:
-                    log_fn({"step": state.step,
-                            "event": "val_unscoreable_skipped"})
-            elif metric > best_val:
-                best_val = metric
-                bad_evals = 0
-                if checkpoint_fn:
-                    checkpoint_fn(state, metric)
+                    log_fn({"step": state.step, "event": "preempt_stop"})
+                break
+            if pipeline is not None:
+                batch = next(pipeline)
             else:
-                bad_evals += 1
-                if bad_evals >= tc.patience and phase == "full":
+                batch = draw_batch(
+                    rng, stores, ([tc.burn_in_structure] if phase == "burn_in"
+                                  else structures),
+                    tc.batch_size, tc.n_neg, tc.hard_neg_prob, k, pack)
+            structure = batch.structure
+            t0 = time.perf_counter()
+            use_hard_margin = hard_step is not None and batch.used_hard
+            if multi_step is not None:
+                ms = hard_multi if use_hard_margin else multi_step
+                # K same-formula batches stacked on a leading [K] axis
+                k_losses = run_multistep_stacked(ms, state, batch)
+                dt = time.perf_counter() - t0
+                losses.extend(k_losses)
+                loss = k_losses[-1]
+                if log_fn:
+                    log_fn({"step": state.step, "loss": loss,
+                            "loss_mean_k": float(np.mean(k_losses)),
+                            "structure": structure, "phase": phase,
+                            "seconds": dt, "k": len(k_losses)})
+            else:
+                loss = run_step(hard_step if use_hard_margin else train_step,
+                                state, batch)
+                dt = time.perf_counter() - t0
+                losses.append(loss)
+                if log_fn:
+                    log_fn({"step": state.step, "loss": loss,
+                            "structure": structure, "phase": phase,
+                            "seconds": dt})
+
+            if phase == "burn_in" and check_conv(losses, tc.conv_tol):
+                phase = "full"
+                losses.clear()
+                if pipeline is not None:
+                    pipeline.stop()
+                    pipeline = make_pipeline(phase)
+                if log_fn:
+                    log_fn({"step": state.step, "event": "burn_in_done"})
+
+            if val_queries and state.step // tc.val_every > last_val_bucket:
+                last_val_bucket = state.step // tc.val_every
+                res = run_validation()
+                metric = res.macro_auc
+                if log_fn:
+                    log_fn({"step": state.step, "val": res.flat()})
+                if not np.isfinite(metric):
                     if log_fn:
-                        log_fn({"step": state.step, "event": "early_stop"})
-                    break
-        elif phase == "full" and not val_queries and \
-                check_conv(losses, tc.conv_tol):
-            break
+                        log_fn({"step": state.step,
+                                "event": "val_unscoreable_skipped"})
+                elif metric > best_val:
+                    best_val = metric
+                    bad_evals = 0
+                    if checkpoint_fn:
+                        checkpoint_fn(state, metric)
+                else:
+                    bad_evals += 1
+                    if bad_evals >= tc.patience and phase == "full":
+                        if log_fn:
+                            log_fn({"step": state.step,
+                                    "event": "early_stop"})
+                        break
+            elif phase == "full" and not val_queries and \
+                    check_conv(losses, tc.conv_tol):
+                break
+    finally:
+        if pipeline is not None:
+            pipeline.stop()
     return state
 
 

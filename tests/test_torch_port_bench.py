@@ -159,7 +159,8 @@ def tiny_bench(monkeypatch):
     for name, value in dict(
             D=16, N_ENTITIES=2_000, NUM_BASES=4, BATCH=64, TORCH_BATCH=64,
             TORCH_ITERS=1, TORCH_ENTITIES=2_000, N_SMALL=1, N_LARGE=2,
-            N_LARGE_FWD=2, SAMPLES=1, MATRIX_SMALL_ITERS=(1, 2)).items():
+            N_LARGE_FWD=2, SAMPLES=1, MATRIX_SMALL_ITERS=(1, 2),
+            BEST_STACK_ITERS=(1, 2)).items():
         monkeypatch.setattr(bench, name, value)
     monkeypatch.setattr(bench, "MATRIX_CONFIGS", [
         dict(mc, n_entities=min(mc["n_entities"], 500),
@@ -216,9 +217,17 @@ def test_bench_main_on_the_cpu_prints_one_json_line(tiny_bench, capsys):
         assert "error" not in row, row
         assert math.isfinite(row["train_step_ms"]) and row["batch"] == 64
     assert ex["kernel_paths"][2]["queries_per_block"] == 128
-    # bf16 is ported: the best stack waits on shared negatives alone
-    assert "item 2" in ex["best_stack"] and "item 5" not in ex["best_stack"]
-    assert "item 2" in ex["shared_neg_variant"]
+    # the two shared-negatives variants: their step times, labelled
+    assert ex["best_stack"]["config"] == (
+        "dtype=bfloat16 shared_negatives=512 kernel=fused_fwd "
+        "fused_backward=pallas")
+    assert "VARIANT" in ex["best_stack"]["protocol_note"]
+    assert ex["shared_neg_variant"]["n_shared_negatives"] == 512
+    assert ex["shared_neg_variant"]["protocol"] == "shared_negatives_variant"
+    for row in (ex["best_stack"], ex["shared_neg_variant"]):
+        for k in ("train_step_ms", "train_queries_per_s"):
+            assert isinstance(row[k], float) and math.isfinite(row[k]) \
+                and row[k] > 0, (row, k)
     assert "broken_timings" not in ex
     # the chip check's rule: this line fails it only where a CPU run
     # differs from the card's (the route, the roofline share, the
@@ -235,7 +244,9 @@ def test_bench_main_on_the_cpu_prints_one_json_line(tiny_bench, capsys):
                  dict(edge_msgs_per_fwd=64 * 6), dict(fwd_seconds_k1=None),
                  dict(fwd_impl="torch_dense"),
                  dict(fwd_seconds_k1_fold_bias=float("nan")),
-                 dict(fwd_device_busy_share=1.5)):
+                 dict(fwd_device_busy_share=1.5),
+                 dict(best_stack="not measured"),
+                 dict(shared_neg_variant={"train_step_ms": 0.0})):
         worse = json.loads(json.dumps(card))
         worse["extra"].update(edit)
         assert _chip_smoke().check_bench_record(worse, batch=64), edit

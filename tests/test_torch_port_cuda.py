@@ -34,6 +34,8 @@ of the same values (gradients rounded), K8 on a bf16 layer and rows
 equal to K8 on the widened operands.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1553,3 +1555,111 @@ def test_cuda_quantized_scores_match_cpu():
                 assert torch.equal(got, want), B
             else:
                 assert float((got - want).abs().max()) <= 1e-5, (B, td)
+
+
+# ------------------------------------------- the training host path (card)
+def _host_path_stores():
+    from mpqe_tpu_torch.data.sampler import QuerySampler, make_random_kg
+    from mpqe_tpu_torch.data.store import build_stores
+    from mpqe_tpu_torch.queries import group_queries_by_formula
+
+    kg = make_random_kg(n_entities=N_ENT, n_modes=N_MODES, n_base_rels=133,
+                        n_triples=40_000, seed=3)
+    s = QuerySampler(kg, seed=3)
+    qs = []
+    for st in ("1-chain", "2-chain", "3-chain_inter", "2-inter"):
+        qs += s.sample_queries(st, 300, n_neg=8, n_hard_neg=8)
+    return build_stores(group_queries_by_formula(qs), kg=kg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4])
+def test_cuda_pipeline_copies_equal_host_batches(k):
+    """Batches copied on the pipeline's own stream (pinned, non_blocking,
+    an event per batch) equal the host pipeline's batches of the same
+    seed, read on the consumer's stream after a long kernel queued ahead
+    of each read (a missing wait_event or record_stream shows as a stale
+    or torn batch)."""
+    from mpqe_tpu_torch.data.pipeline import ARRAY_FIELDS, BatchPipeline
+
+    dev = _cuda()
+    stores = _host_path_stores()
+    kw = dict(batch_size=512, n_neg=8, seed=5, prefetch=3, steps_per_call=k)
+    with BatchPipeline(stores, **kw) as host_pipe:
+        host = [next(host_pipe) for _ in range(24)]
+    a = torch.randn((2048, 2048), device=dev)
+    with BatchPipeline(stores, device=dev, **kw) as pipe:
+        for want in host:
+            for _ in range(4):  # keep the consumer's stream busy
+                a = torch.tanh(a @ a * 1e-3)
+            got = next(pipe)
+            assert got.structure == want.structure
+            for f in ARRAY_FIELDS:
+                t = getattr(got, f)
+                assert t.is_cuda, f
+                ref = torch.from_numpy(getattr(want, f)).to(dev)
+                assert torch.equal(t, ref), f
+            del got
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_multistep_and_prefetch_match_single_steps():
+    """On the card through K1/K2, within 1e-4 (entity gradients are
+    summed with index_add_ atomics, so bits may differ): K = 4 steps in
+    one call give the losses of 4 single steps on the same batches, and
+    ``run_train`` with a prefetching pipeline the losses of the same run
+    without one; K1 and K2 launch once a step."""
+    from mpqe_tpu_torch.data.pipeline import BatchPipeline
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.train import loop as tl
+
+    dev = _cuda()
+    stores = _host_path_stores()
+    cfg = tm.MPQEConfig(n_entities=N_ENT, n_modes=N_MODES, n_rels=N_RELS,
+                        embed_dim=128, n_layers=3, num_bases=16)
+
+    def loss_fn(*a):
+        return tm.dense_batch_loss_kernel_fused_fwd(*a, backward="pallas")
+
+    with BatchPipeline(stores, 512, 8, seed=1, steps_per_call=4) as pipe:
+        stacked = next(pipe)
+    losses = []
+    for multi in (True, False):
+        tc = tl.TrainConfig(lr=0.01)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state = tl.init_train_state(gen, cfg, tc, device=dev)
+        if multi:
+            step = tl.make_multistep_train_step(cfg, state.optimizer,
+                                                loss_fn)
+            losses.append(tl.run_multistep_stacked(step, state, stacked))
+        else:
+            step = tl.make_train_step(cfg, state.optimizer, loss_fn)
+            losses.append([tl.run_step(step, state, b) for b in [
+                dataclasses.replace(stacked, **{
+                    f: getattr(stacked, f)[i] for f in tl.BATCH_FIELDS})
+                for i in range(4)]])
+    for a, b in zip(*losses):
+        assert abs(a - b) <= 1e-4 * abs(b), losses
+
+    def run(prefetch, k):
+        tc = tl.TrainConfig(lr=0.01, batch_size=512, n_neg=8, max_steps=16,
+                            seed=4)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state = tl.init_train_state(gen, cfg, tc, device=dev)
+        log = []
+        ff.fused_tgt_forward.launches = ff.fused_tgt_backward.launches = 0
+        tl.run_train(state, cfg, tc, None, train_stores=stores,
+                     batch_loss_fn=loss_fn, log_fn=log.append,
+                     prefetch=prefetch, steps_per_call=k)
+        return log, (ff.fused_tgt_forward.launches,
+                     ff.fused_tgt_backward.launches)
+
+    multi, n_multi = run(2, 4)
+    sync, n_sync = run(0, 4)
+    assert n_multi == n_sync == (16, 16)
+    assert [r["structure"] for r in multi] == [r["structure"] for r in sync]
+    for a, b in zip(multi, sync):
+        assert a["k"] == 4
+        for key in ("loss", "loss_mean_k"):
+            assert abs(a[key] - b[key]) <= 1e-4 * abs(b[key]), (a, b)

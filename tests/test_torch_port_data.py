@@ -129,7 +129,9 @@ def test_port_imports_no_jax():
         "for m in ('mpqe_tpu_torch.ops.segment_kernels', "
         "'mpqe_tpu_torch.ops.sddmm', 'mpqe_tpu_torch.evaluate', "
         "'mpqe_tpu_torch.parallel.halo', 'mpqe_tpu_torch.parallel.halo_train', "
-        "'mpqe_tpu_torch.parallel.mesh', 'mpqe_tpu_torch.ops.ring'):\n"
+        "'mpqe_tpu_torch.parallel.mesh', 'mpqe_tpu_torch.ops.ring', "
+        "'mpqe_tpu_torch.netserve', 'mpqe_tpu_torch.data.native', "
+        "'mpqe_tpu_torch.data.pipeline', 'mpqe_tpu_torch.ops.embed'):\n"
         "    assert m in sys.modules, m\n")
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

@@ -306,8 +306,23 @@ def test_halo_train_refusals():
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tht.init_halo_train_state(torch.Generator(), tcfg, tc, mesh,
                                   shard_entity_table=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tht.make_halo_multistep_train_step(tcfg, tc, mesh)
+    # the halo multistep step is ported (tests/test_torch_port_multistep.py);
+    # like the single step it refuses an unknown layer kind when called
+    model = tloop.init_train_state(torch.Generator().manual_seed(0), tcfg,
+                                   tc).model
+    step = tht.make_halo_multistep_train_step(
+        tcfg, tloop.make_optimizer(tc, model.parameters()), mesh,
+        layer_kind="bogus")
+    spec = STRUCTURES["1-chain"]
+    arrays = [torch.zeros((2, 16, spec.n_nodes), dtype=torch.int32),
+              torch.zeros((2, 16, spec.n_nodes), dtype=torch.int32),
+              torch.zeros((2, spec.n_edges), dtype=torch.int32),
+              torch.ones((2, spec.n_edges)),
+              torch.zeros((2, 16), dtype=torch.int32),
+              torch.zeros((2, 16, 4), dtype=torch.int32),
+              torch.ones((2, 16, 4)), torch.ones((2, 16))]
+    with pytest.raises(ValueError, match="layer_kind 'bogus'"):
+        step(model, "1-chain", *arrays)
 
 
 # --------------------------------------------------------------------- CLI
@@ -345,8 +360,8 @@ def test_train_cli_halo_on_cpu(parallel, tmp_path, capsys):
      "--shared_negatives is single-chip"),
     (["--parallel", "halo_ring", "--mesh", "2,1"], ValueError,
      "mesh shape 2x1 != 1 devices"),
-    (["--parallel", "halo_ring", "--steps_per_call", "4"],
-     NotImplementedError, "Queue 1 item 2"),
+    (["--parallel", "spmd", "--steps_per_call", "4"],
+     NotImplementedError, "Queue 1 item 8"),
 ], ids=["spmd", "kernel", "model", "shared_neg", "mesh", "multistep"])
 def test_train_cli_parallel_refusals(flags, exc, msg, tmp_path):
     from mpqe_tpu_torch.train.__main__ import main

@@ -240,8 +240,13 @@ def test_load_ntriples_kg_files_match(gz, tmp_path):
     assert want.n_entities == 100
 
 
-def test_native_parser_is_refused_naming_its_item(tmp_path):
+def test_native_parser_is_refused_naming_its_item(tmp_path, monkeypatch):
+    # the C++ parser is ported (tests/test_torch_port_native.py); forced
+    # where the library cannot be built it is refused, naming its source
+    from mpqe_tpu_torch.data import native
+
     path = tmp_path / "kg.nt"
     path.write_text("<http://a> <http://p> <http://b> .\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
+    monkeypatch.setattr(native, "available", lambda: False)
+    with pytest.raises(RuntimeError, match="cpp/mpqe_host.cpp"):
         trdf.load_ntriples_kg(str(path), native=True)

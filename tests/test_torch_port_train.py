@@ -658,15 +658,66 @@ def test_cli_blocked_needs_bases(tmp_path):
                     "--run_dir", str(tmp_path / "r")])
 
 
-@pytest.mark.parametrize("flag", [
-    ["--shared_negatives", "4"], ["--self_adv_tau", "1.0"],
-    ["--parallel", "spmd"], ["--prefetch", "2"], ["--steps_per_call", "4"],
-    ["--trace", "5"]])
+@pytest.mark.parametrize("flag", [["--parallel", "spmd"], ["--trace", "5"]])
 def test_cli_unported_flags_raise(flag, tmp_path):
     from mpqe_tpu_torch.train.__main__ import main
 
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         main(CLI + flag + ["--run_dir", str(tmp_path / "r")])
+
+
+@pytest.mark.parametrize("flag", [
+    ["--shared_negatives", "4"],
+    ["--shared_negatives", "4", "--self_adv_tau", "1.0", "--kernel",
+     "fused_fwd", "--fused_backward", "pallas"],
+    ["--prefetch", "2"],
+    ["--steps_per_call", "2"],
+    ["--prefetch", "2", "--steps_per_call", "2", "--kernel", "fused_fwd"],
+    ["--parallel", "halo_ring", "--steps_per_call", "2"]],
+    ids=["shared_negatives", "self_adv_tau", "prefetch", "steps_per_call",
+         "prefetch_steps_per_call", "halo_steps_per_call"])
+def test_cli_host_path_flags_train(flag, tmp_path, capsys):
+    """The training host path's flags train 4 steps: the final line,
+    finite losses (with ``--steps_per_call K`` a record per K steps,
+    carrying ``k`` and ``loss_mean_k``) and the ``data_loaded`` record's
+    ``native_packer``."""
+    from mpqe_tpu_torch.data import native
+    from mpqe_tpu_torch.train.__main__ import main
+
+    run = str(tmp_path / "run")
+    main(CLI + flag + ["--steps", "4", "--val_every", "2", "--run_dir", run])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert re.fullmatch(r"final step=4 macro_auc=\S+ macro_apr=\S+", last)
+    records = [json.loads(ln) for ln in open(os.path.join(run,
+                                                          "metrics.jsonl"))]
+    steps = [r for r in records if "loss" in r]
+    k = int(flag[flag.index("--steps_per_call") + 1]) \
+        if "--steps_per_call" in flag else 1
+    assert len(steps) == 4 // k and steps[-1]["step"] == 4
+    assert all(np.isfinite(r["loss"]) for r in steps)
+    if k > 1:
+        assert all(r["k"] == k and np.isfinite(r["loss_mean_k"])
+                   for r in steps)
+    loaded = [r for r in records if r.get("event") == "data_loaded"]
+    assert loaded[0]["native_packer"] is native.available()
+
+
+def test_cli_self_adv_tau_needs_shared_negatives(tmp_path):
+    from mpqe_tpu_torch.train.__main__ import main
+
+    with pytest.raises(SystemExit,
+                       match="--self_adv_tau requires --shared_negatives"):
+        main(CLI + ["--self_adv_tau", "1.0", "--run_dir",
+                    str(tmp_path / "r")])
+
+
+def test_cli_shared_negatives_needs_a_dense_route(tmp_path):
+    from mpqe_tpu_torch.train.__main__ import main
+
+    with pytest.raises(SystemExit, match="--shared_negatives requires "
+                                         "--kernel dense or fused_fwd"):
+        main(CLI + ["--shared_negatives", "4", "--kernel", "fused",
+                    "--run_dir", str(tmp_path / "r")])
 
 
 @pytest.mark.parametrize("flag", [
