@@ -12,7 +12,9 @@ mpqe_tpu_torch.bench`` and the quality benchmark) and reduced precision
 bfloat16 and int8 candidate tables; its sparse routes: K5 on bf16 rows,
 K6 and K8 on bf16 leaves, the sparse evaluate, and the train CLI at
 ``--dtype bfloat16`` through ``--kernel fused|blocked`` and ``--parallel
-halo_ring``) at the flagship width
+halo_ring``) and the sharded entity table (serving, full ranking, the
+data-parallel step, two processes, the multi-part dry run) at the
+flagship width
 (d = 128, 3 R-GCN layers, TGT readout, 16 bases or full per-relation
 weights, 266 relations, 4 modes, 1,000,000 entities;
 random weights from a seed) and checks every
@@ -283,6 +285,25 @@ parallel (one nvcc each), then:
    --val_per_structure 100`` in-process: both arms' held-out macro AUC
    and APR beside the JAX package's CPU figures of the same command,
    each AUC >= 0.70.
+24. The sharded entity table, on parts of the one card: ``serve.sharded``
+   (after ``serve``: ``ShardedQueryServer`` on 4 parts at float32,
+   bfloat16 and int8 over ``serve``'s stream, each answer equal to the
+   unsharded server's of the same table dtype up to ties, K3's launches
+   equal to the unsharded server's and its encodings from the compact
+   anchor table bit-equal; latency, the largest score block, peak
+   memory), ``eval.sharded`` (after ``eval.ranking``:
+   ``full_ranking_sharded`` on 4 parts, metrics within 1e-6 of
+   ``full_ranking``'s, the ranks that differ with their score gaps),
+   and after ``halo.train.multistep``: ``train.spmd`` (3 data-parallel
+   SGD steps on a (2, 2) mesh against the single-device step, the
+   parameters' changes within 1e-4; the train CLI at ``--parallel
+   spmd``, then ``evaluate --ranking`` and ``serve --run_dir`` of its
+   run in-process; ``serve --shards 2`` refused with the reference's
+   message), ``multihost`` (two processes under ``gloo``,
+   ``tools/multihost_run.py``, SGD, against one process over the global
+   batch: losses within 1e-5, parameter changes within 1e-4, the two
+   processes bit-equal) and ``dryrun``
+   (``tools/dryrun_multichip.py`` on 8 parts, K8 against the ring).
 
 Prints the card's name and power limit first, then one line per check,
 a JSON line ``{"kernels": [...]}`` (K1's entry, ``tgt_mma_forward``,
@@ -1085,6 +1106,21 @@ def tree_mean_err(got: dict, want: dict) -> float:
         if w is not None and bool(w.abs().max() > 0):
             worst = max(worst, float((got[name] - w).abs().mean()
                                      / w.abs().mean()))
+    return worst
+
+
+def tree_change_err(got: dict, want: dict) -> float:
+    """max over leaves of mean|got - want| / mean|want|, for two runs'
+    changes of each parameter (tensors or arrays); a leaf that ``want``
+    leaves unchanged must be unchanged in ``got`` (else inf)."""
+    worst = 0.0
+    for name, w in want.items():
+        w, g = torch.as_tensor(w), torch.as_tensor(got[name])
+        if not bool((w != 0).any()):
+            if bool((g != 0).any()):
+                return float("inf")
+            continue
+        worst = max(worst, float((g - w).abs().mean() / w.abs().mean()))
     return worst
 
 
@@ -2901,6 +2937,7 @@ def phase_eval_ranking(model, cfg, kg, val_q, device):
     log(line)
     if want != rk[structure]:
         raise AssertionError(f"{line}: {want} != {rk[structure]}")
+    return rk
 
 
 def phase_eval_cli(run_dir: str) -> None:
@@ -5397,8 +5434,8 @@ def phase_train_multistep(kg_path: str, tmp: str, device) -> tuple:
     first = []
     run_stacked = loop_mod.run_multistep_stacked
 
-    def captured(step, state, batch):
-        losses = run_stacked(step, state, batch)
+    def captured(step, state, batch, *put):
+        losses = run_stacked(step, state, batch, *put)
         if not first:
             first.append((dataclasses.replace(batch, **{
                 f: torch.as_tensor(getattr(batch, f)).cpu()
@@ -5743,6 +5780,419 @@ def phase_bench() -> float:
     return wall
 
 
+# ----------------------------------------------------------------------
+# The sharded entity table (parts of the one card): ShardedQueryServer,
+# full_ranking_sharded, the spmd step and its CLI, two processes under
+# gloo, and the multi-part dry run
+# ----------------------------------------------------------------------
+SHARD_PARTS = 4  # the model axis of serve.sharded and eval.sharded
+SPMD_STEPS = 3
+SPMD_STRUCTURES = ("1-chain", "2-inter", "3-chain_inter")
+# spmd vs single-device step, two processes vs one: each parameter's
+# change over the run, mean-normalized per leaf (the gathers' gradients
+# sum with atomics); the optimizer is SGD at this rate, so the changes
+# are the gradients' sums (a gradient reduced twice gives an error of 1)
+SPMD_TOL = 1e-4
+SPMD_LR = 1.0
+MULTIHOST_TOL = 1e-5  # two processes vs one, losses (relative)
+DRYRUN_PARTS = 8
+SMI = {}  # the card's name and power limit (nvidia-smi), set in main
+
+
+def shard_mesh(device, shape=(1, SHARD_PARTS)):
+    from mpqe_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(shape, devices=[device] * (shape[0] * shape[1]))
+
+
+def phase_serve_sharded(model, cfg, kg, device) -> int:
+    """``serve.sharded``: ``ShardedQueryServer`` over SHARD_PARTS parts of
+    the card at float32, bfloat16 and int8 on ``sample_stream``'s
+    requests, each answer held to the unsharded ``QueryServer``'s of the
+    same table dtype (``check_answers``, then ids equal up to ties and
+    scores within TOL_SCORE: the ``-1`` tail of a scarce mode is the
+    reference's own difference and cannot arise at 250,000 entities a
+    mode), K3's launches equal to the unsharded server's on the same
+    requests, and one dispatch per structure encoded both ways: K3 from
+    the compact anchor table bit-equal to K3 from the model's table.
+    Returns the sharded runs' K3 launches."""
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+    from mpqe_tpu_torch.serve import QueryServer, ShardedQueryServer
+
+    mesh = shard_mesh(device)
+    single, mixed = sample_stream(kg)
+    reqs = single + mixed
+    firsts = {}
+    for req in single:
+        firsts.setdefault(req[0].formula.structure, req)
+    launches = 0
+    for dtype in ("float32", "bfloat16", "int8"):
+        t0 = time.perf_counter()
+        dense = QueryServer(model, cfg, kg.entity_mode, device=device,
+                            table_dtype=dtype)
+        ff.fused_tgt_forward_multi.launches = 0
+        want = [dense.answer(r, k=K + 1) for r in reqs]
+        k3_dense = ff.fused_tgt_forward_multi.launches
+        sharded = ShardedQueryServer(model, cfg, kg.entity_mode, mesh,
+                                     table_dtype=dtype)
+        sharded.warmup(STRUCTURE_NAMES, batch=BATCH, k=K)
+        setup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ff.fused_tgt_forward_multi.launches = 0
+        lat, got = [], []
+        for r in reqs:
+            t0 = time.perf_counter()
+            got.append(sharded.answer(r, k=K))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        k3 = ff.fused_tgt_forward_multi.launches
+        peak = torch.cuda.max_memory_allocated(device)
+        launches += k3
+        swapped = 0
+        for r, a, w in zip(reqs, got, want):
+            check_answers(sharded, r, a, K)
+            for ga, wa in zip(a, w):
+                ok, n = same_up_to_ties(ga.entity_ids, ga.scores,
+                                        wa.entity_ids, wa.scores, TOL_SCORE)
+                if not ok:
+                    raise AssertionError(
+                        f"serve.sharded {dtype}: answer {ga.entity_ids} "
+                        f"{ga.scores} vs unsharded {wa.entity_ids} "
+                        f"{wa.scores}")
+                swapped += n
+        bit_equal = True
+        for s, req in firsts.items():
+            _, *arrays = dense._pack(req)
+            args = [torch.from_numpy(a).to(device) for a in arrays[:4]]
+            with torch.inference_mode():
+                qd = ff.fused_tgt_forward_multi(model, cfg, s, *args,
+                                                operands=dense._k3)
+                qs = ff.fused_tgt_forward_multi(sharded.model, cfg, s, *args,
+                                                operands=sharded._k3)
+            bit_equal &= bool(torch.equal(qd, qs))
+        ms = np.asarray(lat)
+        n_q = sum(map(len, reqs))
+        block_bytes = BATCH * sharded._tables[0].shape[0] * 4
+        line = (f"serve.sharded {dtype}: {len(reqs)} requests ({n_q} "
+                f"queries) on {SHARD_PARTS} parts of {SMI['line']}: "
+                f"latency_ms_p50={np.percentile(ms, 50):.3f} "
+                f"latency_ms_p95={np.percentile(ms, 95):.3f} "
+                f"queries_per_s={n_q / ms.sum() * 1e3:.1f}; K3 launches "
+                f"{k3} (unsharded {k3_dense}); encodings_bit_equal="
+                f"{bit_equal}; answers equal up to {swapped} tie swaps; "
+                f"largest score block {block_bytes} B ([{BATCH}, "
+                f"{sharded._tables[0].shape[0]}] f32); ranking blocks "
+                f"{sharded.table_bytes} B; peak_mem_bytes={peak}; setup "
+                f"{setup_s:.2f} s")
+        log(line)
+        if k3 == 0 or k3 != k3_dense or not bit_equal:
+            raise AssertionError(line)
+        del dense, sharded, want, got
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_eval_sharded(model, cfg, kg, val_q, device, want) -> int:
+    """``eval.sharded``: ``full_ranking_sharded`` over SHARD_PARTS parts
+    of the card against ``full_ranking``'s metrics (``want``): MRR,
+    mean rank and Hits@k within 1e-6; then per structure the ranks of
+    both routes from the same query vectors, the count that differ and
+    each one's score gap (the nearest same-mode competitor's distance
+    from the true answer's score).  Returns its K3 launches."""
+    from mpqe_tpu_torch.data.batcher import bucket_size
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.parallel import rank_shard
+    from mpqe_tpu_torch.train import evaluation
+
+    mesh = shard_mesh(device)
+    ff.fused_tgt_forward_multi.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    rk = evaluation.full_ranking_sharded(model, cfg, val_q, kg.entity_mode,
+                                         mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3 = ff.fused_tgt_forward_multi.launches
+    peak = torch.cuda.max_memory_allocated(device)
+    worst = max(abs(rk[s][m] - want[s][m]) for s in want for m in want[s])
+    log(f"eval.sharded: {len(rk)} structures in {wall:.3f} s on "
+        f"{SHARD_PARTS} parts of {SMI['line']}; K3 launches {k3}; "
+        f"peak_mem_bytes={peak}; max |metric - full_ranking's| = "
+        f"{worst:.3e}")
+    if set(rk) != set(want) or worst > 1e-6 or k3 == 0:
+        raise AssertionError(f"eval.sharded: {rk} vs {want}")
+
+    sharded = rank_shard.shard_encode_params(model, mesh)
+    table = sharded.emb.ent
+    modes = rank_shard.shard_modes(mesh, kg.entity_mode, table.n_padded)
+    rank_fn = rank_shard.make_sharded_rank_fn(mesh, cfg)
+    ops = ff.prepare_fused_multi(model, cfg)
+    emode = torch.from_numpy(kg.entity_mode.astype(np.int32)).to(device)
+    es = evaluation.make_eval_set(val_q, 200, require_negatives=False)
+    n_diff = 0
+    for s, data in es.by_structure.items():
+        n = data["target"].shape[0]
+        B = bucket_size(n)
+        pad = [evaluation._pad_chunk(data[k], 0, n, B, device, fill)
+               for k, fill in (("node_entity", 0), ("node_mode", 0),
+                               ("edge_rel", 0), ("edge_norm", 1))]
+        tgt = evaluation._pad_chunk(data["target"], 0, n, B, device)
+        with torch.no_grad():
+            q = mpqe_mod.encode_dense_multi_auto(model, cfg, s, *pad,
+                                                 operands=ops)
+            scores = mpqe_mod.score_all_entities(model, cfg, q)
+            t = tgt.long()
+            ok = emode[None, :] == emode[t][:, None]
+            true_s = scores.gather(1, t[:, None])
+            r_d = 1 + torch.sum((scores > true_s) & ok, dim=1)
+            r_s = rank_fn(table.blocks, modes, q.float(), tgt)
+            diff = (r_d != r_s)[:n].nonzero().flatten().tolist()
+            for i in diff:
+                gap = (scores[i] - true_s[i]).abs()
+                gap[t[i]] = float("inf")
+                gap = gap.masked_fill(~ok[i], float("inf"))
+                log(f"eval.sharded.rank_diff {s} query {i}: full_ranking "
+                    f"{int(r_d[i])} sharded {int(r_s[i])} score gap "
+                    f"{float(gap.min()):.3e}")
+        n_diff += len(diff)
+    log(f"eval.sharded: {n_diff} ranks differ of "
+        f"{sum(d['target'].shape[0] for d in es.by_structure.values())}")
+    return k3
+
+
+def phase_train_spmd(kg, train_q, device) -> int:
+    """``train.spmd``: SPMD_STEPS SGD steps of the data-parallel step
+    with the entity table row-sharded, on a (2, 2) mesh of 4 parts of the
+    card, against the port's single-device step from the same initial
+    state (checked equal) on the same batches: losses within SPMD_TOL
+    (relative), each parameter's change within SPMD_TOL mean-normalized
+    per leaf (the gathers' gradients sum with atomics, in another order
+    each run); then the train CLI at
+    ``--parallel spmd`` in-process (a (1, 1) mesh), ``evaluate
+    --ranking`` and ``serve --run_dir`` of its run, and ``serve --shards
+    2`` refused on this one-card machine with the reference's message.
+    Returns the K3 launches of the CLI runs."""
+    import os
+    import re
+    import tempfile
+
+    from mpqe_tpu_torch import evaluate as eval_cli
+    from mpqe_tpu_torch import serve as serve_cli
+    from mpqe_tpu_torch.data.store import build_stores, pack_dense_batch_np
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.parallel import spmd
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+    from mpqe_tpu_torch.train import __main__ as train_cli
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
+    tc = loop_mod.TrainConfig(lr=SPMD_LR, optimizer="sgd",
+                              batch_size=TRAIN_BATCH, n_neg=4)
+    stores = build_stores(train_q, kg=kg)
+    batches = []
+    for s in SPMD_STRUCTURES:
+        fstore = max(stores[s], key=lambda f: f.n_queries)
+        batches.append(pack_dense_batch_np(
+            fstore, np.arange(min(fstore.n_queries, TRAIN_BATCH)),
+            TRAIN_BATCH, 4, 17))
+    single = loop_mod.init_train_state(
+        torch.Generator(device=device).manual_seed(5), cfg, tc,
+        device=device)
+    one = loop_mod.make_train_step(cfg, single.optimizer)
+    init = {k: v.clone() for k, v in single.model.state_dict().items()}
+    mesh = shard_mesh(device, (2, 2))
+    init_fn, step = spmd.make_spmd_train_step(cfg, tc, mesh)
+    state = init_fn(torch.Generator(device=device).manual_seed(5))
+    same_init = all(torch.equal(v, init[k])
+                    for k, v in state.model.state_dict().items())
+    put = functools.partial(spmd.put_batch, mesh)
+    ms_single, ms_spmd, worst_loss = [], [], 0.0
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        la = loop_mod.run_step(one, single, b)
+        ms_single.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        lb = loop_mod.run_step(step, state, b, put)
+        ms_spmd.append((time.perf_counter() - t0) * 1e3)
+        worst_loss = max(worst_loss, abs(la - lb) / max(abs(la), 1e-12))
+    got, want = state.model.state_dict(), single.model.state_dict()
+    e_change = tree_change_err({k: v - init[k] for k, v in got.items()},
+                               {k: v - init[k] for k, v in want.items()})
+    e_mean = tree_mean_err(got, want)
+    ent = state.model.emb.ent
+    line = (f"train.spmd: {SPMD_STEPS} SGD steps (lr {SPMD_LR}) of batch "
+            f"{TRAIN_BATCH} ({', '.join(SPMD_STRUCTURES)}) on a (2, 2) mesh "
+            f"of {SMI['line']}, the table in {len(ent.blocks)} blocks of "
+            f"{ent.block_rows} rows, initial parameters equal: {same_init}: "
+            f"loss_err={worst_loss:.3e} change_err={e_change:.3e} "
+            f"(param_mean_err={e_mean:.3e}); step ms spmd "
+            f"{[round(x, 3) for x in ms_spmd]} single "
+            f"{[round(x, 3) for x in ms_single]}")
+    log(line)
+    if not same_init or worst_loss > SPMD_TOL or e_change > SPMD_TOL or \
+            len(ent.blocks) != 2:
+        raise AssertionError(line)
+    del state, single, one, step, init, got, want
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        tgt_counters(reset=True)
+        lines = run_cli(train_cli.main, [
+            "--data", "synthetic", "--parallel", "spmd", "--steps", "20",
+            "--val_every", "10", "--num_bases", "16", "--n_neg", "4",
+            "--syn_entities", "20000", "--syn_modes", "4", "--syn_rels",
+            "20", "--syn_triples", "60000", "--syn_train_queries", "700",
+            "--syn_val_queries", "140", "--device", str(device),
+            "--run_dir", run_dir], "train.spmd.cli")
+        ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+        payload = torch.load(os.path.join(run_dir, "ckpt", "step_20",
+                                          "state.pt"), map_location="cpu",
+                             weights_only=True)
+        shape = tuple(payload["model"]["emb.ent"].shape)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            mesh_rec = [r for r in map(json.loads, f)
+                        if r.get("event") == "mesh"]
+        log(f"train.spmd.cli --parallel spmd: {lines[-1]}; mesh "
+            f"{mesh_rec[0]['shape']}; ckpt/{','.join(ckpts)}; emb.ent "
+            f"{shape} in the checkpoint")
+        if not re.fullmatch(r"final step=20 macro_auc=\S+ macro_apr=\S+",
+                            lines[-1]) or "step_20" not in ckpts or \
+                shape != (20000, cfg.embed_dim):
+            raise AssertionError(f"train.spmd.cli: {lines[-1]} {ckpts} "
+                                 f"{shape}")
+        ev = run_cli(eval_cli.main, ["--run_dir", run_dir, "--ranking"],
+                     "train.spmd.eval.cli")
+        head = json.loads(ev[0])
+        if head["step"] != 20 or not all("mrr" in json.loads(ln)
+                                         for ln in ev[1:]) or len(ev) < 2:
+            raise AssertionError(f"train.spmd.eval.cli: {ev}")
+        log(f"train.spmd.eval.cli: {ev[0]}")
+        sv = run_cli(serve_cli.main, [
+            "--run_dir", run_dir, "--requests", "21", "--batch", "8",
+            "--structures", ",".join(STRUCTURE_NAMES)],
+            "train.spmd.serve.cli")
+        out = json.loads(sv[-1])
+        log(f"train.spmd.serve.cli --run_dir: {sv[-1]}")
+        if not str(out.get("checkpoint", "")).endswith("step_20"):
+            raise AssertionError(f"train.spmd.serve.cli: {sv[-1]}")
+    k3 = tgt_counters()[2]
+    try:
+        serve_cli.main(["--init_seed", "0", "--shards", "2"])
+    except SystemExit as e:
+        msg = str(e)
+    else:
+        raise AssertionError("serve --shards 2 ran on one card")
+    log(f"train.spmd: serve --shards 2 on {torch.cuda.device_count()} card "
+        f"exits: {msg!r}")
+    if "--shards 2 needs that many devices, have 1" not in msg:
+        raise AssertionError(f"serve --shards 2: {msg!r}")
+    return k3
+
+
+def phase_multihost(device) -> None:
+    """``multihost``: two processes on the card joined by an explicitly
+    named gloo group (NCCL takes one card per rank: across cards it is
+    not run here), each on its own (2, 1) mesh of the card with half of
+    every global batch, SPMD_STEPS steps at the flagship width with a
+    1,000,000-entity table (``tools/multihost_run.py``, SGD), against
+    one process over the global batch on a (4, 1) mesh: the two
+    processes' losses and parameter changes equal each other bit for bit,
+    their losses equal the one process's within MULTIHOST_TOL (relative)
+    and rank 0's parameter changes the one process's within SPMD_TOL
+    (mean-normalized per leaf)."""
+    import os
+    import socket
+    import tempfile
+
+    from mpqe_tpu_torch.tools import multihost_run
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--device", "cuda", "--steps", str(SPMD_STEPS),
+                  "--mesh", "2,1", "--params", "--out",
+                  os.path.join(tmp, "two")]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "mpqe_tpu_torch.tools.multihost_run",
+             "--coordinator", f"127.0.0.1:{port}", "--num_processes", "2",
+             "--process_id", str(r), "--backend", "gloo", *common],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in (0, 1)]
+        try:
+            one = multihost_run.main(["--device", "cuda", "--steps",
+                                      str(SPMD_STEPS), "--mesh", "4,1",
+                                      "--params", "--out",
+                                      os.path.join(tmp, "one")])
+            errs = []
+            for p in procs:
+                _, err = p.communicate(timeout=300)
+                errs.append(err)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for p, err in zip(procs, errs):
+            if p.returncode != 0:
+                raise AssertionError(f"multihost worker rc={p.returncode}:"
+                                     f"\n{err[-3000:]}")
+        two = [dict(np.load(os.path.join(tmp, "two", f"rank{r}.npz")))
+               for r in (0, 1)]
+    del one["state"]
+    torch.cuda.empty_cache()
+    want = np.asarray(one["losses"])
+    losses = two[0].pop("losses")
+    ranks_equal = bool(np.array_equal(losses, two[1].pop("losses"))) and \
+        all(np.array_equal(v, two[1][k]) for k, v in two[0].items())
+    err = float(np.max(np.abs(losses - want) / np.abs(want)))
+    e_change = tree_change_err(two[0], one["changes"])
+    line = (f"multihost: 2 processes (backend gloo) on {SMI['line']}, "
+            f"{SPMD_STEPS} spmd SGD steps, each process a (2, 1) mesh and "
+            f"half of each 512-query batch: losses {losses.tolist()} (rank "
+            f"1's losses and parameter changes equal: {ranks_equal}); one "
+            f"process over the global batch {want.tolist()}; "
+            f"loss rel_err={err:.3e} change_err={e_change:.3e}; "
+            f"{wall:.1f} s; NCCL across cards is not run here (one card)")
+    log(line)
+    if not ranks_equal or err > MULTIHOST_TOL or e_change > SPMD_TOL:
+        raise AssertionError(line)
+
+
+def phase_dryrun(device) -> int:
+    """``dryrun``: ``python -m mpqe_tpu_torch.tools.dryrun_multichip`` in
+    process with DRYRUN_PARTS parts on the card: the spmd step with both
+    tables sharded, the edge-partitioned layers, the ring and K8 against
+    it, a halo step, K3 from the relation-sharded state bit-equal to K3
+    unsharded, the sharded rank and top-k.  Returns (K8's launches, K3's
+    launches)."""
+    from mpqe_tpu_torch.ops import ring as ring_ops
+    from mpqe_tpu_torch.tools import dryrun_multichip
+
+    before = ring_ops.rgcn_ring_halo_rdma.launches
+    k3_before = tgt_counters()[2]
+    t0 = time.perf_counter()
+    out = dryrun_multichip.dryrun_multichip(DRYRUN_PARTS, device)
+    n = ring_ops.rgcn_ring_halo_rdma.launches - before
+    k3 = tgt_counters()[2] - k3_before
+    log(f"dryrun_multichip ok: mesh={out['mesh']} loss={out['loss']:.4f} "
+        f"halo_loss={out['halo_loss']:.4f} k8_err_vs_ring={out['k8_err']:.3e}"
+        f" K8 launches {n}, K3 launches {k3} (sharded and unsharded "
+        f"encodes bit-equal); {time.perf_counter() - t0:.2f} s on "
+        f"{DRYRUN_PARTS} parts of {SMI['line']}")
+    if n == 0 or k3 == 0:
+        raise AssertionError(f"dryrun: K8 launches {n}, K3 launches {k3}")
+    return n, k3
+
+
 def build_kernels() -> None:
     """Build the seven kernel libraries at once (one nvcc each, in
     parallel) and print what ptxas reports of registers and spills."""
@@ -5795,6 +6245,7 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     log(f"nvidia-smi: {smi}")
+    SMI["line"] = smi
 
     from mpqe_tpu_torch.data.sampler import make_random_kg
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
@@ -5864,6 +6315,8 @@ def main() -> int:
     launches = phase_serve(model, cfg, ops, kg, device)
     del ops
     lap("serve")
+    launches += phase_serve_sharded(model, cfg, kg, device)
+    lap("serve.sharded")
     t_host = time.perf_counter()
     http_k3 = phase_serve_http(model, cfg, kg, device)
     launches += http_k3
@@ -5875,9 +6328,11 @@ def main() -> int:
     for k, v in phase_eval_sparse_bf16(model, cfg, val_q, device).items():
         k4_launches[k] += v
     bf16_kernels_s += time.perf_counter() - t_bf16_kernels
-    phase_eval_ranking(model, cfg, kg, val_q, device)
-    del model
+    rk = phase_eval_ranking(model, cfg, kg, val_q, device)
     lap("eval")
+    launches += phase_eval_sharded(model, cfg, kg, val_q, device, rk)
+    del model
+    lap("eval.sharded")
     k1, k2 = phase_train(kg, train_q, val_q, device)
     lap("train")
     sparse = {}
@@ -5898,6 +6353,16 @@ def main() -> int:
     phase_halo_multistep(device)
     host_s += time.perf_counter() - t_host
     lap("halo.train.multistep")
+    t_shard = time.perf_counter()
+    launches += phase_train_spmd(kg, train_q, device)
+    lap("train.spmd")
+    phase_multihost(device)
+    lap("multihost")
+    k8_dry, k3_dry = phase_dryrun(device)
+    k8_launches += k8_dry
+    launches += k3_dry
+    lap("dryrun")
+    shard_s = time.perf_counter() - t_shard
 
     t_gqe = time.perf_counter()
     phase_gqe_train(kg, train_q, val_q, device)
@@ -5955,6 +6420,8 @@ def main() -> int:
         f"train.multistep, train.shared_negs, halo.train.multistep); their "
         f"launches (K1, K2, K3): serve.http K3={http_k3}, train.multistep "
         f"{host_launches[0]}, train.shared_negs {host_launches[1]}")
+    log(f"sharded-table phases after the halo runs {shard_s:.1f} s "
+        f"(train.spmd, multihost, dryrun)")
     log(f"bench phase {bench_s:.1f} s; bf16 phases {bf16_s:.1f} s (and "
         f"the bf16 kernel and evaluate checks {bf16_kernels_s:.1f} s); data "
         f"phases {time.perf_counter() - t_data - bench_s - bf16_s - host_data_s:.1f}"

@@ -21,14 +21,17 @@ MPQE and GQE run dirs alike, their models float32 or bfloat16 (as
 neighborhood model's neighbor table is rebuilt from the run's
 ``gqe_fanout`` and ``seed``, as it was trained.
 Runs on the card unless told otherwise (``--device cpu``); with no card
-and no ``--device cpu`` it raises.  Not ported yet: ``--shards > 1`` (the
-sharded ranking), raising ``NotImplementedError`` naming ROADMAP Queue 1
-item 8.
+and no ``--device cpu`` it raises.  ``--ranking --shards N`` (N > 1)
+ranks through ``full_ranking_sharded`` over a ``(1, N)`` mesh, the entity
+table row-sharded: on the card N distinct cards (fewer exit with the
+reference's message), under ``--device cpu`` N parts on the CPU; MPQE
+run dirs only (a GQE run gets the reference's ``ValueError``).
 
   python -m mpqe_tpu_torch.evaluate --run_dir runs/xyz --ranking
   python -m mpqe_tpu_torch.evaluate --run_dir runs/xyz --use test --split
   python -m mpqe_tpu_torch.evaluate --run_dir runs/xyz --use test \\
       --device cpu
+  python -m mpqe_tpu_torch.evaluate --run_dir runs/xyz --ranking --shards 4
 """
 
 from __future__ import annotations
@@ -69,18 +72,15 @@ def parse_args(argv=None):
                         "structure")
     p.add_argument("--hits_at", default="1,3,10")
     p.add_argument("--shards", type=int, default=0,
-                   help=">1: sharded ranking (not ported)")
+                   help=">1: run --ranking over a model-axis mesh of this "
+                        "many parts with the entity table row-sharded "
+                        "(full_ranking_sharded; MPQE run dirs only): "
+                        "distinct cards, or under --device cpu parts on "
+                        "the CPU")
     p.add_argument("--device", default="cuda",
                    help="torch device; the card unless told otherwise")
     args, _ = p.parse_known_args(argv)
     return args
-
-
-def _refuse_unported(args) -> None:
-    if args.shards > 1:
-        raise NotImplementedError(
-            "--shards > 1: not ported yet; the sharded ranking is ROADMAP "
-            "Queue 1 item 8")
 
 
 def load_run_data(run_cfg: dict, use: str):
@@ -149,9 +149,14 @@ def run_neighbor_table(run_cfg: dict, cfg, kg, device):
 def main(argv=None):
     args = parse_args(argv)
     run_cfg, mc = read_run_dir(args.run_dir)
-    _refuse_unported(args)
     cfg = config_from_json(mc)
     device = resolve_device(args.device)
+    mesh = None
+    if args.shards > 1:
+        from mpqe_tpu_torch.parallel import mesh as mesh_lib
+
+        mesh = mesh_lib.cli_mesh((1, args.shards), device,
+                                 f"--shards {args.shards}")
     kg, val_q = load_run_data(run_cfg, args.use)
     ckpt, step, model = restore_model(args.run_dir, cfg, args.ckpt, device)
     nbr = run_neighbor_table(run_cfg, cfg, kg, device)
@@ -163,8 +168,12 @@ def main(argv=None):
                       "use": args.use, **res.flat()}), flush=True)
     if args.ranking:
         hits = tuple(int(k) for k in args.hits_at.split(","))
-        rk = evaluation.full_ranking(model, cfg, val_q, kg.entity_mode,
-                                     hits_at=hits, neighbor_table=nbr)
+        if mesh is not None:
+            rk = evaluation.full_ranking_sharded(
+                model, cfg, val_q, kg.entity_mode, mesh, hits_at=hits)
+        else:
+            rk = evaluation.full_ranking(model, cfg, val_q, kg.entity_mode,
+                                         hits_at=hits, neighbor_table=nbr)
         for structure, m in rk.items():
             print(json.dumps({"ranking": structure, **m}), flush=True)
     if args.split:

@@ -139,10 +139,7 @@ def anchor_gather_slots(cfg: MPQEConfig, structure: str):
     return tuple(s for s in range(spec.n_nodes) if s in anchors)
 
 
-def _entity_rows(ent: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``ent[ids]`` with ids clamped into range, as the reference's
-    gather does."""
-    return ent[ids.long().clamp(0, ent.shape[0] - 1)]
+_entity_rows = emb_mod.entity_rows
 
 
 def _encode_dense_tgt_pruned(model, cfg, spec, node_entity, node_mode,
@@ -612,19 +609,31 @@ def score_all_entities(model: MPQE, cfg: MPQEConfig,
     return dtypes.dot_f32(q, e.t())
 
 
+def margin_terms(cfg: MPQEConfig, q: torch.Tensor, pos_rows: torch.Tensor,
+                 neg_rows: torch.Tensor, neg_mask: torch.Tensor,
+                 query_mask: torch.Tensor):
+    """``(sum of relu(margin - s(q, pos) + s(q, neg)) over the real
+    (query, negative) pairs, their count)``, from gathered candidate rows
+    (``q [B, d]``, ``pos_rows [B, d]``, ``neg_rows [B, K, d]``, masks
+    ``[B, K]`` and ``[B]``): the two sums a data-parallel loss adds over
+    its parts."""
+    pos = score(cfg, q, pos_rows)
+    neg = score(cfg, q[:, None, :], neg_rows)
+    viol = torch.relu(cfg.margin - pos[:, None] + neg)
+    w = neg_mask * query_mask[:, None]
+    return torch.sum(viol * w), torch.sum(w)
+
+
 def margin_loss_from_rows(cfg: MPQEConfig, q: torch.Tensor,
                           pos_rows: torch.Tensor, neg_rows: torch.Tensor,
                           neg_mask: torch.Tensor,
                           query_mask: torch.Tensor) -> torch.Tensor:
     """mean(relu(margin - s(q, pos) + s(q, neg))) over the real (query,
-    negative) pairs, from gathered candidate rows (``q [B, d]``,
-    ``pos_rows [B, d]``, ``neg_rows [B, K, d]``, masks ``[B, K]`` and
-    ``[B]``)."""
-    pos = score(cfg, q, pos_rows)
-    neg = score(cfg, q[:, None, :], neg_rows)
-    viol = torch.relu(cfg.margin - pos[:, None] + neg)
-    w = neg_mask * query_mask[:, None]
-    return torch.sum(viol * w) / torch.clamp(torch.sum(w), min=1.0)
+    negative) pairs (:func:`margin_terms`: their sum over their count, at
+    least 1)."""
+    total, count = margin_terms(cfg, q, pos_rows, neg_rows, neg_mask,
+                                query_mask)
+    return total / torch.clamp(count, min=1.0)
 
 
 def margin_loss_from_queries(model: MPQE, cfg: MPQEConfig, q: torch.Tensor,
@@ -632,8 +641,9 @@ def margin_loss_from_queries(model: MPQE, cfg: MPQEConfig, q: torch.Tensor,
                              neg_mask: torch.Tensor,
                              query_mask: torch.Tensor) -> torch.Tensor:
     """:func:`margin_loss_from_rows` with the candidate rows gathered from
-    ``emb.ent``; the gather's gradient is a dense ``[n_entities, d]``
-    tensor, as in the reference."""
+    ``emb.ent`` (:func:`models.embeddings.entity_rows`); the gather's
+    gradient is a dense ``[n_entities, d]`` tensor, as in the
+    reference."""
     ent = model.emb.ent
     return margin_loss_from_rows(cfg, q, _entity_rows(ent, target),
                                  _entity_rows(ent, negatives), neg_mask,

@@ -116,7 +116,10 @@ class FusedMultiOperands:
     n_modes: int
     n_rels: int
     n_bases: int
-    ent: torch.Tensor  # [N, d] the model's own table (f32 or bf16, no copy)
+    # [N, d] the model's own table (f32 or bf16, no copy), or its
+    # row-sharded table (parallel/sharding.py), whose anchor rows each call
+    # gathers into a compact table (:func:`_anchor_table`)
+    ent: object
     w_self: torch.Tensor  # [L, d_pad, d_pad] bf16 (k, n)
     bias: torch.Tensor  # [L, d_pad] f32
     vw: torch.Tensor  # [L, d_pad, Bb * d_pad] bf16 (k, b * d_pad + n)
@@ -135,6 +138,8 @@ def prepare_fused_multi(model, cfg) -> FusedMultiOperands:
     rounding, as the reference kernel's operand assembly does (on the
     card, with TF32 off).  The entity table is the model's own, in its
     own dtype: the kernel gathers f32 or bf16 rows."""
+    from mpqe_tpu_torch.models import embeddings as emb_mod
+
     _check_model(cfg)
     f32, bf16 = torch.float32, torch.bfloat16
     d, dp, nb = cfg.embed_dim, _round_up(cfg.embed_dim, 128), cfg.num_bases
@@ -149,7 +154,7 @@ def prepare_fused_multi(model, cfg) -> FusedMultiOperands:
         return FusedMultiOperands(
             d=d, d_pad=dp, n_modes=cfg.n_modes, n_rels=cfg.n_rels,
             n_bases=nb,
-            ent=model.emb.ent.detach().contiguous(),
+            ent=emb_mod.table_operand(model.emb.ent),
             w_self=pad_last(torch.stack([lp.w_self for lp in layers]))
             .to(bf16).contiguous(),
             bias=pad_last(torch.stack([lp.bias for lp in layers]), 1)
@@ -157,14 +162,23 @@ def prepare_fused_multi(model, cfg) -> FusedMultiOperands:
             # [L, Bb, k, n] -> [L, k, Bb * n]
             vw=basis.permute(0, 2, 1, 3).reshape(L, dp, nb * dp).to(bf16)
             .contiguous(),
-            coeff=torch.stack([lp.coeff for lp in layers]).to(f32)
-            .contiguous(),
+            coeff=torch.stack([_whole(lp.coeff, var.device)
+                               for lp in layers]).to(f32).contiguous(),
             tself0=pad_last(var @ layers[0].w_self.to(f32), 1).to(bf16)
             .contiguous(),
             tvar0=pad_last(torch.einsum("md,bdo->mbo", var,
                                         layers[0].basis.to(f32)), 1)
             .to(bf16).contiguous(),
         )
+
+
+def _whole(table, device) -> torch.Tensor:
+    """A small table (a layer's ``[R, Bb]`` coeff) whole on ``device``: a
+    parameter as it is, a row-sharded one (``shard_relations``) gathered
+    from its owner blocks."""
+    if isinstance(table, torch.Tensor):
+        return table
+    return table.rows(torch.arange(table.shape[0], device=device))
 
 
 def _rows_by_mode(table: torch.Tensor, modes: torch.Tensor) -> torch.Tensor:
@@ -500,6 +514,8 @@ def fused_tgt_forward_multi(
     once, with the activations between layers in a bf16 scratch.  CPU
     tensors: the plain version.  ``operands`` come from
     :func:`prepare_fused_multi`, built once per model."""
+    operands, node_entity = _anchor_table(cfg, structure, operands,
+                                          node_entity)
     args = (node_entity, node_mode, edge_rel_q, edge_norm_q)
     dev = node_entity.device
     if dev.type == "cpu":
@@ -514,6 +530,21 @@ def fused_tgt_forward_multi(
 fused_tgt_forward_multi.launches = 0
 
 
+def _anchor_table(cfg, structure: str, ops: FusedMultiOperands,
+                  node_entity: torch.Tensor):
+    """``(ops, node_entity)`` as one call of K3 takes them: as they are
+    for a table on one device; for a row-sharded table, the call's anchor
+    rows gathered from their owner blocks onto ``node_entity``'s device
+    into a compact ``[B * n_anchors, d]`` table, the anchor slots
+    renumbered into it (the kernel reads the same rows, so it computes the
+    same bits, in one launch a layer)."""
+    if isinstance(ops.ent, torch.Tensor):
+        return ops, node_entity
+    a_slots = _checked_plan(cfg, structure)[3]
+    table, node_entity = ops.ent.compact(node_entity, a_slots)
+    return dataclasses.replace(ops, ent=table), node_entity
+
+
 def fused_tgt_forward_multi_layers(model, cfg, structure: str, node_entity,
                                    node_mode, edge_rel_q, edge_norm_q, *,
                                    operands: FusedMultiOperands, mm=None):
@@ -525,6 +556,8 @@ def fused_tgt_forward_multi_layers(model, cfg, structure: str, node_entity,
     :func:`fused_tgt_forward_multi`); CPU tensors: the plain version, its
     products by ``mm`` (the reordering emulation passes
     :func:`_reordered_matmul`)."""
+    operands, node_entity = _anchor_table(cfg, structure, operands,
+                                          node_entity)
     args = (node_entity, node_mode, edge_rel_q, edge_norm_q)
     dev = node_entity.device
     if dev.type == "cpu":

@@ -35,10 +35,6 @@ from mpqe_tpu_torch.parallel.mesh import Mesh
 from mpqe_tpu_torch.queries import STRUCTURES
 from mpqe_tpu_torch.train import loop as loop_mod
 
-_SHARDED_TABLE_LATER = (
-    "shard_entity_table=True (the entity table row-sharded over the model "
-    "axis) needs parallel/sharding.py: ROADMAP Queue 1 item 8")
-
 
 def _template_layout_np(structure: str, batch_size: int, n_parts: int,
                         layer_kind: str) -> Dict:
@@ -219,8 +215,16 @@ def init_halo_train_state(gen: torch.Generator, cfg, tc: loop_mod.TrainConfig,
     """A fresh model and optimizer with replicated parameters: node
     activations, not parameters, are what the halo layers split.  The
     model lives on the mesh's first device.  ``shard_entity_table=True``
-    raises ``NotImplementedError`` (not ported)."""
-    if shard_entity_table:
-        raise NotImplementedError(_SHARDED_TABLE_LATER)
-    return loop_mod.init_train_state(gen, cfg, tc,
-                                     device=mesh.devices.flat[0])
+    row-shards the entity table over the mesh's model axis
+    (``parallel/sharding.py``): the halo loss reads it only outside the
+    halo layers (the embedding lookup and the loss's candidate rows,
+    through the table accessor), and the layer weights stay
+    replicated."""
+    if not shard_entity_table:
+        return loop_mod.init_train_state(gen, cfg, tc,
+                                         device=mesh.devices.flat[0])
+    from mpqe_tpu_torch.parallel import spmd
+
+    return spmd.init_spmd_train_state(gen, cfg, tc, mesh,
+                                      shard_entity_table=True,
+                                      shard_relations=False)

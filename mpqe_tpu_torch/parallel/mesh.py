@@ -65,6 +65,24 @@ def default_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(n)]
 
 
+def cli_mesh(shape: Tuple[int, int], device: torch.device,
+             flag: str) -> Mesh:
+    """The mesh of a CLI flag (``--shards``, ``--mesh``) on ``device``'s
+    kind: on the card one distinct card per part, ``SystemExit`` naming
+    ``flag`` when there are fewer (a card is never repeated silently);
+    under the CPU every part on the CPU (the port's counterpart of the
+    reference's forced host device count)."""
+    n = shape[0] * shape[1]
+    if device.type == "cpu":
+        return make_mesh(shape, devices=[device] * n)
+    have = torch.cuda.device_count()
+    if have < n:
+        raise SystemExit(f"{flag} needs that many devices, have {have} "
+                         "(--device cpu puts the parts on the CPU)")
+    return make_mesh(shape, devices=[torch.device("cuda", i)
+                                     for i in range(n)])
+
+
 def _device(d) -> torch.device:
     """``torch.device(d)``, a CUDA device with its index filled in (tensors
     report theirs, and the parts are grouped by device)."""

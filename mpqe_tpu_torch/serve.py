@@ -50,11 +50,15 @@ the HTTP JSON API of :mod:`mpqe_tpu_torch.netserve` (``POST /v1/answer``,
 ``GET /healthz``, ``GET /statz``) with cross-request micro-batching
 (``--max_wait_ms``) instead of the sampled stream: it prints one
 ``{"listening": "HOST:PORT", ...}`` line and serves until interrupted.
-The root CLI's ``--shards`` is not ported (ROADMAP Queue 1 item 8).
+``--shards N`` (N > 1) serves through :class:`ShardedQueryServer` over a
+``(1, N)`` mesh, the entity table row-sharded: on the card N distinct
+cards (fewer exit with the reference's message), under ``--device cpu``
+N parts on the CPU; MPQE checkpoints only.
 
   python -m mpqe_tpu_torch.serve --run_dir runs/xyz \\
       --answer /data/AIFB/test_queries_3.pkl --out answers.npz
   python -m mpqe_tpu_torch.serve --run_dir runs/xyz --http 127.0.0.1:8080
+  python -m mpqe_tpu_torch.serve --run_dir runs/xyz --shards 4
 """
 
 from __future__ import annotations
@@ -190,6 +194,9 @@ class QueryServer:
                 "box-decoder serving scores L1 box distances against the "
                 "raw f32 entity table; table_dtype variants apply to the "
                 "cosine rank matmul only")
+        if not isinstance(model.emb.ent, torch.Tensor):
+            raise ValueError("the entity table is row-sharded: serve it "
+                             "with ShardedQueryServer")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.table_dtype = table_dtype
@@ -221,6 +228,12 @@ class QueryServer:
         self._k3 = (fused_fwd_ops.prepare_fused_multi(self.model, cfg)
                     if mpqe_model and cfg.readout == "tgt"
                     and cfg.num_bases is not None else None)
+
+    @property
+    def table_bytes(self) -> int:
+        """Bytes of the candidate table (none for a box model)."""
+        t = self._ent_norm_t
+        return 0 if t is None else t.numel() * t.element_size()
 
     # ------------------------------------------------------------------
     def _scores(self, structure: str, ne, nm, er, en) -> torch.Tensor:
@@ -303,6 +316,99 @@ class QueryServer:
                 b *= 2
 
 
+class ShardedQueryServer(QueryServer):
+    """Serving over an entity table row-sharded on ``mesh``'s model axis,
+    for tables that exceed one card.  The request surface is
+    :class:`QueryServer`'s (``answer``, ``warmup``), so ``netserve``
+    serves it unchanged; the layout differs:
+
+    * the encode side is a copy of the model with its entity table
+      row-sharded (``parallel/rank_shard.shard_encode_params``: the
+      layout the ``--parallel spmd`` train step leaves the table in) and
+      the rest on the mesh's first device, where the queries encode.
+      Eligible models encode through K3, each dispatch's anchor rows
+      gathered from their owner blocks into a compact table (the same
+      bits as the unsharded server's K3, one launch a layer);
+    * the ranking is ``parallel/rank_shard.make_sharded_topk_fn``: each
+      part scores the batch against its own rows and keeps a local
+      top-k, and the parts' candidates merge into the global top-k, so no
+      ``[B, n_entities]`` matrix exists on any device.  Where a mode has
+      fewer than k entities the tail is ``(-inf, -1)`` (the unsharded
+      server returns real ids of ``-inf`` candidates there).
+
+    ``max_batch`` is capped by the per-part score rows.  At float32 the
+    ranking reads the encode blocks (normalized per dispatch), with no
+    second copy of the table; ``table_dtype`` bfloat16 or int8 keeps one
+    quantized table per part (int8 blocks padded to a multiple of 8 rows
+    for the card's int8 product).  MPQE models only (``ValueError`` for
+    a GQE config)."""
+
+    def __init__(self, model, cfg, entity_mode: np.ndarray, mesh,
+                 max_batch: int = 8192, table_dtype: str = "float32"):
+        from mpqe_tpu_torch.parallel import mesh as mesh_lib
+        from mpqe_tpu_torch.parallel import rank_shard
+
+        if not is_mpqe(cfg):
+            raise ValueError(
+                "sharded serving supports MPQE checkpoints only")
+        check_table_dtype(table_dtype)
+        if table_dtype == "int8" and not cfg.scale_scores:
+            raise ValueError(
+                "table_dtype='int8' needs cosine scoring "
+                "(cfg.scale_scores): quantization relies on normalized "
+                "rows being bounded by [-1, 1]")
+        self.cfg = cfg
+        self.mesh = mesh
+        self.table_dtype = table_dtype
+        self.entity_mode = np.asarray(entity_mode, dtype=np.int32)
+        n_shards = mesh.shape[mesh_lib.model_axis(mesh)]
+        per_row = max(cfg.n_entities // n_shards, 1)
+        if cfg.num_bases is None:
+            per_row = max(per_row, cfg.embed_dim * cfg.embed_dim)
+        eff = _effective_max_batch(cfg, max_batch, per_row)
+        self.max_batch = 1 << (eff.bit_length() - 1)
+        self._nbr = None
+        self.model = rank_shard.shard_encode_params(model, mesh)
+        table = self.model.emb.ent
+        self.device = table.device
+        if table_dtype == "float32":
+            self._tables = list(table.blocks)
+            self._modes = rank_shard.shard_modes(mesh, self.entity_mode,
+                                                 table.n_padded)
+        else:
+            if not isinstance(model.emb.ent, torch.Tensor):
+                raise ValueError(
+                    f"table_dtype={table_dtype!r} builds its ranking blocks "
+                    f"from the model's whole table: pass the model "
+                    f"unsharded (its table is split here)")
+            self._tables, self._modes, _ = rank_shard.shard_table(
+                mesh, candidate_table(model.emb.ent, cfg.scale_scores,
+                                      table_dtype), self.entity_mode)
+        self._topk_fns: Dict[int, object] = {}
+        self._k3 = (fused_fwd_ops.prepare_fused_multi(self.model, cfg)
+                    if cfg.readout == "tgt" and cfg.num_bases is not None
+                    else None)
+
+    @property
+    def table_bytes(self) -> int:
+        """Bytes of the ranking's blocks, all parts (at float32 the encode
+        table's own)."""
+        return sum(t.numel() * t.element_size() for t in self._tables)
+
+    def _rank(self, structure: str, k: int, ne, nm, er, en, tm):
+        from mpqe_tpu_torch.parallel import rank_shard
+
+        fn = self._topk_fns.get(k)
+        if fn is None:
+            fn = self._topk_fns[k] = rank_shard.make_sharded_topk_fn(
+                self.mesh, self.cfg, k, table_dtype=self.table_dtype)
+        with torch.inference_mode():
+            q = mpqe_mod.encode_dense_multi_auto(
+                self.model, self.cfg, structure, ne, nm, er, en,
+                operands=self._k3)
+            return fn(self._tables, self._modes, q.to(torch.float32), tm)
+
+
 # ----------------------------------------------------------------------
 # CLI: the sampled-stream mode of the root serve.py
 # ----------------------------------------------------------------------
@@ -367,6 +473,12 @@ def parse_args(argv=None):
     p.add_argument("--max_wait_ms", type=float, default=5.0,
                    help="--http: how long a request waits to coalesce "
                         "with concurrent traffic into one dispatch")
+    p.add_argument("--shards", type=int, default=0,
+                   help=">1: serve over a model-axis mesh of this many "
+                        "parts with the entity table row-sharded "
+                        "(ShardedQueryServer; MPQE checkpoints only): "
+                        "distinct cards, or under --device cpu parts on "
+                        "the CPU")
     p.add_argument("--device", default="cuda",
                    help="torch device; the card unless told otherwise")
     model = p.add_mutually_exclusive_group(required=True)
@@ -525,11 +637,25 @@ def main(argv=None):
             raise SystemExit(
                 f"--http expects HOST:PORT, got {args.http!r}") from None
     device = resolve_device(args.device)
+    mesh = None
+    if args.shards > 1:
+        from mpqe_tpu_torch.parallel import mesh as mesh_lib
+
+        mesh = mesh_lib.cli_mesh((1, args.shards), device,
+                                 f"--shards {args.shards}")
     cfg, kg, model, checkpoint, nbr = (
         _from_run_dir if args.run_dir is not None else _from_flags)(args,
                                                                    device)
-    server = QueryServer(model, cfg, kg.entity_mode, device=device,
-                         neighbor_table=nbr, table_dtype=args.table_dtype)
+    if mesh is not None:
+        if nbr is not None:
+            raise SystemExit(
+                "--shards does not support neighborhood-GQE checkpoints")
+        server = ShardedQueryServer(model, cfg, kg.entity_mode, mesh,
+                                    table_dtype=args.table_dtype)
+    else:
+        server = QueryServer(model, cfg, kg.entity_mode, device=device,
+                             neighbor_table=nbr,
+                             table_dtype=args.table_dtype)
     if args.answer:
         print(json.dumps(answer_pickle(server, kg, args.answer, args.out,
                                        args.k, args.batch, checkpoint)),
@@ -568,11 +694,11 @@ def main(argv=None):
         "batch": args.batch,
         "k": args.k,
         "table_dtype": args.table_dtype,
-        # the candidate table's bytes (none for a box model) and, on the
-        # card, the process's peak allocated device memory
-        "table_bytes": (0 if server._ent_norm_t is None else
-                        server._ent_norm_t.numel()
-                        * server._ent_norm_t.element_size()),
+        "shards": max(args.shards, 1),
+        # the candidate table's bytes (none for a box model; all parts'
+        # blocks with --shards) and, on the card, the process's peak
+        # allocated device memory
+        "table_bytes": server.table_bytes,
         "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
                            if device.type == "cuda" else None),
         "latency_ms_p50": float(np.percentile(lat_ms, 50)),

@@ -20,7 +20,11 @@ and ``gqe_softand`` train the GQE baselines (``--decoder``,
 ``--gqe_fanout``, ``--bibox_w``), through the dense path only, as in the
 reference.  ``--parallel halo_ring|halo_gather`` trains MPQE through the
 edge-partitioned halo layers over a ``--mesh`` (default: one part per
-card).  ``--dtype bfloat16`` keeps every leaf and Adam moment in bf16
+card), ``--parallel spmd`` through the data-parallel step with the
+entity table row-sharded over the mesh's model axis
+(``parallel/spmd.py``; its checkpoints hold the table whole, so the
+unsharded CLIs read them).  On the card a ``--mesh`` of N parts needs N
+distinct cards; under ``--device cpu`` its N parts all run on the CPU.  ``--dtype bfloat16`` keeps every leaf and Adam moment in bf16
 (products with f32 results, as the reference's) on every route: dense,
 ``--kernel fused_fwd`` (K1/K2), ``--kernel fused`` (K5 on bf16 rows),
 ``--kernel blocked`` (K6) and ``--parallel halo_*``.
@@ -32,8 +36,8 @@ own; ``--steps_per_call K`` takes K steps per call (also with
 ``--parallel halo_*``).  Batches come from the C++ packer when it builds
 (``data/native.py``), else from the numpy packer; the ``data_loaded``
 record of ``metrics.jsonl`` says which (``"native_packer"``).
-``--parallel spmd`` and ``--trace``, not ported yet, raise
-``NotImplementedError`` naming their ROADMAP item.
+``--trace``, not ported yet, raises ``NotImplementedError`` naming its
+ROADMAP item.
 
   python -m mpqe_tpu_torch.train --data synthetic --kernel fused_fwd \\
       --fused_backward pallas --num_bases 16 --steps 2000
@@ -46,6 +50,7 @@ record of ``metrics.jsonl`` says which (``"native_packer"``).
       --fused_backward pallas --num_bases 16
   python -m mpqe_tpu_torch.train --device cpu --embed_dim 16 --steps 20
   python -m mpqe_tpu_torch.train --parallel halo_ring --num_bases 16
+  python -m mpqe_tpu_torch.train --parallel spmd --mesh 2,2 --num_bases 16
   python -m mpqe_tpu_torch.train --kernel fused_fwd --fused_backward pallas \\
       --num_bases 16 --prefetch 2 --steps_per_call 8
   python -m mpqe_tpu_torch.train --dtype bfloat16 --kernel fused_fwd \\
@@ -179,8 +184,6 @@ def _refuse_unported(args) -> None:
     """``NotImplementedError`` naming the ROADMAP item of every flag whose
     feature is not ported yet."""
     unported = [
-        (args.parallel == "spmd", "--parallel spmd",
-         "the SPMD step (parallel/spmd.py) is ROADMAP Queue 1 item 8"),
         (args.trace > 0, "--trace",
          "a torch.profiler trace window is ROADMAP Queue 1 item 9"),
     ]
@@ -329,21 +332,18 @@ def _gqe_setup(args, kg, device):
     return cfg, loss_fn, table
 
 
-def _halo_loss_fn(args, device, metrics):
-    """``--parallel halo_ring|halo_gather``: the halo batch loss over a
-    ``--mesh`` of the run's devices (default ``(device count, 1)``: every
-    card, or one CPU).  The CLI puts one part on each device."""
-    from mpqe_tpu_torch.parallel import halo_train
+def _parallel_mesh(args, device, metrics):
+    """The ``--mesh`` of ``--parallel`` (default ``(device count, 1)``:
+    every card, or one CPU part): one distinct card per part, or under
+    ``--device cpu`` every part on the CPU (``mesh.cli_mesh``)."""
     from mpqe_tpu_torch.parallel import mesh as mesh_lib
 
-    devices = (mesh_lib.default_devices() if device.type == "cuda"
-               else [device])
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
     shape = (tuple(int(x) for x in args.mesh.split(","))
-             if args.mesh else (len(devices), 1))
-    mesh = mesh_lib.make_mesh(shape, devices=devices[: shape[0] * shape[1]])
+             if args.mesh else (n, 1))
+    mesh = mesh_lib.cli_mesh(shape, device, f"--mesh {args.mesh}")
     metrics.log({"event": "mesh", "shape": dict(mesh.shape)})
-    kind = "ring" if args.parallel == "halo_ring" else "gather"
-    return halo_train.halo_batch_loss_fn(mesh, layer_kind=kind)
+    return mesh
 
 
 def main(argv=None):
@@ -400,8 +400,15 @@ def main(argv=None):
             self_adv_tau=args.self_adv_tau)
     elif args.self_adv_tau:
         raise SystemExit("--self_adv_tau requires --shared_negatives")
+    mesh = None
     if args.parallel != "none":
-        batch_loss_fn = _halo_loss_fn(args, device, metrics)
+        mesh = _parallel_mesh(args, device, metrics)
+    if args.parallel in ("halo_ring", "halo_gather"):
+        from mpqe_tpu_torch.parallel import halo_train
+
+        batch_loss_fn = halo_train.halo_batch_loss_fn(
+            mesh, layer_kind="ring" if args.parallel == "halo_ring"
+            else "gather")
     tc = loop_mod.TrainConfig(
         lr=args.lr, batch_size=args.batch_size, n_neg=args.n_neg,
         max_steps=args.steps, val_every=args.val_every,
@@ -412,8 +419,20 @@ def main(argv=None):
     metrics.write_config(dataclasses.asdict(cfg), "model_config.json")
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = loop_mod.init_train_state(gen, cfg, tc, device=device,
-                                      init_fn=init_fn)
+    train_step = multi_step = put_batch = None
+    if args.parallel == "spmd":
+        from mpqe_tpu_torch.parallel import spmd
+
+        spmd_init, train_step = spmd.make_spmd_train_step(
+            cfg, tc, mesh, shard_entity_table=True)
+        if args.steps_per_call > 1:
+            _, multi_step = spmd.make_spmd_multistep_train_step(
+                cfg, tc, mesh, shard_entity_table=True)
+        put_batch = functools.partial(spmd.put_batch, mesh)
+        state = spmd_init(gen)
+    else:
+        state = loop_mod.init_train_state(gen, cfg, tc, device=device,
+                                          init_fn=init_fn)
     ckpt_dir = os.path.join(run_dir, "ckpt")
     if args.resume:
         latest = ckpt_mod.latest_checkpoint(ckpt_dir)
@@ -451,7 +470,8 @@ def main(argv=None):
             checkpoint_fn=checkpoint_fn, batch_loss_fn=batch_loss_fn, kg=kg,
             warmup=args.warmup, neighbor_table=neighbor_table,
             train_stores=train_stores, prefetch=args.prefetch,
-            steps_per_call=args.steps_per_call)
+            steps_per_call=args.steps_per_call, train_step=train_step,
+            multi_step=multi_step, put_batch=put_batch)
         # the handler stays installed until the save is done: a second
         # SIGTERM in the grace window is swallowed, not a crash mid-save
         final_path = manager.save(state)

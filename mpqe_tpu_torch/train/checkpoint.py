@@ -7,7 +7,10 @@ Same run-dir layout as the reference: ``ckpt/step_<N>/`` per checkpoint,
 one ``state.pt`` (``torch.save`` of ``{"model", "optimizer", "step"}``
 state dicts); it is written to a temporary directory and renamed into
 place, so an interrupted save never leaves a ``step_<N>`` that
-:func:`latest_checkpoint` would pick.  Saves are synchronous.
+:func:`latest_checkpoint` would pick.  Saves are synchronous.  A model
+on a mesh (``parallel/sharding.py``) writes the unsharded layout: its
+tables whole and its optimizer state as an unsharded run's, and reads
+either back into its own layout.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from mpqe_tpu_torch.parallel import sharding as sharding_lib
+
 STATE_FILE = "state.pt"
 
 
@@ -30,7 +35,8 @@ def save_checkpoint(ckpt_dir: str, state) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=f"step_{state.step}.tmp-", dir=ckpt_dir)
     torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
+                "optimizer": sharding_lib.optimizer_state_dict(
+                    state.model, state.optimizer),
                 "step": int(state.step)}, os.path.join(tmp, STATE_FILE))
     if os.path.isdir(path):
         shutil.rmtree(path)
@@ -45,7 +51,8 @@ def restore_checkpoint(path: str, template):
                          map_location=template.model.emb.ent.device,
                          weights_only=True)
     template.model.load_state_dict(payload["model"])
-    template.optimizer.load_state_dict(payload["optimizer"])
+    sharding_lib.load_optimizer_state_dict(template.model, template.optimizer,
+                                           payload["optimizer"])
     template.step = int(payload["step"])
     return template
 

@@ -19,7 +19,9 @@ ROC-AUC is exact (Mann-Whitney U with tie correction).  Three sweeps:
   through an adapter, as ``run_train(eval_encode_fn=...)`` passes it);
 * :func:`full_ranking` ranks the true answer among every entity of its
   mode (MRR, Hits@K), one ``[B, n_entities]`` score matrix per chunk on
-  the device.
+  the device; :func:`full_ranking_sharded` does the same over an entity
+  table row-sharded on a mesh's model axis, with no ``[B, n_entities]``
+  matrix on any device (``parallel/rank_shard.py``).
 
 Every sweep runs under ``torch.no_grad()`` on the model's device.  The
 GQE sweeps take ``neighbor_table=`` for a neighborhood anchor encoder.
@@ -462,7 +464,12 @@ def full_ranking(
     structure: every entity of the target's mode competes (unfiltered),
     all formulas of a structure in one dispatch per ``max_batch`` chunk
     (capped so one chunk's score matrix stays near 1 GiB).  ``cfg`` and
-    ``neighbor_table`` as for :func:`evaluate_batched`."""
+    ``neighbor_table`` as for :func:`evaluate_batched`.  A row-sharded
+    table is refused (its ranking is :func:`full_ranking_sharded`'s)
+    rather than assembled on one device."""
+    if not isinstance(model.emb.ent, torch.Tensor):
+        raise ValueError("the entity table is row-sharded: rank it with "
+                         "full_ranking_sharded")
     operands = _k3_operands(model, cfg)
     device = model.emb.ent.device
     es = make_eval_set(queries_by_structure, max_queries_per_formula,
@@ -501,3 +508,64 @@ def _rank_metrics(ranks: np.ndarray, hits_at: Tuple[int, ...]
     for k in hits_at:
         m[f"hits@{k}"] = float(np.mean(ranks <= k))
     return m
+
+
+def full_ranking_sharded(
+    model,
+    cfg,
+    queries_by_structure: Dict[str, Dict[Formula, List[Query]]],
+    entity_mode: np.ndarray,
+    mesh,
+    hits_at: Tuple[int, ...] = (1, 3, 10),
+    max_queries_per_formula: Optional[int] = 200,
+    max_batch: int = 8192,
+) -> Dict[str, Dict[str, float]]:
+    """:func:`full_ranking` over an entity table row-sharded on ``mesh``'s
+    model axis (MPQE models only; ``ValueError`` otherwise), for tables
+    that exceed one card.  The queries encode on the mesh's first device
+    through the per-query-relation encoder (K3 for eligible models, its
+    anchor rows gathered from their owner blocks into a compact table),
+    and the rank count runs per block (``parallel/rank_shard.py``): no
+    ``[B, n_entities]`` score matrix exists on any device.  The rank
+    semantics are :func:`full_ranking`'s.  The chunk is capped by the
+    per-block score rows.  ``model`` is not changed; ranking reuses the
+    encode table's blocks (no second copy), only the padded mode vector
+    is new."""
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.parallel import mesh as mesh_lib
+    from mpqe_tpu_torch.parallel import rank_shard
+
+    if not is_mpqe(cfg):
+        raise ValueError("sharded full ranking supports MPQE configs only")
+    sharded = rank_shard.shard_encode_params(model, mesh)
+    table = sharded.emb.ent
+    modes = rank_shard.shard_modes(mesh, entity_mode, table.n_padded)
+    rank_fn = rank_shard.make_sharded_rank_fn(mesh, cfg)
+    operands = _k3_operands(sharded, cfg)
+    device = table.device
+    es = make_eval_set(queries_by_structure, max_queries_per_formula,
+                       require_negatives=False)
+    n_shards = mesh.shape[mesh_lib.model_axis(mesh)]
+    max_batch = _effective_max_batch(
+        cfg, max_batch, max(cfg.n_entities // n_shards, 1))
+    out: Dict[str, Dict[str, float]] = {}
+    for structure, data in es.by_structure.items():
+        n_q = data["target"].shape[0]
+        ranks = np.zeros(n_q, np.float64)
+        for lo in range(0, n_q, max_batch):
+            hi = min(lo + max_batch, n_q)
+            B = bucket_size(hi - lo)
+            with torch.no_grad():
+                q = mpqe_mod.encode_dense_multi_auto(
+                    sharded, cfg, structure,
+                    _pad_chunk(data["node_entity"], lo, hi, B, device),
+                    _pad_chunk(data["node_mode"], lo, hi, B, device),
+                    _pad_chunk(data["edge_rel"], lo, hi, B, device),
+                    _pad_chunk(data["edge_norm"], lo, hi, B, device, 1),
+                    operands=operands)
+                r = rank_fn(table.blocks, modes, q.to(torch.float32),
+                            _pad_chunk(data["target"], lo, hi, B, device))
+            ranks[lo:hi] = r.cpu().numpy()[:hi - lo]
+        if n_q:
+            out[structure] = _rank_metrics(ranks, hits_at)
+    return out

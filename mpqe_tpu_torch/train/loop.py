@@ -112,7 +112,8 @@ class OptaxAdam(torch.optim.Optimizer):
     a weakly typed Python scalar into a bf16 array's dtype; ``1 - b^t``
     is taken in f32 and then rounded, as optax's bias correction does.
     (So ``b2 = 0.999`` acts as bf16's 1.0.)  The clip's global norm sums
-    each leaf's squares in the leaf's dtype."""
+    each leaf's squares in the leaf's dtype, on the first leaf's device
+    (the blocks of a row-sharded table may live on several)."""
 
     def __init__(self, params, tc: TrainConfig):
         if tc.optimizer not in ("adam", "sgd"):
@@ -133,10 +134,11 @@ class OptaxAdam(torch.optim.Optimizer):
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         if self.max_norm > 0:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            dev = grads[0].device
+            norm = torch.sqrt(sum(torch.sum(g * g).to(dev) for g in grads))
             if not bool(norm < self.max_norm):
-                grads = [(g / norm.to(g.dtype)) * _rounded(self.max_norm,
-                                                             g.dtype)
+                grads = [(g / norm.to(g.device, g.dtype))
+                         * _rounded(self.max_norm, g.dtype)
                          for g in grads]
         count = group["count"]
         step_size = -self.lr(count)
@@ -194,11 +196,14 @@ class TrainState:
 
 
 def make_train_step(cfg, optimizer: OptaxAdam,
-                    batch_loss_fn: Optional[Callable] = None) -> Callable:
+                    batch_loss_fn: Optional[Callable] = None,
+                    reduce_grads: Optional[Callable] = None) -> Callable:
     """``step(model, structure, *batch tensors) -> loss``: value and
     gradient of ``batch_loss_fn(model, cfg, structure, *tensors)``
     (default :func:`models.mpqe.dense_batch_loss`), then the optimizer
-    update, in place."""
+    update, in place.  ``reduce_grads(loss) -> loss``, when given, runs
+    between the backward and the update (the data-parallel step sums the
+    processes' gradients there, ``parallel/spmd.py``)."""
     if batch_loss_fn is None:
         batch_loss_fn = mpqe_mod.dense_batch_loss
 
@@ -209,25 +214,37 @@ def make_train_step(cfg, optimizer: OptaxAdam,
                              edge_rel, edge_norm, target, negatives,
                              neg_mask, query_mask)
         loss.backward()
+        loss = loss.detach()
+        if reduce_grads is not None:
+            loss = reduce_grads(loss)
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step_fn
 
 
 def make_multistep_train_step(cfg, optimizer: OptaxAdam,
-                              batch_loss_fn: Optional[Callable] = None
+                              batch_loss_fn: Optional[Callable] = None,
+                              reduce_grads: Optional[Callable] = None
                               ) -> Callable:
     """``step(model, structure, *batch tensors with a leading [K] axis)
     -> losses [K]``: K train steps of :func:`make_train_step`, one per
-    slice of the stacked batch, in one call.  The losses stay on the
-    device (the reference's ``lax.scan`` returns them so), so a caller
-    that reads them once synchronises once per K steps."""
-    one = make_train_step(cfg, optimizer, batch_loss_fn)
+    slice of the stacked batch, in one call.  A field may also be a list
+    of per-part tensors, each with the leading ``[K]`` axis (a batch
+    split over a mesh's data parts).  The losses stay on the device (the
+    reference's ``lax.scan`` returns them so), so a caller that reads
+    them once synchronises once per K steps."""
+    one = make_train_step(cfg, optimizer, batch_loss_fn, reduce_grads)
+
+    def at(a, i):
+        return [t[i] for t in a] if isinstance(a, (list, tuple)) else a[i]
 
     def step_fn(model, structure, *stacked):
-        return torch.stack([one(model, structure, *(a[i] for a in stacked))
-                            for i in range(stacked[0].shape[0])])
+        first = stacked[0]
+        k = (first[0] if isinstance(first, (list, tuple)) else first
+             ).shape[0]
+        return torch.stack([one(model, structure, *(at(a, i) for a in stacked))
+                            for i in range(k)])
 
     return step_fn
 
@@ -246,28 +263,44 @@ def batch_tensors(batch: DenseQueryBatch, device) -> List[torch.Tensor]:
 
 
 def run_step(train_step: Callable, state: TrainState,
-             batch: DenseQueryBatch) -> float:
+             batch: DenseQueryBatch,
+             put_batch: Optional[Callable] = None) -> float:
+    """One step on ``batch``, its arrays placed by ``put_batch(batch)``
+    (a list of fields in ``BATCH_FIELDS`` order), by default as tensors
+    on the entity table's device."""
     loss = train_step(state.model, batch.structure,
-                      *batch_tensors(batch, state.model.emb.ent.device))
+                      *_placed(state, batch, put_batch))
     state.step += 1
     return float(loss)
 
 
+def _placed(state: TrainState, batch: DenseQueryBatch,
+            put_batch: Optional[Callable]) -> list:
+    if put_batch is not None:
+        return put_batch(batch)
+    return batch_tensors(batch, state.model.emb.ent.device)
+
+
 def run_multistep(train_step: Callable, state: TrainState,
-                  batches: Sequence[DenseQueryBatch]) -> List[float]:
+                  batches: Sequence[DenseQueryBatch],
+                  put_batch: Optional[Callable] = None) -> List[float]:
     """Stack K same-structure batches and take K steps in one call."""
     from mpqe_tpu_torch.data.pipeline import stack_batches
 
-    return run_multistep_stacked(train_step, state, stack_batches(batches))
+    return run_multistep_stacked(train_step, state, stack_batches(batches),
+                                 put_batch)
 
 
 def run_multistep_stacked(train_step: Callable, state: TrainState,
-                          batch: DenseQueryBatch) -> List[float]:
+                          batch: DenseQueryBatch,
+                          put_batch: Optional[Callable] = None
+                          ) -> List[float]:
     """One call of a multistep step over a batch already stacked on a
     leading ``[K]`` axis (by ``BatchPipeline(steps_per_call=K)`` on its
-    thread); the K losses are read from the device once."""
+    thread; ``put_batch`` as for :func:`run_step`, given the stack); the
+    K losses are read from the device once."""
     losses = train_step(state.model, batch.structure,
-                        *batch_tensors(batch, state.model.emb.ent.device))
+                        *_placed(state, batch, put_batch))
     state.step += int(losses.shape[0])
     return losses.tolist()
 
@@ -328,6 +361,8 @@ def run_train(
     train_stores=None,
     should_stop: Optional[Callable[[], bool]] = None,
     neighbor_table=None,
+    multi_step: Optional[Callable] = None,
+    put_batch: Optional[Callable] = None,
 ) -> TrainState:
     """Curriculum training until convergence / max_steps / patience, in
     place on ``state``.  ``should_stop`` is polled each step (True stops
@@ -344,15 +379,18 @@ def run_train(
     BatchPipeline`` of that depth, one per curriculum phase (restarted
     from ``tc.seed`` at the burn-in switch, as the reference does).
     ``steps_per_call > 1`` takes that many same-formula steps per call of
-    :func:`make_multistep_train_step` (of the default step only: a custom
-    ``train_step`` raises), and its records carry ``loss`` (the last),
-    ``loss_mean_k`` and ``k``."""
+    :func:`make_multistep_train_step` (of the default step; a custom
+    ``train_step`` comes with its own ``multi_step``, else it raises),
+    and its records carry ``loss`` (the last), ``loss_mean_k`` and
+    ``k``.  ``put_batch(batch)`` places each batch's arrays (``run_step``;
+    the data-parallel step splits them over its mesh), by default on the
+    entity table's device."""
     from mpqe_tpu_torch.data.pipeline import draw_batch, packer
     from mpqe_tpu_torch.data.store import build_stores
 
     rng = np.random.default_rng(tc.seed)
     device = state.model.emb.ent.device
-    hard_step = multi_step = hard_multi = None
+    hard_step = hard_multi = None
     if train_step is None:
         train_step = make_train_step(cfg, state.optimizer, batch_loss_fn)
         if steps_per_call > 1:
@@ -366,9 +404,11 @@ def run_train(
                     hcfg, state.optimizer, batch_loss_fn)
     elif tc.hard_margin > 0.0:
         raise ValueError("hard_margin needs the default train step")
-    elif steps_per_call > 1:
+    elif steps_per_call > 1 and multi_step is None:
         raise ValueError("steps_per_call > 1 needs the default train step "
-                         "(batch_loss_fn picks the loss)")
+                         "(batch_loss_fn picks the loss) or multi_step")
+    if steps_per_call <= 1:
+        multi_step = None
 
     stores = (train_stores if train_stores is not None
               else build_stores(train_queries, kg=kg))
@@ -430,7 +470,7 @@ def run_train(
             if multi_step is not None:
                 ms = hard_multi if use_hard_margin else multi_step
                 # K same-formula batches stacked on a leading [K] axis
-                k_losses = run_multistep_stacked(ms, state, batch)
+                k_losses = run_multistep_stacked(ms, state, batch, put_batch)
                 dt = time.perf_counter() - t0
                 losses.extend(k_losses)
                 loss = k_losses[-1]
@@ -441,7 +481,7 @@ def run_train(
                             "seconds": dt, "k": len(k_losses)})
             else:
                 loss = run_step(hard_step if use_hard_margin else train_step,
-                                state, batch)
+                                state, batch, put_batch)
                 dt = time.perf_counter() - t0
                 losses.append(loss)
                 if log_fn:

@@ -1663,3 +1663,123 @@ def test_cuda_multistep_and_prefetch_match_single_steps():
         assert a["k"] == 4
         for key in ("loss", "loss_mean_k"):
             assert abs(a[key] - b[key]) <= 1e-4 * abs(b[key]), (a, b)
+
+
+# ------------------------------------------------------------------
+# The sharded entity table on parts of the card
+# ------------------------------------------------------------------
+def _card_mesh(dev, shape):
+    from mpqe_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(shape, devices=[dev] * (shape[0] * shape[1]))
+
+
+@pytest.mark.cuda
+def test_cuda_k3_from_the_compact_anchor_table():
+    """K3 over a row-sharded table (each call's anchor rows gathered from
+    their owner blocks into a compact table): the bits of K3 over the
+    model's own table, in one launch a layer."""
+    from mpqe_tpu_torch.parallel import rank_shard as trs
+    from mpqe_tpu_torch.parallel import sharding as tsh
+
+    dev = _cuda()
+    cfg, model = _model(128, 16, dev)
+    sharded = trs.shard_encode_params(model, _card_mesh(dev, (1, 4)))
+    ops = tff.prepare_fused_multi(model, cfg)
+    ops_s = tff.prepare_fused_multi(sharded, cfg)
+    assert isinstance(ops_s.ent, tsh.RowShardedTable)
+    for structure in STRUCTURE_NAMES:
+        args = _inputs(structure, 256, dev, seed=3)
+        with torch.inference_mode():
+            want = tff.fused_tgt_forward_multi(model, cfg, structure, *args,
+                                               operands=ops)
+            before = tff.fused_tgt_forward_multi.launches
+            got = tff.fused_tgt_forward_multi(sharded, cfg, structure,
+                                              *args, operands=ops_s)
+        assert tff.fused_tgt_forward_multi.launches - before == \
+            tm.num_steps(cfg, structure)
+        assert torch.equal(got, want), structure
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16", "int8"])
+def test_cuda_sharded_server_matches_unsharded(table_dtype):
+    """``ShardedQueryServer`` on 4 parts of the card against the unsharded
+    server of the same table dtype: ids equal, scores within 1e-4 (the
+    rank products' sum order per block)."""
+    from mpqe_tpu_torch.data.sampler import QuerySampler, make_random_kg
+    from mpqe_tpu_torch.serve import QueryServer, ShardedQueryServer
+
+    dev = _cuda()
+    kg = make_random_kg(n_entities=N_ENT, n_modes=N_MODES,
+                        n_base_rels=N_RELS // 2, n_triples=20000, seed=0)
+    cfg, model = _model(128, 16, dev)
+    dense = QueryServer(model, cfg, kg.entity_mode, device=dev,
+                        table_dtype=table_dtype)
+    sharded = ShardedQueryServer(model, cfg, kg.entity_mode,
+                                 _card_mesh(dev, (1, 4)),
+                                 table_dtype=table_dtype)
+    s = QuerySampler(kg, seed=2)
+    req = [q for st in STRUCTURE_NAMES for q in s.sample_queries(st, 8,
+                                                                 n_neg=1)]
+    a = sharded.answer(req, k=10)
+    b = dense.answer(req, k=10)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.entity_ids, y.entity_ids)
+        np.testing.assert_allclose(x.scores, y.scores, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_spmd_step_matches_single_device_step():
+    """3 SGD steps of the data-parallel step on a (2, 2) mesh of the
+    card, the table row-sharded, against the single-device step from the
+    same initial parameters: losses within 1e-4 relative, each
+    parameter's change within 1e-4 mean-normalized per leaf (the gathers'
+    gradients sum by atomics; SGD's change is the gradients' sum, so a
+    gradient reduced twice fails), and a leaf that no structure reaches
+    unchanged in both."""
+    import functools
+
+    from mpqe_tpu_torch.data.batcher import DenseQueryBatch
+    from mpqe_tpu_torch.parallel import spmd
+    from mpqe_tpu_torch.train import loop as tl
+
+    dev = _cuda()
+    cfg, _ = _model(128, 16, dev)
+    tc = tl.TrainConfig(lr=1.0, optimizer="sgd", batch_size=256, n_neg=4)
+    single = tl.init_train_state(torch.Generator(device=dev).manual_seed(1),
+                                 cfg, tc, device=dev)
+    one = tl.make_train_step(cfg, single.optimizer)
+    init = {k: v.clone() for k, v in single.model.state_dict().items()}
+    mesh = _card_mesh(dev, (2, 2))
+    init_fn, step = spmd.make_spmd_train_step(cfg, tc, mesh)
+    state = init_fn(torch.Generator(device=dev).manual_seed(1))
+    for n, v in state.model.state_dict().items():
+        assert torch.equal(v, init[n]), n
+    rng = np.random.default_rng(0)
+    for structure in ("1-chain", "2-inter", "3-chain_inter"):
+        spec = STRUCTURES[structure]
+        b = DenseQueryBatch(
+            structure=structure, n_queries=200,
+            node_entity=rng.integers(0, N_ENT, (256, spec.n_nodes)).astype(
+                np.int32),
+            node_mode=rng.integers(0, N_MODES, (256, spec.n_nodes)).astype(
+                np.int32),
+            edge_rel=rng.integers(0, N_RELS, spec.n_edges).astype(np.int32),
+            edge_norm=np.ones(spec.n_edges, np.float32),
+            target=rng.integers(0, N_ENT, 256).astype(np.int32),
+            negatives=rng.integers(0, N_ENT, (256, 4)).astype(np.int32),
+            neg_mask=np.ones((256, 4), np.float32),
+            query_mask=(np.arange(256) < 200).astype(np.float32))
+        la = tl.run_step(one, single, b)
+        lb = tl.run_step(step, state, b, functools.partial(spmd.put_batch,
+                                                           mesh))
+        assert abs(la - lb) <= 1e-4 * abs(la), (la, lb)
+    got, want = state.model.state_dict(), single.model.state_dict()
+    for n, w in want.items():
+        dw, dg = w - init[n], got[n] - init[n]
+        if not bool((dw != 0).any()):  # a leaf no structure reached
+            assert not bool((dg != 0).any()), n
+            continue
+        err = float((dg - dw).abs().mean() / dw.abs().mean())
+        assert err <= 1e-4, (n, err)

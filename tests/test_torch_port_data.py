@@ -123,6 +123,7 @@ def _run_isolated(imports: str):
 def test_port_imports_no_jax():
     proc = _run_isolated(
         "import mpqe_tpu_torch\n"
+        "import mpqe_tpu_torch.tools.dryrun_multichip\n"
         "for m in pkgutil.walk_packages(mpqe_tpu_torch.__path__, "
         "'mpqe_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -131,7 +132,10 @@ def test_port_imports_no_jax():
         "'mpqe_tpu_torch.parallel.halo', 'mpqe_tpu_torch.parallel.halo_train', "
         "'mpqe_tpu_torch.parallel.mesh', 'mpqe_tpu_torch.ops.ring', "
         "'mpqe_tpu_torch.netserve', 'mpqe_tpu_torch.data.native', "
-        "'mpqe_tpu_torch.data.pipeline', 'mpqe_tpu_torch.ops.embed'):\n"
+        "'mpqe_tpu_torch.data.pipeline', 'mpqe_tpu_torch.ops.embed', "
+        "'mpqe_tpu_torch.parallel.sharding', 'mpqe_tpu_torch.parallel.spmd', "
+        "'mpqe_tpu_torch.parallel.multihost', "
+        "'mpqe_tpu_torch.parallel.rank_shard'):\n"
         "    assert m in sys.modules, m\n")
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

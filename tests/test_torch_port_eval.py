@@ -352,8 +352,13 @@ def test_evaluate_cli_refuses_unported(tmp_path, capsys):
     from mpqe_tpu_torch import evaluate as tev
 
     run = _tiny_run(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tev.main(["--run_dir", run, "--device", "cpu", "--shards", "2"])
+    # --shards is ported: the sharded ranking gives the unsharded lines
+    capsys.readouterr()
+    tev.main(["--run_dir", run, "--device", "cpu", "--ranking"])
+    want = capsys.readouterr().out.strip().splitlines()
+    tev.main(["--run_dir", run, "--device", "cpu", "--ranking", "--shards",
+              "2"])
+    assert capsys.readouterr().out.strip().splitlines() == want
     # --split is ported: one bucket line per non-empty bucket, their n
     # adding up to the evaluated queries (all seen: one bucket)
     capsys.readouterr()
@@ -385,8 +390,11 @@ def test_evaluate_cli_refuses_unported(tmp_path, capsys):
              capsys.readouterr().out.strip().splitlines()]
     assert lines[0]["step"] == 2 and "auc_macro" in lines[0]
     assert len(lines) > 1 and all("mrr" in ln for ln in lines[1:])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tev.main(["--run_dir", gqe_run, "--device", "cpu", "--shards", "2"])
+    # a GQE run gets the reference's refusal of the sharded ranking
+    with pytest.raises(ValueError, match="MPQE configs only"):
+        tev.main(["--run_dir", gqe_run, "--device", "cpu", "--ranking",
+                  "--shards", "2"])
+    capsys.readouterr()
     tev.main(["--run_dir", gqe_run, "--device", "cpu", "--split"])
     buckets = [json.loads(ln) for ln in
                capsys.readouterr().out.strip().splitlines()][1:]

@@ -303,9 +303,15 @@ def test_halo_train_refusals():
     _, tcfg, _, _ = _models()
     tc = tloop.TrainConfig(batch_size=16, n_neg=4)
     mesh = _cpu_mesh((2, 1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tht.init_halo_train_state(torch.Generator(), tcfg, tc, mesh,
-                                  shard_entity_table=True)
+    # shard_entity_table=True is ported: the table row-sharded over the
+    # mesh's model axis (one part here), the layer weights replicated
+    from mpqe_tpu_torch.parallel import sharding as tsh
+
+    st = tht.init_halo_train_state(torch.Generator(), tcfg, tc, mesh,
+                                   shard_entity_table=True)
+    assert isinstance(st.model.emb.ent, tsh.RowShardedTable)
+    assert len(st.model.emb.ent.blocks) == 1
+    assert isinstance(st.model.layers[0].basis, torch.nn.Parameter)
     # the halo multistep step is ported (tests/test_torch_port_multistep.py);
     # like the single step it refuses an unknown layer kind when called
     model = tloop.init_train_state(torch.Generator().manual_seed(0), tcfg,
@@ -351,17 +357,18 @@ def test_train_cli_halo_on_cpu(parallel, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,exc,msg", [
-    (["--parallel", "spmd"], NotImplementedError, "Queue 1 item 8"),
+    (["--parallel", "spmd", "--model", "gqe"], SystemExit,
+     "--parallel requires --model rgcn"),
     (["--parallel", "halo_ring", "--kernel", "fused"], SystemExit,
      "single-chip for now"),
     (["--parallel", "halo_gather", "--model", "gqe"], SystemExit,
      "--parallel requires --model rgcn"),
     (["--parallel", "halo_ring", "--shared_negatives", "4"], SystemExit,
      "--shared_negatives is single-chip"),
-    (["--parallel", "halo_ring", "--mesh", "2,1"], ValueError,
-     "mesh shape 2x1 != 1 devices"),
-    (["--parallel", "spmd", "--steps_per_call", "4"],
-     NotImplementedError, "Queue 1 item 8"),
+    (["--parallel", "spmd", "--mesh", "3,1"], ValueError,
+     "16 queries do not split into 3 data parts"),
+    (["--parallel", "spmd", "--steps_per_call", "4", "--hard_margin",
+      "0.5"], ValueError, "hard_margin needs the default train step"),
 ], ids=["spmd", "kernel", "model", "shared_neg", "mesh", "multistep"])
 def test_train_cli_parallel_refusals(flags, exc, msg, tmp_path):
     from mpqe_tpu_torch.train.__main__ import main
@@ -369,3 +376,28 @@ def test_train_cli_parallel_refusals(flags, exc, msg, tmp_path):
     with pytest.raises(exc, match=re.escape(msg)):
         main(CLI + flags + ["--steps", "2", "--run_dir",
                             str(tmp_path / "r")])
+
+
+@pytest.mark.parametrize("flags,shape", [
+    (["--parallel", "spmd"], {"data": 1, "model": 1}),
+    (["--parallel", "halo_ring", "--mesh", "2,1"], {"data": 2, "model": 1}),
+    (["--parallel", "spmd", "--steps_per_call", "2"],
+     {"data": 1, "model": 1}),
+], ids=["spmd", "mesh", "multistep"])
+def test_train_cli_parallel_flags_on_cpu(flags, shape, tmp_path, capsys):
+    """What the refusals above once pinned now trains: ``--parallel spmd``
+    (also K steps a call), and under ``--device cpu`` a ``--mesh`` of
+    several parts, all on the CPU."""
+    import json
+
+    from mpqe_tpu_torch.train.__main__ import main
+
+    run = str(tmp_path / "run")
+    main(CLI + flags + ["--steps", "4", "--val_every", "2", "--run_dir",
+                        run])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert re.fullmatch(r"final step=4 macro_auc=\S+ macro_apr=\S+", last)
+    lines = [json.loads(ln) for ln in open(os.path.join(run,
+                                                        "metrics.jsonl"))]
+    assert next(ln for ln in lines
+                if ln.get("event") == "mesh")["shape"] == shape

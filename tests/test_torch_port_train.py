@@ -658,7 +658,8 @@ def test_cli_blocked_needs_bases(tmp_path):
                     "--run_dir", str(tmp_path / "r")])
 
 
-@pytest.mark.parametrize("flag", [["--parallel", "spmd"], ["--trace", "5"]])
+@pytest.mark.parametrize("flag", [["--trace", "3", "--parallel", "spmd"],
+                                  ["--trace", "5"]])
 def test_cli_unported_flags_raise(flag, tmp_path):
     from mpqe_tpu_torch.train.__main__ import main
 
