@@ -12,9 +12,11 @@ mpqe_tpu_torch.bench`` and the quality benchmark) and reduced precision
 bfloat16 and int8 candidate tables; its sparse routes: K5 on bf16 rows,
 K6 and K8 on bf16 leaves, the sparse evaluate, and the train CLI at
 ``--dtype bfloat16`` through ``--kernel fused|blocked`` and ``--parallel
-halo_ring``) and the sharded entity table (serving, full ranking, the
-data-parallel step, two processes, the multi-part dry run) at the
-flagship width
+halo_ring``), the sharded entity table (serving, full ranking, the
+data-parallel step, two processes, the multi-part dry run) and the
+train CLI's ``--trace`` window, reference checkpoint import and export,
+the crash supervisor, the AM-scale quality tool and ``utils/debug.py``
+at the flagship width
 (d = 128, 3 R-GCN layers, TGT readout, 16 bases or full per-relation
 weights, 266 relations, 4 modes, 1,000,000 entities;
 random weights from a seed) and checks every
@@ -305,6 +307,29 @@ parallel (one nvcc each), then:
    processes bit-equal) and ``dryrun``
    (``tools/dryrun_multichip.py`` on 8 parts, K8 against the ring).
 
+25. The last modules a single card runs: ``train.trace`` (``data.npz``'s
+   train CLI run with ``--trace 5 --trace_skip 10``: ``trace_start`` at
+   step 10,
+   ``trace_done`` at 15, one Chrome trace under ``<run_dir>/trace``
+   holding K1's kernel and K2's other passes at least once a traced
+   step; its size and the window's step p50),
+   ``import`` (an upstream-shaped state dict of a random model at 10^6
+   entities and 4 modes, per-mode tables through a shuffled
+   ``node_maps``, through ``tools/import_torch_checkpoint.py`` into a run
+   dir: parameters bit-equal; ``serve --run_dir --answer`` through K3
+   with the source model's ``QueryServer`` answers; export and
+   re-import bit-equal), ``resilient`` (``tools/resilient_train.py``
+   over the train CLI on the card, its child SIGKILLed after its first
+   checkpoint: relaunched with ``--resume``, resumed at that step,
+   finished with exit 0; restarts and seconds lost), ``am_scale``
+   (``tools/am_scale_quality.py`` at the reference's AM shape, 2M
+   entities, 10M triples, batch 65,536, cut to 100 + 200 steps and
+   200,000 / 4,096 queries: the result well formed, losses finite, the
+   burn-in loss falling; seconds, steps/s, APR, AUC, peak memory) and
+   ``debug`` (one dense flagship step under ``utils/debug.checked``
+   equal to it unchecked; a NaN entity row raising
+   ``FloatingPointError`` naming an op).
+
 Prints the card's name and power limit first, then one line per check,
 a JSON line ``{"kernels": [...]}`` (K1's entry, ``tgt_mma_forward``,
 carries its variants' figures under ``variants``, the bf16 model's
@@ -323,6 +348,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -4151,7 +4177,8 @@ def phase_data_npz(kg, tmp: str, device) -> tuple:
     """``data.npz``: the flagship KG through ``save_kg_npz`` /
     ``load_kg_npz`` (equal arrays), ``stores_from_edges`` over its 2M
     directed edges with packed batches checked, then the train CLI on
-    ``--data npz:``.  Returns its (K1, K2, K3) launches."""
+    ``--data npz:`` with a trace window (:func:`check_train_trace`).
+    Returns its (K1, K2, K3) launches."""
     import os
 
     from mpqe_tpu_torch.data import loader
@@ -4184,11 +4211,13 @@ def phase_data_npz(kg, tmp: str, device) -> tuple:
                              f"{kg.n_triples} triples")
     check_raw_edge_batches(stores, back)
     del stores, back
-    _, launches = train_cli_run(
+    run = os.path.join(tmp, "npz_run")
+    records, launches = train_cli_run(
         ["--data", f"npz:{path}", *DATA_CLI, "--device", str(device),
          "--steps", str(DATA_STEPS),
-         "--val_every", str(DATA_STEPS), "--run_dir",
-         os.path.join(tmp, "npz_run")], "data.npz train.cli")
+         "--val_every", str(DATA_STEPS), *TRACE_ARGS, "--run_dir", run],
+        "data.npz train.cli")
+    check_train_trace(records, run)
     return launches
 
 
@@ -6193,6 +6222,438 @@ def phase_dryrun(device) -> int:
     return n, k3
 
 
+# the last single-card modules (train --trace, the supervisor, reference
+# checkpoint import and export, the AM-scale tool, utils/debug.py)
+TRACE_ARGS = ["--trace", "5", "--trace_skip", "10"]
+# K1's forward and K2's pass A are one template,
+# ``tgt_mma_chain_kernel<MT, BWD>`` (csrc/fused_tgt.cu), told apart by BWD
+# in the trace's demangled name (or the mangled ``...ILi<MT>ELb<0|1>E``);
+# K2's pass B is ``tgt_mma_dw_kernel``, pass C the ``tgt_mma_reduce``
+# kernels
+TRACE_CHAIN = "tgt_mma_chain_kernel"
+TRACE_BWD = (re.compile(r"tgt_mma_chain_kernel<\s*\d+\s*,\s*(true|false)\s*>"),
+             re.compile(r"tgt_mma_chain_kernelILi\d+ELb([01])E"))
+TRACE_PASSES = (("K1", None), ("K2.A", None), ("K2.B", "tgt_mma_dw_kernel"),
+                ("K2.C", "tgt_mma_reduce"))
+RESILIENT_STEPS = 40  # after the resume
+RESILIENT_VAL = 20  # the first checkpoint, then the kill
+IMPORT_QUERIES = 40  # served queries per structure
+AM_ARGS = ["--burn_in_steps", "100", "--steps", "200", "--steps_per_call",
+           "50", "--train_queries", "200000", "--val_queries", "4096"]
+AM_TIMEOUT_S = 600
+DEBUG_BATCH = 512
+
+
+def trace_pass(name: str):
+    """Which of K1 / K2.A / K2.B / K2.C a CUDA kernel event is, or None."""
+    if TRACE_CHAIN in name:
+        for pat in TRACE_BWD:
+            m = pat.search(name)
+            if m:
+                return "K2.A" if m.group(1) in ("true", "1") else "K1"
+        raise AssertionError(f"train.trace: no BWD argument in {name!r}")
+    for label, sub in TRACE_PASSES[2:]:
+        if sub in name:
+            return label
+    return None
+
+
+def check_train_trace(records: list, run: str) -> None:
+    """``train.trace``: the ``data.npz`` train CLI run's ``--trace 5
+    --trace_skip 10`` window (K1/K2): ``trace_start`` at step 10 and
+    ``trace_done`` at 15, one Chrome trace under ``<run_dir>/trace``
+    whose CUDA kernel events hold, counted apart, K2's pass A, pass B and
+    pass C at least once a traced step each and K1's forward in all
+    steps but one (every step launches each).  The one: in this long
+    process ``torch.profiler`` dropped the device events of the first
+    traced step's forward, K1 included, in two runs on the H100 (launch
+    order ``ABCC`` then ``FABCC`` four times, with 20 and 320 ms of idle
+    pad before the step; PERF.md), which the same window in a process of
+    its own did not repeat.  The passes
+    are logged in launch order, one letter a launch (F, A, B, C), so
+    that a lost event shows where it was."""
+    import os
+
+    events = {r["event"]: r for r in records
+              if r.get("event") in ("trace_start", "trace_done")}
+    files = os.listdir(os.path.join(run, "trace"))
+    path = os.path.join(run, "trace", files[0])
+    with open(path) as f:
+        trace = json.load(f)["traceEvents"]
+    kernels = sorted((e["ts"], e["name"]) for e in trace
+                     if e.get("cat") == "kernel")
+    passes = [p for p in (trace_pass(k) for _, k in kernels) if p]
+    counts = {label: passes.count(label) for label, _ in TRACE_PASSES}
+    order = "".join({"K1": "F", "K2.A": "A", "K2.B": "B",
+                     "K2.C": "C"}[p] for p in passes)
+    names = sorted({k for _, k in kernels if trace_pass(k) in ("K1", "K2.A")})
+    window = events["trace_done"]["window"]
+    log(f"train.trace: trace_start step {events['trace_start']['step']}, "
+        f"trace_done step {events['trace_done']['step']}; {len(files)} "
+        f"file, {os.path.getsize(path) / 2**20:.2f} MiB, {len(trace)} "
+        f"events, {len(kernels)} CUDA kernel events: {counts} (in launch "
+        f"order {order}); window step_ms_p50={window['p50_s'] * 1e3:.3f} "
+        f"p95={window['p95_s'] * 1e3:.3f} over {window['steps']} steps; "
+        f"{SMI['line']}")
+    log(f"train.trace: chain kernel names {names}")
+    n = events["trace_done"]["step"] - events["trace_start"]["step"]
+    if not (events["trace_start"]["step"] == 10
+            and events["trace_done"]["step"] == 15 and len(files) == 1
+            and counts["K1"] >= n - 1
+            and all(counts[p] >= n for p in ("K2.A", "K2.B", "K2.C"))):
+        raise AssertionError(f"train.trace: events {events}, files {files}, "
+                             f"kernel events {counts} for {n} steps")
+
+
+def _children(pid: int) -> list:
+    """The running children of ``pid`` (Linux ``/proc``)."""
+    try:
+        with open(f"/proc/{pid}/task/{pid}/children") as f:
+            return [int(c) for c in f.read().split()]
+    except OSError:
+        return []
+
+
+def phase_resilient(kg_path: str, tmp: str, device) -> None:
+    """``resilient``: ``python -m mpqe_tpu_torch.tools.resilient_train`` on
+    the train CLI (the card, K1/K2, flagship width, the flagship KG file
+    of ``data.npz``: a 10^6-row table and its Adam state in each
+    checkpoint), its child SIGKILLed once its first checkpoint exists:
+    the relaunch carries ``--resume``, logs ``resumed`` at that
+    checkpoint's step and reaches the final step with exit 0.  The
+    seconds lost: from the checkpoint to the kill (work thrown away) and
+    from the kill to the relaunch's ``resumed`` record (backoff, process
+    start, data load, restore), of which the CUDA start, the model's
+    init and the restore are from the relaunch's ``data_loaded`` record
+    to ``resumed``; the restore's own seconds are in that record."""
+    import os
+    import signal
+
+    run = os.path.join(tmp, "resilient_run")
+    cmd = [sys.executable, "-m", "mpqe_tpu_torch.tools.resilient_train",
+           "--backoff", "0.5", "--", "--data", f"npz:{kg_path}", *DATA_CLI,
+           "--device", str(device), "--steps", str(RESILIENT_STEPS),
+           "--val_every", str(RESILIENT_VAL), "--patience", "1000",
+           "--run_dir", run]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    metrics = os.path.join(run, "metrics.jsonl")
+    killed_at = None
+    try:
+        deadline = time.time() + 300
+        while killed_at is None:
+            if time.time() > deadline or proc.poll() is not None:
+                raise AssertionError("resilient: no checkpoint before the "
+                                     "run ended")
+            # the checkpoint's record is logged once its directory is
+            # complete
+            saved = os.path.exists(metrics) and any(
+                '"event": "checkpoint"' in ln for ln in open(metrics))
+            kids = _children(proc.pid)
+            if saved and kids:
+                os.kill(kids[0], signal.SIGKILL)
+                killed_at = time.time()
+            time.sleep(0.05)
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    ckpts = [r for r in recs if r.get("event") == "checkpoint"
+             and r["ts"] <= killed_at]
+    resumed = [r for r in recs if r.get("event") == "resumed"]
+    loaded = [r for r in recs if r.get("event") == "data_loaded"
+              and r["ts"] > killed_at]
+    finals = [r for r in recs if "final" in r]
+    restarts = err.count("relaunching with --resume")
+    ckpt_bytes = (os.path.getsize(os.path.join(ckpts[-1]["path"],
+                                               "state.pt"))
+                  if ckpts else 0)
+    lost_work = killed_at - ckpts[-1]["ts"] if ckpts else float("nan")
+    lost_restart = (resumed[0]["ts"] - killed_at if resumed
+                    else float("nan"))
+    restore = (resumed[0]["ts"] - loaded[0]["ts"] if resumed and loaded
+               else float("nan"))
+    log(f"resilient: rc={proc.returncode} in {wall:.1f} s, restarts "
+        f"{restarts}, killed after the checkpoint at step "
+        f"{ckpts[-1]['step'] if ckpts else None} ({ckpt_bytes} bytes, "
+        f"{ckpt_bytes / 2**30:.3f} GiB); resumed at step "
+        f"{resumed[0]['step'] if resumed else None}; final step "
+        f"{finals[-1]['step'] if finals else None}; seconds lost "
+        f"{lost_work + lost_restart:.2f} ({lost_work:.2f} of thrown-away "
+        f"steps, {lost_restart:.2f} from the kill to the resumed "
+        f"restore, of which {restore:.2f} from data_loaded to resumed: "
+        f"CUDA start, model init and restore; the restore alone "
+        f"{resumed[0]['seconds'] if resumed else float('nan'):.2f}); "
+        f"{SMI['line']}")
+    for ln in err.splitlines():
+        if ln.startswith("[resilient]"):
+            log(f"resilient: {ln}")
+    if not (proc.returncode == 0 and restarts == 1 and ckpts
+            and len(resumed) == 1
+            and resumed[0]["step"] == ckpts[-1]["step"]
+            and "--resume" in err.split("launching (restart 1)")[-1]
+            and finals and finals[-1]["step"]
+            == resumed[0]["step"] + RESILIENT_STEPS):
+        raise AssertionError(f"resilient: rc={proc.returncode}\n"
+                             f"{err[-3000:]}")
+
+
+def phase_import(kg_path: str, tmp: str, device) -> int:
+    """``import``: an upstream-shaped state dict of a random port model at
+    the flagship's 10^6 entities and 4 modes (per-mode ``nn.Embedding``
+    tables placed through a shuffled ``node_maps`` of a ``graph_data.pkl``,
+    ``rgcn.convs.{i}.{root,bias,weight,comp}``, mode embeddings) through
+    ``python -m mpqe_tpu_torch.tools.import_torch_checkpoint`` into a run
+    dir: every parameter bit-equal to the source model's; the run dir
+    served by ``python -m mpqe_tpu_torch.serve --run_dir --answer``
+    (K3): ids equal to, and scores within TOL_SCORE of, the source
+    model's ``QueryServer``; the run exported by ``export_torch_checkpoint``
+    and imported again bit-equal.  Returns K3's launches."""
+    import os
+    import pickle
+
+    from mpqe_tpu_torch import serve as serve_cli
+    from mpqe_tpu_torch.data import loader
+    from mpqe_tpu_torch.data import torch_import
+    from mpqe_tpu_torch.data.sampler import QuerySampler
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.queries import STRUCTURE_NAMES
+    from mpqe_tpu_torch.tools import export_torch_checkpoint as export_cli
+    from mpqe_tpu_torch.tools import import_torch_checkpoint as import_cli
+
+    d = os.path.join(tmp, "import_ds")
+    os.makedirs(d)
+    pkl = os.path.join(d, "graph_data.pkl")
+    t0 = time.perf_counter()
+    loader.save_graph_pickle(pkl, loader.load_kg_npz(kg_path))
+    with open(pkl, "rb") as f:
+        rels, adj, node_maps = pickle.load(f)
+    rng = np.random.default_rng(0)
+    for m in node_maps:
+        rng.shuffle(node_maps[m])
+    with open(pkl, "wb") as f:
+        pickle.dump((rels, adj, node_maps), f)
+    del rels, adj
+    kg, _, _ = loader.load_graph_pickle(pkl)
+    t_prep = time.perf_counter() - t0
+    cfg = mpqe_mod.MPQEConfig(n_entities=kg.n_entities, n_modes=kg.n_modes,
+                              n_rels=kg.n_rels, embed_dim=128, n_layers=3,
+                              num_bases=16)
+    gen = torch.Generator(device=device).manual_seed(19)
+    src = mpqe_mod.init_mpqe(gen, cfg, device=device)
+    with torch.no_grad():
+        for lp in src.layers:
+            lp.bias.normal_(0.0, 0.1, generator=gen)
+    sd = {"mode_embeddings.weight": src.emb.var.detach().cpu()}
+    for m in kg.mode_names:
+        rows = torch.as_tensor(np.asarray(node_maps[m]), device=device)
+        sd[f"enc.features.{m}.weight"] = src.emb.ent[rows].detach().cpu()
+    for i, lp in enumerate(src.layers):
+        pre = f"rgcn.convs.{i}."
+        sd.update({pre + "root": lp.w_self.detach().cpu(),
+                   pre + "bias": lp.bias.detach().cpu(),
+                   pre + "weight": lp.basis.detach().cpu(),
+                   pre + "comp": lp.coeff.detach().cpu()})
+    ckpt = os.path.join(tmp, "upstream.pt")
+    torch.save(sd, ckpt)
+    del sd
+    run = os.path.join(tmp, "imported")
+    t0 = time.perf_counter()
+    lines = run_cli(import_cli.main, ["--ckpt", ckpt, "--out", run, "--data",
+                                      f"pkl:{d}", "--device", str(device)],
+                    "import.cli")
+    t_import = time.perf_counter() - t0
+    report = json.loads(lines[-1])
+
+    def bit_equal(model):
+        got = dict(model.named_parameters())
+        return all(torch.equal(got[n], p) for n, p in src.named_parameters())
+
+    from mpqe_tpu_torch import evaluate as eval_cli
+
+    _, _, restored = eval_cli.restore_model(run, cfg, None, device)
+    equal_import = bit_equal(CLI_RESULT.pop("import.cli")) and \
+        bit_equal(restored)
+    del restored
+    sampler = QuerySampler(kg, seed=7)
+    flat = [q for s in STRUCTURE_NAMES
+            for q in sampler.sample_queries(s, IMPORT_QUERIES, n_neg=1)]
+    qpkl = os.path.join(tmp, "import_queries.pkl")
+    loader.save_queries_pickle(qpkl, flat)
+    grouped = loader.load_queries_pickle(qpkl, kg)
+    flat = [q for by_f in grouped.values() for qs in by_f.values()
+            for q in qs]
+    out = os.path.join(tmp, "import_answers.npz")
+    tgt_counters(reset=True)
+    t0 = time.perf_counter()
+    line = json.loads(run_cli(serve_cli.main, [
+        "--run_dir", run, "--answer", qpkl, "--out", out, "--device",
+        str(device)], "import serve.cli --answer")[-1])
+    t_serve = time.perf_counter() - t0
+    n3 = tgt_counters()[2]
+    got = np.load(out)
+    want = serve_cli.QueryServer(src, cfg, kg.entity_mode,
+                                 device=device).answer(flat, k=K)
+    same_ids = np.array_equal(got["entity_ids"],
+                              np.stack([a.entity_ids for a in want]))
+    err = float(np.abs(got["scores"]
+                       - np.stack([a.scores for a in want])).max())
+    exported = os.path.join(tmp, "exported.pt")
+    run_cli(export_cli.main, ["--run_dir", run, "--out", exported,
+                              "--device", str(device)], "export.cli")
+    again, rep2 = torch_import.import_mpqe_params(
+        torch_import.load_state_dict(exported), cfg, torch.Generator(),
+        mode_names=kg.mode_names, device=device)
+    equal_export = bit_equal(again) and not rep2.missing
+    log(f"import: graph_data.pkl ({kg.n_entities} entities, "
+        f"{kg.n_modes} modes, shuffled node_maps) {t_prep:.2f} s; "
+        f"import.cli {t_import:.2f} s: mapped {report['mapped']}, "
+        f"missing {report['missing']}, unused {report['unused_keys']}; "
+        f"parameters bit-equal to the source {equal_import}; serve.cli "
+        f"--answer {t_serve:.2f} s ({line['queries']} queries, "
+        f"{line['queries_per_s']:.1f} queries/s in its answer call, "
+        f"hit@{K}={line['hit_at_k']:.4f}), K3 launches {n3}, ids equal "
+        f"the source's QueryServer {same_ids}, score_err={err:.3e}; "
+        f"export -> import bit-equal {equal_export}; {SMI['line']}")
+    if not (equal_import and equal_export and same_ids and err <= TOL_SCORE
+            and n3 > 0 and not report["missing"]
+            and not report["unused_keys"] and line["queries"] == len(flat)):
+        raise AssertionError("import: check failed")
+    return n3
+
+
+def phase_am_scale() -> None:
+    """``am_scale``: ``python -m mpqe_tpu_torch.tools.am_scale_quality`` at
+    the reference's AM shape (2,000,000 entities, 8 modes, 16 base
+    relations, 10,000,000 triples, 3-chain_inter, batch 65,536, 4
+    negatives, d = 128, 3 layers, 16 bases) with its depth cut in steps
+    and queries only (AM_ARGS): each phase line, the result well formed,
+    every loss finite and the burn-in loss falling; each phase's
+    seconds, steps/s, APR, AUC and peak memory printed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpqe_tpu_torch.tools.am_scale_quality",
+         *AM_ARGS], capture_output=True, text=True, timeout=AM_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"am_scale: rc={proc.returncode}\n"
+                             f"{proc.stderr[-4000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    for ln in lines:
+        if ln["phase"] != "result":
+            log(f"am_scale: {json.dumps(ln)}")
+    res = lines[-1]
+    burn = [ln for ln in lines if ln["phase"] == "burn_in"]
+    full = [ln for ln in lines if ln["phase"] == "full"]
+    losses = [ln["loss"] for ln in burn + full]
+    keys = {"phase", "model", "structure", "kg", "entities",
+            "directed_edges", "train_queries", "steps", "burn_in_steps",
+            "batch", "backend", "apr", "auc_pooled", "val_heldout",
+            "peak_mem_bytes"}
+    log(f"am_scale: {wall:.1f} s (cut: {' '.join(AM_ARGS)}); result "
+        f"{json.dumps(res)}")
+    log(f"am_scale: burn_in {burn[-1]['step']} steps in "
+        f"{burn[-1]['seconds']:.2f} s ({burn[-1]['step'] / burn[-1]['seconds']:.2f}"
+        f" steps/s), full {full[-1]['step']} steps in "
+        f"{full[-1]['seconds']:.2f} s "
+        f"({full[-1]['step'] / full[-1]['seconds']:.2f} steps/s); APR "
+        f"{res['apr']:.3f} AUC {res['auc_pooled']:.4f} on "
+        f"{res['val_heldout']} held-out queries; peak "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; burn-in loss "
+        f"{burn[0]['loss']:.6f} -> {burn[-1]['loss']:.6f}; {SMI['line']}")
+    if not (lines[0]["phase"] == "kg_gen" and res["phase"] == "result"
+            and keys <= set(res) and res["entities"] == 2_000_000
+            and res["directed_edges"] == 20_000_000
+            and res["batch"] == 65_536 and res["backend"] == "cuda"
+            and res["val_heldout"] > 0 and 0.0 <= res["apr"] <= 100.0
+            and np.isfinite(res["auc_pooled"]) and len(burn) >= 2
+            and all(np.isfinite(losses))
+            and burn[-1]["loss"] < burn[0]["loss"]):
+        raise AssertionError("am_scale: check failed")
+
+
+def phase_debug(device) -> None:
+    """``debug``: one dense train step of the flagship model under
+    ``utils/debug.checked`` equal to the same step without it (loss and
+    every parameter after the update), then the same step with a NaN in
+    the entity row of one of the batch's anchors raising
+    ``FloatingPointError`` naming an aten op."""
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.queries import STRUCTURES
+    from mpqe_tpu_torch.train import loop as loop_mod
+    from mpqe_tpu_torch.utils.debug import checked
+
+    cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
+    tc = loop_mod.TrainConfig(lr=0.01, batch_size=DEBUG_BATCH, n_neg=4)
+    structure = "3-chain_inter"
+    spec = STRUCTURES[structure]
+    gen = torch.Generator(device=device).manual_seed(23)
+    B, n = DEBUG_BATCH, spec.n_nodes
+    ne = torch.randint(0, cfg.n_entities, (B, n), generator=gen,
+                       device=device)
+    nm = torch.randint(0, cfg.n_modes, (B, n), generator=gen, device=device)
+    er = torch.randint(0, cfg.n_rels, (spec.n_edges,), generator=gen,
+                       device=device)
+    en = torch.ones(spec.n_edges, device=device)
+    tgt = torch.randint(0, cfg.n_entities, (B,), generator=gen,
+                        device=device)
+    negs = torch.randint(0, cfg.n_entities, (B, 4), generator=gen,
+                         device=device)
+    batch = (ne, nm, er, en, tgt, negs, torch.ones((B, 4), device=device),
+             torch.ones(B, device=device))
+
+    def fresh():
+        return loop_mod.init_train_state(
+            torch.Generator(device=device).manual_seed(0), cfg, tc,
+            device=device)
+
+    def step(state):
+        fn = loop_mod.make_train_step(cfg, state.optimizer)
+        loss = fn(state.model, structure, *batch)
+        float(loss)  # waits for the step
+        return loss
+
+    plain = fresh()
+    t0 = time.perf_counter()
+    want = step(plain)
+    t_plain = time.perf_counter() - t0
+    ck = fresh()
+    t0 = time.perf_counter()
+    got = checked(step)(ck)
+    t_checked = time.perf_counter() - t0
+    params = dict(ck.model.named_parameters())
+    with torch.no_grad():
+        worst = max(float((params[k] - p).abs().max())
+                    for k, p in plain.model.named_parameters())
+    bit_equal = torch.equal(got, want) and worst == 0.0
+    del plain
+    bad = fresh()
+    with torch.no_grad():
+        bad.model.emb.ent[int(ne[0, spec.anchor_slots[0]])] = float("nan")
+    try:
+        checked(step)(bad)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    # the gate allows the entity gradient's accumulation order
+    # (index_put_ with accumulate), which may differ between two plain
+    # steps as well
+    log(f"debug: the dense {structure} step at B = {B} under checked "
+        f"{t_checked:.2f} s (unchecked {t_plain:.3f} s): loss "
+        f"{float(got):.6f} vs {float(want):.6f}, parameters max|diff| "
+        f"{worst:.3e}, bit-equal {bit_equal}; a NaN entity row raises "
+        f"FloatingPointError: {raised!r}; {SMI['line']}")
+    if raised is None or "aten." not in raised or worst > 1e-6 or \
+            abs(float(got) - float(want)) > 1e-6:
+        raise AssertionError("debug: check failed")
+
+
 def build_kernels() -> None:
     """Build the seven kernel libraries at once (one nvcc each, in
     parallel) and print what ptxas reports of registers and spills."""
@@ -6384,6 +6845,12 @@ def main() -> int:
         data_launches = [phase_data_npz(kg, tmp, device)]
         del kg
         lap("data.npz")
+        t_single = time.perf_counter()
+        import_k3 = phase_import(os.path.join(tmp, "kg.npz"), tmp, device)
+        lap("import")
+        phase_resilient(os.path.join(tmp, "kg.npz"), tmp, device)
+        lap("resilient")
+        single_s = time.perf_counter() - t_single
         t_host = time.perf_counter()
         phase_native(tmp)
         lap("native")
@@ -6411,7 +6878,14 @@ def main() -> int:
         lap("bench")
         data_launches.append((0, 0, phase_quality(tmp, device)))
         lap("quality")
+    t_single = time.perf_counter()
+    phase_am_scale()
+    lap("am_scale")
+    phase_debug(device)
+    lap("debug")
+    single_s += time.perf_counter() - t_single
     data_launches += host_launches
+    launches += import_k3
     k1 += sum(n[0] for n in data_launches) + bf16_launches[0]
     k2 += sum(n[1] for n in data_launches) + bf16_launches[1]
     launches += sum(n[2] for n in data_launches) + bf16_launches[2] + \
@@ -6420,6 +6894,9 @@ def main() -> int:
         f"train.multistep, train.shared_negs, halo.train.multistep); their "
         f"launches (K1, K2, K3): serve.http K3={http_k3}, train.multistep "
         f"{host_launches[0]}, train.shared_negs {host_launches[1]}")
+    log(f"single-card module phases {single_s:.1f} s (import, "
+        f"resilient, am_scale, debug; train.trace is data.npz's run); "
+        f"import's K3 launches {import_k3}")
     log(f"sharded-table phases after the halo runs {shard_s:.1f} s "
         f"(train.spmd, multihost, dryrun)")
     log(f"bench phase {bench_s:.1f} s; bf16 phases {bf16_s:.1f} s (and "

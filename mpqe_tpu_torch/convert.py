@@ -8,12 +8,11 @@ These layouts reach the port:
 * one R-GCN layer's dict (``basis``/``coeff`` or ``w_rel``, ``w_self``,
   ``bias``), as the reference's ``init_rgcn_layer`` makes it:
   :func:`layer_from_numpy`;
-* the reference-shaped torch state dict that ``mpqe_tpu``'s
-  ``export_mpqe_state_dict`` and ``tools/export_torch_checkpoint.py``
-  write (``enc.ent.weight``, ``mode_embeddings.weight``,
-  ``rgcn.convs.{i}.{root,bias,weight,comp}``, ``readout.*``):
-  :func:`model_from_state_dict`.  The key names are copied here, not
-  imported;
+* a reference-shaped torch state dict (``enc.ent.weight``,
+  ``mode_embeddings.weight``, ``rgcn.convs.{i}.{root,bias,weight,comp}``,
+  ``readout.*``, or the upstream PyTorch MPQE's names):
+  :func:`model_from_state_dict`, a caller of
+  ``data/torch_import.py``'s classifier;
 * the JAX GQE pytree as numpy arrays (``{"emb": {...}, "rel_mat": ...,
   "nbr": {...}}``): :func:`gqe_from_numpy` / :func:`gqe_to_numpy`.
 
@@ -120,25 +119,24 @@ def model_to_numpy(model: MPQE) -> Dict[str, Any]:
 def model_from_state_dict(sd: Mapping[str, Any], cfg: MPQEConfig,
                           device=None) -> MPQE:
     """The port's ``MPQE`` from a reference-shaped state dict (arrays or
-    tensors).  Layer ``weight`` is ``basis`` when ``comp`` is present,
-    else ``w_rel``."""
-    flat: Dict[str, Any] = {
-        "emb.ent": sd["enc.ent.weight"],
-        "emb.var": sd["mode_embeddings.weight"],
-    }
-    for i in range(cfg.n_layers):
-        pre = f"rgcn.convs.{i}."
-        flat[f"layers.{i}.w_self"] = sd[pre + "root"]
-        flat[f"layers.{i}.bias"] = sd[pre + "bias"]
-        if pre + "comp" in sd:
-            flat[f"layers.{i}.basis"] = sd[pre + "weight"]
-            flat[f"layers.{i}.coeff"] = sd[pre + "comp"]
-        else:
-            flat[f"layers.{i}.w_rel"] = sd[pre + "weight"]
-    for k, v in sd.items():
-        if k.startswith("readout."):
-            flat[k] = v
-    return _load_flat(flat, cfg, device)
+    tensors): ``data/torch_import.py import_mpqe_params`` with every leaf
+    required.  The names ``export_mpqe_state_dict`` writes for the tables
+    and the readout (``enc.ent.weight``, ``mode_embeddings.weight``,
+    ``readout.<leaf>``) are placed by name through the key map; the rest
+    goes through the classifier, modes named ``mode0``, ``mode1``, ...
+    (the synthetic KGs' names)."""
+    from mpqe_tpu_torch.data import torch_import
+
+    key_map = {k: {"key": k} for k in sd if k.startswith("readout.")}
+    for path, key in (("emb.ent", "enc.ent.weight"),
+                      ("emb.var", "mode_embeddings.weight")):
+        if key in sd:
+            key_map[path] = {"key": key}
+    model, _ = torch_import.import_mpqe_params(
+        torch_import.numpy_state_dict(sd), cfg, torch.Generator(),
+        mode_names=tuple(f"mode{i}" for i in range(cfg.n_modes)),
+        key_map=key_map, device=device)
+    return model
 
 
 def gqe_from_numpy(tree: Mapping[str, Any], cfg: GQEConfig,

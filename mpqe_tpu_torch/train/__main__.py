@@ -36,8 +36,10 @@ own; ``--steps_per_call K`` takes K steps per call (also with
 ``--parallel halo_*``).  Batches come from the C++ packer when it builds
 (``data/native.py``), else from the numpy packer; the ``data_loaded``
 record of ``metrics.jsonl`` says which (``"native_packer"``).
-``--trace``, not ported yet, raises ``NotImplementedError`` naming its
-ROADMAP item.
+``--trace N`` writes a ``torch.profiler`` Chrome trace of N steps, after
+``--trace_skip`` steps, under ``<run_dir>/trace`` (``trace_start`` and
+``trace_done`` in ``metrics.jsonl``), on every ``--kernel`` and
+``--parallel`` route.
 
   python -m mpqe_tpu_torch.train --data synthetic --kernel fused_fwd \\
       --fused_backward pallas --num_bases 16 --steps 2000
@@ -163,8 +165,12 @@ def parse_args(argv=None):
                    help="one throwaway step per structure before training")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --run_dir")
-    p.add_argument("--trace", type=int, default=0)
-    p.add_argument("--trace_skip", type=int, default=20)
+    p.add_argument("--trace", type=int, default=0,
+                   help=">0: capture a torch.profiler trace of this many "
+                        "train steps into RUN_DIR/trace (a Chrome trace)")
+    p.add_argument("--trace_skip", type=int, default=20,
+                   help="steps to run before the trace starts (past the "
+                        "kernel builds and warm-up)")
     p.add_argument("--keep_best", type=int, default=3)
     p.add_argument("--structures", default="all",
                    help="comma list or 'all' or 'chains'")
@@ -178,18 +184,6 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device; the card unless told otherwise")
     return p.parse_args(argv)
-
-
-def _refuse_unported(args) -> None:
-    """``NotImplementedError`` naming the ROADMAP item of every flag whose
-    feature is not ported yet."""
-    unported = [
-        (args.trace > 0, "--trace",
-         "a torch.profiler trace window is ROADMAP Queue 1 item 9"),
-    ]
-    for bad, flag, item in unported:
-        if bad:
-            raise NotImplementedError(f"{flag}: not ported yet; {item}")
 
 
 def _register_custom_structures(path: str) -> None:
@@ -350,7 +344,6 @@ def main(argv=None):
     args = parse_args(argv)
     _refuse_parallel_combinations(args)
     _refuse_gqe_combinations(args)
-    _refuse_unported(args)
     device = resolve_device(args.device)
     if args.kernel == "blocked" and not args.num_bases:
         raise SystemExit("--kernel blocked requires --num_bases")
@@ -437,9 +430,11 @@ def main(argv=None):
     if args.resume:
         latest = ckpt_mod.latest_checkpoint(ckpt_dir)
         if latest:
+            t0 = time.perf_counter()
             state = ckpt_mod.restore_checkpoint(latest, state)
             metrics.log({"step": state.step, "event": "resumed",
-                         "path": latest})
+                         "path": latest,
+                         "seconds": time.perf_counter() - t0})
         else:
             metrics.log({"event": "resume_requested_no_checkpoint"})
     manager = ckpt_mod.CheckpointManager(ckpt_dir, keep_best=args.keep_best)
@@ -471,7 +466,10 @@ def main(argv=None):
             warmup=args.warmup, neighbor_table=neighbor_table,
             train_stores=train_stores, prefetch=args.prefetch,
             steps_per_call=args.steps_per_call, train_step=train_step,
-            multi_step=multi_step, put_batch=put_batch)
+            multi_step=multi_step, put_batch=put_batch,
+            trace=((args.trace_skip, args.trace,
+                    os.path.join(run_dir, "trace"))
+                   if args.trace > 0 else None))
         # the handler stays installed until the save is done: a second
         # SIGTERM in the grace window is swallowed, not a crash mid-save
         final_path = manager.save(state)

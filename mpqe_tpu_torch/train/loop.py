@@ -25,7 +25,7 @@ import collections
 import dataclasses
 import math
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -363,6 +363,7 @@ def run_train(
     neighbor_table=None,
     multi_step: Optional[Callable] = None,
     put_batch: Optional[Callable] = None,
+    trace: Optional[Tuple[int, int, str]] = None,
 ) -> TrainState:
     """Curriculum training until convergence / max_steps / patience, in
     place on ``state``.  ``should_stop`` is polled each step (True stops
@@ -384,7 +385,19 @@ def run_train(
     and its records carry ``loss`` (the last), ``loss_mean_k`` and
     ``k``.  ``put_batch(batch)`` places each batch's arrays (``run_step``;
     the data-parallel step splits them over its mesh), by default on the
-    entity table's device."""
+    entity table's device.
+
+    ``trace = (skip, n, log_dir)`` opens a ``torch.profiler`` window
+    (``utils/profiling.py start_trace``) at the first step boundary at
+    or past ``state.step + skip`` and closes it, writing a Chrome trace
+    under ``log_dir``, at the first at or past ``state.step + skip +
+    max(n, 1)``, as the reference's ``jax.profiler`` window.  With K
+    steps a call the boundaries stride by K, so the window holds whole
+    calls (skip 10, n 5, K 4: steps 12..16).  It logs ``trace_start``
+    and ``trace_done`` (with the window's
+    :class:`utils.profiling.StepTimer` summary) at the step counts where
+    it opens and closes; a step that raises inside the window still
+    closes it."""
     from mpqe_tpu_torch.data.pipeline import draw_batch, packer
     from mpqe_tpu_torch.data.store import build_stores
 
@@ -450,6 +463,14 @@ def run_train(
             steps_per_call=k).start()
 
     pipeline = make_pipeline(phase) if prefetch > 0 else None
+    trace_start = trace_stop = -1
+    prof = window = None
+    if trace is not None:
+        from mpqe_tpu_torch.utils import profiling
+
+        skip, n_trace, trace_dir = trace
+        trace_start = state.step + skip
+        trace_stop = trace_start + max(n_trace, 1)
     target_step = state.step + tc.max_steps
     try:
         while state.step < target_step:
@@ -457,6 +478,13 @@ def run_train(
                 if log_fn:
                     log_fn({"step": state.step, "event": "preempt_stop"})
                 break
+            if trace_start >= 0 and prof is None and \
+                    state.step >= trace_start:
+                prof = profiling.start_trace(trace_dir)
+                window = profiling.StepTimer()
+                if log_fn:
+                    log_fn({"step": state.step, "event": "trace_start",
+                            "trace_dir": trace_dir})
             if pipeline is not None:
                 batch = next(pipeline)
             else:
@@ -488,6 +516,16 @@ def run_train(
                     log_fn({"step": state.step, "loss": loss,
                             "structure": structure, "phase": phase,
                             "seconds": dt})
+            if prof is not None:
+                n_call = len(k_losses) if multi_step is not None else 1
+                window.samples.extend([dt / n_call] * n_call)
+                if state.step >= trace_stop:
+                    profiling.stop_trace(prof, trace_dir)
+                    prof, trace_start = None, -1
+                    if log_fn:
+                        log_fn({"step": state.step, "event": "trace_done",
+                                "trace_dir": trace_dir,
+                                "window": window.summary()})
 
             if phase == "burn_in" and check_conv(losses, tc.conv_tol):
                 phase = "full"
@@ -524,6 +562,10 @@ def run_train(
                     check_conv(losses, tc.conv_tol):
                 break
     finally:
+        # a step that raises inside the window must not leave a live
+        # profiler behind (it would refuse the next one in this process)
+        if prof is not None:
+            profiling.stop_trace(prof, trace_dir)
         if pipeline is not None:
             pipeline.stop()
     return state

@@ -12,18 +12,24 @@
   the H100, for the route that ``python -m mpqe_tpu_torch.bench`` timed.
 * :func:`device_profile`: device time by kernel over one call
   (``torch.profiler``) beside its wall time.
+* :func:`trace` (and :func:`start_trace` / :func:`stop_trace` for a
+  window that spans loop iterations, as the train CLI's ``--trace``): a
+  ``torch.profiler`` window written as a Chrome trace (the reference's
+  ``jax.profiler`` trace is a TensorBoard profile);
+  :class:`StepTimer`: wall-clock step percentiles.
 
-The reference's TPU peaks are not carried across; its ``trace`` and
-``StepTimer`` wait for ROADMAP Queue 1 item 9 (the train CLI's
-``--trace``).
+The reference's TPU peaks are not carried across.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 # NVIDIA's H100 SXM data sheet, dense rates, at the 700 W power limit
@@ -37,11 +43,103 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 # 200 five-kernel windows; none of 400 with 5 or 50 ms:
 # ``python -m mpqe_tpu_torch.tools.profile_probe``).
 PROFILE_PAD_S = 0.02
+# Launches of a marker kernel in the warmup step that :func:`start_trace`
+# records and drops before its window: late in a long process a profile
+# without a warmup step lost its first launches (``chip_smoke.py``'s
+# ``device_ms``), and a padded train window its first step's forward.
+TRACE_WARMUP_LAUNCHES = 64
 
 # The roofline model of :func:`mpqe_fwd_roofline`: the function's own
 # work on the H100's peaks.  Its fractions are not comparable with the
 # reference's "compulsory-traffic-v2" (TPU v5e peaks, padded-block FLOP).
 ROOFLINE_MODEL = "h100-function-work-v1"
+
+
+def _traces_cuda() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_initialized()
+
+
+def start_trace(log_dir: str) -> "torch.profiler.profile":
+    """Start a ``torch.profiler`` window that records CPU activity, and
+    CUDA activity when this process has initialised the card; stop it
+    with :func:`stop_trace`.  On the card a warmup step comes first
+    (``TRACE_WARMUP_LAUNCHES`` marker launches, as :func:`device_profile`
+    and ``chip_smoke.py``'s profiles take a warmup step), whose events
+    the profiler drops; the window then starts with the device idle and
+    ``PROFILE_PAD_S`` of host idle time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    activities = [ProfilerActivity.CPU]
+    cuda = _traces_cuda()
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities,
+                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
+    prof.start()
+    if cuda:
+        marker = torch.empty(1, device="cuda")
+        for _ in range(TRACE_WARMUP_LAUNCHES):
+            marker.fill_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    prof.step()
+    if cuda:
+        time.sleep(PROFILE_PAD_S)
+    return prof
+
+
+def stop_trace(prof, log_dir: str) -> str:
+    """Stop ``prof`` and write its Chrome trace under ``log_dir``
+    (``trace_<pid>_<ns>.json``, viewable in Perfetto or
+    ``chrome://tracing``); returns the file's path.  On the card the
+    window ends with the device idle and ``PROFILE_PAD_S`` of host idle
+    time.  The profiler stops even if the device reports an error."""
+    try:
+        if _traces_cuda():
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+    finally:
+        prof.stop()
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """A profiler window around the ``with`` body (:func:`start_trace`);
+    it stops and writes its trace even when the body raises."""
+    prof = start_trace(log_dir)
+    try:
+        yield log_dir
+    finally:
+        stop_trace(prof, log_dir)
+
+
+class StepTimer:
+    """Wall-clock step timer with percentile summaries for the training
+    loop's JSONL metrics."""
+
+    def __init__(self):
+        self.samples: list = []
+
+    @contextlib.contextmanager
+    def measure(self):
+        t0 = time.perf_counter()
+        yield
+        self.samples.append(time.perf_counter() - t0)
+
+    def summary(self) -> dict:
+        if not self.samples:
+            return {}
+        a = np.asarray(self.samples)
+        return {
+            "steps": len(a),
+            "mean_s": float(a.mean()),
+            "p50_s": float(np.percentile(a, 50)),
+            "p95_s": float(np.percentile(a, 95)),
+        }
 
 
 class TimingError(RuntimeError):

@@ -124,6 +124,10 @@ def test_port_imports_no_jax():
     proc = _run_isolated(
         "import mpqe_tpu_torch\n"
         "import mpqe_tpu_torch.tools.dryrun_multichip\n"
+        "import mpqe_tpu_torch.tools.am_scale_quality\n"
+        "import mpqe_tpu_torch.tools.import_torch_checkpoint\n"
+        "import mpqe_tpu_torch.tools.export_torch_checkpoint\n"
+        "import mpqe_tpu_torch.tools.resilient_train\n"
         "for m in pkgutil.walk_packages(mpqe_tpu_torch.__path__, "
         "'mpqe_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -135,7 +139,9 @@ def test_port_imports_no_jax():
         "'mpqe_tpu_torch.data.pipeline', 'mpqe_tpu_torch.ops.embed', "
         "'mpqe_tpu_torch.parallel.sharding', 'mpqe_tpu_torch.parallel.spmd', "
         "'mpqe_tpu_torch.parallel.multihost', "
-        "'mpqe_tpu_torch.parallel.rank_shard'):\n"
+        "'mpqe_tpu_torch.parallel.rank_shard', "
+        "'mpqe_tpu_torch.data.torch_import', 'mpqe_tpu_torch.utils.debug', "
+        "'mpqe_tpu_torch.utils.profiling'):\n"
         "    assert m in sys.modules, m\n")
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

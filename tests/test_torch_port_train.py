@@ -661,10 +661,20 @@ def test_cli_blocked_needs_bases(tmp_path):
 @pytest.mark.parametrize("flag", [["--trace", "3", "--parallel", "spmd"],
                                   ["--trace", "5"]])
 def test_cli_unported_flags_raise(flag, tmp_path):
+    """The flags that raised for want of a port, ``--trace`` alone and
+    under ``--parallel spmd``, now train on the CPU and write one trace
+    under ``<run_dir>/trace`` between their window's events."""
     from mpqe_tpu_torch.train.__main__ import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        main(CLI + flag + ["--run_dir", str(tmp_path / "r")])
+    run = str(tmp_path / "r")
+    main(CLI + flag + ["--trace_skip", "1", "--steps", "7", "--val_every",
+                       "7", "--run_dir", run])
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        events = [(r["event"], r["step"]) for r in map(json.loads, f)
+                  if r.get("event", "").startswith("trace_")]
+    n = int(flag[1])
+    assert events == [("trace_start", 1), ("trace_done", 1 + n)]
+    assert len(os.listdir(os.path.join(run, "trace"))) == 1
 
 
 @pytest.mark.parametrize("flag", [
