@@ -15,8 +15,9 @@ K6 and K8 on bf16 leaves, the sparse evaluate, and the train CLI at
 halo_ring``), the sharded entity table (serving, full ranking, the
 data-parallel step, two processes, the multi-part dry run) and the
 train CLI's ``--trace`` window, reference checkpoint import and export,
-the crash supervisor, the AM-scale quality tool and ``utils/debug.py``
-at the flagship width
+the crash supervisor, the AM-scale quality tool and ``utils/debug.py``,
+and the 17 root tools' ports (``mpqe_tpu_torch/tools/``), at the
+flagship width
 (d = 128, 3 R-GCN layers, TGT readout, 16 bases or full per-relation
 weights, 266 relations, 4 modes, 1,000,000 entities;
 random weights from a seed) and checks every
@@ -213,7 +214,7 @@ parallel (one nvcc each), then:
    with the neighborhood encoder (pool, fanout 8; its table built for
    the 1M-entity KG, timed): finite losses, step p50.
 16. ``gqe.serve``: a ``QueryServer`` per head (bilinear, box, bibox with
-   SoftAnd; random weights) answers 8 requests of 256 queries drawn
+   SoftAnd; random weights) answers 2 requests of 256 queries drawn
    across all 7 structures, k = 10: answers of the target's mode and
    sorted, every served score equal to ``gqe.score_queries`` of its id
    (row gathers, <= 1e-4), and for the first 8 queries of one dispatch
@@ -261,7 +262,8 @@ parallel (one nvcc each), then:
    rule), and int8 without cosine scoring refused.
 21. ``data.pkl``: ``make_rule_kg(30,000 entities, 3 modes, 6 base
    relations, out-degree 2)`` prepared by ``python -m
-   mpqe_tpu_torch.tools.prepare_dataset --npz`` (a subprocess, timed);
+   mpqe_tpu_torch.tools.prepare_dataset --npz --train_per_structure
+   250`` (a subprocess, timed);
    the train CLI on ``--data pkl:<dir>`` at the flagship width (d = 128,
    3 layers, TGT, 16 bases, batch 512) through K1/K2, 200 steps and one
    validation round (K3), then 20 steps on a copy without
@@ -323,12 +325,35 @@ parallel (one nvcc each), then:
    checkpoint: relaunched with ``--resume``, resumed at that step,
    finished with exit 0; restarts and seconds lost), ``am_scale``
    (``tools/am_scale_quality.py`` at the reference's AM shape, 2M
-   entities, 10M triples, batch 65,536, cut to 100 + 200 steps and
-   200,000 / 4,096 queries: the result well formed, losses finite, the
+   entities, 10M triples, batch 65,536, cut to 100 + 100 steps and
+   100,000 / 4,096 queries: the result well formed, losses finite, the
    burn-in loss falling; seconds, steps/s, APR, AUC, peak memory) and
    ``debug`` (one dense flagship step under ``utils/debug.checked``
    equal to it unchecked; a NaN entity row raising
    ``FloatingPointError`` naming an op).
+26. ``tools``: the 17 root tools' ports (``mpqe_tpu_torch/tools/``), each
+   once in-process through its ``main(argv)`` at the flagship width and
+   a short depth (``TOOL_RUNS``; every timed loop cut to ``TOOLS_LOOP``):
+   ``serve_bench`` (4 requests of 256, 2 HTTP clients), ``eval_bench``
+   (B = 256), ``e2e_train_bench`` (one dispatch of 8 steps at B =
+   131,072 through the C++ packer and the pipeline), ``step_breakdown
+   --kernel fused_fwd --adam_probe``, ``loss_breakdown``,
+   ``embed_scatter_exp``, ``gather_exp``, ``bf16_shared_bench`` (K1/K2
+   in f32, and bf16 with shared negatives), ``big_kg_demo`` (10^6
+   triples, 2 timed steps at B = 65,536 on 10^7 entities),
+   ``fused_fwd_bench --variants --train_bwd --multi``, ``fwd_gemm_floor``,
+   ``kernel_bench`` (E = 2^20; xla, fused, blocked and its gradient),
+   ``scaling_bench`` (1, 2, 4, 8 parts of the card; the layer and the
+   sharded rank), ``fused_bwd_diag``, ``kernel_smoke``,
+   ``mlp_readout_diag`` (the ``mlp_id`` arm, 200 steps on 100 train
+   and 20 held-out queries a structure) and
+   ``probe_pickles`` (``data.pkl``'s graph and query pickles): exit code
+   0, every JSON record with the reference's keys and finite positive
+   times and rates, the tools' own checks (the four scatters' gradients
+   within 1e-4, K5 within 1e-4 of the plain route and K6a within its
+   bound, K1 within 3e-2 of the f32 encoder, K2 under its limits, every
+   ``kernel_smoke`` check OK, every probe check OK); the tools'
+   launches of K1-K7 are added to the kernels line.
 
 Prints the card's name and power limit first, then one line per check,
 a JSON line ``{"kernels": [...]}`` (K1's entry, ``tgt_mma_forward``,
@@ -356,6 +381,7 @@ import time
 import numpy as np
 import torch
 
+from mpqe_tpu_torch.ops.fused_fwd import F32_GRAD_MEAN_BY_DEPTH
 from mpqe_tpu_torch.utils.profiling import (PROFILE_PAD_S, bound_times,
                                             chain_work)
 
@@ -373,7 +399,7 @@ TOL_SCORE = 1e-4  # served top-k scores vs the plain recomputation
 # 0.14 of the leaf's max (the reference measured ~0.15 between any two
 # precisions, mpqe_tpu/ops/pallas_fused_fwd.py:549-557).  The max-element
 # figure is printed beside the gate.
-TOL_GRAD_BY_DEPTH = {1: 3e-2, 2: 8e-2, 3: 2.5e-1}
+TOL_GRAD_BY_DEPTH = F32_GRAD_MEAN_BY_DEPTH
 L2_FLUSH_BYTES = 512 << 20  # > the 50 MB L2
 # host idle seconds at each end of a profile's recorded step, one entry a
 # try (device_ms, ring_device_ms): unpadded, a short profile sometimes
@@ -387,7 +413,7 @@ KG = dict(n_entities=1_000_000, n_modes=4, n_base_rels=133,
 BATCH = 256  # queries per dispatch: the server's cap at 1M entities
 RAGGED = 1000
 K = 10
-ITERS, PLAIN_ITERS = 50, 10  # timed launches per structure
+ITERS, PLAIN_ITERS = 20, 5  # timed launches per structure
 TRAIN_BATCH = 512  # train.py's default batch
 TRAIN_BIG = 131_072  # the repo's flagship train batch (bench.py:42)
 BIG_ITERS = 5
@@ -2211,7 +2237,6 @@ def phase_rgcn_blocked(layer_b, cfg, device, gen, flush):
         log(line)
         del plain_g, got2, got_t2, got_g2, s_bound
         iters = ITERS if B == TRAIN_BATCH else BIG_ITERS
-        p_iters = PLAIN_ITERS_K6 if B == TRAIN_BATCH else 1
         row, okr = rb._global_rows(lay, lay["src_local"], "chunk_src_blk", n)
         xs16 = torch.where(okr[:, None], x[row], 0.0).to(torch.bfloat16)
         rhs16 = torch.randn((E, bb * d), generator=gen, device=device).to(
@@ -2230,7 +2255,11 @@ def phase_rgcn_blocked(layer_b, cfg, device, gen, flush):
             with torch.no_grad():
                 ms = time_ms(kfn, iters, flush)
                 k_ms = device_ms(kfn, iters, flush, names)
-                plain_ms = time_ms(pfn, p_iters, flush)
+                # the plain version is timed at the train batch only: at
+                # 131,072 rows and on the general graph a call takes
+                # seconds (PERF.md's kernel table keeps its earlier figures)
+                plain_ms = (time_ms(pfn, PLAIN_ITERS_K6, flush)
+                            if B == TRAIN_BATCH else None)
                 lib_ms = time_ms(lfn, iters, flush)
             work = k6_work(E, n_chunks, n_real, n, d, d, bb, R, grad)
             if B == TRAIN_BATCH:
@@ -3640,7 +3669,7 @@ def phase_halo_train(kg, train_q, device):
 # ----------------------------------------------------------------------
 GQE_STEPS = 50  # gqe.train
 GQE_VARIANT_STEPS = 10  # each run of gqe.train.variants
-GQE_SERVE_REQUESTS = 4
+GQE_SERVE_REQUESTS = 2
 GQE_RECHECK_QUERIES = 8  # per structure, recomputed over every entity
 GQE_TOL_LOSS = 1e-5  # card vs CPU copy: float32 both, sum order only
 # gqe.train.variants: (label, --model, GQEConfig fields)
@@ -4011,6 +4040,7 @@ def check_bibox_w(run_dir: str) -> None:
 # ----------------------------------------------------------------------
 DATA_STEPS = 20  # the npz run and the raw-edge pkl run
 PKL_STEPS = 200  # the pkl run, one validation round at its end
+PKL_TRAIN_PER_STRUCTURE = 250  # prepare_dataset's multi-hop train queries
 DATA_PACK_RELATIONS = 8  # raw-edge stores packed and checked
 DATA_NEG = 16  # negatives per packed raw-edge query
 # the pickle phase's KG: 30,000 entities on three 100 x 100 tori,
@@ -4244,7 +4274,8 @@ def phase_data_pkl(tmp: str, device) -> tuple:
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "mpqe_tpu_torch.tools.prepare_dataset",
-         "--npz", npz, "--out", data], capture_output=True, text=True,
+         "--npz", npz, "--out", data, "--train_per_structure",
+         str(PKL_TRAIN_PER_STRUCTURE)], capture_output=True, text=True,
         timeout=900)
     t_prep = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -5070,7 +5101,7 @@ MULTISTEP_TOL = 1e-4  # K steps a call vs one: index_add_ atomics only
 # (device activity only: with the host's too, 64 profiled steps cost
 # ~10 s more a window on the H100)
 HOST_WARM_CALLS = 2
-HOST_WINDOW_STEPS = 128
+HOST_WINDOW_STEPS = 64
 HOST_PROFILE_STEPS = 16
 # (prefetch, steps_per_call) of the timed windows: each lever alone, both
 HOST_WINDOWS = ((0, 1), (0, MULTISTEP_K), (2, 1), (2, MULTISTEP_K))
@@ -5756,9 +5787,9 @@ def check_bench_record(rec: dict, batch: int = TRAIN_BIG) -> list:
 
 
 # the bench's loops cut in depth for this check (the shapes, batches and
-# rows are the bench's own): ~60 s instead of ~150 s on the H100
-BENCH_DEPTH = dict(N_LARGE=15, N_LARGE_FWD=55, MATRIX_SMALL_ITERS=(10, 110),
-                   BEST_STACK_ITERS=(2, 10))
+# rows are the bench's own)
+BENCH_DEPTH = dict(N_LARGE=8, N_LARGE_FWD=25, MATRIX_SMALL_ITERS=(10, 60),
+                   BEST_STACK_ITERS=(2, 6))
 
 
 def phase_bench() -> float:
@@ -6238,8 +6269,8 @@ TRACE_PASSES = (("K1", None), ("K2.A", None), ("K2.B", "tgt_mma_dw_kernel"),
 RESILIENT_STEPS = 40  # after the resume
 RESILIENT_VAL = 20  # the first checkpoint, then the kill
 IMPORT_QUERIES = 40  # served queries per structure
-AM_ARGS = ["--burn_in_steps", "100", "--steps", "200", "--steps_per_call",
-           "50", "--train_queries", "200000", "--val_queries", "4096"]
+AM_ARGS = ["--burn_in_steps", "100", "--steps", "100", "--steps_per_call",
+           "50", "--train_queries", "100000", "--val_queries", "4096"]
 AM_TIMEOUT_S = 600
 DEBUG_BATCH = 512
 
@@ -6654,6 +6685,253 @@ def phase_debug(device) -> None:
         raise AssertionError("debug: check failed")
 
 
+# ----------------------------------------------------------------------
+# The root tools' ports (mpqe_tpu_torch/tools/), each once through its
+# main(argv): the flagship width, a short depth
+# ----------------------------------------------------------------------
+# every timed loop of the tools cut to (1, 3) iterations, one sample, a
+# one-iteration profile; sizes, batches and widths are the tools' own
+TOOLS_LOOP = dict(n_small=1, n_large=3, samples=1, profile=1)
+MLP_ARM_STEPS = 200
+# (tool, argv, [(what a record matches, the keys it must hold)]); every
+# record of a tool must match one entry, every entry at least one record
+TOOL_RUNS = (
+    ("serve_bench", ["--requests", "4", "--http_clients", "2"], [
+        ({"phase": "setup"}, ["max_batch", "backend", "device_name"]),
+        ({"phase": "warmup"}, ["seconds"]),
+        ({"phase": "stream"}, ["batch", "k", "requests", "latency_ms_p50",
+                               "latency_ms_p95", "queries_per_s"]),
+        ({"phase": "http_stream"}, ["clients", "http_batch", "wall_s",
+                                    "requests_per_s", "queries_per_s",
+                                    "latency_ms_p50", "latency_ms_p95",
+                                    "dispatches", "mean_dispatch_queries",
+                                    "errors"])]),
+    ("eval_bench", ["--batches", "256"], [
+        ({}, ["batch", "ms_per_sweep", "ranked_queries_per_s",
+              "scored_candidates_per_s", "device_ms"])]),
+    ("e2e_train_bench", ["--dispatches", "1"], [
+        ({"phase": "store_build"}, ["seconds", "n_queries"]),
+        ({"phase": "pack_only"}, ["seconds_per_batch", "queries_per_s",
+                                  "native"]),
+        ({"phase": "warmup_dispatch"}, ["seconds"]),
+        ({"phase": "steady_state"}, [
+            "reuse_batch", "backend", "packer", "dispatches",
+            "steps_per_call", "batch", "wall_seconds", "seconds_per_step",
+            "end_to_end_queries_per_s", "mean_fetch_wait_s",
+            "max_fetch_wait_s", "per_dispatch_s", "device_ms",
+            "device_ms_per_step", "busy_share"])]),
+    ("step_breakdown", ["--kernel", "fused_fwd", "--adam_probe"], [
+        ({"phase": p}, ["ms", "device_ms", "kernels"]) for p in (
+            "forward_loss", "loss_plus_grad", "adam_update", "full_step",
+            "adam_dense_ent_table", "adam_touched_rows_655k")]),
+    ("loss_breakdown", [], [
+        ({"phase": p}, ["ms", "device_ms"]) for p in (
+            "encode", "gather", "enc_gather", "pos_score", "full_loss")]),
+    ("embed_scatter_exp", [], [
+        ({"variant": v}, ["ms", "device_ms", "grad_mean_err"])
+        for v in ("multi", "fused", "sorted", "dedup")]),
+    ("gather_exp", [], [
+        ({"case": c}, ["ms", "eff_gbps", "device_ms"]) for c in (
+            "d128_float32", "d128_bfloat16", "d256_float32", "d32_float32",
+            "d512_float32")]),
+    ("bf16_shared_bench", ["--combos", "f32_fused,bf16_shared"], [
+        ({"combo": c}, ["dtype", "protocol", "encoder", "n_negatives",
+                        "train_step_ms", "train_queries_per_s"])
+        for c in ("float32_fused[pallas]", "bfloat16_shared")]),
+    ("big_kg_demo", ["--triples", "1000000", "--queries", "100000",
+                     "--train_steps", "2"], [
+        ({"phase": "kg_gen"}, ["triples", "seconds", "triples_per_s"]),
+        ({"phase": "query_sampling"}, ["requested", "sampled_ok", "seconds",
+                                       "queries_per_s"]),
+        ({"phase": "raw_edge_stores"}, ["edge_queries", "build_seconds",
+                                        "pack_batch_seconds",
+                                        "pack_queries_per_s", "packer"]),
+        ({"phase": "train"}, ["backend", "step_seconds", "queries_per_s"])]),
+    ("fused_fwd_bench", ["--variants", "--train_bwd", "--multi"], [
+        ({"case": c}, ["ms", "msgs_per_s", "device_ms"]) for c in (
+            "xla", "fused", "fused fold", "fused +obf16", "fused fold+obf16",
+            "multi xla", "multi fused")] + [
+        ({"case": c}, ["ms", "queries_per_s", "device_ms"]) for c in (
+            "step dense", "step fused_fwd/xla-bwd",
+            "step fused_fwd/pallas-bwd")] + [
+        ({"parity": True}, ["batch", "max_rel_err"])]),
+    ("fwd_gemm_floor", [], [
+        ({"case": c}, ["ms", "device_ms"]) for c in (
+            "gemm_chain", "gemm_only", "onehot_build")] + [
+        ({"summary": True}, ["gemm_route", "flop", "bf16_peak_bound_ms",
+                             "gemm_only_tflop_per_s",
+                             "gemm_only_fraction_of_bf16_peak"])]),
+    ("kernel_bench", ["--paths", "xla,fused,blocked,blocked_grad"], [
+        ({"path": p}, ["ms", "edges_per_s", "n_nodes", "n_edges", "e_pad",
+                       "n_rels", "d", "num_bases", "chunk", "device_ms"])
+        for p in ("rgcn_sparse_xla", "rgcn_sparse_fused",
+                  "rgcn_sparse_blocked_bf16_sb2048_c512",
+                  "rgcn_sparse_blocked_bf16_grad")] + [
+        ({"agree": a}, ["vs", "ok"]) for a in ("rgcn_sparse_fused",
+                                               "K6a_sb2048_c512")] + [
+        ({"summary": True}, ["speedup_fused_over_xla", "fused_ms", "xla_ms",
+                             "fused_roofline_fraction", "roofline_ms"])]),
+    ("scaling_bench", [], [
+        ({"devices": n}, ["seconds_per_layer", "edges_per_s", "parts_on"])
+        for n in (1, 2, 4, 8)] + [
+        ({"metric": "halo_rgcn_scaling_efficiency"},
+         ["sizes", "edges_per_s", "efficiency", "backend"])]),
+    ("scaling_bench", ["--phase", "rank"], [
+        ({"devices": n}, ["seconds_per_sweep", "ranked_queries_per_s",
+                          "parts_on"]) for n in (1, 2, 4, 8)] + [
+        ({"metric": "sharded_rank_scaling"},
+         ["sizes", "ranked_queries_per_s", "backend"])]),
+    ("fused_bwd_diag", [], [
+        ({"ok": True}, ["bad", "depth", "k2_vs_f32_mean_max",
+                        "k2_vs_plain_mean_max", "f32_wire_vs_f32_mean_max"])]),
+    ("kernel_smoke", [], [({"ok": True}, ["checks", "failed", "backend"])]),
+    ("mlp_readout_diag", ["--arms", "mlp_id", "--steps",
+                          str(MLP_ARM_STEPS), "--train_per_structure", "100",
+                          "--val_per_structure", "20"], [
+        ({"arm": "mlp_id"}, ["readout", "lr", "val_auc_macro",
+                             "val_apr_macro", "train_auc_macro"])]),
+)
+PROBED_PICKLES = ("graph_data.pkl", "test_queries_3.pkl")
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper's launch counter, by the kernels line's id."""
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.ops import sddmm as sd
+
+    k4 = k4_counters()
+    return {"K1": ff.fused_tgt_forward, "K2": ff.fused_tgt_backward,
+            "K3": ff.fused_tgt_forward_multi, **sparse_counters(),
+            "K4a": k4["K4a"], "K4b": k4["K4b"], "K4L": k4["layout"],
+            "K7": sd.sddmm_kernel}
+
+
+def run_tool(name: str, argv: list) -> tuple:
+    """``mpqe_tpu_torch.tools.<name>.main(argv)`` in-process: (exit code,
+    its JSON records, its other stdout lines, its stderr)."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"mpqe_tpu_torch.tools.{name}")
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = mod.main(argv)
+    torch.cuda.synchronize()
+    records, text = [], []
+    for ln in out.getvalue().splitlines():
+        if ln.startswith("{"):
+            records.append(json.loads(ln))
+        else:
+            text.append(ln)
+    return rc, records, text, err.getvalue()
+
+
+def tool_record_faults(records: list, expected: list) -> list:
+    """What is wrong with a tool's records: an expected record missing, a
+    key missing, a record matching no entry, or a time, rate or size
+    that is not finite and positive (device fields included: the run is
+    on the card)."""
+    bad = []
+    positive = ("ms", "_s", "seconds", "per_s", "gbps", "_p50", "_p95",
+                "_ms_p50")
+
+    def matches(rec, sel):
+        return all(rec.get(k) == v for k, v in sel.items())
+
+    for sel, keys in expected:
+        hit = [r for r in records if matches(r, sel)]
+        if not hit:
+            bad.append(f"no record {sel}")
+        for r in hit:
+            bad += [f"{sel}: no {k}" for k in keys if k not in r]
+    for r in records:
+        if not any(matches(r, sel) for sel, _ in expected):
+            bad.append(f"unexpected record {str(r)[:120]}")
+        if r.get("ok") is False or r.get("errors"):
+            bad.append(f"failed: {str(r)[:200]}")
+        if "max_rel_err" in r and r.get("parity") and \
+                not r["max_rel_err"] <= TOL_F32:
+            bad.append(f"K1 vs the f32 encoder {r['max_rel_err']}")
+        for k, v in r.items():
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                continue
+            if k.endswith(positive) and not (math.isfinite(v) and v > 0):
+                bad.append(f"{k}={v}")
+    return bad
+
+
+def phase_tools(data_dir: str) -> dict:
+    """Each of the 17 ported tools once through its ``main`` on the card
+    (``TOOL_RUNS``; ``probe_pickles`` on ``data.pkl``'s dataset
+    directory), their timed loops cut to ``TOOLS_LOOP``: exit code 0,
+    every record with the reference's keys and finite positive times,
+    and the checks the tools make themselves (the four scatters'
+    gradients within 1e-4, K5 and K6a against their plain routes, K2
+    under its limits, every ``kernel_smoke`` check).  Returns the tools'
+    launches by kernel id."""
+    import gc
+    import os
+
+    from mpqe_tpu_torch.tools import probe_common
+
+    counters = kernel_counters()
+    saved_loop = dict(probe_common.LOOP)
+    saved_launches = {k: fn.launches for k, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    t_group = time.perf_counter()
+    try:
+        probe_common.LOOP.update(TOOLS_LOOP)
+        for name, argv, expected in TOOL_RUNS:
+            t0 = time.perf_counter()
+            rc, records, text, err = run_tool(name, argv)
+            bad = tool_record_faults(records, expected)
+            if rc != 0:
+                bad.append(f"exit code {rc}")
+            summary = " ".join(f"{k}={v}" for k, v in records[-1].items()
+                               if not isinstance(v, (list, dict))
+                               )[:400] if records else ""
+            line = (f"tools.{name} {' '.join(argv)}: "
+                    f"{time.perf_counter() - t0:.2f} s, {len(records)} "
+                    f"records; last: {summary}")
+            if name == "kernel_smoke":
+                line += f"; {sum('OK' in t for t in text)} checks OK"
+            if bad:
+                for ln in err.splitlines()[-40:] + text[-40:]:
+                    log(f"tools.{name}: {ln}")
+                log(line + f" FAIL {bad}")
+                raise AssertionError(f"tools.{name}: {bad}")
+            log(line)
+            gc.collect()
+            torch.cuda.empty_cache()
+        for fname in PROBED_PICKLES:
+            path = os.path.join(data_dir, fname)
+            rc, _, text, _ = run_tool("probe_pickles", [path])
+            checks = [t for t in text if t.startswith("[")]
+            ok = rc == 0 and checks and all(t.startswith("[OK ")
+                                            for t in checks)
+            line = (f"tools.probe_pickles {fname}: {len(checks)} checks, "
+                    f"all OK={ok}")
+            if not ok:
+                log(line + f" FAIL {checks}")
+                raise AssertionError(line)
+            log(line)
+    finally:
+        probe_common.LOOP.clear()
+        probe_common.LOOP.update(saved_loop)
+        got = {k: fn.launches for k, fn in counters.items()}
+        for k, fn in counters.items():
+            fn.launches = saved_launches[k]
+    log(f"tools group {time.perf_counter() - t_group:.1f} s (17 tools, "
+        f"{len(TOOL_RUNS) + len(PROBED_PICKLES)} runs); launches {got}")
+    missing = [k for k in ("K1", "K2", "K3", "K5a", "K6a", "K6b", "K4a",
+                           "K4b", "K4L", "K7") if got[k] == 0]
+    if missing:
+        raise AssertionError(f"tools: no launch of {missing}")
+    return got
+
+
 def build_kernels() -> None:
     """Build the seven kernel libraries at once (one nvcc each, in
     parallel) and print what ptxas reports of registers and spills."""
@@ -6738,9 +7016,11 @@ def main() -> int:
     fields = phase_kernel(model, cfg, ops, device, gen, flush)
     fields["variants"] = {"bf16_store": phase_kernel_bf16(
         model, cfg, device, gen, flush)}
+    lap("kernel.fused_multi")
     tgt_fields = phase_fused_tgt(model, cfg, device, gen, flush)
     tgt_fields["fwd"]["variants"]["bf16_model"] = phase_fused_tgt_bf16(
         model, cfg, device, gen, flush)
+    lap("kernel.fused_tgt")
     from mpqe_tpu_torch.ops import rgcn as rgcn_ops
 
     full_layer = rgcn_ops.init_rgcn_layer(gen, cfg.embed_dim, cfg.embed_dim,
@@ -6752,19 +7032,22 @@ def main() -> int:
                                          device, gen, flush).items():
         k5_fields[kid]["variants"] = {"bf16_rows": fl}
     bf16_kernels_s = time.perf_counter() - t_bf16_kernels
+    lap("kernel.rgcn_fused")
     k6_fields = phase_rgcn_blocked(model.layers[0], cfg, device, gen, flush)
     t_bf16_kernels = time.perf_counter()
     phase_rgcn_blocked_bf16(model.layers[0], cfg, device, gen)
     bf16_kernels_s += time.perf_counter() - t_bf16_kernels
     del full_layer
+    lap("kernel.rgcn_blocked")
     k4_fields = phase_segment(cfg, device, flush)
     k7_launches, k7_fields = phase_sddmm(model, cfg, device, flush)
+    lap("kernel.segment, kernel.sddmm")
     k8_launches, k8_fields = phase_ring(model.layers[0], cfg, device, gen,
                                         flush)
     t_bf16_kernels = time.perf_counter()
     k8_launches += phase_ring_bf16(model.layers[0], cfg, device, gen)
     bf16_kernels_s += time.perf_counter() - t_bf16_kernels
-    lap("kernel phases")
+    lap("kernel.ring")
 
     t0 = time.perf_counter()
     kg = make_random_kg(**KG)
@@ -6828,14 +7111,16 @@ def main() -> int:
     t_gqe = time.perf_counter()
     phase_gqe_train(kg, train_q, val_q, device)
     phase_gqe_variants(kg, train_q, device)
+    lap("gqe.train")
     phase_gqe_serve(kg, device)
     phase_gqe_ranking(kg, val_q, device)
+    lap("gqe.serve, gqe.eval.ranking")
     phase_train_cli(["--model", "gqe_softand", "--decoder", "bibox",
                      "--bibox_w", "0.5", "--gqe_encoder", "neighborhood"],
                     then=lambda d: (phase_eval_cli(d), phase_serve_cli(d),
                                     check_bibox_w(d)), label="gqe.cli")
     log(f"gqe phases {time.perf_counter() - t_gqe:.1f} s")
-    lap("gqe")
+    lap("gqe.cli")
 
     import os
     import tempfile
@@ -6878,6 +7163,10 @@ def main() -> int:
         lap("bench")
         data_launches.append((0, 0, phase_quality(tmp, device)))
         lap("quality")
+        t_tools = time.perf_counter()
+        tools = phase_tools(os.path.join(tmp, "rule"))
+        tools_s = time.perf_counter() - t_tools
+        lap("tools")
     t_single = time.perf_counter()
     phase_am_scale()
     lap("am_scale")
@@ -6885,7 +7174,14 @@ def main() -> int:
     lap("debug")
     single_s += time.perf_counter() - t_single
     data_launches += host_launches
-    launches += import_k3
+    launches += import_k3 + tools["K3"]
+    k1 += tools["K1"]
+    k2 += tools["K2"]
+    for kid in ("K5a", "K5b", "K6a", "K6b"):
+        sparse[kid] += tools[kid]
+    for kid, key in (("K4a", "K4a"), ("K4b", "K4b"), ("K4L", "layout")):
+        k4_launches[key] += tools[kid]
+    k7_launches += tools["K7"]
     k1 += sum(n[0] for n in data_launches) + bf16_launches[0]
     k2 += sum(n[1] for n in data_launches) + bf16_launches[1]
     launches += sum(n[2] for n in data_launches) + bf16_launches[2] + \
@@ -6906,6 +7202,7 @@ def main() -> int:
         f"their launches (K1, K2, K3): npz {data_launches[0]}, pkl "
         f"{data_launches[1]}, quality {data_launches[2]}, train.bf16 "
         f"{bf16_launches}, serve.bf16 K3={bf16_k3}")
+    log(f"tools group {tools_s:.1f} s; its launches {tools}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{

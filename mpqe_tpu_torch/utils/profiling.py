@@ -214,19 +214,29 @@ def device_profile(fn) -> tuple:
     a synchronised end, and per kernel ``(device us, launches, name)``,
     largest first.  Device work only: a user annotation's range
     (``Optimizer.step``) spans kernels that are counted on their own.
-    The window is padded with ``PROFILE_PAD_S`` of host idle time at each
-    end; the wall time leaves the pads out."""
-    from torch.profiler import ProfilerActivity, profile
+    A warmup step of ``TRACE_WARMUP_LAUNCHES`` marker launches comes
+    first and is dropped, as in :func:`start_trace` (late in a long
+    process a window without one recorded no device event at all); the
+    recorded window is padded with ``PROFILE_PAD_S`` of host idle time
+    at each end, and the wall time leaves the pads out."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    marker = torch.empty(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(TRACE_WARMUP_LAUNCHES):
+            marker.fill_(1.0)
+        torch.cuda.synchronize()
+        prof.step()
         time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
         time.sleep(PROFILE_PAD_S)
+        prof.step()
     rows = sorted(((e.device_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA

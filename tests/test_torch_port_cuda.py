@@ -31,7 +31,9 @@ fail it and bit-equal repeats.  On bf16 operands: K5 on bf16 rows
 bit-equal to K5 on their f32 widening (including widths that are not
 multiples of 8), the blocked layer with bf16 leaves equal to f32 leaves
 of the same values (gradients rounded), K8 on a bf16 layer and rows
-equal to K8 on the widened operands.
+equal to K8 on the widened operands.  The root tools' ports:
+``kernel_smoke`` (every kernel against its oracles) and one tool of
+each group exit 0 on the card with device times recorded.
 """
 
 import dataclasses
@@ -1783,3 +1785,32 @@ def test_cuda_spmd_step_matches_single_device_step():
             continue
         err = float((dg - dw).abs().mean() / dw.abs().mean())
         assert err <= 1e-4, (n, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,consts", [
+    ("kernel_smoke", {}),
+    ("eval_bench", dict(N_ENTITIES=20_000)),
+    ("embed_scatter_exp", dict(N=20_000, B=4096)),
+])
+def test_cuda_tools_run_on_the_card(name, consts, monkeypatch, capsys):
+    """``kernel_smoke`` (every kernel against its oracles at the
+    reference check's shapes) and one tool of each group, the tools'
+    loops cut short, exit 0 on the card with device times recorded."""
+    import importlib
+    import json
+
+    from mpqe_tpu_torch.tools import probe_common
+
+    _cuda()
+    tool = importlib.import_module(f"mpqe_tpu_torch.tools.{name}")
+    for k, v in consts.items():
+        monkeypatch.setattr(tool, k, v)
+    monkeypatch.setattr(probe_common, "LOOP", dict(
+        n_small=1, n_large=3, samples=1, profile=1))
+    assert tool.main(["--device", "cuda"]) == 0
+    records = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+               if ln.startswith("{")]
+    assert records and all(r.get("ok", True) for r in records)
+    if name != "kernel_smoke":
+        assert all(r["device_ms"] > 0 for r in records)
