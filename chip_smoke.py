@@ -306,7 +306,16 @@ parallel (one nvcc each), then:
    message), ``multihost`` (two processes under ``gloo``,
    ``tools/multihost_run.py``, SGD, against one process over the global
    batch: losses within 1e-5, parameter changes within 1e-4, the two
-   processes bit-equal) and ``dryrun``
+   processes bit-equal), then ``multihost.halo`` and
+   ``kernel.ring.multiprocess`` (one pair of worker processes,
+   ``chip_smoke.py --multiprocess-worker``, each holding half of the
+   parts, their blocks crossing by CUDA IPC: the halo step for
+   ``halo_ring`` and ``halo_gather`` on 2 x 2 parts against one process
+   on a (4, 1) mesh, ranks bit-equal; K8 at P = 2 and 4 across the
+   processes, its sender delayed, bit-equal to one process's K8, under
+   ``ring_gate`` against its plain version, the control that skips the
+   receive counter different; the cross-process hop's copy and
+   counter-wait ms) and ``dryrun``
    (``tools/dryrun_multichip.py`` on 8 parts, K8 against the ring).
 
 25. The last modules a single card runs: ``train.trace`` (``data.npz``'s
@@ -3254,7 +3263,7 @@ RING_SIZES = (2, 3, 4, 8)
 RING_TEMPLATE_PARTS = 4
 RING_SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's clock, per aggregate
 HALO_PARTS = 4
-HALO_STEPS = 20
+HALO_STEPS = 10  # short: the multiprocess phases share the time limit
 
 
 def k8_work(N: int, d: int, d_out: int, bb: int, n_rels: int, E: int,
@@ -3667,7 +3676,7 @@ def phase_halo_train(kg, train_q, device):
 # The GQE baselines: training, serving, full ranking and the CLIs (no
 # kernel: the reference computes them outside Pallas)
 # ----------------------------------------------------------------------
-GQE_STEPS = 50  # gqe.train
+GQE_STEPS = 30  # gqe.train; short, as HALO_STEPS
 GQE_VARIANT_STEPS = 10  # each run of gqe.train.variants
 GQE_SERVE_REQUESTS = 2
 GQE_RECHECK_QUERIES = 8  # per structure, recomputed over every entity
@@ -6227,6 +6236,293 @@ def phase_multihost(device) -> None:
         raise AssertionError(line)
 
 
+MP_PARTS = 2  # parts of the card each process of multihost.halo holds
+MP_RING_SIZES = (2, 4)  # kernel.ring.multiprocess: one, two parts a process
+MP_TIMED_CALLS = 5  # K8 calls timed across processes, per ring size
+MP_TIMEOUT_S = 600
+
+
+def mp_ring_case(cfg, P: int, device):
+    """K8's case across processes (the same in every process): the
+    general graph at the flagship width over P parts, its x and a layer
+    of 16 bases from fixed seeds, and a second x for the control."""
+    from mpqe_tpu_torch.ops import rgcn as rgcn_ops
+    from mpqe_tpu_torch.parallel import halo
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    layer = rgcn_ops.init_rgcn_layer(gen, cfg.embed_dim, cfg.embed_dim,
+                                     cfg.n_rels, cfg.num_bases,
+                                     device=device)
+    with torch.no_grad():
+        layer.bias.normal_(0.0, 0.1, generator=gen)
+    st = general_store(cfg)
+    pr = halo.partition_edges_ring(st, P)
+    x = torch.zeros((pr.n_nodes_padded, cfg.embed_dim), device=device)
+    x[:st.n_nodes] = torch.randn((st.n_nodes, cfg.embed_dim), generator=gen,
+                                 device=device)
+    edges = [torch.from_numpy(a).to(device) for a in (
+        pr.src_local, pr.dst_local, pr.rel, pr.norm)]
+    return layer, x, edges, x.flip(0).contiguous()
+
+
+class delayed_senders:
+    """Within the block each K8 copy into another process's slot is
+    preceded on the copy stream by ``torch.cuda._sleep``: the receiver's
+    aggregate would run before the block lands but for the ``recv``
+    counter.  ``skip_receive=True`` also drops the receivers' counter
+    waits (the negative control)."""
+
+    def __init__(self, skip_receive: bool = False):
+        self.skip = skip_receive
+
+    def __enter__(self):
+        from mpqe_tpu_torch.ops import ring
+
+        self.saved = (ring._remote_copy, ring._wait_received)
+        copy = ring._remote_copy
+
+        def late(*a):
+            torch.cuda._sleep(RING_SLEEP_CYCLES)
+            return copy(*a)
+
+        ring._remote_copy = late
+        if self.skip:
+            ring._wait_received = lambda *a: None
+        return self
+
+    def __exit__(self, *exc):
+        from mpqe_tpu_torch.ops import ring
+
+        ring._remote_copy, ring._wait_received = self.saved
+        return False
+
+
+class timed_hops:
+    """Within the block, CUDA events around every K8 copy into another
+    process's slot (on the copy stream) and every wait on a ``recv``
+    counter (on the waiting stream): their mean ms when read."""
+
+    def __enter__(self):
+        from mpqe_tpu_torch.ops import ring
+
+        self.saved = (ring._remote_copy, ring._wait_received)
+        self.copies, self.waits = [], []
+
+        def wrap(fn, into):
+            def timed(*a):
+                a0 = torch.cuda.Event(enable_timing=True)
+                b0 = torch.cuda.Event(enable_timing=True)
+                a0.record()
+                out = fn(*a)
+                b0.record()
+                into.append((a0, b0))
+                return out
+            return timed
+
+        ring._remote_copy = wrap(self.saved[0], self.copies)
+        ring._wait_received = wrap(self.saved[1], self.waits)
+        return self
+
+    def __exit__(self, *exc):
+        from mpqe_tpu_torch.ops import ring
+
+        ring._remote_copy, ring._wait_received = self.saved
+        return False
+
+    def means(self) -> tuple:
+        torch.cuda.synchronize()
+        return tuple(sum(a.elapsed_time(b) for a, b in ev) / max(len(ev), 1)
+                     for ev in (self.copies, self.waits))
+
+
+def multiprocess_worker(port: str, rank: str, out: str) -> int:
+    """One of the two processes of ``multihost.halo`` and
+    ``kernel.ring.multiprocess`` (``chip_smoke.py --multiprocess-worker
+    PORT RANK OUT``): a gloo group on the card; the halo step for
+    ``halo_ring`` and ``halo_gather`` on its MP_PARTS parts of a
+    (2 MP_PARTS, 1) mesh (``tools/multihost_run.py``, SPMD_STEPS SGD
+    steps at the flagship width); then K8 at MP_RING_SIZES across the
+    two processes, with its sender delayed, the control, and timed
+    calls.  Writes ``<out>/k8_rank<r>.npz``."""
+    import os
+
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.ops import ring
+    from mpqe_tpu_torch.parallel import ipc, multihost
+    from mpqe_tpu_torch.tools import multihost_run
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(rank)
+    device = torch.device("cuda", 0)
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                         device="cuda", timeout_s=MP_TIMEOUT_S)
+    for kind in ("ring", "gather"):
+        multihost_run.main([
+            "--device", "cuda", "--parallel", f"halo_{kind}", "--mesh",
+            f"{MP_PARTS},1", "--steps", str(SPMD_STEPS), "--params",
+            "--out", os.path.join(out, kind)])
+    torch.cuda.empty_cache()
+    cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
+    res = {}
+    for P in MP_RING_SIZES:
+        layer, x, edges, x2 = mp_ring_case(cfg, P, device)
+        mesh = multihost.global_mesh((P, 1), [device] * (P // 2))
+
+        def k8(xx):
+            return ring.rgcn_ring_halo_rdma(mesh, layer, xx, *edges,
+                                            cfg.n_rels)
+
+        with torch.no_grad():
+            ring.rgcn_ring_halo_rdma.launches = 0
+            with delayed_senders():
+                res[f"late{P}"] = k8(x).cpu().numpy()
+            res[f"again{P}"] = k8(x).cpu().numpy()
+            k8(x2)  # the slots now hold x2's blocks
+            with delayed_senders(skip_receive=True):
+                res[f"control{P}"] = k8(x).cpu().numpy()
+            t0 = time.perf_counter()
+            with timed_hops() as th:
+                for _ in range(MP_TIMED_CALLS):
+                    k8(x)
+                torch.cuda.synchronize()
+            res[f"ms{P}"] = np.asarray(
+                (time.perf_counter() - t0) * 1e3 / MP_TIMED_CALLS)
+            res[f"copy_ms{P}"], res[f"wait_ms{P}"] = map(np.asarray,
+                                                        th.means())
+            res[f"launches{P}"] = np.asarray(
+                ring.rgcn_ring_halo_rdma.launches)
+        del layer, x, edges, x2
+    np.savez(os.path.join(out, f"k8_rank{rank}.npz"), **res)
+    ipc.close()
+    return 0
+
+
+def phase_multiprocess(device) -> int:
+    """``multihost.halo`` and ``kernel.ring.multiprocess``: two worker
+    processes on the card (:func:`multiprocess_worker`, launched once for
+    both phases), each holding half of the parts; meanwhile the same runs
+    in this process on one (4, 1) mesh of the card.  The halo step
+    (``halo_ring``, ``halo_gather``): the ranks' losses and parameter
+    changes bit-equal, their losses within MULTIHOST_TOL (relative) and
+    rank 0's changes within SPMD_TOL of one process's.  K8 at P = 2 and 4
+    across the processes, its sender delayed: bit-equal to the
+    one-process K8 on the same inputs (and a repeat, undelayed, too),
+    ``ring_gate`` against its plain version, and the control (the
+    receive counter skipped under a delayed sender, after a call on
+    another x) different.  Returns the workers' K8 launches."""
+    import os
+    import socket
+    import tempfile
+
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.ops import ring
+    from mpqe_tpu_torch.parallel.mesh import make_mesh
+    from mpqe_tpu_torch.tools import multihost_run
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--multiprocess-worker", str(port), str(r), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in (0, 1)]
+        try:
+            one = {kind: multihost_run.main([
+                "--device", "cuda", "--parallel", f"halo_{kind}", "--mesh",
+                f"{2 * MP_PARTS},1", "--steps", str(SPMD_STEPS), "--params",
+                "--out", os.path.join(tmp, "one_" + kind)])
+                for kind in ("ring", "gather")}
+            for v in one.values():
+                del v["state"]
+            torch.cuda.empty_cache()
+            refs = {}
+            with torch.no_grad():
+                for P in MP_RING_SIZES:
+                    layer, x, edges, _ = mp_ring_case(cfg, P, device)
+                    mesh = make_mesh((P, 1), devices=[device] * P)
+                    refs[P] = (
+                        ring.rgcn_ring_halo_rdma(mesh, layer, x, *edges,
+                                                 cfg.n_rels),
+                        ring.rgcn_ring_halo_rdma_reference(
+                            mesh, layer, x, *edges, cfg.n_rels))
+                    del layer, x, edges
+            errs = []
+            for p in procs:
+                _, err = p.communicate(timeout=MP_TIMEOUT_S)
+                errs.append(err)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for p, err in zip(procs, errs):
+            if p.returncode != 0:
+                raise AssertionError(f"multiprocess worker rc="
+                                     f"{p.returncode}:\n{err[-3000:]}")
+        two = {kind: [dict(np.load(os.path.join(tmp, kind,
+                                                f"rank{r}.npz")))
+                      for r in (0, 1)] for kind in ("ring", "gather")}
+        k8 = [dict(np.load(os.path.join(tmp, f"k8_rank{r}.npz")))
+              for r in (0, 1)]
+    bad = []
+    for kind in ("ring", "gather"):
+        a, b = two[kind]
+        want = np.asarray(one[kind]["losses"])
+        losses = a.pop("losses")
+        ranks_equal = bool(np.array_equal(losses, b.pop("losses"))) and \
+            all(np.array_equal(v, b[k]) for k, v in a.items())
+        err = float(np.max(np.abs(losses - want) / np.abs(want)))
+        e_change = tree_change_err(a, one[kind]["changes"])
+        line = (f"multihost.halo {kind}: 2 processes (backend gloo, CUDA "
+                f"IPC) x {MP_PARTS} parts of {SMI['line']}, {SPMD_STEPS} SGD "
+                f"steps of the whole {TRAIN_BATCH}-query batch: losses "
+                f"{losses.tolist()} (ranks' losses and parameter changes "
+                f"bit-equal: {ranks_equal}); one process on a "
+                f"({2 * MP_PARTS}, 1) mesh {want.tolist()}; loss rel_err="
+                f"{err:.3e} change_err={e_change:.3e}")
+        log(line)
+        if not ranks_equal or err > MULTIHOST_TOL or e_change > SPMD_TOL:
+            bad.append(line)
+    torch.cuda.synchronize()
+    for P in MP_RING_SIZES:
+        got_k8, plain = refs[P]
+        want = got_k8.cpu().numpy()
+        late = [r[f"late{P}"] for r in k8]
+        equal = all(np.array_equal(v, want) for v in late) and all(
+            np.array_equal(r[f"again{P}"], want) for r in k8)
+        gate = ring.ring_gate(torch.from_numpy(late[0]), plain.cpu())
+        ctl_differs = all(not np.array_equal(r[f"control{P}"], want)
+                          for r in k8)
+        n = int(sum(int(r[f"launches{P}"]) for r in k8))
+        launches += n
+        line = (f"kernel.ring.multiprocess general P={P} ({P // 2} parts a "
+                f"process, 2 processes on {SMI['line']}): "
+                f"bit_equal_one_process={equal} (sender delayed "
+                f"{RING_SLEEP_CYCLES} cycles a copy, and a repeat) gate_ok="
+                f"{gate['ok']} err_vs_plain={gate['err_vs_plain']:.3e} "
+                f"control_differs={ctl_differs} (recv counter skipped, "
+                f"sender delayed) launches={n} (both processes) "
+                f"cross_ms={float(k8[0][f'ms{P}']):.4f} (a call, host "
+                f"clock, mean of {MP_TIMED_CALLS}) hop_copy_ms="
+                f"{float(k8[0][f'copy_ms{P}']):.4f} counter_wait_ms="
+                f"{float(k8[0][f'wait_ms{P}']):.4f} (CUDA events, rank 0, "
+                f"means per copy and per wait)")
+        log(line)
+        if not (equal and gate["ok"] and ctl_differs) or n == 0:
+            bad.append(line)
+    log(f"multihost.halo, kernel.ring.multiprocess: {wall:.1f} s")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return launches
+
+
 def phase_dryrun(device) -> int:
     """``dryrun``: ``python -m mpqe_tpu_torch.tools.dryrun_multichip`` in
     process with DRYRUN_PARTS parts on the card: the spmd step with both
@@ -7102,6 +7398,8 @@ def main() -> int:
     lap("train.spmd")
     phase_multihost(device)
     lap("multihost")
+    k8_launches += phase_multiprocess(device)
+    lap("multihost.halo, kernel.ring.multiprocess")
     k8_dry, k3_dry = phase_dryrun(device)
     k8_launches += k8_dry
     launches += k3_dry
@@ -7272,4 +7570,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multiprocess-worker"]:
+        sys.exit(multiprocess_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -51,8 +51,27 @@ plain version for CPU tensors only; for CUDA tensors it launches the
 kernels or raises.  Like the reference kernel, K8 is forward only (no
 VJP): a call in grad mode on a tensor that requires grad raises.
 
-The same schedule runs where the parts sit on different cards, but only a
-ring of parts on one card has run it.
+The parts of the ring may also lie in different processes
+(``parallel/multihost.py global_mesh``): each process holds a run of
+consecutive parts, on one device, and computes only those.  A part whose
+neighbour lives in the next process writes its block into that
+process's slot, mapped by CUDA IPC (``parallel/ipc.py``): the comm
+buffer is then allocated once per shape and exported.  Across processes,
+counters in device memory take the place of the events: the copy stream
+writes the receiver's ``recv`` counter of the slot after its copy, the
+receiver's compute stream waits until it reaches the hop's number (the
+receive semaphore), and once the hop's messages have read the slot the
+receiver writes the sender's ``ack`` counter, which the sender's copy
+stream waits for before it writes that slot again (the ack token; posted
+at every hop, since the buffers outlive the call).  Within a process
+the events stay.  After enqueuing a call each process meets the others
+on the host (``ipc.handshake``, under the group's timeout).  Every
+process receives the whole output: its rows' self term is one ``addmm``
+over the whole ring's rows (the call one process makes, so the rows
+equal one process's bit for bit), then the parts' rows are exchanged.
+On the CPU the plain version runs the same schedule, the boundary blocks
+crossing by gloo.  Parts on different cards (peer access between
+devices, NCCL) have not run: the port's card machine has one.
 """
 
 from __future__ import annotations
@@ -400,6 +419,8 @@ def ring_controls(edges, n_rels: int, block: int):
 _KERNEL = None
 _COPY_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
 _PARTS: Dict[tuple, torch.Tensor] = {}  # (device, parts) -> int32 ids
+_LINKS: Dict[tuple, "_Link"] = {}  # (device, L, block, d) -> the link
+RECV, ACK = 0, 2  # the counters of slot k: RECV + k, ACK + k
 
 
 def _kernel():
@@ -564,17 +585,72 @@ def _parts_on(parts: List[int], dev) -> torch.Tensor:
     return t
 
 
+@dataclasses.dataclass
+class _Link:
+    """This process's end of the ring's process boundaries on the card:
+    its ``comm_rows`` (made once, exported), the next process's mapped
+    ``comm``, the counters (``RECV + k``: the previous process's copy
+    into slot k has landed, up to that hop number; ``ACK + k``: the next
+    process has read its slot k, up to that hop number), the running hop
+    number and the number of each slot's last read."""
+
+    comm_rows: torch.Tensor
+    next_comm: torch.Tensor
+    counters: object
+    prev: int
+    next: int
+    hop: int = 1
+    last_read: list = dataclasses.field(default_factory=lambda: [0, 0])
+
+
+def _link(devs, dev, L: int, block: int, K: int) -> _Link:
+    """The :class:`_Link` of this shape (collective on first use: every
+    process meets the same shapes in the same order)."""
+    from mpqe_tpu_torch.parallel import ipc
+
+    key = (dev, L, block, K)
+    if key not in _LINKS:
+        rows = torch.zeros((2 * L * block + 1, K), device=dev)
+        peers = ipc.share(rows)
+        nxt = (devs.rank + 1) % devs.world
+        _LINKS[key] = _Link(
+            comm_rows=rows,
+            next_comm=peers[nxt][:-1].view(2, L, block, K),
+            counters=ipc.Counters(dev, 4),
+            prev=(devs.rank - 1) % devs.world, next=nxt)
+    return _LINKS[key]
+
+
+def _local_parts(devs) -> List[int]:
+    """The parts this process holds; across processes a run of
+    consecutive parts on one device, as many in every process
+    (``ValueError`` otherwise)."""
+    if not getattr(devs, "spans", False):
+        return list(range(len(devs)))
+    n, w = len(devs), devs.world
+    L = n // w
+    if n % w or devs.procs != [p // L for p in range(n)]:
+        raise ValueError(f"rgcn_ring_halo_rdma across processes takes "
+                         f"runs of consecutive parts, as many in each "
+                         f"process: got processes {devs.procs}")
+    if len({devs[p] for p in devs.local}) != 1:
+        raise ValueError("rgcn_ring_halo_rdma: a process's parts must "
+                         "share one device")
+    return devs.local
+
+
 def _groups(devs, layer, x_padded, edges, block: int, n_rels: int,
-            route: Optional[str] = None) -> Dict:
-    """One :class:`RingGroup` per distinct device of the axis, buffers
-    allocated on its current stream, slot 0 holding each part's own block.
-    ``route``: None, the plain version's destination layout; ``"plain"``,
-    the kernels' route built by :func:`ring_route`; ``"kernel"``, by the
-    layout kernels (:func:`_launch_route`), with ``out`` left for the
-    first hop to write."""
+            route: Optional[str] = None, rows=None) -> Dict:
+    """One :class:`RingGroup` per distinct device of this process's parts,
+    buffers allocated on its current stream, slot 0 holding each part's
+    own block.  ``route``: None, the plain version's destination layout;
+    ``"plain"``, the kernels' route built by :func:`ring_route`;
+    ``"kernel"``, by the layout kernels (:func:`_launch_route`), with
+    ``out`` left for the first hop to write.  ``rows``: the comm rows to
+    use (a process boundary's exported buffer) instead of new ones."""
     by_dev: Dict[torch.device, List[int]] = {}
-    for p, dev in enumerate(devs):
-        by_dev.setdefault(dev, []).append(p)
+    for p in _local_parts(devs):
+        by_dev.setdefault(devs[p], []).append(p)
     n_parts = len(devs)
     bb, K, N = layer.basis.shape
     groups = {}
@@ -583,7 +659,8 @@ def _groups(devs, layer, x_padded, edges, block: int, n_rels: int,
         src, dst, rel, norm = (
             _on(t, dev, dtype, parts, n_parts)
             for t, dtype in zip(edges, (torch.int32,) * 3 + (torch.float32,)))
-        rows = torch.empty((2 * L * block + 1, K), device=dev)
+        if rows is None:
+            rows = torch.empty((2 * L * block + 1, K), device=dev)
         comm = rows[:-1].view(2, L, block, K)
         comm[0] = _on(x_padded.view(n_parts, block, K), dev, torch.float32,
                       parts, n_parts)
@@ -617,11 +694,13 @@ def _groups(devs, layer, x_padded, edges, block: int, n_rels: int,
 def _copy_plan(groups, where, n_parts: int):
     """Per receiving device, its copies as ``(sending device, first sending
     index, first receiving index, count)``: runs of parts whose senders
-    (part p - 1) sit side by side on one device."""
+    (part p - 1) sit side by side on one device of this process."""
     plan = {}
     for dev, g in groups.items():
         runs: List[list] = []
         for j, q in enumerate(g.parts):
+            if (q - 1) % n_parts not in where:
+                continue  # another process's part sends it
             sd, ip = where[(q - 1) % n_parts]
             last = runs[-1] if runs else None
             if (last and last[0] == sd and last[1] + last[3] == ip
@@ -649,12 +728,23 @@ def _ring(mesh: Mesh, layer: RGCNLayer, x_padded, edges, n_rels: int,
     n_parts = len(devs)
     _check_args(layer, x_padded, edges, n_parts)
     block = x_padded.shape[0] // n_parts
-    groups = _groups(devs, layer, x_padded, edges, block, n_rels, route)
+    cross = getattr(devs, "spans", False)
+    link = None
+    if cross and streams:
+        mine = _local_parts(devs)
+        link = _link(devs, devs[mine[0]], len(mine), block,
+                     x_padded.shape[1])
+    groups = _groups(devs, layer, x_padded, edges, block, n_rels, route,
+                     rows=None if link is None else link.comm_rows)
     where = {p: (dev, i) for dev in groups
              for i, p in enumerate(groups[dev].parts)}
     plan = _copy_plan(groups, where, n_parts)
     if streams:
-        _ring_streams(groups, plan, n_parts, n_rels, hop_fn)
+        _ring_streams(groups, plan, n_parts, n_rels, hop_fn, link)
+        if link is not None:
+            from mpqe_tpu_torch.parallel import ipc
+
+            ipc.handshake(link.hop, "K8 ring")
     else:
         if route is not None:
             for g in groups.values():
@@ -664,8 +754,12 @@ def _ring(mesh: Mesh, layer: RGCNLayer, x_padded, edges, n_rels: int,
             if s + 1 < n_parts:
                 for dev in groups:
                     _copies(groups, plan, cur, nxt, dev)
+                if cross:
+                    _exchange_boundary(groups, devs, cur, nxt)
             for g in groups.values():
                 hop_fn(g, n_parts, s, cur, n_rels)
+    if cross:
+        return _cross_output(layer, x_padded, groups, devs, block)
     outs = {}
     for dev, g in groups.items():
         L, _, N = g.out.shape
@@ -681,11 +775,62 @@ def _ring(mesh: Mesh, layer: RGCNLayer, x_padded, edges, n_rels: int,
     return torch.cat([outs[p].to(x_padded.device) for p in range(n_parts)])
 
 
+def _exchange_boundary(groups, devs, cur: int, nxt: int) -> None:
+    """The plain route's hop across processes: this process's last part's
+    slot ``cur`` to the next process's first part's slot ``nxt``, by
+    ``multihost.exchange`` (gloo on the CPU)."""
+    from mpqe_tpu_torch.parallel import multihost
+
+    (g,) = groups.values()
+    got = multihost.exchange([g.comm[cur, -1].contiguous()], g.device,
+                             "K8 ring hop")
+    g.comm[nxt, 0] = got[(devs.rank - 1) % devs.world][0]
+
+
+def _cross_output(layer, x_padded, groups, devs, block: int):
+    """Across processes: this process's rows of ``x @ w_self + agg +
+    bias`` from one ``addmm`` over the whole ring's rows (the other
+    processes' aggregates zero), then every part's rows exchanged, so
+    every process returns the whole output."""
+    from mpqe_tpu_torch.parallel import mesh as mesh_lib
+
+    (g,) = groups.values()
+    n_parts, dev = len(devs), g.device
+    L, _, N = g.out.shape
+    lo = g.parts[0] * block
+    agg = torch.zeros((n_parts * block, N), device=dev)
+    agg[lo:lo + L * block] = g.out.view(L * block, N)
+    x = _on(x_padded.view(n_parts, block, -1), dev, torch.float32,
+            list(range(n_parts)), n_parts).view(n_parts * block, -1)
+    y = torch.addmm(agg, x, layer.w_self.to(dev, torch.float32)).add_(
+        layer.bias.to(dev, torch.float32))
+    outs = [None] * n_parts
+    for p in g.parts:
+        outs[p] = y[p * block:(p + 1) * block]
+    return mesh_lib.gather_blocks(outs, x_padded.device, devs)
+
+
+def _wait_received(link: _Link, stream, slot: int, number: int) -> None:
+    """``stream`` waits until the previous process's copy into ``slot``
+    for hop ``number`` has landed (the receive semaphore)."""
+    link.counters.wait(stream, RECV + slot, number)
+
+
+def _remote_copy(link: _Link, g: RingGroup, cur: int, nxt: int,
+                 number: int) -> None:
+    """On the current (copy) stream: this process's last part's slot
+    ``cur`` into the next process's first part's slot ``nxt``, then that
+    process's ``recv`` counter of the slot set to ``number``."""
+    link.next_comm[nxt, 0].copy_(g.comm[cur, -1], non_blocking=True)
+    link.counters.write(torch.cuda.current_stream(g.device), link.next,
+                        RECV + nxt, number)
+
+
 def _ring_streams(groups, plan, n_parts: int, n_rels: int,
-                  hop_fn: Callable) -> None:
+                  hop_fn: Callable, link: Optional[_Link] = None) -> None:
     """The ring on CUDA streams: per device the current (compute) stream
     runs the combine and the aggregates, the device's copy stream the
-    copies, events order them."""
+    copies, events order them (``link``'s counters across processes)."""
     compute = {dev: torch.cuda.current_stream(dev) for dev in groups}
     copy = {}
     for dev, g in groups.items():
@@ -704,6 +849,7 @@ def _ring_streams(groups, plan, n_parts: int, n_rels: int,
     filled = {dev: recorded(compute[dev]) for dev in groups}  # slot 0 set
     recv: Dict = {}  # (device, slot) -> the copies into it have landed
     ack: Dict = {}  # (device, slot) -> its last reader is done
+    base = 0 if link is None else link.hop
     for s in range(n_parts):
         cur, nxt = s % 2, (s + 1) % 2
         if s + 1 < n_parts:
@@ -714,19 +860,44 @@ def _ring_streams(groups, plan, n_parts: int, n_rels: int,
                 if s > 0:
                     # the ack token: the receivers' slot nxt is free
                     copy[dev].wait_event(ack[(dev, nxt)])
+                    if link is not None:
+                        # the previous process's block in slot cur, which
+                        # the copies below read
+                        _wait_received(link, copy[dev], cur, base + s)
                 with torch.cuda.stream(copy[dev]):
                     _copies(groups, plan, cur, nxt, dev)
                 recv[(dev, nxt)] = recorded(copy[dev])
+            if link is not None:
+                (dev, g), = groups.items()
+                stream = copy[dev]
+                with torch.cuda.stream(stream):
+                    # this process's last part holds its slot cur (the
+                    # copies above, on this stream, came first)
+                    if s == 0:
+                        stream.wait_event(filled[dev])
+                    # the next process's slot nxt is free
+                    link.counters.wait(stream, ACK + nxt,
+                                       link.last_read[nxt])
+                    _remote_copy(link, g, cur, nxt, base + s + 1)
         for dev, g in groups.items():
             if s > 0:
                 compute[dev].wait_event(recv[(dev, cur)])
+                if link is not None:
+                    _wait_received(link, compute[dev], cur, base + s)
 
             def read(dev=dev, cur=cur, s=s):
                 if s + 1 < n_parts - 1:
                     ack[(dev, cur)] = recorded(compute[dev])
+                if link is not None:
+                    link.counters.write(compute[dev], link.prev, ACK + cur,
+                                        base + s)
 
             with torch.cuda.stream(compute[dev]):
                 hop_fn(g, n_parts, s, cur, n_rels, read)
+        if link is not None:
+            link.last_read[cur] = base + s
+    if link is not None:
+        link.hop = base + n_parts
 
 
 def rgcn_ring_halo_rdma(

@@ -25,11 +25,22 @@ operation is differentiable; destination sums are ``ops/segment.py``'s
 ``"xla"`` ``segment_sum``, as in the reference.  Edge normalizers come
 from the full graph before partitioning, so distribution never changes
 the math.  The partitioners are numpy copies of the reference's.
+
+On a mesh that spans processes (``multihost.global_mesh``) each process
+iterates over its own parts only, with the replicated ``x`` in and the
+whole output out in every process; the collectives exchange the rest
+(``parallel/mesh.py``).  :func:`rgcn_ring_halo` and
+:func:`rgcn_dst_partitioned` train so (their parameters enter the parts
+through ``enter_parts``, whose backward sums the processes' gradients);
+:func:`rgcn_rel_partitioned` and :func:`rgcn_2d_partitioned` run forward
+only across processes (the reference's tests hold them forward) and
+raise ``NotImplementedError`` in grad mode there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 import torch
@@ -193,6 +204,38 @@ def _messages(x_src: torch.Tensor, basis: torch.Tensor, coeff_e, src_e,
     return msg * norm_e[:, None].to(msg.dtype)
 
 
+def _local(devs) -> list:
+    """The parts this process computes: its own on a mesh that spans
+    processes, else all."""
+    return list(getattr(devs, "local", range(len(devs))))
+
+
+def _entered(layer: RGCNLayer, devs, what: str):
+    """``layer`` as its parts read it: itself in one process; across
+    processes its parameters through ``mesh_lib.enter_parts`` (a
+    namespace of the same names).  ``ValueError`` when this process holds
+    no part of the axis (its loss would not reach the backward's
+    exchanges)."""
+    if mesh_lib._mode(devs) == "local":
+        return layer
+    if not devs.local:
+        raise ValueError(f"{what}: this process holds no part of the axis")
+    names = ("w_self", "bias", "basis", "coeff", "w_rel")
+    held = [n for n in names if getattr(layer, n) is not None]
+    vals = dict(zip(held, mesh_lib.enter_parts(
+        [getattr(layer, n) for n in held], devs)))
+    return types.SimpleNamespace(**{n: vals.get(n) for n in names})
+
+
+def _forward_only(what: str, mesh: Mesh, x: torch.Tensor,
+                  layer: RGCNLayer) -> None:
+    if (mesh.spans_processes and torch.is_grad_enabled()
+            and (x.requires_grad
+                 or any(p.requires_grad for p in layer.parameters()))):
+        raise NotImplementedError(
+            f"{what} runs forward only across processes (torch.no_grad)")
+
+
 def _self_term(layer: RGCNLayer, x_local: torch.Tensor, agg: torch.Tensor):
     dev = x_local.device
     return (dtypes.dot_f32(x_local, layer.w_self.to(dev)) + agg
@@ -213,10 +256,12 @@ def rgcn_dst_partitioned(
     """One distributed R-GCN layer (halo by ``all_gather``); returns
     ``[n_nodes_padded, d_out]`` on ``x_padded``'s device."""
     devs = mesh.axis_devices(axis)
+    layer = _entered(layer, devs, "rgcn_dst_partitioned")
     xs = mesh_lib.scatter_blocks(x_padded, devs)
     x_full = mesh_lib.all_gather(xs, devs)
-    outs = []
-    for p, dev in enumerate(devs):
+    outs = [None] * len(devs)
+    for p in _local(devs):
+        dev = devs[p]
         n_all = x_full[p].shape[0]
         src_e = pe_src[p].to(dev).long().clamp(0, n_all - 1)
         rel_cl = pe_rel[p].to(dev).long().clamp(0, n_rels - 1)
@@ -226,8 +271,8 @@ def rgcn_dst_partitioned(
                         pe_norm[p].to(dev))
         agg = segment_ops.segment_sum(msg, pe_dst_local[p].to(dev),
                                       xs[p].shape[0])
-        outs.append(_self_term(layer, xs[p], agg))
-    return mesh_lib.gather_blocks(outs, x_padded.device)
+        outs[p] = _self_term(layer, xs[p], agg)
+    return mesh_lib.gather_blocks(outs, x_padded.device, devs)
 
 
 def _relation_block(n_rels: int, n_parts: int) -> int:
@@ -269,17 +314,20 @@ def rgcn_rel_partitioned(
     relations, partial segment sums, then ``psum`` over the axis.  The
     parts run on the axis's devices at the first position of the other
     axis (in the reference the other axis holds replicas)."""
+    _forward_only("rgcn_rel_partitioned", mesh, x, layer)
     devs = mesh.axis_devices(axis)
     r_block = _relation_block(n_rels, len(devs))
     n_nodes = x.shape[0]
-    aggs = []
-    for j, dev in enumerate(devs):
+    aggs = [None] * len(devs)
+    for j in _local(devs):
+        dev = devs[j]
         xj = x.to(dev)
         src_e = edge_src.to(dev).long().clamp(0, n_nodes - 1)
         msg = _rel_block_messages(layer, xj, j, r_block, src_e,
                                   edge_rel.to(dev), edge_norm.to(dev), dev)
-        aggs.append(segment_ops.segment_sum(msg, edge_dst.to(dev), n_nodes))
-    agg = mesh_lib.psum(aggs, devs)[0].to(x.device)
+        aggs[j] = segment_ops.segment_sum(msg, edge_dst.to(dev), n_nodes)
+    summed = mesh_lib.psum(aggs, devs)
+    agg = summed[_local(devs)[0]].to(x.device)
     return _self_term(layer, x, agg)
 
 
@@ -299,27 +347,32 @@ def rgcn_2d_partitioned(
     (destination block i, relation block j) tile of the edge set.  The
     halo all-gathers over the data axis, the partial sums ``psum`` over
     the model axis; the result of model position 0 is returned."""
+    _forward_only("rgcn_2d_partitioned", mesh, x_padded, layer)
     n_data, n_model = mesh.shape[data_axis], mesh.shape[model_axis]
     r_block = _relation_block(n_rels, n_model)
     cols = [mesh.axis_devices(data_axis, j) for j in range(n_model)]
     xs = [mesh_lib.scatter_blocks(x_padded, c) for c in cols]  # [j][i]
     x_full = [mesh_lib.all_gather(xs[j], cols[j]) for j in range(n_model)]
-    outs = []
+    outs = [None] * n_data
     for i in range(n_data):
-        aggs, devs = [], []
-        for j in range(n_model):
+        devs = mesh.axis_devices(model_axis, i)
+        mine = _local(devs)
+        if not mine and mesh_lib._mode(devs) != "spans":
+            continue  # another process's row
+        aggs = [None] * n_model
+        for j in mine:
             dev = cols[j][i]
             n_all = x_full[j][i].shape[0]
             src_e = pe_src[i].to(dev).long().clamp(0, n_all - 1)
             msg = _rel_block_messages(layer, x_full[j][i], j, r_block, src_e,
                                       pe_rel[i].to(dev), pe_norm[i].to(dev),
                                       dev)
-            aggs.append(segment_ops.segment_sum(
-                msg, pe_dst_local[i].to(dev), xs[j][i].shape[0]))
-            devs.append(dev)
+            aggs[j] = segment_ops.segment_sum(
+                msg, pe_dst_local[i].to(dev), xs[j][i].shape[0])
         agg = mesh_lib.psum(aggs, devs)[0]
-        outs.append(_self_term(layer, xs[0][i], agg))
-    return mesh_lib.gather_blocks(outs, x_padded.device)
+        if agg is not None:
+            outs[i] = _self_term(layer, xs[0][i], agg)
+    return mesh_lib.gather_blocks(outs, x_padded.device, cols[0])
 
 
 def rgcn_ring_halo(
@@ -339,8 +392,9 @@ def rgcn_ring_halo(
     holds, into an accumulator added hop by hop."""
     devs = mesh.axis_devices(axis)
     n_parts = len(devs)
+    layer = _entered(layer, devs, "rgcn_ring_halo")
     xs = mesh_lib.scatter_blocks(x_padded, devs)
-    block = xs[0].shape[0]
+    block = x_padded.shape[0] // n_parts
     d_out = layer.w_self.shape[1]
 
     def process(p, acc, buf, src_block):
@@ -356,13 +410,18 @@ def rgcn_ring_halo(
         return acc + segment_ops.segment_sum(
             msg, pe_dst_local[p, src_block].to(dev), block)
 
-    accs = [torch.zeros((block, d_out), dtype=torch.float32, device=dev)
-            for dev in devs]
+    mine = _local(devs)
+    accs = [None] * n_parts
+    for p in mine:
+        accs[p] = torch.zeros((block, d_out), dtype=torch.float32,
+                              device=devs[p])
     bufs = xs
     for s in range(n_parts):
         if s:
             bufs = mesh_lib.ppermute(bufs, devs)
-        accs = [process(p, accs[p], bufs[p], (p - s) % n_parts)
-                for p in range(n_parts)]
-    outs = [_self_term(layer, xs[p], accs[p]) for p in range(n_parts)]
-    return mesh_lib.gather_blocks(outs, x_padded.device)
+        for p in mine:
+            accs[p] = process(p, accs[p], bufs[p], (p - s) % n_parts)
+    outs = [None] * n_parts
+    for p in mine:
+        outs[p] = _self_term(layer, xs[p], accs[p])
+    return mesh_lib.gather_blocks(outs, x_padded.device, devs)

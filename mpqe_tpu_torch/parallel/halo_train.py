@@ -17,6 +17,14 @@ numpy and cached on the device (:func:`_template_layout`); only the
 formula's per-edge relations and norms are placed into it per step.
 Parameters are replicated: the model lives on the mesh's first device and
 each part copies what it needs.
+
+On a mesh that spans processes (``multihost.global_mesh``, as the
+reference's worker feeds ``make_mesh((8, 1))`` over two processes) every
+process holds the whole model on its first device and the whole
+(replicated) batch, computes its own parts of each layer and the same
+whole loss; the layers' backward sums the processes' parameter gradients
+(``parallel/mesh.py enter_parts``), so the optimizer steps on gradients,
+and parameters, that are equal in every process.
 """
 
 from __future__ import annotations
@@ -219,10 +227,11 @@ def init_halo_train_state(gen: torch.Generator, cfg, tc: loop_mod.TrainConfig,
     (``parallel/sharding.py``): the halo loss reads it only outside the
     halo layers (the embedding lookup and the loss's candidate rows,
     through the table accessor), and the layer weights stay
-    replicated."""
+    replicated.  On a mesh that spans processes the model lives on this
+    process's first device."""
     if not shard_entity_table:
         return loop_mod.init_train_state(gen, cfg, tc,
-                                         device=mesh.devices.flat[0])
+                                         device=mesh.local_devices()[0])
     from mpqe_tpu_torch.parallel import spmd
 
     return spmd.init_spmd_train_state(gen, cfg, tc, mesh,

@@ -9,17 +9,27 @@ takes one process's step over the global batch (the concatenation of the
 processes' slices, in process order) and the parameters stay equal.
 
 ``host_local_batch`` puts this process's slice of a global batch on its
-mesh's data devices.  The halo layers and K8 keep their parts in one
-process (their collectives are the one controller's copies); spreading
-them over processes needs a machine with several cards.
+mesh's data devices.  :func:`global_mesh` is the counterpart of JAX's
+global device list: a mesh whose parts are spread over the group's
+processes, each holding its own; the halo layers (``parallel/halo.py``)
+and K8 (``ops/ring.py``) run over it with every process computing only
+its parts, and the parts' blocks cross processes by :func:`exchange`
+(gloo for CPU tensors, ``parallel/ipc.py`` for CUDA tensors).  Parts on
+different cards (NCCL, peer access between devices) have not run: the
+port's card machine has one.
 """
 
 from __future__ import annotations
 
 import os
+import zlib
 from datetime import timedelta
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
+import torch
+
+from mpqe_tpu_torch.parallel import mesh as mesh_lib
 from mpqe_tpu_torch.parallel import sharding as sharding_lib
 from mpqe_tpu_torch.parallel.mesh import Mesh
 
@@ -101,3 +111,129 @@ def host_local_batch(mesh: Mesh, local_arrays: Dict,
         raise ValueError(f"data_axis {data_axis!r} is not the mesh's data "
                          f"axis {mesh.axis_names[0]!r}")
     return sharding_lib.shard_dense_batch_arrays(mesh, **local_arrays)
+
+
+def global_mesh(shape, local_devices: Sequence,
+                axis_names=("data", "model")) -> Mesh:
+    """A ``shape`` mesh over every process's ``local_devices``, gathered
+    over the group in process order (JAX's ``make_mesh`` over the global
+    device list): the entries are the concatenation of the processes'
+    lists, row-major, each naming its process in ``Mesh.procs``.  Without
+    a group, :func:`mesh_lib.make_mesh` of ``local_devices``.
+    ``ValueError`` when a process lists more than one distinct device
+    (its backward must run its exchanges in one order) or the processes
+    list different numbers of devices."""
+    local = [mesh_lib._device(d) for d in local_devices]
+    if process_count() == 1:
+        return mesh_lib.make_mesh(shape, axis_names, local)
+    import torch.distributed as dist
+
+    if len(set(local)) != 1:
+        raise ValueError(f"global_mesh: this process lists the devices "
+                         f"{sorted(set(map(str, local)))}; a process's parts "
+                         "must share one device")
+    lists = [None] * dist.get_world_size()
+    dist.all_gather_object(lists, [str(d) for d in local])
+    if len({len(a) for a in lists}) != 1:
+        raise ValueError(f"global_mesh: the processes list "
+                         f"{[len(a) for a in lists]} devices; each must "
+                         "list as many")
+    devices = [torch.device(d) for a in lists for d in a]
+    procs = [r for r, a in enumerate(lists) for _ in a]
+    mesh = mesh_lib.make_mesh(shape, axis_names, devices)
+    n = len(devices)
+    arr = np.empty(n, dtype=object)
+    rank = dist.get_rank()
+    arr[:] = [local[0] if r == rank else d for d, r in zip(devices, procs)]
+    return Mesh(arr.reshape(mesh.devices.shape), mesh.axis_names,
+                procs=np.asarray(procs), rank=rank)
+
+
+# the dtypes exchange takes, by their code in its header
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
+           torch.int32, torch.int64, torch.uint8)
+_HEADER = 8  # tag, count, dtype, ndim, shape (at most 4 axes)
+
+
+def exchange(mine: Sequence[torch.Tensor], device, tag: str = ""
+             ) -> List[List[torch.Tensor]]:
+    """Every process of the group contributes ``mine`` (tensors of one
+    shape and dtype across the group, any number, none allowed) and
+    receives every process's, in process order: ``out[r]`` is process
+    r's list (``out[rank]`` is ``mine``).  ``mine`` lies on ``device``:
+    CPU tensors cross by gloo, CUDA tensors by ``parallel/ipc.py``
+    (never through the host); other devices, and a tensor on another
+    device than ``device``, raise ``ValueError``.  A header gathered
+    first (by gloo) carries each process's count, shape and ``tag``: a
+    process whose sequence of exchanges differs from its peers' raises
+    ``RuntimeError``; a peer that does not come raises after the group's
+    timeout."""
+    import torch.distributed as dist
+
+    device = mesh_lib._device(device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"exchange: no transport for {device} (CPU "
+                         "tensors cross by gloo, CUDA tensors by CUDA IPC)")
+    for t in mine:
+        if t.device != device:
+            raise ValueError(f"exchange over {device} was handed a tensor "
+                             f"on {t.device}: no silent staging; the "
+                             "transport is chosen by the tensors' device")
+    head = torch.full((_HEADER,), -1, dtype=torch.int64)
+    head[0] = zlib.crc32(tag.encode())
+    head[1] = len(mine)
+    if mine:
+        t = mine[0]
+        if t.dim() > _HEADER - 4 or t.dtype not in _DTYPES:
+            raise ValueError(f"exchange takes at most {_HEADER - 4} axes of "
+                             f"{_DTYPES}, got {t.dtype} {tuple(t.shape)}")
+        head[2] = _DTYPES.index(t.dtype)
+        head[3] = t.dim()
+        head[4:4 + t.dim()] = torch.tensor(t.shape)
+    heads = [torch.empty_like(head) for _ in range(dist.get_world_size())]
+    dist.all_gather(heads, head)
+    rank = dist.get_rank()
+    if len({int(h[0]) for h in heads}) != 1:
+        raise RuntimeError(f"exchange {tag!r}: the processes are at "
+                           "different exchanges (their sequences differ)")
+    counts = [int(h[1]) for h in heads]
+    kinds = {tuple(h[2:].tolist()) for h, c in zip(heads, counts) if c}
+    if len(kinds) > 1:
+        raise RuntimeError(f"exchange {tag!r}: the processes contribute "
+                           f"different shapes or dtypes {sorted(kinds)}")
+    out = [list(mine) if r == rank else [] for r in range(len(heads))]
+    if not kinds:  # nothing to move
+        return out
+    kind = kinds.pop()
+    dtype, shape = _DTYPES[kind[0]], tuple(kind[2:2 + kind[1]])
+    if device.type == "cpu":
+        got = _gloo_exchange(mine, counts, shape, dtype)
+    else:
+        from mpqe_tpu_torch.parallel import ipc
+
+        got = ipc.channel(device).exchange(mine, counts, shape, dtype)
+    for r in range(len(heads)):
+        if r != rank:
+            out[r] = got[r]
+    return out
+
+
+def _gloo_exchange(mine, counts, shape, dtype) -> List[List[torch.Tensor]]:
+    """:func:`exchange`'s CPU transport: one gloo ``all_gather`` of every
+    process's tensors, padded to the largest count, as bytes."""
+    import torch.distributed as dist
+
+    for t in mine:
+        if t.device.type != "cpu":
+            raise ValueError(f"the gloo transport takes CPU tensors, got "
+                             f"{t.device}: CUDA tensors cross processes by "
+                             "parallel/ipc.py, never through the host")
+    m = max(counts)
+    buf = torch.zeros((m, *shape), dtype=dtype)
+    if mine:
+        buf[:len(mine)] = torch.stack(mine)
+    raw = buf.reshape(-1).view(torch.uint8)
+    bufs = [torch.empty_like(raw) for _ in counts]
+    dist.all_gather(bufs, raw)
+    return [list(b.view(dtype).view(m, *shape)[:c].unbind(0))
+            for b, c in zip(bufs, counts)]

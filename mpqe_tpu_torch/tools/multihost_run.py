@@ -1,20 +1,30 @@
-"""A few steps of the data-parallel step (``parallel/spmd.py``) in one
-process of a ``torch.distributed`` group, on random batches made from a
-seed: each process builds its own mesh, feeds its slice of every global
-batch (``multihost.host_local_batch``) and writes its losses and, with
-``--params``, its final parameters as an ``.npz``.  Run one process per
-rank, with ``torchrun`` (``initialize`` reads its variables) or with an
-address, a count and a rank:
+"""A few steps of the data-parallel step (``parallel/spmd.py``) or of the
+halo step (``parallel/halo_train.py``) in one process of a
+``torch.distributed`` group, on random batches made from a seed, the
+counterpart of the reference's ``tests/_multihost_worker.py``.  With
+``--parallel spmd`` (the default) each process builds its own mesh and
+feeds its slice of every global batch (``multihost.host_local_batch``);
+with ``--parallel halo_ring|halo_gather`` the processes' meshes join into
+one (``multihost.global_mesh``, ``--mesh`` being each process's share of
+it, stacked on the data axis), each process holds its own parts of the
+halo layers and every process feeds the whole global batch.  Each
+process writes its losses and, with ``--params``, its parameters'
+changes as an ``.npz``.  Run one process per rank, with ``torchrun``
+(``initialize`` reads its variables) or with an address, a count and a
+rank:
 
   torchrun --nproc_per_node 2 -m mpqe_tpu_torch.tools.multihost_run \\
       --device cpu --out runs/mh
+  torchrun --nproc_per_node 2 -m mpqe_tpu_torch.tools.multihost_run \\
+      --device cpu --parallel halo_ring --out runs/mh_ring
   python -m mpqe_tpu_torch.tools.multihost_run --coordinator 127.0.0.1:29500 \\
       --num_processes 2 --process_id 0 --backend gloo --out runs/mh
 
 Without a group (one process, no variables) it takes the steps over the
 whole global batch: the run the group's must equal.  NCCL takes one card
-per rank; two processes on one card name ``--backend gloo``.  The output
-is ``<out>/rank<r>.npz`` (``losses``; with ``--params`` each parameter's
+per rank; two processes on one card name ``--backend gloo`` (the halo
+layers' CUDA blocks then cross by ``parallel/ipc.py``).  The output is
+``<out>/rank<r>.npz`` (``losses``; with ``--params`` each parameter's
 change over the run by name, the table whole).
 
 The optimizer is SGD: its step is the gradient times the learning rate,
@@ -70,7 +80,10 @@ def parse_args(argv=None):
                    help="gloo | nccl (default: nccl on the card, gloo on "
                         "the CPU)")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--mesh", default="2,1", help="each process's mesh")
+    p.add_argument("--parallel", default="spmd",
+                   choices=("spmd", "halo_ring", "halo_gather"))
+    p.add_argument("--mesh", default="2,1",
+                   help="each process's mesh (its share of the halo mesh)")
     p.add_argument("--entities", type=int, default=1_000_000)
     p.add_argument("--embed_dim", type=int, default=128)
     p.add_argument("--num_bases", type=int, default=16)
@@ -85,6 +98,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.parallel import halo_train, ipc
     from mpqe_tpu_torch.parallel import mesh as mesh_lib
     from mpqe_tpu_torch.parallel import multihost, spmd
     from mpqe_tpu_torch.queries import STRUCTURES
@@ -100,15 +114,25 @@ def main(argv=None) -> dict:
                          device=device.type)
     n_proc, rank = multihost.process_count(), multihost.process_index()
     d, m = (int(x) for x in args.mesh.split(","))
-    mesh = mesh_lib.make_mesh((d, m), devices=[device] * (d * m))
+    halo = args.parallel != "spmd"
+    if halo:
+        mesh = multihost.global_mesh((d * n_proc, m), [device] * (d * m))
+    else:
+        mesh = mesh_lib.make_mesh((d, m), devices=[device] * (d * m))
     cfg = mpqe_mod.MPQEConfig(
         n_entities=args.entities, n_modes=N_MODES, n_rels=N_RELS,
         embed_dim=args.embed_dim, n_layers=N_LAYERS,
         num_bases=args.num_bases or None)
     tc = loop_mod.TrainConfig(lr=LR, optimizer="sgd",
                               batch_size=args.batch_size, n_neg=N_NEG)
-    init_fn, step = spmd.make_spmd_train_step(cfg, tc, mesh)
-    state = init_fn(torch.Generator(device=device).manual_seed(SEED))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    if halo:
+        state = halo_train.init_halo_train_state(gen, cfg, tc, mesh)
+        step = halo_train.make_halo_train_step(
+            cfg, state.optimizer, mesh, args.parallel.split("_")[1])
+    else:
+        init_fn, step = spmd.make_spmd_train_step(cfg, tc, mesh)
+        state = init_fn(gen)
     init = ({k: v.clone() for k, v in state.model.state_dict().items()}
             if args.params else None)
     spec = STRUCTURES[STRUCTURE]
@@ -117,11 +141,15 @@ def main(argv=None) -> dict:
     losses = []
     for g in global_batches(args.steps, args.batch_size, spec,
                             cfg.n_entities):
-        local = {k: (v if k in ("edge_rel", "edge_norm") else v[lo:hi])
-                 for k, v in g.items()}
-        arrays = multihost.host_local_batch(mesh, local)
-        losses.append(float(step(state.model, STRUCTURE,
-                                 *[arrays[k] for k in loop_mod.BATCH_FIELDS])))
+        if halo:  # the whole batch, replicated
+            fields = [torch.from_numpy(g[k]).to(device)
+                      for k in loop_mod.BATCH_FIELDS]
+        else:
+            local = {k: (v if k in ("edge_rel", "edge_norm") else v[lo:hi])
+                     for k, v in g.items()}
+            arrays = multihost.host_local_batch(mesh, local)
+            fields = [arrays[k] for k in loop_mod.BATCH_FIELDS]
+        losses.append(float(step(state.model, STRUCTURE, *fields)))
     os.makedirs(args.out, exist_ok=True)
     out = {"losses": np.asarray(losses)}
     if init is not None:
@@ -129,8 +157,10 @@ def main(argv=None) -> dict:
                     for k, v in state.model.state_dict().items()})
         del init
     np.savez(os.path.join(args.out, f"rank{rank}.npz"), **out)
-    print(f"multihost_run rank={rank}/{n_proc} mesh={dict(mesh.shape)} "
-          f"losses={losses}", flush=True)
+    if device.type == "cuda":
+        ipc.close()
+    print(f"multihost_run rank={rank}/{n_proc} {args.parallel} "
+          f"mesh={dict(mesh.shape)} losses={losses}", flush=True)
     return {"rank": rank, "processes": n_proc, "losses": losses,
             "state": state, "changes": {k: v for k, v in out.items()
                                         if k != "losses"}}

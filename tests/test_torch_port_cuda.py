@@ -1814,3 +1814,86 @@ def test_cuda_tools_run_on_the_card(name, consts, monkeypatch, capsys):
     assert records and all(r.get("ok", True) for r in records)
     if name != "kernel_smoke":
         assert all(r["device_ms"] > 0 for r in records)
+
+
+@pytest.mark.cuda
+def test_cuda_two_processes_equal_one_process():
+    """Two processes on the card, each holding half of the parts (gloo
+    for the host, CUDA IPC for the blocks): ``chip_smoke.py``'s
+    ``multihost.halo`` (the halo step for ``halo_ring`` and
+    ``halo_gather`` at the flagship width, ranks bit-equal, losses and
+    SGD changes equal to one process within ``MULTIHOST_TOL`` /
+    ``SPMD_TOL``) and ``kernel.ring.multiprocess`` (K8 at P = 2 and 4
+    bit-equal to one process with its sender delayed, ``ring_gate``
+    against its plain version, the skipped-counter control different)."""
+    import subprocess
+    import sys
+
+    import chip_smoke
+    from mpqe_tpu_torch.ops import rgcn_fused, ring
+
+    _cuda()
+    chip_smoke.SMI["line"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    ring._kernel()
+    rgcn_fused._kernel()
+    assert chip_smoke.phase_multiprocess(torch.device("cuda")) > 0
+
+
+_SILENT_PEER = r"""
+import sys, time
+import torch
+sys.path.insert(0, sys.argv[3])
+from mpqe_tpu_torch.parallel import multihost
+rank = int(sys.argv[1])
+multihost.initialize("127.0.0.1:" + sys.argv[2], 2, rank, backend="gloo",
+                     device="cuda", timeout_s=5)
+if rank == 1:
+    time.sleep(30)
+    sys.exit(0)
+t0 = time.perf_counter()
+try:
+    multihost.exchange([torch.ones(3, device="cuda")], "cuda", "silent")
+except Exception as e:
+    print("RAISED", type(e).__name__, time.perf_counter() - t0, flush=True)
+    sys.exit(3)
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_transport_refusals_and_a_silent_peer():
+    """A CUDA tensor never goes through the gloo transport (it raises),
+    and an exchange of CUDA tensors whose peer never sends raises after
+    the group's timeout instead of hanging."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from mpqe_tpu_torch.parallel import multihost
+
+    _cuda()
+    t = torch.ones(3, device="cuda")
+    with pytest.raises(ValueError, match="gloo transport takes CPU"):
+        multihost._gloo_exchange([t], [1, 1], (3,), torch.float32)
+    with pytest.raises(ValueError, match="handed a tensor on cuda"):
+        multihost.exchange([t], "cpu")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SILENT_PEER, str(r), str(port), repo],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert procs[0].returncode == 3, outs[0]
+    assert "RAISED" in outs[0][0]
