@@ -302,8 +302,9 @@ parallel (one nvcc each), then:
    SGD steps on a (2, 2) mesh against the single-device step, the
    parameters' changes within 1e-4; the train CLI at ``--parallel
    spmd``, then ``evaluate --ranking`` and ``serve --run_dir`` of its
-   run in-process; ``serve --shards 2`` refused with the reference's
-   message), ``multihost`` (two processes under ``gloo``,
+   run in-process; ``serve --shards N + 1`` refused with the reference's
+   message, N the visible cards), ``multihost`` (two processes under
+   ``gloo``,
    ``tools/multihost_run.py``, SGD, against one process over the global
    batch: losses within 1e-5, parameter changes within 1e-4, the two
    processes bit-equal), then ``multihost.halo`` and
@@ -315,8 +316,30 @@ parallel (one nvcc each), then:
    processes, its sender delayed, bit-equal to one process's K8, under
    ``ring_gate`` against its plain version, the control that skips the
    receive counter different; the cross-process hop's copy and
-   counter-wait ms) and ``dryrun``
-   (``tools/dryrun_multichip.py`` on 8 parts, K8 against the ring).
+   counter-wait ms), the ``multicard`` group (below) and ``dryrun``
+   (``tools/dryrun_multichip.py`` on 8 parts of the card, or one part on
+   each of the first min(4, N) cards, K8 against the ring).
+   ``multicard``, over N = every visible card (at most 8), each path held
+   to the same path with its parts on one card: ``multicard.shards``
+   (``ShardedQueryServer`` on a (1, N) mesh of the cards at float32 and
+   int8 against the unsharded server, answers equal up to ties, K3's
+   launches equal; ``serve --shards N`` and ``evaluate --ranking --shards
+   N`` against the unsharded CLIs), ``multicard.spmd`` (3 SGD steps on
+   (N, 1) and (N / 2, 2) meshes of the cards against the same meshes on
+   cuda:0: bit-equal where one card's run is bit-equal to itself, else
+   within 1e-4), ``multicard.halo`` (``halo_ring`` and ``halo_gather`` on
+   N cards against N parts of cuda:0), ``multicard.ring`` (K8 at P = 2
+   and N, one part a card, copies delayed: bit-equal to the one-card K8,
+   under ``ring_gate``, 6 + 2 P launches a card, the skipped-event
+   control different; the hop copy's ms beside its NVLink bound and the
+   call's ms), ``multicard.nccl`` (two processes under NCCL on cuda:0 and
+   cuda:1: the spmd step, the halo step and K8, held to one process as
+   ``multihost``, ``multihost.halo`` and ``kernel.ring.multiprocess``
+   are) and, with four cards or more, ``multicard.procs_x_cards`` (two
+   processes of two cards each: the halo step and K8).  With one card it
+   prints ``multicard: not run, 1 card``.  ``python3 chip_smoke.py
+   --multicard`` runs only ``train.spmd``, ``multihost.halo``,
+   ``kernel.ring.multiprocess``, ``multicard`` and ``dryrun``.
 
 25. The last modules a single card runs: ``train.trace`` (``data.npz``'s
    train CLI run with ``--trace 5 --trace_skip 10``: ``trace_start`` at
@@ -371,9 +394,11 @@ among them, K3's its bf16 store's, and K5a's and K5b's their bf16
 rows': one kernel each, its launches counted together) and, last,
 ``{"ok": true, "device":
 {...}}``.  Any failed check raises and the exit code is nonzero.  Needs
-one CUDA card and the repository's sources (it builds the kernels).
+one CUDA card and the repository's sources (it builds the kernels); on a
+machine with several cards the parts-of-one-card phases stay on cuda:0
+and the ``multicard`` group runs over all of them.
 
-Usage: python3 chip_smoke.py
+Usage: python3 chip_smoke.py [--multicard]
 """
 
 from __future__ import annotations
@@ -422,7 +447,7 @@ KG = dict(n_entities=1_000_000, n_modes=4, n_base_rels=133,
 BATCH = 256  # queries per dispatch: the server's cap at 1M entities
 RAGGED = 1000
 K = 10
-ITERS, PLAIN_ITERS = 20, 5  # timed launches per structure
+ITERS, PLAIN_ITERS = 20, 3  # timed launches per structure
 TRAIN_BATCH = 512  # train.py's default batch
 TRAIN_BIG = 131_072  # the repo's flagship train batch (bench.py:42)
 BIG_ITERS = 5
@@ -4983,7 +5008,8 @@ BF16_SPARSE_RUNS = {
                          "models.mpqe", "dense_batch_loss_kernel_fused"),
     "train.bf16.blocked": (["--kernel", "blocked"], BF16_SPARSE_STEPS,
                            "models.mpqe", "dense_batch_loss_kernel_blocked"),
-    "halo.train.bf16": (["--kernel", "dense", "--parallel", "halo_ring"],
+    "halo.train.bf16": (["--kernel", "dense", "--parallel", "halo_ring",
+                         "--mesh", "1,1"],
                         BF16_HALO_STEPS, "parallel.halo_train",
                         "halo_dense_batch_loss"),
 }
@@ -5640,8 +5666,8 @@ def shared_grad_control(cfg, got: dict, want: dict, structure: str) -> dict:
     return out
 
 
-HALO_MULTISTEP = ["--parallel", "halo_ring", "--steps_per_call", "4",
-                  "--steps", "8", "--val_every", "8"]
+HALO_MULTISTEP = ["--parallel", "halo_ring", "--mesh", "1,1",
+                  "--steps_per_call", "4", "--steps", "8", "--val_every", "8"]
 
 
 def phase_halo_multistep(device) -> None:
@@ -6032,7 +6058,7 @@ def phase_eval_sharded(model, cfg, kg, val_q, device, want) -> int:
     return k3
 
 
-def phase_train_spmd(kg, train_q, device) -> int:
+def phase_train_spmd(kg, train_q, device, keep=None) -> int:
     """``train.spmd``: SPMD_STEPS SGD steps of the data-parallel step
     with the entity table row-sharded, on a (2, 2) mesh of 4 parts of the
     card, against the port's single-device step from the same initial
@@ -6042,8 +6068,10 @@ def phase_train_spmd(kg, train_q, device) -> int:
     each run); then the train CLI at
     ``--parallel spmd`` in-process (a (1, 1) mesh), ``evaluate
     --ranking`` and ``serve --run_dir`` of its run, and ``serve --shards
-    2`` refused on this one-card machine with the reference's message.
-    Returns the K3 launches of the CLI runs."""
+    N + 1`` refused with the reference's message (N the visible cards).
+    Returns the K3 launches of the CLI runs.  ``keep``: a directory
+    where the CLI's run dir (``<keep>/run``) stays for ``multicard``."""
+    import contextlib
     import os
     import re
     import tempfile
@@ -6108,11 +6136,13 @@ def phase_train_spmd(kg, train_q, device) -> int:
     del state, single, one, step, init, got, want
     torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with (contextlib.nullcontext(keep) if keep
+          else tempfile.TemporaryDirectory()) as tmp:
         run_dir = os.path.join(tmp, "run")
         tgt_counters(reset=True)
         lines = run_cli(train_cli.main, [
-            "--data", "synthetic", "--parallel", "spmd", "--steps", "20",
+            "--data", "synthetic", "--parallel", "spmd", "--mesh", "1,1",
+            "--steps", "20",
             "--val_every", "10", "--num_bases", "16", "--n_neg", "4",
             "--syn_entities", "20000", "--syn_modes", "4", "--syn_rels",
             "20", "--syn_triples", "60000", "--syn_train_queries", "700",
@@ -6150,23 +6180,25 @@ def phase_train_spmd(kg, train_q, device) -> int:
         if not str(out.get("checkpoint", "")).endswith("step_20"):
             raise AssertionError(f"train.spmd.serve.cli: {sv[-1]}")
     k3 = tgt_counters()[2]
+    have = torch.cuda.device_count()
     try:
-        serve_cli.main(["--init_seed", "0", "--shards", "2"])
+        serve_cli.main(["--init_seed", "0", "--shards", str(have + 1)])
     except SystemExit as e:
         msg = str(e)
     else:
-        raise AssertionError("serve --shards 2 ran on one card")
-    log(f"train.spmd: serve --shards 2 on {torch.cuda.device_count()} card "
-        f"exits: {msg!r}")
-    if "--shards 2 needs that many devices, have 1" not in msg:
-        raise AssertionError(f"serve --shards 2: {msg!r}")
+        raise AssertionError(f"serve --shards {have + 1} ran on {have} "
+                             "cards")
+    log(f"train.spmd: serve --shards {have + 1} on {have} card(s) exits: "
+        f"{msg!r}")
+    if f"--shards {have + 1} needs that many devices, have {have}" not in msg:
+        raise AssertionError(f"serve --shards {have + 1}: {msg!r}")
     return k3
 
 
 def phase_multihost(device) -> None:
     """``multihost``: two processes on the card joined by an explicitly
     named gloo group (NCCL takes one card per rank: across cards it is
-    not run here), each on its own (2, 1) mesh of the card with half of
+    ``multicard.nccl``), each on its own (2, 1) mesh of the card with half of
     every global batch, SPMD_STEPS steps at the flagship width with a
     1,000,000-entity table (``tools/multihost_run.py``, SGD), against
     one process over the global batch on a (4, 1) mesh: the two
@@ -6185,7 +6217,7 @@ def phase_multihost(device) -> None:
     port = s.getsockname()[1]
     s.close()
     with tempfile.TemporaryDirectory() as tmp:
-        common = ["--device", "cuda", "--steps", str(SPMD_STEPS),
+        common = ["--device", "cuda:0", "--steps", str(SPMD_STEPS),
                   "--mesh", "2,1", "--params", "--out",
                   os.path.join(tmp, "two")]
         t0 = time.perf_counter()
@@ -6196,7 +6228,7 @@ def phase_multihost(device) -> None:
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for r in (0, 1)]
         try:
-            one = multihost_run.main(["--device", "cuda", "--steps",
+            one = multihost_run.main(["--device", "cuda:0", "--steps",
                                       str(SPMD_STEPS), "--mesh", "4,1",
                                       "--params", "--out",
                                       os.path.join(tmp, "one")])
@@ -6230,7 +6262,7 @@ def phase_multihost(device) -> None:
             f"1's losses and parameter changes equal: {ranks_equal}); one "
             f"process over the global batch {want.tolist()}; "
             f"loss rel_err={err:.3e} change_err={e_change:.3e}; "
-            f"{wall:.1f} s; NCCL across cards is not run here (one card)")
+            f"{wall:.1f} s; NCCL across cards is multicard.nccl's")
     log(line)
     if not ranks_equal or err > MULTIHOST_TOL or e_change > SPMD_TOL:
         raise AssertionError(line)
@@ -6335,15 +6367,24 @@ class timed_hops:
                      for ev in (self.copies, self.waits))
 
 
-def multiprocess_worker(port: str, rank: str, out: str) -> int:
-    """One of the two processes of ``multihost.halo`` and
-    ``kernel.ring.multiprocess`` (``chip_smoke.py --multiprocess-worker
-    PORT RANK OUT``): a gloo group on the card; the halo step for
-    ``halo_ring`` and ``halo_gather`` on its MP_PARTS parts of a
-    (2 MP_PARTS, 1) mesh (``tools/multihost_run.py``, SPMD_STEPS SGD
-    steps at the flagship width); then K8 at MP_RING_SIZES across the
-    two processes, with its sender delayed, the control, and timed
-    calls.  Writes ``<out>/k8_rank<r>.npz``."""
+def parts_of(cards: list, n: int) -> list:
+    """``n`` parts over ``cards`` in order, as evenly as they go (one card
+    repeated, or one part a card)."""
+    return [cards[i * len(cards) // n] for i in range(n)]
+
+
+def multiprocess_worker(port: str, rank: str, out: str, backend="gloo",
+                        cards="cuda:0", spmd="0") -> int:
+    """One of the two processes of a pair (``chip_smoke.py
+    --multiprocess-worker PORT RANK OUT [BACKEND CARDS SPMD]``): a group
+    under ``backend`` whose process ``rank`` holds its parts on ``cards``
+    (comma-separated; the first is its own); with ``spmd`` 1 the spmd
+    step on its (2, 1) mesh of its first card and half of every global
+    batch (``tools/multihost_run.py``, SPMD_STEPS SGD steps at the
+    flagship width); the halo step for ``halo_ring`` and ``halo_gather``
+    on its MP_PARTS parts of a (2 MP_PARTS, 1) mesh; then K8 at
+    MP_RING_SIZES across the two processes, with its sender delayed, the
+    control, and timed calls.  Writes ``<out>/k8_rank<r>.npz``."""
     import os
 
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
@@ -6353,20 +6394,26 @@ def multiprocess_worker(port: str, rank: str, out: str) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rank = int(rank)
-    device = torch.device("cuda", 0)
-    multihost.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo",
-                         device="cuda", timeout_s=MP_TIMEOUT_S)
+    cards = [torch.device(c) for c in cards.split(",")]
+    device = cards[0]
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, backend=backend,
+                         device=str(device), timeout_s=MP_TIMEOUT_S)
+    if spmd == "1":
+        multihost_run.main([
+            "--device", str(device), "--steps", str(SPMD_STEPS), "--mesh",
+            "2,1", "--params", "--out", os.path.join(out, "spmd")])
     for kind in ("ring", "gather"):
         multihost_run.main([
-            "--device", "cuda", "--parallel", f"halo_{kind}", "--mesh",
-            f"{MP_PARTS},1", "--steps", str(SPMD_STEPS), "--params",
-            "--out", os.path.join(out, kind)])
+            "--device", str(device), "--devices",
+            ",".join(map(str, parts_of(cards, MP_PARTS))), "--parallel",
+            f"halo_{kind}", "--mesh", f"{MP_PARTS},1", "--steps",
+            str(SPMD_STEPS), "--params", "--out", os.path.join(out, kind)])
     torch.cuda.empty_cache()
     cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
     res = {}
     for P in MP_RING_SIZES:
         layer, x, edges, x2 = mp_ring_case(cfg, P, device)
-        mesh = multihost.global_mesh((P, 1), [device] * (P // 2))
+        mesh = multihost.global_mesh((P, 1), parts_of(cards, P // 2))
 
         def k8(xx):
             return ring.rgcn_ring_halo_rdma(mesh, layer, xx, *edges,
@@ -6384,7 +6431,8 @@ def multiprocess_worker(port: str, rank: str, out: str) -> int:
             with timed_hops() as th:
                 for _ in range(MP_TIMED_CALLS):
                     k8(x)
-                torch.cuda.synchronize()
+                for c in cards:
+                    torch.cuda.synchronize(c)
             res[f"ms{P}"] = np.asarray(
                 (time.perf_counter() - t0) * 1e3 / MP_TIMED_CALLS)
             res[f"copy_ms{P}"], res[f"wait_ms{P}"] = map(np.asarray,
@@ -6397,113 +6445,145 @@ def multiprocess_worker(port: str, rank: str, out: str) -> int:
     return 0
 
 
-def phase_multiprocess(device) -> int:
-    """``multihost.halo`` and ``kernel.ring.multiprocess``: two worker
-    processes on the card (:func:`multiprocess_worker`, launched once for
-    both phases), each holding half of the parts; meanwhile the same runs
-    in this process on one (4, 1) mesh of the card.  The halo step
-    (``halo_ring``, ``halo_gather``): the ranks' losses and parameter
-    changes bit-equal, their losses within MULTIHOST_TOL (relative) and
-    rank 0's changes within SPMD_TOL of one process's.  K8 at P = 2 and 4
-    across the processes, its sender delayed: bit-equal to the
-    one-process K8 on the same inputs (and a repeat, undelayed, too),
-    ``ring_gate`` against its plain version, and the control (the
-    receive counter skipped under a delayed sender, after a call on
-    another x) different.  Returns the workers' K8 launches."""
+# the one-process runs every pair of worker processes is held to, made
+# once: "ring" / "gather" (the halo step on a (2 MP_PARTS, 1) mesh of the
+# card), "spmd" (the spmd step over the global batch on a (4, 1) mesh),
+# P -> (K8, its plain version) on the general graph
+MP_REFS: dict = {}
+
+
+def mp_references(device, tmp: str, spmd: bool) -> dict:
+    """:data:`MP_REFS`, computed where missing, on ``device``."""
     import os
-    import socket
-    import tempfile
 
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
     from mpqe_tpu_torch.ops import ring
     from mpqe_tpu_torch.parallel.mesh import make_mesh
     from mpqe_tpu_torch.tools import multihost_run
 
+    for kind in ("ring", "gather"):
+        if kind not in MP_REFS:
+            one = multihost_run.main([
+                "--device", str(device), "--parallel", f"halo_{kind}",
+                "--mesh", f"{2 * MP_PARTS},1", "--steps", str(SPMD_STEPS),
+                "--params", "--out", os.path.join(tmp, "one_" + kind)])
+            del one["state"]
+            MP_REFS[kind] = one
+    if spmd and "spmd" not in MP_REFS:
+        one = multihost_run.main([
+            "--device", str(device), "--steps", str(SPMD_STEPS), "--mesh",
+            "4,1", "--params", "--out", os.path.join(tmp, "one_spmd")])
+        del one["state"]
+        MP_REFS["spmd"] = one
+    torch.cuda.empty_cache()
+    cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
+    with torch.no_grad():
+        for P in MP_RING_SIZES:
+            if P in MP_REFS:
+                continue
+            layer, x, edges, _ = mp_ring_case(cfg, P, device)
+            mesh = make_mesh((P, 1), devices=[device] * P)
+            MP_REFS[P] = (
+                ring.rgcn_ring_halo_rdma(mesh, layer, x, *edges,
+                                         cfg.n_rels).cpu(),
+                ring.rgcn_ring_halo_rdma_reference(
+                    mesh, layer, x, *edges, cfg.n_rels).cpu())
+            del layer, x, edges
+    return MP_REFS
+
+
+def mp_pair(device, tmp: str, backend: str, cards: list,
+            spmd: bool = False) -> float:
+    """Two worker processes (:func:`multiprocess_worker`), process r on
+    ``cards[r]`` (a comma-separated list), their results under ``tmp``;
+    meanwhile :func:`mp_references` in this process.  Returns the wall
+    seconds; a worker's failure raises."""
+    import os
+    import socket
+
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
     sock.close()
-    cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
-    launches = 0
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__),
-             "--multiprocess-worker", str(port), str(r), tmp],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for r in (0, 1)]
-        try:
-            one = {kind: multihost_run.main([
-                "--device", "cuda", "--parallel", f"halo_{kind}", "--mesh",
-                f"{2 * MP_PARTS},1", "--steps", str(SPMD_STEPS), "--params",
-                "--out", os.path.join(tmp, "one_" + kind)])
-                for kind in ("ring", "gather")}
-            for v in one.values():
-                del v["state"]
-            torch.cuda.empty_cache()
-            refs = {}
-            with torch.no_grad():
-                for P in MP_RING_SIZES:
-                    layer, x, edges, _ = mp_ring_case(cfg, P, device)
-                    mesh = make_mesh((P, 1), devices=[device] * P)
-                    refs[P] = (
-                        ring.rgcn_ring_halo_rdma(mesh, layer, x, *edges,
-                                                 cfg.n_rels),
-                        ring.rgcn_ring_halo_rdma_reference(
-                            mesh, layer, x, *edges, cfg.n_rels))
-                    del layer, x, edges
-            errs = []
-            for p in procs:
-                _, err = p.communicate(timeout=MP_TIMEOUT_S)
-                errs.append(err)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall = time.perf_counter() - t0
-        for p, err in zip(procs, errs):
-            if p.returncode != 0:
-                raise AssertionError(f"multiprocess worker rc="
-                                     f"{p.returncode}:\n{err[-3000:]}")
-        two = {kind: [dict(np.load(os.path.join(tmp, kind,
-                                                f"rank{r}.npz")))
-                      for r in (0, 1)] for kind in ("ring", "gather")}
-        k8 = [dict(np.load(os.path.join(tmp, f"k8_rank{r}.npz")))
-              for r in (0, 1)]
-    bad = []
-    for kind in ("ring", "gather"):
-        a, b = two[kind]
-        want = np.asarray(one[kind]["losses"])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__),
+         "--multiprocess-worker", str(port), str(r), tmp, backend, cards[r],
+         "1" if spmd else "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in (0, 1)]
+    try:
+        mp_references(device, tmp, spmd)
+        errs = []
+        for p in procs:
+            _, err = p.communicate(timeout=MP_TIMEOUT_S)
+            errs.append(err)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, err in zip(procs, errs):
+        if p.returncode != 0:
+            raise AssertionError(f"multiprocess worker ({backend}, "
+                                 f"{cards}) rc={p.returncode}:\n"
+                                 f"{err[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def mp_compare(tmp: str, labels: tuple, where: tuple,
+               spmd: bool = False) -> tuple:
+    """Hold a pair's results under ``tmp`` to :data:`MP_REFS`: the halo
+    step (and with ``spmd`` the spmd step): the ranks' losses and
+    parameter changes bit-equal, their losses within MULTIHOST_TOL
+    (relative) and rank 0's changes within SPMD_TOL of one process's; K8
+    at each MP_RING_SIZES bit-equal to the one-process K8 (with its sender
+    delayed, and a repeat), under ``ring_gate`` against its plain version,
+    the control different.  ``labels``: the spmd, halo and K8 lines'
+    names; ``where``: the halo (and spmd) and K8 lines' descriptions.
+    Returns (failed lines, the workers' K8 launches)."""
+    import os
+
+    from mpqe_tpu_torch.ops import ring
+
+    bad, launches = [], 0
+    kinds = (("spmd",) if spmd else ()) + ("ring", "gather")
+    for kind in kinds:
+        a, b = [dict(np.load(os.path.join(tmp, kind, f"rank{r}.npz")))
+                for r in (0, 1)]
+        want = np.asarray(MP_REFS[kind]["losses"])
         losses = a.pop("losses")
         ranks_equal = bool(np.array_equal(losses, b.pop("losses"))) and \
             all(np.array_equal(v, b[k]) for k, v in a.items())
         err = float(np.max(np.abs(losses - want) / np.abs(want)))
-        e_change = tree_change_err(a, one[kind]["changes"])
-        line = (f"multihost.halo {kind}: 2 processes (backend gloo, CUDA "
-                f"IPC) x {MP_PARTS} parts of {SMI['line']}, {SPMD_STEPS} SGD "
-                f"steps of the whole {TRAIN_BATCH}-query batch: losses "
-                f"{losses.tolist()} (ranks' losses and parameter changes "
-                f"bit-equal: {ranks_equal}); one process on a "
-                f"({2 * MP_PARTS}, 1) mesh {want.tolist()}; loss rel_err="
-                f"{err:.3e} change_err={e_change:.3e}")
+        e_change = tree_change_err(a, MP_REFS[kind]["changes"])
+        label = labels[0] if kind == "spmd" else f"{labels[1]} {kind}"
+        one = "(4, 1)" if kind == "spmd" else f"({2 * MP_PARTS}, 1)"
+        line = (f"{label}: {where[0]}, {SPMD_STEPS} SGD steps of the "
+                f"{'global' if kind == 'spmd' else 'whole'} "
+                f"{TRAIN_BATCH}-query batch: losses {losses.tolist()} "
+                f"(ranks' losses and parameter changes bit-equal: "
+                f"{ranks_equal}); one process on a {one} mesh "
+                f"{want.tolist()}; loss rel_err={err:.3e} "
+                f"change_err={e_change:.3e}")
         log(line)
         if not ranks_equal or err > MULTIHOST_TOL or e_change > SPMD_TOL:
             bad.append(line)
-    torch.cuda.synchronize()
+    k8 = [dict(np.load(os.path.join(tmp, f"k8_rank{r}.npz")))
+          for r in (0, 1)]
     for P in MP_RING_SIZES:
-        got_k8, plain = refs[P]
-        want = got_k8.cpu().numpy()
+        got_k8, plain = MP_REFS[P]
+        want = got_k8.numpy()
         late = [r[f"late{P}"] for r in k8]
         equal = all(np.array_equal(v, want) for v in late) and all(
             np.array_equal(r[f"again{P}"], want) for r in k8)
-        gate = ring.ring_gate(torch.from_numpy(late[0]), plain.cpu())
+        gate = ring.ring_gate(torch.from_numpy(late[0]), plain)
         ctl_differs = all(not np.array_equal(r[f"control{P}"], want)
                           for r in k8)
         n = int(sum(int(r[f"launches{P}"]) for r in k8))
         launches += n
-        line = (f"kernel.ring.multiprocess general P={P} ({P // 2} parts a "
-                f"process, 2 processes on {SMI['line']}): "
+        line = (f"{labels[2]} general P={P} ({P // 2} parts a "
+                f"process, {where[1]}): "
                 f"bit_equal_one_process={equal} (sender delayed "
                 f"{RING_SLEEP_CYCLES} cycles a copy, and a repeat) gate_ok="
                 f"{gate['ok']} err_vs_plain={gate['err_vs_plain']:.3e} "
@@ -6517,36 +6597,492 @@ def phase_multiprocess(device) -> int:
         log(line)
         if not (equal and gate["ok"] and ctl_differs) or n == 0:
             bad.append(line)
+    return bad, launches
+
+
+def phase_multiprocess(device) -> int:
+    """``multihost.halo`` and ``kernel.ring.multiprocess``: two worker
+    processes on the card (:func:`multiprocess_worker`, launched once for
+    both phases, gloo), each holding half of the parts; meanwhile the
+    same runs in this process on one (4, 1) mesh of the card.  The halo
+    step (``halo_ring``, ``halo_gather``): the ranks' losses and
+    parameter changes bit-equal, their losses within MULTIHOST_TOL
+    (relative) and rank 0's changes within SPMD_TOL of one process's.  K8
+    at P = 2 and 4 across the processes, its sender delayed: bit-equal to
+    the one-process K8 on the same inputs (and a repeat, undelayed, too),
+    ``ring_gate`` against its plain version, and the control (the receive
+    counter skipped under a delayed sender, after a call on another x)
+    different.  Returns the workers' K8 launches."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wall = mp_pair(device, tmp, "gloo", [str(device)] * 2)
+        bad, launches = mp_compare(
+            tmp, (None, "multihost.halo", "kernel.ring.multiprocess"),
+            (f"2 processes (backend gloo, CUDA IPC) x {MP_PARTS} parts of "
+             f"{SMI['line']}", f"2 processes on {SMI['line']}"))
     log(f"multihost.halo, kernel.ring.multiprocess: {wall:.1f} s")
     if bad:
         raise AssertionError("; ".join(bad))
     return launches
 
 
+# the multicard group: N = every visible card, at most MULTICARD_MAX
+MULTICARD_MAX = 8
+MULTICARD_SHARD_DTYPES = ("float32", "int8")
+MULTICARD_TIMED_CALLS = 5
+
+
+class delayed_copies:
+    """Within: each K8 hop's copies into a card's slots (``ring._copies``,
+    one process) are preceded on that card's copy stream by
+    ``torch.cuda._sleep``, so the receiver's aggregate would run before
+    the block lands but for the receive event; ``skip_receive=True`` also
+    drops the compute streams' waits on that event (the negative
+    control).  ``timed=True`` records CUDA events around each call
+    instead (the hop copy's ms, :meth:`mean_ms`)."""
+
+    def __init__(self, skip_receive: bool = False, timed: bool = False):
+        self.skip, self.timed, self.events = skip_receive, timed, []
+
+    def __enter__(self):
+        from mpqe_tpu_torch.ops import ring
+
+        self.saved = (ring._copies, ring._wait_copied)
+        copies = ring._copies
+
+        def wrapped(groups, plan, cur, nxt, dev):
+            if not plan[dev]:
+                return copies(groups, plan, cur, nxt, dev)
+            with torch.cuda.device(dev):
+                if self.timed:
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    copies(groups, plan, cur, nxt, dev)
+                    b.record()
+                    self.events.append((a, b))
+                    return None
+                torch.cuda._sleep(RING_SLEEP_CYCLES)
+            return copies(groups, plan, cur, nxt, dev)
+
+        ring._copies = wrapped
+        if self.skip:
+            ring._wait_copied = lambda *a: None
+        return self
+
+    def __exit__(self, *exc):
+        from mpqe_tpu_torch.ops import ring
+
+        ring._copies, ring._wait_copied = self.saved
+        return False
+
+    def mean_ms(self) -> float:
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+        return sum(a.elapsed_time(b) for a, b in self.events) / max(
+            len(self.events), 1)
+
+
+def multicard_shards(cfg, kg, cards: list, run_dir: str) -> int:
+    """``multicard.shards``: ``ShardedQueryServer`` over a (1, N) mesh of
+    the N cards (``cli_mesh``) at float32 and int8 against the unsharded
+    server of the same table dtype on cuda:0, one single-structure request
+    of ``sample_stream`` per structure and one mixed: answers equal up to
+    ties, K3's launches equal and nonzero; ``serve --shards N`` against
+    ``serve`` (the same requests: ``hit_at_k`` equal) and ``evaluate
+    --ranking --shards N`` against ``evaluate --ranking`` of the train.spmd
+    CLI's run (metrics within 1e-6).  Returns the K3 launches."""
+    from mpqe_tpu_torch import evaluate as eval_cli
+    from mpqe_tpu_torch import serve as serve_cli
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.ops import fused_fwd as ff
+    from mpqe_tpu_torch.parallel import mesh as mesh_lib
+    from mpqe_tpu_torch.serve import QueryServer, ShardedQueryServer
+
+    n, dev = len(cards), cards[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = mpqe_mod.init_mpqe(gen, cfg, device=dev)
+    with torch.no_grad():
+        for lp in model.layers:
+            lp.bias.normal_(0.0, 0.1, generator=gen)
+    mesh = mesh_lib.cli_mesh((1, n), dev, f"--shards {n}")
+    single, mixed = sample_stream(kg)
+    firsts = {}
+    for req in single:
+        firsts.setdefault(req[0].formula.structure, req)
+    reqs = list(firsts.values()) + mixed[:1]
+    launches = 0
+    for dtype in MULTICARD_SHARD_DTYPES:
+        dense = QueryServer(model, cfg, kg.entity_mode, device=dev,
+                            table_dtype=dtype)
+        ff.fused_tgt_forward_multi.launches = 0
+        want = [dense.answer(r, k=K + 1) for r in reqs]
+        k3_dense = ff.fused_tgt_forward_multi.launches
+        del dense
+        sharded = ShardedQueryServer(model, cfg, kg.entity_mode, mesh,
+                                     table_dtype=dtype)
+        ff.fused_tgt_forward_multi.launches = 0
+        t0 = time.perf_counter()
+        got = [sharded.answer(r, k=K) for r in reqs]
+        ms = (time.perf_counter() - t0) * 1e3 / len(reqs)
+        k3 = ff.fused_tgt_forward_multi.launches
+        launches += k3
+        swapped = 0
+        for r, a, w in zip(reqs, got, want):
+            check_answers(sharded, r, a, K)
+            for ga, wa in zip(a, w):
+                ok, m = same_up_to_ties(ga.entity_ids, ga.scores,
+                                        wa.entity_ids, wa.scores, TOL_SCORE)
+                if not ok:
+                    raise AssertionError(
+                        f"multicard.shards {dtype}: answer {ga.entity_ids} "
+                        f"{ga.scores} vs one card {wa.entity_ids} "
+                        f"{wa.scores}")
+                swapped += m
+        blocks = sorted({str(b.device) for b in sharded._tables})
+        line = (f"multicard.shards {dtype}: {len(reqs)} requests of "
+                f"{BATCH} on a (1, {n}) mesh of the blocks on {blocks}: "
+                f"answers equal to one card's up to {swapped} tie swaps; "
+                f"K3 launches {k3} (one card {k3_dense}); "
+                f"{ms:.3f} ms a request")
+        log(line)
+        if k3 == 0 or k3 != k3_dense or len(blocks) != n:
+            raise AssertionError(line)
+        del sharded, got, want
+        torch.cuda.empty_cache()
+    del model
+    tgt_counters(reset=True)
+    base = ["--init_seed", "0", "--requests", "8", "--batch", "8",
+            "--device", str(dev)]
+    sv = {m: json.loads(run_cli(serve_cli.main, base + flag,
+                                f"multicard.serve.cli{m}")[-1])
+          for m, flag in ((1, []), (n, ["--shards", str(n)]))}
+    ev = {m: [json.loads(ln) for ln in run_cli(
+        eval_cli.main, ["--run_dir", run_dir, "--ranking", "--device",
+                        str(dev)] + flag, f"multicard.eval.cli{m}")[1:]]
+        for m, flag in ((1, []), (n, ["--shards", str(n)]))}
+    worst = max(abs(a[k] - b[k]) for a, b in zip(ev[1], ev[n])
+                for k in a if k != "ranking" and isinstance(a[k], float))
+    same = [a["ranking"] for a in ev[1]] == [b["ranking"] for b in ev[n]]
+    line = (f"multicard.shards cli: serve --shards {n} hit_at_k="
+            f"{sv[n]['hit_at_k']} shards={sv[n]['shards']} (one card "
+            f"{sv[1]['hit_at_k']}); evaluate --ranking --shards {n}: "
+            f"{len(ev[n])} structures, max |metric - one card's| = "
+            f"{worst:.3e}")
+    log(line)
+    if sv[n]["hit_at_k"] != sv[1]["hit_at_k"] or sv[n]["shards"] != n or \
+            not same or worst > 1e-6 or not ev[n]:
+        raise AssertionError(line)
+    return launches + tgt_counters()[2]
+
+
+def multicard_spmd(cards: list) -> None:
+    """``multicard.spmd``: SPMD_STEPS SGD steps of the spmd step at the
+    flagship width (``tools/multihost_run.py``'s batches, 10^6 entities)
+    on an (N, 1) mesh and, for even N, an (N / 2, 2) mesh of the N cards,
+    against the same mesh of N parts of cuda:0, run twice: bit-equal
+    where the two one-card runs are bit-equal to each other, else within
+    SPMD_TOL (losses, relative; changes, mean-normalized per leaf)."""
+    from mpqe_tpu_torch.data.batcher import DenseQueryBatch
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+    from mpqe_tpu_torch.parallel import spmd
+    from mpqe_tpu_torch.parallel.mesh import make_mesh
+    from mpqe_tpu_torch.queries import STRUCTURES
+    from mpqe_tpu_torch.tools import multihost_run as mr
+    from mpqe_tpu_torch.train import loop as loop_mod
+
+    n, dev = len(cards), cards[0]
+    cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
+    tc = loop_mod.TrainConfig(lr=SPMD_LR, optimizer="sgd",
+                              batch_size=TRAIN_BATCH, n_neg=mr.N_NEG)
+    batches = [DenseQueryBatch(structure=mr.STRUCTURE, n_queries=TRAIN_BATCH,
+                               **g)
+               for g in mr.global_batches(SPMD_STEPS, TRAIN_BATCH,
+                                          STRUCTURES[mr.STRUCTURE],
+                                          cfg.n_entities)]
+
+    def run(devices, shape):
+        mesh = make_mesh(shape, devices=devices)
+        init_fn, step = spmd.make_spmd_train_step(cfg, tc, mesh)
+        state = init_fn(torch.Generator(device=dev).manual_seed(5))
+        init = {k: v.clone() for k, v in state.model.state_dict().items()}
+        put = functools.partial(spmd.put_batch, mesh)
+        t0 = time.perf_counter()
+        losses = [loop_mod.run_step(step, state, b, put) for b in batches]
+        ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        changes = {k: (v - init[k]).cpu()
+                   for k, v in state.model.state_dict().items()}
+        del state, init
+        torch.cuda.empty_cache()
+        return np.asarray(losses), changes, ms
+
+    shapes = [(n, 1)] + ([(n // 2, 2)] if n % 2 == 0 else [])
+    for shape in shapes:
+        ref, again, got = (run(devs, shape) for devs in (
+            [dev] * n, [dev] * n, cards))
+        self_equal = np.array_equal(ref[0], again[0]) and all(
+            torch.equal(v, again[1][k]) for k, v in ref[1].items())
+        bit_equal = np.array_equal(ref[0], got[0]) and all(
+            torch.equal(v, got[1][k]) for k, v in ref[1].items())
+        loss_err = float(np.max(np.abs(got[0] - ref[0]) / np.abs(ref[0])))
+        e_change = tree_change_err(got[1], ref[1])
+        line = (f"multicard.spmd {shape}: {SPMD_STEPS} SGD steps of batch "
+                f"{TRAIN_BATCH} on {n} cards vs {n} parts of {dev}: "
+                f"bit_equal={bit_equal} (one card bit-equal to itself: "
+                f"{self_equal}) loss_err={loss_err:.3e} change_err="
+                f"{e_change:.3e}; step ms {got[2]:.3f} on {n} cards, "
+                f"{ref[2]:.3f} on one")
+        log(line)
+        ok = bit_equal if self_equal else (loss_err <= SPMD_TOL
+                                           and e_change <= SPMD_TOL)
+        if not ok:
+            raise AssertionError(line)
+
+
+def multicard_halo(cards: list, tmp: str) -> None:
+    """``multicard.halo``: SPMD_STEPS SGD steps of ``halo_ring`` and
+    ``halo_gather`` at the flagship width (``tools/multihost_run.py``, one
+    process) over an (N, 1) mesh of the N cards against N parts of
+    cuda:0: losses within MULTIHOST_TOL (relative), changes within
+    SPMD_TOL."""
+    import os
+
+    from mpqe_tpu_torch.tools import multihost_run
+
+    n = len(cards)
+    for kind in ("ring", "gather"):
+        out = {}
+        for label, devs in (("one", [cards[0]] * n), ("cards", cards)):
+            t0 = time.perf_counter()
+            out[label] = multihost_run.main([
+                "--device", str(cards[0]), "--devices",
+                ",".join(map(str, devs)), "--parallel", f"halo_{kind}",
+                "--mesh", f"{n},1", "--steps", str(SPMD_STEPS), "--params",
+                "--out", os.path.join(tmp, f"halo_{kind}_{label}")])
+            del out[label]["state"]
+            out[label]["s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        a, b = out["cards"], out["one"]
+        want = np.asarray(b["losses"])
+        err = float(np.max(np.abs(np.asarray(a["losses"]) - want)
+                           / np.abs(want)))
+        e_change = tree_change_err(a["changes"], b["changes"])
+        line = (f"multicard.halo {kind}: {SPMD_STEPS} SGD steps of the "
+                f"whole {TRAIN_BATCH}-query batch over {n} cards: losses "
+                f"{a['losses']}; {n} parts of {cards[0]} {b['losses']}; "
+                f"loss rel_err={err:.3e} change_err={e_change:.3e}; "
+                f"{a['s']:.1f} s on {n} cards, {b['s']:.1f} s on one")
+        log(line)
+        if err > MULTIHOST_TOL or e_change > SPMD_TOL:
+            raise AssertionError(line)
+
+
+def multicard_ring(cfg, cards: list) -> tuple:
+    """``multicard.ring``: K8 on the general graph at the flagship width
+    over P = 2 and P = N distinct cards (one part a card, one process),
+    every hop's copies delayed ``RING_SLEEP_CYCLES`` on the receiver's
+    copy stream: bit-equal to K8 with the P parts on cuda:0 (and a repeat,
+    undelayed), under ``ring_gate`` against its plain version, 6 + 2 P
+    launches a card and call, the control (the receive event skipped,
+    copies delayed, after a call on another x) different; then
+    MULTICARD_TIMED_CALLS calls: the call's ms (host clock) and the hop
+    copy's (CUDA events on the copy stream) beside its bound (the block's
+    bytes over one direction of the card's NVLink as ``nvidia-smi nvlink``
+    reports it).  Returns (K8 launches, the figures by P)."""
+    from mpqe_tpu_torch.ops import ring
+    from mpqe_tpu_torch.parallel import ipc
+    from mpqe_tpu_torch.parallel.mesh import make_mesh
+    from mpqe_tpu_torch.tools.peer_copy_probe import nvlink_gbps
+
+    n, dev = len(cards), cards[0]
+    gbps, links = nvlink_gbps(dev.index)
+    launches, figures = 0, {}
+    for P in sorted({2, n}):
+        layer, x, edges, x2 = mp_ring_case(cfg, P, dev)
+        one = make_mesh((P, 1), devices=[dev] * P)
+        mesh = make_mesh((P, 1), devices=cards[:P])
+        with torch.no_grad():
+            if P in MP_REFS:
+                want, plain = MP_REFS[P]
+            else:
+                want = ring.rgcn_ring_halo_rdma(one, layer, x, *edges,
+                                                cfg.n_rels).cpu()
+                plain = ring.rgcn_ring_halo_rdma_reference(
+                    one, layer, x, *edges, cfg.n_rels).cpu()
+
+            def k8(xx):
+                return ring.rgcn_ring_halo_rdma(mesh, layer, xx, *edges,
+                                                cfg.n_rels)
+
+            ring.rgcn_ring_halo_rdma.launches = 0
+            with delayed_copies():
+                late = k8(x).cpu()
+            n_launch = ring.rgcn_ring_halo_rdma.launches
+            again = k8(x).cpu()
+            k8(x2)  # the slots' memory now holds x2's blocks
+            with delayed_copies(skip_receive=True):
+                control = k8(x).cpu()
+            t0 = time.perf_counter()
+            with delayed_copies(timed=True) as tc:
+                for _ in range(MULTICARD_TIMED_CALLS):
+                    k8(x)
+                for c in cards[:P]:
+                    torch.cuda.synchronize(c)
+            call_ms = (time.perf_counter() - t0) * 1e3 / MULTICARD_TIMED_CALLS
+            copy_ms = tc.mean_ms()
+            launches += ring.rgcn_ring_halo_rdma.launches
+        equal = torch.equal(late, want) and torch.equal(again, want)
+        gate = ring.ring_gate(late, plain)
+        differs = not torch.equal(control, want)
+        block_bytes = x.shape[0] // P * x.shape[1] * 4
+        bound = (block_bytes / (gbps * 1e9) * 1e3 if gbps else None)
+        peers = all(torch.cuda.can_device_access_peer(a.index, b.index)
+                    for a in cards[:P] for b in cards[:P] if a != b)
+        enabled = sorted(f"{a}->{b}" for a, b in ipc._PEERS
+                         if a < P and b < P)
+        figures[P] = dict(call_ms=call_ms, hop_copy_ms=copy_ms,
+                          hop_bound_ms=bound, hop_bytes=block_bytes)
+        line = (f"multicard.ring general P={P} on {[str(c) for c in cards[:P]]}"
+                f" (one part a card): bit_equal_one_card={equal} (copies "
+                f"delayed {RING_SLEEP_CYCLES} cycles, and a repeat) gate_ok="
+                f"{gate['ok']} err_vs_plain={gate['err_vs_plain']:.3e} "
+                f"control_differs={differs} (receive event skipped, copies "
+                f"delayed) launches={n_launch} a call (6 + 2 P = "
+                f"{6 + 2 * P} on each of {P} cards); peer access possible "
+                f"{peers}, enabled {enabled}; call_ms={call_ms:.4f} (host "
+                f"clock, mean of {MULTICARD_TIMED_CALLS}) hop_copy_ms="
+                f"{copy_ms:.4f} ({block_bytes} B a copy, CUDA events on the "
+                f"receiver's copy stream, mean) bound_ms="
+                + (f"{bound:.4f} ({links} NVLink links, {gbps:.3f} GB/s one "
+                   "direction, nvidia-smi nvlink --status)" if gbps
+                   else "not measured (nvidia-smi reports no NVLink)"))
+        log(line)
+        if not (equal and gate["ok"] and differs and peers) or \
+                n_launch != P * (6 + 2 * P):
+            raise AssertionError(line)
+        del layer, x, edges, x2
+        torch.cuda.empty_cache()
+    return launches, figures
+
+
+def phase_multicard(kg, device, run_dir: str) -> dict:
+    """The ``multicard`` group over N = every visible card (at most
+    MULTICARD_MAX), each path held to the same path with its parts on one
+    card: ``multicard.shards``, ``multicard.spmd``, ``multicard.halo``,
+    ``multicard.ring`` (:func:`multicard_shards` ... :func:`multicard_ring`),
+    ``multicard.nccl`` (two processes on cuda:0 and cuda:1 under NCCL: the
+    spmd step, the halo step and K8 of :func:`mp_pair`, held to one
+    process as ``multihost``, ``multihost.halo`` and
+    ``kernel.ring.multiprocess`` are) and, with four cards or more,
+    ``multicard.procs_x_cards`` (two processes of two cards each under
+    NCCL: the halo step and K8).  With one card it prints that it did not
+    run.  Returns ``{"K3", "K8", "ring", "seconds"}``."""
+    import os
+    import tempfile
+
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+
+    have = torch.cuda.device_count()
+    if have < 2:
+        log(f"multicard: not run, {have} card")
+        return {"K3": 0, "K8": 0, "ring": {}, "seconds": 0.0}
+    t0 = time.perf_counter()
+    cards = [torch.device("cuda", i) for i in range(min(have,
+                                                        MULTICARD_MAX))]
+    cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
+    log(f"multicard: {len(cards)} cards: "
+        + "; ".join(torch.cuda.get_device_name(c) for c in cards))
+    bad = []
+
+    def check(name, fn, *args):
+        """``fn(*args)``; a failure is logged and raised at the group's
+        end, after the other checks have run."""
+        t1 = time.perf_counter()
+        try:
+            return fn(*args)
+        except Exception as e:  # raised below, with every other failure
+            import traceback
+
+            log(f"{name} FAILED: {traceback.format_exc()}")
+            bad.append(f"{name}: {e!r}"[:2000])
+        finally:
+            log(f"{name}: {time.perf_counter() - t1:.1f} s")
+
+    def pair(tmp, cards_of, labels, where, spmd):
+        os.makedirs(tmp)
+        mp_pair(device, tmp, "nccl", cards_of, spmd=spmd)
+        return mp_compare(tmp, labels, where, spmd=spmd)
+
+    k3 = check("multicard.shards", multicard_shards, cfg, kg, cards,
+               run_dir) or 0
+    check("multicard.spmd", multicard_spmd, cards)
+    k8, figures = check("multicard.ring", multicard_ring, cfg,
+                        cards) or (0, {})
+    with tempfile.TemporaryDirectory() as tmp:
+        check("multicard.halo", multicard_halo, cards, tmp)
+        got = check("multicard.nccl", pair, os.path.join(tmp, "nccl"),
+                    ["cuda:0", "cuda:1"],
+                    ("multicard.nccl.spmd", "multicard.nccl.halo",
+                     "multicard.nccl.ring"),
+                    ("2 processes (backend nccl, CUDA IPC across cards) "
+                     f"on cuda:0 and cuda:1, {MP_PARTS} parts each",
+                     "2 processes under NCCL on cuda:0 and cuda:1"), True)
+        if len(cards) >= 4:
+            got2 = check(
+                "multicard.procs_x_cards", pair,
+                os.path.join(tmp, "procs_x_cards"),
+                ["cuda:0,cuda:1", "cuda:2,cuda:3"],
+                (None, "multicard.procs_x_cards.halo",
+                 "multicard.procs_x_cards.ring"),
+                ("2 processes (backend nccl) x 2 cards (cuda:0, cuda:1 | "
+                 f"cuda:2, cuda:3), {MP_PARTS} parts each",
+                 "2 processes under NCCL, process r on cuda:2r and "
+                 "cuda:2r+1"), False)
+        else:
+            got2 = None
+            log(f"multicard.procs_x_cards: not run, {len(cards)} cards "
+                "(needs 4)")
+    for g in (got, got2):
+        if g is not None:
+            bad += g[0]
+            k8 += g[1]
+    seconds = time.perf_counter() - t0
+    log(f"multicard: {seconds:.1f} s on {len(cards)} cards; launches K3 "
+        f"{k3}, K8 {k8}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"K3": k3, "K8": k8, "ring": figures, "seconds": seconds}
+
+
 def phase_dryrun(device) -> int:
     """``dryrun``: ``python -m mpqe_tpu_torch.tools.dryrun_multichip`` in
-    process with DRYRUN_PARTS parts on the card: the spmd step with both
-    tables sharded, the edge-partitioned layers, the ring and K8 against
-    it, a halo step, K3 from the relation-sharded state bit-equal to K3
+    process: DRYRUN_PARTS parts of the card on one card, else one part on
+    each of the first min(4, N) cards: the spmd step with both tables
+    sharded, the edge-partitioned layers, the ring and K8 against it, a
+    halo step, K3 from the relation-sharded state bit-equal to K3
     unsharded, the sharded rank and top-k.  Returns (K8's launches, K3's
     launches)."""
     from mpqe_tpu_torch.ops import ring as ring_ops
     from mpqe_tpu_torch.tools import dryrun_multichip
 
+    have = torch.cuda.device_count()
+    n, where = ((DRYRUN_PARTS, str(device)) if have < 2
+                else (min(4, have), "cuda"))
     before = ring_ops.rgcn_ring_halo_rdma.launches
     k3_before = tgt_counters()[2]
     t0 = time.perf_counter()
-    out = dryrun_multichip.dryrun_multichip(DRYRUN_PARTS, device)
-    n = ring_ops.rgcn_ring_halo_rdma.launches - before
+    out = dryrun_multichip.dryrun_multichip(n, where)
+    n8 = ring_ops.rgcn_ring_halo_rdma.launches - before
     k3 = tgt_counters()[2] - k3_before
     log(f"dryrun_multichip ok: mesh={out['mesh']} loss={out['loss']:.4f} "
         f"halo_loss={out['halo_loss']:.4f} k8_err_vs_ring={out['k8_err']:.3e}"
-        f" K8 launches {n}, K3 launches {k3} (sharded and unsharded "
+        f" K8 launches {n8}, K3 launches {k3} (sharded and unsharded "
         f"encodes bit-equal); {time.perf_counter() - t0:.2f} s on "
-        f"{DRYRUN_PARTS} parts of {SMI['line']}")
-    if n == 0 or k3 == 0:
-        raise AssertionError(f"dryrun: K8 launches {n}, K3 launches {k3}")
-    return n, k3
+        f"{n} parts: {out['devices']} ({SMI['line']})")
+    if n8 == 0 or k3 == 0:
+        raise AssertionError(f"dryrun: K8 launches {n8}, K3 launches {k3}")
+    return n8, k3
 
 
 # the last single-card modules (train --trace, the supervisor, reference
@@ -7067,12 +7603,12 @@ TOOL_RUNS = (
                                                "K6a_sb2048_c512")] + [
         ({"summary": True}, ["speedup_fused_over_xla", "fused_ms", "xla_ms",
                              "fused_roofline_fraction", "roofline_ms"])]),
-    ("scaling_bench", [], [
+    ("scaling_bench", ["--device", "cuda:0"], [
         ({"devices": n}, ["seconds_per_layer", "edges_per_s", "parts_on"])
         for n in (1, 2, 4, 8)] + [
         ({"metric": "halo_rgcn_scaling_efficiency"},
          ["sizes", "edges_per_s", "efficiency", "backend"])]),
-    ("scaling_bench", ["--phase", "rank"], [
+    ("scaling_bench", ["--phase", "rank", "--device", "cuda:0"], [
         ({"devices": n}, ["seconds_per_sweep", "ranked_queries_per_s",
                           "parts_on"]) for n in (1, 2, 4, 8)] + [
         ({"metric": "sharded_rank_scaling"},
@@ -7268,11 +7804,13 @@ def build_kernels() -> None:
                 log(f"build: {name}: {ln.strip()}")
 
 
-def main() -> int:
+def setup_card() -> bool:
+    """TF32 off and the card's name and power limit (``SMI``); False
+    without a card."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
               file=sys.stderr)
-        return 1
+        return False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -7280,13 +7818,62 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     log(f"nvidia-smi: {smi}")
-    SMI["line"] = smi
+    SMI["line"] = smi.splitlines()[0]
+    return True
+
+
+def main_multicard() -> int:
+    """``python3 chip_smoke.py --multicard``: only the phases whose meaning
+    depends on the count of cards, on the same inputs as the whole run:
+    ``train.spmd`` (its ``--shards`` refusal), ``multihost.halo`` and
+    ``kernel.ring.multiprocess`` (the one-card pair, whose references the
+    group reuses), the ``multicard`` group and ``dryrun``."""
+    import os
+    import tempfile
+
+    from mpqe_tpu_torch.data.sampler import make_random_kg
+
+    if not setup_card():
+        return 1
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    build_kernels()
+    kg = make_random_kg(**KG)
+    train_q, _ = sample_train_queries(kg)
+    failed = []
+
+    def run(name, fn, *args):
+        try:
+            return fn(*args)
+        except Exception:  # every phase runs; the exit code says it failed
+            import traceback
+
+            log(f"{name} FAILED: {traceback.format_exc()}")
+            failed.append(name)
+
+    with tempfile.TemporaryDirectory() as keep:
+        run("train.spmd", phase_train_spmd, kg, train_q, device, keep)
+        run("multiprocess", phase_multiprocess, device)
+        out = run("multicard", phase_multicard, kg, device,
+                  os.path.join(keep, "run"))
+    run("dryrun", phase_dryrun, device)
+    log(f"total {time.perf_counter() - t0:.1f} s; failed: {failed}")
+    if failed:
+        return 1
+    print(json.dumps({"ok": True, "multicard": out["ring"],
+                      "count": torch.cuda.device_count()}), flush=True)
+    return 0
+
+
+def main() -> int:
+    if not setup_card():
+        return 1
 
     from mpqe_tpu_torch.data.sampler import make_random_kg
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
     from mpqe_tpu_torch.ops import fused_fwd as ff
 
-    device = torch.device("cuda")
+    device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     t_lap = [t_start]
 
@@ -7387,19 +7974,30 @@ def main() -> int:
     phase_train_cli(["--kernel", "blocked"])
     # K6's wide paths on the train path (16 bases, as every CLI run here)
     phase_train_cli(["--kernel", "blocked", "--embed_dim", "256"])
-    phase_train_cli(["--parallel", "halo_ring"])
+    phase_train_cli(["--parallel", "halo_ring", "--mesh", "1,1"])
     lap("train.cli")
     t_host = time.perf_counter()
     phase_halo_multistep(device)
     host_s += time.perf_counter() - t_host
     lap("halo.train.multistep")
+    import os
+    import tempfile
+
     t_shard = time.perf_counter()
-    launches += phase_train_spmd(kg, train_q, device)
-    lap("train.spmd")
-    phase_multihost(device)
-    lap("multihost")
-    k8_launches += phase_multiprocess(device)
-    lap("multihost.halo, kernel.ring.multiprocess")
+    with tempfile.TemporaryDirectory() as keep:
+        launches += phase_train_spmd(kg, train_q, device, keep)
+        lap("train.spmd")
+        phase_multihost(device)
+        lap("multihost")
+        k8_launches += phase_multiprocess(device)
+        lap("multihost.halo, kernel.ring.multiprocess")
+        multicard = phase_multicard(kg, device, os.path.join(keep, "run"))
+    MP_REFS.clear()
+    k8_launches += multicard["K8"]
+    launches += multicard["K3"]
+    if multicard["ring"]:
+        k8_fields["across_cards"] = multicard["ring"]
+    lap("multicard")
     k8_dry, k3_dry = phase_dryrun(device)
     k8_launches += k8_dry
     launches += k3_dry
@@ -7419,9 +8017,6 @@ def main() -> int:
                                     check_bibox_w(d)), label="gqe.cli")
     log(f"gqe phases {time.perf_counter() - t_gqe:.1f} s")
     lap("gqe.cli")
-
-    import os
-    import tempfile
 
     t_data = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -7492,7 +8087,8 @@ def main() -> int:
         f"resilient, am_scale, debug; train.trace is data.npz's run); "
         f"import's K3 launches {import_k3}")
     log(f"sharded-table phases after the halo runs {shard_s:.1f} s "
-        f"(train.spmd, multihost, dryrun)")
+        f"(train.spmd, multihost, multicard {multicard['seconds']:.1f} s, "
+        "dryrun)")
     log(f"bench phase {bench_s:.1f} s; bf16 phases {bf16_s:.1f} s (and "
         f"the bf16 kernel and evaluate checks {bf16_kernels_s:.1f} s); data "
         f"phases {time.perf_counter() - t_data - bench_s - bf16_s - host_data_s:.1f}"
@@ -7572,4 +8168,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multiprocess-worker"]:
         sys.exit(multiprocess_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--multicard"]:
+        sys.exit(main_multicard())
     sys.exit(main())

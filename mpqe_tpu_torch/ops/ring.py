@@ -11,15 +11,22 @@ s) % P]`` from it while the copy of hop s + 1 moves the blocks on to the
 other slot.  CUDA events take the place of the TPU kernel's DMA
 semaphores:
 
-* the copies run on one copy stream per device, made once and reused: a
-  device's copies for a hop are at most two slice copies (parts whose
-  neighbour lives on another device copy alone, ``.to(device)`` semantics
-  across cards);
+* the copies run on the receiving device's copy stream, made once and
+  reused: a device's copies for a hop are at most two slice copies; a
+  part whose neighbour lives on another card of the process receives its
+  block by one peer copy on that stream (``parallel/ipc.py
+  copy_between``: peer access is enabled once for each pair of cards, and
+  a pair without it raises, so no block is staged through the host);
 * the hop-(s+1) copy into slot ``(s + 1) % 2`` waits on the event recorded
   once the hop-(s-1) messages have read that slot: the ack token ("your
   slot is free");
 * the hop-(s+1) aggregate waits on the copy's event: the receive
-  semaphore.
+  semaphore;
+* across cards, the hop-(s+1) copy into a card's slot also waits until
+  the other cards' copies of hop s are done reading it, and each card's
+  compute stream waits at the end of the call for the other cards' copy
+  streams that read its slots (``record_stream`` marks only streams of
+  the tensor's own card), so no slot is written or freed under a reader.
 
 As in the reference, tokens are posted at hops 0 .. P-3 and consumed by
 the copies of hops 2 .. P-1 (the waits at hops 1 .. P-2 of the TPU
@@ -53,25 +60,28 @@ VJP): a call in grad mode on a tensor that requires grad raises.
 
 The parts of the ring may also lie in different processes
 (``parallel/multihost.py global_mesh``): each process holds a run of
-consecutive parts, on one device, and computes only those.  A part whose
-neighbour lives in the next process writes its block into that
-process's slot, mapped by CUDA IPC (``parallel/ipc.py``): the comm
-buffer is then allocated once per shape and exported.  Across processes,
+consecutive parts, on one card or several, and computes only those.
+The process's last part writes its block into the next process's first
+part's slot, mapped by CUDA IPC (``parallel/ipc.py``) on the last part's
+card, whatever card that slot lives on: the first part's comm buffer is
+then allocated once per shape and exported.  Across processes,
 counters in device memory take the place of the events: the copy stream
 writes the receiver's ``recv`` counter of the slot after its copy, the
 receiver's compute stream waits until it reaches the hop's number (the
 receive semaphore), and once the hop's messages have read the slot the
-receiver writes the sender's ``ack`` counter, which the sender's copy
-stream waits for before it writes that slot again (the ack token; posted
-at every hop, since the buffers outlive the call).  Within a process
-the events stay.  After enqueuing a call each process meets the others
+receiver writes the sender's ``ack`` counter (once its own copies out of
+that slot are done too), which the sender's copy stream waits for before
+it writes that slot again (the ack token; posted at every hop, since the
+buffers outlive the call); the next call writes the kept slots only once
+this call's copies out of them are done.  Within a process the events
+stay.  After enqueuing a call each process meets the others
 on the host (``ipc.handshake``, under the group's timeout).  Every
 process receives the whole output: its rows' self term is one ``addmm``
 over the whole ring's rows (the call one process makes, so the rows
 equal one process's bit for bit), then the parts' rows are exchanged.
-On the CPU the plain version runs the same schedule, the boundary blocks
-crossing by gloo.  Parts on different cards (peer access between
-devices, NCCL) have not run: the port's card machine has one.
+One process over several cards does the same on ``x``'s card.  On the
+CPU the plain version runs the same schedule, the boundary blocks
+crossing by gloo.
 """
 
 from __future__ import annotations
@@ -86,6 +96,7 @@ from mpqe_tpu_torch.ops import cuda_build
 from mpqe_tpu_torch.ops import rgcn_fused
 from mpqe_tpu_torch.ops.cuda_build import refuse_grad
 from mpqe_tpu_torch.ops.rgcn import RGCNLayer
+from mpqe_tpu_torch.parallel import ipc
 from mpqe_tpu_torch.parallel.mesh import Mesh
 
 TOL_PLAIN = 1e-4  # max|diff| / max|ref| vs the plain version (K5's gate)
@@ -419,7 +430,7 @@ def ring_controls(edges, n_rels: int, block: int):
 _KERNEL = None
 _COPY_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
 _PARTS: Dict[tuple, torch.Tensor] = {}  # (device, parts) -> int32 ids
-_LINKS: Dict[tuple, "_Link"] = {}  # (device, L, block, d) -> the link
+_LINKS: Dict[tuple, "_Link"] = {}  # (first, last, L, block, d) -> the link
 RECV, ACK = 0, 2  # the counters of slot k: RECV + k, ACK + k
 
 
@@ -588,14 +599,16 @@ def _parts_on(parts: List[int], dev) -> torch.Tensor:
 @dataclasses.dataclass
 class _Link:
     """This process's end of the ring's process boundaries on the card:
-    its ``comm_rows`` (made once, exported), the next process's mapped
-    ``comm``, the counters (``RECV + k``: the previous process's copy
-    into slot k has landed, up to that hop number; ``ACK + k``: the next
-    process has read its slot k, up to that hop number), the running hop
-    number and the number of each slot's last read."""
+    the comm rows of the card of its first part (made once, exported),
+    the next process's (``ipc.Shared``, opened on the card of this
+    process's last part, whose copy stream writes into them), the
+    counters on the first part's card (``RECV + k``: the previous
+    process's copy into slot k has landed, up to that hop number; ``ACK +
+    k``: the next process has read its slot k, up to that hop number),
+    the running hop number and the number of each slot's last read."""
 
     comm_rows: torch.Tensor
-    next_comm: torch.Tensor
+    next_rows: object
     counters: object
     prev: int
     next: int
@@ -603,28 +616,26 @@ class _Link:
     last_read: list = dataclasses.field(default_factory=lambda: [0, 0])
 
 
-def _link(devs, dev, L: int, block: int, K: int) -> _Link:
+def _link(devs, first, last, L: int, block: int, K: int) -> _Link:
     """The :class:`_Link` of this shape (collective on first use: every
-    process meets the same shapes in the same order)."""
-    from mpqe_tpu_torch.parallel import ipc
-
-    key = (dev, L, block, K)
+    process meets the same shapes in the same order); ``first`` / ``last``:
+    the cards of this process's first and last parts, ``L`` the parts on
+    ``first``."""
+    key = (first, last, L, block, K)
     if key not in _LINKS:
-        rows = torch.zeros((2 * L * block + 1, K), device=dev)
-        peers = ipc.share(rows)
-        nxt = (devs.rank + 1) % devs.world
+        rows = torch.zeros((2 * L * block + 1, K), device=first)
         _LINKS[key] = _Link(
-            comm_rows=rows,
-            next_comm=peers[nxt][:-1].view(2, L, block, K),
-            counters=ipc.Counters(dev, 4),
-            prev=(devs.rank - 1) % devs.world, next=nxt)
+            comm_rows=rows, next_rows=ipc.Shared(rows),
+            counters=ipc.Counters(first, 4),
+            prev=(devs.rank - 1) % devs.world,
+            next=(devs.rank + 1) % devs.world)
     return _LINKS[key]
 
 
 def _local_parts(devs) -> List[int]:
     """The parts this process holds; across processes a run of
-    consecutive parts on one device, as many in every process
-    (``ValueError`` otherwise)."""
+    consecutive parts, as many in every process (``ValueError``
+    otherwise), on one card or several."""
     if not getattr(devs, "spans", False):
         return list(range(len(devs)))
     n, w = len(devs), devs.world
@@ -633,9 +644,6 @@ def _local_parts(devs) -> List[int]:
         raise ValueError(f"rgcn_ring_halo_rdma across processes takes "
                          f"runs of consecutive parts, as many in each "
                          f"process: got processes {devs.procs}")
-    if len({devs[p] for p in devs.local}) != 1:
-        raise ValueError("rgcn_ring_halo_rdma: a process's parts must "
-                         "share one device")
     return devs.local
 
 
@@ -646,8 +654,9 @@ def _groups(devs, layer, x_padded, edges, block: int, n_rels: int,
     own block.  ``route``: None, the plain version's destination layout;
     ``"plain"``, the kernels' route built by :func:`ring_route`;
     ``"kernel"``, by the layout kernels (:func:`_launch_route`), with
-    ``out`` left for the first hop to write.  ``rows``: the comm rows to
-    use (a process boundary's exported buffer) instead of new ones."""
+    ``out`` left for the first hop to write.  ``rows``: the comm rows of
+    the first part's device (a process boundary's exported buffer)
+    instead of new ones."""
     by_dev: Dict[torch.device, List[int]] = {}
     for p in _local_parts(devs):
         by_dev.setdefault(devs[p], []).append(p)
@@ -659,16 +668,16 @@ def _groups(devs, layer, x_padded, edges, block: int, n_rels: int,
         src, dst, rel, norm = (
             _on(t, dev, dtype, parts, n_parts)
             for t, dtype in zip(edges, (torch.int32,) * 3 + (torch.float32,)))
-        if rows is None:
-            rows = torch.empty((2 * L * block + 1, K), device=dev)
-        comm = rows[:-1].view(2, L, block, K)
+        comm_rows = (rows if rows is not None and not groups
+                     else torch.empty((2 * L * block + 1, K), device=dev))
+        comm = comm_rows[:-1].view(2, L, block, K)
         comm[0] = _on(x_padded.view(n_parts, block, K), dev, torch.float32,
                       parts, n_parts)
         kernel = route == "kernel"
         if not kernel:  # the layout kernels zero it
-            rows[-1] = 0.0
+            comm_rows[-1] = 0.0
         g = RingGroup(
-            device=dev, parts=parts, comm_rows=rows, comm=comm,
+            device=dev, parts=parts, comm_rows=comm_rows, comm=comm,
             out=(torch.empty if kernel else torch.zeros)((L, block, N),
                                                           device=dev),
             src=src, dst=dst, rel=rel, norm=norm,
@@ -713,12 +722,17 @@ def _copy_plan(groups, where, n_parts: int):
 
 
 def _copies(groups, plan, cur: int, nxt: int, dev) -> None:
-    """The hop's copies into ``dev``'s parts: part p's slot ``cur`` to
-    part p + 1's slot ``nxt``, one slice copy per run."""
+    """The hop's copies into ``dev``'s parts, on its current stream: part
+    p's slot ``cur`` to part p + 1's slot ``nxt``, one slice copy per run
+    (a peer copy from another card: ``ipc.copy_between``)."""
     into = groups[dev].comm[nxt]
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
     for sd, ip, j, n in plan[dev]:
-        into[j:j + n].copy_(groups[sd].comm[cur, ip:ip + n],
-                            non_blocking=True)
+        src = groups[sd].comm[cur, ip:ip + n]
+        if sd == dev:
+            into[j:j + n].copy_(src, non_blocking=True)
+        else:
+            ipc.copy_between(into[j:j + n], src, stream)
 
 
 def _ring(mesh: Mesh, layer: RGCNLayer, x_padded, edges, n_rels: int,
@@ -729,21 +743,21 @@ def _ring(mesh: Mesh, layer: RGCNLayer, x_padded, edges, n_rels: int,
     _check_args(layer, x_padded, edges, n_parts)
     block = x_padded.shape[0] // n_parts
     cross = getattr(devs, "spans", False)
+    mine = _local_parts(devs)
+    first, last = devs[mine[0]], devs[mine[-1]]
     link = None
     if cross and streams:
-        mine = _local_parts(devs)
-        link = _link(devs, devs[mine[0]], len(mine), block,
-                     x_padded.shape[1])
+        link = _link(devs, first, last, sum(devs[p] == first for p in mine),
+                     block, x_padded.shape[1])
     groups = _groups(devs, layer, x_padded, edges, block, n_rels, route,
                      rows=None if link is None else link.comm_rows)
     where = {p: (dev, i) for dev in groups
              for i, p in enumerate(groups[dev].parts)}
     plan = _copy_plan(groups, where, n_parts)
     if streams:
-        _ring_streams(groups, plan, n_parts, n_rels, hop_fn, link)
+        _ring_streams(groups, plan, n_parts, n_rels, hop_fn, link, first,
+                      last)
         if link is not None:
-            from mpqe_tpu_torch.parallel import ipc
-
             ipc.handshake(link.hop, "K8 ring")
     else:
         if route is not None:
@@ -755,59 +769,71 @@ def _ring(mesh: Mesh, layer: RGCNLayer, x_padded, edges, n_rels: int,
                 for dev in groups:
                     _copies(groups, plan, cur, nxt, dev)
                 if cross:
-                    _exchange_boundary(groups, devs, cur, nxt)
+                    _exchange_boundary(groups, devs, first, last, cur, nxt)
             for g in groups.values():
                 hop_fn(g, n_parts, s, cur, n_rels)
     if cross:
-        return _cross_output(layer, x_padded, groups, devs, block)
-    outs = {}
-    for dev, g in groups.items():
+        return _cross_output(layer, x_padded, groups, devs, block, first)
+    if len(groups) == 1:  # the whole ring on one device
+        (dev, g), = groups.items()
         L, _, N = g.out.shape
         x = _on(x_padded.view(n_parts, block, -1), dev, torch.float32,
                 g.parts, n_parts).view(L * block, -1)
         y = torch.addmm(g.out.view(L * block, N), x,
                         layer.w_self.to(dev, torch.float32)).add_(
             layer.bias.to(dev, torch.float32))
-        if g.parts == list(range(n_parts)):  # the whole ring on one device
-            return y.to(x_padded.device)
+        return y.to(x_padded.device)
+    return _self_term(layer, x_padded, groups, n_parts, block,
+                      x_padded.device)
+
+
+def _self_term(layer, x_padded, groups, n_parts: int, block: int, dev):
+    """``x @ w_self + agg + bias`` over the whole ring's rows on ``dev``,
+    ``agg`` holding the groups' aggregates (zero for parts no group
+    holds): one ``addmm``, the call that the whole ring on one device
+    makes, so every part's rows are bit-equal to that call's."""
+    N = layer.w_self.shape[1]
+    agg = torch.zeros((n_parts * block, N), device=dev)
+    for g in groups.values():
         for i, p in enumerate(g.parts):
-            outs[p] = y[i * block:(i + 1) * block]
-    return torch.cat([outs[p].to(x_padded.device) for p in range(n_parts)])
+            agg[p * block:(p + 1) * block] = g.out[i]
+    x = _on(x_padded.view(n_parts, block, -1), dev, torch.float32,
+            list(range(n_parts)), n_parts).view(n_parts * block, -1)
+    return torch.addmm(agg, x, layer.w_self.to(dev, torch.float32)).add_(
+        layer.bias.to(dev, torch.float32))
 
 
-def _exchange_boundary(groups, devs, cur: int, nxt: int) -> None:
+def _exchange_boundary(groups, devs, first, last, cur: int,
+                       nxt: int) -> None:
     """The plain route's hop across processes: this process's last part's
     slot ``cur`` to the next process's first part's slot ``nxt``, by
     ``multihost.exchange`` (gloo on the CPU)."""
     from mpqe_tpu_torch.parallel import multihost
 
-    (g,) = groups.values()
-    got = multihost.exchange([g.comm[cur, -1].contiguous()], g.device,
-                             "K8 ring hop")
-    g.comm[nxt, 0] = got[(devs.rank - 1) % devs.world][0]
+    got = multihost.exchange([groups[last].comm[cur, -1].contiguous()],
+                             last, "K8 ring hop")
+    groups[first].comm[nxt, 0] = got[(devs.rank - 1) % devs.world][0]
 
 
-def _cross_output(layer, x_padded, groups, devs, block: int):
+def _cross_output(layer, x_padded, groups, devs, block: int, first):
     """Across processes: this process's rows of ``x @ w_self + agg +
-    bias`` from one ``addmm`` over the whole ring's rows (the other
-    processes' aggregates zero), then every part's rows exchanged, so
-    every process returns the whole output."""
+    bias`` from :func:`_self_term` over the whole ring's rows on its first
+    part's device (the other processes' aggregates zero), then every
+    part's rows exchanged, so every process returns the whole output."""
     from mpqe_tpu_torch.parallel import mesh as mesh_lib
 
-    (g,) = groups.values()
-    n_parts, dev = len(devs), g.device
-    L, _, N = g.out.shape
-    lo = g.parts[0] * block
-    agg = torch.zeros((n_parts * block, N), device=dev)
-    agg[lo:lo + L * block] = g.out.view(L * block, N)
-    x = _on(x_padded.view(n_parts, block, -1), dev, torch.float32,
-            list(range(n_parts)), n_parts).view(n_parts * block, -1)
-    y = torch.addmm(agg, x, layer.w_self.to(dev, torch.float32)).add_(
-        layer.bias.to(dev, torch.float32))
-    outs = [None] * n_parts
-    for p in g.parts:
-        outs[p] = y[p * block:(p + 1) * block]
+    y = _self_term(layer, x_padded, groups, len(devs), block, first)
+    outs = [None] * len(devs)
+    for g in groups.values():
+        for p in g.parts:
+            outs[p] = y[p * block:(p + 1) * block]
     return mesh_lib.gather_blocks(outs, x_padded.device, devs)
+
+
+def _wait_copied(stream, event) -> None:
+    """``stream`` waits for the copies into its device's slot (the receive
+    semaphore within a process)."""
+    stream.wait_event(event)
 
 
 def _wait_received(link: _Link, stream, slot: int, number: int) -> None:
@@ -818,19 +844,40 @@ def _wait_received(link: _Link, stream, slot: int, number: int) -> None:
 
 def _remote_copy(link: _Link, g: RingGroup, cur: int, nxt: int,
                  number: int) -> None:
-    """On the current (copy) stream: this process's last part's slot
-    ``cur`` into the next process's first part's slot ``nxt``, then that
-    process's ``recv`` counter of the slot set to ``number``."""
-    link.next_comm[nxt, 0].copy_(g.comm[cur, -1], non_blocking=True)
-    link.counters.write(torch.cuda.current_stream(g.device), link.next,
-                        RECV + nxt, number)
+    """On the current (copy) stream of ``g``'s device: this process's last
+    part's slot ``cur`` into the next process's first part's slot
+    ``nxt``, then that process's ``recv`` counter of the slot set to
+    ``number``."""
+    stream = torch.cuda.current_stream(g.device)
+    block = g.comm.shape[2]
+    rows = link.next_rows.mapped(link.next, g.device.index)
+    L = (rows.shape[0] - 1) // (2 * block)  # the next process's first card's
+    ipc.copy_into(rows.addr(nxt * L * block), g.comm[cur, -1], stream)
+    link.counters.write(stream, link.next, RECV + nxt, number)
+
+
+def _readers(plan, first) -> tuple:
+    """From a :func:`_copy_plan`: for each device, the other devices whose
+    copy streams read its slots; and whether its copies forward the slot
+    of the part on index 0 of ``first`` (the process's first part, which
+    past hop 0 holds the previous process's block)."""
+    readers = {dev: [r for r in plan if r != dev
+                     and any(run[0] == dev for run in plan[r])]
+               for dev in plan}
+    forwards = {dev: any(sd == first and ip == 0 for sd, ip, _, _ in
+                         plan[dev]) for dev in plan}
+    return readers, forwards
 
 
 def _ring_streams(groups, plan, n_parts: int, n_rels: int,
-                  hop_fn: Callable, link: Optional[_Link] = None) -> None:
+                  hop_fn: Callable, link: Optional[_Link] = None,
+                  first=None, last=None) -> None:
     """The ring on CUDA streams: per device the current (compute) stream
     runs the combine and the aggregates, the device's copy stream the
-    copies, events order them (``link``'s counters across processes)."""
+    copies into its parts' slots (a peer copy from another card), events
+    order them, within a process and across its cards (``link``'s
+    counters across processes; ``first`` / ``last``: the cards of this
+    process's first and last parts)."""
     compute = {dev: torch.cuda.current_stream(dev) for dev in groups}
     copy = {}
     for dev, g in groups.items():
@@ -840,6 +887,8 @@ def _ring_streams(groups, plan, n_parts: int, n_rels: int,
         g.comm_rows.record_stream(copy[dev])
         with torch.cuda.stream(compute[dev]):
             _launch_combine(g, n_rels)
+    readers, forwards = _readers(plan, first)
+    alone = len(groups) == 1 and len(groups[first].parts) == 1
 
     def recorded(stream):
         ev = torch.cuda.Event()
@@ -849,6 +898,7 @@ def _ring_streams(groups, plan, n_parts: int, n_rels: int,
     filled = {dev: recorded(compute[dev]) for dev in groups}  # slot 0 set
     recv: Dict = {}  # (device, slot) -> the copies into it have landed
     ack: Dict = {}  # (device, slot) -> its last reader is done
+    sent: Dict = {}  # slot -> the copy out of it to the next process done
     base = 0 if link is None else link.hop
     for s in range(n_parts):
         cur, nxt = s % 2, (s + 1) % 2
@@ -860,35 +910,49 @@ def _ring_streams(groups, plan, n_parts: int, n_rels: int,
                 if s > 0:
                     # the ack token: the receivers' slot nxt is free
                     copy[dev].wait_event(ack[(dev, nxt)])
-                    if link is not None:
-                        # the previous process's block in slot cur, which
-                        # the copies below read
+                    for r in readers[dev]:
+                        # and another card's copies of hop s - 1 are done
+                        # reading it
+                        copy[dev].wait_event(recv[(r, cur)])
+                    if link is not None and forwards[dev]:
+                        # the previous process's block in the first part's
+                        # slot cur, which the copies below read
                         _wait_received(link, copy[dev], cur, base + s)
                 with torch.cuda.stream(copy[dev]):
                     _copies(groups, plan, cur, nxt, dev)
                 recv[(dev, nxt)] = recorded(copy[dev])
             if link is not None:
-                (dev, g), = groups.items()
-                stream = copy[dev]
+                g, stream = groups[last], copy[last]
                 with torch.cuda.stream(stream):
                     # this process's last part holds its slot cur (the
                     # copies above, on this stream, came first)
                     if s == 0:
-                        stream.wait_event(filled[dev])
+                        stream.wait_event(filled[last])
+                    elif alone:  # ... or the previous process's block
+                        _wait_received(link, stream, cur, base + s)
                     # the next process's slot nxt is free
                     link.counters.wait(stream, ACK + nxt,
                                        link.last_read[nxt])
                     _remote_copy(link, g, cur, nxt, base + s + 1)
+                sent[cur] = recorded(stream)
         for dev, g in groups.items():
             if s > 0:
-                compute[dev].wait_event(recv[(dev, cur)])
-                if link is not None:
+                _wait_copied(compute[dev], recv[(dev, cur)])
+                if link is not None and dev == first:
                     _wait_received(link, compute[dev], cur, base + s)
 
             def read(dev=dev, cur=cur, s=s):
                 if s + 1 < n_parts - 1:
                     ack[(dev, cur)] = recorded(compute[dev])
-                if link is not None:
+                if link is not None and dev == first:
+                    if s + 2 < n_parts:
+                        # the previous process writes this slot again at
+                        # hop s + 2: the copies out of it must be done
+                        for d in groups:
+                            if forwards[d]:
+                                compute[dev].wait_event(recv[(d, nxt)])
+                        if alone:
+                            compute[dev].wait_event(sent[cur])
                     link.counters.write(compute[dev], link.prev, ACK + cur,
                                         base + s)
 
@@ -896,7 +960,16 @@ def _ring_streams(groups, plan, n_parts: int, n_rels: int,
                 hop_fn(g, n_parts, s, cur, n_rels, read)
         if link is not None:
             link.last_read[cur] = base + s
+    for dev in groups:
+        for r in readers[dev]:
+            # the slots stay allocated until another card's copies out of
+            # them are done (record_stream marks only this card's streams)
+            compute[dev].wait_event(recorded(copy[r]))
     if link is not None:
+        # the first part's slots are kept for the next call, which writes
+        # them on this stream: every copy out of them must be done first
+        for dev in groups:
+            compute[first].wait_event(recorded(copy[dev]))
         link.hop = base + n_parts
 
 

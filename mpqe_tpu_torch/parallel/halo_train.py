@@ -39,6 +39,7 @@ from mpqe_tpu_torch.models import embeddings as emb_mod
 from mpqe_tpu_torch.models import mpqe as mpqe_mod
 from mpqe_tpu_torch.models import readout as readout_mod
 from mpqe_tpu_torch.parallel import halo
+from mpqe_tpu_torch.parallel import mesh as mesh_lib
 from mpqe_tpu_torch.parallel.mesh import Mesh
 from mpqe_tpu_torch.queries import STRUCTURES
 from mpqe_tpu_torch.train import loop as loop_mod
@@ -166,11 +167,14 @@ def halo_dense_batch_loss(
     layer_fn = (halo.rgcn_ring_halo if layer_kind == "ring"
                 else halo.rgcn_dst_partitioned)
     steps = mpqe_mod.num_steps(cfg, structure)
-    for li in range(steps):
-        x = layer_fn(mesh, model.layers[li], x, *args, axis=axis).to(
-            cfg.dtype)
-        if li < steps - 1:
-            x = torch.relu(x)
+    # across processes the layers' crossings run their backward
+    # exchanges in one order in every process (parallel/mesh.py)
+    with mesh_lib.ordered_crossings():
+        for li in range(steps):
+            x = layer_fn(mesh, model.layers[li], x, *args, axis=axis).to(
+                cfg.dtype)
+            if li < steps - 1:
+                x = torch.relu(x)
 
     q = readout_mod.readout_sparse(
         cfg.readout, model.readout, x, lay["node_query"],

@@ -49,11 +49,24 @@ outputs, so:
 * :func:`psum`: all-gather, then add in part order (two processes equal
   one bit for bit); backward, the same.
 
-Each process runs its backward's exchanges in the order its forward made
-them (one device per process, so autograd runs its nodes in one order).
+A process may hold parts on several cards (JAX's multi-host shape: each
+host a process over its chips).  Each crossing is one autograd node over
+all of the process's parts, so it exchanges once, from the process's
+first card (:func:`_here`), each part's tensor then moving to its own
+card.  The autograd engine runs a CUDA node on its card's own worker
+thread, so two crossings whose gradients arrive on different cards could
+run their backward exchanges in different orders in different
+processes.  Inside :func:`ordered_crossings` (the halo loss enters it)
+each crossing is tied to the previous one by an order token (a 0-d
+tensor, an edge of the graph and no data): a crossing's backward starts only once the
+next crossing's backward has run, so every process runs its backward's
+exchanges in the reverse of its forward's order, whichever thread runs
+them (``multihost.exchange``'s tag turns any other order into a
+``RuntimeError``).
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -230,7 +243,8 @@ def scatter_blocks(x: torch.Tensor,
     if mode == "remote":
         return [None] * n
     if mode == "spans":
-        return _full(devices, _Scatter.apply(x, devices))
+        (x,) = _tie([x])
+        return _full(devices, _mark(_Scatter.apply(x, devices)))
     return [b.to(dev) for b, dev in zip(x.chunk(n), devices)]
 
 
@@ -241,8 +255,8 @@ def gather_blocks(parts: Sequence[torch.Tensor], device: torch.device,
     out_spec).  ``devices``, the parts' :class:`AxisDevices` of a mesh
     that spans processes: every process receives the whole result."""
     if isinstance(devices, AxisDevices):
-        return _Gather.apply(torch.device(device), devices,
-                             *(parts[p] for p in devices.local))
+        return _mark(_Gather.apply(torch.device(device), devices,
+                                   *_tie([parts[p] for p in devices.local])))
     return torch.cat([t.to(device) for t in parts])
 
 
@@ -254,8 +268,8 @@ def all_gather(parts: Sequence[torch.Tensor],
     if mode == "remote":
         return [None] * len(devices)
     if mode == "spans":
-        return _full(devices, _AllGather.apply(
-            devices, *(parts[p] for p in devices.local)))
+        return _full(devices, _mark(_AllGather.apply(
+            devices, *_tie([parts[p] for p in devices.local]))))
     return [torch.cat([t.to(dev) for t in parts]) for dev in devices]
 
 
@@ -268,8 +282,8 @@ def ppermute(parts: Sequence[torch.Tensor], devices: Sequence[torch.device],
     if mode == "remote":
         return [None] * n
     if mode == "spans":
-        return _full(devices, _Ppermute.apply(
-            devices, shift, *(parts[p] for p in devices.local)))
+        return _full(devices, _mark(_Ppermute.apply(
+            devices, shift, *_tie([parts[p] for p in devices.local]))))
     return [parts[(p - shift) % n].to(devices[p]) for p in range(n)]
 
 
@@ -281,8 +295,8 @@ def psum(parts: Sequence[torch.Tensor],
     if mode == "remote":
         return [None] * len(devices)
     if mode == "spans":
-        return _full(devices, _Psum.apply(
-            devices, *(parts[p] for p in devices.local)))
+        return _full(devices, _mark(_Psum.apply(
+            devices, *_tie([parts[p] for p in devices.local]))))
     return _sum_in_order(parts, devices)
 
 
@@ -294,7 +308,7 @@ def enter_parts(tensors: Sequence[torch.Tensor],
     sum) are summed over the processes in process order."""
     if _mode(devices) != "spans":
         return list(tensors)
-    return list(_Enter.apply(devices, *tensors))
+    return list(_mark(_Enter.apply(devices, *_tie(list(tensors)))))
 
 
 def _sum_in_order(parts, devices) -> List[torch.Tensor]:
@@ -330,8 +344,82 @@ def _full(devices: AxisDevices, local: Sequence) -> list:
 
 
 def _here(devices: AxisDevices) -> torch.device:
-    """This process's device on ``devices`` (its parts share one)."""
+    """The device a crossing exchanges from: this process's first part's
+    (its other parts' tensors move there for the exchange, and what each
+    part receives moves on to that part's own device)."""
     return devices[devices.local[0]]
+
+
+# the crossing-order token: {"on": inside ordered_crossings, "token": the
+# last crossing's}
+_ORDER = {"on": False, "token": None}
+
+
+@contextmanager
+def ordered_crossings():
+    """Within: each crossing across processes that autograd records is
+    tied to the previous one by an order token, so that the backward runs
+    their exchanges one after another in the reverse of the forward's
+    order (see the module docstring).  The token chain starts afresh on
+    entry and is dropped on exit."""
+    saved = dict(_ORDER)
+    _ORDER.update(on=True, token=None)
+    try:
+        yield
+    finally:
+        _ORDER.update(saved)
+
+
+def _ordering() -> bool:
+    return _ORDER["on"] and torch.is_grad_enabled()
+
+
+class _Tie(torch.autograd.Function):
+    """``apply(token, *tensors)`` -> the tensors unchanged; backward, their
+    gradients and none for the token: the edge that makes the previous
+    crossing's backward wait for this crossing's."""
+
+    @staticmethod
+    def forward(ctx, token, *tensors):
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *gs)
+
+
+class _Mark(torch.autograd.Function):
+    """``apply(t)`` -> a new order token (a 0-d CPU zero) that depends on
+    a crossing's output ``t``."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return torch.zeros(())
+
+    @staticmethod
+    def backward(ctx, g):
+        return None
+
+
+def _tie(tensors: list) -> list:
+    """A crossing's inputs, tied to the previous crossing's token while
+    :func:`ordered_crossings` is on."""
+    token = _ORDER["token"]
+    if not _ordering() or token is None or not any(
+            t.requires_grad for t in tensors):
+        return list(tensors)
+    return list(_Tie.apply(token, *tensors))
+
+
+def _mark(out):
+    """A crossing's output (a tensor or a tuple), its token taken while
+    :func:`ordered_crossings` is on."""
+    if _ordering():
+        first = out if isinstance(out, torch.Tensor) else next(
+            (t for t in out if t is not None), None)
+        if first is not None and first.requires_grad:
+            _ORDER["token"] = _Mark.apply(first)
+    return out
 
 
 def _exchange_parts(devices: AxisDevices, mine: Sequence[torch.Tensor],

@@ -14,14 +14,24 @@ global device list: a mesh whose parts are spread over the group's
 processes, each holding its own; the halo layers (``parallel/halo.py``)
 and K8 (``ops/ring.py``) run over it with every process computing only
 its parts, and the parts' blocks cross processes by :func:`exchange`
-(gloo for CPU tensors, ``parallel/ipc.py`` for CUDA tensors).  Parts on
-different cards (NCCL, peer access between devices) have not run: the
-port's card machine has one.
+(gloo for CPU tensors, ``parallel/ipc.py`` for CUDA tensors).
+
+Processes on their own cards join under NCCL (:func:`initialize` with
+``backend="nccl"``, the default on the card): each process takes one
+card, set before the group is made, and two processes naming one card
+raise, as NCCL does (two processes on one card name ``gloo``).  The
+group is then NCCL for CUDA tensors (the spmd step's ``all_reduce`` and
+``broadcast``) and gloo for the host's small tensors and objects (the
+exchanges' headers and handshakes, ``all_gather_object``).  A process
+may also hold several cards (:func:`global_mesh`), as a JAX host holds
+its chips.  Run on one host of four H100s: two processes on one card
+each under NCCL, and two processes of two cards each.
 """
 
 from __future__ import annotations
 
 import os
+import socket
 import zlib
 from datetime import timedelta
 from typing import Dict, List, Optional, Sequence
@@ -39,8 +49,6 @@ _ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
 
 def default_backend(device) -> str:
     """``nccl`` for the card, ``gloo`` for the CPU."""
-    import torch
-
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
@@ -60,10 +68,14 @@ def initialize(coordinator_address: Optional[str] = None,
       ``torchrun`` sets (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
       ``WORLD_SIZE``), and without them it is a no-op (one process).
 
-    ``backend`` defaults to :func:`default_backend` of ``device`` (NCCL
-    takes one card per rank: two processes on one card name ``gloo``,
-    whose ``all_reduce`` and ``broadcast``, all the step uses, take CUDA
-    tensors)."""
+    ``backend`` defaults to :func:`default_backend` of ``device``.  Under
+    NCCL each process takes one card before the group is made
+    (:func:`nccl_card`: ``device``'s index, else ``LOCAL_RANK``, else
+    ``process_id`` modulo the visible cards), and ``RuntimeError``
+    refuses two processes of one host on one card; the group carries
+    CUDA tensors by NCCL and CPU tensors by gloo.  Two processes on one
+    card name ``gloo``, whose ``all_reduce`` and ``broadcast``, all the
+    spmd step uses, take CUDA tensors."""
     import torch.distributed as dist
 
     if dist.is_initialized():
@@ -78,12 +90,63 @@ def initialize(coordinator_address: Optional[str] = None,
     if num_processes is None or process_id is None:
         raise ValueError("an explicit coordinator_address needs "
                          "num_processes and process_id")
-    dist.init_process_group(
-        backend=backend or default_backend(device),
-        init_method=f"tcp://{coordinator_address}",
-        world_size=int(num_processes), rank=int(process_id),
-        timeout=timedelta(seconds=timeout_s))
+    backend = backend or default_backend(device)
+    world, rank = int(num_processes), int(process_id)
+    timeout = timedelta(seconds=timeout_s)
+    if backend != "nccl":
+        dist.init_process_group(
+            backend=backend, init_method=f"tcp://{coordinator_address}",
+            world_size=world, rank=rank, timeout=timeout)
+        return True
+    card = nccl_card(device, rank)
+    torch.cuda.set_device(card)
+    host, port = coordinator_address.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), world, rank == 0, timeout=timeout)
+    refuse_shared_cards(store, world, rank, card)
+    dist.init_process_group(backend="cpu:gloo,cuda:nccl", store=store,
+                            world_size=world, rank=rank, timeout=timeout)
     return True
+
+
+def nccl_card(device, rank: int) -> int:
+    """The card an NCCL process takes: ``device``'s index where it names
+    one, else ``LOCAL_RANK`` (torchrun's), else ``rank`` modulo the
+    visible cards."""
+    d = torch.device(device)
+    if d.type != "cuda":
+        raise ValueError(f"NCCL takes CUDA devices, got {d}")
+    if d.index is not None:
+        return d.index
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    return rank % torch.cuda.device_count()
+
+
+def refuse_shared_cards(store, world: int, rank: int, card: int) -> None:
+    """Every process posts its host and card to ``store`` and reads the
+    others'; ``RuntimeError`` in every process when two processes of one
+    host name one card (NCCL takes one card per process)."""
+    key = "mpqe_tpu_torch/nccl_card/"
+    mine = (f"{socket.gethostname()} "
+            f"{os.environ.get('CUDA_VISIBLE_DEVICES', '')} {card}")
+    store.set(f"{key}{rank}", mine)
+    keys = [f"{key}{r}" for r in range(world)]
+    store.wait(keys)
+    every = [store.get(k).decode() for k in keys]
+    # the store lives in process 0: it leaves only once every process
+    # has read (a refusal ends every process)
+    store.set(f"{key}read/{rank}", "1")
+    if rank == 0:
+        store.wait([f"{key}read/{r}" for r in range(world)])
+    seen: Dict[str, int] = {}
+    for r, where in enumerate(every):
+        if where in seen:
+            raise RuntimeError(
+                f"processes {seen[where]} and {r} both name cuda:"
+                f"{where.rsplit(' ', 1)[-1]} under NCCL, which takes one "
+                "card per process: give each its own card, or name gloo "
+                "for processes that share one")
+        seen[where] = r
 
 
 def process_count() -> int:
@@ -119,19 +182,17 @@ def global_mesh(shape, local_devices: Sequence,
     over the group in process order (JAX's ``make_mesh`` over the global
     device list): the entries are the concatenation of the processes'
     lists, row-major, each naming its process in ``Mesh.procs``.  Without
-    a group, :func:`mesh_lib.make_mesh` of ``local_devices``.
-    ``ValueError`` when a process lists more than one distinct device
-    (its backward must run its exchanges in one order) or the processes
-    list different numbers of devices."""
+    a group, :func:`mesh_lib.make_mesh` of ``local_devices``.  A process
+    may list several devices, distinct cards or one repeated (JAX's
+    multi-host shape: each host a process over its chips); the cards are
+    named as every process of one host sees them (do not restrict
+    ``CUDA_VISIBLE_DEVICES`` per process).  ``ValueError`` when the
+    processes list different numbers of devices."""
     local = [mesh_lib._device(d) for d in local_devices]
     if process_count() == 1:
         return mesh_lib.make_mesh(shape, axis_names, local)
     import torch.distributed as dist
 
-    if len(set(local)) != 1:
-        raise ValueError(f"global_mesh: this process lists the devices "
-                         f"{sorted(set(map(str, local)))}; a process's parts "
-                         "must share one device")
     lists = [None] * dist.get_world_size()
     dist.all_gather_object(lists, [str(d) for d in local])
     if len({len(a) for a in lists}) != 1:
@@ -141,12 +202,8 @@ def global_mesh(shape, local_devices: Sequence,
     devices = [torch.device(d) for a in lists for d in a]
     procs = [r for r, a in enumerate(lists) for _ in a]
     mesh = mesh_lib.make_mesh(shape, axis_names, devices)
-    n = len(devices)
-    arr = np.empty(n, dtype=object)
-    rank = dist.get_rank()
-    arr[:] = [local[0] if r == rank else d for d, r in zip(devices, procs)]
-    return Mesh(arr.reshape(mesh.devices.shape), mesh.axis_names,
-                procs=np.asarray(procs), rank=rank)
+    return Mesh(mesh.devices, mesh.axis_names, procs=np.asarray(procs),
+                rank=dist.get_rank())
 
 
 # the dtypes exchange takes, by their code in its header

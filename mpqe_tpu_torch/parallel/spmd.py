@@ -30,8 +30,12 @@ global batch (``multihost.host_local_batch``): the count of real pairs,
 the gradients and the loss are summed across processes
 (``all_reduce``), so each process takes one process's step over the
 global batch and the parameters stay equal across processes.  Only
-``all_reduce`` and ``broadcast`` are used (gloo takes CUDA tensors for
-those two).
+``all_reduce`` and ``broadcast`` are used: under NCCL with a card a
+process, or under gloo (which takes CUDA tensors for those two) for
+processes that share a card.  Run on one H100 (gloo, two processes),
+on two H100s (NCCL, a card a process) and in one process over four
+H100s, which adds the data parts' gradients in part order, as it does
+over parts of one card (bit-equal to it there).
 
 The route is the plain dense loss (``models/mpqe.py encode_dense``), as
 the reference's is XLA's: no hand-written kernel is reached in this

@@ -19,12 +19,17 @@ On the ``(N / m, m)`` mesh (m = 2 when N is even, else 1) it runs:
    top-k (``parallel/rank_shard.py``) rank them over its table.
 
 It prints ``dryrun_multichip ok: mesh={'data': ..., 'model': ...}
-loss=...``.  On the card the N parts all sit on ``cuda:0`` (a ring of
-parts on one card: each keeps its own buffers and receives the others'
-only by copies); ``--device cpu`` puts them on the CPU, where K8 is its
-plain version.
+loss=... devices=[...]``.  On the card (``--device cuda``, the default)
+the N parts are the first N visible cards, as the reference takes
+``jax.devices()[:n_devices]`` (fewer cards exit naming the count); a
+``--device`` that names one card (``cuda:0``) puts the N parts on that
+card (a ring of parts on one card: each keeps its own buffers and
+receives the others' only by copies); ``--device cpu`` puts them on the
+CPU, where K8 is its plain version.
 
-  python -m mpqe_tpu_torch.tools.dryrun_multichip --n_devices 8
+  python -m mpqe_tpu_torch.tools.dryrun_multichip --n_devices 4
+  python -m mpqe_tpu_torch.tools.dryrun_multichip --n_devices 8 \\
+      --device cuda:0
   python -m mpqe_tpu_torch.tools.dryrun_multichip --n_devices 6 \\
       --device cpu
 """
@@ -38,10 +43,27 @@ import numpy as np
 import torch
 
 
+def part_devices(n_devices: int, device="cuda") -> list:
+    """The parts' devices: the first ``n_devices`` visible cards for a
+    bare ``cuda`` (``SystemExit`` when there are fewer), else
+    ``n_devices`` parts of the one device ``device`` names."""
+    from mpqe_tpu_torch.serve import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        have = torch.cuda.device_count()
+        if have < n_devices:
+            raise SystemExit(f"dryrun_multichip: {n_devices} parts need "
+                             f"that many cards, have {have} (--device "
+                             "cuda:0 puts them on one card)")
+        return [torch.device("cuda", i) for i in range(n_devices)]
+    return [dev] * n_devices
+
+
 def dryrun_multichip(n_devices: int, device="cuda") -> dict:
-    """Run the paths above on ``n_devices`` parts of ``device``; returns
-    ``{"mesh", "loss", "halo_loss", "k8_err"}`` and raises on a failed
-    check."""
+    """Run the paths above on ``n_devices`` parts (:func:`part_devices`);
+    returns ``{"mesh", "loss", "halo_loss", "k8_err", "devices"}`` and
+    raises on a failed check."""
     from mpqe_tpu_torch.data.batcher import DenseQueryBatch
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
     from mpqe_tpu_torch.ops import fused_fwd
@@ -51,15 +73,13 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     from mpqe_tpu_torch.parallel import halo, halo_train, rank_shard, spmd
     from mpqe_tpu_torch.parallel import mesh as mesh_lib
     from mpqe_tpu_torch.queries import STRUCTURES
-    from mpqe_tpu_torch.serve import resolve_device
     from mpqe_tpu_torch.train import loop as loop_mod
 
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    devices = part_devices(n_devices, device)
+    dev = devices[0]
     model_size = 2 if n_devices % 2 == 0 and n_devices >= 2 else 1
     mesh = mesh_lib.make_mesh((n_devices // model_size, model_size),
-                              devices=[dev] * n_devices)
+                              devices=devices)
     n_rels = 8 * model_size
     batch_size = 4 * (n_devices // model_size)
     cfg = mpqe_mod.MPQEConfig(
@@ -175,18 +195,19 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     if int(ranks.min()) < 1 or not bool(torch.isfinite(tv).all()):
         raise AssertionError("sharded rank / top-k")
     return {"mesh": dict(mesh.shape), "loss": loss, "halo_loss": h_loss,
-            "k8_err": k8_err}
+            "k8_err": k8_err, "devices": [str(d) for d in devices]}
 
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--n_devices", type=int, required=True)
     p.add_argument("--device", default="cuda",
-                   help="the card unless told otherwise (--device cpu)")
+                   help="cuda: the first --n_devices cards; a card "
+                        "(cuda:0) or cpu: that many parts of it")
     args = p.parse_args(argv)
     out = dryrun_multichip(args.n_devices, args.device)
-    print(f"dryrun_multichip ok: mesh={out['mesh']} loss={out['loss']:.4f}",
-          flush=True)
+    print(f"dryrun_multichip ok: mesh={out['mesh']} loss={out['loss']:.4f} "
+          f"devices={out['devices']}", flush=True)
     return out
 
 

@@ -21,9 +21,21 @@ rank:
       --num_processes 2 --process_id 0 --backend gloo --out runs/mh
 
 Without a group (one process, no variables) it takes the steps over the
-whole global batch: the run the group's must equal.  NCCL takes one card
-per rank; two processes on one card name ``--backend gloo`` (the halo
-layers' CUDA blocks then cross by ``parallel/ipc.py``).  The output is
+whole global batch: the run the group's must equal.  NCCL (the default
+on the card) takes one card per rank, each rank its own (``--device
+cuda``: rank r on card r; ``--device cuda:k`` names it), and refuses two
+ranks on one card; two processes on one card name ``--backend gloo``.
+Either way the halo layers' CUDA blocks cross by ``parallel/ipc.py``.
+``--devices`` spreads a process's parts over several cards (JAX's
+multi-host shape):
+
+  python -m mpqe_tpu_torch.tools.multihost_run --coordinator 127.0.0.1:29500 \\
+      --num_processes 2 --process_id 0 --backend nccl --out runs/mh_nccl
+  python -m mpqe_tpu_torch.tools.multihost_run --coordinator 127.0.0.1:29500 \\
+      --num_processes 2 --process_id 1 --parallel halo_ring \\
+      --device cuda:2 --devices cuda:2,cuda:3 --out runs/mh_2x2
+
+The output is
 ``<out>/rank<r>.npz`` (``losses``; with ``--params`` each parameter's
 change over the run by name, the table whole).
 
@@ -84,6 +96,10 @@ def parse_args(argv=None):
                    choices=("spmd", "halo_ring", "halo_gather"))
     p.add_argument("--mesh", default="2,1",
                    help="each process's mesh (its share of the halo mesh)")
+    p.add_argument("--devices", default=None,
+                   help="comma-separated devices of this process's parts, "
+                        "one per part of --mesh (default: all on "
+                        "--device)")
     p.add_argument("--entities", type=int, default=1_000_000)
     p.add_argument("--embed_dim", type=int, default=128)
     p.add_argument("--num_bases", type=int, default=16)
@@ -106,19 +122,24 @@ def main(argv=None) -> dict:
     from mpqe_tpu_torch.train import loop as loop_mod
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    resolve_device(args.device)  # no card and no --device cpu raises
+    # under NCCL this sets the process's card
     multihost.initialize(args.coordinator, args.num_processes,
                          args.process_id, backend=args.backend,
-                         device=device.type)
+                         device=args.device)
     n_proc, rank = multihost.process_count(), multihost.process_index()
     d, m = (int(x) for x in args.mesh.split(","))
+    parts = ([mesh_lib._device(x) for x in args.devices.split(",")]
+             if args.devices else [mesh_lib._device(args.device)] * (d * m))
+    if len(parts) != d * m:
+        raise SystemExit(f"--devices lists {len(parts)} devices for a "
+                         f"{d}x{m} --mesh")
+    device = parts[0]
     halo = args.parallel != "spmd"
     if halo:
-        mesh = multihost.global_mesh((d * n_proc, m), [device] * (d * m))
+        mesh = multihost.global_mesh((d * n_proc, m), parts)
     else:
-        mesh = mesh_lib.make_mesh((d, m), devices=[device] * (d * m))
+        mesh = mesh_lib.make_mesh((d, m), devices=parts)
     cfg = mpqe_mod.MPQEConfig(
         n_entities=args.entities, n_modes=N_MODES, n_rels=N_RELS,
         embed_dim=args.embed_dim, n_layers=N_LAYERS,

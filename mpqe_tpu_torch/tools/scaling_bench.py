@@ -9,18 +9,24 @@ random typed graph, edges/s per part count.  ``--phase rank``:
 ``parallel/rank_shard.py make_sharded_rank_fn`` over a table
 row-sharded across the parts, ranked queries/s.
 
-On one card every part is the same card (``make_mesh(devices=[card] *
-P)``; under ``--device cpu`` the CPU): the parts run one after another,
-so the records measure what the partitioning costs on one card (the
-per-part launches, the halo copies, the sums across parts), not scaling
-across cards.  The reference's keys are kept (``devices`` is the part
-count, and the summary's ``efficiency`` compares edges/s with the
+With ``--device cuda`` (the default) P parts are the first P visible
+cards, as the reference's meshes take ``jax.devices()[:P]``, and the
+part counts default to 1, 2, 4, ... up to the machine's count of cards:
+the records measure scaling across cards (the halo's blocks cross
+between cards by peer copies).  A ``--device`` that names one card
+(``cuda:0``), or ``cpu``, puts every part on it (``make_mesh(devices=
+[card] * P)``, part counts 1, 2, 4 and 8 by default): the parts run one
+after another, so those records measure what the partitioning costs on
+one device (the per-part launches, the halo copies, the sums across
+parts), not scaling.  The reference's keys are kept (``devices`` is the
+part count, and the summary's ``efficiency`` compares edges/s with the
 1-part run's times P); ``parts_on`` names the device of every part.
-Multi-card runs of these layers are a later slice's (K8 across cards).
 Timed by ``utils/profiling.py loop_time``.  Runs on the card unless
 ``--device cpu``.
 
-  python -m mpqe_tpu_torch.tools.scaling_bench --devices 1 2 4 8
+  python -m mpqe_tpu_torch.tools.scaling_bench            # 1, 2, 4 cards
+  python -m mpqe_tpu_torch.tools.scaling_bench --device cuda:0 \\
+      --devices 1 2 4 8                                   # parts of one
 """
 
 from __future__ import annotations
@@ -35,13 +41,14 @@ from mpqe_tpu_torch.tools.probe_common import (device_fields, device_of,
                                                log, timed)
 
 
-def bench_mesh(n_dev, n_nodes, n_e, n_rels, d, num_bases, layer="allgather",
-               dev=None) -> dict:
+def bench_mesh(devices, n_nodes, n_e, n_rels, d, num_bases,
+               layer="allgather") -> dict:
     from mpqe_tpu_torch.ops import rgcn as rgcn_ops
     from mpqe_tpu_torch.ops.edge_store import build_edge_store
     from mpqe_tpu_torch.parallel import halo
     from mpqe_tpu_torch.parallel import mesh as mesh_lib
 
+    n_dev, dev = len(devices), devices[0]
     rng = np.random.default_rng(0)
     src = rng.integers(0, n_nodes, n_e).astype(np.int32)
     dst = rng.integers(0, n_nodes, n_e).astype(np.int32)
@@ -50,7 +57,6 @@ def bench_mesh(n_dev, n_nodes, n_e, n_rels, d, num_bases, layer="allgather",
     lp = rgcn_ops.init_rgcn_layer(torch.Generator(device=dev).manual_seed(0),
                                   d, d, n_rels, num_bases, device=dev)
     x = rng.normal(size=(n_nodes, d)).astype(np.float32)
-    devices = [dev] * n_dev
     mesh = mesh_lib.make_mesh((n_dev, 1), devices=devices)
 
     def put(a):
@@ -85,17 +91,17 @@ def bench_mesh(n_dev, n_nodes, n_e, n_rels, d, num_bases, layer="allgather",
             "parts_on": [str(p) for p in devices], **rec}
 
 
-def bench_rank_mesh(n_dev, n_entities, batch, d, dev=None) -> dict:
+def bench_rank_mesh(devices, n_entities, batch, d) -> dict:
     """The sharded full-ranking sweep: each part scores ``[B, N / P]``."""
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
     from mpqe_tpu_torch.parallel import mesh as mesh_lib
     from mpqe_tpu_torch.parallel import rank_shard
 
+    n_dev, dev = len(devices), devices[0]
     rng = np.random.default_rng(0)
     cfg = mpqe_mod.MPQEConfig(
         n_entities=n_entities, n_modes=4, n_rels=8, embed_dim=d,
         n_layers=1, readout="tgt")
-    devices = [dev] * n_dev
     mesh = mesh_lib.make_mesh((1, n_dev), devices=devices)
 
     def put(a):
@@ -122,11 +128,21 @@ def bench_rank_mesh(n_dev, n_entities, batch, d, dev=None) -> dict:
             "parts_on": [str(p) for p in devices], **rec}
 
 
+def part_counts(dev: torch.device) -> list:
+    """The default part counts: 1, 2, 4, ... up to the visible cards for a
+    bare ``cuda`` (distinct cards), else 1, 2, 4 and 8 parts of ``dev``."""
+    if dev.type == "cuda" and dev.index is None:
+        return [2 ** i for i in range(torch.cuda.device_count().bit_length())]
+    return [1, 2, 4, 8]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m mpqe_tpu_torch.tools."
                                  "scaling_bench")
     ap.add_argument("--devices", type=int, nargs="+", default=None,
-                    help="part counts (default 1 2 4 8), all on --device")
+                    help="part counts (default: 1, 2, 4, ... up to the "
+                         "cards under --device cuda; 1 2 4 8 parts of "
+                         "the one device another --device names)")
     ap.add_argument("--nodes", type=int, default=32_768)
     ap.add_argument("--edges", type=int, default=200_000)
     ap.add_argument("--n_rels", type=int, default=64)
@@ -140,27 +156,33 @@ def main(argv=None) -> int:
     ap.add_argument("--rank_entities", type=int, default=100_000)
     ap.add_argument("--rank_batch", type=int, default=256)
     ap.add_argument("--device", default="cuda",
-                    help="torch device of every part; the card unless "
-                         "told otherwise")
+                    help="cuda: distinct cards, the first P for P parts; "
+                         "a card (cuda:0) or cpu: every part on it")
     args = ap.parse_args(argv)
+    from mpqe_tpu_torch.tools.dryrun_multichip import part_devices
+
     dev = device_of(args.device)
-    sizes = args.devices or [1, 2, 4, 8]
-    log(f"device={device_fields(dev)} parts={sizes}, all on {dev}")
+    distinct = dev.type == "cuda" and dev.index is None
+    sizes = args.devices or part_counts(dev)
+    log(f"device={device_fields(dev)} parts={sizes}, "
+        f"{'on distinct cards' if distinct else f'all on {dev}'}")
     results = []
     for n_dev in sizes:
+        devices = part_devices(n_dev, args.device)
         if args.phase == "rank":
-            r = bench_rank_mesh(n_dev, args.rank_entities, args.rank_batch,
-                                args.d, dev=dev)
+            r = bench_rank_mesh(devices, args.rank_entities, args.rank_batch,
+                                args.d)
         else:
-            r = bench_mesh(n_dev, args.nodes, args.edges, args.n_rels,
-                           args.d, args.num_bases, layer=args.layer, dev=dev)
+            r = bench_mesh(devices, args.nodes, args.edges, args.n_rels,
+                           args.d, args.num_bases, layer=args.layer)
         results.append(r)
         print(json.dumps(r), flush=True)
     base = results[0]
     common = {"sizes": [r["devices"] for r in results],
-              **device_fields(dev), "parts_on_one_device": True,
-              "note": "parts of one device: the partitioning's cost, "
-                      "not scaling across devices"}
+              **device_fields(dev), "parts_on_one_device": not distinct,
+              "note": ("distinct cards: scaling across cards" if distinct
+                       else "parts of one device: the partitioning's "
+                       "cost, not scaling across devices")}
     if args.phase == "rank":
         summary = {
             "metric": "sharded_rank_scaling",

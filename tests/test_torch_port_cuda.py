@@ -1897,3 +1897,78 @@ def test_cuda_transport_refusals_and_a_silent_peer():
                 p.kill()
     assert procs[0].returncode == 3, outs[0]
     assert "RAISED" in outs[0][0]
+
+
+def _cards(n):
+    """The first ``n`` visible cards, ``chip_smoke.SMI`` set and the K8
+    libraries built; skips below ``n`` cards."""
+    import subprocess
+
+    import chip_smoke
+    from mpqe_tpu_torch.ops import rgcn_fused, ring
+
+    _cuda()
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices")
+    chip_smoke.SMI["line"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    ring._kernel()
+    rgcn_fused._kernel()
+    return [torch.device("cuda", i) for i in range(
+        min(torch.cuda.device_count(), chip_smoke.MULTICARD_MAX))]
+
+
+@pytest.mark.cuda
+def test_cuda_one_process_over_cards_matches_one_card(tmp_path):
+    """``chip_smoke.py``'s ``multicard.spmd``, ``multicard.halo`` and
+    ``multicard.ring`` over every visible card (two at least): the spmd
+    step and the halo step against the same meshes on parts of cuda:0,
+    K8 bit-equal to the one-card K8 with its copies delayed, under
+    ``ring_gate``, its control different, peer access on."""
+    import chip_smoke
+    from mpqe_tpu_torch.models import mpqe as mpqe_mod
+
+    cards = _cards(2)
+    cfg = mpqe_mod.MPQEConfig(**chip_smoke.FLAGSHIP)
+    chip_smoke.multicard_spmd(cards)
+    chip_smoke.multicard_halo(cards, str(tmp_path))
+    launches, figures = chip_smoke.multicard_ring(cfg, cards)
+    assert launches > 0 and set(figures) == {2, len(cards)}
+
+
+@pytest.mark.cuda
+def test_cuda_peer_copy_refused_without_peer_access(monkeypatch):
+    """A copy between two cards that ``can_device_access_peer`` says
+    cannot reach each other raises instead of going through the host."""
+    from mpqe_tpu_torch.parallel import ipc
+
+    cards = _cards(2)
+    a = torch.ones(4, device=cards[0])
+    b = torch.zeros(4, device=cards[1])
+    monkeypatch.setattr(ipc, "_PEERS", set())
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda x, y: False)
+    with pytest.raises(RuntimeError, match="no peer access"):
+        ipc.copy_between(b, a, torch.cuda.current_stream(cards[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["nccl", "procs_x_cards"])
+def test_cuda_processes_on_their_own_cards(tmp_path, which):
+    """``multicard.nccl`` (two processes under NCCL on cuda:0 and cuda:1:
+    the spmd step, the halo step and K8) and ``multicard.procs_x_cards``
+    (two processes of two cards each, four cards): equal to one process
+    as the one-card pair is."""
+    import chip_smoke
+
+    cards = _cards(2 if which == "nccl" else 4)
+    spmd = which == "nccl"
+    each = (["cuda:0", "cuda:1"] if spmd
+            else ["cuda:0,cuda:1", "cuda:2,cuda:3"])
+    chip_smoke.mp_pair(cards[0], str(tmp_path), "nccl", each, spmd=spmd)
+    bad, launches = chip_smoke.mp_compare(
+        str(tmp_path), ("spmd", "halo", "ring"), ("nccl", "nccl"),
+        spmd=spmd)
+    assert not bad and launches > 0
