@@ -337,9 +337,24 @@ parallel (one nvcc each), then:
    ``multihost``, ``multihost.halo`` and ``kernel.ring.multiprocess``
    are) and, with four cards or more, ``multicard.procs_x_cards`` (two
    processes of two cards each: the halo step and K8).  With one card it
-   prints ``multicard: not run, 1 card``.  ``python3 chip_smoke.py
-   --multicard`` runs only ``train.spmd``, ``multihost.halo``,
-   ``kernel.ring.multiprocess``, ``multicard`` and ``dryrun``.
+   prints ``multicard: not run, 1 card``.  Then ``multinode``: two node
+   groups of this host (two ``torchrun --nnodes 2`` launches, each over
+   its own cards, NCCL's peer-to-peer and shared-memory transports off,
+   so NCCL goes by sockets between them, as between hosts without
+   InfiniBand), each run held to one process as the pairs are:
+   ``multinode`` (2 nodes x 1 process: the exchange cases bit-equal,
+   ``multinode.spmd``, ``multinode.halo ring|gather``, ``multinode.ring``
+   at P = 2 and 4 with its sender delayed, the control different, the
+   hop's and the call's ms) and, with four cards,
+   ``multinode.mixed.procs`` (2 nodes x 2 processes: CUDA IPC within a
+   node, NCCL between; the halo step and K8 at P = 4) and
+   ``multinode.mixed.cards`` (2 nodes x 1 process of two cards); every
+   process on the node it was launched on, no CUDA IPC handle opened
+   across nodes, ``via NET`` for every connection NCCL reported.  With
+   one card it prints ``multinode: not run, 1 card``.  ``python3
+   chip_smoke.py --multicard`` runs only ``train.spmd``,
+   ``multihost.halo``, ``kernel.ring.multiprocess``, ``multicard``,
+   ``multinode`` and ``dryrun``.
 
 25. The last modules a single card runs: ``train.trace`` (``data.npz``'s
    train CLI run with ``--trace 5 --trace_skip 10``: ``trace_start`` at
@@ -396,7 +411,7 @@ rows': one kernel each, its launches counted together) and, last,
 {...}}``.  Any failed check raises and the exit code is nonzero.  Needs
 one CUDA card and the repository's sources (it builds the kernels); on a
 machine with several cards the parts-of-one-card phases stay on cuda:0
-and the ``multicard`` group runs over all of them.
+and the ``multicard`` and ``multinode`` groups run over all of them.
 
 Usage: python3 chip_smoke.py [--multicard]
 """
@@ -6298,11 +6313,12 @@ def mp_ring_case(cfg, P: int, device):
 
 
 class delayed_senders:
-    """Within the block each K8 copy into another process's slot is
-    preceded on the copy stream by ``torch.cuda._sleep``: the receiver's
-    aggregate would run before the block lands but for the ``recv``
-    counter.  ``skip_receive=True`` also drops the receivers' counter
-    waits (the negative control)."""
+    """Within the block each K8 copy into another process's slot, and
+    each send to another node, is preceded on its stream by
+    ``torch.cuda._sleep``: the receiver's aggregate would run before the
+    block lands but for the ``recv`` counter or the receive's event.
+    ``skip_receive=True`` also drops the receivers' waits (the negative
+    control)."""
 
     def __init__(self, skip_receive: bool = False):
         self.skip = skip_receive
@@ -6310,14 +6326,19 @@ class delayed_senders:
     def __enter__(self):
         from mpqe_tpu_torch.ops import ring
 
-        self.saved = (ring._remote_copy, ring._wait_received)
-        copy = ring._remote_copy
+        self.saved = (ring._remote_copy, ring._wait_received, ring._net_hop)
+        copy, net = ring._remote_copy, ring._net_hop
 
         def late(*a):
             torch.cuda._sleep(RING_SLEEP_CYCLES)
             return copy(*a)
 
-        ring._remote_copy = late
+        def late_net(link, *a):
+            if link.net_send:  # before the staging copy and the send
+                torch.cuda._sleep(RING_SLEEP_CYCLES)
+            return net(link, *a)
+
+        ring._remote_copy, ring._net_hop = late, late_net
         if self.skip:
             ring._wait_received = lambda *a: None
         return self
@@ -6325,23 +6346,27 @@ class delayed_senders:
     def __exit__(self, *exc):
         from mpqe_tpu_torch.ops import ring
 
-        ring._remote_copy, ring._wait_received = self.saved
+        ring._remote_copy, ring._wait_received, ring._net_hop = self.saved
         return False
 
 
 class timed_hops:
     """Within the block, CUDA events around every K8 copy into another
-    process's slot (on the copy stream) and every wait on a ``recv``
-    counter (on the waiting stream): their mean ms when read."""
+    process's slot (on the copy stream), every wait on a ``recv``
+    counter (on the waiting stream) and every hop between nodes that
+    receives (on the boundary stream, from its staging copy to the
+    receive's end): their mean ms when read."""
 
     def __enter__(self):
         from mpqe_tpu_torch.ops import ring
 
-        self.saved = (ring._remote_copy, ring._wait_received)
-        self.copies, self.waits = [], []
+        self.saved = (ring._remote_copy, ring._wait_received, ring._net_hop)
+        self.copies, self.waits, self.nets = [], [], []
 
-        def wrap(fn, into):
+        def wrap(fn, into, when=lambda *a: True):
             def timed(*a):
+                if not when(*a):
+                    return fn(*a)
                 a0 = torch.cuda.Event(enable_timing=True)
                 b0 = torch.cuda.Event(enable_timing=True)
                 a0.record()
@@ -6352,19 +6377,24 @@ class timed_hops:
             return timed
 
         ring._remote_copy = wrap(self.saved[0], self.copies)
-        ring._wait_received = wrap(self.saved[1], self.waits)
+        ring._wait_received = wrap(self.saved[1], self.waits,
+                                   lambda link, *a: not link.net_recv)
+        ring._net_hop = wrap(self.saved[2], self.nets,
+                             lambda link, *a: link.net_recv)
         return self
 
     def __exit__(self, *exc):
         from mpqe_tpu_torch.ops import ring
 
-        ring._remote_copy, ring._wait_received = self.saved
+        ring._remote_copy, ring._wait_received, ring._net_hop = self.saved
         return False
 
     def means(self) -> tuple:
-        torch.cuda.synchronize()
+        """(copy, counter wait, hop between nodes) mean ms."""
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
         return tuple(sum(a.elapsed_time(b) for a, b in ev) / max(len(ev), 1)
-                     for ev in (self.copies, self.waits))
+                     for ev in (self.copies, self.waits, self.nets))
 
 
 def parts_of(cards: list, n: int) -> list:
@@ -6373,18 +6403,57 @@ def parts_of(cards: list, n: int) -> list:
     return [cards[i * len(cards) // n] for i in range(n)]
 
 
+EXCHANGE_CASES = (((3,), torch.float32), ((2, 5), torch.bfloat16),
+                  ((4, 3, 2), torch.int64), ((128, 8), torch.float16),
+                  ((7,), torch.uint8))
+
+
+def exchange_inputs(case: int, rank: int) -> list:
+    """Process ``rank``'s contribution to exchange case ``case`` of
+    EXCHANGE_CASES: ``(rank + case) % 3`` tensors (unequal counts, none
+    at all among them) from a seed, on the CPU."""
+    shape, dtype = EXCHANGE_CASES[case]
+    gen = torch.Generator().manual_seed(1000 * case + rank)
+    return [(torch.randn(shape, generator=gen) * 100).to(dtype)
+            if dtype.is_floating_point
+            else torch.randint(0, 200, shape, generator=gen).to(dtype)
+            for _ in range((rank + case) % 3)]
+
+
+def exchange_check(device) -> bool:
+    """``multihost.exchange`` of every EXCHANGE_CASES case on ``device``:
+    each process's contributions arrive bit for bit, as the same
+    exchange within one node returns them."""
+    from mpqe_tpu_torch.parallel import multihost
+
+    ok = True
+    for case in range(len(EXCHANGE_CASES)):
+        mine = [t.to(device) for t in exchange_inputs(
+            case, multihost.process_index())]
+        got = multihost.exchange(mine, device, f"case {case}")
+        for r, ts in enumerate(got):
+            want = exchange_inputs(case, r)
+            ok &= len(ts) == len(want) and all(
+                torch.equal(a.cpu(), b) for a, b in zip(ts, want))
+    return ok
+
+
 def multiprocess_worker(port: str, rank: str, out: str, backend="gloo",
                         cards="cuda:0", spmd="0") -> int:
-    """One of the two processes of a pair (``chip_smoke.py
-    --multiprocess-worker PORT RANK OUT [BACKEND CARDS SPMD]``): a group
-    under ``backend`` whose process ``rank`` holds its parts on ``cards``
-    (comma-separated; the first is its own); with ``spmd`` 1 the spmd
-    step on its (2, 1) mesh of its first card and half of every global
-    batch (``tools/multihost_run.py``, SPMD_STEPS SGD steps at the
-    flagship width); the halo step for ``halo_ring`` and ``halo_gather``
-    on its MP_PARTS parts of a (2 MP_PARTS, 1) mesh; then K8 at
-    MP_RING_SIZES across the two processes, with its sender delayed, the
-    control, and timed calls.  Writes ``<out>/k8_rank<r>.npz``."""
+    """One process of a group of worker processes (``chip_smoke.py
+    --multiprocess-worker PORT RANK OUT [BACKEND CARDS SPMD]``, a pair;
+    under ``torchrun``, ``chip_smoke.py --multinode-worker OUT CARDS
+    SPMD``, PORT and RANK ``env``, the group's size from torchrun's
+    variables, CARDS ``;``-separated by local rank): a group under
+    ``backend`` whose process ``rank`` holds its parts on ``cards``
+    (comma-separated; the first is its own); the exchange cases
+    (:func:`exchange_check`); with ``spmd`` 1 the spmd step on its (2,
+    1) mesh of its first card and its share of every global batch
+    (``tools/multihost_run.py``, SPMD_STEPS SGD steps at the flagship
+    width); the halo step for ``halo_ring`` and ``halo_gather`` on its
+    share of a (2 MP_PARTS, 1) mesh; then K8 at each MP_RING_SIZES the
+    processes divide, with its sender delayed, the control, and timed
+    calls.  Writes ``<out>/k8_rank<r>.npz``."""
     import os
 
     from mpqe_tpu_torch.models import mpqe as mpqe_mod
@@ -6392,28 +6461,51 @@ def multiprocess_worker(port: str, rank: str, out: str, backend="gloo",
     from mpqe_tpu_torch.parallel import ipc, multihost
     from mpqe_tpu_torch.tools import multihost_run
 
+    t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
-    rank = int(rank)
+    if port == "env":  # torchrun's variables
+        cards = cards.split(";")[int(os.environ["LOCAL_RANK"])]
     cards = [torch.device(c) for c in cards.split(",")]
     device = cards[0]
-    multihost.initialize(f"127.0.0.1:{port}", 2, rank, backend=backend,
-                         device=str(device), timeout_s=MP_TIMEOUT_S)
+    if port == "env":
+        multihost.initialize(backend=backend, device=str(device),
+                             timeout_s=MP_TIMEOUT_S)
+    else:
+        multihost.initialize(f"127.0.0.1:{port}", 2, int(rank),
+                             backend=backend, device=str(device),
+                             timeout_s=MP_TIMEOUT_S)
+    rank, world = multihost.process_index(), multihost.process_count()
+
+    def stage(what):  # progress, on the worker's own output
+        log(f"worker {rank}/{world}: {what} at {time.perf_counter() - t0:.1f}"
+            " s")
+
+    stage(f"nodes {multihost.nodes()}")
+    res = {"nodes": np.asarray(multihost.nodes()),
+           "exchange_ok": np.asarray(exchange_check(device))}
+    stage("exchange cases")
     if spmd == "1":
         multihost_run.main([
             "--device", str(device), "--steps", str(SPMD_STEPS), "--mesh",
-            "2,1", "--params", "--out", os.path.join(out, "spmd")])
+            f"{4 // world},1", "--params", "--out",
+            os.path.join(out, "spmd")])
+        stage("spmd")
+    parts = 2 * MP_PARTS // world
     for kind in ("ring", "gather"):
         multihost_run.main([
             "--device", str(device), "--devices",
-            ",".join(map(str, parts_of(cards, MP_PARTS))), "--parallel",
-            f"halo_{kind}", "--mesh", f"{MP_PARTS},1", "--steps",
+            ",".join(map(str, parts_of(cards, parts))), "--parallel",
+            f"halo_{kind}", "--mesh", f"{parts},1", "--steps",
             str(SPMD_STEPS), "--params", "--out", os.path.join(out, kind)])
+        stage(f"halo_{kind}")
     torch.cuda.empty_cache()
     cfg = mpqe_mod.MPQEConfig(**FLAGSHIP)
-    res = {}
     for P in MP_RING_SIZES:
+        if P % world:
+            continue
+        stage(f"K8 P={P}")
         layer, x, edges, x2 = mp_ring_case(cfg, P, device)
-        mesh = multihost.global_mesh((P, 1), parts_of(cards, P // 2))
+        mesh = multihost.global_mesh((P, 1), parts_of(cards, P // world))
 
         def k8(xx):
             return ring.rgcn_ring_halo_rdma(mesh, layer, xx, *edges,
@@ -6427,21 +6519,23 @@ def multiprocess_worker(port: str, rank: str, out: str, backend="gloo",
             k8(x2)  # the slots now hold x2's blocks
             with delayed_senders(skip_receive=True):
                 res[f"control{P}"] = k8(x).cpu().numpy()
-            t0 = time.perf_counter()
+            t1 = time.perf_counter()
             with timed_hops() as th:
                 for _ in range(MP_TIMED_CALLS):
                     k8(x)
                 for c in cards:
                     torch.cuda.synchronize(c)
             res[f"ms{P}"] = np.asarray(
-                (time.perf_counter() - t0) * 1e3 / MP_TIMED_CALLS)
-            res[f"copy_ms{P}"], res[f"wait_ms{P}"] = map(np.asarray,
-                                                        th.means())
+                (time.perf_counter() - t1) * 1e3 / MP_TIMED_CALLS)
+            res[f"copy_ms{P}"], res[f"wait_ms{P}"], res[f"net_ms{P}"] = map(
+                np.asarray, th.means())
             res[f"launches{P}"] = np.asarray(
                 ring.rgcn_ring_halo_rdma.launches)
         del layer, x, edges, x2
+    res["opened_from"] = np.asarray(ipc.opened_from(), dtype=np.int64)
     np.savez(os.path.join(out, f"k8_rank{rank}.npz"), **res)
     ipc.close()
+    stage("done")
     return 0
 
 
@@ -6532,29 +6626,40 @@ def mp_pair(device, tmp: str, backend: str, cards: list,
 
 
 def mp_compare(tmp: str, labels: tuple, where: tuple,
-               spmd: bool = False) -> tuple:
-    """Hold a pair's results under ``tmp`` to :data:`MP_REFS`: the halo
-    step (and with ``spmd`` the spmd step): the ranks' losses and
-    parameter changes bit-equal, their losses within MULTIHOST_TOL
-    (relative) and rank 0's changes within SPMD_TOL of one process's; K8
-    at each MP_RING_SIZES bit-equal to the one-process K8 (with its sender
-    delayed, and a repeat), under ``ring_gate`` against its plain version,
-    the control different.  ``labels``: the spmd, halo and K8 lines'
-    names; ``where``: the halo (and spmd) and K8 lines' descriptions.
-    Returns (failed lines, the workers' K8 launches)."""
+               spmd: bool = False, world: int = 2,
+               figures: dict = None) -> tuple:
+    """Hold a group's results under ``tmp`` (``world`` worker processes)
+    to :data:`MP_REFS`: the exchange cases; the halo step (and with
+    ``spmd`` the spmd step): the ranks' losses and parameter changes
+    bit-equal, their losses within MULTIHOST_TOL (relative) and rank 0's
+    changes within SPMD_TOL of one process's; K8 at each MP_RING_SIZES
+    the processes divide bit-equal to the one-process K8 (with its sender
+    delayed, and a repeat), under ``ring_gate`` against its plain
+    version, the control different.  ``labels``: the spmd, halo and K8
+    lines' names; ``where``: the halo (and spmd) and K8 lines'
+    descriptions.  Returns (failed lines, the workers' K8 launches);
+    ``figures`` (where given) gets rank 0's K8 times by P."""
     import os
 
     from mpqe_tpu_torch.ops import ring
 
     bad, launches = [], 0
+    figures = {} if figures is None else figures
+    ranks = range(world)
+    k8 = [dict(np.load(os.path.join(tmp, f"k8_rank{r}.npz"))) for r in ranks]
+    if not all(bool(r["exchange_ok"]) for r in k8):
+        bad.append(f"{labels[1]}: exchange cases differ from what each "
+                   "process sent")
     kinds = (("spmd",) if spmd else ()) + ("ring", "gather")
     for kind in kinds:
-        a, b = [dict(np.load(os.path.join(tmp, kind, f"rank{r}.npz")))
-                for r in (0, 1)]
+        a, *others = [dict(np.load(os.path.join(tmp, kind, f"rank{r}.npz")))
+                      for r in ranks]
         want = np.asarray(MP_REFS[kind]["losses"])
         losses = a.pop("losses")
-        ranks_equal = bool(np.array_equal(losses, b.pop("losses"))) and \
-            all(np.array_equal(v, b[k]) for k, v in a.items())
+        ranks_equal = all(
+            np.array_equal(losses, b.pop("losses"))
+            and all(np.array_equal(v, b[k]) for k, v in a.items())
+            for b in others)
         err = float(np.max(np.abs(losses - want) / np.abs(want)))
         e_change = tree_change_err(a, MP_REFS[kind]["changes"])
         label = labels[0] if kind == "spmd" else f"{labels[1]} {kind}"
@@ -6569,9 +6674,9 @@ def mp_compare(tmp: str, labels: tuple, where: tuple,
         log(line)
         if not ranks_equal or err > MULTIHOST_TOL or e_change > SPMD_TOL:
             bad.append(line)
-    k8 = [dict(np.load(os.path.join(tmp, f"k8_rank{r}.npz")))
-          for r in (0, 1)]
     for P in MP_RING_SIZES:
+        if P % world:
+            continue
         got_k8, plain = MP_REFS[P]
         want = got_k8.numpy()
         late = [r[f"late{P}"] for r in k8]
@@ -6582,18 +6687,21 @@ def mp_compare(tmp: str, labels: tuple, where: tuple,
                           for r in k8)
         n = int(sum(int(r[f"launches{P}"]) for r in k8))
         launches += n
-        line = (f"{labels[2]} general P={P} ({P // 2} parts a "
+        fig = {k: float(k8[0][f"{k}{P}"])
+               for k in ("ms", "copy_ms", "wait_ms", "net_ms")}
+        figures[P] = fig
+        line = (f"{labels[2]} general P={P} ({P // world} parts a "
                 f"process, {where[1]}): "
                 f"bit_equal_one_process={equal} (sender delayed "
-                f"{RING_SLEEP_CYCLES} cycles a copy, and a repeat) gate_ok="
+                f"{RING_SLEEP_CYCLES} cycles a hop, and a repeat) gate_ok="
                 f"{gate['ok']} err_vs_plain={gate['err_vs_plain']:.3e} "
-                f"control_differs={ctl_differs} (recv counter skipped, "
-                f"sender delayed) launches={n} (both processes) "
-                f"cross_ms={float(k8[0][f'ms{P}']):.4f} (a call, host "
-                f"clock, mean of {MP_TIMED_CALLS}) hop_copy_ms="
-                f"{float(k8[0][f'copy_ms{P}']):.4f} counter_wait_ms="
-                f"{float(k8[0][f'wait_ms{P}']):.4f} (CUDA events, rank 0, "
-                f"means per copy and per wait)")
+                f"control_differs={ctl_differs} (receive wait skipped, "
+                f"sender delayed) launches={n} ({world} processes) "
+                f"cross_ms={fig['ms']:.4f} (a call, host clock, mean of "
+                f"{MP_TIMED_CALLS}) hop_copy_ms={fig['copy_ms']:.4f} "
+                f"counter_wait_ms={fig['wait_ms']:.4f} net_hop_ms="
+                f"{fig['net_ms']:.4f} (CUDA events, rank 0, means per IPC "
+                f"copy, counter wait and hop between nodes)")
         log(line)
         if not (equal and gate["ok"] and ctl_differs) or n == 0:
             bad.append(line)
@@ -7053,6 +7161,159 @@ def phase_multicard(kg, device, run_dir: str) -> dict:
     if bad:
         raise AssertionError("; ".join(bad))
     return {"K3": k3, "K8": k8, "ring": figures, "seconds": seconds}
+
+
+# the multinode group: two node groups of this host, NCCL between them
+# over its network transport (sockets on the loopback), as between two
+# hosts without InfiniBand
+MULTINODE_ENV = {"NCCL_P2P_DISABLE": "1", "NCCL_SHM_DISABLE": "1",
+                 "NCCL_IB_DISABLE": "1", "NCCL_SOCKET_IFNAME": "lo",
+                 "NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,P2P,NET"}
+# (label, each node's cards, processes a node, each process's cards by
+# local rank (";"-separated, as the node sees them), spmd, cards needed)
+MULTINODE_RUNS = (
+    ("multinode", ([0], [1]), 1, "cuda:0", True, 2),
+    ("multinode.mixed.procs", ([0, 1], [2, 3]), 2, "cuda:0;cuda:1", False,
+     4),
+    ("multinode.mixed.cards", ([0, 1], [2, 3]), 1, "cuda:0,cuda:1", False,
+     4),
+)
+
+
+def mp_nodes(device, tmp: str, node_cards: tuple, nproc: int, cards: str,
+             spmd: bool) -> tuple:
+    """Two node groups of this host: one ``torchrun --nnodes 2
+    --node_rank i`` launch each (``python -m torch.distributed.run``),
+    node i over ``node_cards[i]`` (``CUDA_VISIBLE_DEVICES``) with
+    ``nproc`` worker processes (``chip_smoke.py --multinode-worker``,
+    :func:`multiprocess_worker` under NCCL), NCCL's peer-to-peer and
+    shared-memory transports off (MULTINODE_ENV); meanwhile
+    :func:`mp_references` in this process.  Returns (wall seconds, the
+    count of each transport NCCL reported for a connection: ``via
+    NET/Socket`` and the like, rank 0's progress lines); a launch's
+    failure raises."""
+    import collections
+    import os
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for i, cv in enumerate(node_cards):
+        env = dict(os.environ, **MULTINODE_ENV,
+                   CUDA_VISIBLE_DEVICES=",".join(map(str, cv)),
+                   NCCL_HOSTID=f"mpqe-node{i}")
+        logs.append(os.path.join(tmp, f"node{i}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--nnodes",
+                 "2", "--node_rank", str(i), "--nproc_per_node", str(nproc),
+                 "--master_addr", "127.0.0.1", "--master_port", str(port),
+                 os.path.abspath(__file__), "--multinode-worker", tmp,
+                 cards, "1" if spmd else "0"],
+                stdout=f, stderr=subprocess.STDOUT, env=env))
+    try:
+        mp_references(device, tmp, spmd)
+        for p in procs:
+            p.wait(timeout=MP_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for path in logs:
+        with open(path, errors="replace") as f:
+            texts.append(f.read())
+    for p, text in zip(procs, texts):
+        if p.returncode != 0:
+            tail = "\n".join(ln for ln in text.splitlines()
+                             if "NCCL INFO" not in ln)[-4000:]
+            raise AssertionError(f"node group rc={p.returncode}:\n{tail}")
+    via = collections.Counter(
+        "/".join(m.split("/")[:2])
+        for text in texts for m in re.findall(r" via (\S+)", text))
+    stages = re.findall(r"worker 0/\d+: (.*) at ([0-9.]+) s", texts[0])
+    return time.perf_counter() - t0, via, stages
+
+
+def phase_multinode(device) -> tuple:
+    """The ``multinode`` group: the parallel layer over two node groups of
+    this host (:func:`mp_nodes`, NCCL between them over sockets), each
+    run held to one process as the pairs are (:func:`mp_compare`):
+    ``multinode`` (2 nodes x 1 process of one card: the exchange cases,
+    the spmd step, the halo step, K8 at P = 2 and 4), and with four cards
+    ``multinode.mixed.procs`` (2 nodes x 2 processes of one card: CUDA IPC
+    within each node, NCCL between them; the halo step and K8 at P = 4)
+    and ``multinode.mixed.cards`` (2 nodes x 1 process of two cards: the
+    halo step and K8 at P = 2 and 4).  Each run's processes report their
+    nodes as launched, open no CUDA IPC handle of a process on another
+    node, and NCCL reports its network transport (``via NET``) for every
+    connection.  With one card it prints ``multinode: not run, 1 card``.
+    Returns (the workers' K8 launches, rank 0's K8 times by run and P)."""
+    import os
+    import tempfile
+    import traceback
+
+    have = torch.cuda.device_count()
+    if have < 2:
+        log(f"multinode: not run, {have} card")
+        return 0, {}
+    t0 = time.perf_counter()
+    bad, launches, figures = [], 0, {}
+    for label, node_cards, nproc, cards, spmd, need in MULTINODE_RUNS:
+        if have < need:
+            log(f"{label}: not run, {have} cards (needs {need})")
+            continue
+        world = 2 * nproc
+        shape = (f"2 nodes x {nproc} process{'es' if nproc > 1 else ''} of "
+                 f"{len(cards.split(';')[0].split(','))} card(s), node i "
+                 f"on cards {list(node_cards)}")
+        t1 = time.perf_counter()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                wall, via, stages = mp_nodes(device, tmp, node_cards, nproc,
+                                             cards, spmd)
+                figs = {}
+                b, n = mp_compare(
+                    tmp, (f"{label}.spmd", f"{label}.halo", f"{label}.ring"),
+                    (f"{shape}, NCCL between the nodes", shape), spmd=spmd,
+                    world=world, figures=figs)
+                k8 = [dict(np.load(os.path.join(tmp, f"k8_rank{r}.npz")))
+                      for r in range(world)]
+            nodes = [r["nodes"].tolist() for r in k8]
+            want = [r // nproc for r in range(world)]
+            across = sum(int(nodes[0][q] != nodes[0][r])
+                         for r, w in enumerate(k8) for q in w["opened_from"])
+            net = sum(v for k, v in via.items() if k.startswith("NET"))
+            line = (f"{label}: {shape} ({SMI['line']} each): nodes "
+                    f"{nodes[0]} (launched {want}); exchange cases "
+                    f"({len(EXCHANGE_CASES)} dtypes and shapes, unequal "
+                    f"counts) bit-equal to what each process sent: "
+                    f"{all(bool(r['exchange_ok']) for r in k8)}; IPC "
+                    f"handles opened across nodes {across}; NCCL "
+                    f"transports {dict(via)}; {wall:.1f} s (rank 0: "
+                    + ", ".join(f"{w} {t} s" for w, t in stages) + ")")
+            log(line)
+            if any(v != want for v in nodes) or across or not net or \
+                    net != sum(via.values()):
+                b.append(line)
+            bad += b
+            launches += n
+            figures[label] = figs
+        except Exception:  # raised below, with every other failure
+            log(f"{label} FAILED: {traceback.format_exc()}")
+            bad.append(f"{label}: failed")
+        log(f"{label}: {time.perf_counter() - t1:.1f} s")
+    seconds = time.perf_counter() - t0
+    log(f"multinode: {seconds:.1f} s on {have} cards; K8 launches "
+        f"{launches}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return launches, figures
 
 
 def phase_dryrun(device) -> int:
@@ -7827,7 +8088,8 @@ def main_multicard() -> int:
     depends on the count of cards, on the same inputs as the whole run:
     ``train.spmd`` (its ``--shards`` refusal), ``multihost.halo`` and
     ``kernel.ring.multiprocess`` (the one-card pair, whose references the
-    group reuses), the ``multicard`` group and ``dryrun``."""
+    groups reuse), the ``multicard`` and ``multinode`` groups and
+    ``dryrun``."""
     import os
     import tempfile
 
@@ -7855,12 +8117,14 @@ def main_multicard() -> int:
         run("train.spmd", phase_train_spmd, kg, train_q, device, keep)
         run("multiprocess", phase_multiprocess, device)
         out = run("multicard", phase_multicard, kg, device,
-                  os.path.join(keep, "run"))
+                  os.path.join(keep, "run")) or {"ring": {}}
+        nodes = run("multinode", phase_multinode, device) or (0, {})
     run("dryrun", phase_dryrun, device)
     log(f"total {time.perf_counter() - t0:.1f} s; failed: {failed}")
     if failed:
         return 1
     print(json.dumps({"ok": True, "multicard": out["ring"],
+                      "multinode": nodes[1],
                       "count": torch.cuda.device_count()}), flush=True)
     return 0
 
@@ -7992,12 +8256,16 @@ def main() -> int:
         k8_launches += phase_multiprocess(device)
         lap("multihost.halo, kernel.ring.multiprocess")
         multicard = phase_multicard(kg, device, os.path.join(keep, "run"))
+        lap("multicard")
+        k8_nodes, node_figures = phase_multinode(device)
     MP_REFS.clear()
-    k8_launches += multicard["K8"]
+    k8_launches += multicard["K8"] + k8_nodes
     launches += multicard["K3"]
     if multicard["ring"]:
         k8_fields["across_cards"] = multicard["ring"]
-    lap("multicard")
+    if node_figures:
+        k8_fields["across_nodes"] = node_figures
+    lap("multinode")
     k8_dry, k3_dry = phase_dryrun(device)
     k8_launches += k8_dry
     launches += k3_dry
@@ -8088,7 +8356,7 @@ def main() -> int:
         f"import's K3 launches {import_k3}")
     log(f"sharded-table phases after the halo runs {shard_s:.1f} s "
         f"(train.spmd, multihost, multicard {multicard['seconds']:.1f} s, "
-        "dryrun)")
+        "multinode, dryrun)")
     log(f"bench phase {bench_s:.1f} s; bf16 phases {bf16_s:.1f} s (and "
         f"the bf16 kernel and evaluate checks {bf16_kernels_s:.1f} s); data "
         f"phases {time.perf_counter() - t_data - bench_s - bf16_s - host_data_s:.1f}"
@@ -8168,6 +8436,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multiprocess-worker"]:
         sys.exit(multiprocess_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--multinode-worker"]:  # under torchrun
+        sys.exit(multiprocess_worker("env", "env", sys.argv[2], "nccl",
+                                     *sys.argv[3:]))
     if sys.argv[1:2] == ["--multicard"]:
         sys.exit(main_multicard())
     sys.exit(main())

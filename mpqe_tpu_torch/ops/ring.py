@@ -61,7 +61,8 @@ VJP): a call in grad mode on a tensor that requires grad raises.
 The parts of the ring may also lie in different processes
 (``parallel/multihost.py global_mesh``): each process holds a run of
 consecutive parts, on one card or several, and computes only those.
-The process's last part writes its block into the next process's first
+Where the next process is on the same node (``multihost.same_node``),
+the process's last part writes its block into the next process's first
 part's slot, mapped by CUDA IPC (``parallel/ipc.py``) on the last part's
 card, whatever card that slot lives on: the first part's comm buffer is
 then allocated once per shape and exported.  Across processes,
@@ -73,15 +74,34 @@ receiver writes the sender's ``ack`` counter (once its own copies out of
 that slot are done too), which the sender's copy stream waits for before
 it writes that slot again (the ack token; posted at every hop, since the
 buffers outlive the call); the next call writes the kept slots only once
-this call's copies out of them are done.  Within a process the events
-stay.  After enqueuing a call each process meets the others
-on the host (``ipc.handshake``, under the group's timeout).  Every
-process receives the whole output: its rows' self term is one ``addmm``
-over the whole ring's rows (the call one process makes, so the rows
-equal one process's bit for bit), then the parts' rows are exchanged.
+this call's copies out of them are done.  Where the next process is on
+another node, whose memory no process can map, the block goes by NCCL,
+as the TPU kernel's RDMA reaches a chip of another host: at each hop the
+sender copies its last part's slot into a staging buffer on its NCCL
+card (``multihost.nccl_device``, which must hold its first part) and
+sends it, the receiver receives into its first part's slot, one
+``batch_isend_irecv`` on the group's own communicator (made before the
+first hop by a collective, so a batch of a subset of the processes may
+follow), issued from a boundary stream.  The receiver's compute stream
+waits on the receive's work, recorded as an event, before the hop that
+reads the slot (the receive semaphore), and issues the next receive into
+a slot only after the hop that read it (NCCL's stream waits for the
+issuing stream: the ack token); the sender's copies write a slot again
+only after its staging copy read it, and the staging buffer only after
+its last send is done.  A ring may mix the two boundaries (CUDA IPC
+within each node, NCCL between them).  Within a process the events
+stay.  After enqueuing a call each process meets the others on the host
+(``ipc.handshake``, under the group's timeout).  Every process receives
+the whole output: its rows' self term is one ``addmm`` over the whole
+ring's rows (the call one process makes, so the rows equal one
+process's bit for bit), then the parts' rows are exchanged
+(``multihost.exchange``: CUDA IPC within a node, NCCL between nodes).
 One process over several cards does the same on ``x``'s card.  On the
-CPU the plain version runs the same schedule, the boundary blocks
-crossing by gloo.
+CPU the plain version runs the same schedule, each boundary block
+crossing by a gloo send and receive, the pairing K8 runs by NCCL between
+nodes.  Run on one H100 host: two processes on one card, two NCCL
+processes on their own cards, two processes of two cards, and two node
+groups (``torchrun --nnodes 2``, NCCL over sockets), pure and mixed.
 """
 
 from __future__ import annotations
@@ -599,36 +619,90 @@ def _parts_on(parts: List[int], dev) -> torch.Tensor:
 @dataclasses.dataclass
 class _Link:
     """This process's end of the ring's process boundaries on the card:
-    the comm rows of the card of its first part (made once, exported),
-    the next process's (``ipc.Shared``, opened on the card of this
-    process's last part, whose copy stream writes into them), the
-    counters on the first part's card (``RECV + k``: the previous
-    process's copy into slot k has landed, up to that hop number; ``ACK +
-    k``: the next process has read its slot k, up to that hop number),
-    the running hop number and the number of each slot's last read."""
+    the comm rows of the card of its first part (made once), the
+    previous and next processes, the running hop number and the number
+    of each slot's last read.  Where some boundary of the ring lies
+    within a node (made collectively): the rows exported, the next
+    process's (``ipc.Shared``, opened on the card of this process's last
+    part, whose copy stream writes into them, when that process is on
+    this node) and the counters on the first part's card (``RECV + k``:
+    the previous process's copy into slot k has landed, up to that hop
+    number; ``ACK + k``: the next process has read its slot k, up to
+    that hop number).  ``net_send`` / ``net_recv``: the next / previous
+    process is on another node, and the block crosses by NCCL: ``stream``
+    issues the sends and receives on the first part's card (this
+    process's NCCL card), ``stage [2, block, K]`` holds the blocks sent
+    from each slot, ``sends[k]`` the works of the last send out of
+    ``stage[k]``, ``got[k]`` the event of the last receive into slot k,
+    ``freed[k]`` the event of slot k's last read."""
 
     comm_rows: torch.Tensor
-    next_rows: object
-    counters: object
     prev: int
     next: int
+    next_rows: object = None
+    counters: object = None
+    net_send: bool = False
+    net_recv: bool = False
+    stream: Optional[torch.cuda.Stream] = None
+    stage: Optional[torch.Tensor] = None
+    sends: list = dataclasses.field(default_factory=lambda: [None, None])
+    got: list = dataclasses.field(default_factory=lambda: [None, None])
+    freed: list = dataclasses.field(default_factory=lambda: [None, None])
     hop: int = 1
     last_read: list = dataclasses.field(default_factory=lambda: [0, 0])
+
+
+def boundaries_across(world: int) -> List[bool]:
+    """For each boundary q of a ring over ``world`` processes (process
+    q's last part to process q + 1's first): whether it crosses nodes
+    (``multihost.same_node``), and so goes by NCCL, not CUDA IPC."""
+    from mpqe_tpu_torch.parallel import multihost
+
+    return [not multihost.same_node(q, (q + 1) % world)
+            for q in range(world)]
 
 
 def _link(devs, first, last, L: int, block: int, K: int) -> _Link:
     """The :class:`_Link` of this shape (collective on first use: every
     process meets the same shapes in the same order); ``first`` / ``last``:
     the cards of this process's first and last parts, ``L`` the parts on
-    ``first``."""
+    ``first``.  ``ValueError`` when a boundary between nodes meets a
+    group without NCCL, or a process whose first part is not on its NCCL
+    card."""
     key = (first, last, L, block, K)
     if key not in _LINKS:
+        import torch.distributed as dist
+
+        from mpqe_tpu_torch.parallel import multihost
+
+        w, r = devs.world, devs.rank
+        across = boundaries_across(w)
         rows = torch.zeros((2 * L * block + 1, K), device=first)
-        _LINKS[key] = _Link(
-            comm_rows=rows, next_rows=ipc.Shared(rows),
-            counters=ipc.Counters(first, 4),
-            prev=(devs.rank - 1) % devs.world,
-            next=(devs.rank + 1) % devs.world)
+        link = _Link(comm_rows=rows, prev=(r - 1) % w, next=(r + 1) % w,
+                     net_send=across[r], net_recv=across[(r - 1) % w])
+        if not all(across):
+            link.next_rows = ipc.Shared(rows)
+            link.counters = ipc.Counters(first, 4)
+        if any(across):
+            if not multihost.has_nccl():
+                raise ValueError(
+                    "rgcn_ring_halo_rdma: a boundary between nodes crosses "
+                    f"by NCCL, and this group's backend is "
+                    f"{dist.get_backend()}")
+            card = multihost.nccl_device()
+            if (link.net_send or link.net_recv) and first != card:
+                raise ValueError(
+                    f"rgcn_ring_halo_rdma between nodes receives into the "
+                    f"first part's card, which must be this process's NCCL "
+                    f"card {card}: got {first}")
+            # the group's communicator made by a collective of every
+            # process, so that the batches of a subset may follow
+            dist.all_reduce(torch.zeros(1, device=card))
+            if link.net_send or link.net_recv:
+                link.stream = torch.cuda.Stream(card)
+            if link.net_send:
+                link.stage = torch.zeros((2, block, K), device=card)
+        _LINKS[key] = link
     return _LINKS[key]
 
 
@@ -806,13 +880,29 @@ def _self_term(layer, x_padded, groups, n_parts: int, block: int, dev):
 def _exchange_boundary(groups, devs, first, last, cur: int,
                        nxt: int) -> None:
     """The plain route's hop across processes: this process's last part's
-    slot ``cur`` to the next process's first part's slot ``nxt``, by
-    ``multihost.exchange`` (gloo on the CPU)."""
+    slot ``cur`` to the next process's first part's slot ``nxt``, by a
+    send to the next process and a receive from the previous one, the
+    pairing K8 runs between nodes (gloo for CPU tensors, NCCL for CUDA
+    tensors over several nodes, on this process's NCCL card); CUDA
+    tensors within one node by ``multihost.exchange`` (CUDA IPC)."""
+    import torch.distributed as dist
+
     from mpqe_tpu_torch.parallel import multihost
 
-    got = multihost.exchange([groups[last].comm[cur, -1].contiguous()],
-                             last, "K8 ring hop")
-    groups[first].comm[nxt, 0] = got[(devs.rank - 1) % devs.world][0]
+    block = groups[last].comm[cur, -1].contiguous()
+    prev, nxt_proc = (devs.rank - 1) % devs.world, (devs.rank + 1) % devs.world
+    if multihost.transport(block.device) == "ipc":
+        got = multihost.exchange([block], last, "K8 ring hop")
+        groups[first].comm[nxt, 0] = got[prev][0]
+        return
+    on = (block.device if block.device.type == "cpu"
+          else multihost.nccl_device())
+    into = torch.empty_like(block, device=on)
+    for work in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, block.to(on), nxt_proc),
+            dist.P2POp(dist.irecv, into, prev)]):
+        work.wait()
+    groups[first].comm[nxt, 0] = into
 
 
 def _cross_output(layer, x_padded, groups, devs, block: int, first):
@@ -837,9 +927,13 @@ def _wait_copied(stream, event) -> None:
 
 
 def _wait_received(link: _Link, stream, slot: int, number: int) -> None:
-    """``stream`` waits until the previous process's copy into ``slot``
-    for hop ``number`` has landed (the receive semaphore)."""
-    link.counters.wait(stream, RECV + slot, number)
+    """``stream`` waits until the previous process's block for hop
+    ``number`` has landed in ``slot`` (the receive semaphore): the
+    ``recv`` counter within a node, the receive's event between nodes."""
+    if link.net_recv:
+        stream.wait_event(link.got[slot])
+    else:
+        link.counters.wait(stream, RECV + slot, number)
 
 
 def _remote_copy(link: _Link, g: RingGroup, cur: int, nxt: int,
@@ -854,6 +948,38 @@ def _remote_copy(link: _Link, g: RingGroup, cur: int, nxt: int,
     L = (rows.shape[0] - 1) // (2 * block)  # the next process's first card's
     ipc.copy_into(rows.addr(nxt * L * block), g.comm[cur, -1], stream)
     link.counters.write(stream, link.next, RECV + nxt, number)
+
+
+def _net_hop(link: _Link, g: RingGroup, cur: int, nxt: int) -> None:
+    """A boundary between nodes, on the current stream (``link.stream``):
+    with ``net_send`` this process's last part's slot ``cur`` (of ``g``)
+    copied into ``stage[cur]`` once the send that last read it is done,
+    and sent to the next process; with ``net_recv`` the previous
+    process's block received into the first part's slot ``nxt``; both in
+    one ``batch_isend_irecv``; then the stream waits for the receive and
+    ``got[nxt]`` records it."""
+    import torch.distributed as dist
+
+    stream = torch.cuda.current_stream(link.stream.device)
+    ops = []
+    if link.net_send:
+        for work in link.sends[cur] or ():
+            work.wait()  # the send of two hops ago read stage[cur]
+        # a peer copy where the last part lies on another card
+        ipc.copy_between(link.stage[cur], g.comm[cur, -1], stream)
+        ops.append(dist.P2POp(dist.isend, link.stage[cur], link.next))
+    if link.net_recv:
+        into = link.comm_rows[:-1].view(2, -1, *g.comm.shape[2:])[nxt, 0]
+        ops.append(dist.P2POp(dist.irecv, into, link.prev))
+    works = dist.batch_isend_irecv(ops)
+    if link.net_send:
+        link.sends[cur] = works
+    if link.net_recv:
+        for work in works:
+            work.wait()
+        ev = torch.cuda.Event()
+        ev.record(stream)
+        link.got[nxt] = ev
 
 
 def _readers(plan, first) -> tuple:
@@ -876,7 +1002,8 @@ def _ring_streams(groups, plan, n_parts: int, n_rels: int,
     runs the combine and the aggregates, the device's copy stream the
     copies into its parts' slots (a peer copy from another card), events
     order them, within a process and across its cards (``link``'s
-    counters across processes; ``first`` / ``last``: the cards of this
+    counters across processes of a node, its NCCL sends and receives and
+    their events between nodes; ``first`` / ``last``: the cards of this
     process's first and last parts)."""
     compute = {dev: torch.cuda.current_stream(dev) for dev in groups}
     copy = {}
@@ -889,6 +1016,7 @@ def _ring_streams(groups, plan, n_parts: int, n_rels: int,
             _launch_combine(g, n_rels)
     readers, forwards = _readers(plan, first)
     alone = len(groups) == 1 and len(groups[first].parts) == 1
+    net = link is not None and (link.net_send or link.net_recv)
 
     def recorded(stream):
         ev = torch.cuda.Event()
@@ -898,7 +1026,7 @@ def _ring_streams(groups, plan, n_parts: int, n_rels: int,
     filled = {dev: recorded(compute[dev]) for dev in groups}  # slot 0 set
     recv: Dict = {}  # (device, slot) -> the copies into it have landed
     ack: Dict = {}  # (device, slot) -> its last reader is done
-    sent: Dict = {}  # slot -> the copy out of it to the next process done
+    sent: Dict = {}  # slot -> the read out of it to the next process done
     base = 0 if link is None else link.hop
     for s in range(n_parts):
         cur, nxt = s % 2, (s + 1) % 2
@@ -918,10 +1046,32 @@ def _ring_streams(groups, plan, n_parts: int, n_rels: int,
                         # the previous process's block in the first part's
                         # slot cur, which the copies below read
                         _wait_received(link, copy[dev], cur, base + s)
+                    if dev == last and nxt in sent:
+                        # and the send to the next process read it
+                        copy[dev].wait_event(sent[nxt])
                 with torch.cuda.stream(copy[dev]):
                     _copies(groups, plan, cur, nxt, dev)
                 recv[(dev, nxt)] = recorded(copy[dev])
-            if link is not None:
+            if net:
+                stream = link.stream
+                if link.net_send:
+                    # this process's last part holds its slot cur
+                    if s == 0:
+                        stream.wait_event(filled[last])
+                    elif not alone:
+                        stream.wait_event(recv[(last, cur)])
+                    elif not link.net_recv:  # the previous process's block
+                        _wait_received(link, stream, cur, base + s)
+                if link.net_recv:
+                    # the first part's slot nxt is free: its last readers
+                    # (the previous call's, before filled) are done
+                    stream.wait_event(filled[first] if s == 0
+                                      else link.freed[nxt])
+                with torch.cuda.stream(stream):
+                    _net_hop(link, groups[last], cur, nxt)
+                if link.net_send:
+                    sent[cur] = recorded(stream)
+            if link is not None and not link.net_send:
                 g, stream = groups[last], copy[last]
                 with torch.cuda.stream(stream):
                     # this process's last part holds its slot cur (the
@@ -953,8 +1103,11 @@ def _ring_streams(groups, plan, n_parts: int, n_rels: int,
                                 compute[dev].wait_event(recv[(d, nxt)])
                         if alone:
                             compute[dev].wait_event(sent[cur])
-                    link.counters.write(compute[dev], link.prev, ACK + cur,
-                                        base + s)
+                    if link.net_recv:
+                        link.freed[cur] = recorded(compute[dev])
+                    else:
+                        link.counters.write(compute[dev], link.prev,
+                                            ACK + cur, base + s)
 
             with torch.cuda.stream(compute[dev]):
                 hop_fn(g, n_parts, s, cur, n_rels, read)
@@ -970,6 +1123,11 @@ def _ring_streams(groups, plan, n_parts: int, n_rels: int,
         # them on this stream: every copy out of them must be done first
         for dev in groups:
             compute[first].wait_event(recorded(copy[dev]))
+        if net:
+            # ... and every receive into them, every staging read
+            done = recorded(link.stream)
+            for dev in groups:
+                compute[dev].wait_event(done)
         link.hop = base + n_parts
 
 

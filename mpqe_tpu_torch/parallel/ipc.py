@@ -1,7 +1,12 @@
 """CUDA tensors between the processes of a group on one node: the card's
 transport of ``multihost.exchange`` and of K8's ring across processes
-(``ops/ring.py``), with the peer on the same card or on another card of
-the host.
+(``ops/ring.py``) within a node, with the peer on the same card or on
+another card of the host.  Between nodes no process can open another's
+memory: there the tensors cross by NCCL (``multihost.exchange``'s
+collective, K8's sends and receives), and :func:`channel` and
+:meth:`Shared.mapped` raise ``RuntimeError`` rather than open a handle
+exported on another node (``multihost.nodes``: the host name and
+torchrun's ``GROUP_RANK``).
 
 Each process allocates its receive buffers once per key (shape, dtype,
 counts) and exports them (:class:`Shared`): the allocation that holds a
@@ -74,6 +79,7 @@ _PEERS: Set[Tuple[int, int]] = set()  # card pairs with peer access on
 _OPENED: Dict[Tuple[bytes, int], int] = {}  # (handle, card) -> address
 _CHANNELS: Dict[torch.device, "Channel"] = {}
 _SHARED: List[torch.Tensor] = []  # exported buffers
+_OPENED_FROM: Set[int] = set()  # the ranks whose exported memory was opened
 
 _p, _u, _i = ctypes.c_void_p, ctypes.c_uint, ctypes.c_int
 _ull, _sz = ctypes.c_ulonglong, ctypes.c_size_t
@@ -334,11 +340,25 @@ class Shared:
         _SHARED.append(t)
 
     def mapped(self, r: int, card: int) -> Mapped:
+        """``RuntimeError`` for a process on another node."""
+        from mpqe_tpu_torch.parallel import multihost
+
         handle, off, owner, shape, dtype = self.infos[r]
         if r == self.rank:
             raise ValueError("a process's own tensor is not opened by IPC")
-        return Mapped(_open(handle, card, owner) + off, shape,
-                      getattr(torch, dtype))
+        if not multihost.same_node(self.rank, r):
+            raise RuntimeError(f"process {r} is on another node than "
+                               f"process {self.rank}: its memory is not "
+                               "opened by CUDA IPC (tensors between nodes "
+                               "cross by NCCL)")
+        ptr = _open(handle, card, owner)
+        _OPENED_FROM.add(r)
+        return Mapped(ptr + off, shape, getattr(torch, dtype))
+
+
+def opened_from() -> List[int]:
+    """The ranks whose exported memory this process has opened."""
+    return sorted(_OPENED_FROM)
 
 
 class Counters:
@@ -438,7 +458,14 @@ class Channel:
 
 def channel(device) -> Channel:
     """This process's :class:`Channel` on ``device`` (made on first use,
-    collectively)."""
+    collectively); ``RuntimeError`` for a group over several nodes."""
+    from mpqe_tpu_torch.parallel import multihost
+
+    if not multihost.single_node():
+        raise RuntimeError("ipc.channel joins the processes of one node; "
+                           f"this group spans nodes {multihost.nodes()}: "
+                           "multihost.exchange moves their CUDA tensors "
+                           "by NCCL")
     device = torch.device("cuda", _card(device))
     if device not in _CHANNELS:
         _CHANNELS[device] = Channel(device)

@@ -25,7 +25,20 @@ whole global batch: the run the group's must equal.  NCCL (the default
 on the card) takes one card per rank, each rank its own (``--device
 cuda``: rank r on card r; ``--device cuda:k`` names it), and refuses two
 ranks on one card; two processes on one card name ``--backend gloo``.
-Either way the halo layers' CUDA blocks cross by ``parallel/ipc.py``.
+Within a node the halo layers' CUDA blocks cross by ``parallel/ipc.py``;
+between nodes (``torchrun --nnodes N --node_rank i``, whose node rank
+``GROUP_RANK`` tells the nodes apart) by NCCL.  Two node groups of one
+host, each over its own cards, NCCL's peer-to-peer and shared-memory
+transports off so that its traffic between them goes by sockets, as
+between hosts without InfiniBand (node i of 2, here two cards and two
+processes a node):
+
+  CUDA_VISIBLE_DEVICES=<node i's cards> NCCL_P2P_DISABLE=1 \
+      NCCL_SHM_DISABLE=1 torchrun --nnodes 2 --node_rank i \
+      --nproc_per_node 2 --master_addr 127.0.0.1 --master_port 29500 \
+      -m mpqe_tpu_torch.tools.multihost_run --parallel halo_ring \
+      --mesh 1,1 --out runs/mh_nodes
+
 ``--devices`` spreads a process's parts over several cards (JAX's
 multi-host shape):
 

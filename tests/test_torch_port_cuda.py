@@ -1972,3 +1972,37 @@ def test_cuda_processes_on_their_own_cards(tmp_path, which):
         str(tmp_path), ("spmd", "halo", "ring"), ("nccl", "nccl"),
         spmd=spmd)
     assert not bad and launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["multinode", "multinode.mixed.procs",
+                                   "multinode.mixed.cards"])
+def test_cuda_two_node_groups_equal_one_process(tmp_path, label):
+    """``chip_smoke.py``'s ``multinode`` runs: two node groups of this host
+    (two ``torchrun --nnodes 2`` launches over their own cards, NCCL over
+    sockets between them): the exchange cases, the spmd step (2 nodes x
+    1 process), the halo step and K8 equal to one process as the pairs
+    are, every process on the node it was launched on, no CUDA IPC handle
+    opened across nodes, NCCL's network transport for every connection.
+    Skips below the cards the run needs (2, or 4 for the mixed runs)."""
+    import os
+
+    import numpy as np_
+
+    import chip_smoke
+
+    _, node_cards, nproc, cards, spmd, need = next(
+        r for r in chip_smoke.MULTINODE_RUNS if r[0] == label)
+    dev = _cards(need)[0]
+    wall, via, _ = chip_smoke.mp_nodes(dev, str(tmp_path), node_cards,
+                                       nproc, cards, spmd)
+    world = 2 * nproc
+    bad, launches = chip_smoke.mp_compare(
+        str(tmp_path), ("spmd", "halo", "ring"), (label, label), spmd=spmd,
+        world=world)
+    assert not bad and launches > 0
+    for r in range(world):
+        with np_.load(os.path.join(str(tmp_path), f"k8_rank{r}.npz")) as z:
+            assert z["nodes"].tolist() == [q // nproc for q in range(world)]
+            assert all(q // nproc == r // nproc for q in z["opened_from"])
+    assert via and all(k.startswith("NET") for k in via), via
